@@ -1,0 +1,419 @@
+"""Dataset ingestion for implicit-feedback top-N recommendation.
+
+The port's own copy of ``acf_tpu/data/datasets.py`` (numpy on the host, as
+there), so that the port imports nothing of the JAX package. The file
+readers use pandas only; the reference package's native C++ parser is not
+carried over.
+
+Re-implements the *semantics* of the reference's four loaders (reference
+Dataset.py:8-327 and utils.py:44-79) as dense numpy arrays instead of scipy dok
+matrices and python dict-of-lists — dok iteration is the reference's hidden hot
+loop (reference MF.py:44-52). Known reference bugs are fixed, not replicated
+(e.g. Dataset.py:69 ``df = df.sort_values(..., inplace=True)`` assigning None;
+the undefined ``negs`` list in sampled-negative mode, Dataset.py:100-104).
+
+Protocol (reference Dataset.py:59-109):
+  * user/item ids are recoded to 1..n; id 0 is the padding/mask id.
+  * leave-one-out split: per user, the chronologically last interaction is the
+    held-out test item; everything before it is train.
+  * ``hist`` keeps the full chronological train sequence (with duplicates) per
+    user, right-aligned and 0-padded — it serves sequence models, membership
+    tests for rejection sampling, and train-item masking during evaluation.
+  * optional 100 sampled test negatives per user with ``seed=2019``
+    (reference Dataset.py:88-105); statistical — RNG streams differ from
+    python's ``random``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+from typing import Optional
+
+import numpy as np
+import pandas as pd
+
+
+@dataclasses.dataclass
+class Interactions:
+    """Dense-array view of a leave-one-out implicit-feedback dataset.
+
+    Shapes use U = num_users (incl. pad row 0), I = num_items (incl. pad),
+    N = number of *unique* train (user, item) pairs, L = longest train
+    sequence.
+    """
+
+    num_users: int
+    num_items: int
+    # Unique (u, i) train pairs — the reference's dok-matrix keys
+    # (reference evaluation_adv.py:32-38).
+    pairs_u: np.ndarray  # [N] int32
+    pairs_i: np.ndarray  # [N] int32
+    # Right-aligned chronological train sequences, duplicates kept
+    # (reference Dataset.py:77-81 ``trainSeq``). hist[u, -hist_len[u]:] is
+    # user u's sequence; the rest is 0.
+    hist: np.ndarray  # [U, L] int32
+    hist_len: np.ndarray  # [U] int32
+    # Number of *distinct* train items per user (reference trainMatrix row
+    # nnz); used for the eval candidate-count (evaluation_adv.py:428-433).
+    uniq_count: np.ndarray  # [U] int32
+    # Held-out item per user; 0 where the user has no test interaction.
+    test_item: np.ndarray  # [U] int32
+    # Whether the held-out item also appears in the user's train set
+    # (affects the eval candidate count, evaluation_adv.py:429-430).
+    gt_in_train: np.ndarray  # [U] bool
+    # Sampled eval negatives (eval_mode="sample"), or None for full-rank.
+    test_negatives: Optional[np.ndarray] = None  # [U, 100] int32
+    # Raw per-item train interaction counts INCLUDING duplicate visits
+    # (reference NaiveBaselines.py:9 ``df.groupby("iid").size()``) — differs
+    # from a pairs_i bincount on duplicate-heavy check-in data.
+    item_count: Optional[np.ndarray] = None  # [I] int32
+
+    @property
+    def num_pairs(self) -> int:
+        return int(self.pairs_u.shape[0])
+
+    @property
+    def max_hist_len(self) -> int:
+        return int(self.hist.shape[1])
+
+    def eval_users(self) -> np.ndarray:
+        """Users that have a held-out test item (reference evaluates
+        ``range(1, num_users)``, evaluation_adv.py:455)."""
+        return np.nonzero(self.test_item > 0)[0].astype(np.int32)
+
+    def num_eval_candidates(self) -> np.ndarray:
+        """Per-user size of the full-rank candidate set *excluding* the gt.
+
+        Mirrors evaluation_adv.py:425-437: candidates = all items − train
+        items − {0} − {gt}; the gt is then appended and ranked against the
+        rest, so AUC's denominator is this count.
+        """
+        n = self.num_items - 1 - self.uniq_count  # drop pad id 0 and train items
+        n = n - np.where(self.gt_in_train, 0, 1)  # gt removed iff not in train
+        return n.astype(np.int32)
+
+
+def interactions_from_frame(
+    df: pd.DataFrame,
+    reindex: bool = True,
+    num_negatives: int = 0,
+    seed: int = 2019,
+    max_hist_len: Optional[int] = None,
+) -> Interactions:
+    """Build :class:`Interactions` from a (uid, iid[, timestamp]) frame.
+
+    Mirrors reference Dataset.py:59-109: category-recode ids to 1..n, stable
+    sort by (uid, timestamp), last interaction per user held out.
+    """
+    df = df.copy()
+    if "timestamp" not in df.columns:
+        # 2-col datasets (Video/Beauty/Steam .txt) are already in
+        # chronological order per user (reference utils.py:62-72 relies on
+        # file order).
+        df["timestamp"] = np.arange(len(df), dtype=np.int64)
+    if reindex:
+        df["uid"] = df["uid"].astype("category").cat.codes.values + 1
+        df["iid"] = df["iid"].astype("category").cat.codes.values + 1
+    df = df.sort_values(["uid", "timestamp"], kind="stable")
+
+    num_users = int(df["uid"].max()) + 1
+    num_items = int(df["iid"].max()) + 1
+
+    uids = df["uid"].to_numpy(np.int32)
+    iids = df["iid"].to_numpy(np.int32)
+
+    # Leave-one-out: last row of each uid group is test.
+    last_of_user = np.r_[uids[1:] != uids[:-1], True]
+    test_u = uids[last_of_user]
+    test_i = iids[last_of_user]
+    train_u = uids[~last_of_user]
+    train_i = iids[~last_of_user]
+
+    test_item = np.zeros(num_users, dtype=np.int32)
+    test_item[test_u] = test_i
+
+    # Per-user chronological sequences, right-aligned.
+    hist_len = np.bincount(train_u, minlength=num_users).astype(np.int32)
+    L = int(hist_len.max()) if hist_len.size else 0
+    if max_hist_len is not None:
+        L = min(L, int(max_hist_len))
+    hist = np.zeros((num_users, max(L, 1)), dtype=np.int32)
+    # position of each train row within its user's sequence
+    seq_pos = np.arange(len(train_u)) - np.r_[0, np.cumsum(hist_len)[:-1]][train_u]
+    col = seq_pos + (hist.shape[1] - hist_len[train_u])  # right-align
+    keep = col >= 0  # truncate oldest items when max_hist_len caps L
+    hist[train_u[keep], col[keep]] = train_i[keep]
+    hist_len = np.minimum(hist_len, hist.shape[1])
+
+    # Unique (u, i) pairs — dok-matrix semantics (always over the FULL
+    # train set; training iterates every dok pair).
+    pair_key = train_u.astype(np.int64) * num_items + train_i.astype(np.int64)
+    uniq_key = np.unique(pair_key)
+    pairs_u = (uniq_key // num_items).astype(np.int32)
+    pairs_i = (uniq_key % num_items).astype(np.int32)
+
+    # Eval bookkeeping (uniq_count / gt_in_train) must agree with the
+    # MASKING set, which is ``hist`` — when max_hist_len truncates old
+    # interactions the evaluator cannot mask them, so they are ordinary
+    # candidates and must not be subtracted from the candidate count
+    # (otherwise AUC denominators go wrong / negative). Untruncated data
+    # reduces to the reference semantics (evaluation_adv.py:425-437).
+    kept_key = np.unique(train_u[keep].astype(np.int64) * num_items
+                         + train_i[keep].astype(np.int64))
+    uniq_count = np.bincount((kept_key // num_items).astype(np.int32),
+                             minlength=num_users).astype(np.int32)
+
+    gt_key = test_u.astype(np.int64) * num_items + test_i.astype(np.int64)
+    gt_in_train = np.zeros(num_users, dtype=bool)
+    gt_in_train[test_u] = np.isin(gt_key, kept_key)
+
+    test_negatives = None
+    if num_negatives > 0:
+        test_negatives = _sample_test_negatives(
+            num_users, num_items, pairs_u, pairs_i, test_item, train_i,
+            num_negatives, seed,
+        )
+
+    return Interactions(
+        num_users=num_users,
+        num_items=num_items,
+        pairs_u=pairs_u,
+        pairs_i=pairs_i,
+        hist=hist,
+        hist_len=hist_len,
+        uniq_count=uniq_count,
+        test_item=test_item,
+        gt_in_train=gt_in_train,
+        test_negatives=test_negatives,
+        item_count=np.bincount(train_i, minlength=num_items).astype(np.int32),
+    )
+
+
+def _sample_test_negatives(num_users, num_items, pairs_u, pairs_i, test_item,
+                           candidates, k, seed):
+    """Popularity-proportional sampled negatives (reference Dataset.py:88-105
+    draws from the train interaction list, so sampling is popularity-weighted),
+    rejecting train items and the gt.
+
+    Vectorized (round 5; VERDICT r4 weak #6): one bulk draw of 2k samples
+    per user; membership is tested by encoding (user, item) as int64 codes
+    and searchsorted-probing the sorted train-pair codes — O(U·k·log N)
+    total, no per-user python. Users whose draw doesn't yield k clean
+    samples (train set covering most of the pool) fall back to an
+    exact-pool draw — still popularity-weighted (the filtered candidate
+    list keeps its duplicates) — which is O(#pathological), not O(U).
+    Seed-deterministic as before; the draw sequence differs from the
+    pre-r5 per-user rejection loop (both are sampler implementation
+    detail — the reference's own sequence is python ``random``)."""
+    rng = np.random.default_rng(seed)
+    negs = np.zeros((num_users, k), dtype=np.int32)
+    if num_users <= 1 or len(candidates) == 0:
+        return negs
+
+    train_codes = np.sort(pairs_u.astype(np.int64) * num_items
+                          + pairs_i.astype(np.int64))
+    counts = np.bincount(pairs_u, minlength=num_users)
+    active = np.zeros(num_users, dtype=bool)
+    active[1:] = (test_item[1:] != 0) | (counts[1:] > 0)
+
+    # bulk draw per user: forbidden sets are tiny vs the pool for all but
+    # pathological users, so 2k draws yield >= k survivors w.h.p.; the
+    # short rows redo from the exact pool anyway
+    m = 2 * k
+    short = []
+    for s in range(1, num_users, 4096):
+        e = min(s + 4096, num_users)
+        draws = candidates[rng.integers(0, len(candidates),
+                                        size=(e - s, m))].astype(np.int32)
+        codes = (np.arange(s, e, dtype=np.int64)[:, None] * num_items
+                 + draws)
+        pos = np.searchsorted(train_codes, codes)
+        pos = np.minimum(pos, len(train_codes) - 1)
+        in_train = train_codes[pos] == codes
+        valid = ~(in_train | (draws == test_item[s:e, None]))
+        pick = np.argsort(~valid, axis=1, kind="stable")[:, :k]
+        negs[s:e] = np.take_along_axis(draws, pick, axis=1)
+        nvalid = valid.sum(1)
+        negs[s:e][nvalid < k] = 0  # partially-filled rows redo exactly
+        short.extend((s + np.nonzero((nvalid < k))[0]).tolist())
+        negs[s:e][~active[s:e]] = 0
+
+    for u in short:
+        if not active[u]:
+            continue
+        lo, hi = np.searchsorted(
+            train_codes, [u * num_items, (u + 1) * num_items])
+        forbidden = np.concatenate([train_codes[lo:hi] - u * num_items,
+                                    [int(test_item[u])]])
+        # popularity-weighted exact pool: filter the candidate LIST (with
+        # its duplicates) rather than the item set, so pathological users
+        # keep the reference's popularity-proportional semantics
+        # (Dataset.py:88-105; round-5 review finding — a set-based
+        # fallback silently switched them to uniform sampling)
+        allowed = candidates[~np.isin(candidates, forbidden)]
+        if len(allowed):
+            negs[u] = rng.choice(allowed, size=k)
+        # else: leave zeros (train covers the whole pool)
+    return negs
+
+
+def _load_negative_file(path: str, num_users: int, eval_users: np.ndarray):
+    """HeDataset ``.test.negative`` format (reference Dataset.py:161-172):
+    one line per test user, first field ``(u,gt)``, remaining tab-separated
+    fields are the negative item ids (+1 applied to match the loader's id
+    shift).
+
+    Alignment: when the leading field parses as ``(u,...)`` the user id is
+    taken from it (the reference relies on file order matching test order —
+    fragile with a missing/extra line, which would silently shift every
+    row); otherwise file order is used and the line count must match the
+    eval-user count exactly.
+    """
+    rows, row_users = [], []
+    with open(path) as f:
+        for line in f:
+            parts = line.rstrip("\n").split("\t")
+            if len(parts) <= 1:
+                continue
+            u = None
+            head = parts[0].strip()
+            if head.startswith("(") and "," in head:
+                try:
+                    u = int(head[1:].split(",")[0]) + 1  # same +1 id shift
+                except ValueError:
+                    u = None
+            row_users.append(u)
+            rows.append([int(x) + 1 for x in parts[1:]])
+    if not rows:
+        return None
+    k = min(len(r) for r in rows)
+    negs = np.zeros((num_users, k), dtype=np.int32)
+    if all(u is not None for u in row_users):
+        for u, r in zip(row_users, rows):
+            if not 0 <= u < num_users:
+                raise ValueError(
+                    f"{path}: negative line names user {u - 1}, outside the "
+                    f"dataset's {num_users - 1} users")
+            negs[u] = r[:k]
+        missing = set(eval_users.tolist()) - set(row_users)
+    else:
+        if len(rows) != len(eval_users):
+            raise ValueError(
+                f"{path}: {len(rows)} negative lines for {len(eval_users)} "
+                "eval users — order-based alignment would mis-assign rows")
+        for u, r in zip(eval_users, rows):
+            negs[u] = r[:k]
+        missing = set()
+    if missing:
+        raise ValueError(
+            f"{path}: no negative line for eval users {sorted(missing)[:5]}"
+            f"{'...' if len(missing) > 5 else ''}")
+    return negs
+
+
+# ---------------------------------------------------------------------------
+# File-format loaders (reference utils.py:44-79, Dataset.py HeDataset/
+# OriginalDataset)
+# ---------------------------------------------------------------------------
+
+def _load_two_col(path: str) -> pd.DataFrame:
+    """`uid iid` space-separated, chronological per user (Video/Beauty/Steam
+    .txt; reference utils.py:62-72)."""
+    return pd.read_csv(path, sep=" ", names=["uid", "iid"])
+
+
+def _load_rating_tsv(path: str) -> pd.DataFrame:
+    """`uid\\tiid\\trating\\ttimestamp` (reference utils.py:54-60)."""
+    return pd.read_csv(path, sep="\t", names=["uid", "iid", "rating", "timestamp"])
+
+
+def _load_checkin_tsv(path: str) -> pd.DataFrame:
+    """7-column check-in TSV (brightkite/fsq11/yelp; reference utils.py:46-52)."""
+    cols = ["uid", "iid", "rating", "hour", "day", "month", "timestamp"]
+    return pd.read_csv(path, sep="\t", names=cols)
+
+
+def load_dataset(
+    name: str,
+    data_dir: str,
+    eval_mode: str = "all",
+    num_negatives: int = 100,
+    max_hist_len: Optional[int] = None,
+    nrows: Optional[int] = None,
+) -> Interactions:
+    """Name → :class:`Interactions`, mirroring reference utils.py:44-79.
+
+    ``eval_mode="all"`` ranks the held-out item against every unseen item;
+    ``"sample"`` against ``num_negatives`` sampled ones.
+    """
+    name_l = name.lower()
+    want_negs = num_negatives if eval_mode == "sample" else 0
+
+    def _from_df(df):
+        return interactions_from_frame(
+            df, num_negatives=want_negs, max_hist_len=max_hist_len)
+
+    if name_l in ("video", "beauty", "steam", "ml-sas"):
+        fname = {"video": "Video.txt", "beauty": "Beauty.txt",
+                 "steam": "Steam.txt", "ml-sas": "ml-1m.txt"}[name_l]
+        df = _load_two_col(os.path.join(data_dir, fname))
+        if nrows:
+            df = df.iloc[:nrows]
+        return _from_df(df)
+
+    if name_l in ("ml-1m", "yelp-he"):
+        base = "yelp" if name_l == "yelp-he" else name_l
+        train = _load_rating_tsv(os.path.join(data_dir, f"{base}.train.rating"))
+        test = _load_rating_tsv(os.path.join(data_dir, f"{base}.test.rating"))
+        return _from_df(pd.concat([train, test], ignore_index=True))
+
+    if name_l in ("brightkite", "fsq11", "yelp"):
+        train = _load_checkin_tsv(os.path.join(data_dir, f"{name}Train"))
+        test = _load_checkin_tsv(os.path.join(data_dir, f"{name}Test"))
+        df = pd.concat([train, test], ignore_index=True)
+        return _from_df(df[["uid", "iid", "timestamp"]])
+
+    if name_l == "test":
+        cols = ["uid", "timestamp", "lat", "lng", "iid"]
+        df = pd.read_csv(os.path.join(data_dir, "brightkite.txt"), sep="\t",
+                         names=cols, nrows=nrows or 10000)
+        return _from_df(df[["uid", "iid", "timestamp"]])
+
+    # `<name>.train.rating` / `<name>.test.rating` pairs with pre-assigned ids
+    # (reference OriginalDataset/HeDataset, Dataset.py:112-327). Ids used
+    # as-is. A trailing "-pre" forces this branch for names that would
+    # otherwise hit a .txt alias (e.g. "Video-pre" reads the presplit
+    # Video.*.rating files).
+    if name.endswith("-pre"):
+        name = name[:-4]
+    train_p = os.path.join(data_dir, f"{name}.train.rating")
+    test_p = os.path.join(data_dir, f"{name}.test.rating")
+    if os.path.exists(train_p) and os.path.exists(test_p):
+        train = _load_rating_tsv(train_p)
+        test = _load_rating_tsv(test_p)
+        df = pd.concat([train, test], ignore_index=True)
+        # OriginalDataset keeps raw ids (0-based uids are shifted by +1 so id
+        # 0 stays the pad id).
+        df["uid"] = df["uid"].astype(np.int64) + 1
+        df["iid"] = df["iid"].astype(np.int64) + 1
+        # The test row must rank last per user: give test rows +inf timestamps.
+        df["timestamp"] = df["timestamp"].astype(np.int64)
+        n_train = len(train)
+        order_fix = np.zeros(len(df), dtype=np.int64)
+        order_fix[n_train:] = np.iinfo(np.int64).max // 2
+        df["timestamp"] = order_fix + np.arange(len(df))
+        out = interactions_from_frame(
+            df, reindex=False,
+            num_negatives=0 if os.path.exists(
+                os.path.join(data_dir, f"{name}.test.negative")) else want_negs,
+            max_hist_len=max_hist_len)
+        # Pre-sampled negatives file (reference HeDataset, Dataset.py:161-172:
+        # per line "(u,gt)\tneg1\tneg2...", one line per test user in order).
+        neg_p = os.path.join(data_dir, f"{name}.test.negative")
+        if os.path.exists(neg_p):
+            out.test_negatives = _load_negative_file(
+                neg_p, out.num_users, out.eval_users())
+        return out
+
+    raise ValueError(f"Unknown dataset {name!r} (looked in {data_dir})")

@@ -1,0 +1,214 @@
+"""Leave-one-out evaluators on the device (counterpart of
+``acf_tpu/eval/full_rank.py``, without the mesh path).
+
+Users are tiled into fixed-size batches; each tile scores the full catalog
+(or, for factored models, counts through the rank-count kernel), and the
+rank position of the held-out item is a masked comparison-sum. Tiles run as
+a Python loop on the device with one host transfer at the end; metrics are
+closed-form from the position (:mod:`acf_tpu_torch.eval.metrics`).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable
+
+import numpy as np
+import torch
+
+from acf_tpu_torch.data.datasets import Interactions
+from acf_tpu_torch.device import resolve_device
+from acf_tpu_torch.eval.metrics import metrics_from_position
+from acf_tpu_torch.ops.ranking import rank_positions_dot
+
+
+@dataclasses.dataclass
+class EvalResult:
+    hr: np.ndarray    # [U, K] per-user HR@1..K
+    ndcg: np.ndarray  # [U, K]
+    auc: np.ndarray   # [U]
+
+    def at_k(self, k: int = 10):
+        return (float(self.hr[:, k - 1].mean()),
+                float(self.ndcg[:, k - 1].mean()),
+                float(self.auc.mean()))
+
+    def summary(self, k: int = 10):
+        hr, ndcg, auc = self.at_k(k)
+        return {"hr": hr, "ndcg": ndcg, "auc": auc}
+
+
+def _positions_full(score_fn, params, users, hists, gt):
+    """Rank position of ``gt`` against all unseen items for one user tile.
+
+    Candidate rule = reference evaluation_adv.py:425-437: every item except
+    the pad id 0, the user's train items, and the gt itself; ties count
+    against the gt (``>=``, evaluation_adv.py:473).
+    """
+    scores = score_fn(params, users, hists)  # [B, I] float32
+    rows = torch.arange(scores.shape[0], device=scores.device)
+    gt = gt.long()
+    gt_score = scores[rows, gt]  # [B]
+
+    valid = torch.ones_like(scores, dtype=torch.bool)
+    valid[:, 0] = False
+    # hist padding is 0 → scatters harmlessly into the already-masked col 0
+    valid[rows[:, None], hists.long()] = False
+    valid[rows, gt] = False
+
+    ge = (scores >= gt_score[:, None]) & valid
+    return ge.sum(dim=1).to(torch.int32)  # [B]
+
+
+def _positions_factored(user_repr_fn, table_fn, params, users, hists, gt, corr):
+    """Rank positions for dot-factored models via the rank-count kernel.
+
+    ``corr`` is the per-user invalid-item array (unique train items ∪ {gt},
+    0-padded) — counted over all items by the kernel, then subtracted here.
+    """
+    # contiguous: a model's representation may be a strided view
+    reprs = user_repr_fn(params, users, hists).contiguous()  # [B, d]
+    table, bias = table_fn(params)
+    s_corr = torch.einsum("bd,bcd->bc", reprs, table[corr.long()])
+    if bias is not None:
+        s_corr = s_corr + bias[corr.long()]
+    # The gt is always present (exactly once) in the correction array; take
+    # the threshold FROM s_corr so the gt's own correction cancels
+    # bit-exactly regardless of contraction order.
+    is_gt = corr == gt[:, None]
+    t = torch.where(is_gt, s_corr, 0.0).sum(dim=1)
+    # the kernel masks the pad column and the gt column itself, so the
+    # correction only subtracts the user's (non-gt) train items
+    total = rank_positions_dot(reprs, table, t, bias=bias, gt=gt)
+    valid = (corr != 0) & ~is_gt
+    n_corr = ((s_corr >= t[:, None]) & valid).sum(dim=1)
+    return (total - n_corr.to(torch.float32)).to(torch.int32)
+
+
+def _positions_sampled(score_some_fn, params, users, hists, gt, negs):
+    """Rank position of ``gt`` among sampled negatives
+    (reference evaluation.py:114-135 rank-position rule)."""
+    items = torch.cat([negs, gt[:, None]], dim=1)  # [B, K+1]
+    scores = score_some_fn(params, users, hists, items.long())  # [B, K+1]
+    gt_score = scores[:, -1]
+    return (scores[:, :-1] >= gt_score[:, None]).sum(dim=1).to(torch.int32)
+
+
+class FullRankEvaluator:
+    """Batched full-catalog (or sampled) leave-one-out evaluator.
+
+    Args:
+      data: the dataset.
+      batch_users: user-tile size; memory per tile is ``batch_users *
+        num_items * 4`` bytes for the score matrix (dense path).
+      K: metric cutoff sweep (reference reports K = 1..100).
+      device: where the tiles live and run (default ``cuda``).
+    """
+
+    def __init__(self, data: Interactions, batch_users: int = 512, K: int = 100,
+                 device=None):
+        self.device = resolve_device(device)
+        self.K = K
+        self.data = data
+        users = data.eval_users()
+        self.users = users
+        n = len(users)
+        self.batch_users = min(batch_users, max(n, 1))
+        # pad to a multiple of the tile size; padded rows are dropped after.
+        pad = (-n) % self.batch_users
+        users_p = np.concatenate([users, np.zeros(pad, dtype=np.int32)])
+        self._users_p = users_p
+        self._users_d = torch.as_tensor(users_p, device=self.device)
+        self._hists_d = torch.as_tensor(data.hist[users_p], device=self.device)
+        self._gt_d = torch.as_tensor(data.test_item[users_p], device=self.device)
+        self._negs_d = (torch.as_tensor(data.test_negatives[users_p],
+                                        device=self.device)
+                        if data.test_negatives is not None else None)
+        self._num_neg = data.num_eval_candidates()[users]
+        self._corr_d = None  # built lazily for the factored path
+
+    def _corrections(self):
+        """[Up, C] per-user invalid-item array: unique train items ∪ {gt},
+        0-padded (0 is handled separately). Vectorized numpy."""
+        if self._corr_d is None:
+            users_p = self._users_p
+            gts = self.data.test_item[users_p].astype(np.int32)
+            h = self.data.hist[users_p].astype(np.int32)
+            # append the gt as an extra column, zeroed where it already
+            # appears in the row (set semantics) or where there is no gt
+            gt_col = np.where((h == gts[:, None]).any(1) | (gts == 0),
+                              0, gts)[:, None]
+            h = np.concatenate([h, gt_col], axis=1)
+            # per-row unique: sort, keep first occurrences of nonzero runs
+            h.sort(axis=1)
+            first = np.ones_like(h, dtype=bool)
+            first[:, 1:] = h[:, 1:] != h[:, :-1]
+            first &= h != 0
+            # left-compact the unique entries (stable: uniques keep order)
+            order = np.argsort(~first, axis=1, kind="stable")
+            vals = np.take_along_axis(np.where(first, h, 0), order, axis=1)
+            width = int(first.sum(1).max()) if len(h) else 1
+            self._corr_d = torch.as_tensor(vals[:, :max(width, 1)],
+                                           device=self.device)
+        return self._corr_d
+
+    def _run_tiles(self, fn, *arrays) -> np.ndarray:
+        """``fn`` over each user tile of the padded device arrays; one host
+        transfer at the end, padded rows dropped."""
+        if self._users_d.shape[0] == 0:  # dataset with zero eval users
+            return np.zeros(0, dtype=np.int32)
+        out = []
+        for s in range(0, self._users_d.shape[0], self.batch_users):
+            e = s + self.batch_users
+            out.append(fn(*(x[s:e] for x in arrays)))
+        return torch.cat(out).cpu().numpy()[: len(self.users)]
+
+    def positions(self, score_fn: Callable, params) -> np.ndarray:
+        """Rank positions for every eval user (full-catalog mode).
+
+        ``score_fn(params, users[B], hists[B, L]) -> [B, num_items]``.
+        """
+        return self._run_tiles(
+            lambda u, h, g: _positions_full(score_fn, params, u, h, g),
+            self._users_d, self._hists_d, self._gt_d)
+
+    def positions_factored(self, user_repr_fn: Callable, table_fn: Callable,
+                           params) -> np.ndarray:
+        """Rank positions via the rank-count kernel (models whose scores
+        factor as ``user_repr · item_table + bias``)."""
+        return self._run_tiles(
+            lambda u, h, g, c: _positions_factored(user_repr_fn, table_fn,
+                                                   params, u, h, g, c),
+            self._users_d, self._hists_d, self._gt_d, self._corrections())
+
+    def positions_sampled(self, score_some_fn: Callable, params) -> np.ndarray:
+        """Rank positions against the sampled negatives.
+
+        ``score_some_fn(params, users[B], hists[B, L], items[B, M]) -> [B, M]``.
+        """
+        if self._negs_d is None:
+            raise ValueError("dataset has no sampled negatives")
+        return self._run_tiles(
+            lambda u, h, g, n: _positions_sampled(score_some_fn, params,
+                                                  u, h, g, n),
+            self._users_d, self._hists_d, self._gt_d, self._negs_d)
+
+    def evaluate_model(self, model, params) -> EvalResult:
+        """Evaluate a model through its factored scorer (the rank-count
+        kernel) when it has one, else through ``score_all``."""
+        fs = getattr(model, "factored_scorer", lambda: None)()
+        if fs is not None:
+            pos = self.positions_factored(fs[0], fs[1], params)
+            hr, ndcg, auc = metrics_from_position(pos, self._num_neg, self.K)
+            return EvalResult(hr=hr, ndcg=ndcg, auc=auc)
+        return self.evaluate(model.score_all, params)
+
+    def evaluate(self, score_fn: Callable, params, sampled: bool = False) -> EvalResult:
+        if sampled:
+            pos = self.positions_sampled(score_fn, params)
+            num_neg = np.full(len(self.users), self.data.test_negatives.shape[1])
+        else:
+            pos = self.positions(score_fn, params)
+            num_neg = self._num_neg
+        hr, ndcg, auc = metrics_from_position(pos, num_neg, self.K)
+        return EvalResult(hr=hr, ndcg=ndcg, auc=auc)

@@ -1,0 +1,64 @@
+"""Model protocol (counterpart of ``acf_tpu/models/base.py``).
+
+A model object holds only hyperparameters; params are a ``dict[str, Tensor]``
+tree shaped like the JAX pytree. A model exposes
+
+  * ``init_params(generator, device) -> params``
+  * ``score_all(params, users, hists) -> [B, num_items]``
+  * ``score_some(params, users, hists, items) -> [B, M]``
+  * ``factored_scorer() -> (user_repr_fn, table_fn) | None``
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+
+def row_normalize(x, eps: float = 1e-12):
+    """Row-wise L2 normalization, ``tf.nn.l2_normalize(x, 1)`` semantics
+    (zero rows stay zero)."""
+    norm = torch.sqrt(torch.sum(torch.square(x), dim=-1, keepdim=True))
+    return x / torch.clamp(norm, min=eps)
+
+
+def bpr_pair_loss(pos_scores, neg_scores):
+    """The reference's numerically-stable BPR objective
+    (evaluation_adv.py:160-162): ``sum(softplus(-(clip(pos - neg))))``."""
+    diff = torch.clamp(pos_scores - neg_scores, -80.0, 1e8)
+    return torch.sum(torch.logaddexp(torch.zeros_like(diff), -diff))
+
+
+def project_rows(d, eps, dim=-1):
+    """Per-row L2 projection into the ε-ball:
+    ``d * min(1, eps / max(||d||, 1e-12))``."""
+    n = torch.sqrt(torch.sum(torch.square(d), dim=dim, keepdim=True))
+    return d * torch.clamp(eps / torch.clamp(n, min=1e-12), max=1.0)
+
+
+@dataclasses.dataclass(eq=False)
+class PairwiseModel:
+    """Base for models trained on (user, pos, neg) triples."""
+
+    num_users: int
+    num_items: int
+    dim: int
+
+    def init_params(self, generator: torch.Generator, device=None):
+        raise NotImplementedError
+
+    def score_all(self, params, users, hists):
+        raise NotImplementedError
+
+    def score_some(self, params, users, hists, items):
+        """Default: gather columns of the full-catalog scores."""
+        scores = self.score_all(params, users, hists)
+        return torch.gather(scores, 1, items)
+
+    def factored_scorer(self):
+        """(user_repr_fn, table_fn) when scores factor as
+        ``user_repr(params,u,h) · item_table + bias`` — enables the rank-count
+        kernel (:mod:`acf_tpu_torch.ops.ranking`). None otherwise.
+        Implementations cache the returned closures on the instance."""
+        return None

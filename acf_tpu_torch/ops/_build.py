@@ -1,0 +1,114 @@
+"""Build and load the port's CUDA kernels.
+
+Every ``csrc/*.cu`` is compiled by ``nvcc`` for ``sm_90a`` into one shared
+library with a plain C interface, loaded with :mod:`ctypes`. Sources compile
+in parallel (one ``nvcc -c`` each) and link into
+``_build/libacf_kernels_<hash>.so``, where the hash covers the sources and
+the flags: a changed source gives a new library, an unchanged one is reused.
+The build happens at first use, never at import, and needs no PyTorch
+headers, so it takes seconds.
+
+No ``--use_fast_math``: the kernels' comparisons must see the same float32
+values as their plain versions.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import time
+from pathlib import Path
+
+PKG_DIR = Path(__file__).resolve().parent.parent
+CSRC_DIR = PKG_DIR / "csrc"
+BUILD_DIR = PKG_DIR / "_build"
+ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = [*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+# C entry points: name -> argtypes (pointers and the stream as c_void_p)
+SIGNATURES = {
+    "acf_rank_count": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+}
+
+
+def nvcc_path() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or "/usr/local/cuda"
+    return os.path.join(home, "bin", "nvcc")
+
+
+def _sources():
+    return sorted(CSRC_DIR.glob("*.cu"))
+
+
+def _digest(sources) -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sources + sorted(CSRC_DIR.glob("*.cuh")):
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def _run(cmd):
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"{' '.join(cmd)} failed:\n{proc.stdout}{proc.stderr}")
+    return proc.stdout + proc.stderr
+
+
+def build() -> Path:
+    """Compile the sources if their library is not built yet; return its path.
+
+    The compiler's output (``-Xptxas -v``: registers, shared memory, spills)
+    is kept beside the library as ``build.log``.
+    """
+    sources = _sources()
+    if not sources:
+        raise RuntimeError(f"no CUDA sources in {CSRC_DIR}")
+    lib = BUILD_DIR / f"libacf_kernels_{_digest(sources)}.so"
+    if lib.exists():
+        return lib
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = nvcc_path()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [Path(tmp) / (s.stem + ".o") for s in sources]
+        procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", str(s), "-o", str(o)],
+                                  stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                  text=True)
+                 for s, o in zip(sources, objs)]
+        logs, failed = [], []
+        for src, p in zip(sources, procs):
+            out, _ = p.communicate()
+            logs.append(f"== {src.name}\n{out}")
+            if p.returncode != 0:
+                failed.append(src.name)
+        if failed:
+            raise RuntimeError(f"nvcc failed on {failed}:\n" + "\n".join(logs))
+        tmp_lib = Path(tmp) / lib.name
+        logs.append(_run([nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp_lib),
+                          *map(str, objs)]))
+        (BUILD_DIR / "build.log").write_text(
+            f"built {lib.name} in {time.perf_counter() - t0:.2f} s\n" + "\n".join(logs))
+        os.replace(tmp_lib, lib)  # atomic: concurrent builders agree
+    return lib
+
+
+@functools.cache
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built on first call."""
+    lib = ctypes.CDLL(str(build()))
+    for name, argtypes in SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return lib

@@ -1,0 +1,104 @@
+"""The port's boundary: it imports nothing of JAX or of the JAX package, its
+entry points default to CUDA and raise without it, and on CPU tensors the
+rank counter takes its plain version without counting a launch."""
+
+import ast
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from acf_tpu_torch.data import Interactions
+from acf_tpu_torch.eval import FullRankEvaluator
+from acf_tpu_torch.models.mf import MFBPR
+from acf_tpu_torch.ops.ranking import rank_positions_dot
+from acf_tpu_torch.ops.topk import recommend
+from tests.test_full_rank import make_data
+
+ROOT = Path(__file__).resolve().parent.parent
+FORBIDDEN = ("jax", "jaxlib", "optax", "acf_tpu")
+
+
+def _forbidden(module: str) -> bool:
+    """Exact name or a dotted child — ``acf_tpu_torch`` is not ``acf_tpu``."""
+    return any(module == f or module.startswith(f + ".") for f in FORBIDDEN)
+
+
+def _imports(path: Path):
+    for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+        if isinstance(node, ast.Import):
+            yield from (alias.name for alias in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            yield node.module
+
+
+def _port_files():
+    return sorted((ROOT / "acf_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def test_forbidden_matches_exact_names_and_children_only():
+    assert _forbidden("jax") and _forbidden("jax.numpy") and _forbidden("acf_tpu.ops")
+    assert _forbidden("acf_tpu")
+    assert not _forbidden("acf_tpu_torch") and not _forbidden("acf_tpu_torch.ops")
+    assert not _forbidden("jaxtyping")
+
+
+@pytest.mark.parametrize("path", _port_files(), ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_file_imports_no_jax(path):
+    bad = [m for m in _imports(path) if _forbidden(m)]
+    assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+def test_importing_the_port_loads_no_jax():
+    code = ("import sys, acf_tpu_torch, acf_tpu_torch.data, acf_tpu_torch.eval, "
+            "acf_tpu_torch.models.mf, acf_tpu_torch.ops.topk, acf_tpu_torch.ops._build, "
+            "acf_tpu_torch.compat.jax_params, acf_tpu_torch.train.checkpoint; "
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'optax', 'acf_tpu')); print(bad); "
+            "sys.exit(1 if bad else 0)")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_precision_policy():
+    assert torch.backends.cuda.matmul.allow_tf32 is False
+    assert torch.backends.cudnn.allow_tf32 is False
+
+
+def _port_data():
+    import dataclasses
+
+    return Interactions(**dataclasses.asdict(make_data(seed=1)))
+
+
+def test_entry_points_need_cuda_unless_cpu_is_asked():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is valid here")
+    data = _port_data()
+    model = MFBPR(data.num_users, data.num_items, 4)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        FullRankEvaluator(data)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        model.init_params(torch.Generator().manual_seed(0))
+    params = model.init_params(torch.Generator().manual_seed(0), device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        recommend(model, params, data, data.eval_users()[:3], k=2)
+    # asking for the CPU works
+    assert FullRankEvaluator(data, device="cpu").evaluate_model(model, params).auc.size
+    assert recommend(model, params, data, data.eval_users()[:3], k=2,
+                     device="cpu")[1].shape == (3, 2)
+
+
+def test_cpu_rank_counter_counts_no_launch():
+    before = rank_positions_dot.launches
+    rng = np.random.default_rng(0)
+    u = torch.from_numpy(rng.standard_normal((4, 8)).astype(np.float32))
+    E = torch.from_numpy(rng.standard_normal((20, 8)).astype(np.float32))
+    t = torch.from_numpy(rng.standard_normal(4).astype(np.float32))
+    out = rank_positions_dot(u, E, t)
+    assert out.shape == (4,) and out.dtype == torch.float32
+    assert rank_positions_dot.launches == before == 0

@@ -1,0 +1,74 @@
+"""The port's rank counter (its plain version, on the CPU) against the JAX
+Pallas kernel in interpret mode and the numpy count — exact (integer
+counts)."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from acf_tpu.ops.ranking import rank_positions_dot as jax_rank_positions_dot
+from acf_tpu_torch.ops.ranking import rank_positions_dot, rank_positions_dot_plain
+
+
+def _inputs(seed, b, d, n_items, with_bias_gt):
+    rng = np.random.default_rng(seed)
+    u = rng.standard_normal((b, d)).astype(np.float32)
+    E = rng.standard_normal((n_items, d)).astype(np.float32)
+    t = rng.standard_normal(b).astype(np.float32)
+    bias = rng.standard_normal(n_items).astype(np.float32) if with_bias_gt else None
+    gt = rng.integers(1, n_items, size=b).astype(np.int32) if with_bias_gt else None
+    return u, E, t, bias, gt
+
+
+def _numpy_count(u, E, t, bias, gt):
+    scores = u @ E.T
+    if bias is not None:
+        scores = scores + bias[None, :]
+    ge = scores >= t[:, None]
+    ge[:, 0] = False  # pad column excluded
+    if gt is not None:
+        ge[np.arange(len(u)), gt] = False  # gt column excluded
+    return ge.sum(1)
+
+
+def _t(x):
+    return None if x is None else torch.from_numpy(x)
+
+
+def _j(x):
+    return None if x is None else jnp.asarray(x)
+
+
+@pytest.mark.parametrize("with_bias_gt", [True, False], ids=["bias_gt", "plain"])
+def test_rank_positions_match_jax_and_numpy(with_bias_gt):
+    u, E, t, bias, gt = _inputs(0, 16, 8, 300, with_bias_gt)  # 300: ragged tiles
+    got = rank_positions_dot(_t(u), _t(E), _t(t), bias=_t(bias), gt=_t(gt))
+    assert got.dtype == torch.float32 and got.shape == (16,)
+    ref_jax = np.asarray(jax_rank_positions_dot(
+        jnp.asarray(u), jnp.asarray(E), jnp.asarray(t), bias=_j(bias), gt=_j(gt),
+        item_tile=128, interpret=True))
+    np.testing.assert_array_equal(got.numpy(), ref_jax)
+    np.testing.assert_array_equal(got.numpy(), _numpy_count(u, E, t, bias, gt))
+
+
+def test_cpu_wrapper_is_the_plain_version():
+    u, E, t, bias, gt = _inputs(3, 8, 4, 50, True)
+    np.testing.assert_array_equal(
+        rank_positions_dot(_t(u), _t(E), _t(t), bias=_t(bias), gt=_t(gt)).numpy(),
+        rank_positions_dot_plain(_t(u), _t(E), _t(t), bias=_t(bias), gt=_t(gt)).numpy())
+
+
+@pytest.mark.parametrize("bad", ["dtype", "shape", "contiguity", "gt_dtype"])
+def test_wrapper_rejects_bad_inputs(bad):
+    u, E, t, bias, gt = (_t(x) for x in _inputs(1, 8, 4, 50, True))
+    if bad == "dtype":
+        u = u.double()
+    elif bad == "shape":
+        t = t[:4]
+    elif bad == "contiguity":
+        E = torch.from_numpy(np.asfortranarray(E.numpy()))
+    else:
+        gt = gt.long()
+    with pytest.raises((TypeError, ValueError)):
+        rank_positions_dot(u, E, t, bias=bias, gt=gt)
