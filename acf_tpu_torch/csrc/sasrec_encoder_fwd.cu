@@ -1,7 +1,8 @@
-// K2a — SASRec encoder forward (inference) for Hopper (sm_90a).
+// K2a — SASRec encoder forward for Hopper (sm_90a), at inference and in its
+// training form.
 //
 // Replaces the TPU kernel `fwd_kernel` in acf_tpu/ops/sasrec_fused.py:225
-// (entry `fused_encoder`) at inference: single head, float32, no dropout.
+// (entry `fused_encoder`): single head, float32, with or without dropout.
 // It computes exactly `encoder_math` of acf_tpu_torch/ops/sasrec_fused.py
 // (the reference SASRecLayers.py:15-319 encoder): for each user window
 // x [T, d] (√d-scaled item embeddings) and its ids mask,
@@ -16,13 +17,25 @@
 //
 // with LN(x) = gamma * (x - mean) / sqrt(var + 1e-8) + beta.
 //
+// Training form (acf_tpu/models/sasrec.py:299-318): with dropout masks
+// (bool, drawn outside, in the JAX layout) a kept value is divided by keep
+// and a dropped one is 0 after `+ pos_emb`, on the attention probabilities
+// after the query masking, after the ReLU and after conv2 (before `+ x2`).
+// With a `saved` workspace it also writes each block's input and LN_f's
+// input, [num_blocks + 1, B, T, d], for K2b (sasrec_encoder_bwd.cu), which
+// rematerialises one block at a time from them. At inference both are null
+// and the launch does exactly what it did without them.
+//
 // Bound on an H100: operations. Per window row and block the five d x d
 // products take 10 d² FLOP and the causal attention 2 (T+1) d on average
 // (each query dots only keys j <= i), all float32 FMAs outside the tensor
 // cores (67 TFLOP/s). At B=512, T=50, d=64, 2 blocks that is 2.43 GFLOP,
 // 0.036 ms, while the bytes (x in, out, mask, 164 KB of weights: 13 MB) take
 // 0.004 ms at 3.35 TB/s. TF32 would move rank positions, so the tensor cores
-// are not used.
+// are not used. The dropout form reads 3 nb + 1 byte masks of [T, d] and nb
+// of [T, T] per user (10.8 MB at T=50) and the training form writes
+// (nb + 1) B T d floats more (19.7 MB): 0.013 ms at 3.35 TB/s, still below
+// the operations.
 //
 // Design (simple first; the TPU's two attention forms, unrolled for T < 32
 // and block-diagonal for T >= 32, were a layout choice of the TPU and are
@@ -58,236 +71,15 @@
 // the wrapper). Later work: staging the weights in shared memory where it
 // has room, skipping padded rows, and multi-head windows.
 
-#include <cuda_runtime.h>
-#include <math.h>
-
-constexpr int kMaxBlocks = 8;  // ENCODER_MAX_BLOCKS in ops/_build.py
-
-// The weights, one pointer per param leaf (EncoderWeights in ops/_build.py).
-struct DenseW { const float* w; const float* b; };
-struct LayerNormW { const float* gamma; const float* beta; };
-struct BlockW {
-  LayerNormW ln1;
-  DenseW wq, wk, wv;
-  LayerNormW ln2;
-  DenseW conv1, conv2;
-  LayerNormW ln3;
-};
-struct EncoderW {
-  const float* pos;  // pos_emb[-T:], [T, d]
-  LayerNormW ln_f;
-  BlockW blocks[kMaxBlocks];
-  int num_blocks;
-};
+#include "sasrec_encoder.cuh"
 
 namespace {
 
-constexpr int kMaxThreads = 512;
-constexpr int kMaxColsPerLane = 4;  // d <= 128 over 32 lanes
-constexpr float kEps = 1e-8f;
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
-  return v;
-}
-
-__device__ __forceinline__ float4 ldg4(const float* p) {
-  return __ldg(reinterpret_cast<const float4*>(p));
-}
-
-// dst[r] = LN(src[r]) (* M[r] when M is given) for rows r < R; one warp per
-// row. dst may alias src, or be device memory with row stride dld.
-__device__ void layer_norm_rows(const float* src, float* dst, int dld, LayerNormW p,
-                                const float* M, int R, int d, int ld) {
-  const int lane = threadIdx.x & 31;
-  for (int r = threadIdx.x >> 5; r < R; r += blockDim.x >> 5) {
-    float v[kMaxColsPerLane];
-    float s = 0.f;
-#pragma unroll
-    for (int m = 0; m < kMaxColsPerLane; ++m) {
-      const int c = lane + 32 * m;
-      v[m] = c < d ? src[r * ld + c] : 0.f;
-      s += v[m];
-    }
-    const float mean = warp_sum(s) / d;
-    float q = 0.f;
-#pragma unroll
-    for (int m = 0; m < kMaxColsPerLane; ++m) {
-      const float dv = v[m] - mean;
-      if (lane + 32 * m < d) q = fmaf(dv, dv, q);
-    }
-    const float denom = sqrtf(warp_sum(q) / d + kEps);
-    const float keep = M == nullptr ? 1.f : M[r];
-#pragma unroll
-    for (int m = 0; m < kMaxColsPerLane; ++m) {
-      const int c = lane + 32 * m;
-      if (c < d)
-        dst[r * dld + c] = (__ldg(p.gamma + c) * (v[m] - mean) / denom + __ldg(p.beta + c)) * keep;
-    }
-  }
-}
-
-// out[r] = act(in[r] W + b) (+ res[r]) for rows r < R, all [R][ld] in
-// shared memory; W is [d, d] row-major in device memory. Each thread owns
-// ROWS rows (r0 + i * row_groups) x 4 columns.
-template <int ROWS>
-__device__ void dense_tiles(const float* in, float* out, const float* res, DenseW p,
-                            bool relu, int R, int d, int ld) {
-  const int groups = d / 4;  // 4-column groups
-  const int row_groups = blockDim.x / groups;
-  const int cg = threadIdx.x % groups;
-  const int rg = threadIdx.x / groups;
-  if (rg >= row_groups) return;  // idle when groups does not divide the block
-  const int c0 = 4 * cg;
-  const float4 bias = ldg4(p.b + c0);
-  const float* w = p.w + c0;
-  for (int r0 = rg; r0 < R; r0 += ROWS * row_groups) {
-    float4 acc[ROWS];
-#pragma unroll
-    for (int i = 0; i < ROWS; ++i) acc[i] = make_float4(0.f, 0.f, 0.f, 0.f);
-    for (int k = 0; k < d; k += 4) {
-      const float4 w0 = ldg4(w + (k + 0) * d);
-      const float4 w1 = ldg4(w + (k + 1) * d);
-      const float4 w2 = ldg4(w + (k + 2) * d);
-      const float4 w3 = ldg4(w + (k + 3) * d);
-#pragma unroll
-      for (int i = 0; i < ROWS; ++i) {
-        const int r = r0 + i * row_groups;
-        const float4 a = r < R ? *reinterpret_cast<const float4*>(in + r * ld + k)
-                               : make_float4(0.f, 0.f, 0.f, 0.f);
-        float4& o = acc[i];
-        o.x = fmaf(a.x, w0.x, o.x); o.y = fmaf(a.x, w0.y, o.y);
-        o.z = fmaf(a.x, w0.z, o.z); o.w = fmaf(a.x, w0.w, o.w);
-        o.x = fmaf(a.y, w1.x, o.x); o.y = fmaf(a.y, w1.y, o.y);
-        o.z = fmaf(a.y, w1.z, o.z); o.w = fmaf(a.y, w1.w, o.w);
-        o.x = fmaf(a.z, w2.x, o.x); o.y = fmaf(a.z, w2.y, o.y);
-        o.z = fmaf(a.z, w2.z, o.z); o.w = fmaf(a.z, w2.w, o.w);
-        o.x = fmaf(a.w, w3.x, o.x); o.y = fmaf(a.w, w3.y, o.y);
-        o.z = fmaf(a.w, w3.z, o.z); o.w = fmaf(a.w, w3.w, o.w);
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < ROWS; ++i) {
-      const int r = r0 + i * row_groups;
-      if (r >= R) break;
-      float4 o = make_float4(acc[i].x + bias.x, acc[i].y + bias.y,
-                             acc[i].z + bias.z, acc[i].w + bias.w);
-      if (relu) {
-        o.x = fmaxf(o.x, 0.f); o.y = fmaxf(o.y, 0.f);
-        o.z = fmaxf(o.z, 0.f); o.w = fmaxf(o.w, 0.f);
-      }
-      if (res != nullptr) {
-        const float4 e = *reinterpret_cast<const float4*>(res + r * ld + c0);
-        o.x += e.x; o.y += e.y; o.z += e.z; o.w += e.w;
-      }
-      *reinterpret_cast<float4*>(out + r * ld + c0) = o;
-    }
-  }
-}
-
-// The register tile with the fewest rows that still covers R in one pass
-// (up to 4 rows; more rows take more passes).
-__device__ void dense_rows(const float* in, float* out, const float* res, DenseW p,
-                           bool relu, int R, int d, int ld) {
-  const int row_groups = blockDim.x / (d / 4);
-  if (R <= row_groups)
-    dense_tiles<1>(in, out, res, p, relu, R, d, ld);
-  else if (R <= 2 * row_groups)
-    dense_tiles<2>(in, out, res, p, relu, R, d, ld);
-  else
-    dense_tiles<4>(in, out, res, p, relu, R, d, ld);
-}
-
-// x[r] += Σ_j softmax_j(q_r·k_j / √d) v_j over the keys j <= r of row r's
-// user whose mask M is set; x holds q_in (the residual). One warp per row;
-// `scores` holds one row of Ts floats per warp.
-__device__ void attention_rows(const float* q, const float* k, const float* v, float* x,
-                               float* scores, const float* M, int R, int T, int Ts, int d,
-                               int ld) {
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const float scale = sqrtf(static_cast<float>(d));
-  float* s = scores + warp * Ts;
-  for (int r = warp; r < R; r += blockDim.x >> 5) {
-    if (M[r] == 0.f) continue;  // masked query: probabilities are exact zeros
-    const int i = r % T;        // position in the window
-    const int u0 = r - i;       // the user's first row
-    const float* qr = q + r * ld;
-    float m = -INFINITY;
-    for (int j = lane; j <= i; j += 32) {
-      float dot = -INFINITY;  // a masked key: weight exactly 0, as -2^32+1 gives
-      if (M[u0 + j] != 0.f) {
-        const float* kr = k + (u0 + j) * ld;
-        float a0 = 0.f, a1 = 0.f, a2 = 0.f, a3 = 0.f;  // four independent chains
-        for (int c = 0; c < d; c += 4) {
-          const float4 a = *reinterpret_cast<const float4*>(qr + c);
-          const float4 b = *reinterpret_cast<const float4*>(kr + c);
-          a0 = fmaf(a.x, b.x, a0);
-          a1 = fmaf(a.y, b.y, a1);
-          a2 = fmaf(a.z, b.z, a2);
-          a3 = fmaf(a.w, b.w, a3);
-        }
-        dot = ((a0 + a1) + (a2 + a3)) / scale;
-      }
-      s[j] = dot;
-      m = fmaxf(m, dot);
-    }
-    m = warp_max(m);  // finite: key i is unmasked because query i is
-    float sum = 0.f;
-    for (int j = lane; j <= i; j += 32) {
-      const float e = expf(s[j] - m);
-      s[j] = e;
-      sum += e;
-    }
-    sum = warp_sum(sum);
-    for (int j = lane; j <= i; j += 32) s[j] = s[j] / sum;
-    __syncwarp();
-    float acc[kMaxColsPerLane];
-#pragma unroll
-    for (int c = 0; c < kMaxColsPerLane; ++c) acc[c] = 0.f;
-    int j = 0;
-    for (; j + 4 <= i + 1; j += 4) {  // four keys a step: their loads overlap
-      const float4 p4 = *reinterpret_cast<const float4*>(s + j);
-      if (p4.x == 0.f && p4.y == 0.f && p4.z == 0.f && p4.w == 0.f) continue;  // padding
-      const float* vr = v + (u0 + j) * ld + lane;
-#pragma unroll
-      for (int c = 0; c < kMaxColsPerLane; ++c) {
-        if (lane + 32 * c >= d) continue;
-        float t = acc[c];
-        t = fmaf(p4.x, vr[32 * c], t);
-        t = fmaf(p4.y, vr[ld + 32 * c], t);
-        t = fmaf(p4.z, vr[2 * ld + 32 * c], t);
-        t = fmaf(p4.w, vr[3 * ld + 32 * c], t);
-        acc[c] = t;
-      }
-    }
-    for (; j <= i; ++j) {
-      const float pj = s[j];
-      const float* vr = v + (u0 + j) * ld + lane;
-#pragma unroll
-      for (int c = 0; c < kMaxColsPerLane; ++c)
-        if (lane + 32 * c < d) acc[c] = fmaf(pj, vr[32 * c], acc[c]);
-    }
-#pragma unroll
-    for (int c = 0; c < kMaxColsPerLane; ++c)
-      if (lane + 32 * c < d) x[r * ld + lane + 32 * c] += acc[c];
-    __syncwarp();  // this warp's next row rewrites s
-  }
-}
-
 __global__ void __launch_bounds__(kMaxThreads, 2)
-sasrec_encoder_fwd_kernel(const EncoderW w, const float* __restrict__ x,
+sasrec_encoder_fwd_kernel(const EncoderW w, const DropoutMasks dm, const float* __restrict__ x,
                           const unsigned char* __restrict__ ids_mask,
-                          float* __restrict__ out, int B, int T, int d,
-                          int users_per_block, int ld, int Ts) {
+                          float* __restrict__ out, float* __restrict__ saved, int B, int T,
+                          int d, int users_per_block, int ld, int Ts) {
   extern __shared__ __align__(16) float smem[];
   const int b0 = blockIdx.x * users_per_block;
   const int R = min(users_per_block, B - b0) * T;  // this block's rows
@@ -298,8 +90,10 @@ sasrec_encoder_fwd_kernel(const EncoderW w, const float* __restrict__ x,
   float* V = K + rows * ld;
   float* S = V + rows * ld;                // [warps][Ts] softmax rows
   float* M = S + (blockDim.x >> 5) * Ts;   // [rows] ids mask as 0/1
-  const unsigned char* mask = ids_mask + static_cast<size_t>(b0) * T;
-  const float* xb = x + static_cast<size_t>(b0) * T * d;
+  const size_t row0 = static_cast<size_t>(b0) * T;  // first global row
+  const unsigned char* mask = ids_mask + row0;
+  const float* xb = x + row0 * d;
+  const unsigned char* emb = dm.emb == nullptr ? nullptr : dm.emb + row0 * d;
 
   for (int r = threadIdx.x; r < R; r += blockDim.x) M[r] = mask[r] ? 1.f : 0.f;
   const int groups = d / 4;
@@ -307,51 +101,58 @@ sasrec_encoder_fwd_kernel(const EncoderW w, const float* __restrict__ x,
     const int r = idx / groups, c = (idx % groups) * 4;
     const float4 a = ldg4(xb + r * d + c);
     const float4 e = ldg4(w.pos + (r % T) * d + c);
+    float4 v = make_float4(a.x + e.x, a.y + e.y, a.z + e.z, a.w + e.w);
+    if (emb != nullptr) {
+      const uchar4 m = *reinterpret_cast<const uchar4*>(emb + r * d + c);
+      v = make_float4(drop(v.x, m.x, dm.keep), drop(v.y, m.y, dm.keep),
+                      drop(v.z, m.z, dm.keep), drop(v.w, m.w, dm.keep));
+    }
     const float keep = mask[r] ? 1.f : 0.f;
-    *reinterpret_cast<float4*>(X + r * ld + c) = make_float4(
-        (a.x + e.x) * keep, (a.y + e.y) * keep, (a.z + e.z) * keep, (a.w + e.w) * keep);
+    *reinterpret_cast<float4*>(X + r * ld + c) =
+        make_float4(v.x * keep, v.y * keep, v.z * keep, v.w * keep);
   }
   __syncthreads();
 
+  const BlockBufs bufs{X, X, Q, K, V, X, X, Q, K, nullptr, S, M};
   for (int blk = 0; blk < w.num_blocks; ++blk) {
-    const BlockW& p = w.blocks[blk];
-    layer_norm_rows(X, X, ld, p.ln1, nullptr, R, d, ld);  // X = q_in
-    __syncthreads();
-    dense_rows(X, Q, nullptr, p.wq, false, R, d, ld);
-    dense_rows(X, K, nullptr, p.wk, false, R, d, ld);
-    dense_rows(X, V, nullptr, p.wv, false, R, d, ld);
-    __syncthreads();
-    attention_rows(Q, K, V, X, S, M, R, T, Ts, d, ld);
-    __syncthreads();
-    layer_norm_rows(X, X, ld, p.ln2, nullptr, R, d, ld);  // X = x2
-    __syncthreads();
-    dense_rows(X, Q, nullptr, p.conv1, true, R, d, ld);
-    __syncthreads();
-    dense_rows(Q, K, X, p.conv2, false, R, d, ld);        // K = FFN + x2
-    __syncthreads();
-    layer_norm_rows(K, X, ld, p.ln3, M, R, d, ld);
-    __syncthreads();
+    if (saved != nullptr) {  // the block's input, for K2b
+      float* dst = saved + (static_cast<size_t>(blk) * B * T + row0) * d;
+      for (int idx = threadIdx.x; idx < R * d; idx += blockDim.x)
+        dst[idx] = X[(idx / d) * ld + idx % d];
+    }
+    const size_t mrow = row0 * d;
+    block_forward(w.blocks[blk], bufs,
+                  dm.p[blk] == nullptr ? nullptr : dm.p[blk] + row0 * T,
+                  dm.f1[blk] == nullptr ? nullptr : dm.f1[blk] + mrow,
+                  dm.f2[blk] == nullptr ? nullptr : dm.f2[blk] + mrow, dm.keep, false,
+                  R, T, Ts, d, ld);
   }
-  layer_norm_rows(X, out + static_cast<size_t>(b0) * T * d, d, w.ln_f, nullptr, R, d, ld);
+  if (saved != nullptr) {  // LN_f's input
+    float* dst = saved + (static_cast<size_t>(w.num_blocks) * B * T + row0) * d;
+    for (int idx = threadIdx.x; idx < R * d; idx += blockDim.x)
+      dst[idx] = X[(idx / d) * ld + idx % d];
+  }
+  layer_norm_rows(X, out + row0 * d, d, w.ln_f, nullptr, R, d, ld);
 }
 
 }  // namespace
 
-// Writes out [B, T, d] on `stream`. `users_per_block`, `threads` and
+// Writes out [B, T, d] (and, when `saved` is not null, the block inputs
+// [num_blocks + 1, B, T, d]) on `stream`. `users_per_block`, `threads` and
 // `smem_bytes` come from the wrapper's layout (ops/sasrec_fused.py
 // `_layout`); a launch whose bytes disagree with this file's formula, or
 // exceed the device's limit, is refused. Returns the cudaError_t of the
 // launch.
-extern "C" int acf_sasrec_encoder_fwd(EncoderW w, const float* x,
-                                      const unsigned char* ids_mask, float* out,
+extern "C" int acf_sasrec_encoder_fwd(EncoderW w, DropoutMasks dm, const float* x,
+                                      const unsigned char* ids_mask, float* out, float* saved,
                                       int B, int T, int d, int users_per_block,
                                       int threads, int smem_bytes, void* stream) {
   if (B <= 0 || T <= 0 || d <= 0 || d % 4 != 0 || d > 32 * kMaxColsPerLane ||
       users_per_block <= 0 || (threads != 256 && threads != kMaxThreads) ||
       w.num_blocks < 0 || w.num_blocks > kMaxBlocks)
     return (int)cudaErrorInvalidValue;
-  const int ld = 4 * ((d / 4) | 1);  // odd number of 16-byte units per row
-  const int Ts = (T + 3) / 4 * 4;    // softmax rows 16-byte aligned
+  const int ld = row_ld(d);
+  const int Ts = score_ld(T);
   const size_t rows = static_cast<size_t>(users_per_block) * T;
   const size_t need = (4 * rows * ld + static_cast<size_t>(threads / 32) * Ts + rows) * sizeof(float);
   if (need != static_cast<size_t>(smem_bytes)) return (int)cudaErrorInvalidValue;
@@ -364,6 +165,6 @@ extern "C" int acf_sasrec_encoder_fwd(EncoderW w, const float* x,
   if (err != cudaSuccess) return (int)err;
   const int grid = (B + users_per_block - 1) / users_per_block;
   sasrec_encoder_fwd_kernel<<<grid, threads, smem_bytes, static_cast<cudaStream_t>(stream)>>>(
-      w, x, ids_mask, out, B, T, d, users_per_block, ld, Ts);
+      w, dm, x, ids_mask, out, saved, B, T, d, users_per_block, ld, Ts);
   return (int)cudaGetLastError();
 }

@@ -4,12 +4,15 @@ A model object holds only hyperparameters; params are a ``dict[str, Tensor]``
 tree shaped like the JAX pytree. A model exposes
 
   * ``init_params(generator, device) -> params``
+  * ``loss(params, batch, generator) -> (scalar, aux)``, differentiable
   * ``score_all(params, users, hists) -> [B, num_items]``
   * ``score_some(params, users, hists, items) -> [B, M]``
   * ``factored_scorer() -> (user_repr_fn, table_fn) | None``
 
 Sequence models (:class:`SequenceModel`) read each user's last ``maxlen``
-history items from ``hists``.
+history items from ``hists`` and train on windowed sequences
+(``batch_kind == "seq"``); pairwise models on (user, pos, neg) triples
+(``batch_kind == "pair"``).
 """
 
 from __future__ import annotations
@@ -48,8 +51,21 @@ class PairwiseModel:
     num_items: int
     dim: int
 
+    batch_kind = "pair"
+
     def init_params(self, generator: torch.Generator, device=None):
         raise NotImplementedError
+
+    def loss(self, params, batch, generator=None):
+        raise NotImplementedError
+
+    def adv_target_loss(self, params, batch, generator=None):
+        """Linearization target for FGSM/PGD perturbations: the
+        UNREGULARIZED training loss. The reference's FGSM linearizes on the
+        raw BPR/pointwise loss (evaluation_adv.py:192-203, SASRec.py:365-371),
+        never on the regularized objective. The default returns the full
+        loss; models that fold a regularizer into ``loss`` override."""
+        return self.loss(params, batch, generator)[0]
 
     def score_all(self, params, users, hists):
         raise NotImplementedError
@@ -69,7 +85,18 @@ class PairwiseModel:
 
 @dataclasses.dataclass(eq=False)
 class SequenceModel(PairwiseModel):
-    """Base for next-item models over each user's last ``maxlen`` items
-    (the inference surface of the JAX ``SequenceModel``)."""
+    """Base for next-item models trained on windowed sequences of each
+    user's last ``maxlen`` items."""
 
     maxlen: int = 50
+    batch_kind = "seq"
+
+    def loss_window(self, params, batch, generator=None, **kw):
+        """``loss`` from the packed sampler form ``(users, window [B, T+1],
+        neg [B, T])`` where ``seq = window[:, :-1]`` and ``pos =
+        window[:, 1:]`` (:func:`acf_tpu_torch.sampling.sample_seq_window_batch`).
+        Default: expand and delegate; models may override to share the
+        seq/pos rows."""
+        users, window, neg = batch
+        return self.loss(params, (users, window[:, :-1], window[:, 1:], neg),
+                         generator, **kw)

@@ -32,11 +32,11 @@ NVCC_FLAGS = [*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas"
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-ENCODER_MAX_BLOCKS = 8  # kMaxBlocks in csrc/sasrec_encoder_fwd.cu
+ENCODER_MAX_BLOCKS = 8  # kMaxBlocks in csrc/sasrec_encoder.cuh
 
 
-# The weight struct of csrc/sasrec_encoder_fwd.cu (EncoderW), passed by value:
-# one pointer per param leaf.
+# The structs of csrc/sasrec_encoder.cuh, passed by value. EncoderW: one
+# pointer per param leaf.
 class _DenseW(ctypes.Structure):
     _fields_ = [("w", _P), ("b", _P)]
 
@@ -56,10 +56,22 @@ class EncoderWeights(ctypes.Structure):
                 ("blocks", _BlockW * ENCODER_MAX_BLOCKS), ("num_blocks", _I)]
 
 
+# DropoutMasks: one uint8 (bool) mask per dropout site, 0 where none, and the
+# keep probability.
+class DropoutMasks(ctypes.Structure):
+    _fields_ = [("emb", _P), ("p", _P * ENCODER_MAX_BLOCKS),
+                ("f1", _P * ENCODER_MAX_BLOCKS), ("f2", _P * ENCODER_MAX_BLOCKS),
+                ("keep", ctypes.c_float)]
+
+
 # C entry points: name -> argtypes (pointers and the stream as c_void_p)
 SIGNATURES = {
     "acf_rank_count": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
-    "acf_sasrec_encoder_fwd": [EncoderWeights, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "acf_sasrec_encoder_fwd": [EncoderWeights, DropoutMasks, _P, _P, _P, _P,
+                               _I, _I, _I, _I, _I, _I, _P],
+    "acf_sasrec_encoder_bwd": [EncoderWeights, DropoutMasks, _P, _P, _P, _P, _P, _P,
+                               _I, _I, _I, _I, _I, _I, _I, _P],
+    "acf_sasrec_encoder_bwd_ctas": [_I, _I],
 }
 
 

@@ -1,18 +1,31 @@
-"""SASRec encoder forward: the plain math and the K2a kernel (counterpart of
-``acf_tpu/ops/sasrec_fused.py``, inference form).
+"""SASRec encoder: the plain math, its hand-derived backward, and the K2a
+(forward) and K2b (backward) kernels (counterpart of
+``acf_tpu/ops/sasrec_fused.py``).
 
-:func:`encoder_math` is the one copy of the encoder in the port: the
-model's ``encode_math`` and the kernel's plain version
-:func:`fused_encoder_plain` both call it. On a CUDA tensor
-:func:`fused_encoder` launches the hand-written kernel
-``csrc/sasrec_encoder_fwd.cu`` (K2a) for any window it supports and raises
-``ValueError`` for any other; on a CPU tensor it takes the plain version.
-Its limits are stated once, in :func:`check_supported`, which computes the
-shared-memory size with the same formula the launch uses.
+:func:`encoder_math` is the one copy of the encoder forward in the port:
+the model's ``encode_math`` and K2a's plain version
+:func:`fused_encoder_plain` both call it. :func:`encoder_bwd_math` is the
+backward derived by hand, step by step in the order K2b follows; it is
+K2b's plain version.
 
-Rounding note: the kernel sums dot products, softmax denominators and
-LayerNorm moments in its own order, so it agrees with the plain version to
-f32 rounding (``chip_smoke.py`` holds it to 1e-4 absolute), not bit for bit.
+:func:`fused_encoder` is the entry the model calls. Without a graph to
+record (inference, or no input needing a gradient) it runs the forward
+alone: K2a on a CUDA tensor, the plain version on a CPU tensor. Otherwise it
+is a :class:`torch.autograd.Function` whose forward is K2a in its training
+form (dropout masks, and a copy of every block's input for the backward)
+and whose backward is K2b; on CPU tensors the same function runs
+:func:`encoder_math` forward and :func:`encoder_bwd_math` backward. When
+only ``x`` needs a gradient, K2b computes dx alone (the inner FGSM gradient
+of ASASRec). A CUDA tensor the kernels do not take raises ``ValueError``:
+the limits are stated once, in :func:`check_supported`, which computes the
+shared-memory sizes with the same formulas the launches use.
+
+Rounding note: the kernels sum dot products, softmax denominators,
+LayerNorm moments and the weight gradients over users in their own order,
+so they agree with their plain versions to f32 rounding, not bit for bit
+(``chip_smoke.py`` states its tolerances). K2b sums the weight gradients
+in a fixed order without atomics, so two calls on the same inputs give
+bit-identical gradients.
 """
 
 from __future__ import annotations
@@ -22,86 +35,267 @@ import math
 import torch
 
 from acf_tpu_torch.nn.layers import dense, layer_norm
-from acf_tpu_torch.ops._build import ENCODER_MAX_BLOCKS, EncoderWeights, library
+from acf_tpu_torch.ops._build import (
+    ENCODER_MAX_BLOCKS, DropoutMasks, EncoderWeights, library,
+)
 
 NEG_INF = -(2.0 ** 32) + 1  # the reference's mask value (SASRecLayers.py:208)
+LN_EPS = 1e-8
 
-# Kernel limits (csrc/sasrec_encoder_fwd.cu). 200 is the widest window of the
-# SASRec paper (ML-1M, Kang & McAuley, ICDM 2018).
+# Kernel limits (csrc/sasrec_encoder_fwd.cu, csrc/sasrec_encoder_bwd.cu).
+# 200 is the widest window of the SASRec paper (ML-1M, Kang & McAuley,
+# ICDM 2018).
 MAX_T = 200
 MAX_D = 128
 ROWS_PER_BLOCK = 32            # a block groups users until it holds ~32 rows
 SMEM_LIMIT = 232_448           # shared memory one Hopper block may use (227 KB)
-ROADMAP_ITEM = ("ROADMAP.md Queue 2, 'K2a: multi-head, and T above the "
-                "shared-memory limit'")
+BWD_BUFFERS = 10               # [rows, ld] activation buffers of K2b
+ROADMAP_ITEM = ("ROADMAP.md Queue 2, 'K2a/K2b: multi-head and longer "
+                "windows'")
+
+# Leaves of one encoder block, in the order of the kernels' flat gradient.
+BLOCK_LEAVES = (("ln1", ("gamma", "beta")), ("wq", ("w", "b")), ("wk", ("w", "b")),
+                ("wv", ("w", "b")), ("ln2", ("gamma", "beta")), ("conv1", ("w", "b")),
+                ("conv2", ("w", "b")), ("ln3", ("gamma", "beta")))
 
 
-def _attention(blk, q_in, ids_mask, num_heads):
-    """Causal multi-head attention with key and query masking, residual onto
-    the normalised input (reference SASRecLayers.py:171-248)."""
-    b, t, d = q_in.shape
+# --- forward ----------------------------------------------------------------
+
+def _drop(y, mask, keep: float):
+    """Inverted dropout with a precomputed bool mask, ``where(m, y / keep,
+    0)`` — a division, as the JAX package's ``_apply_mask``."""
+    return y if mask is None else torch.where(mask, y / keep, 0.0)
+
+
+def _block(blk, x, ids_mask, num_heads: int = 1, bm=None, keep: float = 1.0):
+    """One encoder block (reference SASRecLayers.py:171-319): LN1; causal
+    multi-head attention with key and query masking, the probabilities
+    dropped after the query masking, the residual onto the normalised input;
+    LN2; the FFN with its two dropouts and the residual onto x2; LN3 and the
+    ids mask. Returns (output, cache): the cache holds what the backward
+    reads, so :func:`encoder_bwd_math` differentiates exactly the values
+    :func:`encoder_math` computed."""
+    b, t, d = x.shape
     dh = d // num_heads
+    q_in = layer_norm(blk["ln1"], x)
 
     def heads(p):  # [B, T, d] -> [B, H, T, dh]
         return dense(p, q_in).reshape(b, t, num_heads, dh).transpose(1, 2)
 
     q, k, v = heads(blk["wq"]), heads(blk["wk"]), heads(blk["wv"])
     scores = q @ k.transpose(-1, -2) / math.sqrt(dh)
-    causal = torch.ones(t, t, dtype=torch.bool, device=q_in.device).tril()
+    causal = torch.ones(t, t, dtype=torch.bool, device=x.device).tril()
     scores = torch.where(causal & ids_mask[:, None, None, :], scores, NEG_INF)
-    probs = torch.softmax(scores, dim=-1) * ids_mask[:, None, :, None]
-    out = (probs @ v).transpose(1, 2).reshape(b, t, d)
-    return out + q_in
+    pb = torch.softmax(scores, dim=-1) * ids_mask[:, None, :, None]  # query masking
+    pd = _drop(pb, None if bm is None else bm["p"], keep)
+    a = (pd @ v).transpose(1, 2).reshape(b, t, d) + q_in
+    x2 = layer_norm(blk["ln2"], a)
+    z1 = dense(blk["conv1"], x2)
+    f1 = _drop(torch.relu(z1), None if bm is None else bm["f1"], keep)
+    f = _drop(dense(blk["conv2"], f1), None if bm is None else bm["f2"], keep) + x2
+    out = layer_norm(blk["ln3"], f) * ids_mask[:, :, None].to(x.dtype)
+    return out, dict(h=x, q_in=q_in, q=q, k=k, v=v, pb=pb, pd=pd, a=a, x2=x2, z1=z1,
+                     f1=f1, f=f)
 
 
-def encoder_math(params, x, ids_mask, num_heads: int = 1):
-    """The SASRec encoder at inference (no dropout), in plain PyTorch.
-
-    x: [B, T, d] √d-scaled input embeddings; ids_mask: [B, T] bool.
-    Returns [B, T, d]. Only reads ``pos_emb``, ``blocks`` and ``ln_f``.
-    """
+def _input(params, x, ids_mask, masks, keep):
+    """The first block's input: (x + pos_emb[-T:]), dropped, times the ids
+    mask."""
     t = x.shape[1]
-    maskf = ids_mask[:, :, None].to(x.dtype)
-    x = (x + params["pos_emb"][-t:]) * maskf
-    for blk in params["blocks"]:
-        q_in = layer_norm(blk["ln1"], x)
-        x = _attention(blk, q_in, ids_mask, num_heads)
-        x2 = layer_norm(blk["ln2"], x)
-        f = dense(blk["conv2"], torch.relu(dense(blk["conv1"], x2))) + x2
-        x = layer_norm(blk["ln3"], f) * maskf
+    x = x + params["pos_emb"][-t:]
+    return _drop(x, None if masks is None else masks["emb"], keep) * ids_mask[:, :, None].to(x.dtype)
+
+
+def encoder_math(params, x, ids_mask, num_heads: int = 1, masks=None,
+                 keep: float = 1.0):
+    """The SASRec encoder (``encode_math`` of the JAX model), in plain
+    PyTorch.
+
+    x: [B, T, d] √d-scaled input embeddings; ids_mask: [B, T] bool;
+    masks: None (inference) or the model's dropout masks (``emb`` [B, T, d],
+    per block ``p`` [B, H, T, T], ``f1`` and ``f2`` [B, T, d], bool), applied
+    where ``acf_tpu/models/sasrec.py:299-318`` applies them, with keep
+    probability ``keep``. Returns [B, T, d]. Only reads ``pos_emb``,
+    ``blocks`` and ``ln_f``.
+    """
+    x = _input(params, x, ids_mask, masks, keep)
+    for i, blk in enumerate(params["blocks"]):
+        x, _ = _block(blk, x, ids_mask, num_heads, None if masks is None else masks["blocks"][i],
+                      keep)
     return layer_norm(params["ln_f"], x)
 
 
-def fused_encoder_plain(params, x, ids_mask):
-    """Plain PyTorch version of :func:`fused_encoder` (single head)."""
-    return encoder_math(params, x, ids_mask, num_heads=1)
+def fused_encoder_plain(params, x, ids_mask, masks=None, keep: float = 1.0):
+    """Plain PyTorch version of K2a (single head)."""
+    return encoder_math(params, x, ids_mask, 1, masks, keep)
+
+
+# --- backward, derived by hand (K2b's plain version) -------------------------
+
+def _ln_stats(x):
+    """(x̂, σ) of LayerNorm's input x: x̂ = (x - mean) / σ and
+    σ = sqrt(mean((x - mean)²) + ε), as the forward computes them."""
+    xc = x - x.mean(dim=-1, keepdim=True)
+    sigma = torch.sqrt(torch.square(xc).mean(dim=-1, keepdim=True) + LN_EPS)
+    return xc / sigma, sigma
+
+
+def _ln_bwd(p, x, dy):
+    """y = γ x̂ + β of the LayerNorm whose input is x: returns (dx, dγ, dβ),
+    the parameter gradients summed over every row. With dx̂ = dy γ, and
+    since x̂ has zero mean and σ depends on x only through the mean of
+    squared deviations, dx = (dx̂ - mean(dx̂) - x̂ mean(dx̂ x̂)) / σ."""
+    xhat, sigma = _ln_stats(x)
+    dxh = dy * p["gamma"]
+    dx = (dxh - dxh.mean(dim=-1, keepdim=True)
+          - xhat * (dxh * xhat).mean(dim=-1, keepdim=True)) / sigma
+    rows = tuple(range(dy.dim() - 1))
+    return dx, (dy * xhat).sum(dim=rows), dy.sum(dim=rows)
+
+
+def _wgrad(x, dy):
+    """Σ over users and positions of xᵀ dy: the [d, d] kernel gradient of a
+    dense layer y = x W + b."""
+    d = x.shape[-1]
+    return x.reshape(-1, d).T @ dy.reshape(-1, d)
+
+
+def _block_bwd(blk, c, ids_mask, bm, keep, dh, weight_grads):
+    """Backward of one single-head block from its cache (:func:`_block`),
+    given the gradient dh of its (masked) output. Returns (the gradient of
+    its input, its leaf gradients or None)."""
+    d = dh.shape[-1]
+    m = ids_mask[:, :, None].to(dh.dtype)
+    q, k, v, pb, pd = (c[n][:, 0] for n in ("q", "k", "v", "pb", "pd"))  # the one head
+    # h_out = LN3(f) * m; f = drop_f2(f1' W2 + b2) + x2
+    df, g3, b3 = _ln_bwd(blk["ln3"], c["f"], dh * m)
+    df2 = _drop(df, None if bm is None else bm["f2"], keep)
+    # f1' = drop_f1(relu(z1)): relu's gradient is 0 at z1 <= 0, as in JAX
+    dz1 = _drop(df2 @ blk["conv2"]["w"].T, None if bm is None else bm["f1"], keep) \
+        * (c["z1"] > 0)
+    dx2 = df + dz1 @ blk["conv1"]["w"].T  # the FFN residual onto x2
+    da, g2, b2 = _ln_bwd(blk["ln2"], c["a"], dx2)
+    # a = drop_p(P) v + q_in, P = softmax(q kᵀ / √d) * query mask
+    dpd = da @ v.transpose(-1, -2)
+    dv = pd.transpose(-1, -2) @ da
+    dpb = _drop(dpd, None if bm is None else bm["p"][:, 0], keep) * ids_mask[:, :, None]
+    # softmax backward, dS = P ∘ (dP - rowsum(dP ∘ P)): masked queries have
+    # dP = 0 and masked keys P = 0 (the reference's -2³²+1 underflows), so
+    # both get exactly zero gradient
+    ds = pb * (dpb - (dpb * pb).sum(dim=-1, keepdim=True))
+    dq = ds @ k / math.sqrt(d)
+    dk = ds.transpose(-1, -2) @ q / math.sqrt(d)
+    dq_in = (da + dq @ blk["wq"]["w"].T + dk @ blk["wk"]["w"].T
+             + dv @ blk["wv"]["w"].T)  # the attention residual onto q_in
+    dh_in, g1, b1 = _ln_bwd(blk["ln1"], c["h"], dq_in)
+    if not weight_grads:
+        return dh_in, None
+    rows = (0, 1)
+    g = {"ln1": {"gamma": g1, "beta": b1}}
+    for name, dy in (("wq", dq), ("wk", dk), ("wv", dv)):
+        g[name] = {"w": _wgrad(c["q_in"], dy), "b": dy.sum(dim=rows)}
+    g["ln2"] = {"gamma": g2, "beta": b2}
+    g["conv1"] = {"w": _wgrad(c["x2"], dz1), "b": dz1.sum(dim=rows)}
+    g["conv2"] = {"w": _wgrad(c["f1"], df2), "b": df2.sum(dim=rows)}
+    g["ln3"] = {"gamma": g3, "beta": b3}
+    return dh_in, g
+
+
+def encoder_bwd_math(params, x, ids_mask, masks, keep: float, g,
+                     weight_grads: bool = True):
+    """The vector-Jacobian product of :func:`encoder_math` (single head) with
+    the cotangent ``g`` [B, T, d], derived by hand in the order K2b follows:
+    LN_f's backward, then per block from the last its LN3, FFN, LN2,
+    attention and LN1 backward, finally the ids mask and the embedding
+    dropout at the input. The forward runs through the same code as
+    :func:`encoder_math` and keeps every block's intermediates (K2b keeps
+    only the block inputs and rematerialises each block from its input).
+
+    Returns ``(dx, grads)``: dx [B, T, d] and, unless ``weight_grads`` is
+    False, the gradients of ``pos_emb[-T:]`` ([T, d], summed over users),
+    of every block leaf and of ``ln_f``, summed over users and positions,
+    as a tree ``{"pos_emb", "blocks", "ln_f"}``.
+    """
+    m = ids_mask[:, :, None].to(x.dtype)
+    h = _input(params, x, ids_mask, masks, keep)
+    caches = []
+    for i, blk in enumerate(params["blocks"]):
+        h, c = _block(blk, h, ids_mask, 1, None if masks is None else masks["blocks"][i], keep)
+        caches.append(c)
+    dh, gf, bf = _ln_bwd(params["ln_f"], h, g)
+    block_grads = []
+    for i in reversed(range(len(params["blocks"]))):
+        bm = None if masks is None else masks["blocks"][i]
+        dh, gb = _block_bwd(params["blocks"][i], caches[i], ids_mask, bm, keep, dh, weight_grads)
+        block_grads.insert(0, gb)
+    dx = _drop(dh * m, None if masks is None else masks["emb"], keep)
+    if not weight_grads:
+        return dx, None
+    return dx, {"pos_emb": dx.sum(dim=0), "blocks": block_grads,
+                "ln_f": {"gamma": gf, "beta": bf}}
+
+
+# --- limits -------------------------------------------------------------------
+
+def _ld(d: int) -> int:
+    return 4 * ((d // 4) | 1)  # odd number of 16-byte units per row
+
+
+def _group(t: int):
+    """(users per block, threads) of both kernels."""
+    users = max(1, ROWS_PER_BLOCK // t)
+    return users, 512 if users * t >= 128 else 256
 
 
 def _layout(t: int, d: int):
-    """(users per block, threads, shared-memory bytes) of a launch: four
+    """(users per block, threads, shared-memory bytes) of a K2a launch: four
     [rows, ld] f32 activation buffers (x, q, k, v), one 16-byte aligned
     score row of T per warp and the ids mask of the rows. The C entry
     recomputes the bytes and refuses a launch that disagrees."""
-    users = max(1, ROWS_PER_BLOCK // t)
+    users, threads = _group(t)
     rows = users * t
-    threads = 512 if rows >= 128 else 256
-    ld = 4 * ((d // 4) | 1)  # odd number of 16-byte units per row
-    floats = 4 * rows * ld + threads // 32 * ((t + 3) // 4 * 4) + rows
+    floats = 4 * rows * _ld(d) + threads // 32 * ((t + 3) // 4 * 4) + rows
     return users, threads, 4 * floats
 
 
-def max_window(d: int) -> int:
-    """The widest window K2a takes at width ``d`` (0 if none fits)."""
-    t = MAX_T
-    while t > 0 and _layout(t, d)[2] > SMEM_LIMIT:
+def _bwd_layout(t: int, d: int):
+    """(users per block, threads, shared-memory bytes) of a K2b launch: ten
+    [rows, ld] f32 buffers (the block's input, q_in, q, k, v, the attention
+    output, x2, the FFN hidden, the FFN sum and the running gradient), the
+    [rows, Ts] softmax probabilities, one score row per warp, the ids mask,
+    and a [warps, 2d] scratch for the LayerNorm parameter gradients."""
+    users, threads = _group(t)
+    rows = users * t
+    ts = (t + 3) // 4 * 4
+    warps = threads // 32
+    floats = (BWD_BUFFERS * rows * _ld(d) + rows * ts + warps * ts + rows
+              + warps * 2 * d)
+    return users, threads, 4 * floats
+
+
+def _widest(t_max, fits) -> int:
+    t = t_max
+    while t > 0 and not fits(t):
         t -= 1
     return t
 
 
-def check_supported(t: int, d: int, num_heads: int, num_blocks: int = 2):
-    """Raise ``ValueError`` unless K2a takes this encoder shape."""
+def max_window(d: int) -> int:
+    """The widest window K2a takes at width ``d`` (0 if none fits)."""
+    return _widest(MAX_T, lambda t: _layout(t, d)[2] <= SMEM_LIMIT)
+
+
+def max_train_window(d: int) -> int:
+    """The widest window K2b (and so training) takes at width ``d``."""
+    return _widest(MAX_T, lambda t: _bwd_layout(t, d)[2] <= SMEM_LIMIT)
+
+
+def check_supported(t: int, d: int, num_heads: int, num_blocks: int = 2,
+                    train: bool = False):
+    """Raise ``ValueError`` unless K2a (and, with ``train``, K2b) takes this
+    encoder shape."""
     if num_heads != 1:
-        raise ValueError(f"K2a is single-head; got num_heads={num_heads} "
+        raise ValueError(f"K2a/K2b are single-head; got num_heads={num_heads} "
                          f"(multi-head is lifted by {ROADMAP_ITEM})")
     if d % 4 or not 4 <= d <= MAX_D:
         raise ValueError(f"K2a needs d % 4 == 0 and 4 <= d <= {MAX_D}; got d={d}")
@@ -112,24 +306,32 @@ def check_supported(t: int, d: int, num_heads: int, num_blocks: int = 2):
     if not 1 <= t <= limit:
         raise ValueError(f"K2a takes windows of 1 to {limit} items at d={d}; got "
                          f"t={t} (wider windows are lifted by {ROADMAP_ITEM})")
+    if train:
+        limit = max_train_window(d)
+        if t > limit:
+            raise ValueError(
+                f"K2b (the encoder backward) takes windows of 1 to {limit} items "
+                f"at d={d}; got t={t} (wider windows are lifted by {ROADMAP_ITEM})")
 
 
-def _ptr(name, x, shape, dev):
-    """The data pointer of a leaf the kernel reads, after the checks it
-    relies on (f32, contiguous, 16-byte aligned, on ``dev``)."""
+# --- kernel wrappers ------------------------------------------------------------
+
+def _ptr(name, x, shape, dev, dtype=torch.float32, align=16):
+    """The data pointer of a tensor a kernel reads, after the checks it
+    relies on (dtype, shape, contiguous, aligned, on ``dev``)."""
     if x.device != dev:
         raise ValueError(f"{name} is on {x.device}, x on {dev}")
-    if x.dtype != torch.float32:
-        raise TypeError(f"{name} must be float32, got {x.dtype}")
+    if x.dtype != dtype:
+        raise TypeError(f"{name} must be {dtype}, got {x.dtype}")
     if tuple(x.shape) != shape:
         raise ValueError(f"{name} must have shape {shape}, got {tuple(x.shape)}")
-    if not x.is_contiguous() or x.data_ptr() % 16:
-        raise ValueError(f"{name} must be contiguous and 16-byte aligned")
+    if not x.is_contiguous() or x.data_ptr() % align:
+        raise ValueError(f"{name} must be contiguous and {align}-byte aligned")
     return x.data_ptr()
 
 
 def _weights(params, t, d, dev):
-    """The kernel's weight struct: one pointer per leaf, nothing copied."""
+    """The kernels' weight struct: one pointer per leaf, nothing copied."""
     w = EncoderWeights()
     pos = params["pos_emb"]
     if pos.dim() != 2 or pos.shape[0] < t:
@@ -150,50 +352,230 @@ def _weights(params, t, d, dev):
     return w
 
 
-def fused_encoder(model, params, x, ids_mask, masks=None):
-    """The SASRec encoder forward (``encode_math`` at inference, one head).
+def _masks(masks, keep, num_blocks, b, t, d, dev):
+    """The kernels' dropout-mask struct (all pointers 0 without masks). The
+    masks are bool tensors in the JAX layout, read as uint8."""
+    dm = DropoutMasks()
+    dm.keep = keep
+    if masks is None:
+        return dm
+    if not 0.0 < keep <= 1.0:
+        raise ValueError(f"keep must be in (0, 1]; got {keep}")
+    if len(masks["blocks"]) != num_blocks:
+        raise ValueError(f"masks hold {len(masks['blocks'])} blocks, params {num_blocks}")
+    dm.emb = _ptr("masks.emb", masks["emb"], (b, t, d), dev, torch.bool, 4)
+    for i, bm in enumerate(masks["blocks"]):
+        dm.p[i] = _ptr(f"masks.blocks[{i}].p", bm["p"], (b, 1, t, t), dev, torch.bool, 1)
+        dm.f1[i] = _ptr(f"masks.blocks[{i}].f1", bm["f1"], (b, t, d), dev, torch.bool, 4)
+        dm.f2[i] = _ptr(f"masks.blocks[{i}].f2", bm["f2"], (b, t, d), dev, torch.bool, 4)
+    return dm
 
-    Args:
-      model: the SASRec model (reads ``num_heads``).
-      params: its params (``pos_emb``, ``blocks``, ``ln_f`` are read).
-      x: [B, T, d] float32 √d-scaled input embeddings.
-      ids_mask: [B, T] bool, True where the window holds an item.
-      masks: dropout masks; must be None (inference only).
 
-    Returns [B, T, d] float32. CPU tensors take the plain version; CUDA
-    tensors launch K2a (and add one to ``fused_encoder.launches``) or raise.
-    """
-    if masks is not None:
-        raise NotImplementedError(
-            "K2a with dropout masks comes with the SASRec training slice "
-            "(ROADMAP.md Queue 2, 'K2a: dropout masks')")
+def _check_inputs(x, ids_mask):
     if x.dim() != 3 or tuple(ids_mask.shape) != tuple(x.shape[:2]):
         raise ValueError(f"x must be [B, T, d] and ids_mask [B, T]; got "
                          f"{tuple(x.shape)} and {tuple(ids_mask.shape)}")
-    b, t, d = x.shape
-    check_supported(t, d, model.num_heads, len(params["blocks"]))
     dev = x.device
-    if dev.type == "cpu":
-        return fused_encoder_plain(params, x, ids_mask)
     if dev.type != "cuda":
-        raise ValueError(f"fused_encoder runs on cpu or cuda, not {dev}")
+        raise ValueError(f"the encoder kernels run on cuda, not {dev}")
     if ids_mask.dtype != torch.bool or ids_mask.device != dev \
             or not ids_mask.is_contiguous():
         raise ValueError("ids_mask must be a contiguous bool tensor on x's device")
+    return dev
+
+
+def encoder_fwd(params, x, ids_mask, masks=None, keep: float = 1.0, save: bool = False):
+    """Launch K2a on CUDA tensors: the encoder forward, with dropout
+    ``masks`` when given. With ``save`` it also writes each block's input
+    and LN_f's input to a [num_blocks + 1, B, T, d] workspace for K2b.
+
+    Returns ``(out, saved)`` (``saved`` is None without ``save``); adds one
+    to ``fused_encoder.launches``. The caller checks the shape with
+    :func:`check_supported`.
+    """
+    dev = _check_inputs(x, ids_mask)
+    b, t, d = x.shape
+    nb = len(params["blocks"])
     x_ptr = _ptr("x", x, (b, t, d), dev)
     weights = _weights(params, t, d, dev)
+    dm = _masks(masks, keep, nb, b, t, d, dev)
     out = torch.empty(b, t, d, dtype=torch.float32, device=dev)
+    saved = torch.empty(nb + 1, b, t, d, dtype=torch.float32, device=dev) if save else None
     if b == 0:
-        return out
+        return out, saved
     users, threads, smem = _layout(t, d)
     with torch.cuda.device(dev):
         err = library().acf_sasrec_encoder_fwd(
-            weights, x_ptr, ids_mask.data_ptr(), out.data_ptr(), b, t, d,
+            weights, dm, x_ptr, ids_mask.data_ptr(), out.data_ptr(),
+            0 if saved is None else saved.data_ptr(), b, t, d,
             users, threads, smem, torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"sasrec_encoder_fwd kernel launch failed: cudaError {err}")
     fused_encoder.launches += 1
-    return out
+    return out, saved
+
+
+def grad_size(num_blocks: int, t: int, d: int) -> int:
+    """Floats of K2b's flat gradient: per block the leaves of
+    :data:`BLOCK_LEAVES` (5 (d² + d) + 6 d), then ``ln_f`` (2 d), then the
+    ``pos_emb[-T:]`` rows (T d)."""
+    return num_blocks * (5 * d * d + 11 * d) + 2 * d + t * d
+
+
+def _grad_tree(flat, num_blocks, t, d):
+    """Views of K2b's flat gradient as ``{"pos_emb", "blocks", "ln_f"}``."""
+    off = 0
+
+    def take(*shape):
+        nonlocal off
+        n = math.prod(shape)
+        view = flat[off:off + n].view(*shape)
+        off += n
+        return view
+
+    blocks = []
+    for _ in range(num_blocks):
+        blk = {}
+        for name, leaves in BLOCK_LEAVES:
+            blk[name] = {leaf: take(d, d) if leaf == "w" else take(d) for leaf in leaves}
+        blocks.append(blk)
+    ln_f = {"gamma": take(d), "beta": take(d)}
+    return {"pos_emb": take(t, d), "blocks": blocks, "ln_f": ln_f}
+
+
+def encoder_bwd(params, x, ids_mask, g, saved=None, masks=None, keep: float = 1.0,
+                weight_grads: bool = True):
+    """The encoder backward (K2b): ``(dx, grads)`` as :func:`encoder_bwd_math`
+    returns them.
+
+    CPU tensors take the plain version (``saved`` is not needed). CUDA
+    tensors launch K2b, which reads ``saved``, the block inputs that K2a's
+    training form wrote for the same params, x, ids mask and masks, and add
+    one to ``encoder_bwd.launches``. Without ``weight_grads`` the kernel
+    computes dx alone and skips its reduction pass.
+    """
+    if x.device.type == "cpu":
+        return encoder_bwd_math(params, x, ids_mask, masks, keep, g, weight_grads)
+    dev = _check_inputs(x, ids_mask)
+    b, t, d = x.shape
+    nb = len(params["blocks"])
+    check_supported(t, d, 1, nb, train=True)
+    if saved is None:
+        raise ValueError("K2b needs the block inputs saved by encoder_fwd(save=True)")
+    g_ptr = _ptr("g", g, (b, t, d), dev)
+    s_ptr = _ptr("saved", saved, (nb + 1, b, t, d), dev)
+    weights = _weights(params, t, d, dev)
+    dm = _masks(masks, keep, nb, b, t, d, dev)
+    dx = torch.empty(b, t, d, dtype=torch.float32, device=dev)
+    n_grad = grad_size(nb, t, d)
+    flat = torch.empty(n_grad, dtype=torch.float32, device=dev) if weight_grads else None
+    if b == 0:
+        return dx, None if flat is None else _grad_tree(flat, nb, t, d)
+    users, threads, smem = _bwd_layout(t, d)
+    lib = library()
+    with torch.cuda.device(dev):
+        groups = -(-b // users)
+        ctas = min(groups, lib.acf_sasrec_encoder_bwd_ctas(threads, smem)) if weight_grads \
+            else groups
+        if ctas <= 0:
+            raise RuntimeError(f"K2b cannot run a {threads}-thread block with {smem} "
+                               f"bytes of shared memory on {dev}")
+        partial = (torch.empty(ctas, n_grad, dtype=torch.float32, device=dev)
+                   if weight_grads else None)
+        err = lib.acf_sasrec_encoder_bwd(
+            weights, dm, ids_mask.data_ptr(), g_ptr, s_ptr, dx.data_ptr(),
+            0 if partial is None else partial.data_ptr(),
+            0 if flat is None else flat.data_ptr(), b, t, d, users, threads, smem, ctas,
+            torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"sasrec_encoder_bwd kernel launch failed: cudaError {err}")
+    encoder_bwd.launches += 1
+    return dx, None if flat is None else _grad_tree(flat, nb, t, d)
+
+
+encoder_bwd.launches = 0
+
+
+# --- the autograd function --------------------------------------------------------
+
+def _flat_leaves(params):
+    """Every encoder leaf except the pos rows, in :data:`BLOCK_LEAVES` order
+    per block, then ``ln_f``."""
+    out = [blk[name][leaf] for blk in params["blocks"]
+           for name, leaves in BLOCK_LEAVES for leaf in leaves]
+    return out + [params["ln_f"]["gamma"], params["ln_f"]["beta"]]
+
+
+def _tree_from(pos, leaves):
+    it = iter(leaves)
+    blocks = [{name: {leaf: next(it) for leaf in names} for name, names in BLOCK_LEAVES}
+              for _ in range((len(leaves) - 2) // 16)]
+    return {"pos_emb": pos, "blocks": blocks, "ln_f": {"gamma": next(it), "beta": next(it)}}
+
+
+class _Encoder(torch.autograd.Function):
+    """Inputs (ids_mask, masks, keep, x, pos rows, *leaves): the forward is
+    K2a's training form (CPU: :func:`encoder_math`), the backward K2b (CPU:
+    :func:`encoder_bwd_math`). The ids mask and the masks get no gradient."""
+
+    @staticmethod
+    def forward(ctx, ids_mask, masks, keep, x, pos, *leaves):
+        params = _tree_from(pos, leaves)
+        if x.device.type == "cpu":
+            out, saved = fused_encoder_plain(params, x, ids_mask, masks, keep), None
+        else:
+            out, saved = encoder_fwd(params, x, ids_mask, masks, keep, save=True)
+        ctx.save_for_backward(ids_mask, x, pos, *leaves)
+        ctx.masks, ctx.keep, ctx.blocks_in = masks, keep, saved
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        ids_mask, x, pos, *leaves = ctx.saved_tensors
+        need = ctx.needs_input_grad
+        weight_grads = any(need[4:])
+        dx, grads = encoder_bwd(_tree_from(pos, leaves), x, ids_mask, g.contiguous(),
+                                ctx.blocks_in, ctx.masks, ctx.keep, weight_grads)
+        ctx.blocks_in = None
+        if grads is None:
+            rest = [None] * (1 + len(leaves))
+        else:
+            rest = [grads["pos_emb"]] + _flat_leaves(grads)
+            rest = [r if n else None for r, n in zip(rest, need[4:])]
+        return (None, None, None, dx if need[3] else None, *rest)
+
+
+def fused_encoder(model, params, x, ids_mask, masks=None):
+    """The SASRec encoder (``encode_math`` of the JAX model, one head).
+
+    Args:
+      model: the SASRec model (reads ``num_heads`` and ``dropout_rate``).
+      params: its params (``pos_emb``, ``blocks``, ``ln_f`` are read).
+      x: [B, T, d] float32 √d-scaled input embeddings.
+      ids_mask: [B, T] bool, True where the window holds an item.
+      masks: None, or the dropout masks of ``model._dropout_masks``.
+
+    Returns [B, T, d] float32, differentiable in x and every encoder leaf.
+    CPU tensors take the plain versions; CUDA tensors launch K2a (and K2b
+    in the backward) or raise ``ValueError``.
+    """
+    if x.dim() != 3 or tuple(ids_mask.shape) != tuple(x.shape[:2]):
+        raise ValueError(f"x must be [B, T, d] and ids_mask [B, T]; got "
+                         f"{tuple(x.shape)} and {tuple(ids_mask.shape)}")
+    b, t, d = x.shape
+    keep = 1.0 - model.dropout_rate
+    pos = params["pos_emb"][-t:]
+    leaves = _flat_leaves(params)
+    graph = torch.is_grad_enabled() and any(
+        v.requires_grad for v in (x, pos, *leaves))
+    check_supported(t, d, model.num_heads, len(params["blocks"]), train=graph)
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"fused_encoder runs on cpu or cuda, not {x.device}")
+    if graph:
+        return _Encoder.apply(ids_mask, masks, keep, x, pos, *leaves)
+    if x.device.type == "cpu":
+        return fused_encoder_plain(params, x, ids_mask, masks, keep)
+    return encoder_fwd(params, x, ids_mask, masks, keep)[0]
 
 
 fused_encoder.launches = 0

@@ -1,1 +1,4 @@
-"""Training-side utilities (counterpart of ``acf_tpu.train``)."""
+"""Training (counterpart of ``acf_tpu.train``)."""
+
+from acf_tpu_torch.train.optim import Adam, adam  # noqa: F401
+from acf_tpu_torch.train.trainer import TrainConfig, Trainer, fit_two_phase  # noqa: F401

@@ -1,0 +1,312 @@
+"""The sequence trainer (the sequence half of ``acf_tpu/train/trainer.py``).
+
+Each epoch is a Python loop of ``num_batches`` steps on the device: draw a
+packed window batch (:func:`acf_tpu_torch.sampling.sample_seq_window_batch`),
+take ``loss_window``'s value and gradient, apply the optimizer's update.
+One host transfer per epoch reads the mean of the steps' aux values. Every
+step is one function of (params, optimizer state, batch, generator or
+masks), :func:`seq_train_step`, so a test can drive a single step with the
+JAX package's draws.
+
+:class:`Trainer` adds leave-one-out evaluation through
+:class:`acf_tpu_torch.eval.FullRankEvaluator` (so through K2a and K1 for
+SASRec), best-NDCG tracking, the reference's epoch line and per-user dumps,
+the NaN abort, npz snapshots of the full train state, and the two-phase
+staging of :func:`fit_two_phase`. The pair trainer (MF-BPR/APR) is not
+ported yet (ROADMAP.md Queue 1 item 4); a pair model raises.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+import time
+from typing import Optional
+
+import numpy as np
+import torch
+
+from acf_tpu_torch.data.datasets import Interactions
+from acf_tpu_torch.device import resolve_device
+from acf_tpu_torch.eval.full_rank import FullRankEvaluator
+from acf_tpu_torch.sampling.negatives import sample_seq_window_batch
+from acf_tpu_torch.train.checkpoint import (
+    _flatten_with_names, load_state, save_params, save_state,
+)
+from acf_tpu_torch.utils.io import OutputWriter
+from acf_tpu_torch.utils.tree import tree_leaves, tree_map, tree_unflatten
+
+
+@dataclasses.dataclass
+class TrainConfig:
+    batch_size: int = 512
+    epochs: int = 100
+    verbose: int = 1          # evaluate every N epochs (reference --verbose)
+    topk: int = 10
+    ckpt_every: int = 0       # save the full train state every N epochs; 0 = off
+    ckpt_path: Optional[str] = None
+    seed: int = 2019
+    eval_batch_users: int = 512
+    eval_sampled: bool = False  # rank against sampled negatives
+                                # (reference --eval_mode sample)
+    # --save_model protocol (reference run.py:257-272): params on every new
+    # best NDCG to <save_model_path>.best.npz and after every epoch to
+    # <save_model_path>.last.npz. None = off.
+    save_model_path: Optional[str] = None
+    device: Optional[str] = None  # default cuda; "cpu" to train on the CPU
+
+
+def seq_train_step(model, optimizer, params, opt_state, batch, generator=None,
+                   masks=None, adv_masks=None):
+    """One training step: the value and gradient of ``model.loss_window`` at
+    ``params`` on ``batch`` = (users, window, neg), dropout from
+    ``generator`` or the injected ``masks``/``adv_masks``, then the
+    optimizer's update. Returns (params, opt_state, aux)."""
+    prm = tree_map(lambda x: x.detach().requires_grad_(True), params)
+    loss, aux = model.loss_window(prm, batch, generator, masks=masks, adv_masks=adv_masks)
+    leaves = tree_leaves(prm)
+    grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    grads = [torch.zeros_like(x) if g is None else g for x, g in zip(leaves, grads)]
+    params, opt_state = optimizer.update(tree_unflatten(params, grads), opt_state, params)
+    return params, opt_state, aux
+
+
+def make_seq_epoch_fn(model, optimizer, batch_size: int, num_batches: int):
+    """The one-epoch function for sequence models (WarpSampler semantics:
+    users sampled with replacement, SASRecLayers.py:329-358):
+    ``epoch_fn(params, opt_state, data, generator) -> (params, opt_state,
+    stats)`` with ``data`` holding ``hist`` and ``eligible`` on the device
+    and ``stats`` the mean of each aux value over the steps."""
+
+    def epoch_fn(params, opt_state, data, generator):
+        sums = {}
+        for _ in range(num_batches):
+            batch = sample_seq_window_batch(generator, data["hist"], data["eligible"],
+                                            model.maxlen, model.num_items, batch_size)
+            params, opt_state, aux = seq_train_step(model, optimizer, params, opt_state,
+                                                    batch, generator)
+            for k, v in aux.items():
+                sums[k] = v if k not in sums else sums[k] + v
+        names = sorted(sums)
+        means = (torch.stack([sums[k] for k in names]) / num_batches).cpu().tolist()
+        return params, opt_state, dict(zip(names, means))
+
+    return epoch_fn
+
+
+class Trainer:
+    """Epoch-driven trainer with reference-protocol evaluation and logging."""
+
+    def __init__(self, model, data: Interactions, optimizer,
+                 config: TrainConfig = TrainConfig(),
+                 writer: Optional[OutputWriter] = None):
+        if getattr(model, "batch_kind", "pair") != "seq":
+            raise NotImplementedError(
+                "the port trains sequence models; the pair trainer (MF-BPR/APR) "
+                "comes with ROADMAP.md Queue 1 item 4")
+        self.model = model
+        self.data = data
+        self.optimizer = optimizer
+        self.cfg = config
+        self.writer = writer or OutputWriter(None, None)
+        self.device = resolve_device(config.device)
+        self.dev = {
+            "hist": torch.as_tensor(data.hist, device=self.device),
+            "eligible": torch.as_tensor(
+                np.nonzero(data.hist_len >= 2)[0].astype(np.int32), device=self.device),
+        }
+        # reference: num_batch = len(trainSeq) // batch_size (SASRec.py:449)
+        n_seq_users = int((data.hist_len >= 1).sum())
+        self.num_batches = max(n_seq_users // config.batch_size, 1)
+        self.epoch_fn = make_seq_epoch_fn(model, optimizer, config.batch_size,
+                                          self.num_batches)
+        self.evaluator = self._make_evaluator(model)
+        self.generator = torch.Generator(device=self.device).manual_seed(config.seed)
+        self.params = model.init_params(self.generator, device=self.device)
+        self.opt_state = optimizer.init(self.params)
+        self.best = {"ndcg": -1.0, "epoch": -1, "result": None}
+
+    # ------------------------------------------------------------------
+    def run_epoch(self):
+        self.params, self.opt_state, stats = self.epoch_fn(
+            self.params, self.opt_state, self.dev, self.generator)
+        return stats
+
+    def run_epochs(self, n: int):
+        """``n`` epochs; the per-epoch stats stacked on a leading axis."""
+        out = [self.run_epoch() for _ in range(n)]
+        return {k: np.asarray([s[k] for s in out]) for k in out[0]}
+
+    @torch.no_grad()
+    def evaluate(self):
+        if self.cfg.eval_sampled:
+            return self.evaluator.evaluate(self.model.score_some, self.params, sampled=True)
+        return self.evaluator.evaluate_model(self.model, self.params)
+
+    def save_checkpoint(self, path: str):
+        """Full train state: params, Adam slots and the generator state, so
+        a crashed run resumes exactly."""
+        save_state(path, self.params, self.opt_state, self.generator.get_state())
+
+    def restore_checkpoint(self, path: str):
+        self.params, self.opt_state, rng = load_state(path, self.params, self.opt_state)
+        if rng is not None:
+            self.generator.set_state(rng)
+
+    def load_pretrain(self, path: str):
+        """Copy matching leaves from an npz into the current params — the
+        reference's ``load_pre_train`` by-layer-name handoff (BPR.py:59-65).
+        Leaves present with matching shape are loaded (a full train-state
+        snapshot's ``params/`` names count too); the rest keep their init.
+        Returns the loaded names."""
+        with np.load(path if path.endswith(".npz") else path + ".npz") as f:
+            data = dict(f)
+        for k in list(data):
+            if k.startswith("params/"):
+                data.setdefault(k[len("params/"):], data[k])
+        loaded, leaves = [], []
+        for name, leaf in _flatten_with_names(self.params):
+            if name in data and tuple(data[name].shape) == tuple(leaf.shape):
+                leaves.append(torch.as_tensor(data[name]).to(device=leaf.device,
+                                                             dtype=leaf.dtype))
+                loaded.append(name)
+            else:
+                leaves.append(leaf)
+        self.params = tree_unflatten(self.params, leaves)
+        return loaded
+
+    def fit(self, epochs: Optional[int] = None, epoch_start: int = 0,
+            tag: str = "", final: bool = True) -> dict:
+        cfg = self.cfg
+        epochs = cfg.epochs if epochs is None else epochs
+        for epoch in range(epoch_start, epochs):
+            t0 = time.time()
+            stats = self.run_epoch()
+            train_time = time.time() - t0
+            if math.isnan(stats.get("loss", math.nan)):
+                self.writer.line(f"Epoch {epoch}: NaN loss, aborting")
+                break
+            if cfg.verbose and epoch % cfg.verbose == 0:
+                t1 = time.time()
+                res = self.evaluate()
+                eval_time = time.time() - t1
+                hr, ndcg, auc = res.at_k(cfg.topk)
+                norms = self._table_norms()
+                # reference epoch-line format (evaluation_adv.py:323-325)
+                self.writer.line(
+                    "Epoch %d [%.1fs + %.1fs]: HR = %.4f, NDCG = %.4f "
+                    "ACC = %.4f ACC_adv = %.4f [%.1fs], |P|=%.2f, |Q|=%.2f"
+                    % (epoch, 0.0, train_time, hr, ndcg,
+                       stats.get("acc", 0.0),
+                       stats.get("acc_adv", stats.get("acc", 0.0)),
+                       eval_time, norms[0], norms[1]))
+                if ndcg > self.best["ndcg"]:
+                    self.best = {"ndcg": ndcg, "epoch": epoch, "result": res,
+                                 "hr": hr, "auc": auc}
+                    # full-rank runs dump the K=100 (last) column
+                    # (evaluation_adv.py:292-294); sampled runs @topk
+                    # (run.py:263-265)
+                    col = (cfg.topk - 1) if cfg.eval_sampled else -1
+                    self.writer.predictions(f"{tag}.hr", res.hr[:, col])
+                    self.writer.predictions(f"{tag}.ndcg", res.ndcg[:, col])
+                    if cfg.save_model_path:  # reference .best.h5, run.py:260-262
+                        save_params(cfg.save_model_path + ".best", self.params)
+            if cfg.save_model_path:  # reference .last.h5, run.py:271-272
+                save_params(cfg.save_model_path + ".last", self.params)
+            if cfg.ckpt_every and cfg.ckpt_path and epoch % cfg.ckpt_every == 0:
+                self.save_checkpoint(f"{cfg.ckpt_path}-{epoch}")
+        # the reference writes the K=1..100 sweep only at the terminal epoch
+        # (evaluation_adv.py:295-300) — not between phases
+        if final and self.best["result"] is not None:
+            self._write_best_sweep()
+        return self.best
+
+    def _write_best_sweep(self):
+        res = self.best["result"]
+        self.writer.line("Epoch %d is the best epoch" % self.best["epoch"])
+        hr_k = res.hr.mean(0)
+        ndcg_k = res.ndcg.mean(0)
+        auc = float(res.auc.mean())
+        # K=1..100 in full-rank mode, K=1..10 in sampled mode (utils.py:344)
+        k_max = 10 if self.cfg.eval_sampled else hr_k.shape[0]
+        for k in range(min(k_max, hr_k.shape[0])):
+            self.writer.line("K = %d: HR = %.4f, NDCG = %.4f AUC = %.4f"
+                             % (k + 1, hr_k[k], ndcg_k[k], auc))
+
+    @torch.no_grad()
+    def _table_norms(self):
+        """(|P|, |Q|) for the epoch line (reference evaluation_adv.py:319-325);
+        the item table for sequence models (|P| is then 0)."""
+        p = self.params.get("P", self.params.get("user_emb"))
+        q = self.params.get("Q", self.params.get("item_emb"))
+        norm = (lambda x: float(torch.linalg.vector_norm(x)) if x is not None else 0.0)
+        return norm(p), norm(q)
+
+    # ------------------------------------------------------------------
+    def switch_model(self, model, reset_opt: bool = True):
+        """Swap the model (e.g. clean → adversarial for phase 2) keeping
+        params. ``reset_opt=True`` starts fresh optimizer slots (the APR-MF
+        protocol, run_adv.py:114-120); ``reset_opt=False`` carries them (the
+        ASASRec protocol, whose full-variable Saver restores the Adam
+        moments, utils.py:306-315). Best tracking restarts either way."""
+        if getattr(model, "batch_kind", "pair") != "seq":
+            raise NotImplementedError(
+                "the port trains sequence models; the pair trainer comes with "
+                "ROADMAP.md Queue 1 item 4")
+        old_eval_key = self._eval_key(self.model)
+        self.model = model
+        if reset_opt:
+            self.opt_state = self.optimizer.init(self.params)
+        self.epoch_fn = make_seq_epoch_fn(model, self.optimizer, self.cfg.batch_size,
+                                          self.num_batches)
+        # keep the evaluator when the new model needs the same eval geometry
+        if self._eval_key(model) != old_eval_key:
+            self.evaluator = self._make_evaluator(model)
+        self.best = {"ndcg": -1.0, "epoch": -1, "result": None}
+
+    def _eval_key(self, model):
+        return (min(self.cfg.eval_batch_users,
+                    getattr(model, "eval_batch_users", self.cfg.eval_batch_users)),
+                getattr(model, "maxlen", None))
+
+    def _make_evaluator(self, model):
+        return FullRankEvaluator(self.data, batch_users=self._eval_key(model)[0],
+                                 device=self.device)
+
+
+def fit_two_phase(clean_model, adv_model, data: Interactions, optimizer,
+                  config: TrainConfig, adv_epoch: int,
+                  writer: Optional[OutputWriter] = None, tag: str = "",
+                  restore: Optional[tuple] = None,
+                  pretrain: Optional[str] = None,
+                  reset_opt: bool = True) -> dict:
+    """Train the clean model for ``adv_epoch`` epochs, then continue
+    adversarially to ``config.epochs`` (reference run_adv.py:56-120).
+
+    ``restore=(path, epoch)`` resumes from a full-state snapshot in
+    whichever phase ``epoch`` falls. ``reset_opt``: whether phase 2 starts
+    with fresh optimizer slots (True, the APR-MF protocol) or carries them
+    (False, the ASASRec protocol with ``adam(1e-3, b2=0.98)``,
+    ``acf_tpu/cli/main.py:235-243``).
+    """
+    trainer = Trainer(clean_model, data, optimizer, config, writer)
+    if pretrain:
+        trainer.load_pretrain(pretrain)
+    start = 0
+    if restore is not None and restore[1] < adv_epoch:
+        trainer.restore_checkpoint(restore[0])
+        start = restore[1]
+    if restore is None or restore[1] < adv_epoch:
+        trainer.fit(epochs=adv_epoch, epoch_start=start, tag=tag, final=False)
+        if config.ckpt_path:
+            save_params(config.ckpt_path + "-pretrain", trainer.params)
+        trainer.switch_model(adv_model, reset_opt=reset_opt)
+        start = adv_epoch
+    else:
+        trainer.switch_model(adv_model, reset_opt=reset_opt)
+        trainer.restore_checkpoint(restore[0])
+        start = restore[1]
+    best = trainer.fit(epochs=config.epochs, epoch_start=start, tag=tag)
+    if config.ckpt_path:
+        save_params(config.ckpt_path + "-final", trainer.params)
+    return best

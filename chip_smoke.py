@@ -35,7 +35,30 @@ Phases, any failure exits non-zero:
   9. ``recommend`` top-10 for every user of the maxlen-50 set (K2a once per
               batch), checked like phase 5, timed;
  10. K2a alone at B = 512, d = 64, T in {8, 50, 200}, beside its plain
-              version and its bound.
+              version and its bound;
+ 11. K2a's dropout form against its plain version, T in {1, 8, 33, 50} x
+              B in {7, 512} at d = 64 and d = 36, padded windows, masks drawn
+              once per case and shared; LN_f of the saved LN_f input must
+              give the output;
+ 12. K2b (the encoder backward) against its plain versions,
+              ``encoder_bwd_math`` and torch.autograd through
+              ``encoder_math``: dx and every leaf, with and without masks, in
+              its dx-only mode, at T in {8, 50} (d = 64, B = 512) and two
+              short cases at d = 36, B = 7; over the tree and leaf by leaf
+              (the key biases, whose gradient is analytically zero, must
+              be rounding noise); two calls bit-identical; ``ValueError``
+              one window beyond its limit and for num_heads = 2;
+ 13. ASASRec training at maxlen 50 on the ml-1m-shaped set: the launches of
+              a clean step (K2a 1, K2b 1) and of an asasrec step (2 and 2),
+              the step's loss and every gradient leaf against the same step
+              through the plain encoder, then ``fit_two_phase`` (1 clean
+              epoch, 1 asasrec epoch, 11 steps each at batch 512, an
+              evaluation after each) with its launches counted;
+ 14. training timing: ASASRec examples/s at maxlen 8 (Video shape, 60
+              steps an epoch) and maxlen 50 (best of 3 epochs after a
+              warm-up), the device's idle share and top operations of one
+              step, and K2a's training form and K2b alone at B = 512,
+              d = 64, T in {8, 50} beside their plain versions and bounds.
 
 Kernel times come from torch.profiler's device time; a phase whose profile
 holds no device time fails. The last two lines of standard output are a
@@ -78,6 +101,17 @@ def check(cond, msg: str):
         fail(msg)
 
 
+_LAP = [time.perf_counter()]
+
+
+def lap(phases: str):
+    """Print the seconds since the previous lap (the run's start for the
+    first), so the log shows what each phase costs."""
+    now = time.perf_counter()
+    print(f"phases {phases}: {now - _LAP[0]:.1f} s")
+    _LAP[0] = now
+
+
 def card_line() -> str:
     proc = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -102,6 +136,11 @@ def device_events(fn, calls: int = 1):
         torch.cuda.synchronize()
     return [e for e in prof.key_averages()
             if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+
+
+# Calls profiled per plain version (hundreds of small launches each, whose
+# profiler events take seconds to collect at 50 calls); a kernel gets 50.
+PLAIN_ITERS = 10
 
 
 def device_ms(fn, iters: int = 50, warmup: int = 10) -> float:
@@ -486,7 +525,7 @@ def k2a_timing(dev, windows=(8, 50, 200), b=BATCH_USERS, main_t=50):
     for t in windows:
         x, mask = k2a_inputs(dev, params, b, t, D, g, padded=False)
         ms = device_ms(lambda: fused_encoder(model, params, x, mask))
-        plain_ms = device_ms(lambda: fused_encoder_plain(params, x, mask))
+        plain_ms = device_ms(lambda: fused_encoder_plain(params, x, mask), PLAIN_ITERS, 2)
         flops, nbytes = k2a_work(b, t, D, model.num_blocks)
         bound_s = max(flops / FP32_FLOPS, nbytes / HBM_BYTES_PER_S)
         bound_by = "operations" if flops / FP32_FLOPS >= nbytes / HBM_BYTES_PER_S else "bytes"
@@ -525,10 +564,12 @@ def run_sasrec_eval(dev, label, data, maxlen):
 
 
 def sasrec_phases(dev, video_data):
-    """Phases 6-10. Returns the K2a entry of the kernels line."""
+    """Phases 6-10. Returns (phase 6's max error, phase 10's T=50 entry, the
+    ml-1m-shaped data)."""
     from acf_tpu_torch.ops.sasrec_fused import fused_encoder
 
     max_err = check_k2a(dev)
+    lap("6")
 
     t0 = time.perf_counter()
     data = make_synthetic(ML1M_USERS, ML1M_ITEMS, ML1M_INTERACTIONS)
@@ -536,18 +577,492 @@ def sasrec_phases(dev, video_data):
           f"train pairs, histories {data.hist.shape[1]} wide, built in "
           f"{time.perf_counter() - t0:.2f} s")
     check(data.hist.shape[1] >= 50, "the ml-1m-shaped histories are narrower than 50")
-    model, params, launches = run_sasrec_eval(dev, "sasrec50 eval", data, maxlen=50)
+    model, params, _ = run_sasrec_eval(dev, "sasrec50 eval", data, maxlen=50)
     run_sasrec_eval(dev, "sasrec8 eval", video_data, maxlen=8)
+    lap("7-8")
 
     users = check_serving(dev, model, params, data, label="sasrec50 serve",
                           counter=fused_encoder)
     time_serving("sasrec50 serve", dev, model, params, data, users)
+    lap("9")
 
     entry = k2a_timing(dev)
-    return {"name": "sasrec_encoder_fwd", "route": "cuda",
-            "source": "acf_tpu_torch/csrc/sasrec_encoder_fwd.cu",
-            "replaces": "acf_tpu/ops/sasrec_fused.py:225",
-            "launches": launches, "max_abs_err": max_err, **entry, "timer": "profiler"}
+    lap("10")
+    return max_err, entry, data
+
+
+# --- SASRec training: K2a's dropout form and K2b ------------------------------
+
+K2_TRAIN_WINDOWS = (1, 8, 33, 50)
+# K2b against its plain versions, leaf by leaf: max |kernel - plain| over a
+# tree of gradients (dx alone, or every weight leaf) divided by the largest
+# |plain| entry of that tree. Both run in f32; the kernel sums each weight
+# gradient over up to 25,600 rows per block in another order (per block of
+# users, then the blocks in order) and backpropagates through two blocks of
+# LayerNorm, whose 1/sigma amplifies rounding; some entries are
+# analytically zero (the key bias) and rounding noise on both sides, so the
+# error is measured against the tree's scale. 1e-4 is ~1000 f32 ulps of
+# that scale, far below what a wrong mask, residual or transposed weight
+# moves (O(1) of the scale).
+K2B_TOL = 1e-4
+# The training step (loss and every gradient leaf) through the kernels
+# against the same step through the plain encoder, by the same measure: the
+# loss to rtol 1e-5, the gradient tree to 1e-4 of its scale.
+STEP_TOL = 1e-4
+TRAIN_BATCH = 512
+# ReLU's gradient jumps at 0. Two f32 forwards of the same inputs (the
+# kernel's and the plain version's) round a pre-activation differently by
+# ~1e-6 here, so a unit that close to 0 may be gated open on one side and
+# shut on the other: both are correct subgradients, and one such flip moves
+# a gradient tree by ~1e-3 of its L2 norm (measured in f32 against f64).
+# The comparisons of phases 12 and 13 leave out the users that hold a unit
+# within KINK of 0 in the plain forward (20x the largest forward difference
+# phase 11 sees): phase 12 gives them a zero cotangent, phase 13 replaces
+# their rows of the batch with another user's.
+KINK = 2e-5
+# Leaf by leaf, each by its own largest |plain| entry: 1e-3, ten times the
+# tree's tolerance, since a leaf's own scale may be 1/10 of the tree's. The
+# key biases are left out of it: softmax ignores a per-row constant, so
+# their gradient is analytically zero and both sides hold rounding noise,
+# which must stay below 1e-5 of the tree's scale (KEY_BIAS_TOL). By their
+# own scale two correct backwards disagree there by O(1).
+K2B_LEAF_TOL = 1e-3
+KEY_BIAS_TOL = 1e-5
+
+
+def leaf_names(num_blocks):
+    """Names of [pos rows, *_flat_leaves] in order."""
+    from acf_tpu_torch.ops.sasrec_fused import BLOCK_LEAVES
+
+    return (["pos_emb"] + [f"blocks/{i}/{name}/{leaf}" for i in range(num_blocks)
+                           for name, leaves in BLOCK_LEAVES for leaf in leaves]
+            + ["ln_f/gamma", "ln_f/beta"])
+
+
+def leaf_report(label, leaves, ref):
+    """Phase 12's leaf-by-leaf check of ``leaves`` against ``ref``."""
+    names = leaf_names((len(ref) - 3) // 16)
+    scale = max(float(r.abs().max()) for r in ref)
+    own = {n: float((a - r).abs().max()) / max(float(r.abs().max()), 1e-30)
+           for a, r, n in zip(leaves, ref, names) if not n.endswith("/wk/b")}
+    worst = max(own, key=own.get)
+    keyb = [(float(a.abs().max()) / scale, float(r.abs().max()) / scale)
+            for a, r, n in zip(leaves, ref, names) if n.endswith("/wk/b")]
+    kernel_kb, plain_kb = max(k for k, _ in keyb), max(p for _, p in keyb)
+    print(f"{label}: leaf by its own scale, worst {worst} {own[worst]:.2e}; key-bias "
+          f"gradients (analytically 0) up to {kernel_kb:.1e} (kernel) and {plain_kb:.1e} "
+          f"(plain) of the tree's scale")
+    check(own[worst] <= K2B_LEAF_TOL, f"{label}: leaf {worst} differs by {own[worst]:.3e} "
+          f"of its own scale > {K2B_LEAF_TOL}")
+    check(kernel_kb <= KEY_BIAS_TOL and plain_kb <= KEY_BIAS_TOL,
+          f"{label}: a key-bias gradient is not rounding noise ({kernel_kb}, {plain_kb})")
+
+
+def tree_err(got, ref):
+    """(max |got - ref| over a list of tensors, that / max |ref|)."""
+    err = max(float((a - b).abs().max()) for a, b in zip(got, ref))
+    scale = max(float(b.abs().max()) for b in ref)
+    return err, err / max(scale, 1e-30)
+
+
+def near_kink_users(params, x, mask, masks, keep):
+    """[B] bool: users with an unmasked row holding a ReLU pre-activation
+    within KINK of 0 in the plain forward."""
+    from acf_tpu_torch.ops.sasrec_fused import _block, _input
+
+    h = _input(params, x, mask, masks, keep)
+    near = torch.zeros(x.shape[0], dtype=torch.bool, device=x.device)
+    for i, blk in enumerate(params["blocks"]):
+        h, c = _block(blk, h, mask, 1, None if masks is None else masks["blocks"][i], keep)
+        near |= ((c["z1"].abs() <= KINK) & mask[:, :, None]).flatten(1).any(dim=1)
+    return near
+
+
+def check_k2a_dropout(dev):
+    """Phase 11: K2a's dropout form (saving the block inputs, as training
+    runs it) against its plain version. Returns the max |difference|."""
+    from acf_tpu_torch.nn.layers import layer_norm
+    from acf_tpu_torch.ops.sasrec_fused import encoder_fwd, fused_encoder, fused_encoder_plain
+
+    g = torch.Generator(device=dev).manual_seed(11)
+    max_err = 0.0
+    for d in K2A_WIDTHS:
+        model, params = sasrec_model(dev, 100, 1000, max(K2_TRAIN_WINDOWS), d=d, jitter=True)
+        keep = 1.0 - model.dropout_rate
+        for t in K2_TRAIN_WINDOWS:
+            for b in (7, 512):
+                x, mask = k2a_inputs(dev, params, b, t, d, g)
+                masks = model._dropout_masks(g, b, t)
+                before = fused_encoder.launches
+                got, saved = encoder_fwd(params, x, mask, masks, keep, save=True)
+                torch.cuda.synchronize()
+                check(fused_encoder.launches == before + 1,
+                      f"K2a dropout d={d} T={t} B={b}: the launch counter did not move once")
+                ref = fused_encoder_plain(params, x, mask, masks, keep)
+                check(bool(torch.isfinite(got).all()), f"K2a dropout d={d} T={t} B={b}: not finite")
+                err = float((got - ref).abs().max())
+                again = float((layer_norm(params["ln_f"], saved[-1]) - got).abs().max())
+                max_err = max(max_err, err)
+                print(f"K2a dropout d={d} T={t} B={b}: max |kernel - plain| {err:.3e}; "
+                      f"LN_f(saved LN_f input) vs output {again:.3e}")
+                check(err <= K2A_TOL, f"K2a dropout d={d} T={t} B={b}: max |d| {err} > {K2A_TOL}")
+                check(again <= K2A_TOL, f"K2a dropout d={d} T={t} B={b}: the saved inputs are wrong")
+    return max_err
+
+
+def k2b_refs(params, x, mask, masks, keep, g):
+    """K2b's two plain versions: encoder_bwd_math, and torch.autograd
+    through encoder_math; each as [dx] and [pos rows, *leaves]."""
+    from acf_tpu_torch.ops.sasrec_fused import (
+        _flat_leaves, _tree_from, encoder_bwd_math, encoder_math,
+    )
+
+    dx, grads = encoder_bwd_math(params, x, mask, masks, keep, g)
+    t = x.shape[1]
+    leaves = [v.detach().clone().requires_grad_(True) for v in _flat_leaves(params)]
+    pos = params["pos_emb"][-t:].detach().clone().requires_grad_(True)
+    xs = x.detach().clone().requires_grad_(True)
+    with torch.enable_grad():
+        out = encoder_math(_tree_from(pos, leaves), xs, mask, 1, masks, keep)
+        auto = torch.autograd.grad(out, [xs, pos, *leaves], g)
+    return ([dx], [grads["pos_emb"], *_flat_leaves(grads)]), ([auto[0]], list(auto[1:]))
+
+
+def check_k2b(dev):
+    """Phase 12: K2b against its plain versions, its determinism and its
+    refusals. Returns the max |difference| against encoder_bwd_math."""
+    from acf_tpu_torch.models.sasrec import SASRec
+    from acf_tpu_torch.ops.sasrec_fused import (
+        _flat_leaves, encoder_bwd, encoder_fwd, fused_encoder, max_train_window,
+    )
+
+    g = torch.Generator(device=dev).manual_seed(12)
+    max_err = 0.0
+    cases = ((64, 8, 512, True), (64, 8, 512, False), (64, 50, 512, True),
+             (64, 50, 512, False), (36, 13, 7, True), (36, 8, 7, False))  # (d, T, B, masks)
+    for d, t, b, with_masks in cases:
+        model, params = sasrec_model(dev, 100, 1000, 50, d=d, jitter=True)
+        keep = 1.0 - model.dropout_rate
+        x, mask = k2a_inputs(dev, params, b, t, d, g)
+        masks = model._dropout_masks(g, b, t) if with_masks else None
+        cot = torch.randn(b, t, d, generator=g, device=dev)
+        near = near_kink_users(params, x, mask, masks, keep)
+        cot[near] = 0.0
+        _, saved = encoder_fwd(params, x, mask, masks, keep, save=True)
+        before = encoder_bwd.launches
+        dx, grads = encoder_bwd(params, x, mask, cot, saved, masks, keep)
+        dx2, grads2 = encoder_bwd(params, x, mask, cot, saved, masks, keep)
+        dx_only, none = encoder_bwd(params, x, mask, cot, saved, masks, keep, weight_grads=False)
+        torch.cuda.synchronize()
+        label = f"K2b d={d} T={t} B={b} masks={with_masks}"
+        check(encoder_bwd.launches == before + 3, f"{label}: the launch counter did not move 3 times")
+        leaves = [grads["pos_emb"], *_flat_leaves(grads)]
+        leaves2 = [grads2["pos_emb"], *_flat_leaves(grads2)]
+        check(torch.equal(dx, dx2) and all(torch.equal(a, c) for a, c in zip(leaves, leaves2)),
+              f"{label}: two calls are not bit-identical")
+        check(none is None and torch.equal(dx_only, dx), f"{label}: the dx-only mode differs")
+        check(bool(torch.isfinite(dx).all()) and all(bool(torch.isfinite(v).all()) for v in leaves),
+              f"{label}: not finite")
+        (m_dx, m_leaves), (a_dx, a_leaves) = k2b_refs(params, x, mask, masks, keep, cot)
+        errs = {"dx vs bwd_math": tree_err([dx], m_dx), "leaves vs bwd_math": tree_err(leaves, m_leaves),
+                "dx vs autograd": tree_err([dx], a_dx), "leaves vs autograd": tree_err(leaves, a_leaves)}
+        max_err = max(max_err, errs["dx vs bwd_math"][0], errs["leaves vs bwd_math"][0])
+        print(f"{label}: {int(near.sum())} users near a ReLU kink get a zero cotangent; "
+              + "; ".join(f"{k} max |d| {e:.3e} ({r:.2e} of scale)" for k, (e, r) in errs.items())
+              + "; bit-identical over two calls; dx-only equal")
+        for k, (_, r) in errs.items():
+            check(r <= K2B_TOL, f"{label}: {k} {r:.3e} of scale > {K2B_TOL}")
+        leaf_report(f"{label} vs bwd_math", leaves, m_leaves)
+
+    # refusals: one window beyond the limit, and two heads
+    wide = max_train_window(D) + 1
+    _, params = sasrec_model(dev, 100, 1000, wide)
+    refused = ((f"T={wide} at d={D} in training", SASRec(100, 1000, D, maxlen=wide), wide),
+               ("num_heads=2 in training", SASRec(100, 1000, D, maxlen=50, num_heads=2), 50))
+    for label, model, t in refused:
+        x, mask = k2a_inputs(dev, params, 4, t, D, g, padded=False)
+        before = (fused_encoder.launches, encoder_bwd.launches)
+        try:
+            fused_encoder(model, params, x.requires_grad_(True), mask)
+        except ValueError as e:
+            print(f"K2b {label}: raises ValueError as it should: {e}")
+        else:
+            fail(f"K2b {label}: fused_encoder did not raise")
+        check((fused_encoder.launches, encoder_bwd.launches) == before,
+              f"K2b {label}: launched anyway")
+    return max_err
+
+
+def plain_encoder_model(model):
+    """A copy of ``model`` whose encode_core is the plain math under torch
+    autograd (the same masks when training), for the step comparison."""
+    import copy
+
+    plain = copy.copy(model)
+
+    def encode_core(params, x, ids_mask, train=False, generator=None, masks=None):
+        return plain.encode_math(params, x, ids_mask, masks if train else None)
+
+    plain.encode_core = encode_core
+    return plain
+
+
+def check_training_step(dev, data, maxlen=50):
+    """Phase 13, first half: one clean and one asasrec step at the main
+    path's shapes, through the kernels and through the plain encoder."""
+    from acf_tpu_torch.models.sasrec import SASRec
+    from acf_tpu_torch.utils.tree import tree_leaves, tree_map
+    from acf_tpu_torch.ops.sasrec_fused import encoder_bwd, fused_encoder
+    from acf_tpu_torch.sampling import sample_seq_window_batch
+
+    hist = torch.as_tensor(data.hist, device=dev)
+    eligible = torch.as_tensor(np.nonzero(data.hist_len >= 2)[0].astype(np.int32), device=dev)
+    for adversarial, per_step in ((False, 1), (True, 2)):
+        label = f"{'asasrec' if adversarial else 'sasrec'} step (maxlen {maxlen})"
+        model = SASRec(data.num_users, data.num_items, D, maxlen=maxlen, adversarial=adversarial)
+        g = torch.Generator(device=dev).manual_seed(13)
+        params = model.init_params(g, device=dev)
+        users, window, neg = sample_seq_window_batch(g, hist, eligible, maxlen, data.num_items,
+                                                     TRAIN_BATCH)
+        masks = model._dropout_masks(g, TRAIN_BATCH, maxlen)
+        # the encoder passes of the step: training (with the masks) and, for
+        # asasrec, the clean FGSM linearisation; users near a kink in either
+        # are replaced by copies of the other users' rows
+        x = params["item_emb"][window[:, :-1]] * math.sqrt(D)
+        ids = window[:, :-1] != 0
+        near = near_kink_users(params, x, ids, masks, 1.0 - model.dropout_rate)
+        if adversarial:
+            near |= near_kink_users(params, x, ids, None, 1.0)
+        ok = torch.nonzero(~near).flatten()
+        rep = ok[torch.arange(int(near.sum()), device=dev) % len(ok)]
+        for rows in (users, window, neg, masks["emb"],
+                     *(m for bm in masks["blocks"] for m in bm.values())):
+            rows[near] = rows[rep]
+        batch = (users, window, neg)
+
+        def value_and_grads(m):
+            prm = tree_map(lambda x: x.detach().requires_grad_(True), params)
+            loss, aux = m.loss_window(prm, batch, masks=masks)
+            return loss.detach(), aux, torch.autograd.grad(loss, tree_leaves(prm))
+
+        fused_encoder.launches = encoder_bwd.launches = 0
+        loss, aux, grads = value_and_grads(model)
+        torch.cuda.synchronize()
+        k2a, k2b = fused_encoder.launches, encoder_bwd.launches
+        check(k2a == per_step and k2b == per_step,
+              f"{label}: K2a launched {k2a} and K2b {k2b} times, not {per_step} each")
+        p_loss, p_aux, p_grads = value_and_grads(plain_encoder_model(model))
+        check(math.isfinite(float(loss)), f"{label}: loss not finite")
+        rel = abs(float(loss) - float(p_loss)) / abs(float(p_loss))
+        err, scale_err = tree_err(grads, p_grads)
+        print(f"{label}: {int(near.sum())} of {TRAIN_BATCH} users near a ReLU kink replaced; "
+              f"K2a {k2a}, K2b {k2b} launches; loss {float(loss):.6f} vs plain "
+              f"{float(p_loss):.6f} (rel {rel:.2e}); aux "
+              + ", ".join(f"{k} {float(v):.6f}/{float(p_aux[k]):.6f}" for k, v in sorted(aux.items()))
+              + f"; every gradient leaf max |d| {err:.3e} ({scale_err:.2e} of scale)")
+        check(rel <= 1e-5, f"{label}: loss differs from the plain step by {rel}")
+        check(scale_err <= STEP_TOL, f"{label}: gradients differ by {scale_err} of scale")
+
+
+def run_fit_two_phase(dev, data, maxlen=50):
+    """Phase 13, second half: ``fit_two_phase`` (1 clean epoch, then 1
+    asasrec epoch with the Adam slots carried), an evaluation after each,
+    all counters read around it. Returns (K2a, K2b, K1 launches)."""
+    from acf_tpu_torch.models.sasrec import SASRec
+    from acf_tpu_torch.ops.ranking import rank_positions_dot
+    from acf_tpu_torch.ops.sasrec_fused import encoder_bwd, fused_encoder
+    from acf_tpu_torch.train import TrainConfig, adam, fit_two_phase
+    from acf_tpu_torch.train import trainer as trainer_mod
+    from acf_tpu_torch.utils.io import OutputWriter
+
+    class Lines(OutputWriter):
+        def __init__(self):
+            super().__init__(None, None)
+            self.lines = []
+
+        def line(self, output):
+            self.lines.append(output)
+            if not output.startswith("K = "):  # the K = 1..100 sweep is counted, not shown
+                print(f"  {output}")
+
+    stats = []
+    real_run_epoch = trainer_mod.Trainer.run_epoch
+
+    def run_epoch(self):
+        out = real_run_epoch(self)
+        stats.append(out)
+        return out
+
+    clean = SASRec(data.num_users, data.num_items, D, maxlen=maxlen)
+    adv = SASRec(data.num_users, data.num_items, D, maxlen=maxlen, adversarial=True, eps=0.5,
+                 reg_adv=1.0)
+    writer = Lines()
+    n_steps = int((data.hist_len >= 1).sum()) // TRAIN_BATCH
+    tiles = math.ceil(len(data.eval_users()) / BATCH_USERS)
+    trainer_mod.Trainer.run_epoch = run_epoch
+    try:
+        fused_encoder.launches = encoder_bwd.launches = rank_positions_dot.launches = 0
+        t0 = time.perf_counter()
+        best = fit_two_phase(clean, adv, data, adam(1e-3, b2=0.98),
+                             TrainConfig(batch_size=TRAIN_BATCH, epochs=2, verbose=1),
+                             adv_epoch=1, writer=writer, reset_opt=False)  # the main path
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        k2a, k2b, k1 = fused_encoder.launches, encoder_bwd.launches, rank_positions_dot.launches
+    finally:
+        trainer_mod.Trainer.run_epoch = real_run_epoch
+    print(f"fit_two_phase maxlen {maxlen}: {n_steps} steps per epoch, {tiles} eval tiles; "
+          f"{wall:.2f} s; K2a launches {k2a}, K2b {k2b}, K1 {k1}; best epoch {best['epoch']} "
+          f"NDCG@10 {best['ndcg']:.6f}")
+    check(k2a == n_steps * (1 + 2) + 2 * tiles and k2b == n_steps * (1 + 2) and k1 == 2 * tiles,
+          f"fit_two_phase: launches K2a {k2a}, K2b {k2b}, K1 {k1} are not "
+          f"{n_steps * 3 + 2 * tiles}, {n_steps * 3}, {2 * tiles}")
+    epochs = [ln for ln in writer.lines if ln.startswith("Epoch ") and "HR =" in ln]
+    check(len(epochs) == 2 and not any("NaN" in ln for ln in writer.lines),
+          "fit_two_phase: not two evaluated epochs")
+    check(sum(ln.startswith("K = ") for ln in writer.lines) == 100,
+          "fit_two_phase: no K = 1..100 sweep at the end")
+    check(len(stats) == 2 and all(math.isfinite(v) for s in stats for v in s.values()),
+          f"fit_two_phase: non-finite epoch stats {stats}")
+    check("loss_adv" not in stats[0] and "loss_adv" in stats[1],
+          "fit_two_phase: the phases did not run clean then asasrec")
+    print(f"fit_two_phase epoch stats: {stats}")
+    check(math.isfinite(best["ndcg"]) and best["epoch"] == 1, "fit_two_phase: no best epoch")
+    return k2a, k2b, k1
+
+
+def k2_train_work(b, t, d, nb, masks=True):
+    """(K2a training-form FLOP, bytes), (K2b FLOP, bytes) on full windows.
+    K2a: the inference count plus the masks read and the block inputs
+    written. K2b: the backward's own B T nb (20 d² + 4 (T+1) d) FLOP (ten
+    d x d products, dP, dV, dQ, dK over the causal pairs; the
+    rematerialised forward is not counted); g, the saved inputs, the masks,
+    the ids mask and the weights read once, dx and the gradients written
+    once."""
+    from acf_tpu_torch.ops.sasrec_fused import grad_size
+
+    fwd_flops, fwd_bytes = k2a_work(b, t, d, nb)
+    mask_bytes = b * (t * d + nb * (2 * t * d + t * t)) if masks else 0
+    saved_bytes = 4.0 * (nb + 1) * b * t * d
+    weights = nb * (5 * (d * d + d) + 6 * d) + t * d + 2 * d
+    bwd_flops = float(b * t * nb * (20 * d * d + 4 * (t + 1) * d))
+    bwd_bytes = (4.0 * (2 * b * t * d + weights + grad_size(nb, t, d)) + saved_bytes
+                 + mask_bytes + b * t)
+    return (fwd_flops, fwd_bytes + mask_bytes + saved_bytes), (bwd_flops, bwd_bytes)
+
+
+def bound(flops, nbytes):
+    ops_s, bytes_s = flops / FP32_FLOPS, nbytes / HBM_BYTES_PER_S
+    return max(ops_s, bytes_s) * 1e3, "operations" if ops_s >= bytes_s else "bytes"
+
+
+def k2_train_timing(dev, windows=(8, 50), b=TRAIN_BATCH, main_t=50):
+    """Phase 14: K2a's training form and K2b alone at B=512, d=64 on full
+    windows with dropout masks, beside their plain versions (K2a:
+    fused_encoder_plain; K2b: encoder_bwd_math, which rematerialises the
+    forward as K2b does). Returns the two kernel entries at T=50."""
+    from acf_tpu_torch.ops.sasrec_fused import (
+        encoder_bwd, encoder_bwd_math, encoder_fwd, fused_encoder_plain,
+    )
+
+    g = torch.Generator(device=dev).manual_seed(14)
+    entries = {}
+    for t in windows:
+        model, params = sasrec_model(dev, 100, 1000, t)
+        keep = 1.0 - model.dropout_rate
+        x, mask = k2a_inputs(dev, params, b, t, D, g, padded=False)
+        masks = model._dropout_masks(g, b, t)
+        cot = torch.randn(b, t, D, generator=g, device=dev)
+        _, saved = encoder_fwd(params, x, mask, masks, keep, save=True)
+        fwd_ms = device_ms(lambda: encoder_fwd(params, x, mask, masks, keep, save=True))
+        fwd_plain = device_ms(lambda: fused_encoder_plain(params, x, mask, masks, keep),
+                              PLAIN_ITERS, 2)
+        bwd_ms = device_ms(lambda: encoder_bwd(params, x, mask, cot, saved, masks, keep))
+        dx_ms = device_ms(lambda: encoder_bwd(params, x, mask, cot, saved, masks, keep,
+                                              weight_grads=False))
+        bwd_plain = device_ms(lambda: encoder_bwd_math(params, x, mask, masks, keep, cot),
+                              PLAIN_ITERS, 2)
+        (ff, fb), (bf, bb) = k2_train_work(b, t, D, model.num_blocks)
+        fwd_bound, fwd_by = bound(ff, fb)
+        bwd_bound, bwd_by = bound(bf, bb)
+        print(f"K2a training form (dropout, saving block inputs) at B={b} T={t} d={D}: "
+              f"{fwd_ms:.4f} ms ({fwd_bound / fwd_ms:.3f} of the bound), plain {fwd_plain:.4f} ms, "
+              f"bound {fwd_bound:.4f} ms ({fwd_by}: {ff / 1e9:.3f} GFLOP, {fb / 1e6:.2f} MB)")
+        print(f"K2b at B={b} T={t} d={D}: {bwd_ms:.4f} ms ({bwd_bound / bwd_ms:.3f} of the bound; "
+              f"{bf / (bwd_ms * 1e-3) / 1e12:.2f} TFLOP/s of its own work), dx-only {dx_ms:.4f} ms, "
+              f"plain {bwd_plain:.4f} ms, bound {bwd_bound:.4f} ms ({bwd_by}: {bf / 1e9:.3f} "
+              f"GFLOP, {bb / 1e6:.2f} MB)")
+        if t == main_t:
+            entries["fwd"] = {"ms": fwd_ms, "plain_ms": fwd_plain, "bound_ms": fwd_bound,
+                              "bound_by": fwd_by, "library_ms": None}
+            entries["bwd"] = {"ms": bwd_ms, "plain_ms": bwd_plain, "bound_ms": bwd_bound,
+                              "bound_by": bwd_by, "library_ms": None, "dx_only_ms": dx_ms}
+    return entries["fwd"], entries["bwd"]
+
+
+def time_training(label, dev, data, maxlen, reps=3):
+    """Phase 14: ASASRec examples/s (best of ``reps`` epochs after a warm-up
+    epoch), and one step's device busy and idle time with its largest
+    device operations."""
+    from acf_tpu_torch.models.sasrec import SASRec
+    from acf_tpu_torch.sampling import sample_seq_window_batch
+    from acf_tpu_torch.train import TrainConfig, Trainer, adam
+    from acf_tpu_torch.train.trainer import seq_train_step
+
+    model = SASRec(data.num_users, data.num_items, D, maxlen=maxlen, adversarial=True, eps=0.5,
+                   reg_adv=1.0)
+    tr = Trainer(model, data, adam(1e-3, b2=0.98),
+                 TrainConfig(batch_size=TRAIN_BATCH, verbose=10 ** 9))
+    tr.run_epoch()  # warm-up, for the epochs and the profiled step below
+    samples = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        stats = tr.run_epoch()  # ends in a host transfer of the epoch's stats
+        samples.append(time.perf_counter() - t0)
+    examples = tr.num_batches * TRAIN_BATCH
+    check(all(math.isfinite(v) for v in stats.values()), f"{label}: non-finite stats {stats}")
+    print(f"{label}: ASASRec maxlen {maxlen}, {tr.num_batches} steps of {TRAIN_BATCH} an epoch: "
+          f"best {examples / min(samples):.1f} examples/s; samples "
+          + ", ".join(f"{examples / s:.1f}" for s in samples)
+          + " examples/s (" + ", ".join(f"{s:.4f}" for s in samples) + " s)")
+
+    def step():
+        batch = sample_seq_window_batch(tr.generator, tr.dev["hist"], tr.dev["eligible"], maxlen,
+                                        data.num_items, TRAIN_BATCH)
+        tr.params, tr.opt_state, _ = seq_train_step(model, tr.optimizer, tr.params,
+                                                    tr.opt_state, batch, tr.generator)
+
+    step_s = min(samples) / tr.num_batches
+    print(f"{label}: one step {step_s * 1e3:.4f} ms (the best epoch over its steps)")
+    device_breakdown(f"{label} step", step, step_s, top=12)
+    return examples / min(samples)
+
+
+def training_phases(dev, ml1m_data, video_data):
+    """Phases 11-14. Returns the K2a and K2b entries of the kernels line
+    (without K2a's phase-6 error, which the caller merges)."""
+    fwd_err = check_k2a_dropout(dev)
+    lap("11")
+    bwd_err = check_k2b(dev)
+    lap("12")
+    check_training_step(dev, ml1m_data)
+    k2a, k2b, _ = run_fit_two_phase(dev, ml1m_data)
+    lap("13")
+    time_training("train8", dev, video_data, maxlen=8)
+    time_training("train50", dev, ml1m_data, maxlen=50)
+    lap("14 (training)")
+    fwd, bwd = k2_train_timing(dev)
+    lap("14 (kernels)")
+    k2a_entry = {"name": "sasrec_encoder_fwd", "route": "cuda",
+                 "source": "acf_tpu_torch/csrc/sasrec_encoder_fwd.cu",
+                 "replaces": "acf_tpu/ops/sasrec_fused.py:225", "launches": k2a,
+                 "max_abs_err": fwd_err, **fwd, "timer": "profiler"}
+    k2b_entry = {"name": "sasrec_encoder_bwd", "route": "cuda",
+                 "source": "acf_tpu_torch/csrc/sasrec_encoder_bwd.cu",
+                 "replaces": "acf_tpu/ops/sasrec_fused.py:236", "launches": k2b,
+                 "max_abs_err": bwd_err, **bwd, "timer": "profiler"}
+    return k2a_entry, k2b_entry
 
 
 def main():
@@ -579,9 +1094,11 @@ def main():
     log = _build.BUILD_DIR / "build.log"
     if log.exists():
         print(log.read_text().strip())
+    lap("1-2")
 
     # 3. K1 against its plain version
     max_err = check_k1(dev)
+    lap("3")
 
     # 4. MF-BPR full-catalog evaluation at Video scale
     t0 = time.perf_counter()
@@ -595,16 +1112,22 @@ def main():
     # 5. MF-BPR serving
     users = check_serving(dev, model, params, data)
     time_serving("serve", dev, model, params, data, users)
+    lap("4-5")
 
     # 6-10. SASRec: K2a, evaluation at maxlen 50 and 8, serving, K2a timing
-    k2a_entry = sasrec_phases(dev, data)
+    k2a_inference_err, k2a_inference, ml1m = sasrec_phases(dev, data)
+
+    # 11-14. SASRec training: K2a's dropout form, K2b, fit_two_phase, timing
+    k2a_entry, k2b_entry = training_phases(dev, ml1m, data)
+    k2a_entry["max_abs_err"] = max(k2a_entry["max_abs_err"], k2a_inference_err)
+    k2a_entry["inference_ms"] = k2a_inference["ms"]
 
     kernels = [{
         "name": "rank_count", "route": "cuda",
         "source": "acf_tpu_torch/csrc/rank_count.cu",
         "replaces": "acf_tpu/ops/ranking.py:39",
         "launches": launches, "max_abs_err": max_err, **entry, "timer": "profiler",
-    }, k2a_entry]
+    }, k2a_entry, k2b_entry]
     check(all(k["launches"] > 0 for k in kernels), "a kernel of the path never launched")
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(f"card: {card_line()}")

@@ -1,6 +1,7 @@
 """The port's boundary: it imports nothing of JAX or of the JAX package, its
-entry points default to CUDA and raise without it, and on CPU tensors the
-rank counter takes its plain version without counting a launch."""
+entry points (the trainer included) default to CUDA and raise without it,
+and on CPU tensors the kernel wrappers take their plain versions without
+counting a launch."""
 
 import ast
 import subprocess
@@ -57,7 +58,9 @@ def test_importing_the_port_loads_no_jax():
             "acf_tpu_torch.models.mf, acf_tpu_torch.ops.topk, acf_tpu_torch.ops._build, "
             "acf_tpu_torch.compat.jax_params, acf_tpu_torch.train.checkpoint, "
             "acf_tpu_torch.nn.layers, acf_tpu_torch.models.sasrec, "
-            "acf_tpu_torch.ops.sasrec_fused; "
+            "acf_tpu_torch.ops.sasrec_fused, acf_tpu_torch.sampling, acf_tpu_torch.train, "
+            "acf_tpu_torch.train.trainer, acf_tpu_torch.train.optim, acf_tpu_torch.utils.io, "
+            "acf_tpu_torch.utils.tree; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'optax', 'acf_tpu')); print(bad); "
             "sys.exit(1 if bad else 0)")
@@ -104,3 +107,30 @@ def test_cpu_rank_counter_counts_no_launch():
     out = rank_positions_dot(u, E, t)
     assert out.shape == (4,) and out.dtype == torch.float32
     assert rank_positions_dot.launches == before == 0
+
+
+def test_trainer_needs_cuda_unless_cpu_is_asked():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is valid here")
+    from tests.test_torch_trainer import port_data, sasrec
+    from acf_tpu_torch.train import TrainConfig, Trainer, adam
+
+    data = port_data()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Trainer(sasrec(data), data, adam(1e-3), TrainConfig(batch_size=16))
+    tr = Trainer(sasrec(data), data, adam(1e-3), TrainConfig(batch_size=16, device="cpu"))
+    assert tr.params["item_emb"].device.type == "cpu" and tr.generator.device.type == "cpu"
+
+
+def test_cpu_encoder_training_counts_no_launch():
+    """A CPU training step (forward and backward of the encoder) takes the
+    plain versions: neither K2a's nor K2b's counter moves."""
+    from acf_tpu_torch.ops.sasrec_fused import encoder_bwd, fused_encoder
+    from tests.test_torch_trainer import config, port_data, sasrec
+    from acf_tpu_torch.train import Trainer, adam
+
+    data = port_data()
+    before = (fused_encoder.launches, encoder_bwd.launches)
+    tr = Trainer(sasrec(data, adversarial=True), data, adam(1e-3), config())
+    tr.run_epoch()
+    assert (fused_encoder.launches, encoder_bwd.launches) == before == (0, 0)

@@ -119,10 +119,36 @@ def test_init_params_tree_matches_jax():
 
 
 def test_encode_train_raises():
+    """Training with dropout needs a generator or injected masks."""
     model, _, tmodel, tparams = _carried(10, 30, 8)
     seq = torch.ones(2, 8, dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="training slice"):
+    with pytest.raises(ValueError, match="torch.Generator or injected masks"):
         tmodel.encode(tparams, seq, train=True)
+
+
+def test_encode_train_is_the_jax_training_forward():
+    """encode(train=True) with the JAX model's masks for a key equals the
+    JAX training forward for that key; drawn from a generator, the masks
+    keep each value with probability 1 - dropout_rate."""
+    jmodel, jparams, tmodel, tparams = _carried(10, 30, 8, dropout_rate=0.3)
+    seq = np.random.default_rng(0).integers(0, 30, (4, 8)).astype(np.int32)
+    key = jax.random.PRNGKey(4)
+    ref = np.asarray(jmodel.encode(jparams, jnp.asarray(seq), train=True, key=key))
+    masks = params_from_numpy(jax.tree.map(np.asarray, jmodel._dropout_masks(key, 4, 8)),
+                              device=CPU)
+    got = tmodel.encode(tparams, torch.from_numpy(seq), train=True, masks=masks)
+    np.testing.assert_allclose(got.numpy(), ref, **TOL)
+    inference = tmodel.encode(tparams, torch.from_numpy(seq))
+    assert not np.allclose(got.numpy(), inference.numpy(), atol=1e-3)
+    drawn = tmodel._dropout_masks(torch.Generator().manual_seed(0), 64, 8)
+    assert drawn["emb"].shape == (64, 8, D) and drawn["emb"].dtype == torch.bool
+    assert [m["p"].shape for m in drawn["blocks"]] == [(64, 1, 8, 8)] * 2
+    assert abs(float(drawn["emb"].float().mean()) - 0.7) < 0.02
+    again = tmodel.encode(tparams, torch.from_numpy(seq), train=True,
+                          generator=torch.Generator().manual_seed(1))
+    torch.testing.assert_close(again, tmodel.encode(
+        tparams, torch.from_numpy(seq), train=True, generator=torch.Generator().manual_seed(1)),
+        rtol=0, atol=0)
 
 
 def test_cpu_encoder_runs_encode_math_without_a_launch(monkeypatch):
