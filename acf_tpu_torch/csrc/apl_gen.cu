@@ -1,0 +1,697 @@
+// K3a-K3e — APL's generator chain for Hopper (sm_90a).
+//
+// Replaces the five TPU kernels of acf_tpu/ops/apl_gen_fused.py (entries
+// `apl_gen_forward` and `apl_gen_backward`):
+//   K3a `_stats1_kernel` (:67)  m1, l1: row max and sum of exp of the logits
+//                               P_g[u].Q_g^T, column 0 and columns >= I masked;
+//   K3b `_z_kernel` (:83)       z = (log((1-w) probs + w member/nuniq + 1e-20)
+//                               + gumbel) / T, written [B, I]; m2, l2 of z
+//                               (column 0 stays live, only columns >= I drop);
+//   K3c `_fake_kernel` (:111)   fake = sum_i softmax(z) . (P_c[u].Q_c^T);
+//   K3d `_bigr_kernel` (:141)   R = <probs, r>, r = (1-w)/T s a (c - fake) /
+//                               (mixed + 1e-20), through `_r_tile` (:125);
+//   K3e `_grad_kernel` (:157)   dlogits = probs (r - R); dQ = dlogits^T P_g[u],
+//                               dP = dlogits Q_g.
+// Each pass recomputes the [B, d] x [d, I] products it needs (`_masked_logits`,
+// :55) in true float32 (FMAs, no TF32, no tensor cores), as the reference
+// computes them at HIGHEST precision.
+//
+// Bound on an H100 at APL's geometry (B = 512, d = 64, I = 23,701): one product
+// is 2 B I d = 1.55 GFLOP, 0.023 ms at the 67 TFLOP/s float32 peak; one [B, I]
+// float32 array is 48.5 MB, 0.0145 ms at 3.35 TB/s. K3a, K3c (1 product), K3d
+// (2) and K3e (4) are bound by operations; K3b by its bytes (the noise read,
+// z written, member read as uint8) about as much as by its product. The
+// design keeps every [B, I] intermediate but z in registers: probs, mixed, s,
+// c, r and dlogits never reach device memory.
+//
+// Design (simple first; the TPU walked item tiles in order and carried m, l,
+// fake, R and dP across grid steps, which blocks running in parallel cannot):
+//   * A thread block of 256 threads computes 64-user x 64-item tiles of dot
+//     products, each thread a 4 x 4 register tile (users ty + 16i, items
+//     tx + 16j), summed over k in order with fmaf, reading float4s from
+//     shared-memory rows padded to an odd number of 16-byte units. Item tiles
+//     stream through two shared buffers with cp.async.
+//   * K3a-K3d: a block owns (64 users) x (a chunk of kChunkTiles item tiles)
+//     and writes one partial per user and chunk: (m, l) pairs merged by the
+//     online-softmax rule, or sums. A second small kernel merges the partials
+//     of each user in chunk order.
+//   * K3e: a block owns one 64-item tile and loops over every user tile, so
+//     each dQ row is written once, from registers; its dP partial for each
+//     user tile goes to [item tiles, B, d], summed in tile order by a second
+//     kernel.
+//   * No float atomics anywhere and fixed reduction orders (warp butterflies
+//     are symmetric), so two calls give bit-identical outputs.
+//   * Nothing is padded: rows past B and items past I are zero-filled in
+//     shared memory and masked in the epilogues, as in K1.
+//   * Elementwise chains use __fmul_rn/__fadd_rn where the reference rounds
+//     each step, so they are not contracted into FMAs.
+// Requires d % 4 == 0, d <= kMaxD (K3e's register columns) and 16-byte
+// aligned rows; the wrapper (acf_tpu_torch/ops/apl_gen_fused.py,
+// check_supported) checks. Later work: wgmma or 3xTF32 products, one pass
+// for K3d-K3e, and fewer dP partials.
+
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kTile = 64;                  // users and items per tile
+constexpr int kSub = 4;                    // users (and items) per thread
+constexpr int kLanes = 16;                 // threads along items (and users)
+constexpr int kThreads = kLanes * kLanes;  // 256
+constexpr int kChunkTiles = 4;             // item tiles per K3a-K3d block
+constexpr int kMaxD = 128;
+constexpr int kCols = kMaxD / kLanes;      // K3e: columns per thread
+constexpr int kLdD = kTile + 1;            // K3e: dlogits tile row stride
+constexpr float kEps = 1e-20f;
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool valid) {
+  const unsigned saddr = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  const int src_bytes = valid ? 16 : 0;  // 0: zero-fill the destination
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(saddr), "l"(src), "r"(src_bytes));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+__device__ __forceinline__ void cp_async_wait_all_but_newest() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// Copy rows [row0, row0 + kTile) of a row-major [n, d] table into a [kTile][ld]
+// shared tile; rows at or past n are zero-filled.
+__device__ __forceinline__ void stage_rows(float* dst, const float* src, int row0, int n,
+                                           int d, int ld) {
+  const int chunks = d / 4;
+  for (int idx = threadIdx.x; idx < kTile * chunks; idx += kThreads) {
+    const int r = idx / chunks, c = (idx % chunks) * 4;
+    const int row = row0 + r;
+    const bool valid = row < n;
+    cp_async16(dst + r * ld + c, src + (size_t)(valid ? row : 0) * d + c, valid);
+  }
+}
+
+// acc[i][j] = sum_k sU[ty + 16i][k] * sI[tx + 16j][k], k in order.
+__device__ __forceinline__ void tile_dot(const float* sU, const float* sI, int ld, int d,
+                                         int ty, int tx, float acc[kSub][kSub]) {
+#pragma unroll
+  for (int i = 0; i < kSub; ++i)
+#pragma unroll
+    for (int j = 0; j < kSub; ++j) acc[i][j] = 0.f;
+#pragma unroll 2
+  for (int k = 0; k < d; k += 4) {
+    float4 a[kSub], b[kSub];
+#pragma unroll
+    for (int i = 0; i < kSub; ++i)
+      a[i] = *reinterpret_cast<const float4*>(&sU[(ty + kLanes * i) * ld + k]);
+#pragma unroll
+    for (int j = 0; j < kSub; ++j)
+      b[j] = *reinterpret_cast<const float4*>(&sI[(tx + kLanes * j) * ld + k]);
+#pragma unroll
+    for (int i = 0; i < kSub; ++i)
+#pragma unroll
+      for (int j = 0; j < kSub; ++j) {
+        float s = acc[i][j];
+        s = fmaf(a[i].x, b[j].x, s);
+        s = fmaf(a[i].y, b[j].y, s);
+        s = fmaf(a[i].z, b[j].z, s);
+        s = fmaf(a[i].w, b[j].w, s);
+        acc[i][j] = s;
+      }
+  }
+}
+
+// Online softmax statistics: (m, l) absorbs the live values v[j] of one row.
+__device__ __forceinline__ void stat_absorb(float& m, float& l, const float v[kSub],
+                                            const bool live[kSub]) {
+  float tmax = -INFINITY;
+#pragma unroll
+  for (int j = 0; j < kSub; ++j)
+    if (live[j]) tmax = fmaxf(tmax, v[j]);
+  if (tmax == -INFINITY) return;
+  const float mn = fmaxf(m, tmax);
+  float s = l * expf(m - mn);  // m = -inf (nothing yet): l = 0 stays 0
+#pragma unroll
+  for (int j = 0; j < kSub; ++j)
+    if (live[j]) s += expf(v[j] - mn);
+  m = mn;
+  l = s;
+}
+
+// (m, l) merged with (mo, lo); symmetric in its two operands.
+__device__ __forceinline__ void stat_merge(float& m, float& l, float mo, float lo) {
+  const float mn = fmaxf(m, mo);
+  if (mn == -INFINITY) return;  // both empty
+  l = l * expf(m - mn) + lo * expf(mo - mn);
+  m = mn;
+}
+
+// Merge (m, l) over the 16 threads that share a user row (lanes 0-15 and
+// 16-31 of a warp hold different rows).
+__device__ __forceinline__ void stat_reduce_lanes(float& m, float& l) {
+#pragma unroll
+  for (int off = kLanes / 2; off > 0; off >>= 1) {
+    const float mo = __shfl_xor_sync(0xffffffffu, m, off);
+    const float lo = __shfl_xor_sync(0xffffffffu, l, off);
+    stat_merge(m, l, mo, lo);
+  }
+}
+
+__device__ __forceinline__ float sum_lanes(float v) {
+#pragma unroll
+  for (int off = kLanes / 2; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
+  return v;
+}
+
+// The per-row scalars a thread needs for its four users.
+__device__ __forceinline__ void load_rows(const float* src, int u0, int ty, int B,
+                                          float fill, float out[kSub]) {
+#pragma unroll
+  for (int i = 0; i < kSub; ++i) {
+    const int row = u0 + ty + kLanes * i;
+    out[i] = row < B ? src[row] : fill;
+  }
+}
+
+// The geometry all five kernels share.
+struct Geo {
+  int B, I, d, ld;
+  int n_tiles;   // item tiles of 64
+  int n_chunks;  // item chunks of K3a-K3d
+};
+
+// Row stride of a shared tile: an odd number of 16-byte units, so the float4
+// reads of 8 neighbouring rows fall in 8 distinct bank groups.
+__host__ __device__ inline int row_ld(int d) { return 4 * ((d / 4) | 1); }
+
+// K3a-K3d walk the item tiles [t0, t1) of chunk blockIdx.x for the user tile
+// blockIdx.y. `body(acc tiles, item0)` runs on each tile after its products.
+// kProducts is 1 (P_g Q_g^T, or P_c Q_c^T) or 2 (both).
+template <int kProducts, typename Body>
+__device__ __forceinline__ void chunk_loop(const float* pu1, const float* q1, const float* pu2,
+                                           const float* q2, const Geo& g, Body body) {
+  extern __shared__ __align__(16) float smem[];
+  const int tile_f = kTile * g.ld;
+  float* sU1 = smem;                            // user tiles, then two
+  float* sU2 = smem + tile_f;                   // buffers of item tiles
+  float* sI = smem + kProducts * tile_f;        // [buf][product] tiles
+  const int tx = threadIdx.x % kLanes, ty = threadIdx.x / kLanes;
+  const int u0 = blockIdx.y * kTile;
+  const int t0 = blockIdx.x * kChunkTiles;
+  const int t1 = min(t0 + kChunkTiles, g.n_tiles);
+
+  stage_rows(sU1, pu1, u0, g.B, g.d, g.ld);
+  if (kProducts == 2) stage_rows(sU2, pu2, u0, g.B, g.d, g.ld);
+  stage_rows(sI, q1, t0 * kTile, g.I, g.d, g.ld);
+  if (kProducts == 2) stage_rows(sI + tile_f, q2, t0 * kTile, g.I, g.d, g.ld);
+  cp_async_commit();
+
+  for (int t = t0, buf = 0; t < t1; ++t, buf ^= 1) {
+    float* next = sI + (buf ^ 1) * kProducts * tile_f;
+    if (t + 1 < t1) {
+      stage_rows(next, q1, (t + 1) * kTile, g.I, g.d, g.ld);
+      if (kProducts == 2) stage_rows(next + tile_f, q2, (t + 1) * kTile, g.I, g.d, g.ld);
+    }
+    cp_async_commit();  // possibly empty: keeps one group per iteration
+    cp_async_wait_all_but_newest();
+    __syncthreads();
+    const float* cur = sI + buf * kProducts * tile_f;
+    float acc1[kSub][kSub], acc2[kSub][kSub];
+    tile_dot(sU1, cur, g.ld, g.d, ty, tx, acc1);
+    if (kProducts == 2) tile_dot(sU2, cur + tile_f, g.ld, g.d, ty, tx, acc2);
+    body(acc1, acc2, t * kTile, u0, ty, tx);
+    __syncthreads();  // all reads of this buffer done before it is refilled
+  }
+}
+
+// probs of one logit: 0 for the pad item (its logit is -1e30 in the reference).
+__device__ __forceinline__ float probs_of(float logit, int item, float m1, float l1) {
+  return item > 0 ? expf(logit - m1) / l1 : 0.f;
+}
+
+// mixed = (1-w) probs + (w member) / nuniq, each step rounded.
+__device__ __forceinline__ float mixed_of(float probs, uint8_t mem, float nu, float omw,
+                                          float w) {
+  return __fadd_rn(__fmul_rn(omw, probs), __fmul_rn(w, (float)mem) / nu);
+}
+
+// ---- K3a --------------------------------------------------------------------
+__global__ void __launch_bounds__(kThreads, 2)
+stats1_kernel(const float* __restrict__ pu, const float* __restrict__ Qg,
+              float* __restrict__ part_m, float* __restrict__ part_l, Geo g) {
+  float m[kSub], l[kSub];
+#pragma unroll
+  for (int i = 0; i < kSub; ++i) { m[i] = -INFINITY; l[i] = 0.f; }
+  chunk_loop<1>(pu, Qg, nullptr, nullptr, g,
+                [&](float (&acc)[kSub][kSub], float (&)[kSub][kSub], int i0, int, int, int tx) {
+    bool live[kSub];
+#pragma unroll
+    for (int j = 0; j < kSub; ++j) {
+      const int item = i0 + tx + kLanes * j;
+      live[j] = item > 0 && item < g.I;  // the pad id and the ragged tail
+    }
+#pragma unroll
+    for (int i = 0; i < kSub; ++i) stat_absorb(m[i], l[i], acc[i], live);
+  });
+  const int tx = threadIdx.x % kLanes, ty = threadIdx.x / kLanes;
+#pragma unroll
+  for (int i = 0; i < kSub; ++i) {
+    stat_reduce_lanes(m[i], l[i]);
+    const int row = blockIdx.y * kTile + ty + kLanes * i;
+    if (tx == 0 && row < g.B) {
+      part_m[(size_t)blockIdx.x * g.B + row] = m[i];
+      part_l[(size_t)blockIdx.x * g.B + row] = l[i];
+    }
+  }
+}
+
+// ---- K3b --------------------------------------------------------------------
+__global__ void __launch_bounds__(kThreads, 2)
+z_kernel(const float* __restrict__ pu, const float* __restrict__ Qg,
+         const uint8_t* __restrict__ member, const float* __restrict__ nuniq,
+         const float* __restrict__ gn, const float* __restrict__ m1,
+         const float* __restrict__ l1, float* __restrict__ z, float* __restrict__ part_m,
+         float* __restrict__ part_l, Geo g, float omw, float w, float T) {
+  const int tx = threadIdx.x % kLanes, ty = threadIdx.x / kLanes;
+  const int u0 = blockIdx.y * kTile;
+  float rm1[kSub], rl1[kSub], rnu[kSub], m[kSub], l[kSub];
+  load_rows(m1, u0, ty, g.B, 0.f, rm1);
+  load_rows(l1, u0, ty, g.B, 1.f, rl1);
+  load_rows(nuniq, u0, ty, g.B, 1.f, rnu);
+#pragma unroll
+  for (int i = 0; i < kSub; ++i) { m[i] = -INFINITY; l[i] = 0.f; }
+  chunk_loop<1>(pu, Qg, nullptr, nullptr, g,
+                [&](float (&acc)[kSub][kSub], float (&)[kSub][kSub], int i0, int, int, int) {
+#pragma unroll
+    for (int i = 0; i < kSub; ++i) {
+      const int row = u0 + ty + kLanes * i;
+      bool live[kSub];
+      float v[kSub];
+#pragma unroll
+      for (int j = 0; j < kSub; ++j) {
+        const int item = i0 + tx + kLanes * j;
+        live[j] = row < g.B && item < g.I;  // column 0 stays live
+        v[j] = 0.f;
+        if (live[j]) {
+          const size_t at = (size_t)row * g.I + item;
+          const float mixed = mixed_of(probs_of(acc[i][j], item, rm1[i], rl1[i]),
+                                       member[at], rnu[i], omw, w);
+          v[j] = __fadd_rn(logf(__fadd_rn(mixed, kEps)), gn[at]) / T;
+          z[at] = v[j];
+        }
+      }
+      stat_absorb(m[i], l[i], v, live);
+    }
+  });
+#pragma unroll
+  for (int i = 0; i < kSub; ++i) {
+    stat_reduce_lanes(m[i], l[i]);
+    const int row = u0 + ty + kLanes * i;
+    if (tx == 0 && row < g.B) {
+      part_m[(size_t)blockIdx.x * g.B + row] = m[i];
+      part_l[(size_t)blockIdx.x * g.B + row] = l[i];
+    }
+  }
+}
+
+// ---- K3c --------------------------------------------------------------------
+__global__ void __launch_bounds__(kThreads, 2)
+fake_kernel(const float* __restrict__ pu_c, const float* __restrict__ Qc,
+            const float* __restrict__ z, const float* __restrict__ m2,
+            const float* __restrict__ l2, float* __restrict__ part, Geo g) {
+  const int tx = threadIdx.x % kLanes, ty = threadIdx.x / kLanes;
+  const int u0 = blockIdx.y * kTile;
+  float rm2[kSub], rl2[kSub], f[kSub] = {0.f, 0.f, 0.f, 0.f};
+  load_rows(m2, u0, ty, g.B, 0.f, rm2);
+  load_rows(l2, u0, ty, g.B, 1.f, rl2);
+  chunk_loop<1>(pu_c, Qc, nullptr, nullptr, g,
+                [&](float (&acc)[kSub][kSub], float (&)[kSub][kSub], int i0, int, int, int) {
+#pragma unroll
+    for (int i = 0; i < kSub; ++i) {
+      const int row = u0 + ty + kLanes * i;
+#pragma unroll
+      for (int j = 0; j < kSub; ++j) {
+        const int item = i0 + tx + kLanes * j;
+        if (row < g.B && item < g.I) {
+          const float s = expf(z[(size_t)row * g.I + item] - rm2[i]) / rl2[i];
+          f[i] = fmaf(s, acc[i][j], f[i]);
+        }
+      }
+    }
+  });
+#pragma unroll
+  for (int i = 0; i < kSub; ++i) {
+    const float v = sum_lanes(f[i]);
+    const int row = u0 + ty + kLanes * i;
+    if (tx == 0 && row < g.B) part[(size_t)blockIdx.x * g.B + row] = v;
+  }
+}
+
+// The per-row scalars of K3d and K3e.
+struct RowScalars {
+  float m1[kSub], l1[kSub], nu[kSub], m2[kSub], l2[kSub], a[kSub], fake[kSub];
+};
+
+__device__ __forceinline__ void load_scalars(RowScalars& s, const float* m1, const float* l1,
+                                             const float* nuniq, const float* m2,
+                                             const float* l2, const float* a,
+                                             const float* fake, int u0, int ty, int B) {
+  load_rows(m1, u0, ty, B, 0.f, s.m1);
+  load_rows(l1, u0, ty, B, 1.f, s.l1);
+  load_rows(nuniq, u0, ty, B, 1.f, s.nu);
+  load_rows(m2, u0, ty, B, 0.f, s.m2);
+  load_rows(l2, u0, ty, B, 1.f, s.l2);
+  load_rows(a, u0, ty, B, 0.f, s.a);
+  load_rows(fake, u0, ty, B, 0.f, s.fake);
+}
+
+// (probs, r) of one (user, item), as the reference's `_r_tile`.
+__device__ __forceinline__ void r_of(float logit, float c, int item, size_t at, int i,
+                                     const RowScalars& s, const uint8_t* member,
+                                     const float* z, float omw, float w, float coef,
+                                     float& probs, float& r) {
+  probs = probs_of(logit, item, s.m1[i], s.l1[i]);
+  const float mixed = mixed_of(probs, member[at], s.nu[i], omw, w);
+  const float sz = expf(z[at] - s.m2[i]) / s.l2[i];
+  const float t = __fmul_rn(s.a[i], c - s.fake[i]);
+  r = __fmul_rn(__fmul_rn(coef, sz), t) / __fadd_rn(mixed, kEps);
+}
+
+// ---- K3d --------------------------------------------------------------------
+__global__ void __launch_bounds__(kThreads, 2)
+bigr_kernel(const float* __restrict__ pu_g, const float* __restrict__ Qg,
+            const float* __restrict__ pu_c, const float* __restrict__ Qc,
+            const uint8_t* __restrict__ member, const float* __restrict__ nuniq,
+            const float* __restrict__ z, const float* __restrict__ m1,
+            const float* __restrict__ l1, const float* __restrict__ m2,
+            const float* __restrict__ l2, const float* __restrict__ a,
+            const float* __restrict__ fake, float* __restrict__ part, Geo g, float omw,
+            float w, float coef) {
+  const int tx = threadIdx.x % kLanes, ty = threadIdx.x / kLanes;
+  const int u0 = blockIdx.y * kTile;
+  RowScalars s;
+  load_scalars(s, m1, l1, nuniq, m2, l2, a, fake, u0, ty, g.B);
+  float acc_r[kSub] = {0.f, 0.f, 0.f, 0.f};
+  chunk_loop<2>(pu_g, Qg, pu_c, Qc, g,
+                [&](float (&lg)[kSub][kSub], float (&c)[kSub][kSub], int i0, int, int, int) {
+#pragma unroll
+    for (int i = 0; i < kSub; ++i) {
+      const int row = u0 + ty + kLanes * i;
+#pragma unroll
+      for (int j = 0; j < kSub; ++j) {
+        const int item = i0 + tx + kLanes * j;
+        if (row < g.B && item > 0 && item < g.I) {  // the pad item has probs 0
+          float probs, r;
+          r_of(lg[i][j], c[i][j], item, (size_t)row * g.I + item, i, s, member, z, omw, w,
+               coef, probs, r);
+          acc_r[i] = fmaf(probs, r, acc_r[i]);
+        }
+      }
+    }
+  });
+#pragma unroll
+  for (int i = 0; i < kSub; ++i) {
+    const float v = sum_lanes(acc_r[i]);
+    const int row = u0 + ty + kLanes * i;
+    if (tx == 0 && row < g.B) part[(size_t)blockIdx.x * g.B + row] = v;
+  }
+}
+
+// ---- K3e --------------------------------------------------------------------
+// Block: item tile blockIdx.x, every user tile in order. Shared memory: the
+// tile's Q_g and Q_c rows, one user tile of P_g[u] and P_c[u], and the
+// [64 users][65] dlogits tile.
+__global__ void __launch_bounds__(kThreads, 2)
+grad_kernel(const float* __restrict__ pu_g, const float* __restrict__ Qg,
+            const float* __restrict__ pu_c, const float* __restrict__ Qc,
+            const uint8_t* __restrict__ member, const float* __restrict__ nuniq,
+            const float* __restrict__ z, const float* __restrict__ m1,
+            const float* __restrict__ l1, const float* __restrict__ m2,
+            const float* __restrict__ l2, const float* __restrict__ a,
+            const float* __restrict__ fake, const float* __restrict__ R,
+            float* __restrict__ dQ, float* __restrict__ part_dP, Geo g, float omw, float w,
+            float coef) {
+  extern __shared__ __align__(16) float smem[];
+  const int tile_f = kTile * g.ld;
+  float* sQg = smem;
+  float* sQc = smem + tile_f;
+  float* sPg = smem + 2 * tile_f;
+  float* sPc = smem + 3 * tile_f;
+  float* sD = smem + 4 * tile_f;  // [kTile users][kLdD]
+  const int tx = threadIdx.x % kLanes, ty = threadIdx.x / kLanes;
+  const int i0 = blockIdx.x * kTile;
+
+  stage_rows(sQg, Qg, i0, g.I, g.d, g.ld);
+  stage_rows(sQc, Qc, i0, g.I, g.d, g.ld);
+  cp_async_commit();
+
+  float dq[kSub][kCols];
+#pragma unroll
+  for (int i = 0; i < kSub; ++i)
+#pragma unroll
+    for (int j = 0; j < kCols; ++j) dq[i][j] = 0.f;
+
+  const int n_user_tiles = (g.B + kTile - 1) / kTile;
+  for (int ut = 0; ut < n_user_tiles; ++ut) {
+    const int u0 = ut * kTile;
+    stage_rows(sPg, pu_g, u0, g.B, g.d, g.ld);
+    stage_rows(sPc, pu_c, u0, g.B, g.d, g.ld);
+    cp_async_commit();
+    cp_async_wait_all();
+    __syncthreads();
+
+    RowScalars s;
+    load_scalars(s, m1, l1, nuniq, m2, l2, a, fake, u0, ty, g.B);
+    float rR[kSub];
+    load_rows(R, u0, ty, g.B, 0.f, rR);
+    {
+      float lg[kSub][kSub], c[kSub][kSub];
+      tile_dot(sPg, sQg, g.ld, g.d, ty, tx, lg);
+      tile_dot(sPc, sQc, g.ld, g.d, ty, tx, c);
+#pragma unroll
+      for (int i = 0; i < kSub; ++i) {
+        const int row = u0 + ty + kLanes * i;
+#pragma unroll
+        for (int j = 0; j < kSub; ++j) {
+          const int item = i0 + tx + kLanes * j;
+          float dl = 0.f;  // rows past B, the pad item and items past I
+          if (row < g.B && item > 0 && item < g.I) {
+            float probs, r;
+            r_of(lg[i][j], c[i][j], item, (size_t)row * g.I + item, i, s, member, z, omw,
+                 w, coef, probs, r);
+            dl = __fmul_rn(probs, r - rR[i]);
+          }
+          sD[(ty + kLanes * i) * kLdD + tx + kLanes * j] = dl;
+        }
+      }
+    }
+    __syncthreads();
+
+    // dQ[item] += sum_u dlogits[u][item] P_g[u]: items ty + 16i, columns tx + 16j
+#pragma unroll 4
+    for (int u = 0; u < kTile; ++u) {
+      float dv[kSub];
+#pragma unroll
+      for (int i = 0; i < kSub; ++i) dv[i] = sD[u * kLdD + ty + kLanes * i];
+#pragma unroll
+      for (int j = 0; j < kCols; ++j) {
+        const int col = tx + kLanes * j;
+        if (col < g.d) {
+          const float p = sPg[u * g.ld + col];
+#pragma unroll
+          for (int i = 0; i < kSub; ++i) dq[i][j] = fmaf(dv[i], p, dq[i][j]);
+        }
+      }
+    }
+
+    // dP partial of this item tile: users ty + 16i, columns tx + 16j
+#pragma unroll
+    for (int j = 0; j < kCols; ++j) {
+      const int col = tx + kLanes * j;
+      if (col >= g.d) continue;
+      float dp[kSub] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll 4
+      for (int it = 0; it < kTile; ++it) {
+        const float q = sQg[it * g.ld + col];
+#pragma unroll
+        for (int i = 0; i < kSub; ++i) dp[i] = fmaf(sD[(ty + kLanes * i) * kLdD + it], q, dp[i]);
+      }
+#pragma unroll
+      for (int i = 0; i < kSub; ++i) {
+        const int row = u0 + ty + kLanes * i;
+        if (row < g.B) part_dP[((size_t)blockIdx.x * g.B + row) * g.d + col] = dp[i];
+      }
+    }
+    __syncthreads();  // sPg, sPc and sD are refilled by the next user tile
+  }
+
+#pragma unroll
+  for (int i = 0; i < kSub; ++i) {
+    const int item = i0 + ty + kLanes * i;
+    if (item >= g.I) continue;
+#pragma unroll
+    for (int j = 0; j < kCols; ++j) {
+      const int col = tx + kLanes * j;
+      if (col < g.d) dQ[(size_t)item * g.d + col] = dq[i][j];
+    }
+  }
+}
+
+// ---- merges of the partials, in chunk (or tile) order ----------------------
+__global__ void stat_combine(const float* __restrict__ part_m, const float* __restrict__ part_l,
+                             float* __restrict__ m_out, float* __restrict__ l_out, int B,
+                             int n_parts) {
+  const int row = blockIdx.x * blockDim.x + threadIdx.x;
+  if (row >= B) return;
+  float m = -INFINITY, l = 0.f;
+  for (int c = 0; c < n_parts; ++c)
+    stat_merge(m, l, part_m[(size_t)c * B + row], part_l[(size_t)c * B + row]);
+  m_out[row] = m;
+  l_out[row] = l;
+}
+
+__global__ void sum_combine(const float* __restrict__ part, float* __restrict__ out,
+                            size_t n, int n_parts) {
+  const size_t idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= n) return;
+  float s = 0.f;
+  for (int c = 0; c < n_parts; ++c) s += part[(size_t)c * n + idx];
+  out[idx] = s;
+}
+
+Geo make_geo(int B, int I, int d) {
+  Geo g;
+  g.B = B;
+  g.I = I;
+  g.d = d;
+  g.ld = row_ld(d);
+  g.n_tiles = (I + kTile - 1) / kTile;
+  g.n_chunks = (g.n_tiles + kChunkTiles - 1) / kChunkTiles;
+  return g;
+}
+
+bool bad_shape(int B, int I, int d) {
+  return B <= 0 || I < 2 || d <= 0 || d % 4 != 0 || d > kMaxD;
+}
+
+template <typename Kernel>
+cudaError_t prepare(Kernel kernel, size_t smem) {
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+}
+
+size_t chunk_smem(const Geo& g, int products) {
+  return (size_t)3 * products * kTile * g.ld * sizeof(float);  // user tiles + 2 buffers
+}
+
+dim3 chunk_grid(const Geo& g) { return dim3(g.n_chunks, (g.B + kTile - 1) / kTile); }
+
+cudaError_t combine_stats(const float* part, float* m, float* l, const Geo& g,
+                          cudaStream_t st) {
+  stat_combine<<<(g.B + 255) / 256, 256, 0, st>>>(part, part + (size_t)g.n_chunks * g.B, m, l,
+                                                  g.B, g.n_chunks);
+  return cudaGetLastError();
+}
+
+cudaError_t combine_sums(const float* part, float* out, size_t n, int n_parts,
+                         cudaStream_t st) {
+  sum_combine<<<(unsigned)((n + 255) / 256), 256, 0, st>>>(part, out, n, n_parts);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// Every entry takes the scratch `part` the wrapper allocates (its size in the
+// comment), launches on `stream` and returns the cudaError_t of its launches.
+
+// K3a: m1, l1 [B]; part [2, n_chunks, B].
+extern "C" int acf_apl_stats1(const float* pu, const float* Qg, float* m1, float* l1,
+                              float* part, int B, int I, int d, void* stream) {
+  if (bad_shape(B, I, d)) return (int)cudaErrorInvalidValue;
+  const Geo g = make_geo(B, I, d);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const size_t smem = chunk_smem(g, 1);
+  cudaError_t err = prepare(stats1_kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  stats1_kernel<<<chunk_grid(g), kThreads, smem, st>>>(pu, Qg, part,
+                                                       part + (size_t)g.n_chunks * B, g);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  return (int)combine_stats(part, m1, l1, g, st);
+}
+
+// K3b: z [B, I], m2, l2 [B]; part [2, n_chunks, B].
+extern "C" int acf_apl_z(const float* pu, const float* Qg, const uint8_t* member,
+                         const float* nuniq, const float* gn, const float* m1,
+                         const float* l1, float* z, float* m2, float* l2, float* part, int B,
+                         int I, int d, float omw, float w, float T, void* stream) {
+  if (bad_shape(B, I, d)) return (int)cudaErrorInvalidValue;
+  const Geo g = make_geo(B, I, d);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const size_t smem = chunk_smem(g, 1);
+  cudaError_t err = prepare(z_kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  z_kernel<<<chunk_grid(g), kThreads, smem, st>>>(pu, Qg, member, nuniq, gn, m1, l1, z, part,
+                                                  part + (size_t)g.n_chunks * B, g, omw, w, T);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  return (int)combine_stats(part, m2, l2, g, st);
+}
+
+// K3c: fake [B]; part [n_chunks, B].
+extern "C" int acf_apl_fake(const float* pu_c, const float* Qc, const float* z,
+                            const float* m2, const float* l2, float* fake, float* part, int B,
+                            int I, int d, void* stream) {
+  if (bad_shape(B, I, d)) return (int)cudaErrorInvalidValue;
+  const Geo g = make_geo(B, I, d);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const size_t smem = chunk_smem(g, 1);
+  cudaError_t err = prepare(fake_kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  fake_kernel<<<chunk_grid(g), kThreads, smem, st>>>(pu_c, Qc, z, m2, l2, part, g);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  return (int)combine_sums(part, fake, (size_t)B, g.n_chunks, st);
+}
+
+// K3d: R [B]; part [n_chunks, B].
+extern "C" int acf_apl_bigr(const float* pu_g, const float* Qg, const float* pu_c,
+                            const float* Qc, const uint8_t* member, const float* nuniq,
+                            const float* z, const float* m1, const float* l1, const float* m2,
+                            const float* l2, const float* a, const float* fake, float* R,
+                            float* part, int B, int I, int d, float omw, float w,
+                            float coef, void* stream) {
+  if (bad_shape(B, I, d)) return (int)cudaErrorInvalidValue;
+  const Geo g = make_geo(B, I, d);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const size_t smem = chunk_smem(g, 2);
+  cudaError_t err = prepare(bigr_kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  bigr_kernel<<<chunk_grid(g), kThreads, smem, st>>>(pu_g, Qg, pu_c, Qc, member, nuniq, z, m1,
+                                                     l1, m2, l2, a, fake, part, g, omw, w,
+                                                     coef);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  return (int)combine_sums(part, R, (size_t)B, g.n_chunks, st);
+}
+
+// K3e: dQ [I, d], dP [B, d]; part [n_tiles, B, d].
+extern "C" int acf_apl_grad(const float* pu_g, const float* Qg, const float* pu_c,
+                            const float* Qc, const uint8_t* member, const float* nuniq,
+                            const float* z, const float* m1, const float* l1, const float* m2,
+                            const float* l2, const float* a, const float* fake, const float* R,
+                            float* dQ, float* dP, float* part, int B, int I, int d, float omw,
+                            float w, float coef, void* stream) {
+  if (bad_shape(B, I, d)) return (int)cudaErrorInvalidValue;
+  const Geo g = make_geo(B, I, d);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const size_t smem = ((size_t)4 * kTile * g.ld + (size_t)kTile * kLdD) * sizeof(float);
+  cudaError_t err = prepare(grad_kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  grad_kernel<<<g.n_tiles, kThreads, smem, st>>>(pu_g, Qg, pu_c, Qc, member, nuniq, z, m1, l1,
+                                                 m2, l2, a, fake, R, dQ, part, g, omw, w, coef);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  return (int)combine_sums(part, dP, (size_t)B * d, g.n_tiles, st);
+}

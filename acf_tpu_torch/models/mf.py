@@ -1,8 +1,11 @@
 """Matrix-factorization models: MF-BPR (with its APR adversarial fields) and
-pointwise MF — the inference surface of ``acf_tpu/models/mf.py``.
+pointwise MF (counterpart of ``acf_tpu/models/mf.py``).
 
 The hyperparameter fields match the JAX dataclasses so configurations carry
-across; the training losses come with the training slice.
+across. :meth:`MFBPR.loss` is the clean BPR objective (the pretraining of
+APL's generator); APR (``adversarial=True``), DNS (``dns > 1``), PGD
+(``adv_steps > 1``) and ``PointwiseMF.loss`` are not ported yet (ROADMAP.md
+Queue 1 item 3) and raise.
 """
 
 from __future__ import annotations
@@ -12,7 +15,9 @@ import dataclasses
 import torch
 
 from acf_tpu_torch.device import resolve_device
-from acf_tpu_torch.models.base import PairwiseModel
+from acf_tpu_torch.models.base import PairwiseModel, bpr_pair_loss
+
+NOT_PORTED = "is not ported yet (ROADMAP.md Queue 1 item 3)"
 
 
 def _trunc_normal(generator, shape, std=0.01):
@@ -74,6 +79,26 @@ class MFBPR(PairwiseModel):
     def factored_scorer(self):
         return _mf_factored_scorer(self)
 
+    def loss(self, params, batch, generator=None):
+        """The clean BPR loss (summed over the batch) plus ``reg`` times
+        mean(p² + q_pos² + q_neg²); aux ``loss`` (BPR alone) and ``acc``
+        (the share of pairs with pos scored above neg)."""
+        for flag, what in ((self.adversarial, "APR (adversarial=True)"),
+                           (self.dns > 1, "DNS (dns > 1)"),
+                           (self.adv_steps > 1, "multi-step FGSM (adv_steps > 1)")):
+            if flag:
+                raise NotImplementedError(f"MFBPR {what} {NOT_PORTED}")
+        users, pos, neg = batch
+        p = params["P"][users]
+        qp = params["Q"][pos]
+        qn = params["Q"][neg]
+        pos_s = torch.sum(p * qp, dim=-1)
+        neg_s = torch.sum(p * qn, dim=-1)
+        loss = bpr_pair_loss(pos_s, neg_s)
+        reg_term = torch.mean(torch.square(p) + torch.square(qp) + torch.square(qn))
+        acc = torch.mean(((pos_s - neg_s) > 0).to(torch.float32))
+        return loss + self.reg * reg_term, {"loss": loss, "acc": acc}
+
 
 @dataclasses.dataclass(eq=False)
 class PointwiseMF(PairwiseModel):
@@ -101,3 +126,6 @@ class PointwiseMF(PairwiseModel):
 
     def factored_scorer(self):
         return _mf_factored_scorer(self)
+
+    def loss(self, params, batch, generator=None):
+        raise NotImplementedError(f"PointwiseMF.loss {NOT_PORTED}")

@@ -32,6 +32,7 @@ NVCC_FLAGS = [*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas"
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 ENCODER_MAX_BLOCKS = 8  # kMaxBlocks in csrc/sasrec_encoder.cuh
 
 
@@ -72,6 +73,12 @@ SIGNATURES = {
     "acf_sasrec_encoder_bwd": [EncoderWeights, DropoutMasks, _P, _P, _P, _P, _P, _P,
                                _I, _I, _I, _I, _I, _I, _I, _P],
     "acf_sasrec_encoder_bwd_ctas": [_I, _I],
+    # csrc/apl_gen.cu: tensors, then B, I, d, then (1 - w), w, T or (1 - w) / T
+    "acf_apl_stats1": [_P] * 5 + [_I] * 3 + [_P],
+    "acf_apl_z": [_P] * 11 + [_I] * 3 + [_F] * 3 + [_P],
+    "acf_apl_fake": [_P] * 7 + [_I] * 3 + [_P],
+    "acf_apl_bigr": [_P] * 15 + [_I] * 3 + [_F] * 3 + [_P],
+    "acf_apl_grad": [_P] * 17 + [_I] * 3 + [_F] * 3 + [_P],
 }
 
 

@@ -1,7 +1,13 @@
-"""Sequence-window sampler on the device (the sequence half of
-``acf_tpu/sampling/negatives.py``).
+"""Samplers on the device (counterpart of ``acf_tpu/sampling/negatives.py``).
 
-Semantics of the reference's ``WarpSampler``/``sample_function``
+Pairs: :func:`sample_pair_epoch` shuffles the train pairs into the epoch's
+batches (the reference's per-epoch shuffle and drop-remainder batching,
+evaluation_adv.py:59-72) and :func:`uniform_negatives` draws one negative
+per row by fixed-round resampling: R candidate rounds drawn up front, the
+first that is not one of the row's train items taken, the last round the
+fallback.
+
+Sequences: the semantics of the reference's ``WarpSampler``/``sample_function``
 (SASRecLayers.py:329-358) in the JAX package's vectorized form: users with
 at least two train items are drawn with replacement; each one's window is
 the last ``maxlen + 1`` items of its right-aligned history, left-padded with
@@ -10,15 +16,55 @@ negative by fixed-round resampling (R candidate rounds drawn up front, the
 first that is not one of the user's train items is taken, the last round
 is the fallback).
 
-The draws are split from the arithmetic: :func:`seq_window_from_draws` is a
-pure function of the drawn user indices and candidates, so the tests feed
-it ``jax.random``'s draws and compare exactly; :func:`sample_seq_window_batch`
-draws them from a :class:`torch.Generator` on the data's device.
+The draws are split from the arithmetic: :func:`pair_batches_from_perm`,
+:func:`negatives_from_draws` and :func:`seq_window_from_draws` are pure
+functions of the drawn permutation, candidates and user indices, so the
+tests feed them ``jax.random``'s draws and compare exactly; the samplers
+draw them from a :class:`torch.Generator` on its device.
 """
 
 from __future__ import annotations
 
 import torch
+
+
+def pair_batches_from_perm(perm, batch_size: int, num_batches: int):
+    """[num_batches, batch_size] pair indices from a permutation of the
+    pairs: the permutation is repeated when one epoch needs more indices
+    than there are pairs (fewer pairs than one batch), and the remainder is
+    dropped."""
+    need = num_batches * batch_size
+    if need > perm.shape[0]:
+        perm = perm.repeat(-(-need // perm.shape[0]))
+    return perm[:need].reshape(num_batches, batch_size)
+
+
+def sample_pair_epoch(generator: torch.Generator, num_pairs: int, batch_size: int,
+                      num_batches: int):
+    """The epoch's shuffled batches of pair indices, [num_batches,
+    batch_size] int64, from ``generator`` on its device."""
+    perm = torch.randperm(num_pairs, generator=generator, device=generator.device)
+    return pair_batches_from_perm(perm, batch_size, num_batches)
+
+
+def negatives_from_draws(cand, hist_rows):
+    """[B] negatives from the candidate rounds ``cand`` [R, B] (items in
+    [1, num_items)) and each row's train items ``hist_rows`` [B, L]
+    (0-padded, so the padding never collides): the first round whose
+    candidate is not a train item, else the last round."""
+    rounds = cand.shape[0]
+    collide = (cand[:, :, None] == hist_rows[None, :, :]).any(dim=-1)  # [R, B]
+    clean = ~collide
+    first = torch.where(clean.any(dim=0), clean.to(torch.int8).argmax(dim=0), rounds - 1)
+    return cand.gather(0, first[None, :].to(torch.int64))[0]
+
+
+def uniform_negatives(generator: torch.Generator, hist_rows, num_items: int, rounds: int = 8):
+    """One uniform negative per row of ``hist_rows`` [B, L], rejecting the
+    row's train items; [B] int32 in [1, num_items)."""
+    cand = torch.randint(1, num_items, (rounds, hist_rows.shape[0]), generator=generator,
+                         device=generator.device, dtype=torch.int32)
+    return negatives_from_draws(cand, hist_rows)
 
 
 def seq_window_from_draws(hist, eligible_users, idx, cand, maxlen: int):

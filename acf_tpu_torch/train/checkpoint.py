@@ -4,10 +4,12 @@
 One ``.npz`` of the flattened tree keyed by the '/'-joined leaf path — the
 JAX package's ``path_name`` scheme (``"P"``, ``"Q"`` for MF; ``"a/0"`` for
 a list under key ``a``) — so a file written by either package loads in the
-other. A full train state (:func:`save_state`) holds ``params/…``, the Adam
-slots under the names optax's ``(ScaleByAdamState(count, mu, nu),
-EmptyState())`` takes in the JAX package's snapshots (``opt/0/.count``,
-``opt/0/.mu/…``, ``opt/0/.nu/…``), and ``rng``, the trainer's
+other. A full train state (:func:`save_state`) holds ``params/…``, the
+optimizer slots under the names optax's chained state takes in the JAX
+package's snapshots (Adam's ``opt/0/.count``, ``opt/0/.mu/…``,
+``opt/0/.nu/…``; Adagrad's ``opt/0/.sum_of_squares/…``; SGD has none; a
+per-player state such as APL's under ``opt/g/…`` and ``opt/c/…``), and
+``rng``, the trainer's
 ``torch.Generator`` state (the JAX snapshots hold a ``key`` instead, which
 the port cannot use: restoring one keeps the current generator).
 """
@@ -18,6 +20,9 @@ import os
 
 import numpy as np
 import torch
+
+from acf_tpu_torch.compat.jax_params import is_opt_fields
+from acf_tpu_torch.utils.tree import tree_unflatten
 
 
 def _flatten_with_names(tree, prefix=()):
@@ -62,7 +67,14 @@ def load_params(path: str, like):
         return load(like)
 
 
-OPT_PREFIX = "opt/0/."  # optax's chain state (ScaleByAdamState, EmptyState)
+def _opt_names(opt_state, prefix="opt/"):
+    """[(npz name, leaf)] of an optimizer state: the first chained state's
+    fields under ``<prefix>0/.<field>``; per-player states under
+    ``<prefix><player>/``."""
+    if not is_opt_fields(opt_state):
+        return [x for k, v in opt_state.items() for x in _opt_names(v, f"{prefix}{k}/")]
+    return [(f"{prefix}0/.{field}" + (f"/{n}" if n else ""), leaf)
+            for field, tree in opt_state.items() for n, leaf in _flatten_with_names(tree)]
 
 
 def state_arrays(params, opt_state, rng_state=None):
@@ -70,17 +82,15 @@ def state_arrays(params, opt_state, rng_state=None):
     writes them."""
     out = {f"params/{n}": leaf.detach().cpu().numpy()
            for n, leaf in _flatten_with_names(params)}
-    out[OPT_PREFIX + "count"] = opt_state["count"].detach().cpu().numpy()
-    for slot in ("mu", "nu"):
-        out.update({f"{OPT_PREFIX}{slot}/{n}": leaf.detach().cpu().numpy()
-                    for n, leaf in _flatten_with_names(opt_state[slot])})
+    out.update({n: leaf.detach().cpu().numpy() for n, leaf in _opt_names(opt_state)})
     if rng_state is not None:
         out["rng"] = rng_state.cpu().numpy()
     return out
 
 
 def save_state(path: str, params, opt_state, rng_state=None) -> None:
-    """Params, Adam slots and (optionally) the generator state in one npz."""
+    """Params, optimizer slots and (optionally) the generator state in one
+    npz."""
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     np.savez(path, **state_arrays(params, opt_state, rng_state))
 
@@ -109,8 +119,13 @@ def load_state(path: str, params_like, opt_like):
         path = path + ".npz"
     with np.load(path) as data:
         params = _load_tree(data, params_like, "params/", path)
-        opt = {"count": _load_tree(data, opt_like["count"], OPT_PREFIX + "count", path),
-               "mu": _load_tree(data, opt_like["mu"], OPT_PREFIX + "mu/", path),
-               "nu": _load_tree(data, opt_like["nu"], OPT_PREFIX + "nu/", path)}
+        leaves = []
+        for name, like in _opt_names(opt_like):
+            arr = data[name]
+            if tuple(arr.shape) != tuple(like.shape):
+                raise ValueError(f"{path}: {name} has shape {arr.shape}, "
+                                 f"expected {tuple(like.shape)}")
+            leaves.append(torch.as_tensor(arr).to(device=like.device, dtype=like.dtype))
+        opt = tree_unflatten(opt_like, leaves)
         rng = torch.as_tensor(data["rng"]) if "rng" in data.files else None
     return params, opt, rng

@@ -1,19 +1,29 @@
-"""The sequence trainer (the sequence half of ``acf_tpu/train/trainer.py``).
+"""The trainer (counterpart of ``acf_tpu/train/trainer.py``).
 
-Each epoch is a Python loop of ``num_batches`` steps on the device: draw a
-packed window batch (:func:`acf_tpu_torch.sampling.sample_seq_window_batch`),
-take ``loss_window``'s value and gradient, apply the optimizer's update.
-One host transfer per epoch reads the mean of the steps' aux values. Every
-step is one function of (params, optimizer state, batch, generator or
-masks), :func:`seq_train_step`, so a test can drive a single step with the
-JAX package's draws.
+Each epoch is a Python loop of ``num_batches`` steps on the device, and one
+host transfer per epoch reads the mean of the steps' aux values. Three
+kinds of epoch, chosen as the JAX package chooses them:
+
+* a model's own ``make_epoch_fn`` (APL's critic-then-generator epoch),
+  checked first, with its ``init_opt_state`` for the optimizer slots;
+* sequence models (``batch_kind == "seq"``): draw a packed window batch
+  (:func:`acf_tpu_torch.sampling.sample_seq_window_batch`), take
+  ``loss_window``'s value and gradient, apply the update
+  (:func:`seq_train_step`);
+* pair models: shuffle the train pairs into the epoch's batches, draw one
+  uniform negative per pair, take ``loss``'s value and gradient, apply the
+  update (:func:`pair_train_step`). DNS (``dns > 1``) and APR raise in the
+  model (ROADMAP.md Queue 1 item 3).
+
+Each step is one function of (params, optimizer state, batch, draws), so a
+test can drive it with the JAX package's draws, and the epoch functions
+take the epoch's draws injected the same way.
 
 :class:`Trainer` adds leave-one-out evaluation through
-:class:`acf_tpu_torch.eval.FullRankEvaluator` (so through K2a and K1 for
-SASRec), best-NDCG tracking, the reference's epoch line and per-user dumps,
-the NaN abort, npz snapshots of the full train state, and the two-phase
-staging of :func:`fit_two_phase`. The pair trainer (MF-BPR/APR) is not
-ported yet (ROADMAP.md Queue 1 item 4); a pair model raises.
+:class:`acf_tpu_torch.eval.FullRankEvaluator` (so through K1 for factored
+models, and K2a for SASRec), best-NDCG tracking, the reference's epoch line
+and per-user dumps, the NaN abort, npz snapshots of the full train state,
+and the two-phase staging of :func:`fit_two_phase`.
 """
 
 from __future__ import annotations
@@ -29,12 +39,16 @@ import torch
 from acf_tpu_torch.data.datasets import Interactions
 from acf_tpu_torch.device import resolve_device
 from acf_tpu_torch.eval.full_rank import FullRankEvaluator
-from acf_tpu_torch.sampling.negatives import sample_seq_window_batch
+from acf_tpu_torch.sampling.negatives import (
+    negatives_from_draws, pair_batches_from_perm, sample_pair_epoch, sample_seq_window_batch,
+    uniform_negatives,
+)
 from acf_tpu_torch.train.checkpoint import (
     _flatten_with_names, load_state, save_params, save_state,
 )
+from acf_tpu_torch.train.optim import grad_update
 from acf_tpu_torch.utils.io import OutputWriter
-from acf_tpu_torch.utils.tree import tree_leaves, tree_map, tree_unflatten
+from acf_tpu_torch.utils.tree import tree_unflatten
 
 
 @dataclasses.dataclass
@@ -49,11 +63,64 @@ class TrainConfig:
     eval_batch_users: int = 512
     eval_sampled: bool = False  # rank against sampled negatives
                                 # (reference --eval_mode sample)
+    membership_len: Optional[int] = None  # cap on the history columns the
+                                          # pair sampler's rejection reads
     # --save_model protocol (reference run.py:257-272): params on every new
     # best NDCG to <save_model_path>.best.npz and after every epoch to
     # <save_model_path>.last.npz. None = off.
     save_model_path: Optional[str] = None
     device: Optional[str] = None  # default cuda; "cpu" to train on the CPU
+
+
+def _mean_stats(sums, n):
+    """One host transfer: the mean over ``n`` steps of each summed aux value."""
+    names = sorted(sums)
+    means = (torch.stack([sums[k] for k in names]) / n).cpu().tolist()
+    return dict(zip(names, means))
+
+
+def _add_stats(sums, aux):
+    for k, v in aux.items():
+        sums[k] = v.detach() if k not in sums else sums[k] + v.detach()
+
+
+def pair_train_step(model, optimizer, params, opt_state, batch, generator=None):
+    """One step of a pair model: the value and gradient of ``model.loss``
+    at ``params`` on ``batch`` = (users, pos, neg), then the optimizer's
+    update. Returns (params, opt_state, aux)."""
+    params, opt_state, _, aux = grad_update(optimizer, params, opt_state,
+                                            lambda prm: model.loss(prm, batch, generator))
+    return params, opt_state, aux
+
+
+def make_pair_epoch_fn(model, optimizer, batch_size: int, num_batches: int):
+    """The one-epoch function for pair models (``acf_tpu/train/trainer.py``'s
+    ``make_pair_epoch_fn`` with ``dns == 1``): ``epoch_fn(params,
+    opt_state, data, generator, batches=None, cands=None) -> (params,
+    opt_state, stats)`` with ``data`` holding ``pairs_u``, ``pairs_i`` and
+    ``hist`` on the device. ``batches`` [num_batches, batch_size] (pair
+    indices) and ``cands`` [num_batches, R, batch_size] (negative
+    candidates) replace the draws from ``generator`` when given."""
+
+    def epoch_fn(params, opt_state, data, generator, batches=None, cands=None):
+        if batches is None:
+            batches = sample_pair_epoch(generator, data["pairs_u"].shape[0], batch_size,
+                                        num_batches)
+        sums = {}
+        for step in range(num_batches):
+            idx = batches[step]
+            u, pos = data["pairs_u"][idx], data["pairs_i"][idx]
+            hist_rows = data["hist"][u]
+            if cands is None:
+                neg = uniform_negatives(generator, hist_rows, model.num_items)
+            else:
+                neg = negatives_from_draws(cands[step], hist_rows)
+            params, opt_state, aux = pair_train_step(model, optimizer, params, opt_state,
+                                                     (u, pos, neg), generator)
+            _add_stats(sums, aux)
+        return params, opt_state, _mean_stats(sums, num_batches)
+
+    return epoch_fn
 
 
 def seq_train_step(model, optimizer, params, opt_state, batch, generator=None,
@@ -62,12 +129,9 @@ def seq_train_step(model, optimizer, params, opt_state, batch, generator=None,
     ``params`` on ``batch`` = (users, window, neg), dropout from
     ``generator`` or the injected ``masks``/``adv_masks``, then the
     optimizer's update. Returns (params, opt_state, aux)."""
-    prm = tree_map(lambda x: x.detach().requires_grad_(True), params)
-    loss, aux = model.loss_window(prm, batch, generator, masks=masks, adv_masks=adv_masks)
-    leaves = tree_leaves(prm)
-    grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-    grads = [torch.zeros_like(x) if g is None else g for x, g in zip(leaves, grads)]
-    params, opt_state = optimizer.update(tree_unflatten(params, grads), opt_state, params)
+    params, opt_state, _, aux = grad_update(
+        optimizer, params, opt_state,
+        lambda prm: model.loss_window(prm, batch, generator, masks=masks, adv_masks=adv_masks))
     return params, opt_state, aux
 
 
@@ -85,46 +149,71 @@ def make_seq_epoch_fn(model, optimizer, batch_size: int, num_batches: int):
                                             model.maxlen, model.num_items, batch_size)
             params, opt_state, aux = seq_train_step(model, optimizer, params, opt_state,
                                                     batch, generator)
-            for k, v in aux.items():
-                sums[k] = v if k not in sums else sums[k] + v
-        names = sorted(sums)
-        means = (torch.stack([sums[k] for k in names]) / num_batches).cpu().tolist()
-        return params, opt_state, dict(zip(names, means))
+            _add_stats(sums, aux)
+        return params, opt_state, _mean_stats(sums, num_batches)
 
     return epoch_fn
 
 
 class Trainer:
-    """Epoch-driven trainer with reference-protocol evaluation and logging."""
+    """Epoch-driven trainer with reference-protocol evaluation and logging.
+
+    Pair models (MF-BPR's clean loss) and sequence models (SASRec, ASASRec)
+    train on the epochs this module builds; a model with ``make_epoch_fn``
+    (APL) brings its own. ``config.membership_len`` truncates the histories
+    the pair sampler's rejection reads, except for sequence models and
+    models marked ``uses_full_hist`` (APL's positive mixture), whose
+    objective reads the whole history."""
 
     def __init__(self, model, data: Interactions, optimizer,
                  config: TrainConfig = TrainConfig(),
                  writer: Optional[OutputWriter] = None):
-        if getattr(model, "batch_kind", "pair") != "seq":
-            raise NotImplementedError(
-                "the port trains sequence models; the pair trainer (MF-BPR/APR) "
-                "comes with ROADMAP.md Queue 1 item 4")
         self.model = model
         self.data = data
         self.optimizer = optimizer
         self.cfg = config
         self.writer = writer or OutputWriter(None, None)
         self.device = resolve_device(config.device)
+        ml = config.membership_len
+        if getattr(model, "batch_kind", "pair") == "seq" or \
+                getattr(model, "uses_full_hist", False):
+            ml = None
+        hist = data.hist if ml is None else data.hist[:, -ml:]
         self.dev = {
-            "hist": torch.as_tensor(data.hist, device=self.device),
+            "pairs_u": torch.as_tensor(data.pairs_u, device=self.device),
+            "pairs_i": torch.as_tensor(data.pairs_i, device=self.device),
+            "hist": torch.as_tensor(np.ascontiguousarray(hist), device=self.device),
             "eligible": torch.as_tensor(
                 np.nonzero(data.hist_len >= 2)[0].astype(np.int32), device=self.device),
         }
-        # reference: num_batch = len(trainSeq) // batch_size (SASRec.py:449)
-        n_seq_users = int((data.hist_len >= 1).sum())
-        self.num_batches = max(n_seq_users // config.batch_size, 1)
-        self.epoch_fn = make_seq_epoch_fn(model, optimizer, config.batch_size,
-                                          self.num_batches)
+        if hasattr(model, "make_epoch_fn"):
+            self.num_batches = max(data.num_pairs // config.batch_size, 1)
+        elif model.batch_kind == "seq":
+            # reference: num_batch = len(trainSeq) // batch_size (SASRec.py:449)
+            n_seq_users = int((data.hist_len >= 1).sum())
+            self.num_batches = max(n_seq_users // config.batch_size, 1)
+        else:
+            self.num_batches = max(data.num_pairs // config.batch_size, 1)
+        self.epoch_fn = self._make_epoch_fn(model)
         self.evaluator = self._make_evaluator(model)
         self.generator = torch.Generator(device=self.device).manual_seed(config.seed)
         self.params = model.init_params(self.generator, device=self.device)
-        self.opt_state = optimizer.init(self.params)
+        self.opt_state = self._init_opt_state(model)
         self.best = {"ndcg": -1.0, "epoch": -1, "result": None}
+
+    def _make_epoch_fn(self, model):
+        """The model's own epoch (checked first: a sequence model may bring
+        one), else the sequence or the pair epoch."""
+        if hasattr(model, "make_epoch_fn"):
+            return model.make_epoch_fn(self.optimizer, self.cfg.batch_size, self.num_batches,
+                                       self.dev)
+        make = make_seq_epoch_fn if model.batch_kind == "seq" else make_pair_epoch_fn
+        return make(model, self.optimizer, self.cfg.batch_size, self.num_batches)
+
+    def _init_opt_state(self, model):
+        if hasattr(model, "init_opt_state"):
+            return model.init_opt_state(self.optimizer, self.params)
+        return self.optimizer.init(self.params)
 
     # ------------------------------------------------------------------
     def run_epoch(self):
@@ -144,8 +233,8 @@ class Trainer:
         return self.evaluator.evaluate_model(self.model, self.params)
 
     def save_checkpoint(self, path: str):
-        """Full train state: params, Adam slots and the generator state, so
-        a crashed run resumes exactly."""
+        """Full train state: params, optimizer slots and the generator
+        state, so a crashed run resumes exactly."""
         save_state(path, self.params, self.opt_state, self.generator.get_state())
 
     def restore_checkpoint(self, path: str):
@@ -235,10 +324,17 @@ class Trainer:
 
     @torch.no_grad()
     def _table_norms(self):
-        """(|P|, |Q|) for the epoch line (reference evaluation_adv.py:319-325);
-        the item table for sequence models (|P| is then 0)."""
-        p = self.params.get("P", self.params.get("user_emb"))
-        q = self.params.get("Q", self.params.get("item_emb"))
+        """(|P|, |Q|) for the epoch line (reference evaluation_adv.py:319-325),
+        of the wrapped model's tables (``base``) or the generator's (``g``)
+        where the params nest them; the item table alone for sequence models
+        (|P| is then 0)."""
+        if not isinstance(self.params, dict):
+            return 0.0, 0.0
+        src = self.params.get("base", self.params.get("g", self.params))
+        if not isinstance(src, dict):
+            return 0.0, 0.0
+        p = src.get("P", src.get("user_emb"))
+        q = src.get("Q", src.get("item_emb", src.get("emb")))
         norm = (lambda x: float(torch.linalg.vector_norm(x)) if x is not None else 0.0)
         return norm(p), norm(q)
 
@@ -248,17 +344,13 @@ class Trainer:
         params. ``reset_opt=True`` starts fresh optimizer slots (the APR-MF
         protocol, run_adv.py:114-120); ``reset_opt=False`` carries them (the
         ASASRec protocol, whose full-variable Saver restores the Adam
-        moments, utils.py:306-315). Best tracking restarts either way."""
-        if getattr(model, "batch_kind", "pair") != "seq":
-            raise NotImplementedError(
-                "the port trains sequence models; the pair trainer comes with "
-                "ROADMAP.md Queue 1 item 4")
+        moments, utils.py:306-315). Best tracking restarts either way; the
+        number of batches an epoch stays the first model's."""
         old_eval_key = self._eval_key(self.model)
         self.model = model
         if reset_opt:
-            self.opt_state = self.optimizer.init(self.params)
-        self.epoch_fn = make_seq_epoch_fn(model, self.optimizer, self.cfg.batch_size,
-                                          self.num_batches)
+            self.opt_state = self._init_opt_state(model)
+        self.epoch_fn = self._make_epoch_fn(model)
         # keep the evaluator when the new model needs the same eval geometry
         if self._eval_key(model) != old_eval_key:
             self.evaluator = self._make_evaluator(model)

@@ -58,10 +58,30 @@ Phases, any failure exits non-zero:
               steps an epoch) and maxlen 50 (best of 3 epochs after a
               warm-up), the device's idle share and top operations of one
               step, and K2a's training form and K2b alone at B = 512,
-              d = 64, T in {8, 50} beside their plain versions and bounds.
+              d = 64, T in {8, 50} beside their plain versions and bounds;
+ 15. K3a-K3e (APL's generator chain) against their plain versions at APL's
+              geometry (B = 512, d = 64, I = 23,701) and a ragged case
+              (B = 7, d = 36, I = 1,100), histories with duplicates and a
+              user with no positives: every output, two calls bit-identical,
+              ``ValueError`` outside the limits with no launch;
+ 16. APL on the Video-shaped set: MF-BPR pretrained one epoch with
+              Adagrad(0.05, 0.1) through the pair trainer, its tables handed
+              to APL's generator (the start NDCG must be MF-BPR's), one APL
+              epoch (each K3 kernel once per generator step) and its
+              evaluation through K1, counters read around them; both players
+              moved, the critic's pad row did not; one generator step
+              through the kernels against the same step through the plain
+              passes (loss, gP, gQ);
+ 17. APL timing: each K3 kernel alone beside its plain version, the
+              torch.matmul of its products and its bound; one generator and
+              one critic step's device busy and idle time; APL epochs'
+              seconds and examples/s, every sample printed.
 
-Kernel times come from torch.profiler's device time; a phase whose profile
-holds no device time fails. The last two lines of standard output are a
+Kernel times come from torch.profiler's device time. A measurement whose
+profile holds no device time in three sessions is timed with CUDA events
+instead (calls back to back, host gaps included), says so in the log, and its
+kernel's entry names ``"timer": "cuda_events"``; a step's busy and idle
+breakdown is then printed as not measured. The last two lines of standard output are a
 ``{"kernels": [...]}`` JSON object and ``{"ok": true, "device": {...}}``.
 With no GPU, or when the ``acf_tpu_torch`` package is not beside this
 script, it fails before printing any result.
@@ -121,21 +141,36 @@ def card_line() -> str:
     return proc.stdout.strip().splitlines()[0]
 
 
+# Profiler sessions tried per measurement before it is timed with CUDA
+# events instead: CUPTI's tracing has been seen to return a session with no
+# device events at all, partway through a run that had traced earlier phases.
+PROFILER_TRIES = 3
+# One entry per measurement that fell back to CUDA events; kernel entries
+# compare its length before and after their timing to name their timer.
+EVENT_TIMED: list[str] = []
+
+
 def device_events(fn, calls: int = 1):
     """Run ``fn`` ``calls`` times under torch.profiler; return the averaged
     device-side events (kernels, copies, fills) with nonzero device time.
     The CPU ops that launched them, which report the same time again, are
-    left out."""
+    left out. A session with no device event is run again, up to
+    ``PROFILER_TRIES`` sessions (one once a measurement has fallen back);
+    an empty list means none of them saw the device."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
+    for _ in range(1 if EVENT_TIMED else PROFILER_TRIES):
         torch.cuda.synchronize()
-    return [e for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+        if events:
+            return events
+    return []
 
 
 # Calls profiled per plain version (hundreds of small launches each, whose
@@ -145,12 +180,27 @@ PLAIN_ITERS = 10
 
 def device_ms(fn, iters: int = 50, warmup: int = 10) -> float:
     """Mean device milliseconds per call of ``fn``: the summed durations of
-    the kernels it runs, so host launch gaps between calls do not count."""
+    the kernels it runs, so host launch gaps between calls do not count.
+    Where the profiler sees no device time, the mean time of ``iters`` calls
+    back to back between two CUDA events instead (``elapsed_ms``), noted in
+    ``EVENT_TIMED``."""
     for _ in range(warmup):
         fn()
-    total_us = sum(e.self_device_time_total for e in device_events(fn, iters))
-    check(total_us > 0, "the profiler saw no device time")
-    return total_us / 1e3 / iters
+    events = device_events(fn, iters)
+    if events:
+        return sum(e.self_device_time_total for e in events) / 1e3 / iters
+    ms = elapsed_ms(fn, iters, warmup=0)
+    check(ms > 0, "neither the profiler nor CUDA events saw device time")
+    EVENT_TIMED.append(f"{ms:.4f} ms")
+    print(f"timer: the profiler saw no device time; CUDA events time the next "
+          f"measurement at {ms:.4f} ms per call")
+    return ms
+
+
+def timer_since(mark: int) -> str:
+    """The timer of the measurements taken since ``len(EVENT_TIMED)`` was
+    ``mark``: "profiler", or "cuda_events" where any of them fell back."""
+    return "profiler" if len(EVENT_TIMED) == mark else "cuda_events"
 
 
 def elapsed_ms(fn, iters: int = 200, warmup: int = 20) -> float:
@@ -360,6 +410,7 @@ def k1_timing(dev, model, params, ev):
     t = (reprs * table[gt.long()]).sum(dim=1).contiguous()
     b, d = reprs.shape
     n_items = table.shape[0]
+    mark = len(EVENT_TIMED)
     ms = device_ms(lambda: rank_positions_dot(reprs, table, t, gt=gt))
     plain_ms = device_ms(lambda: rank_positions_dot_plain(reprs, table, t, gt=gt))
     library_ms = device_ms(lambda: torch.matmul(reprs, table.T))
@@ -374,15 +425,18 @@ def k1_timing(dev, model, params, ev):
           f"{bound_s * 1e3:.4f} ms ({bound_by}); K1 wrapper back to back "
           f"{back_to_back_ms:.4f} ms per call (CUDA events)")
     return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_s * 1e3,
-            "bound_by": bound_by, "library_ms": library_ms}
+            "bound_by": bound_by, "library_ms": library_ms, "timer": timer_since(mark)}
 
 
 def device_breakdown(label, fn, wall_s, top=6):
     """One call of ``fn`` under torch.profiler: the device's busy time against
     the unprofiled wall time ``wall_s``, and the largest device consumers."""
     events = device_events(fn)
+    if not events:
+        print(f"{label}: device busy and idle share not measured (the profiler saw no "
+              f"device time); {wall_s * 1e3:.4f} ms wall")
+        return
     busy_ms = sum(e.self_device_time_total for e in events) / 1e3
-    check(busy_ms > 0, f"{label}: the profiler saw no device time")
     print(f"{label}: device busy {busy_ms:.4f} ms of {wall_s * 1e3:.4f} ms wall, "
           f"idle share {1.0 - busy_ms / (wall_s * 1e3):.4f}; largest:")
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:top]:
@@ -524,6 +578,7 @@ def k2a_timing(dev, windows=(8, 50, 200), b=BATCH_USERS, main_t=50):
     entry = None
     for t in windows:
         x, mask = k2a_inputs(dev, params, b, t, D, g, padded=False)
+        mark = len(EVENT_TIMED)
         ms = device_ms(lambda: fused_encoder(model, params, x, mask))
         plain_ms = device_ms(lambda: fused_encoder_plain(params, x, mask), PLAIN_ITERS, 2)
         flops, nbytes = k2a_work(b, t, D, model.num_blocks)
@@ -535,7 +590,7 @@ def k2a_timing(dev, windows=(8, 50, 200), b=BATCH_USERS, main_t=50):
               f"({bound_by}: {flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.2f} MB)")
         if t == main_t:
             entry = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_s * 1e3,
-                     "bound_by": bound_by, "library_ms": None}
+                     "bound_by": bound_by, "library_ms": None, "timer": timer_since(mark)}
     return entry
 
 
@@ -974,9 +1029,11 @@ def k2_train_timing(dev, windows=(8, 50), b=TRAIN_BATCH, main_t=50):
         masks = model._dropout_masks(g, b, t)
         cot = torch.randn(b, t, D, generator=g, device=dev)
         _, saved = encoder_fwd(params, x, mask, masks, keep, save=True)
+        mark = len(EVENT_TIMED)
         fwd_ms = device_ms(lambda: encoder_fwd(params, x, mask, masks, keep, save=True))
         fwd_plain = device_ms(lambda: fused_encoder_plain(params, x, mask, masks, keep),
                               PLAIN_ITERS, 2)
+        fwd_timer, mark = timer_since(mark), len(EVENT_TIMED)
         bwd_ms = device_ms(lambda: encoder_bwd(params, x, mask, cot, saved, masks, keep))
         dx_ms = device_ms(lambda: encoder_bwd(params, x, mask, cot, saved, masks, keep,
                                               weight_grads=False))
@@ -994,9 +1051,10 @@ def k2_train_timing(dev, windows=(8, 50), b=TRAIN_BATCH, main_t=50):
               f"GFLOP, {bb / 1e6:.2f} MB)")
         if t == main_t:
             entries["fwd"] = {"ms": fwd_ms, "plain_ms": fwd_plain, "bound_ms": fwd_bound,
-                              "bound_by": fwd_by, "library_ms": None}
+                              "bound_by": fwd_by, "library_ms": None, "timer": fwd_timer}
             entries["bwd"] = {"ms": bwd_ms, "plain_ms": bwd_plain, "bound_ms": bwd_bound,
-                              "bound_by": bwd_by, "library_ms": None, "dx_only_ms": dx_ms}
+                              "bound_by": bwd_by, "library_ms": None, "dx_only_ms": dx_ms,
+                              "timer": timer_since(mark)}
     return entries["fwd"], entries["bwd"]
 
 
@@ -1057,12 +1115,367 @@ def training_phases(dev, ml1m_data, video_data):
     k2a_entry = {"name": "sasrec_encoder_fwd", "route": "cuda",
                  "source": "acf_tpu_torch/csrc/sasrec_encoder_fwd.cu",
                  "replaces": "acf_tpu/ops/sasrec_fused.py:225", "launches": k2a,
-                 "max_abs_err": fwd_err, **fwd, "timer": "profiler"}
+                 "max_abs_err": fwd_err, **fwd}
     k2b_entry = {"name": "sasrec_encoder_bwd", "route": "cuda",
                  "source": "acf_tpu_torch/csrc/sasrec_encoder_bwd.cu",
                  "replaces": "acf_tpu/ops/sasrec_fused.py:236", "launches": k2b,
-                 "max_abs_err": bwd_err, **bwd, "timer": "profiler"}
+                 "max_abs_err": bwd_err, **bwd}
     return k2a_entry, k2b_entry
+
+
+# --- APL: the generator chain K3a-K3e -------------------------------------------
+
+# Each K3 output against its plain version on the same inputs (every kernel
+# is fed the kernel outputs of the passes before it), max |kernel - plain|
+# divided by the largest |plain| entry of that output. Both run in f32; the
+# kernels sum d-term products with FMAs in k order, the softmax statistics
+# per 256-item chunk merged in chunk order, fake, R and dP over item tiles,
+# dQ over users, all in another order than cuBLAS and torch's reductions;
+# exp and log round alike on both sides. 1e-4 is ~800 f32 ulps of an
+# output's scale: room for sums over 23,701 items and 512 users and for the
+# 1/(mixed + 1e-20) factor of r, which magnifies the rounding of items of
+# small probability; far below what a wrong mask (column 0, the ragged
+# tail), a wrong merge of the chunks or a swapped table moves (O(1) of the
+# scale).
+APL_TOL = 1e-4
+APL_CASES = ((512, D, 23_701), (7, 36, 1_100))  # (B, d, I): APL's geometry, ragged
+APL_PRODUCTS = {"apl_stats1": 1, "apl_z": 1, "apl_fake": 1, "apl_bigr": 2, "apl_grad": 4}
+APL_REPLACES = {"apl_stats1": 67, "apl_z": 83, "apl_fake": 111, "apl_bigr": 141,
+                "apl_grad": 157}  # acf_tpu/ops/apl_gen_fused.py lines of the TPU kernels
+
+
+def apl_inputs(dev, b, d, num_items, seed):
+    """One generator step's inputs, drawn from ``seed``: tables with logits
+    of a few units, 12-entry histories with duplicates and left padding,
+    user 0 with no positives, Gumbel noise and a cotangent ``a``."""
+    from acf_tpu_torch.models.apl import gumbel, membership
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    f = lambda *shape: 0.4 * torch.randn(*shape, generator=g, device=dev)
+    hist = torch.randint(1, num_items, (b, 12), generator=g, device=dev, dtype=torch.int32)
+    hist[:, :3] = hist[:, 3:6].clone()
+    hist[:, :2] = 0
+    hist[0] = 0
+    member, nuniq = membership(hist, num_items)
+    return dict(pu_g=f(b, d), Qg=f(num_items, d), pu_c=f(b, d), Qc=f(num_items, d),
+                member=member, nuniq=nuniq,
+                gnoise=gumbel(torch.rand(b, num_items, generator=g, device=dev)), a=f(b))
+
+
+def apl_pass(name, x, up, fn):
+    """One call of pass ``name`` through ``fn`` (the kernel or its plain
+    version) on ``x`` and the outputs ``up`` of the passes before it; every
+    pass's outputs as a tuple."""
+    wt = dict(w=0.2, temperature=0.2)
+    if name == "apl_stats1":
+        return fn(x["pu_g"], x["Qg"])
+    m1, l1 = up["apl_stats1"]
+    if name == "apl_z":
+        return fn(x["pu_g"], x["Qg"], x["member"], x["nuniq"], x["gnoise"], m1, l1, **wt)
+    z, m2, l2 = up["apl_z"]
+    if name == "apl_fake":
+        return (fn(x["pu_c"], x["Qc"], z, m2, l2),)
+    chain = (x["pu_g"], x["Qg"], x["pu_c"], x["Qc"], x["member"], x["nuniq"], z, m1, l1, m2,
+             l2, x["a"], up["apl_fake"][0])
+    if name == "apl_bigr":
+        return (fn(*chain, **wt),)
+    return fn(*chain, up["apl_bigr"][0], **wt)
+
+
+def apl_chain(x, up=None):
+    """K3a-K3e in order, each fed the outputs of the ones before it; or,
+    given the kernels' outputs ``up``, each plain version fed the kernel
+    outputs of the passes before it, so each kernel is checked alone."""
+    from acf_tpu_torch.ops import apl_gen_fused as ops
+
+    out = {}
+    for name in APL_PRODUCTS:
+        fn = getattr(ops, name if up is None else name + "_plain")
+        out[name] = apl_pass(name, x, out if up is None else up, fn)
+    return out
+
+
+def check_apl_kernels(dev):
+    """Phase 15: K3a-K3e against their plain versions, two calls
+    bit-identical, and the refusals. Returns {kernel: max |difference|}."""
+    from acf_tpu_torch.ops.apl_gen_fused import KERNELS, apl_gen_forward
+
+    names = list(APL_PRODUCTS)
+    max_err = dict.fromkeys(names, 0.0)
+    for b, d, num_items in APL_CASES:
+        x = apl_inputs(dev, b, d, num_items, seed=15)
+        before = [k.launches for k in KERNELS]
+        got = apl_chain(x)
+        again = apl_chain(x)
+        torch.cuda.synchronize()
+        label = f"K3 B={b} d={d} I={num_items}"
+        check([k.launches - n for k, n in zip(KERNELS, before)] == [2] * 5,
+              f"{label}: a launch counter did not move twice")
+        for name in names:
+            check(all(torch.equal(a, c) for a, c in zip(got[name], again[name])),
+                  f"{label} {name}: two calls are not bit-identical")
+        plain = apl_chain(x, up=got)
+        parts = []
+        for name in names:
+            for i, (k, p) in enumerate(zip(got[name], plain[name])):
+                check(k.shape == p.shape and bool(torch.isfinite(k).all()),
+                      f"{label} {name}[{i}]: shape {tuple(k.shape)} or not finite")
+                err = float((k - p).abs().max())
+                scale = float(p.abs().max())
+                max_err[name] = max(max_err[name], err)
+                parts.append(f"{name}[{i}] {err:.2e} ({err / max(scale, 1e-30):.2e} of {scale:.3g})")
+                check(err <= APL_TOL * scale,
+                      f"{label} {name}[{i}]: max |kernel - plain| {err} > {APL_TOL} x {scale}")
+        print(f"{label}: max |kernel - plain| " + "; ".join(parts)
+              + "; bit-identical over two calls")
+        check(not got["apl_grad"][0][0].any(), f"{label}: the pad item got a gradient")
+
+    x = apl_inputs(dev, 8, 36, 300, seed=16)
+    refused = (
+        ("d=132", dict(x, pu_g=torch.zeros(8, 132, device=dev), Qg=torch.zeros(300, 132, device=dev))),
+        ("d=30", dict(x, pu_g=torch.zeros(8, 30, device=dev), Qg=torch.zeros(300, 30, device=dev))),
+        ("a float32 member", dict(x, member=x["member"].float())),
+        ("a transposed table", dict(x, Qg=x["Qg"].T.contiguous().T)),
+        ("I=1", dict(x, Qg=x["Qg"][:1].contiguous(), Qc=x["Qc"][:1].contiguous(),
+                     member=x["member"][:, :1].contiguous(),
+                     gnoise=x["gnoise"][:, :1].contiguous())),
+    )
+    for label, bad in refused:
+        before = [k.launches for k in KERNELS]
+        try:
+            apl_gen_forward(bad["pu_g"], bad["Qg"], bad["pu_c"], bad["Qc"], bad["member"],
+                            bad["nuniq"], bad["gnoise"], w=0.2, temperature=0.2)
+        except ValueError as e:
+            print(f"K3 {label}: raises ValueError as it should: {e}")
+        else:
+            fail(f"K3 {label}: apl_gen_forward did not raise")
+        check([k.launches for k in KERNELS] == before, f"K3 {label}: launched anyway")
+    return max_err
+
+
+def apl_work(name, b, d, num_items):
+    """(FLOP, bytes) one K3 call needs: its [B, d] x [d, I] products, each
+    input read once and each output written once (member as uint8; the
+    elementwise exp and log are not counted)."""
+    flops = APL_PRODUCTS[name] * 2.0 * b * num_items * d
+    tables = 4.0 * (b * d + num_items * d)  # one user block and one item table
+    bi = float(b * num_items)
+    nbytes = {
+        "apl_stats1": tables + 4 * 2 * b,
+        "apl_z": tables + bi + 4 * bi + 4 * bi + 4 * 6 * b,  # member, noise in; z out
+        "apl_fake": tables + 4 * bi + 4 * 3 * b,
+        "apl_bigr": 2 * tables + bi + 4 * bi + 4 * 9 * b,
+        "apl_grad": 2 * tables + bi + 4 * bi + 4 * 10 * b + 4.0 * (num_items * d + b * d),
+    }[name]
+    return flops, nbytes
+
+
+class GenStepThroughPlain:
+    """Within the block, APL's generator step runs the plain passes on the
+    card (the kernels' own plain versions, composed as the wrappers compose
+    the kernels), for the step comparison."""
+
+    def __enter__(self):
+        from acf_tpu_torch.models import apl as apl_mod
+        from acf_tpu_torch.ops import apl_gen_fused as ops
+
+        def forward(pu_g, Qg, pu_c, Qc, member, nuniq, gnoise, *, w, temperature):
+            m1, l1 = ops.apl_stats1_plain(pu_g, Qg)
+            z, m2, l2 = ops.apl_z_plain(pu_g, Qg, member, nuniq, gnoise, m1, l1, w=w,
+                                        temperature=temperature)
+            fake = ops.apl_fake_plain(pu_c, Qc, z, m2, l2)
+            return fake, (Qg, Qc, member, z, m1, l1, m2, l2, fake)
+
+        def backward(pu_g, pu_c, nuniq, a, res, *, w, temperature):
+            Qg, Qc, member, z, m1, l1, m2, l2, fake = res
+            chain = (pu_g, Qg, pu_c, Qc, member, nuniq, z, m1, l1, m2, l2, a, fake)
+            R = ops.apl_bigr_plain(*chain, w=w, temperature=temperature)
+            dQ, dP = ops.apl_grad_plain(*chain, R, w=w, temperature=temperature)
+            return dP, dQ
+
+        self.mod = apl_mod
+        self.saved = (apl_mod.apl_gen_forward, apl_mod.apl_gen_backward)
+        apl_mod.apl_gen_forward, apl_mod.apl_gen_backward = forward, backward
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.apl_gen_forward, self.mod.apl_gen_backward = self.saved
+
+
+def apl_step_batch(tr, data, seed):
+    """One batch of the trainer's pairs, its histories and its Gumbel noise."""
+    from acf_tpu_torch.models.apl import gumbel
+
+    g = torch.Generator(device=tr.device).manual_seed(seed)
+    idx = torch.randperm(data.num_pairs, generator=g, device=tr.device)[:TRAIN_BATCH]
+    u, i = tr.dev["pairs_u"][idx], tr.dev["pairs_i"][idx]
+    return u, i, tr.dev["hist"][u], gumbel(torch.rand(TRAIN_BATCH, data.num_items, generator=g,
+                                                      device=tr.device))
+
+
+def run_apl(dev, data):
+    """Phase 16: the pretrained protocol at Video scale. MF-BPR pretrained
+    one epoch (Adagrad(0.05, 0.1), the pair trainer), its tables handed to
+    APL's generator, one APL epoch (every K3 kernel once per generator
+    step) and its evaluation through K1, all counters read around it; one
+    generator step through the kernels against the same step through the
+    plain passes. Returns (trainer, launches by kernel name, epoch seconds)."""
+    from acf_tpu_torch.models.apl import APL
+    from acf_tpu_torch.models.mf import MFBPR
+    from acf_tpu_torch.ops.apl_gen_fused import KERNELS
+    from acf_tpu_torch.ops.ranking import rank_positions_dot
+    from acf_tpu_torch.train import TrainConfig, Trainer, adagrad, sgd
+
+    cfg = TrainConfig(batch_size=TRAIN_BATCH, verbose=10 ** 9)
+    t0 = time.perf_counter()
+    pre = Trainer(MFBPR(data.num_users, data.num_items, D), data,
+                  adagrad(0.05, initial_accumulator_value=0.1), cfg)
+    pre_stats = pre.run_epoch()
+    torch.cuda.synchronize()
+    pre_s = time.perf_counter() - t0
+    bpr = pre.evaluate().at_k(10)
+    check(all(math.isfinite(v) for v in pre_stats.values()), f"MF-BPR pretraining: {pre_stats}")
+    print(f"apl: MF-BPR pretrained 1 epoch ({pre.num_batches} steps of {TRAIN_BATCH}, "
+          f"Adagrad(0.05, 0.1)) in {pre_s:.2f} s: {pre_stats}; HR@10 {bpr[0]:.6f} "
+          f"NDCG@10 {bpr[1]:.6f} AUC {bpr[2]:.6f}")
+
+    model = APL(data.num_users, data.num_items, D)
+    tr = Trainer(model, data, sgd(0.05), cfg)
+    tr.params["g"] = {k: v.clone() for k, v in pre.params.items()}
+    start = tr.evaluate().at_k(10)
+    check(abs(start[1] - bpr[1]) < 1e-6, f"apl: start NDCG {start[1]} is not MF-BPR's {bpr[1]}")
+    c_pad = tr.params["c"]["Q"][0].clone()
+    p0 = {side: tr.params[side]["P"].clone() for side in ("g", "c")}
+    tiles = math.ceil(len(tr.evaluator.users) / tr.evaluator.batch_users)
+
+    for k in KERNELS:
+        k.launches = 0
+    rank_positions_dot.launches = 0
+    t0 = time.perf_counter()
+    stats = tr.run_epoch()  # the main path: an APL epoch ...
+    torch.cuda.synchronize()
+    epoch_s = time.perf_counter() - t0
+    after = tr.evaluate().at_k(10)  # ... and its evaluation
+    launches = {k.__name__: k.launches for k in KERNELS}
+    k1 = rank_positions_dot.launches
+    print(f"apl: one epoch of {tr.num_batches} critic and {tr.num_batches} generator steps "
+          f"in {epoch_s:.2f} s: {stats}; after it HR@10 {after[0]:.6f} NDCG@10 {after[1]:.6f} "
+          f"AUC {after[2]:.6f} (start NDCG@10 {start[1]:.6f} = MF-BPR's); launches "
+          + ", ".join(f"{n} {c}" for n, c in launches.items()) + f", K1 {k1}")
+    check(all(c == tr.num_batches for c in launches.values()),
+          f"apl: K3 launches {launches}, not {tr.num_batches} each")
+    check(k1 == tiles, f"apl: the evaluation launched K1 {k1} times for {tiles} tiles")
+    check(all(math.isfinite(v) for v in stats.values()), f"apl: non-finite stats {stats}")
+    check(all(math.isfinite(v) for v in after), f"apl: non-finite metrics {after}")
+    pad_move = float((tr.params["c"]["Q"][0] - c_pad).abs().max())
+    moved = {side: float((tr.params[side]["P"] - p0[side]).abs().max()) for side in p0}
+    print(f"apl: the critic's pad row moved by {pad_move:.3e}; the players' user tables by "
+          + ", ".join(f"{side} {v:.3e}" for side, v in moved.items()))
+    check(all(v > 0 for v in moved.values()), f"apl: a player did not move {moved}")
+    check(pad_move <= 1e-7, "apl: the critic's pad row moved (the fake one-hot leaks onto item 0)")
+
+    u, i, hist_rows, gn = apl_step_batch(tr, data, seed=16)
+    g, c = tr.params["g"], tr.params["c"]
+    before = [k.launches for k in KERNELS]
+    loss, grads = model.gen_step(g, c, u, i, hist_rows, gn)
+    torch.cuda.synchronize()
+    check([k.launches - n for k, n in zip(KERNELS, before)] == [1] * 5,
+          "apl: one generator step did not launch each K3 kernel once")
+    with GenStepThroughPlain():
+        p_loss, p_grads = model.gen_step(g, c, u, i, hist_rows, gn)
+    check([k.launches - n for k, n in zip(KERNELS, before)] == [1] * 5,
+          "apl: the plain step launched a kernel")
+    rel = abs(float(loss) - float(p_loss)) / max(abs(float(p_loss)), 1e-30)
+    errs = {n: tree_err([grads[n]], [p_grads[n]]) for n in ("P", "Q")}
+    print(f"apl generator step (B={TRAIN_BATCH}): loss {float(loss):.8f} vs plain "
+          f"{float(p_loss):.8f} (rel {rel:.2e}); "
+          + "; ".join(f"g{n} max |d| {e:.3e} ({r:.2e} of scale)" for n, (e, r) in errs.items()))
+    check(rel <= 1e-5, f"apl: the generator loss differs from the plain step by {rel}")
+    for n, (_, r) in errs.items():
+        check(r <= APL_TOL, f"apl: g{n} differs from the plain step by {r} of scale")
+    return tr, launches, epoch_s
+
+
+def apl_timing(dev, tr, data, first_epoch_s, reps=2):
+    """Phase 17: each K3 kernel alone at B=512, d=64, I=23,701 beside its
+    plain version, one torch.matmul of its products and its bound; one
+    generator and one critic step's device time; the APL epoch's seconds and
+    examples/s. Returns {kernel: entry fields}."""
+    from acf_tpu_torch.ops import apl_gen_fused as ops
+
+    b, d, num_items = APL_CASES[0]
+    x = apl_inputs(dev, b, d, num_items, seed=17)
+    got = apl_chain(x)
+    mark = len(EVENT_TIMED)
+    matmul_ms = device_ms(lambda: torch.matmul(x["pu_g"], x["Qg"].T))
+    matmul_timer = timer_since(mark)
+    entries, chain_ms, bound_sum = {}, 0.0, 0.0
+    for name in APL_PRODUCTS:
+        kernel, plain = getattr(ops, name), getattr(ops, name + "_plain")
+        mark = len(EVENT_TIMED)
+        ms = device_ms(lambda: apl_pass(name, x, got, kernel))
+        plain_ms = device_ms(lambda: apl_pass(name, x, got, plain), PLAIN_ITERS, 2)
+        bound_ms, bound_by = bound(*apl_work(name, b, d, num_items))
+        library_ms = APL_PRODUCTS[name] * matmul_ms
+        chain_ms += ms
+        bound_sum += bound_ms
+        print(f"{name} device time at B={b} I={num_items} d={d}: kernel {ms:.4f} ms "
+              f"({bound_ms / ms:.3f} of the bound), plain {plain_ms:.4f} ms, torch.matmul of "
+              f"its {APL_PRODUCTS[name]} product(s) {library_ms:.4f} ms, bound {bound_ms:.4f} ms "
+              f"({bound_by})")
+        timer = timer_since(mark) if matmul_timer == "profiler" else matmul_timer
+        entries[name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                         "bound_by": bound_by, "library_ms": library_ms, "timer": timer}
+    fn_bound = max(4 * 2.0 * b * num_items * d / FP32_FLOPS,
+                   (4.0 * (2 * b * num_items) + 4.0 * 2 * (b * d + num_items * d)
+                    + b * num_items + 4.0 * b * num_items) / HBM_BYTES_PER_S) * 1e3
+    print(f"K3 chain: {chain_ms:.4f} ms in all; bound of the chain as designed (the five "
+          f"passes' bounds) {bound_sum:.4f} ms; bound of the chain as a function (4 products, "
+          f"z written and read once, noise and member read once) {fn_bound:.4f} ms")
+
+    model = tr.model
+    u, i, hist_rows, gn = apl_step_batch(tr, data, seed=17)
+    g, c = tr.params["g"], tr.params["c"]
+    cu = torch.rand(TRAIN_BATCH, data.num_items, device=dev)
+
+    def gen_step():
+        with torch.no_grad():
+            return model.gen_step(g, c, u, i, hist_rows, gn)
+
+    def critic_step():
+        return model.critic_step(c, {}, g, u, i, cu)
+
+    for label, fn in (("apl generator step", gen_step), ("apl critic step", critic_step)):
+        wall_s = best_wall_s(fn, reps=5)
+        device_breakdown(label, fn, wall_s, top=8)
+
+    samples = [first_epoch_s]
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        stats = tr.run_epoch()  # ends in a host transfer of the epoch's stats
+        samples.append(time.perf_counter() - t0)
+    check(all(math.isfinite(v) for v in stats.values()), f"apl timing: non-finite stats {stats}")
+    examples = tr.num_batches * TRAIN_BATCH
+    print(f"apl epoch ({tr.num_batches} critic + {tr.num_batches} generator steps of "
+          f"{TRAIN_BATCH}): samples " + ", ".join(f"{s:.4f}" for s in samples)
+          + " s (the first is phase 16's epoch); "
+          + ", ".join(f"{examples / s:.1f}" for s in samples) + " examples/s")
+    return entries
+
+
+def apl_phases(dev, data):
+    """Phases 15-17. Returns the five K3 entries of the kernels line."""
+    max_err = check_apl_kernels(dev)
+    lap("15")
+    tr, launches, epoch_s = run_apl(dev, data)
+    lap("16")
+    timing = apl_timing(dev, tr, data, epoch_s)
+    lap("17")
+    return [{"name": name, "route": "cuda", "source": "acf_tpu_torch/csrc/apl_gen.cu",
+             "replaces": f"acf_tpu/ops/apl_gen_fused.py:{APL_REPLACES[name]}",
+             "launches": launches[name], "max_abs_err": max_err[name], **timing[name]}
+            for name in APL_PRODUCTS]
 
 
 def main():
@@ -1121,13 +1534,18 @@ def main():
     k2a_entry, k2b_entry = training_phases(dev, ml1m, data)
     k2a_entry["max_abs_err"] = max(k2a_entry["max_abs_err"], k2a_inference_err)
     k2a_entry["inference_ms"] = k2a_inference["ms"]
+    if k2a_inference["timer"] != "profiler":
+        k2a_entry["timer"] = k2a_inference["timer"]
+
+    # 15-17. APL: K3a-K3e, the pretrained protocol at Video scale, timing
+    k3_entries = apl_phases(dev, data)
 
     kernels = [{
         "name": "rank_count", "route": "cuda",
         "source": "acf_tpu_torch/csrc/rank_count.cu",
         "replaces": "acf_tpu/ops/ranking.py:39",
-        "launches": launches, "max_abs_err": max_err, **entry, "timer": "profiler",
-    }, k2a_entry, k2b_entry]
+        "launches": launches, "max_abs_err": max_err, **entry,
+    }, k2a_entry, k2b_entry, *k3_entries]
     check(all(k["launches"] > 0 for k in kernels), "a kernel of the path never launched")
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(f"card: {card_line()}")

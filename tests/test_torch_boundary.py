@@ -60,7 +60,8 @@ def test_importing_the_port_loads_no_jax():
             "acf_tpu_torch.nn.layers, acf_tpu_torch.models.sasrec, "
             "acf_tpu_torch.ops.sasrec_fused, acf_tpu_torch.sampling, acf_tpu_torch.train, "
             "acf_tpu_torch.train.trainer, acf_tpu_torch.train.optim, acf_tpu_torch.utils.io, "
-            "acf_tpu_torch.utils.tree; "
+            "acf_tpu_torch.utils.tree, acf_tpu_torch.models.apl, "
+            "acf_tpu_torch.ops.apl_gen_fused; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'optax', 'acf_tpu')); print(bad); "
             "sys.exit(1 if bad else 0)")
@@ -134,3 +135,35 @@ def test_cpu_encoder_training_counts_no_launch():
     tr = Trainer(sasrec(data, adversarial=True), data, adam(1e-3), config())
     tr.run_epoch()
     assert (fused_encoder.launches, encoder_bwd.launches) == before == (0, 0)
+
+
+def test_pair_and_apl_trainers_need_cuda_unless_cpu_is_asked():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is valid here")
+    from acf_tpu_torch.models.apl import APL
+    from acf_tpu_torch.train import TrainConfig, Trainer, adagrad, sgd
+
+    data = _port_data()
+    for model, opt in ((MFBPR(data.num_users, data.num_items, 4), adagrad(0.1)),
+                       (APL(data.num_users, data.num_items, 4), sgd(0.05))):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            Trainer(model, data, opt, TrainConfig(batch_size=16))
+        tr = Trainer(model, data, opt, TrainConfig(batch_size=16, device="cpu"))
+        assert tr.dev["pairs_u"].device.type == "cpu"
+
+
+def test_cpu_apl_step_counts_no_launch():
+    """A CPU APL epoch (critic and generator steps) runs the plain versions
+    of K3a-K3e: no K3 counter moves, nor K1's in its evaluation."""
+    from acf_tpu_torch.models.apl import APL
+    from acf_tpu_torch.ops.apl_gen_fused import KERNELS
+    from acf_tpu_torch.train import TrainConfig, Trainer, sgd
+
+    data = _port_data()
+    before = [k.launches for k in KERNELS] + [rank_positions_dot.launches]
+    tr = Trainer(APL(data.num_users, data.num_items, 4), data, sgd(0.05),
+                 TrainConfig(batch_size=16, verbose=10 ** 9, device="cpu"))
+    stats = tr.run_epoch()
+    tr.evaluate()
+    assert np.isfinite(stats["loss"]) and tr.num_batches >= 1
+    assert [k.launches for k in KERNELS] + [rank_positions_dot.launches] == before == [0] * 6

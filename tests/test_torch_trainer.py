@@ -201,8 +201,10 @@ def test_switch_model_resets_best_and_carries_or_resets_adam():
     tr.switch_model(adv)  # reset (the default)
     assert int(tr.opt_state["count"]) == 0
     assert not any(bool(x.any()) for _, x in _flatten_with_names(tr.opt_state["mu"]))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        tr.switch_model(MFBPR(data.num_users, data.num_items, 8))
+    # a pair model is taken now (the pair trainer); APR itself is not ported
+    tr.switch_model(MFBPR(data.num_users, data.num_items, 8, adversarial=True))
+    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
+        tr.run_epoch()
 
 
 def test_fit_two_phase_runs_clean_then_asasrec(tmp_path):
@@ -286,9 +288,14 @@ def test_epoch_fn_runs_num_batches_steps_and_run_epochs_stacks():
 
 
 def test_pair_models_are_not_trained_yet():
+    """The pair trainer trains the clean MF-BPR loss; what of the pair
+    models is not ported yet (APR, ROADMAP.md Queue 1 item 3) raises."""
     data = port_data()
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        Trainer(MFBPR(data.num_users, data.num_items, 8), data, adam(1e-3), config())
+    tr = Trainer(MFBPR(data.num_users, data.num_items, 8), data, adam(1e-3), config())
+    assert set(tr.run_epoch()) == {"acc", "loss"}
+    apr = MFBPR(data.num_users, data.num_items, 8, adversarial=True)
+    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
+        Trainer(apr, data, adam(1e-3), config()).run_epoch()
 
 
 def test_fit_two_phase_resumes_and_takes_a_pretrain(tmp_path):
