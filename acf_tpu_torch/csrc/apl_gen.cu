@@ -20,7 +20,8 @@
 // is 2 B I d = 1.55 GFLOP, 0.023 ms at the 67 TFLOP/s float32 peak; one [B, I]
 // float32 array is 48.5 MB, 0.0145 ms at 3.35 TB/s. K3a, K3c (1 product), K3d
 // (2) and K3e (4) are bound by operations; K3b by its bytes (the noise read,
-// z written, member read as uint8) about as much as by its product. The
+// z written, member read as uint8, 0.0345 ms) about as much as by its product
+// (0.023 ms), and stages that traffic so it overlaps the product. The
 // design keeps every [B, I] intermediate but z in registers: probs, mixed, s,
 // c, r and dlogits never reach device memory.
 //
@@ -35,6 +36,14 @@
 //     and writes one partial per user and chunk: (m, l) pairs merged by the
 //     online-softmax rule, or sums. A second small kernel merges the partials
 //     of each user in chunk order.
+//   * K3b walks its chunk in a loop of its own: the [B, I] noise and member
+//     tiles of item tile t + 1 are copied into shared memory (cp.async, in
+//     the same group as Q_g's tile t + 1) while tile t's product runs, and z
+//     is stored from registers. Rows of odd I start only 4-byte (noise, z) or
+//     1-byte (member) aligned and are not padded: each row's 64-item run
+//     moves as the aligned 4-item units around it (16-byte copies of noise,
+//     4-byte copies of member). Its arithmetic divides once a row, not once
+//     an element.
 //   * K3e: a block owns one 64-item tile and loops over every user tile, so
 //     each dQ row is written once, from registers; its dP partial for each
 //     user tile goes to [item tiles, B, d], summed in tile order by a second
@@ -47,8 +56,9 @@
 //     each step, so they are not contracted into FMAs.
 // Requires d % 4 == 0, d <= kMaxD (K3e's register columns) and 16-byte
 // aligned rows; the wrapper (acf_tpu_torch/ops/apl_gen_fused.py,
-// check_supported) checks. Later work: wgmma or 3xTF32 products, one pass
-// for K3d-K3e, and fewer dP partials.
+// check_supported) checks. Later work: the product tile_dot shared by K3a-K3e
+// (wgmma or 3xTF32, larger register tiles), which sets K3a's and now K3b's
+// time; one pass for K3d-K3e; fewer dP partials.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -64,6 +74,10 @@ constexpr int kChunkTiles = 4;             // item tiles per K3a-K3d block
 constexpr int kMaxD = 128;
 constexpr int kCols = kMaxD / kLanes;      // K3e: columns per thread
 constexpr int kLdD = kTile + 1;            // K3e: dlogits tile row stride
+constexpr int kRunUnits = kTile / 4 + 1;   // K3b: 4-item units a 64-item run can touch
+constexpr int kNoiseLd = kTile + 16;       // K3b: noise tile row stride (floats; a
+                                           // warp's two rows 16 banks apart)
+constexpr int kMemLd = 4 * kRunUnits;      // K3b: member tile row stride (bytes)
 constexpr float kEps = 1e-20f;
 
 __device__ __forceinline__ void cp_async16(float* dst, const float* src, bool valid) {
@@ -71,6 +85,19 @@ __device__ __forceinline__ void cp_async16(float* dst, const float* src, bool va
   const int src_bytes = valid ? 16 : 0;  // 0: zero-fill the destination
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
                :: "r"(saddr), "l"(src), "r"(src_bytes));
+}
+
+// A copy of kBytes (16 or 4) of which only the first src_bytes are read (the
+// rest zero-filled).
+template <int kBytes>
+__device__ __forceinline__ void cp_async_n(void* dst, const void* src, int src_bytes) {
+  const unsigned saddr = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  if constexpr (kBytes == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+                 :: "r"(saddr), "l"(src), "r"(src_bytes));
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+                 :: "r"(saddr), "l"(src), "r"(src_bytes));
 }
 
 __device__ __forceinline__ void cp_async_commit() {
@@ -273,43 +300,131 @@ stats1_kernel(const float* __restrict__ pu, const float* __restrict__ Qg,
 }
 
 // ---- K3b --------------------------------------------------------------------
+// K3b has a loop of its own: besides Q_g's item tiles it double-buffers the
+// tile's [64 users x 64 items] noise and member operands in shared memory, so
+// they are in flight during the product of the tile before. The [B, I] rows
+// start only 4-byte (noise, z) or 1-byte (member) aligned when I is odd, and
+// nothing is padded or copied to align them: each row's 64-item run moves as
+// the aligned 4-item units around it (16-byte copies of noise, 4-byte copies
+// of member) and is read back at its offset within its first unit.
+
+// The offset of item i0 of `row` within its aligned 4-item unit (i0 is a
+// multiple of 4).
+__device__ __forceinline__ int run_shift(int row, int I) { return ((row & 3) * (I & 3)) & 3; }
+
+// Rows [u0, u0 + 64) x items [i0, i0 + 64) of a row-major [B, I] array into a
+// shared tile with rows of `ld` elements: item i0 + c of row u0 + r lands at
+// dst[r * ld + run_shift(u0 + r) + c]. Rows past B, and units past the end of
+// the array (the last one cut to the elements it has), are zero-filled; items
+// past I belong to the next row and are masked by the reader.
+template <typename T>
+__device__ __forceinline__ void stage_runs(T* dst, const T* src, int ld, int u0, int i0,
+                                           const Geo& g) {
+  const size_t n = (size_t)g.B * g.I;
+  for (int idx = threadIdx.x; idx < kTile * kRunUnits; idx += kThreads) {
+    const int r = idx / kRunUnits, k = idx % kRunUnits;
+    const int row = u0 + r;
+    const size_t at = (((size_t)row * g.I + i0) & ~(size_t)3) + 4 * k;
+    const int elems = row < g.B && at < n ? (n - at < 4 ? (int)(n - at) : 4) : 0;
+    cp_async_n<4 * (int)sizeof(T)>(dst + r * ld + 4 * k, elems ? src + at : src,
+                                   elems * (int)sizeof(T));
+  }
+}
+
+// Shared memory: the user tile, two Q_g item tiles, two noise tiles, two
+// member tiles.
+size_t z_smem(const Geo& g) {
+  return (size_t)3 * kTile * g.ld * sizeof(float) +
+         (size_t)2 * kTile * kNoiseLd * sizeof(float) + (size_t)2 * kTile * kMemLd;
+}
+
+// Block: the user tile blockIdx.y and the item tiles of chunk blockIdx.x, as in
+// chunk_loop; the thread tile and the order of the statistics are K3a-K3d's.
+// Per item tile: the copies of tile t + 1 (Q_g, noise, member) are issued, tile
+// t's product runs, and each thread turns its 4 x 4 logits and staged operands
+// into z, stored from registers (two 64-byte runs per warp store). Per element
+// the arithmetic divides nothing: w member / nuniq is w / nuniq, one division
+// a row, where member is 1 and 0 where it is 0 (as the division gives);
+// probs multiplies by 1 / l1 and z by 1 / T, which moves them by an ulp from
+// the plain version's divisions.
 __global__ void __launch_bounds__(kThreads, 2)
 z_kernel(const float* __restrict__ pu, const float* __restrict__ Qg,
          const uint8_t* __restrict__ member, const float* __restrict__ nuniq,
          const float* __restrict__ gn, const float* __restrict__ m1,
          const float* __restrict__ l1, float* __restrict__ z, float* __restrict__ part_m,
          float* __restrict__ part_l, Geo g, float omw, float w, float T) {
+  extern __shared__ __align__(16) float smem[];
+  const int tile_f = kTile * g.ld, noise_f = kTile * kNoiseLd;
+  float* sU = smem;
+  float* sQ = smem + tile_f;                                      // [buf] Q_g tiles
+  float* sN = smem + 3 * tile_f;                                  // [buf] noise tiles
+  uint8_t* sM = reinterpret_cast<uint8_t*>(sN + 2 * noise_f);     // [buf] member tiles
   const int tx = threadIdx.x % kLanes, ty = threadIdx.x / kLanes;
   const int u0 = blockIdx.y * kTile;
-  float rm1[kSub], rl1[kSub], rnu[kSub], m[kSub], l[kSub];
+  const int t0 = blockIdx.x * kChunkTiles;
+  const int t1 = min(t0 + kChunkTiles, g.n_tiles);
+  float rm1[kSub], rl1[kSub], rnu[kSub], wnu[kSub], il1[kSub], m[kSub], l[kSub];
+  const float inv_t = 1.f / T;
+  int shift[kSub];
   load_rows(m1, u0, ty, g.B, 0.f, rm1);
   load_rows(l1, u0, ty, g.B, 1.f, rl1);
   load_rows(nuniq, u0, ty, g.B, 1.f, rnu);
 #pragma unroll
-  for (int i = 0; i < kSub; ++i) { m[i] = -INFINITY; l[i] = 0.f; }
-  chunk_loop<1>(pu, Qg, nullptr, nullptr, g,
-                [&](float (&acc)[kSub][kSub], float (&)[kSub][kSub], int i0, int, int, int) {
+  for (int i = 0; i < kSub; ++i) {
+    m[i] = -INFINITY;
+    l[i] = 0.f;
+    wnu[i] = w / rnu[i];
+    il1[i] = 1.f / rl1[i];
+    shift[i] = run_shift(u0 + ty + kLanes * i, g.I);
+  }
+
+  auto stage = [&](int t, int buf) {
+    stage_rows(sQ + buf * tile_f, Qg, t * kTile, g.I, g.d, g.ld);
+    stage_runs(sN + buf * noise_f, gn, kNoiseLd, u0, t * kTile, g);
+    stage_runs(sM + buf * kTile * kMemLd, member, kMemLd, u0, t * kTile, g);
+  };
+  stage_rows(sU, pu, u0, g.B, g.d, g.ld);
+  stage(t0, 0);
+  cp_async_commit();
+
+  for (int t = t0, buf = 0; t < t1; ++t, buf ^= 1) {
+    if (t + 1 < t1) stage(t + 1, buf ^ 1);
+    cp_async_commit();  // possibly empty: keeps one group per iteration
+    cp_async_wait_all_but_newest();
+    __syncthreads();
+    float acc[kSub][kSub];
+    tile_dot(sU, sQ + buf * tile_f, g.ld, g.d, ty, tx, acc);
+    const float* cn = sN + buf * noise_f;
+    const uint8_t* cm = sM + buf * kTile * kMemLd;
+    const int i0 = t * kTile;
 #pragma unroll
     for (int i = 0; i < kSub; ++i) {
-      const int row = u0 + ty + kLanes * i;
+      const int r = ty + kLanes * i;
+      const int row = u0 + r;
       bool live[kSub];
       float v[kSub];
 #pragma unroll
       for (int j = 0; j < kSub; ++j) {
-        const int item = i0 + tx + kLanes * j;
+        const int c = tx + kLanes * j;
+        const int item = i0 + c;
         live[j] = row < g.B && item < g.I;  // column 0 stays live
         v[j] = 0.f;
         if (live[j]) {
-          const size_t at = (size_t)row * g.I + item;
-          const float mixed = mixed_of(probs_of(acc[i][j], item, rm1[i], rl1[i]),
-                                       member[at], rnu[i], omw, w);
-          v[j] = __fadd_rn(logf(__fadd_rn(mixed, kEps)), gn[at]) / T;
-          z[at] = v[j];
+          const uint8_t mem = cm[r * kMemLd + shift[i] + c];
+          const float noise = cn[r * kNoiseLd + shift[i] + c];
+          const float aux = mem == 0   ? 0.f
+                            : mem == 1 ? wnu[i]
+                                       : __fmul_rn(w, (float)mem) / rnu[i];
+          const float probs = item > 0 ? __fmul_rn(expf(acc[i][j] - rm1[i]), il1[i]) : 0.f;
+          const float mixed = __fadd_rn(__fmul_rn(omw, probs), aux);
+          v[j] = __fmul_rn(__fadd_rn(logf(__fadd_rn(mixed, kEps)), noise), inv_t);
+          z[(size_t)row * g.I + item] = v[j];
         }
       }
       stat_absorb(m[i], l[i], v, live);
     }
-  });
+    __syncthreads();  // all reads of this buffer done before it is refilled
+  }
 #pragma unroll
   for (int i = 0; i < kSub; ++i) {
     stat_reduce_lanes(m[i], l[i]);
@@ -633,7 +748,7 @@ extern "C" int acf_apl_z(const float* pu, const float* Qg, const uint8_t* member
   if (bad_shape(B, I, d)) return (int)cudaErrorInvalidValue;
   const Geo g = make_geo(B, I, d);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const size_t smem = chunk_smem(g, 1);
+  const size_t smem = z_smem(g);
   cudaError_t err = prepare(z_kernel, smem);
   if (err != cudaSuccess) return (int)err;
   z_kernel<<<chunk_grid(g), kThreads, smem, st>>>(pu, Qg, member, nuniq, gn, m1, l1, z, part,

@@ -140,12 +140,14 @@ def _ld(d: int) -> int:
 
 def smem_bytes(d: int) -> int:
     """The largest shared-memory footprint of the five kernels at width d:
-    K3d's two user tiles and two double-buffered pairs of item tiles, or
-    K3e's four tiles and its [64, 65] dlogits tile. The C entries compute
-    the same sizes."""
+    K3b's user tile, two item tiles, two [64, 80] noise tiles and two
+    [64, 68]-byte member tiles; K3d's two user tiles and two double-buffered
+    pairs of item tiles; or K3e's four tiles and its [64, 65] dlogits tile.
+    The C entries compute the same sizes."""
+    k3b = 3 * TILE * _ld(d) + 2 * TILE * (TILE + 16) + 2 * TILE * (TILE + 4) // 4
     k3d = 6 * TILE * _ld(d)
     k3e = 4 * TILE * _ld(d) + TILE * (TILE + 1)
-    return 4 * max(k3d, k3e)
+    return 4 * max(k3b, k3d, k3e)
 
 
 def check_supported(**tensors):

@@ -68,7 +68,15 @@ def jax_chain(x, num_items):
         dP=dP, dQ=dQ[:num_items]).items()}
 
 
-CASES = [(b, d, n) for b in (7, 32) for d in (8, 64) for n in (40, 1100)]
+# The grid of small shapes, then K3b's staging edges: one user tile plus a row
+# by two item tiles plus 3 items, where the [B, I] rows start at every offset
+# of a word. The edge case has an atol of its own: with 131 items log(mixed) lies near -5, where an f32 ulp is 4.8e-7,
+# and z = (log(mixed) + gumbel)/T carries it 5-fold, so where z (or a dP, dQ
+# entry) is near 0 two ulps of the logits' summation order exceed TOL's atol
+# (both sides stay within 1.5e-6 of the output's scale of a float64 chain).
+EDGE = (65, 64, 131)
+EDGE_ATOL = 5e-6
+CASES = [(b, d, n) for b in (7, 32) for d in (8, 64) for n in (40, 1100)] + [EDGE]
 
 
 @pytest.mark.parametrize("b,d,num_items", CASES)
@@ -85,8 +93,9 @@ def test_plain_passes_match_the_jax_kernels(b, d, num_items):
     R = apl_bigr_plain(*chain, w=W, temperature=T)
     dQ, dP = apl_grad_plain(*chain, R, w=W, temperature=T)
     got = dict(m1=m1, l1=l1, z=z, m2=m2, l2=l2, fake=fake, dP=dP, dQ=dQ)
+    tol = dict(TOL, atol=EDGE_ATOL) if (b, d, num_items) == EDGE else TOL
     for name, value in got.items():
-        np.testing.assert_allclose(value.numpy(), ref[name], err_msg=name, **TOL)
+        np.testing.assert_allclose(value.numpy(), ref[name], err_msg=name, **tol)
     # R has no JAX output of its own: dP = (probs∘(r − R)) Q_g holds it, and
     # the closed form below checks it directly
     assert torch.isfinite(R).all()
