@@ -21,7 +21,8 @@
 // float32 array is 48.5 MB, 0.0145 ms at 3.35 TB/s. K3a, K3c (1 product), K3d
 // (2) and K3e (4) are bound by operations; K3b by its bytes (the noise read,
 // z written, member read as uint8, 0.0345 ms) about as much as by its product
-// (0.023 ms), and stages that traffic so it overlaps the product. The
+// (0.023 ms). K3b and K3d stage their [B, I] traffic (K3d reads z and member,
+// 60.6 MB, 0.018 ms) through shared memory so it overlaps their products. The
 // design keeps every [B, I] intermediate but z in registers: probs, mixed, s,
 // c, r and dlogits never reach device memory.
 //
@@ -35,7 +36,7 @@
 //   * K3a-K3d: a block owns (64 users) x (a chunk of kChunkTiles item tiles)
 //     and writes one partial per user and chunk: (m, l) pairs merged by the
 //     online-softmax rule, or sums. A second small kernel merges the partials
-//     of each user in chunk order.
+//     of each user in chunk order. K3a and K3c share one loop (chunk_loop).
 //   * K3b walks its chunk in a loop of its own: the [B, I] noise and member
 //     tiles of item tile t + 1 are copied into shared memory (cp.async, in
 //     the same group as Q_g's tile t + 1) while tile t's product runs, and z
@@ -44,6 +45,12 @@
 //     moves as the aligned 4-item units around it (16-byte copies of noise,
 //     4-byte copies of member). Its arithmetic divides once a row, not once
 //     an element.
+//   * K3d walks its chunk in a loop of its own too, with every buffer single
+//     (two 8-warp blocks a SM at d = 64): z and member of tile t, staged as
+//     K3b stages its noise and member, fly during tile t's two products; Q_g
+//     and Q_c of tile t + 1 during tile t's epilogue. Its per-row scalars sit
+//     in shared memory, not in registers (no spill), and it divides once an
+//     element, by (mixed + 1e-20).
 //   * K3e: a block owns one 64-item tile and loops over every user tile, so
 //     each dQ row is written once, from registers; its dP partial for each
 //     user tile goes to [item tiles, B, d], summed in tile order by a second
@@ -56,9 +63,10 @@
 //     each step, so they are not contracted into FMAs.
 // Requires d % 4 == 0, d <= kMaxD (K3e's register columns) and 16-byte
 // aligned rows; the wrapper (acf_tpu_torch/ops/apl_gen_fused.py,
-// check_supported) checks. Later work: the product tile_dot shared by K3a-K3e
-// (wgmma or 3xTF32, larger register tiles), which sets K3a's and now K3b's
-// time; one pass for K3d-K3e; fewer dP partials.
+// check_supported) checks; shared memory binds at d = 196 (K3d). Later work:
+// the product tile_dot shared by K3a-K3e (wgmma or 3xTF32, larger register
+// tiles), which sets K3a's and now K3b's and K3d's time; one pass for K3d-K3e;
+// fewer dP partials.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -74,10 +82,10 @@ constexpr int kChunkTiles = 4;             // item tiles per K3a-K3d block
 constexpr int kMaxD = 128;
 constexpr int kCols = kMaxD / kLanes;      // K3e: columns per thread
 constexpr int kLdD = kTile + 1;            // K3e: dlogits tile row stride
-constexpr int kRunUnits = kTile / 4 + 1;   // K3b: 4-item units a 64-item run can touch
-constexpr int kNoiseLd = kTile + 16;       // K3b: noise tile row stride (floats; a
-                                           // warp's two rows 16 banks apart)
-constexpr int kMemLd = 4 * kRunUnits;      // K3b: member tile row stride (bytes)
+constexpr int kRunUnits = kTile / 4 + 1;   // K3b, K3d: 4-item units a 64-item run can touch
+constexpr int kNoiseLd = kTile + 16;       // K3b, K3d: noise (z) tile row stride (floats;
+                                           // a warp's two rows 16 banks apart)
+constexpr int kMemLd = 4 * kRunUnits;      // K3b, K3d: member tile row stride (bytes)
 constexpr float kEps = 1e-20f;
 
 __device__ __forceinline__ void cp_async16(float* dst, const float* src, bool valid) {
@@ -218,42 +226,33 @@ struct Geo {
 // reads of 8 neighbouring rows fall in 8 distinct bank groups.
 __host__ __device__ inline int row_ld(int d) { return 4 * ((d / 4) | 1); }
 
-// K3a-K3d walk the item tiles [t0, t1) of chunk blockIdx.x for the user tile
-// blockIdx.y. `body(acc tiles, item0)` runs on each tile after its products.
-// kProducts is 1 (P_g Q_g^T, or P_c Q_c^T) or 2 (both).
-template <int kProducts, typename Body>
-__device__ __forceinline__ void chunk_loop(const float* pu1, const float* q1, const float* pu2,
-                                           const float* q2, const Geo& g, Body body) {
+// K3a and K3c walk the item tiles [t0, t1) of chunk blockIdx.x for the user
+// tile blockIdx.y. `body(acc, item0)` runs on each tile after its product
+// P[u] Q^T.
+template <typename Body>
+__device__ __forceinline__ void chunk_loop(const float* pu, const float* q, const Geo& g,
+                                           Body body) {
   extern __shared__ __align__(16) float smem[];
   const int tile_f = kTile * g.ld;
-  float* sU1 = smem;                            // user tiles, then two
-  float* sU2 = smem + tile_f;                   // buffers of item tiles
-  float* sI = smem + kProducts * tile_f;        // [buf][product] tiles
+  float* sU = smem;           // the user tile, then
+  float* sI = smem + tile_f;  // two buffers of item tiles
   const int tx = threadIdx.x % kLanes, ty = threadIdx.x / kLanes;
   const int u0 = blockIdx.y * kTile;
   const int t0 = blockIdx.x * kChunkTiles;
   const int t1 = min(t0 + kChunkTiles, g.n_tiles);
 
-  stage_rows(sU1, pu1, u0, g.B, g.d, g.ld);
-  if (kProducts == 2) stage_rows(sU2, pu2, u0, g.B, g.d, g.ld);
-  stage_rows(sI, q1, t0 * kTile, g.I, g.d, g.ld);
-  if (kProducts == 2) stage_rows(sI + tile_f, q2, t0 * kTile, g.I, g.d, g.ld);
+  stage_rows(sU, pu, u0, g.B, g.d, g.ld);
+  stage_rows(sI, q, t0 * kTile, g.I, g.d, g.ld);
   cp_async_commit();
 
   for (int t = t0, buf = 0; t < t1; ++t, buf ^= 1) {
-    float* next = sI + (buf ^ 1) * kProducts * tile_f;
-    if (t + 1 < t1) {
-      stage_rows(next, q1, (t + 1) * kTile, g.I, g.d, g.ld);
-      if (kProducts == 2) stage_rows(next + tile_f, q2, (t + 1) * kTile, g.I, g.d, g.ld);
-    }
+    if (t + 1 < t1) stage_rows(sI + (buf ^ 1) * tile_f, q, (t + 1) * kTile, g.I, g.d, g.ld);
     cp_async_commit();  // possibly empty: keeps one group per iteration
     cp_async_wait_all_but_newest();
     __syncthreads();
-    const float* cur = sI + buf * kProducts * tile_f;
-    float acc1[kSub][kSub], acc2[kSub][kSub];
-    tile_dot(sU1, cur, g.ld, g.d, ty, tx, acc1);
-    if (kProducts == 2) tile_dot(sU2, cur + tile_f, g.ld, g.d, ty, tx, acc2);
-    body(acc1, acc2, t * kTile, u0, ty, tx);
+    float acc[kSub][kSub];
+    tile_dot(sU, sI + buf * tile_f, g.ld, g.d, ty, tx, acc);
+    body(acc, t * kTile);
     __syncthreads();  // all reads of this buffer done before it is refilled
   }
 }
@@ -276,8 +275,8 @@ stats1_kernel(const float* __restrict__ pu, const float* __restrict__ Qg,
   float m[kSub], l[kSub];
 #pragma unroll
   for (int i = 0; i < kSub; ++i) { m[i] = -INFINITY; l[i] = 0.f; }
-  chunk_loop<1>(pu, Qg, nullptr, nullptr, g,
-                [&](float (&acc)[kSub][kSub], float (&)[kSub][kSub], int i0, int, int, int tx) {
+  const int tx = threadIdx.x % kLanes, ty = threadIdx.x / kLanes;
+  chunk_loop(pu, Qg, g, [&](float (&acc)[kSub][kSub], int i0) {
     bool live[kSub];
 #pragma unroll
     for (int j = 0; j < kSub; ++j) {
@@ -287,7 +286,6 @@ stats1_kernel(const float* __restrict__ pu, const float* __restrict__ Qg,
 #pragma unroll
     for (int i = 0; i < kSub; ++i) stat_absorb(m[i], l[i], acc[i], live);
   });
-  const int tx = threadIdx.x % kLanes, ty = threadIdx.x / kLanes;
 #pragma unroll
   for (int i = 0; i < kSub; ++i) {
     stat_reduce_lanes(m[i], l[i]);
@@ -446,8 +444,7 @@ fake_kernel(const float* __restrict__ pu_c, const float* __restrict__ Qc,
   float rm2[kSub], rl2[kSub], f[kSub] = {0.f, 0.f, 0.f, 0.f};
   load_rows(m2, u0, ty, g.B, 0.f, rm2);
   load_rows(l2, u0, ty, g.B, 1.f, rl2);
-  chunk_loop<1>(pu_c, Qc, nullptr, nullptr, g,
-                [&](float (&acc)[kSub][kSub], float (&)[kSub][kSub], int i0, int, int, int) {
+  chunk_loop(pu_c, Qc, g, [&](float (&acc)[kSub][kSub], int i0) {
 #pragma unroll
     for (int i = 0; i < kSub; ++i) {
       const int row = u0 + ty + kLanes * i;
@@ -469,7 +466,7 @@ fake_kernel(const float* __restrict__ pu_c, const float* __restrict__ Qc,
   }
 }
 
-// The per-row scalars of K3d and K3e.
+// The per-row scalars of K3e.
 struct RowScalars {
   float m1[kSub], l1[kSub], nu[kSub], m2[kSub], l2[kSub], a[kSub], fake[kSub];
 };
@@ -500,6 +497,32 @@ __device__ __forceinline__ void r_of(float logit, float c, int item, size_t at, 
 }
 
 // ---- K3d --------------------------------------------------------------------
+// K3d has a loop of its own, as K3b has. Its block is K3a-K3c's (64 users x a
+// chunk of item tiles, one partial per user and chunk), but every buffer is
+// single, so that two blocks fit on an SM at d = 64 and one fits at d = 128:
+// the two user tiles, one Q_g/Q_c pair of item tiles, one z tile (rows of
+// kNoiseLd floats), one member tile (rows of kMemLd bytes) and the block's
+// per-row scalars. Each copy hides behind the phase that does not read it:
+// z and member of tile t fly during tile t's two products, which read no z;
+// Q_g and Q_c of tile t + 1 fly during tile t's epilogue, which reads no Q.
+// The [B, I] runs are staged and read back at their offsets as in K3b.
+//
+// Per element: two expf and one division, by (mixed + 1e-20). probs and s
+// multiply by per-row 1/l1 and 1/l2 (an ulp from the plain version's
+// divisions); w member / nuniq is w / nuniq a row where member is 1 and 0
+// where it is 0, as the division gives.
+
+// The per-row scalars of K3d, [kTile users][kRowScalars] in shared memory:
+// two float4s a row, (m1, 1/l1, w/nuniq, nuniq) and (m2, 1/l2, a, fake).
+constexpr int kRowScalars = 8;
+
+// Shared memory: four [64, ld] tiles (P_g, P_c, Q_g, Q_c), the z tile, the
+// row scalars and the member tile.
+size_t bigr_smem(const Geo& g) {
+  return (size_t)4 * kTile * g.ld * sizeof(float) + (size_t)kTile * kNoiseLd * sizeof(float) +
+         (size_t)kTile * kRowScalars * sizeof(float) + (size_t)kTile * kMemLd;
+}
+
 __global__ void __launch_bounds__(kThreads, 2)
 bigr_kernel(const float* __restrict__ pu_g, const float* __restrict__ Qg,
             const float* __restrict__ pu_c, const float* __restrict__ Qc,
@@ -509,28 +532,80 @@ bigr_kernel(const float* __restrict__ pu_g, const float* __restrict__ Qg,
             const float* __restrict__ l2, const float* __restrict__ a,
             const float* __restrict__ fake, float* __restrict__ part, Geo g, float omw,
             float w, float coef) {
+  extern __shared__ __align__(16) float smem[];
+  const int tile_f = kTile * g.ld;
+  float* sPg = smem;
+  float* sPc = smem + tile_f;
+  float* sQg = smem + 2 * tile_f;
+  float* sQc = smem + 3 * tile_f;
+  float* sZ = smem + 4 * tile_f;                                       // [kTile][kNoiseLd]
+  float* sS = sZ + kTile * kNoiseLd;                                   // [kTile][kRowScalars]
+  uint8_t* sM = reinterpret_cast<uint8_t*>(sS + kTile * kRowScalars);  // [kTile][kMemLd]
   const int tx = threadIdx.x % kLanes, ty = threadIdx.x / kLanes;
   const int u0 = blockIdx.y * kTile;
-  RowScalars s;
-  load_scalars(s, m1, l1, nuniq, m2, l2, a, fake, u0, ty, g.B);
+  const int t0 = blockIdx.x * kChunkTiles;
+  const int t1 = min(t0 + kChunkTiles, g.n_tiles);
+
+  stage_rows(sPg, pu_g, u0, g.B, g.d, g.ld);
+  stage_rows(sPc, pu_c, u0, g.B, g.d, g.ld);
+  stage_rows(sQg, Qg, t0 * kTile, g.I, g.d, g.ld);
+  stage_rows(sQc, Qc, t0 * kTile, g.I, g.d, g.ld);
+  cp_async_commit();
+  if (threadIdx.x < kTile) {  // rows past B repeat row B - 1 and are masked
+    const int row = min(u0 + (int)threadIdx.x, g.B - 1);
+    float4* s = reinterpret_cast<float4*>(sS + threadIdx.x * kRowScalars);
+    s[0] = make_float4(m1[row], 1.f / l1[row], w / nuniq[row], nuniq[row]);
+    s[1] = make_float4(m2[row], 1.f / l2[row], a[row], fake[row]);
+  }
+  cp_async_wait_all();
+  __syncthreads();
+
   float acc_r[kSub] = {0.f, 0.f, 0.f, 0.f};
-  chunk_loop<2>(pu_g, Qg, pu_c, Qc, g,
-                [&](float (&lg)[kSub][kSub], float (&c)[kSub][kSub], int i0, int, int, int) {
+  for (int t = t0; t < t1; ++t) {
+    const int i0 = t * kTile;
+    stage_runs(sZ, z, kNoiseLd, u0, i0, g);
+    stage_runs(sM, member, kMemLd, u0, i0, g);
+    cp_async_commit();
+    float lg[kSub][kSub], c[kSub][kSub];
+    tile_dot(sPg, sQg, g.ld, g.d, ty, tx, lg);
+    tile_dot(sPc, sQc, g.ld, g.d, ty, tx, c);
+    __syncthreads();  // every read of sQg, sQc done
+    if (t + 1 < t1) {
+      stage_rows(sQg, Qg, i0 + kTile, g.I, g.d, g.ld);
+      stage_rows(sQc, Qc, i0 + kTile, g.I, g.d, g.ld);
+    }
+    cp_async_commit();  // possibly empty
+    cp_async_wait_all_but_newest();  // this tile's z and member
+    __syncthreads();
 #pragma unroll
     for (int i = 0; i < kSub; ++i) {
-      const int row = u0 + ty + kLanes * i;
+      const int r = ty + kLanes * i;
+      const int row = u0 + r;
+      const float4 s1 = *reinterpret_cast<const float4*>(sS + r * kRowScalars);
+      const float4 s2 = *reinterpret_cast<const float4*>(sS + r * kRowScalars + 4);
+      const int shift = run_shift(row, g.I);
 #pragma unroll
       for (int j = 0; j < kSub; ++j) {
-        const int item = i0 + tx + kLanes * j;
+        const int col = tx + kLanes * j;
+        const int item = i0 + col;
         if (row < g.B && item > 0 && item < g.I) {  // the pad item has probs 0
-          float probs, r;
-          r_of(lg[i][j], c[i][j], item, (size_t)row * g.I + item, i, s, member, z, omw, w,
-               coef, probs, r);
-          acc_r[i] = fmaf(probs, r, acc_r[i]);
+          const uint8_t mem = sM[r * kMemLd + shift + col];
+          const float zv = sZ[r * kNoiseLd + shift + col];
+          const float aux = mem == 0   ? 0.f
+                            : mem == 1 ? s1.z
+                                       : __fmul_rn(w, (float)mem) / s1.w;
+          const float probs = __fmul_rn(expf(lg[i][j] - s1.x), s1.y);
+          const float mixed = __fadd_rn(__fmul_rn(omw, probs), aux);
+          const float sz = __fmul_rn(expf(zv - s2.x), s2.y);
+          const float tt = __fmul_rn(s2.z, c[i][j] - s2.w);
+          const float rv = __fmul_rn(__fmul_rn(coef, sz), tt) / __fadd_rn(mixed, kEps);
+          acc_r[i] = fmaf(probs, rv, acc_r[i]);
         }
       }
     }
-  });
+    cp_async_wait_all();  // the next tile's Q_g, Q_c
+    __syncthreads();      // ... seen by all, and every read of sZ, sM done
+  }
 #pragma unroll
   for (int i = 0; i < kSub; ++i) {
     const float v = sum_lanes(acc_r[i]);
@@ -701,8 +776,8 @@ cudaError_t prepare(Kernel kernel, size_t smem) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
 }
 
-size_t chunk_smem(const Geo& g, int products) {
-  return (size_t)3 * products * kTile * g.ld * sizeof(float);  // user tiles + 2 buffers
+size_t chunk_smem(const Geo& g) {
+  return (size_t)3 * kTile * g.ld * sizeof(float);  // the user tile + 2 item tiles
 }
 
 dim3 chunk_grid(const Geo& g) { return dim3(g.n_chunks, (g.B + kTile - 1) / kTile); }
@@ -731,7 +806,7 @@ extern "C" int acf_apl_stats1(const float* pu, const float* Qg, float* m1, float
   if (bad_shape(B, I, d)) return (int)cudaErrorInvalidValue;
   const Geo g = make_geo(B, I, d);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const size_t smem = chunk_smem(g, 1);
+  const size_t smem = chunk_smem(g);
   cudaError_t err = prepare(stats1_kernel, smem);
   if (err != cudaSuccess) return (int)err;
   stats1_kernel<<<chunk_grid(g), kThreads, smem, st>>>(pu, Qg, part,
@@ -764,7 +839,7 @@ extern "C" int acf_apl_fake(const float* pu_c, const float* Qc, const float* z,
   if (bad_shape(B, I, d)) return (int)cudaErrorInvalidValue;
   const Geo g = make_geo(B, I, d);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const size_t smem = chunk_smem(g, 1);
+  const size_t smem = chunk_smem(g);
   cudaError_t err = prepare(fake_kernel, smem);
   if (err != cudaSuccess) return (int)err;
   fake_kernel<<<chunk_grid(g), kThreads, smem, st>>>(pu_c, Qc, z, m2, l2, part, g);
@@ -782,7 +857,7 @@ extern "C" int acf_apl_bigr(const float* pu_g, const float* Qg, const float* pu_
   if (bad_shape(B, I, d)) return (int)cudaErrorInvalidValue;
   const Geo g = make_geo(B, I, d);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const size_t smem = chunk_smem(g, 2);
+  const size_t smem = bigr_smem(g);
   cudaError_t err = prepare(bigr_kernel, smem);
   if (err != cudaSuccess) return (int)err;
   bigr_kernel<<<chunk_grid(g), kThreads, smem, st>>>(pu_g, Qg, pu_c, Qc, member, nuniq, z, m1,

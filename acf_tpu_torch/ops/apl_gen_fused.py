@@ -50,7 +50,7 @@ NEG = -1e30
 # each block a chunk of CHUNK_TILES item tiles, K3e one item tile.
 TILE = 64
 CHUNK_TILES = 4
-MAX_D = 128                    # K3e's register tile (shared memory would take 148)
+MAX_D = 128                    # K3e's register tile (shared memory would take 196)
 SMEM_LIMIT = 232_448           # shared memory one Hopper block may use (227 KB)
 ROADMAP_ITEM = "ROADMAP.md Queue 2, 'K3a-K3e: wider tables'"
 
@@ -138,16 +138,24 @@ def _ld(d: int) -> int:
     return 4 * ((d // 4) | 1)  # odd number of 16-byte units per row
 
 
+def smem_footprints(d: int) -> dict[str, int]:
+    """Shared-memory bytes of each kernel's block at width d, as the C
+    entries compute them: K3a and K3c a user tile and two item tiles; K3b
+    those, two [64, 80] noise tiles and two [64, 68]-byte member tiles; K3d
+    two user tiles, one Q_g/Q_c pair of item tiles, one [64, 80] z tile,
+    [64, 8] row scalars and one [64, 68]-byte member tile; K3e four tiles
+    and its [64, 65] dlogits tile."""
+    tile = TILE * _ld(d)
+    floats = {"apl_stats1": 3 * tile, "apl_fake": 3 * tile,
+              "apl_z": 3 * tile + 2 * TILE * (TILE + 16) + 2 * TILE * (TILE + 4) // 4,
+              "apl_bigr": 4 * tile + TILE * (TILE + 16) + TILE * 8 + TILE * (TILE + 4) // 4,
+              "apl_grad": 4 * tile + TILE * (TILE + 1)}
+    return {name: 4 * n for name, n in floats.items()}
+
+
 def smem_bytes(d: int) -> int:
-    """The largest shared-memory footprint of the five kernels at width d:
-    K3b's user tile, two item tiles, two [64, 80] noise tiles and two
-    [64, 68]-byte member tiles; K3d's two user tiles and two double-buffered
-    pairs of item tiles; or K3e's four tiles and its [64, 65] dlogits tile.
-    The C entries compute the same sizes."""
-    k3b = 3 * TILE * _ld(d) + 2 * TILE * (TILE + 16) + 2 * TILE * (TILE + 4) // 4
-    k3d = 6 * TILE * _ld(d)
-    k3e = 4 * TILE * _ld(d) + TILE * (TILE + 1)
-    return 4 * max(k3b, k3d, k3e)
+    """The largest shared-memory footprint of the five kernels at width d."""
+    return max(smem_footprints(d).values())
 
 
 def check_supported(**tensors):

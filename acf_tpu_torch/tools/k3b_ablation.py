@@ -107,8 +107,9 @@ def ptxas_lines(log: str, kernel: str) -> list[str]:
     return out
 
 
-def build_all(texts: dict[str, str]) -> dict[str, ctypes.CDLL]:
-    """One shared library per variant, compiled in parallel."""
+def build_all(texts: dict[str, str], kernel: str) -> dict[str, ctypes.CDLL]:
+    """One shared library per variant, compiled in parallel; prints the
+    ptxas lines of ``kernel`` for each."""
     out_dir = _build.BUILD_DIR / "ablation"
     out_dir.mkdir(parents=True, exist_ok=True)
     jobs = {}
@@ -124,9 +125,9 @@ def build_all(texts: dict[str, str]) -> dict[str, ctypes.CDLL]:
         log, _ = proc.communicate()
         if proc.returncode != 0:
             raise SystemExit(f"nvcc failed on {key}:\n{log}")
-        print(f"built {key}: z_kernel " + " | ".join(ptxas_lines(log, "z_kernel")))
+        print(f"built {key}: {kernel} " + " | ".join(ptxas_lines(log, kernel)))
         libs[key] = ctypes.CDLL(str(lib))
-        for name in ("acf_apl_z", "acf_apl_stats1"):
+        for name in (n for n in _build.SIGNATURES if n.startswith("acf_apl_")):
             fn = getattr(libs[key], name)
             fn.argtypes = _build.SIGNATURES[name]
             fn.restype = ctypes.c_int
@@ -213,7 +214,7 @@ def main():
     print(f"card: {card.strip()}")
     texts = {f"{label}:{name}": text for label, path in sources.items()
              for name, text in variants(Path(path).read_text()).items()}
-    libs = build_all(texts)
+    libs = build_all(texts, kernel="z_kernel")
 
     from acf_tpu_torch.ops.apl_gen_fused import apl_z_plain
 

@@ -61,8 +61,9 @@ Phases, any failure exits non-zero:
               d = 64, T in {8, 50} beside their plain versions and bounds;
  15. K3a-K3e (APL's generator chain) against their plain versions at APL's
               geometry (B = 512, d = 64, I = 23,701), a ragged case
-              (B = 7, d = 36, I = 1,100) and K3b's staging edges (B = 65,
-              d = 64, I = 131), histories with duplicates and a user with no
+              (B = 7, d = 36, I = 1,100), K3b's and K3d's staging edges
+              (B = 65, d = 64, I = 131) and the widest tables (B = 70,
+              d = 128, I = 517), histories with duplicates and a user with no
               positives: every output, two calls bit-identical,
               ``ValueError`` outside the limits with no launch;
  16. APL on the Video-shaped set: MF-BPR pretrained one epoch with
@@ -1141,8 +1142,9 @@ def training_phases(dev, ml1m_data, video_data):
 APL_TOL = 1e-4
 # (B, d, I): APL's geometry; a ragged case; one user tile plus a row and two
 # item tiles plus 3 items, where the [B, I] rows start at every offset within a
-# 16-byte unit (f32) and a 4-byte word (uint8)
-APL_CASES = ((512, D, 23_701), (7, 36, 1_100), (65, 64, 131))
+# 16-byte unit (f32) and a 4-byte word (uint8); the widest table the kernels
+# take (MAX_D), where K3d's shared memory is the largest, with odd I
+APL_CASES = ((512, D, 23_701), (7, 36, 1_100), (65, 64, 131), (70, 128, 517))
 APL_PRODUCTS = {"apl_stats1": 1, "apl_z": 1, "apl_fake": 1, "apl_bigr": 2, "apl_grad": 4}
 APL_REPLACES = {"apl_stats1": 67, "apl_z": 83, "apl_fake": 111, "apl_bigr": 141,
                 "apl_grad": 157}  # acf_tpu/ops/apl_gen_fused.py lines of the TPU kernels

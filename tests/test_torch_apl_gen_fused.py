@@ -22,6 +22,7 @@ from acf_tpu_torch.models.apl import membership
 from acf_tpu_torch.ops.apl_gen_fused import (
     KERNELS, apl_bigr_plain, apl_fake_plain, apl_gen_backward, apl_gen_forward, apl_grad_plain,
     MAX_D, SMEM_LIMIT, apl_stats1_plain, apl_z_plain, check_supported, smem_bytes,
+    smem_footprints,
 )
 
 TOL = dict(rtol=1e-5, atol=1e-6)
@@ -148,10 +149,15 @@ def test_chain_equals_the_dense_closed_form(b, d, num_items):
 
 
 def test_limits_are_stated_once():
-    """``check_supported``'s width limit: shared memory would take d = 148
-    (K3d's six tiles), K3e's register tile (128 columns) binds first."""
+    """``check_supported``'s width limit: shared memory would take d = 196
+    (K3d's four tiles with its z, member and row-scalar tiles, the largest
+    footprint from d = 128 on), K3e's register tile (128 columns) binds
+    first."""
     assert MAX_D == 128 and smem_bytes(MAX_D) <= SMEM_LIMIT
-    assert smem_bytes(148) <= SMEM_LIMIT < smem_bytes(152)
+    footprints = smem_footprints(MAX_D)
+    assert max(footprints, key=footprints.get) == "apl_bigr"
+    assert smem_bytes(196) <= SMEM_LIMIT < smem_bytes(200)
+    assert smem_footprints(200)["apl_bigr"] > SMEM_LIMIT
     x = torch.zeros(4, 8)
     with pytest.raises(ValueError, match="CUDA"):
         check_supported(pu_g=x, Qg=torch.zeros(10, 8))
