@@ -21,10 +21,10 @@
 // float32 array is 48.5 MB, 0.0145 ms at 3.35 TB/s. K3a, K3c (1 product), K3d
 // (2) and K3e (4) are bound by operations; K3b by its bytes (the noise read,
 // z written, member read as uint8, 0.0345 ms) about as much as by its product
-// (0.023 ms). K3b and K3d stage their [B, I] traffic (K3d reads z and member,
-// 60.6 MB, 0.018 ms) through shared memory so it overlaps their products. The
-// design keeps every [B, I] intermediate but z in registers: probs, mixed, s,
-// c, r and dlogits never reach device memory.
+// (0.023 ms). K3b, K3d and K3e stage their [B, I] traffic (K3d and K3e read z
+// and member, 60.6 MB, 0.018 ms) through shared memory so it overlaps their
+// products. The design keeps every [B, I] intermediate but z in registers:
+// probs, mixed, s, c, r and dlogits never reach device memory.
 //
 // Design (simple first; the TPU walked item tiles in order and carried m, l,
 // fake, R and dP across grid steps, which blocks running in parallel cannot):
@@ -54,7 +54,11 @@
 //   * K3e: a block owns one 64-item tile and loops over every user tile, so
 //     each dQ row is written once, from registers; its dP partial for each
 //     user tile goes to [item tiles, B, d], summed in tile order by a second
-//     kernel.
+//     kernel. Its buffers are single, as K3d's: the next user tile's P_c,
+//     z/member and P_g (with its row scalars) fly behind the epilogue, the dQ
+//     loop and the dP loop; the scalars sit in shared memory (no spill), it
+//     divides once an element, and its dQ and dP loops keep 4 x kC register
+//     tiles (kC = 4 columns a thread up to d = 64, 8 up to d = 128).
 //   * No float atomics anywhere and fixed reduction orders (warp butterflies
 //     are symmetric), so two calls give bit-identical outputs.
 //   * Nothing is padded: rows past B and items past I are zero-filled in
@@ -63,10 +67,10 @@
 //     each step, so they are not contracted into FMAs.
 // Requires d % 4 == 0, d <= kMaxD (K3e's register columns) and 16-byte
 // aligned rows; the wrapper (acf_tpu_torch/ops/apl_gen_fused.py,
-// check_supported) checks; shared memory binds at d = 196 (K3d). Later work:
-// the product tile_dot shared by K3a-K3e (wgmma or 3xTF32, larger register
-// tiles), which sets K3a's and now K3b's and K3d's time; one pass for K3d-K3e;
-// fewer dP partials.
+// check_supported) checks; shared memory binds above d = 180 (K3e). Later
+// work: the product tile_dot shared by K3a-K3e (wgmma or 3xTF32, larger
+// register tiles), which sets K3a's and now K3b's and K3d's time; one pass for
+// K3d-K3e; fewer dP partials.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -79,13 +83,12 @@ constexpr int kSub = 4;                    // users (and items) per thread
 constexpr int kLanes = 16;                 // threads along items (and users)
 constexpr int kThreads = kLanes * kLanes;  // 256
 constexpr int kChunkTiles = 4;             // item tiles per K3a-K3d block
-constexpr int kMaxD = 128;
-constexpr int kCols = kMaxD / kLanes;      // K3e: columns per thread
+constexpr int kMaxD = 128;                 // K3e: 8 register columns a thread
 constexpr int kLdD = kTile + 1;            // K3e: dlogits tile row stride
-constexpr int kRunUnits = kTile / 4 + 1;   // K3b, K3d: 4-item units a 64-item run can touch
-constexpr int kNoiseLd = kTile + 16;       // K3b, K3d: noise (z) tile row stride (floats;
+constexpr int kRunUnits = kTile / 4 + 1;   // K3b, K3d, K3e: 4-item units a 64-item run can touch
+constexpr int kNoiseLd = kTile + 16;       // K3b, K3d, K3e: noise (z) tile row stride (floats;
                                            // a warp's two rows 16 banks apart)
-constexpr int kMemLd = 4 * kRunUnits;      // K3b, K3d: member tile row stride (bytes)
+constexpr int kMemLd = 4 * kRunUnits;      // K3b, K3d, K3e: member tile row stride (bytes)
 constexpr float kEps = 1e-20f;
 
 __device__ __forceinline__ void cp_async16(float* dst, const float* src, bool valid) {
@@ -255,17 +258,6 @@ __device__ __forceinline__ void chunk_loop(const float* pu, const float* q, cons
     body(acc, t * kTile);
     __syncthreads();  // all reads of this buffer done before it is refilled
   }
-}
-
-// probs of one logit: 0 for the pad item (its logit is -1e30 in the reference).
-__device__ __forceinline__ float probs_of(float logit, int item, float m1, float l1) {
-  return item > 0 ? expf(logit - m1) / l1 : 0.f;
-}
-
-// mixed = (1-w) probs + (w member) / nuniq, each step rounded.
-__device__ __forceinline__ float mixed_of(float probs, uint8_t mem, float nu, float omw,
-                                          float w) {
-  return __fadd_rn(__fmul_rn(omw, probs), __fmul_rn(w, (float)mem) / nu);
 }
 
 // ---- K3a --------------------------------------------------------------------
@@ -466,36 +458,6 @@ fake_kernel(const float* __restrict__ pu_c, const float* __restrict__ Qc,
   }
 }
 
-// The per-row scalars of K3e.
-struct RowScalars {
-  float m1[kSub], l1[kSub], nu[kSub], m2[kSub], l2[kSub], a[kSub], fake[kSub];
-};
-
-__device__ __forceinline__ void load_scalars(RowScalars& s, const float* m1, const float* l1,
-                                             const float* nuniq, const float* m2,
-                                             const float* l2, const float* a,
-                                             const float* fake, int u0, int ty, int B) {
-  load_rows(m1, u0, ty, B, 0.f, s.m1);
-  load_rows(l1, u0, ty, B, 1.f, s.l1);
-  load_rows(nuniq, u0, ty, B, 1.f, s.nu);
-  load_rows(m2, u0, ty, B, 0.f, s.m2);
-  load_rows(l2, u0, ty, B, 1.f, s.l2);
-  load_rows(a, u0, ty, B, 0.f, s.a);
-  load_rows(fake, u0, ty, B, 0.f, s.fake);
-}
-
-// (probs, r) of one (user, item), as the reference's `_r_tile`.
-__device__ __forceinline__ void r_of(float logit, float c, int item, size_t at, int i,
-                                     const RowScalars& s, const uint8_t* member,
-                                     const float* z, float omw, float w, float coef,
-                                     float& probs, float& r) {
-  probs = probs_of(logit, item, s.m1[i], s.l1[i]);
-  const float mixed = mixed_of(probs, member[at], s.nu[i], omw, w);
-  const float sz = expf(z[at] - s.m2[i]) / s.l2[i];
-  const float t = __fmul_rn(s.a[i], c - s.fake[i]);
-  r = __fmul_rn(__fmul_rn(coef, sz), t) / __fadd_rn(mixed, kEps);
-}
-
 // ---- K3d --------------------------------------------------------------------
 // K3d has a loop of its own, as K3b has. Its block is K3a-K3c's (64 users x a
 // chunk of item tiles, one partial per user and chunk), but every buffer is
@@ -615,9 +577,105 @@ bigr_kernel(const float* __restrict__ pu_g, const float* __restrict__ Qg,
 }
 
 // ---- K3e --------------------------------------------------------------------
-// Block: item tile blockIdx.x, every user tile in order. Shared memory: the
-// tile's Q_g and Q_c rows, one user tile of P_g[u] and P_c[u], and the
-// [64 users][65] dlogits tile.
+// Block: item tile blockIdx.x, whose Q_g and Q_c rows stay in shared memory,
+// and every user tile in order; dQ of the tile's items sums in registers and
+// is written once, and the dP partial of each user tile goes to
+// part_dP[item tile], summed in tile order by sum_combine. Every user-tile
+// buffer is single, as in K3d: one P_g and one P_c tile, the [64 users][65]
+// dlogits tile, one z tile (rows of kNoiseLd floats), one member tile (rows
+// of kMemLd bytes) and the tile's per-row scalars, so that two blocks fit on
+// an SM at d = 64 and one at d = 128. Each copy of user tile ut + 1 flies
+// behind the phases of ut that do not read its buffer, and all of them are
+// waited for at the top of ut + 1:
+//   the products   read P_g, P_c, Q_g, Q_c;  then P_c of ut + 1 is issued;
+//   the epilogue   reads z, member and the scalars, writes dlogits;
+//                                            then z and member of ut + 1;
+//   the dQ loop    reads dlogits and P_g;    then P_g and the scalars of ut + 1;
+//   the dP loop    reads dlogits and Q_g.
+// The [B, I] runs are staged and read back at their offsets as in K3b. Per
+// element the arithmetic is K3d's (two expf, one division, by (mixed + 1e-20)),
+// then dlogits = probs (r - R). Both loops keep a 4 x kC register tile
+// (columns tx + 16j, kC = 4 up to d = 64, 8 up to d = 128) and sum in order:
+// the dQ loop over the tile's users, the dP loop over its items, each step
+// 4 dlogits and kC table values from shared memory for 4 kC FMAs. While the
+// products run, the first four columns of dq wait in the dlogits tile, which
+// is free until the epilogue: held in registers beside the products' operands
+// they would push loop-invariant addresses into local memory (a spill).
+
+// K3e's per-row scalars, [kTile users][kGradScalars] in shared memory, copied
+// raw (m1, l1, nuniq, nuniq, m2, l2, a, fake, R) and turned in place into
+// three float4s a row: (m1, 1/l1, w/nuniq, nuniq), (m2, 1/l2, a, fake), (R).
+constexpr int kGradScalars = 12;
+
+// Shared memory: four [64, ld] tiles (Q_g, Q_c, P_g, P_c), the dlogits tile,
+// the z tile, the row scalars and the member tile.
+size_t grad_smem(const Geo& g) {
+  return (size_t)4 * kTile * g.ld * sizeof(float) + (size_t)kTile * kLdD * sizeof(float) +
+         (size_t)kTile * kNoiseLd * sizeof(float) +
+         (size_t)kTile * kGradScalars * sizeof(float) + (size_t)kTile * kMemLd;
+}
+
+// dq[i][j] += sum_u dlogits[u][item] P_g[u][col], items ty + 16i, columns
+// tx + 16j, u in order.
+template <int kC>
+__device__ __forceinline__ void grad_dq(const float* sD, const float* sPg, const Geo& g,
+                                        int ty, int tx, float (&dq)[kSub][kC]) {
+#pragma unroll (kC == 4 ? 4 : 2)  // the unrolling that spills nothing at either width
+  for (int u = 0; u < kTile; ++u) {
+    float dv[kSub];
+#pragma unroll
+    for (int i = 0; i < kSub; ++i) dv[i] = sD[u * kLdD + ty + kLanes * i];
+#pragma unroll
+    for (int j = 0; j < kC; ++j) {
+      const int col = tx + kLanes * j;
+      if (col < g.d) {
+        const float p = sPg[u * g.ld + col];
+#pragma unroll
+        for (int i = 0; i < kSub; ++i) dq[i][j] = fmaf(dv[i], p, dq[i][j]);
+      }
+    }
+  }
+}
+
+// One user tile's dP partial, sum_it dlogits[user][it] Q_g[it][col] for
+// users u0 + ty + 16i and columns tx + 16j, it in order, into `part` (this
+// item tile's [B, d] slice).
+template <int kC>
+__device__ __forceinline__ void grad_dp(const float* sD, const float* sQg, const Geo& g,
+                                        int ty, int tx, int u0, float* part) {
+  float dp[kSub][kC];
+#pragma unroll
+  for (int i = 0; i < kSub; ++i)
+#pragma unroll
+    for (int j = 0; j < kC; ++j) dp[i][j] = 0.f;
+#pragma unroll (kC == 4 ? 4 : 2)
+  for (int it = 0; it < kTile; ++it) {
+    float dv[kSub], q[kC];
+#pragma unroll
+    for (int i = 0; i < kSub; ++i) dv[i] = sD[(ty + kLanes * i) * kLdD + it];
+#pragma unroll
+    for (int j = 0; j < kC; ++j) {
+      const int col = tx + kLanes * j;
+      q[j] = col < g.d ? sQg[it * g.ld + col] : 0.f;
+    }
+#pragma unroll
+    for (int i = 0; i < kSub; ++i)
+#pragma unroll
+      for (int j = 0; j < kC; ++j) dp[i][j] = fmaf(dv[i], q[j], dp[i][j]);
+  }
+#pragma unroll
+  for (int i = 0; i < kSub; ++i) {
+    const int row = u0 + ty + kLanes * i;
+    if (row >= g.B) continue;
+#pragma unroll
+    for (int j = 0; j < kC; ++j) {
+      const int col = tx + kLanes * j;
+      if (col < g.d) part[(size_t)row * g.d + col] = dp[i][j];
+    }
+  }
+}
+
+template <int kC>
 __global__ void __launch_bounds__(kThreads, 2)
 grad_kernel(const float* __restrict__ pu_g, const float* __restrict__ Qg,
             const float* __restrict__ pu_c, const float* __restrict__ Qc,
@@ -634,92 +692,119 @@ grad_kernel(const float* __restrict__ pu_g, const float* __restrict__ Qg,
   float* sQc = smem + tile_f;
   float* sPg = smem + 2 * tile_f;
   float* sPc = smem + 3 * tile_f;
-  float* sD = smem + 4 * tile_f;  // [kTile users][kLdD]
+  float* sD = smem + 4 * tile_f;                                          // [kTile][kLdD]
+  float* sZe = sD + kTile * kLdD;                                         // [kTile][kNoiseLd]
+  float* sSe = sZe + kTile * kNoiseLd;                                    // [kTile][kGradScalars]
+  uint8_t* sMe = reinterpret_cast<uint8_t*>(sSe + kTile * kGradScalars);  // [kTile][kMemLd]
   const int tx = threadIdx.x % kLanes, ty = threadIdx.x / kLanes;
   const int i0 = blockIdx.x * kTile;
+  const int n_user_tiles = (g.B + kTile - 1) / kTile;
+  float* part = part_dP + (size_t)blockIdx.x * g.B * g.d;
+
+  auto stage_zm = [&](int u0) {
+    stage_runs(sZe, z, kNoiseLd, u0, i0, g);
+    stage_runs(sMe, member, kMemLd, u0, i0, g);
+  };
+  auto stage_scalars = [&](int u0) {  // rows past B repeat row B - 1 and are masked
+    if (threadIdx.x < kTile) {
+      const int row = min(u0 + (int)threadIdx.x, g.B - 1);
+      float* s = sSe + threadIdx.x * kGradScalars;
+      const float* src[9] = {m1, l1, nuniq, nuniq, m2, l2, a, fake, R};
+#pragma unroll
+      for (int k = 0; k < 9; ++k) cp_async_n<4>(s + k, src[k] + row, 4);
+    }
+  };
 
   stage_rows(sQg, Qg, i0, g.I, g.d, g.ld);
   stage_rows(sQc, Qc, i0, g.I, g.d, g.ld);
+  stage_rows(sPg, pu_g, 0, g.B, g.d, g.ld);
+  stage_rows(sPc, pu_c, 0, g.B, g.d, g.ld);
+  stage_scalars(0);
+  stage_zm(0);
   cp_async_commit();
 
-  float dq[kSub][kCols];
+  float dq[kSub][kC];
 #pragma unroll
   for (int i = 0; i < kSub; ++i)
 #pragma unroll
-    for (int j = 0; j < kCols; ++j) dq[i][j] = 0.f;
+    for (int j = 0; j < kC; ++j) dq[i][j] = 0.f;
 
-  const int n_user_tiles = (g.B + kTile - 1) / kTile;
   for (int ut = 0; ut < n_user_tiles; ++ut) {
     const int u0 = ut * kTile;
-    stage_rows(sPg, pu_g, u0, g.B, g.d, g.ld);
-    stage_rows(sPc, pu_c, u0, g.B, g.d, g.ld);
+    const bool next = ut + 1 < n_user_tiles;
+    cp_async_wait_all();  // every copy of this user tile
+    if (threadIdx.x < kTile) {  // the row this thread copied the scalars of
+      float* s = sSe + threadIdx.x * kGradScalars;
+      s[1] = 1.f / s[1];
+      s[2] = w / s[2];
+      s[5] = 1.f / s[5];
+    }
+    __syncthreads();
+
+    // The first four columns of dq wait in the dlogits tile, free until the
+    // epilogue, while the two products hold their operands in registers.
+    float4* park = reinterpret_cast<float4*>(sD);
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      park[j * kThreads + threadIdx.x] = make_float4(dq[0][j], dq[1][j], dq[2][j], dq[3][j]);
+    float lg[kSub][kSub], c[kSub][kSub];
+    tile_dot(sPg, sQg, g.ld, g.d, ty, tx, lg);
+    tile_dot(sPc, sQc, g.ld, g.d, ty, tx, c);
+    asm volatile("" ::: "memory");  // dq is read back, not kept in registers
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float4 v = park[j * kThreads + threadIdx.x];
+      dq[0][j] = v.x;
+      dq[1][j] = v.y;
+      dq[2][j] = v.z;
+      dq[3][j] = v.w;
+    }
+    __syncthreads();  // every read of sPc and of the parked dq done
+    if (next) stage_rows(sPc, pu_c, u0 + kTile, g.B, g.d, g.ld);
     cp_async_commit();
-    cp_async_wait_all();
-    __syncthreads();
 
-    RowScalars s;
-    load_scalars(s, m1, l1, nuniq, m2, l2, a, fake, u0, ty, g.B);
-    float rR[kSub];
-    load_rows(R, u0, ty, g.B, 0.f, rR);
-    {
-      float lg[kSub][kSub], c[kSub][kSub];
-      tile_dot(sPg, sQg, g.ld, g.d, ty, tx, lg);
-      tile_dot(sPc, sQc, g.ld, g.d, ty, tx, c);
 #pragma unroll
-      for (int i = 0; i < kSub; ++i) {
-        const int row = u0 + ty + kLanes * i;
+    for (int i = 0; i < kSub; ++i) {
+      const int r = ty + kLanes * i;
+      const int row = u0 + r;
+      const float4 s1 = *reinterpret_cast<const float4*>(sSe + r * kGradScalars);
+      const float4 s2 = *reinterpret_cast<const float4*>(sSe + r * kGradScalars + 4);
+      const float rR = sSe[r * kGradScalars + 8];
+      const int shift = run_shift(row, g.I);
 #pragma unroll
-        for (int j = 0; j < kSub; ++j) {
-          const int item = i0 + tx + kLanes * j;
-          float dl = 0.f;  // rows past B, the pad item and items past I
-          if (row < g.B && item > 0 && item < g.I) {
-            float probs, r;
-            r_of(lg[i][j], c[i][j], item, (size_t)row * g.I + item, i, s, member, z, omw,
-                 w, coef, probs, r);
-            dl = __fmul_rn(probs, r - rR[i]);
-          }
-          sD[(ty + kLanes * i) * kLdD + tx + kLanes * j] = dl;
-        }
-      }
-    }
-    __syncthreads();
-
-    // dQ[item] += sum_u dlogits[u][item] P_g[u]: items ty + 16i, columns tx + 16j
-#pragma unroll 4
-    for (int u = 0; u < kTile; ++u) {
-      float dv[kSub];
-#pragma unroll
-      for (int i = 0; i < kSub; ++i) dv[i] = sD[u * kLdD + ty + kLanes * i];
-#pragma unroll
-      for (int j = 0; j < kCols; ++j) {
+      for (int j = 0; j < kSub; ++j) {
         const int col = tx + kLanes * j;
-        if (col < g.d) {
-          const float p = sPg[u * g.ld + col];
-#pragma unroll
-          for (int i = 0; i < kSub; ++i) dq[i][j] = fmaf(dv[i], p, dq[i][j]);
+        const int item = i0 + col;
+        float dl = 0.f;  // rows past B, the pad item and items past I
+        if (row < g.B && item > 0 && item < g.I) {
+          const uint8_t mem = sMe[r * kMemLd + shift + col];
+          const float zv = sZe[r * kNoiseLd + shift + col];
+          const float aux = mem == 0   ? 0.f
+                            : mem == 1 ? s1.z
+                                       : __fmul_rn(w, (float)mem) / s1.w;
+          const float probs = __fmul_rn(expf(lg[i][j] - s1.x), s1.y);
+          const float mixed = __fadd_rn(__fmul_rn(omw, probs), aux);
+          const float sz = __fmul_rn(expf(zv - s2.x), s2.y);
+          const float tt = __fmul_rn(s2.z, c[i][j] - s2.w);
+          const float rv = __fmul_rn(__fmul_rn(coef, sz), tt) / __fadd_rn(mixed, kEps);
+          dl = __fmul_rn(probs, rv - rR);
         }
+        sD[r * kLdD + col] = dl;
       }
     }
+    __syncthreads();  // sD complete; every read of sZe, sMe and sSe done
+    if (next) stage_zm(u0 + kTile);
+    cp_async_commit();
 
-    // dP partial of this item tile: users ty + 16i, columns tx + 16j
-#pragma unroll
-    for (int j = 0; j < kCols; ++j) {
-      const int col = tx + kLanes * j;
-      if (col >= g.d) continue;
-      float dp[kSub] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll 4
-      for (int it = 0; it < kTile; ++it) {
-        const float q = sQg[it * g.ld + col];
-#pragma unroll
-        for (int i = 0; i < kSub; ++i) dp[i] = fmaf(sD[(ty + kLanes * i) * kLdD + it], q, dp[i]);
-      }
-#pragma unroll
-      for (int i = 0; i < kSub; ++i) {
-        const int row = u0 + ty + kLanes * i;
-        if (row < g.B) part_dP[((size_t)blockIdx.x * g.B + row) * g.d + col] = dp[i];
-      }
+    grad_dq<kC>(sD, sPg, g, ty, tx, dq);
+    __syncthreads();  // every read of sPg done
+    if (next) {
+      stage_rows(sPg, pu_g, u0 + kTile, g.B, g.d, g.ld);
+      stage_scalars(u0 + kTile);
     }
-    __syncthreads();  // sPg, sPc and sD are refilled by the next user tile
+    cp_async_commit();
+
+    grad_dp<kC>(sD, sQg, g, ty, tx, u0, part);
   }
 
 #pragma unroll
@@ -727,7 +812,7 @@ grad_kernel(const float* __restrict__ pu_g, const float* __restrict__ Qg,
     const int item = i0 + ty + kLanes * i;
     if (item >= g.I) continue;
 #pragma unroll
-    for (int j = 0; j < kCols; ++j) {
+    for (int j = 0; j < kC; ++j) {
       const int col = tx + kLanes * j;
       if (col < g.d) dQ[(size_t)item * g.d + col] = dq[i][j];
     }
@@ -877,11 +962,13 @@ extern "C" int acf_apl_grad(const float* pu_g, const float* Qg, const float* pu_
   if (bad_shape(B, I, d)) return (int)cudaErrorInvalidValue;
   const Geo g = make_geo(B, I, d);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const size_t smem = ((size_t)4 * kTile * g.ld + (size_t)kTile * kLdD) * sizeof(float);
-  cudaError_t err = prepare(grad_kernel, smem);
+  const size_t smem = grad_smem(g);
+  // 4 register columns a thread up to d = 64, 8 up to d = 128
+  const auto kernel = d <= 4 * kLanes ? grad_kernel<4> : grad_kernel<8>;
+  cudaError_t err = prepare(kernel, smem);
   if (err != cudaSuccess) return (int)err;
-  grad_kernel<<<g.n_tiles, kThreads, smem, st>>>(pu_g, Qg, pu_c, Qc, member, nuniq, z, m1, l1,
-                                                 m2, l2, a, fake, R, dQ, part, g, omw, w, coef);
+  kernel<<<g.n_tiles, kThreads, smem, st>>>(pu_g, Qg, pu_c, Qc, member, nuniq, z, m1, l1, m2,
+                                            l2, a, fake, R, dQ, part, g, omw, w, coef);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   return (int)combine_sums(part, dP, (size_t)B * d, g.n_tiles, st);
 }

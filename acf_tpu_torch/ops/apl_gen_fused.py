@@ -50,7 +50,7 @@ NEG = -1e30
 # each block a chunk of CHUNK_TILES item tiles, K3e one item tile.
 TILE = 64
 CHUNK_TILES = 4
-MAX_D = 128                    # K3e's register tile (shared memory would take 196)
+MAX_D = 128                    # K3e's register tile (shared memory would take 180)
 SMEM_LIMIT = 232_448           # shared memory one Hopper block may use (227 KB)
 ROADMAP_ITEM = "ROADMAP.md Queue 2, 'K3a-K3e: wider tables'"
 
@@ -143,13 +143,15 @@ def smem_footprints(d: int) -> dict[str, int]:
     entries compute them: K3a and K3c a user tile and two item tiles; K3b
     those, two [64, 80] noise tiles and two [64, 68]-byte member tiles; K3d
     two user tiles, one Q_g/Q_c pair of item tiles, one [64, 80] z tile,
-    [64, 8] row scalars and one [64, 68]-byte member tile; K3e four tiles
-    and its [64, 65] dlogits tile."""
+    [64, 8] row scalars and one [64, 68]-byte member tile; K3e K3d's four
+    tiles, z tile and member tile, [64, 12] row scalars and its [64, 65]
+    dlogits tile."""
     tile = TILE * _ld(d)
+    zm = TILE * (TILE + 16) + TILE * (TILE + 4) // 4  # one z and one member tile
     floats = {"apl_stats1": 3 * tile, "apl_fake": 3 * tile,
-              "apl_z": 3 * tile + 2 * TILE * (TILE + 16) + 2 * TILE * (TILE + 4) // 4,
-              "apl_bigr": 4 * tile + TILE * (TILE + 16) + TILE * 8 + TILE * (TILE + 4) // 4,
-              "apl_grad": 4 * tile + TILE * (TILE + 1)}
+              "apl_z": 3 * tile + 2 * zm,
+              "apl_bigr": 4 * tile + zm + TILE * 8,
+              "apl_grad": 4 * tile + zm + TILE * 12 + TILE * (TILE + 1)}
     return {name: 4 * n for name, n in floats.items()}
 
 

@@ -1,0 +1,197 @@
+"""What the kernel ablation tools (``k3b_ablation``, ``k3d_ablation``,
+``k3e_ablation``) share: variants of ``csrc/apl_gen.cu`` made by text
+substitution, built in parallel with ``nvcc``, checked against the plain
+version and timed in turns on one card.
+
+Each tool gives its ``FORMS``: for each form of its kernel that was
+measured, a marker (a line only that form has) and the (old, new)
+substitutions of each variant. ``run`` is the command line every tool
+shares:
+
+    python -m acf_tpu_torch.tools.<tool> [--source LABEL=PATH ...]
+        [--rounds N] [--json PATH]
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import hashlib
+import json
+import subprocess
+from pathlib import Path
+
+import torch
+
+from acf_tpu_torch.ops import _build
+
+TOL = 1e-4  # chip_smoke.py's APL_TOL, of the output's scale
+SHAPE = (512, 64, 23_701)  # APL's B, d and I at Video scale
+W, T = 0.2, 0.2  # APL's p_aux and temperature
+
+
+def variants(source: str, forms: dict, kernel: str) -> dict[str, str]:
+    """{variant: source text} of every variant of the form ``source`` has
+    (the one whose marker it holds exactly once)."""
+    for marker, form in forms.values():
+        if source.count(marker) != 1:
+            continue
+        out = {"as_is": source}
+        for name, subs in form.items():
+            text = source
+            for old, new in subs:
+                if text.count(old) != 1:
+                    raise SystemExit(f"{name}: {old!r} does not match exactly once")
+                text = text.replace(old, new)
+            out[name] = text
+        return out
+    raise SystemExit(f"no known form of {kernel} matches this source")
+
+
+def ptxas_lines(log: str, kernel: str) -> list[str]:
+    """``-Xptxas -v``'s lines (registers, spills, shared memory) of one kernel."""
+    out, inside = [], False
+    for line in log.splitlines():
+        if "Compiling entry function" in line or "Function properties" in line:
+            inside = kernel in line
+            if "Function properties" not in line:
+                continue
+        if inside:
+            out.append(line.split(":", 1)[-1].strip())
+    return out
+
+
+def build_all(texts: dict[str, str], kernel: str) -> dict[str, ctypes.CDLL]:
+    """One shared library per variant, compiled in parallel; prints the
+    ptxas lines of ``kernel`` for each."""
+    out_dir = _build.BUILD_DIR / "ablation"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    jobs = {}
+    for key, text in texts.items():
+        digest = hashlib.sha256((" ".join(_build.NVCC_FLAGS) + text).encode()).hexdigest()[:16]
+        src, lib = out_dir / f"{digest}.cu", out_dir / f"{digest}.so"
+        src.write_text(text)
+        cmd = [_build.nvcc_path(), *_build.NVCC_FLAGS, "-shared", str(src), "-o", str(lib)]
+        jobs[key] = (lib, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                           stderr=subprocess.STDOUT, text=True))
+    libs = {}
+    for key, (lib, proc) in jobs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise SystemExit(f"nvcc failed on {key}:\n{log}")
+        print(f"built {key}: {kernel} " + " | ".join(ptxas_lines(log, kernel)))
+        libs[key] = ctypes.CDLL(str(lib))
+        for name in (n for n in _build.SIGNATURES if n.startswith("acf_apl_")):
+            fn = getattr(libs[key], name)
+            fn.argtypes = _build.SIGNATURES[name]
+            fn.restype = ctypes.c_int
+    return libs
+
+
+def launcher(fn, args, name, outputs):
+    """A function that calls the C entry ``fn`` once on ``args`` (tensors
+    passed as pointers, then the current stream) and returns ``outputs``.
+    It reads ``args``, which keeps the scratch tensors among them alive."""
+    stream = torch.cuda.current_stream(outputs[0].device).cuda_stream
+
+    def call():
+        err = fn(*[a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args], stream)
+        if err != 0:
+            raise SystemExit(f"{name} launch failed: cudaError {err}")
+        return outputs
+
+    return call
+
+
+def device_ms(fn, iters=50, warmup=10) -> float:
+    """Mean device milliseconds per call (torch.profiler, every kernel)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(e.self_device_time_total for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA)
+    if total <= 0:
+        raise SystemExit("the profiler saw no device time")
+    return total / 1e3 / iters
+
+
+def run(doc: str, kernel: str, variants_of, setup, check=lambda outputs: []) -> None:
+    """The command line of an ablation tool (``doc`` is its docstring).
+
+    Builds every variant (``variants_of(text)``) of every ``--source``,
+    printing ``kernel``'s ptxas lines. ``setup(dev)`` makes the inputs at
+    ``SHAPE`` once and returns ``(want, call_of, extras_of)``: ``want`` maps
+    each output's name to its plain value, ``call_of(lib)`` launches the
+    kernel under study once and returns its outputs in that order, and
+    ``extras_of(lib)`` gives {label: call} of other kernels of an as-is
+    build, timed beside it. Each ``as_is`` must agree with ``want`` within
+    ``TOL`` of its scale, give the same bits on two calls and pass
+    ``check(outputs)``, a list of (what, ok); the other variants compute
+    something else on purpose. Rounds time every call in turn, forward
+    then backward."""
+    ap = argparse.ArgumentParser(description=doc.splitlines()[0])
+    ap.add_argument("--source", action="append", default=[],
+                    help="LABEL=PATH of a copy of apl_gen.cu (repeatable)")
+    ap.add_argument("--rounds", type=int, default=2)
+    ap.add_argument("--json", type=Path, help="also write the results here")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("the ablation tools need a CUDA GPU")
+    sources = dict(s.split("=", 1) for s in args.source) or {"head": str(_build.CSRC_DIR /
+                                                                         "apl_gen.cu")}
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True, text=True).stdout
+    print(f"card: {card.strip()}")
+    texts = {f"{label}:{name}": text for label, path in sources.items()
+             for name, text in variants_of(Path(path).read_text()).items()}
+    libs = build_all(texts, kernel)
+
+    want, call_of, extras_of = setup(torch.device("cuda", 0))
+    calls, first = {}, None
+    for key, lib in libs.items():
+        calls[key] = call_of(lib)
+        if not key.endswith(":as_is"):
+            continue
+        got = [t.clone() for t in calls[key]()]
+        again = [t.clone() for t in calls[key]()]
+        torch.cuda.synchronize()
+        for (name, w_), g_ in zip(want.items(), got):
+            err, scale = float((g_ - w_).abs().max()), float(w_.abs().max())
+            print(f"{key} {name}: max |kernel - plain| {err:.3e} of scale {scale:.4g}")
+            if not err <= TOL * scale:
+                raise SystemExit(f"{key} {name} disagrees with its plain version")
+        for what, ok in [("two calls bit-identical",
+                          all(torch.equal(g_, a_) for g_, a_ in zip(got, again))), *check(got)]:
+            print(f"{key}: {what}: {ok}")
+            if not ok:
+                raise SystemExit(f"{key}: not {what}")
+        if first is None:
+            first = key, got
+        else:
+            same = all(torch.equal(g_, f_) for g_, f_ in zip(got, first[1]))
+            print(f"{key} and {first[0]}: {', '.join(want)} bit-identical: {same}")
+        for label, call in extras_of(lib).items():
+            calls[key.replace(":as_is", f":{label}")] = call
+    samples = {key: [] for key in calls}
+    order = list(calls)
+    for rnd in range(args.rounds):
+        for key in (order if rnd % 2 == 0 else order[::-1]):
+            samples[key].append(device_ms(calls[key]))
+    b, d, num_items = SHAPE
+    print(f"device ms per call at B={b} d={d} I={num_items} (torch.profiler, 50 calls a "
+          f"sample, rounds forward then backward):")
+    for key, s in samples.items():
+        print(f"  {key:24s} " + "  ".join(f"{v:.4f}" for v in s)
+              + f"   mean {sum(s) / len(s):.4f}")
+    result = {"card": card.strip(), "shape": list(SHAPE), "timer": "profiler", "ms": samples}
+    print(json.dumps(result))
+    if args.json:
+        args.json.parent.mkdir(parents=True, exist_ok=True)
+        args.json.write_text(json.dumps(result, indent=1))

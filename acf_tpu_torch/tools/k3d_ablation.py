@@ -7,9 +7,8 @@ Run from the root of a checkout on a machine with an NVIDIA Hopper GPU:
     python -m acf_tpu_torch.tools.k3d_ablation [--source LABEL=PATH ...]
 
 Each ``--source`` is a copy of ``apl_gen.cu`` (default: this checkout's, as
-``head``). For each, the script writes these variants into the build
-directory (nothing in ``csrc/`` changes), builds each with ``nvcc`` (all at
-once, through ``k3b_ablation.build_all``) and times its ``acf_apl_bigr`` at
+``head``). ``ablation.run`` builds these variants of each (in the build
+directory; nothing in ``csrc/`` changes) and times its ``acf_apl_bigr`` at
 APL's geometry (B = 512, d = 64, I = 23,701) with torch.profiler's device
 time, the partials' merge included:
 
@@ -25,24 +24,16 @@ A variant applies where its text substitutions match the source exactly
 once; each form of bigr_kernel that was measured has its own (``FORMS``),
 told apart by a line only it has. An earlier kernel is compared by giving
 its file, e.g. ``--source 3f2900e=PATH`` with ``git show
-3f2900e:acf_tpu_torch/csrc/apl_gen.cu`` written to PATH. Rounds run every
-variant in turn, forward then backward, so sources are compared in turns on
-one card. Each ``as_is`` is checked against ``apl_bigr_plain`` and for two
-calls giving the same bits; the other variants compute something else on
-purpose.
+3f2900e:acf_tpu_torch/csrc/apl_gen.cu`` written to PATH; rounds time the
+sources in turns on one card. Each ``as_is`` is checked against
+``apl_bigr_plain`` and for two calls giving the same bits.
 """
 
 from __future__ import annotations
 
-import argparse
-import json
-import subprocess
-from pathlib import Path
-
 import torch
 
-from acf_tpu_torch.ops import _build
-from acf_tpu_torch.tools.k3b_ablation import TOL, build_all, device_ms
+from acf_tpu_torch.tools import ablation
 
 # (old, new) text substitutions per variant, for each form of bigr_kernel.
 _R_OF_MATH = (
@@ -68,8 +59,7 @@ _STAGED_MATH = (
 _STAGED_NO_MATH = "          acc_r[i] += lg[i][j] + c[i][j] + zv + (float)mem;\n"
 FORMS = {
     # commits 1f1bed5 and 3f2900e: chunk_loop's two products, r_of reading
-    # z and member from device memory inside the epilogue (r_of is K3e's too,
-    # which these variants do not time)
+    # z and member from device memory inside the epilogue
     "direct": ("  chunk_loop<2>(pu_g, Qg, pu_c, Qc, g,\n", {
         "no_loads": [("member[at], s.nu[i]", "(uint8_t)(item & 1), s.nu[i]"),
                      ("expf(z[at] - s.m2[i])", "expf(0.25f * (item & 3) - s.m2[i])")],
@@ -84,25 +74,12 @@ FORMS = {
         "neither": [(_STAGED_STAGE, ""), *_STAGED_CONSTANTS, (_STAGED_MATH, _STAGED_NO_MATH)],
     }),
 }
-SHAPE = (512, 64, 23_701)
-W, T = 0.2, 0.2
+CHAIN = ("pu_g", "Qg", "pu_c", "Qc", "member", "nuniq", "z", "m1", "l1", "m2", "l2", "a",
+         "fake")
 
 
 def variants(source: str) -> dict[str, str]:
-    """{variant: source text} of every variant of the form ``source`` has."""
-    for marker, form in FORMS.values():
-        if source.count(marker) != 1:
-            continue
-        out = {"as_is": source}
-        for name, subs in form.items():
-            text = source
-            for old, new in subs:
-                if text.count(old) != 1:
-                    raise SystemExit(f"{name}: {old!r} does not match exactly once")
-                text = text.replace(old, new)
-            out[name] = text
-        return out
-    raise SystemExit("no known form of bigr_kernel matches this source")
+    return ablation.variants(source, FORMS, "bigr_kernel")
 
 
 def inputs(dev, b, d, num_items, seed=0):
@@ -122,7 +99,8 @@ def inputs(dev, b, d, num_items, seed=0):
     gn = gumbel(torch.rand(b, num_items, generator=g, device=dev))
     x["m1"], x["l1"] = ops.apl_stats1_plain(x["pu_g"], x["Qg"])
     x["z"], x["m2"], x["l2"] = ops.apl_z_plain(x["pu_g"], x["Qg"], member, nuniq, gn, x["m1"],
-                                               x["l1"], w=W, temperature=T)
+                                               x["l1"], w=ablation.W,
+                                               temperature=ablation.T)
     x["a"] = f(b)
     x["fake"] = ops.apl_fake_plain(x["pu_c"], x["Qc"], x["z"], x["m2"], x["l2"])
     return x
@@ -138,89 +116,25 @@ def caller(lib, x, kernel):
     out = torch.empty(b, device=dev)
     out2 = torch.empty(b, device=dev)
     part = torch.empty(2, chunks(num_items), b, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
+    w = ablation.W
     fn, args = {
         "k3a": (lib.acf_apl_stats1, [x["pu_g"], x["Qg"], out, out2, part, b, num_items, d]),
         "k3c": (lib.acf_apl_fake, [x["pu_c"], x["Qc"], x["z"], x["m2"], x["l2"], out, part, b,
                                    num_items, d]),
-        "bigr": (lib.acf_apl_bigr, [*(x[k] for k in ("pu_g", "Qg", "pu_c", "Qc", "member",
-                                                     "nuniq", "z", "m1", "l1", "m2", "l2", "a",
-                                                     "fake")),
-                                    out, part, b, num_items, d, 1.0 - W, W, (1.0 - W) / T]),
+        "bigr": (lib.acf_apl_bigr, [*(x[k] for k in CHAIN), out, part, b, num_items, d,
+                                    1.0 - w, w, (1.0 - w) / ablation.T]),
     }[kernel]
-
-    def call():  # reads `args`, which keeps the scratch `part` alive
-        err = fn(*[a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args], stream)
-        if err != 0:
-            raise SystemExit(f"{kernel} launch failed: cudaError {err}")
-        return out
-
-    return call
+    return ablation.launcher(fn, args, kernel, (out,))
 
 
-def main():
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--source", action="append", default=[],
-                    help="LABEL=PATH of a copy of apl_gen.cu (repeatable)")
-    ap.add_argument("--rounds", type=int, default=2)
-    ap.add_argument("--shape", type=int, nargs=3, default=SHAPE, metavar=("B", "d", "I"))
-    ap.add_argument("--json", type=Path, help="also write the results here")
-    args = ap.parse_args()
-    if not torch.cuda.is_available():
-        raise SystemExit("k3d_ablation needs a CUDA GPU")
-    sources = dict(s.split("=", 1) for s in args.source) or {"head": str(_build.CSRC_DIR /
-                                                                         "apl_gen.cu")}
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                           "--format=csv,noheader"], capture_output=True, text=True).stdout
-    print(f"card: {card.strip()}")
-    texts = {f"{label}:{name}": text for label, path in sources.items()
-             for name, text in variants(Path(path).read_text()).items()}
-    libs = build_all(texts, kernel="bigr_kernel")
-
+def setup(dev):
     from acf_tpu_torch.ops.apl_gen_fused import apl_bigr_plain
 
-    dev = torch.device("cuda", 0)
-    b, d, num_items = args.shape
-    x = inputs(dev, b, d, num_items)
-    want = apl_bigr_plain(*(x[k] for k in ("pu_g", "Qg", "pu_c", "Qc", "member", "nuniq", "z",
-                                           "m1", "l1", "m2", "l2", "a", "fake")),
-                          w=W, temperature=T)
-    scale = float(want.abs().max())
-    calls, first = {}, None
-    for key, lib in libs.items():
-        calls[key] = caller(lib, x, "bigr")
-        if key.endswith(":as_is"):
-            got = calls[key]().clone()
-            again = calls[key]().clone()
-            torch.cuda.synchronize()
-            err = float((got - want).abs().max())
-            print(f"{key} R: max |kernel - plain| {err:.3e} of scale {scale:.4g}; two calls "
-                  f"bit-identical: {torch.equal(got, again)}")
-            if not (err <= TOL * scale and torch.equal(got, again)):
-                raise SystemExit(f"{key}: R disagrees with apl_bigr_plain or between calls")
-            if first is None:
-                first = key, got
-            else:
-                print(f"{key} and {first[0]}: R bit-identical: {torch.equal(got, first[1])}")
-            for kernel in ("k3a", "k3c"):
-                calls[key.replace(":as_is", f":{kernel}")] = caller(lib, x, kernel)
-    samples = {key: [] for key in calls}
-    order = list(calls)
-    for rnd in range(args.rounds):
-        for key in (order if rnd % 2 == 0 else order[::-1]):
-            samples[key].append(device_ms(calls[key]))
-    print(f"device ms per call at B={b} d={d} I={num_items} (torch.profiler, 50 calls a "
-          f"sample, rounds forward then backward):")
-    for key, s in samples.items():
-        print(f"  {key:24s} " + "  ".join(f"{v:.4f}" for v in s)
-              + f"   mean {sum(s) / len(s):.4f}")
-    result = {"card": card.strip(), "shape": [b, d, num_items], "timer": "profiler",
-              "ms": samples}
-    print(json.dumps(result))
-    if args.json:
-        args.json.parent.mkdir(parents=True, exist_ok=True)
-        args.json.write_text(json.dumps(result, indent=1))
+    x = inputs(dev, *ablation.SHAPE)
+    want = apl_bigr_plain(*(x[k] for k in CHAIN), w=ablation.W, temperature=ablation.T)
+    return ({"R": want}, lambda lib: caller(lib, x, "bigr"),
+            lambda lib: {k: caller(lib, x, k) for k in ("k3a", "k3c")})
 
 
 if __name__ == "__main__":
-    main()
+    ablation.run(__doc__, "bigr_kernel", variants, setup)

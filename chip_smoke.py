@@ -1143,7 +1143,7 @@ APL_TOL = 1e-4
 # (B, d, I): APL's geometry; a ragged case; one user tile plus a row and two
 # item tiles plus 3 items, where the [B, I] rows start at every offset within a
 # 16-byte unit (f32) and a 4-byte word (uint8); the widest table the kernels
-# take (MAX_D), where K3d's shared memory is the largest, with odd I
+# take (MAX_D), where K3e's shared memory is the largest, with odd I
 APL_CASES = ((512, D, 23_701), (7, 36, 1_100), (65, 64, 131), (70, 128, 517))
 APL_PRODUCTS = {"apl_stats1": 1, "apl_z": 1, "apl_fake": 1, "apl_bigr": 2, "apl_grad": 4}
 APL_REPLACES = {"apl_stats1": 67, "apl_z": 83, "apl_fake": 111, "apl_bigr": 141,

@@ -1,5 +1,5 @@
 """The ablation tools (``acf_tpu_torch/tools/k3b_ablation.py``,
-``k3d_ablation.py``) make their variants by text substitution of
+``k3d_ablation.py``, ``k3e_ablation.py``) make their variants by text substitution of
 ``csrc/apl_gen.cu``: each must find its form in the committed source and
 change it, so a later edit of the kernels cannot silently time the
 unchanged kernel under a variant's name."""
@@ -7,12 +7,13 @@ unchanged kernel under a variant's name."""
 import pytest
 
 from acf_tpu_torch.ops import _build
-from acf_tpu_torch.tools import k3b_ablation, k3d_ablation
+from acf_tpu_torch.tools import k3b_ablation, k3d_ablation, k3e_ablation
 
 SOURCE = (_build.CSRC_DIR / "apl_gen.cu").read_text()
 EXPECTED = {
     k3b_ablation: ("as_is", "no_store", "no_loads", "no_traffic", "no_math"),
     k3d_ablation: ("as_is", "no_loads", "no_math", "neither"),
+    k3e_ablation: ("as_is", "no_loads", "no_math", "neither", "no_grads"),
 }
 
 
@@ -27,9 +28,42 @@ def test_variant_applies_to_the_committed_source(tool, name):
     assert len(set(texts.values())) == len(texts)
 
 
+@pytest.mark.parametrize("tool", list(EXPECTED),
+                         ids=lambda v: v.__name__.rsplit(".", 1)[-1])
+def test_an_unknown_or_broken_form_is_refused(tool):
+    """A source that holds no form's marker, or holds one but has lost an
+    anchor of that form, stops the tool rather than timing the wrong text."""
+    with pytest.raises(SystemExit, match="no known form"):
+        tool.variants("")
+    marker, staged = tool.FORMS["staged"]
+    old = next(old for subs in staged.values() for old, _ in subs if marker not in old)
+    with pytest.raises(SystemExit, match="does not match exactly once"):
+        tool.variants(SOURCE.replace(old, old + old))
+
+
+def test_k3b_forms_are_told_apart_by_their_markers():
+    (direct, _), (staged, _) = k3b_ablation.FORMS["direct"], k3b_ablation.FORMS["staged"]
+    assert SOURCE.count(staged) == 1 and SOURCE.count(direct) == 0
+
+
 def test_k3d_forms_are_told_apart_by_their_markers():
     """The committed source has the staged form's marker and not the
     direct form's, so its variants are the staged ones."""
     (direct, _), (staged, _) = k3d_ablation.FORMS["direct"], k3d_ablation.FORMS["staged"]
     assert SOURCE.count(staged) == 1 and SOURCE.count(direct) == 0
-    assert "stage_runs(sZ" not in k3d_ablation.variants(SOURCE)["neither"]
+    assert "stage_runs(sZ," not in k3d_ablation.variants(SOURCE)["neither"]
+
+
+def test_k3e_forms_are_told_apart_by_their_markers():
+    """The committed source has the staged form's marker and not the
+    direct form's; K3e's staging and reads have names of their own, so
+    K3d's staged anchors still match only K3d's lines."""
+    (direct, _), (staged, _) = k3e_ablation.FORMS["direct"], k3e_ablation.FORMS["staged"]
+    assert SOURCE.count(staged) == 1 and SOURCE.count(direct) == 0
+    texts = k3e_ablation.variants(SOURCE)
+    assert "stage_runs(sZe" not in texts["neither"]
+    assert "grad_dq<kC>(" in texts["as_is"] and "grad_dq<kC>(" not in texts["no_grads"]
+    # K3d's variants take out K3d's staging and leave K3e's alone
+    k3d_neither = k3d_ablation.variants(SOURCE)["neither"]
+    assert "stage_runs(sZ," not in k3d_neither and "stage_runs(sZe," in k3d_neither
+

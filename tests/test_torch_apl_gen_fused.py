@@ -149,15 +149,17 @@ def test_chain_equals_the_dense_closed_form(b, d, num_items):
 
 
 def test_limits_are_stated_once():
-    """``check_supported``'s width limit: shared memory would take d = 196
-    (K3d's four tiles with its z, member and row-scalar tiles, the largest
-    footprint from d = 128 on), K3e's register tile (128 columns) binds
-    first."""
+    """``check_supported``'s width limit: shared memory would take d = 180
+    (K3e's four tiles with its dlogits, z, member and row-scalar tiles, the
+    largest footprint at d = 128), K3e's register tile (128 columns) binds
+    first. At d = 64 K3e still fits two blocks on an SM (233,472 B of
+    shared memory, less 1 KB reserved a block)."""
     assert MAX_D == 128 and smem_bytes(MAX_D) <= SMEM_LIMIT
     footprints = smem_footprints(MAX_D)
-    assert max(footprints, key=footprints.get) == "apl_bigr"
-    assert smem_bytes(196) <= SMEM_LIMIT < smem_bytes(200)
-    assert smem_footprints(200)["apl_bigr"] > SMEM_LIMIT
+    assert max(footprints, key=footprints.get) == "apl_grad"
+    assert smem_bytes(180) <= SMEM_LIMIT < smem_bytes(184)
+    assert smem_footprints(184)["apl_grad"] > SMEM_LIMIT
+    assert 2 * (smem_footprints(64)["apl_grad"] + 1024) <= 233_472
     x = torch.zeros(4, 8)
     with pytest.raises(ValueError, match="CUDA"):
         check_supported(pu_g=x, Qg=torch.zeros(10, 8))
