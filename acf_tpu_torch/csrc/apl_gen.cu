@@ -21,10 +21,11 @@
 // float32 array is 48.5 MB, 0.0145 ms at 3.35 TB/s. K3a, K3c (1 product), K3d
 // (2) and K3e (4) are bound by operations; K3b by its bytes (the noise read,
 // z written, member read as uint8, 0.0345 ms) about as much as by its product
-// (0.023 ms). K3b, K3d and K3e stage their [B, I] traffic (K3d and K3e read z
-// and member, 60.6 MB, 0.018 ms) through shared memory so it overlaps their
-// products. The design keeps every [B, I] intermediate but z in registers:
-// probs, mixed, s, c, r and dlogits never reach device memory.
+// (0.023 ms). K3b-K3e stage their [B, I] traffic (K3c reads z, 48.5 MB,
+// 0.0145 ms; K3d and K3e read z and member, 60.6 MB, 0.018 ms) through shared
+// memory so it overlaps their products. The design keeps every [B, I]
+// intermediate but z in registers: probs, mixed, s, c, r and dlogits never
+// reach device memory.
 //
 // Design (simple first; the TPU walked item tiles in order and carried m, l,
 // fake, R and dP across grid steps, which blocks running in parallel cannot):
@@ -36,7 +37,7 @@
 //   * K3a-K3d: a block owns (64 users) x (a chunk of kChunkTiles item tiles)
 //     and writes one partial per user and chunk: (m, l) pairs merged by the
 //     online-softmax rule, or sums. A second small kernel merges the partials
-//     of each user in chunk order. K3a and K3c share one loop (chunk_loop).
+//     of each user in chunk order. K3a walks its chunk in chunk_loop.
 //   * K3b walks its chunk in a loop of its own: the [B, I] noise and member
 //     tiles of item tile t + 1 are copied into shared memory (cp.async, in
 //     the same group as Q_g's tile t + 1) while tile t's product runs, and z
@@ -45,6 +46,10 @@
 //     moves as the aligned 4-item units around it (16-byte copies of noise,
 //     4-byte copies of member). Its arithmetic divides once a row, not once
 //     an element.
+//   * K3c walks its chunk in a loop of its own too, with K3b's double
+//     buffers: z of tile t + 1, staged as K3b stages its noise, flies with
+//     Q_c's tile t + 1 during tile t's product. Per element one expf and one
+//     multiply, by a per-row 1/l2.
 //   * K3d walks its chunk in a loop of its own too, with every buffer single
 //     (two 8-warp blocks a SM at d = 64): z and member of tile t, staged as
 //     K3b stages its noise and member, fly during tile t's two products; Q_g
@@ -69,8 +74,8 @@
 // aligned rows; the wrapper (acf_tpu_torch/ops/apl_gen_fused.py,
 // check_supported) checks; shared memory binds above d = 180 (K3e). Later
 // work: the product tile_dot shared by K3a-K3e (wgmma or 3xTF32, larger
-// register tiles), which sets K3a's and now K3b's and K3d's time; one pass for
-// K3d-K3e; fewer dP partials.
+// register tiles), which sets K3a's and now K3b's, K3c's and K3d's time; one
+// pass for K3d-K3e; fewer dP partials.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -85,8 +90,8 @@ constexpr int kThreads = kLanes * kLanes;  // 256
 constexpr int kChunkTiles = 4;             // item tiles per K3a-K3d block
 constexpr int kMaxD = 128;                 // K3e: 8 register columns a thread
 constexpr int kLdD = kTile + 1;            // K3e: dlogits tile row stride
-constexpr int kRunUnits = kTile / 4 + 1;   // K3b, K3d, K3e: 4-item units a 64-item run can touch
-constexpr int kNoiseLd = kTile + 16;       // K3b, K3d, K3e: noise (z) tile row stride (floats;
+constexpr int kRunUnits = kTile / 4 + 1;   // K3b-K3e: 4-item units a 64-item run can touch
+constexpr int kNoiseLd = kTile + 16;       // K3b-K3e: noise (z) tile row stride (floats;
                                            // a warp's two rows 16 banks apart)
 constexpr int kMemLd = 4 * kRunUnits;      // K3b, K3d, K3e: member tile row stride (bytes)
 constexpr float kEps = 1e-20f;
@@ -229,9 +234,8 @@ struct Geo {
 // reads of 8 neighbouring rows fall in 8 distinct bank groups.
 __host__ __device__ inline int row_ld(int d) { return 4 * ((d / 4) | 1); }
 
-// K3a and K3c walk the item tiles [t0, t1) of chunk blockIdx.x for the user
-// tile blockIdx.y. `body(acc, item0)` runs on each tile after its product
-// P[u] Q^T.
+// K3a walks the item tiles [t0, t1) of chunk blockIdx.x for the user tile
+// blockIdx.y. `body(acc, item0)` runs on each tile after its product P[u] Q^T.
 template <typename Body>
 __device__ __forceinline__ void chunk_loop(const float* pu, const float* q, const Geo& g,
                                            Body body) {
@@ -427,29 +431,78 @@ z_kernel(const float* __restrict__ pu, const float* __restrict__ Qg,
 }
 
 // ---- K3c --------------------------------------------------------------------
+// K3c has a loop of its own, on K3b's pattern: its block is K3a's (the user
+// tile blockIdx.y, the item tiles of chunk blockIdx.x, one partial per user
+// and chunk), and besides Q_c's item tiles it double-buffers the tile's
+// [64 users x 64 items] z operand in shared memory, so z of tile t + 1 is in
+// flight (one cp.async group with Q_c's tile t + 1) during tile t's product.
+// The [B, I] runs are staged and read back at their offsets as in K3b. Per
+// element one expf and one multiply by the row's 1/l2, computed once a row:
+// an ulp from the plain version's division. The sums keep their order (items
+// in tile order, the 16 lanes' butterfly, chunks merged in order), so two
+// calls give the same bits.
+
+// Shared memory: the user tile, two Q_c item tiles, two z tiles.
+size_t fake_smem(const Geo& g) {
+  return (size_t)3 * kTile * g.ld * sizeof(float) + (size_t)2 * kTile * kNoiseLd * sizeof(float);
+}
+
 __global__ void __launch_bounds__(kThreads, 2)
 fake_kernel(const float* __restrict__ pu_c, const float* __restrict__ Qc,
             const float* __restrict__ z, const float* __restrict__ m2,
             const float* __restrict__ l2, float* __restrict__ part, Geo g) {
+  extern __shared__ __align__(16) float smem[];
+  const int tile_f = kTile * g.ld, zc_f = kTile * kNoiseLd;
+  float* sU = smem;
+  float* sQc = smem + tile_f;       // [buf] Q_c tiles
+  float* sZc = smem + 3 * tile_f;   // [buf] z tiles
   const int tx = threadIdx.x % kLanes, ty = threadIdx.x / kLanes;
   const int u0 = blockIdx.y * kTile;
-  float rm2[kSub], rl2[kSub], f[kSub] = {0.f, 0.f, 0.f, 0.f};
+  const int t0 = blockIdx.x * kChunkTiles;
+  const int t1 = min(t0 + kChunkTiles, g.n_tiles);
+  float rm2[kSub], il2[kSub], f[kSub];
+  int shift[kSub];
   load_rows(m2, u0, ty, g.B, 0.f, rm2);
-  load_rows(l2, u0, ty, g.B, 1.f, rl2);
-  chunk_loop(pu_c, Qc, g, [&](float (&acc)[kSub][kSub], int i0) {
+  load_rows(l2, u0, ty, g.B, 1.f, il2);
+#pragma unroll
+  for (int i = 0; i < kSub; ++i) {
+    f[i] = 0.f;
+    il2[i] = 1.f / il2[i];
+    shift[i] = run_shift(u0 + ty + kLanes * i, g.I);
+  }
+
+  auto stage = [&](int t, int buf) {
+    stage_rows(sQc + buf * tile_f, Qc, t * kTile, g.I, g.d, g.ld);
+    stage_runs(sZc + buf * zc_f, z, kNoiseLd, u0, t * kTile, g);
+  };
+  stage_rows(sU, pu_c, u0, g.B, g.d, g.ld);
+  stage(t0, 0);
+  cp_async_commit();
+
+  for (int t = t0, buf = 0; t < t1; ++t, buf ^= 1) {
+    if (t + 1 < t1) stage(t + 1, buf ^ 1);
+    cp_async_commit();  // possibly empty: keeps one group per iteration
+    cp_async_wait_all_but_newest();
+    __syncthreads();
+    float acc[kSub][kSub];
+    tile_dot(sU, sQc + buf * tile_f, g.ld, g.d, ty, tx, acc);
+    const float* cz = sZc + buf * zc_f;
+    const int i0 = t * kTile;
 #pragma unroll
     for (int i = 0; i < kSub; ++i) {
-      const int row = u0 + ty + kLanes * i;
+      const int r = ty + kLanes * i;
 #pragma unroll
       for (int j = 0; j < kSub; ++j) {
-        const int item = i0 + tx + kLanes * j;
-        if (row < g.B && item < g.I) {
-          const float s = expf(z[(size_t)row * g.I + item] - rm2[i]) / rl2[i];
+        const int c = tx + kLanes * j;
+        if (u0 + r < g.B && i0 + c < g.I) {
+          const float zv = cz[r * kNoiseLd + shift[i] + c];
+          const float s = __fmul_rn(expf(zv - rm2[i]), il2[i]);
           f[i] = fmaf(s, acc[i][j], f[i]);
         }
       }
     }
-  });
+    __syncthreads();  // all reads of this buffer done before it is refilled
+  }
 #pragma unroll
   for (int i = 0; i < kSub; ++i) {
     const float v = sum_lanes(f[i]);
@@ -459,7 +512,7 @@ fake_kernel(const float* __restrict__ pu_c, const float* __restrict__ Qc,
 }
 
 // ---- K3d --------------------------------------------------------------------
-// K3d has a loop of its own, as K3b has. Its block is K3a-K3c's (64 users x a
+// K3d has a loop of its own, as K3b has. Its block is K3a's (64 users x a
 // chunk of item tiles, one partial per user and chunk), but every buffer is
 // single, so that two blocks fit on an SM at d = 64 and one fits at d = 128:
 // the two user tiles, one Q_g/Q_c pair of item tiles, one z tile (rows of
@@ -924,7 +977,7 @@ extern "C" int acf_apl_fake(const float* pu_c, const float* Qc, const float* z,
   if (bad_shape(B, I, d)) return (int)cudaErrorInvalidValue;
   const Geo g = make_geo(B, I, d);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const size_t smem = chunk_smem(g);
+  const size_t smem = fake_smem(g);
   cudaError_t err = prepare(fake_kernel, smem);
   if (err != cudaSuccess) return (int)err;
   fake_kernel<<<chunk_grid(g), kThreads, smem, st>>>(pu_c, Qc, z, m2, l2, part, g);

@@ -140,15 +140,16 @@ def _ld(d: int) -> int:
 
 def smem_footprints(d: int) -> dict[str, int]:
     """Shared-memory bytes of each kernel's block at width d, as the C
-    entries compute them: K3a and K3c a user tile and two item tiles; K3b
-    those, two [64, 80] noise tiles and two [64, 68]-byte member tiles; K3d
-    two user tiles, one Q_g/Q_c pair of item tiles, one [64, 80] z tile,
-    [64, 8] row scalars and one [64, 68]-byte member tile; K3e K3d's four
-    tiles, z tile and member tile, [64, 12] row scalars and its [64, 65]
-    dlogits tile."""
+    entries compute them: K3a a user tile and two item tiles; K3b those,
+    two [64, 80] noise tiles and two [64, 68]-byte member tiles; K3c a user
+    tile, two item tiles and two [64, 80] z tiles; K3d two user tiles, one
+    Q_g/Q_c pair of item tiles, one [64, 80] z tile, [64, 8] row scalars and
+    one [64, 68]-byte member tile; K3e K3d's four tiles, z tile and member
+    tile, [64, 12] row scalars and its [64, 65] dlogits tile."""
     tile = TILE * _ld(d)
-    zm = TILE * (TILE + 16) + TILE * (TILE + 4) // 4  # one z and one member tile
-    floats = {"apl_stats1": 3 * tile, "apl_fake": 3 * tile,
+    z = TILE * (TILE + 16)  # one z (or noise) tile
+    zm = z + TILE * (TILE + 4) // 4  # one z and one member tile
+    floats = {"apl_stats1": 3 * tile, "apl_fake": 3 * tile + 2 * z,
               "apl_z": 3 * tile + 2 * zm,
               "apl_bigr": 4 * tile + zm + TILE * 8,
               "apl_grad": 4 * tile + zm + TILE * 12 + TILE * (TILE + 1)}

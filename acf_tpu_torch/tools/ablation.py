@@ -1,7 +1,7 @@
-"""What the kernel ablation tools (``k3b_ablation``, ``k3d_ablation``,
-``k3e_ablation``) share: variants of ``csrc/apl_gen.cu`` made by text
-substitution, built in parallel with ``nvcc``, checked against the plain
-version and timed in turns on one card.
+"""What the kernel ablation tools (``k3b_ablation``, ``k3c_ablation``,
+``k3d_ablation``, ``k3e_ablation``) share: variants of ``csrc/apl_gen.cu``
+made by text substitution, built in parallel with ``nvcc``, checked against
+the plain version and timed in turns on one card.
 
 Each tool gives its ``FORMS``: for each form of its kernel that was
 measured, a marker (a line only that form has) and the (old, new)

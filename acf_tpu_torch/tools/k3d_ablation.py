@@ -18,7 +18,7 @@ time, the partials' merge included:
                and probs 1 (no exp, no division, no per-row scalar);
   neither      both: the two products, the loop and the merge;
   k3a, k3c     ``acf_apl_stats1`` and ``acf_apl_fake`` of the as-is build:
-               one product each, in the loop K3a and K3c share.
+               one product each, K3c's with its z read.
 
 A variant applies where its text substitutions match the source exactly
 once; each form of bigr_kernel that was measured has its own (``FORMS``),

@@ -9,7 +9,9 @@ sm_90a):
 Phases, any failure exits non-zero:
 
   1. card   — ``nvidia-smi`` name and power limit, torch's device name;
-  2. build  — compile every kernel in ``acf_tpu_torch/csrc`` with nvcc;
+  2. build  — compile every kernel in ``acf_tpu_torch/csrc`` with nvcc and
+              print its ``-Xptxas -v`` lines; every K3 kernel must spill
+              nothing;
   3. K1     — the rank-count kernel against its plain PyTorch version on
               standard-normal inputs, B in {8, 512}, I in {300, 23700},
               d = 64 (plus two narrower widths), with and without bias
@@ -61,7 +63,7 @@ Phases, any failure exits non-zero:
               d = 64, T in {8, 50} beside their plain versions and bounds;
  15. K3a-K3e (APL's generator chain) against their plain versions at APL's
               geometry (B = 512, d = 64, I = 23,701), a ragged case
-              (B = 7, d = 36, I = 1,100), K3b's and K3d's staging edges
+              (B = 7, d = 36, I = 1,100), K3b-K3e's staging edges
               (B = 65, d = 64, I = 131) and the widest tables (B = 70,
               d = 128, I = 517), histories with duplicates and a user with no
               positives: every output, two calls bit-identical,
@@ -1146,8 +1148,23 @@ APL_TOL = 1e-4
 # take (MAX_D), where K3e's shared memory is the largest, with odd I
 APL_CASES = ((512, D, 23_701), (7, 36, 1_100), (65, 64, 131), (70, 128, 517))
 APL_PRODUCTS = {"apl_stats1": 1, "apl_z": 1, "apl_fake": 1, "apl_bigr": 2, "apl_grad": 4}
+APL_PTXAS = ("stats1_kernel", "z_kernel", "fake_kernel", "bigr_kernel", "grad_kernel")
 APL_REPLACES = {"apl_stats1": 67, "apl_z": 83, "apl_fake": 111, "apl_bigr": 141,
                 "apl_grad": 157}  # acf_tpu/ops/apl_gen_fused.py lines of the TPU kernels
+
+
+def check_no_spill(log):
+    """Phase 2: the K3 kernels' ptxas lines in the build log show no
+    stack frame and no spill (their designs keep the row scalars and tiles
+    in registers and shared memory)."""
+    from acf_tpu_torch.tools.ablation import ptxas_lines
+
+    for kernel in APL_PTXAS:
+        lines = [x for x in ptxas_lines(log, kernel) if "spill" in x]
+        check(bool(lines) and all(x.startswith("0 bytes stack frame, 0 bytes spill stores, "
+                                               "0 bytes spill loads") for x in lines),
+              f"{kernel}: ptxas reports a stack frame or spills: {lines}")
+    print(f"ptxas: {', '.join(APL_PTXAS)} spill nothing")
 
 
 def apl_inputs(dev, b, d, num_items, seed):
@@ -1513,6 +1530,7 @@ def main():
     log = _build.BUILD_DIR / "build.log"
     if log.exists():
         print(log.read_text().strip())
+        check_no_spill(log.read_text())
     lap("1-2")
 
     # 3. K1 against its plain version

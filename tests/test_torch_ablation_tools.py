@@ -1,17 +1,18 @@
 """The ablation tools (``acf_tpu_torch/tools/k3b_ablation.py``,
-``k3d_ablation.py``, ``k3e_ablation.py``) make their variants by text substitution of
-``csrc/apl_gen.cu``: each must find its form in the committed source and
-change it, so a later edit of the kernels cannot silently time the
-unchanged kernel under a variant's name."""
+``k3c_ablation.py``, ``k3d_ablation.py``, ``k3e_ablation.py``) make their
+variants by text substitution of ``csrc/apl_gen.cu``: each must find its form
+in the committed source and change it, so a later edit of the kernels cannot
+silently time the unchanged kernel under a variant's name."""
 
 import pytest
 
 from acf_tpu_torch.ops import _build
-from acf_tpu_torch.tools import k3b_ablation, k3d_ablation, k3e_ablation
+from acf_tpu_torch.tools import k3b_ablation, k3c_ablation, k3d_ablation, k3e_ablation
 
 SOURCE = (_build.CSRC_DIR / "apl_gen.cu").read_text()
 EXPECTED = {
     k3b_ablation: ("as_is", "no_store", "no_loads", "no_traffic", "no_math"),
+    k3c_ablation: ("as_is", "no_loads", "no_math", "neither"),
     k3d_ablation: ("as_is", "no_loads", "no_math", "neither"),
     k3e_ablation: ("as_is", "no_loads", "no_math", "neither", "no_grads"),
 }
@@ -41,6 +42,20 @@ def test_an_unknown_or_broken_form_is_refused(tool):
         tool.variants(SOURCE.replace(old, old + old))
 
 
+@pytest.mark.parametrize("tool", list(EXPECTED),
+                         ids=lambda v: v.__name__.rsplit(".", 1)[-1])
+def test_staged_anchors_match_the_committed_source_once(tool):
+    """Each tool's marker and every anchor of its staged form occur exactly
+    once in the committed source: the kernels name their staged tiles apart
+    (K3b ``sN``/``cn``, K3c ``sZc``/``cz``, K3d ``sZ``/``sM``, K3e
+    ``sZe``/``sMe``), so no tool's anchor also matches another kernel."""
+    marker, staged = tool.FORMS["staged"]
+    assert SOURCE.count(marker) == 1
+    for subs in staged.values():
+        for old, _ in subs:
+            assert SOURCE.count(old) == 1, old
+
+
 def test_k3b_forms_are_told_apart_by_their_markers():
     (direct, _), (staged, _) = k3b_ablation.FORMS["direct"], k3b_ablation.FORMS["staged"]
     assert SOURCE.count(staged) == 1 and SOURCE.count(direct) == 0
@@ -67,3 +82,19 @@ def test_k3e_forms_are_told_apart_by_their_markers():
     k3d_neither = k3d_ablation.variants(SOURCE)["neither"]
     assert "stage_runs(sZ," not in k3d_neither and "stage_runs(sZe," in k3d_neither
 
+
+
+def test_k3c_forms_are_told_apart_by_their_markers():
+    """The committed source has the staged form's marker and not the direct
+    form's (the earlier kernel read z from device memory in ``chunk_loop``'s
+    body); K3c stages z under names of its own, so K3b's z store and K3d's
+    staging stay single and K3c's variants take out only K3c's staging."""
+    (direct, _), (staged, _) = k3c_ablation.FORMS["direct"], k3c_ablation.FORMS["staged"]
+    assert SOURCE.count(staged) == 1 and SOURCE.count(direct) == 0
+    k3c = SOURCE[SOURCE.index("fake_kernel("):SOURCE.index("// ---- K3d")]
+    assert "chunk_loop(" not in k3c and "stage_runs(sZc" in k3c and "/ rl2[i]" not in k3c
+    texts = k3c_ablation.variants(SOURCE)
+    assert "stage_runs(sZc" not in texts["neither"] and "stage_runs(sZ," in texts["neither"]
+    assert "expf(" not in texts["no_math"][texts["no_math"].index("fake_kernel("):
+                                           texts["no_math"].index("// ---- K3d")]
+    assert SOURCE.count("z[(size_t)row * g.I + item] = v[j];") == 1  # K3b's store only

@@ -163,3 +163,14 @@ def test_limits_are_stated_once():
     x = torch.zeros(4, 8)
     with pytest.raises(ValueError, match="CUDA"):
         check_supported(pu_g=x, Qg=torch.zeros(10, 8))
+
+
+def test_k3c_footprint_keeps_two_blocks_an_sm():
+    """K3c's staged z (two [64, 80] tiles beside the user tile and two Q_c
+    tiles) still fits two blocks on an SM at d = 64 and stays below K3e's
+    footprint at d = 128, so the width limits above do not move."""
+    assert smem_footprints(64)["apl_fake"] == 93_184
+    assert smem_footprints(MAX_D)["apl_fake"] == 142_336
+    assert 2 * (smem_footprints(64)["apl_fake"] + 1024) <= 233_472
+    assert smem_footprints(MAX_D)["apl_fake"] < smem_footprints(MAX_D)["apl_grad"]
+    assert smem_footprints(184)["apl_fake"] <= SMEM_LIMIT
