@@ -36,8 +36,19 @@
 //     stream through two shared buffers with cp.async.
 //   * K3a-K3d: a block owns (64 users) x (a chunk of kChunkTiles item tiles)
 //     and writes one partial per user and chunk: (m, l) pairs merged by the
-//     online-softmax rule, or sums. A second small kernel merges the partials
-//     of each user in chunk order. K3a walks its chunk in chunk_loop.
+//     online-softmax rule, or sums. A second small kernel merges them.
+//   * The merges (stat_combine, sum_combine; also K3e's dP partials) put a
+//     block of 256 threads on 32 outputs: lanes along the outputs, so each
+//     load of a part coalesces, and the 8 warps on 8 contiguous slices of
+//     the parts. Each thread issues a slice's loads kMergeUnroll at a time
+//     before it merges them in part order; warp 0 then merges the 8 slices
+//     in slice order through shared memory. The order depends on the count
+//     of parts alone.
+//   * K3a walks its chunk in a loop of its own: the user tile and two
+//     buffers of Q_g item tiles, tile t + 1 copied during tile t's product,
+//     three blocks a SM. Its absorb (stat_absorb, shared with K3b) rescales
+//     a row's sum only when the row's max grows, then takes one expf a
+//     value; only the catalog's first and last tiles mask items.
 //   * K3b walks its chunk in a loop of its own: the [B, I] noise and member
 //     tiles of item tile t + 1 are copied into shared memory (cp.async, in
 //     the same group as Q_g's tile t + 1) while tile t's product runs, and z
@@ -74,8 +85,9 @@
 // aligned rows; the wrapper (acf_tpu_torch/ops/apl_gen_fused.py,
 // check_supported) checks; shared memory binds above d = 180 (K3e). Later
 // work: the product tile_dot shared by K3a-K3e (wgmma or 3xTF32, larger
-// register tiles), which sets K3a's and now K3b's, K3c's and K3d's time; one
-// pass for K3d-K3e; fewer dP partials.
+// register tiles), which sets most of each pass's time; K3a folded into
+// K3b's prologue and K3c into K3b; one pass for K3d-K3e; fewer dP partials
+// (K3e's merge reads 48.5 MB of them).
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -141,14 +153,16 @@ __device__ __forceinline__ void stage_rows(float* dst, const float* src, int row
   }
 }
 
-// acc[i][j] = sum_k sU[ty + 16i][k] * sI[tx + 16j][k], k in order.
+// acc[i][j] = sum_k sU[ty + 16i][k] * sI[tx + 16j][k], k in order; the k loop
+// unrolled kUnroll times (K3a takes 1: 72 registers, three blocks a SM).
+template <int kUnroll = 2>
 __device__ __forceinline__ void tile_dot(const float* sU, const float* sI, int ld, int d,
                                          int ty, int tx, float acc[kSub][kSub]) {
 #pragma unroll
   for (int i = 0; i < kSub; ++i)
 #pragma unroll
     for (int j = 0; j < kSub; ++j) acc[i][j] = 0.f;
-#pragma unroll 2
+#pragma unroll (kUnroll)
   for (int k = 0; k < d; k += 4) {
     float4 a[kSub], b[kSub];
 #pragma unroll
@@ -171,21 +185,24 @@ __device__ __forceinline__ void tile_dot(const float* sU, const float* sI, int l
   }
 }
 
-// Online softmax statistics: (m, l) absorbs the live values v[j] of one row.
+// Online softmax statistics: (m, l) absorbs the values v[j] of one row, only
+// those with live[j] where kMasked (otherwise every value, and `live` is not
+// read). l is rescaled only when the row's max grows (a rescale by expf(0)
+// would leave it as it is), then each value takes one expf, in j order.
+template <bool kMasked>
 __device__ __forceinline__ void stat_absorb(float& m, float& l, const float v[kSub],
-                                            const bool live[kSub]) {
+                                            const bool* live = nullptr) {
   float tmax = -INFINITY;
 #pragma unroll
   for (int j = 0; j < kSub; ++j)
-    if (live[j]) tmax = fmaxf(tmax, v[j]);
-  if (tmax == -INFINITY) return;
-  const float mn = fmaxf(m, tmax);
-  float s = l * expf(m - mn);  // m = -inf (nothing yet): l = 0 stays 0
+    if (!kMasked || live[j]) tmax = fmaxf(tmax, v[j]);
+  if (tmax > m) {
+    l *= expf(m - tmax);  // m = -inf (nothing yet): l = 0 stays 0
+    m = tmax;
+  }
 #pragma unroll
   for (int j = 0; j < kSub; ++j)
-    if (live[j]) s += expf(v[j] - mn);
-  m = mn;
-  l = s;
+    if (!kMasked || live[j]) l += expf(v[j] - m);
 }
 
 // (m, l) merged with (mo, lo); symmetric in its two operands.
@@ -234,58 +251,69 @@ struct Geo {
 // reads of 8 neighbouring rows fall in 8 distinct bank groups.
 __host__ __device__ inline int row_ld(int d) { return 4 * ((d / 4) | 1); }
 
-// K3a walks the item tiles [t0, t1) of chunk blockIdx.x for the user tile
-// blockIdx.y. `body(acc, item0)` runs on each tile after its product P[u] Q^T.
-template <typename Body>
-__device__ __forceinline__ void chunk_loop(const float* pu, const float* q, const Geo& g,
-                                           Body body) {
+// ---- K3a --------------------------------------------------------------------
+// Block: the user tile blockIdx.y and the item tiles [t0, t1) of chunk
+// blockIdx.x, one (m, l) partial per user and chunk. Shared memory holds the
+// user tile and two buffers of Q_g item tiles (52,224 B at d = 64, so three
+// blocks fit a SM); Q_g's tile t + 1 is copied (cp.async) during tile t's
+// product, whose k loop is not unrolled: unrolled twice it needs 96
+// registers, and held to three blocks' 80 it spills. The epilogue is
+// stat_absorb, shared with K3b: per row a rescale only when the max grows,
+// then one expf a value. Only the catalog's first tile (item 0, the pad) and
+// last tile (the ragged tail) compute the `live` mask; every other tile
+// absorbs its 4 x 4 values with no predicate. The sums keep their order
+// (items in tile order, the 16 lanes' butterfly, the chunks in
+// stat_combine's fixed order), so two calls give the same bits.
+constexpr int kStatsBlocks = 3;  // K3a's blocks a SM (80 registers a thread at most)
+
+// Shared memory: the user tile and two Q_g item tiles.
+size_t stats_smem(const Geo& g) { return (size_t)3 * kTile * g.ld * sizeof(float); }
+
+__global__ void __launch_bounds__(kThreads, kStatsBlocks)
+stats1_kernel(const float* __restrict__ pu, const float* __restrict__ Qg,
+              float* __restrict__ part_m, float* __restrict__ part_l, Geo g) {
   extern __shared__ __align__(16) float smem[];
   const int tile_f = kTile * g.ld;
-  float* sU = smem;           // the user tile, then
-  float* sI = smem + tile_f;  // two buffers of item tiles
+  float* sUa = smem;
+  float* sQa = smem + tile_f;  // [buf] Q_g tiles
   const int tx = threadIdx.x % kLanes, ty = threadIdx.x / kLanes;
   const int u0 = blockIdx.y * kTile;
   const int t0 = blockIdx.x * kChunkTiles;
   const int t1 = min(t0 + kChunkTiles, g.n_tiles);
+  float m[kSub], l[kSub];
+#pragma unroll
+  for (int i = 0; i < kSub; ++i) { m[i] = -INFINITY; l[i] = 0.f; }
 
-  stage_rows(sU, pu, u0, g.B, g.d, g.ld);
-  stage_rows(sI, q, t0 * kTile, g.I, g.d, g.ld);
+  stage_rows(sUa, pu, u0, g.B, g.d, g.ld);
+  stage_rows(sQa, Qg, t0 * kTile, g.I, g.d, g.ld);
   cp_async_commit();
 
   for (int t = t0, buf = 0; t < t1; ++t, buf ^= 1) {
-    if (t + 1 < t1) stage_rows(sI + (buf ^ 1) * tile_f, q, (t + 1) * kTile, g.I, g.d, g.ld);
+    if (t + 1 < t1) stage_rows(sQa + (buf ^ 1) * tile_f, Qg, (t + 1) * kTile, g.I, g.d, g.ld);
     cp_async_commit();  // possibly empty: keeps one group per iteration
     cp_async_wait_all_but_newest();
     __syncthreads();
     float acc[kSub][kSub];
-    tile_dot(sU, sI + buf * tile_f, g.ld, g.d, ty, tx, acc);
-    body(acc, t * kTile);
+    tile_dot<1>(sUa, sQa + buf * tile_f, g.ld, g.d, ty, tx, acc);
+    if (t == 0 || t + 1 == g.n_tiles) {
+      bool live[kSub];
+#pragma unroll
+      for (int j = 0; j < kSub; ++j) {
+        const int item = t * kTile + tx + kLanes * j;
+        live[j] = item > 0 && item < g.I;  // the pad id and the ragged tail
+      }
+#pragma unroll
+      for (int i = 0; i < kSub; ++i) stat_absorb<true>(m[i], l[i], acc[i], live);
+    } else {
+#pragma unroll
+      for (int i = 0; i < kSub; ++i) stat_absorb<false>(m[i], l[i], acc[i]);
+    }
     __syncthreads();  // all reads of this buffer done before it is refilled
   }
-}
-
-// ---- K3a --------------------------------------------------------------------
-__global__ void __launch_bounds__(kThreads, 2)
-stats1_kernel(const float* __restrict__ pu, const float* __restrict__ Qg,
-              float* __restrict__ part_m, float* __restrict__ part_l, Geo g) {
-  float m[kSub], l[kSub];
-#pragma unroll
-  for (int i = 0; i < kSub; ++i) { m[i] = -INFINITY; l[i] = 0.f; }
-  const int tx = threadIdx.x % kLanes, ty = threadIdx.x / kLanes;
-  chunk_loop(pu, Qg, g, [&](float (&acc)[kSub][kSub], int i0) {
-    bool live[kSub];
-#pragma unroll
-    for (int j = 0; j < kSub; ++j) {
-      const int item = i0 + tx + kLanes * j;
-      live[j] = item > 0 && item < g.I;  // the pad id and the ragged tail
-    }
-#pragma unroll
-    for (int i = 0; i < kSub; ++i) stat_absorb(m[i], l[i], acc[i], live);
-  });
 #pragma unroll
   for (int i = 0; i < kSub; ++i) {
     stat_reduce_lanes(m[i], l[i]);
-    const int row = blockIdx.y * kTile + ty + kLanes * i;
+    const int row = u0 + ty + kLanes * i;
     if (tx == 0 && row < g.B) {
       part_m[(size_t)blockIdx.x * g.B + row] = m[i];
       part_l[(size_t)blockIdx.x * g.B + row] = l[i];
@@ -333,7 +361,9 @@ size_t z_smem(const Geo& g) {
 }
 
 // Block: the user tile blockIdx.y and the item tiles of chunk blockIdx.x, as in
-// chunk_loop; the thread tile and the order of the statistics are K3a-K3d's.
+// K3a; the thread tile and the order of the statistics are K3a-K3d's, and its
+// statistics take K3a's stat_absorb (a rescale only when the max grows), with
+// the live mask on every tile: its rows past B and items past I hold no z.
 // Per item tile: the copies of tile t + 1 (Q_g, noise, member) are issued, tile
 // t's product runs, and each thread turns its 4 x 4 logits and staged operands
 // into z, stored from registers (two 64-byte runs per warp store). Per element
@@ -415,7 +445,7 @@ z_kernel(const float* __restrict__ pu, const float* __restrict__ Qg,
           z[(size_t)row * g.I + item] = v[j];
         }
       }
-      stat_absorb(m[i], l[i], v, live);
+      stat_absorb<true>(m[i], l[i], v, live);
     }
     __syncthreads();  // all reads of this buffer done before it is refilled
   }
@@ -872,25 +902,89 @@ grad_kernel(const float* __restrict__ pu_g, const float* __restrict__ Qg,
   }
 }
 
-// ---- merges of the partials, in chunk (or tile) order ----------------------
-__global__ void stat_combine(const float* __restrict__ part_m, const float* __restrict__ part_l,
-                             float* __restrict__ m_out, float* __restrict__ l_out, int B,
-                             int n_parts) {
-  const int row = blockIdx.x * blockDim.x + threadIdx.x;
-  if (row >= B) return;
-  float m = -INFINITY, l = 0.f;
-  for (int c = 0; c < n_parts; ++c)
-    stat_merge(m, l, part_m[(size_t)c * B + row], part_l[(size_t)c * B + row]);
-  m_out[row] = m;
-  l_out[row] = l;
+// ---- merges of the partials ------------------------------------------------
+// Output idx (a user's statistic or sum, or an entry of K3e's dP) merges its
+// n_parts partials part[c * n + idx], c in [0, n_parts). A block of kThreads
+// threads takes kMergeOuts outputs: lane k of every warp the output
+// blockIdx.x * kMergeOuts + k, so each load of a part is one coalesced
+// 128-byte run, and warp s the s-th of kMergeSlices contiguous slices of the
+// parts. A thread issues kMergeUnroll loads of its slice before it merges
+// them, in part order; the slices' results meet in shared memory, where warp
+// 0 merges them in slice order. The order depends on n_parts alone and there
+// are no atomics, so two calls give the same bits. A slice with no part (at
+// fewer than kMergeSlices parts) merges as (-inf, 0), or 0.
+constexpr int kMergeOuts = 32;
+constexpr int kMergeSlices = kThreads / kMergeOuts;  // 8
+constexpr int kMergeUnroll = 16;
+
+// The parts [c0, c1) of this thread's slice.
+__device__ __forceinline__ void merge_slice(int n_parts, int& c0, int& c1) {
+  const int per = (n_parts + kMergeSlices - 1) / kMergeSlices;
+  c0 = min(n_parts, (int)(threadIdx.x / kMergeOuts) * per);
+  c1 = min(n_parts, c0 + per);
 }
 
-__global__ void sum_combine(const float* __restrict__ part, float* __restrict__ out,
-                            size_t n, int n_parts) {
-  const size_t idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= n) return;
+__global__ void __launch_bounds__(kThreads)
+stat_combine(const float* __restrict__ part_m, const float* __restrict__ part_l,
+             float* __restrict__ m_out, float* __restrict__ l_out, int n, int n_parts) {
+  __shared__ float sm[kMergeSlices][kMergeOuts], sl[kMergeSlices][kMergeOuts];
+  const int lane = threadIdx.x % kMergeOuts, slice = threadIdx.x / kMergeOuts;
+  const int idx = blockIdx.x * kMergeOuts + lane;
+  int c0, c1;
+  merge_slice(n_parts, c0, c1);
+  float m = -INFINITY, l = 0.f;
+  for (int c = c0; idx < n && c < c1; c += kMergeUnroll) {
+    float pm[kMergeUnroll], pl[kMergeUnroll];
+#pragma unroll
+    for (int k = 0; k < kMergeUnroll; ++k) {
+      const bool in = c + k < c1;
+      pm[k] = in ? part_m[(size_t)(c + k) * n + idx] : -INFINITY;
+      pl[k] = in ? part_l[(size_t)(c + k) * n + idx] : 0.f;
+    }
+    float pmax = -INFINITY;
+#pragma unroll
+    for (int k = 0; k < kMergeUnroll; ++k) pmax = fmaxf(pmax, pm[k]);
+    if (pmax == -INFINITY) continue;  // only empty parts
+    if (pmax > m) {                   // rescale only when the max grows
+      l *= expf(m - pmax);
+      m = pmax;
+    }
+#pragma unroll
+    for (int k = 0; k < kMergeUnroll; ++k)
+      if (c + k < c1) l += pl[k] * expf(pm[k] - m);
+  }
+  sm[slice][lane] = m;
+  sl[slice][lane] = l;
+  __syncthreads();
+  if (slice != 0 || idx >= n) return;
+#pragma unroll
+  for (int s = 1; s < kMergeSlices; ++s) stat_merge(m, l, sm[s][lane], sl[s][lane]);
+  m_out[idx] = m;
+  l_out[idx] = l;
+}
+
+__global__ void __launch_bounds__(kThreads)
+sum_combine(const float* __restrict__ part, float* __restrict__ out, size_t n, int n_parts) {
+  __shared__ float ss[kMergeSlices][kMergeOuts];
+  const int lane = threadIdx.x % kMergeOuts, slice = threadIdx.x / kMergeOuts;
+  const size_t idx = (size_t)blockIdx.x * kMergeOuts + lane;
+  int c0, c1;
+  merge_slice(n_parts, c0, c1);
   float s = 0.f;
-  for (int c = 0; c < n_parts; ++c) s += part[(size_t)c * n + idx];
+  for (int c = c0; idx < n && c < c1; c += kMergeUnroll) {
+    float p[kMergeUnroll];
+#pragma unroll
+    for (int k = 0; k < kMergeUnroll; ++k)
+      p[k] = c + k < c1 ? part[(size_t)(c + k) * n + idx] : 0.f;
+#pragma unroll
+    for (int k = 0; k < kMergeUnroll; ++k)
+      if (c + k < c1) s += p[k];
+  }
+  ss[slice][lane] = s;
+  __syncthreads();
+  if (slice != 0 || idx >= n) return;
+#pragma unroll
+  for (int k = 1; k < kMergeSlices; ++k) s += ss[k][lane];
   out[idx] = s;
 }
 
@@ -914,22 +1008,19 @@ cudaError_t prepare(Kernel kernel, size_t smem) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
 }
 
-size_t chunk_smem(const Geo& g) {
-  return (size_t)3 * kTile * g.ld * sizeof(float);  // the user tile + 2 item tiles
-}
-
 dim3 chunk_grid(const Geo& g) { return dim3(g.n_chunks, (g.B + kTile - 1) / kTile); }
 
 cudaError_t combine_stats(const float* part, float* m, float* l, const Geo& g,
                           cudaStream_t st) {
-  stat_combine<<<(g.B + 255) / 256, 256, 0, st>>>(part, part + (size_t)g.n_chunks * g.B, m, l,
-                                                  g.B, g.n_chunks);
+  stat_combine<<<(g.B + kMergeOuts - 1) / kMergeOuts, kThreads, 0, st>>>(
+      part, part + (size_t)g.n_chunks * g.B, m, l, g.B, g.n_chunks);
   return cudaGetLastError();
 }
 
 cudaError_t combine_sums(const float* part, float* out, size_t n, int n_parts,
                          cudaStream_t st) {
-  sum_combine<<<(unsigned)((n + 255) / 256), 256, 0, st>>>(part, out, n, n_parts);
+  sum_combine<<<(unsigned)((n + kMergeOuts - 1) / kMergeOuts), kThreads, 0, st>>>(part, out, n,
+                                                                               n_parts);
   return cudaGetLastError();
 }
 
@@ -944,7 +1035,7 @@ extern "C" int acf_apl_stats1(const float* pu, const float* Qg, float* m1, float
   if (bad_shape(B, I, d)) return (int)cudaErrorInvalidValue;
   const Geo g = make_geo(B, I, d);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const size_t smem = chunk_smem(g);
+  const size_t smem = stats_smem(g);
   cudaError_t err = prepare(stats1_kernel, smem);
   if (err != cudaSuccess) return (int)err;
   stats1_kernel<<<chunk_grid(g), kThreads, smem, st>>>(pu, Qg, part,

@@ -108,7 +108,7 @@ def inputs(dev, b, d, num_items, seed=0):
 
 def caller(lib, x, kernel):
     """A function that launches ``kernel`` (bigr, k3a or k3c) of ``lib`` once
-    on ``x`` and returns its output."""
+    on ``x`` and returns its outputs (k3a's m1 and l1, the others' one)."""
     from acf_tpu_torch.ops.apl_gen_fused import chunks
 
     (b, d), num_items = x["pu_g"].shape, x["Qg"].shape[0]
@@ -124,7 +124,7 @@ def caller(lib, x, kernel):
         "bigr": (lib.acf_apl_bigr, [*(x[k] for k in CHAIN), out, part, b, num_items, d,
                                     1.0 - w, w, (1.0 - w) / ablation.T]),
     }[kernel]
-    return ablation.launcher(fn, args, kernel, (out,))
+    return ablation.launcher(fn, args, kernel, (out, out2) if kernel == "k3a" else (out,))
 
 
 def setup(dev):

@@ -10,8 +10,8 @@ Phases, any failure exits non-zero:
 
   1. card   — ``nvidia-smi`` name and power limit, torch's device name;
   2. build  — compile every kernel in ``acf_tpu_torch/csrc`` with nvcc and
-              print its ``-Xptxas -v`` lines; every K3 kernel must spill
-              nothing;
+              print its ``-Xptxas -v`` lines; every K3 kernel and the
+              merges of their partials must spill nothing;
   3. K1     — the rank-count kernel against its plain PyTorch version on
               standard-normal inputs, B in {8, 512}, I in {300, 23700},
               d = 64 (plus two narrower widths), with and without bias
@@ -78,8 +78,10 @@ Phases, any failure exits non-zero:
               passes (loss, gP, gQ);
  17. APL timing: each K3 kernel alone beside its plain version, the
               torch.matmul of its products and its bound; one generator and
-              one critic step's device busy and idle time; APL epochs'
-              seconds and examples/s, every sample printed.
+              one critic step's device busy and idle time; the generator
+              step's launches one line each in launch order, then each
+              merge of the partials alone; APL epochs' seconds and
+              examples/s, every sample printed.
 
 Kernel times come from torch.profiler's device time. A measurement whose
 profile holds no device time in three sessions is timed with CUDA events
@@ -154,13 +156,14 @@ PROFILER_TRIES = 3
 EVENT_TIMED: list[str] = []
 
 
-def device_events(fn, calls: int = 1):
+def device_events(fn, calls: int = 1, in_order: bool = False):
     """Run ``fn`` ``calls`` times under torch.profiler; return the averaged
-    device-side events (kernels, copies, fills) with nonzero device time.
-    The CPU ops that launched them, which report the same time again, are
-    left out. A session with no device event is run again, up to
-    ``PROFILER_TRIES`` sessions (one once a measurement has fallen back);
-    an empty list means none of them saw the device."""
+    device-side events (kernels, copies, fills) with nonzero device time, or
+    with ``in_order`` each launch's own event in launch order. The CPU ops
+    that launched them, which report the same time again, are left out. A
+    session with no device event is run again, up to ``PROFILER_TRIES``
+    sessions (one once a measurement has fallen back); an empty list means
+    none of them saw the device."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -170,8 +173,13 @@ def device_events(fn, calls: int = 1):
             for _ in range(calls):
                 fn()
             torch.cuda.synchronize()
-        events = [e for e in prof.key_averages()
-                  if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+        if in_order:
+            events = sorted((e for e in prof.events()
+                             if e.device_type == DeviceType.CUDA and e.device_time_total > 0),
+                            key=lambda e: e.time_range.start)
+        else:
+            events = [e for e in prof.key_averages()
+                      if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
         if events:
             return events
     return []
@@ -1148,15 +1156,19 @@ APL_TOL = 1e-4
 # take (MAX_D), where K3e's shared memory is the largest, with odd I
 APL_CASES = ((512, D, 23_701), (7, 36, 1_100), (65, 64, 131), (70, 128, 517))
 APL_PRODUCTS = {"apl_stats1": 1, "apl_z": 1, "apl_fake": 1, "apl_bigr": 2, "apl_grad": 4}
-APL_PTXAS = ("stats1_kernel", "z_kernel", "fake_kernel", "bigr_kernel", "grad_kernel")
+APL_PTXAS = ("stats1_kernel", "z_kernel", "fake_kernel", "bigr_kernel", "grad_kernel",
+             "stat_combine", "sum_combine")
+# The pass kernels of apl_gen.cu, by their names in a profile ("...::z_kernel(...")
+APL_PASS_KERNELS = {"stats1_kernel": "K3a", "z_kernel": "K3b", "fake_kernel": "K3c",
+                    "bigr_kernel": "K3d", "grad_kernel": "K3e"}
 APL_REPLACES = {"apl_stats1": 67, "apl_z": 83, "apl_fake": 111, "apl_bigr": 141,
                 "apl_grad": 157}  # acf_tpu/ops/apl_gen_fused.py lines of the TPU kernels
 
 
 def check_no_spill(log):
-    """Phase 2: the K3 kernels' ptxas lines in the build log show no
-    stack frame and no spill (their designs keep the row scalars and tiles
-    in registers and shared memory)."""
+    """Phase 2: the K3 kernels' and their merges' ptxas lines in the build
+    log show no stack frame and no spill (their designs keep the row scalars
+    and tiles in registers and shared memory)."""
     from acf_tpu_torch.tools.ablation import ptxas_lines
 
     for kernel in APL_PTXAS:
@@ -1471,6 +1483,7 @@ def apl_timing(dev, tr, data, first_epoch_s, reps=2):
     for label, fn in (("apl generator step", gen_step), ("apl critic step", critic_step)):
         wall_s = best_wall_s(fn, reps=5)
         device_breakdown(label, fn, wall_s, top=8)
+    launch_lines("apl generator step", gen_step)
 
     samples = [first_epoch_s]
     for _ in range(reps):
@@ -1485,6 +1498,32 @@ def apl_timing(dev, tr, data, first_epoch_s, reps=2):
           + " s (the first is phase 16's epoch); "
           + ", ".join(f"{examples / s:.1f}" for s in samples) + " examples/s")
     return entries
+
+
+def launch_lines(label, fn):
+    """One call of ``fn`` under torch.profiler: every device event (kernel,
+    copy, fill) on a line of its own in launch order, with its device time;
+    then each merge of the partials (``stat_combine``, ``sum_combine``) alone,
+    named by the K3 pass launched just before it."""
+    launches = device_events(fn, in_order=True)
+    if not launches:
+        print(f"{label}: launches not measured (the profiler saw no device time)")
+        return
+    print(f"{label}: {len(launches)} device launches in launch order:")
+    merges, last_pass = [], None
+    for n, e in enumerate(launches):
+        ms = e.device_time_total / 1e3
+        note = ""
+        if "stat_combine" in e.name or "sum_combine" in e.name:
+            merges.append((last_pass, ms))
+            note = f"  (the merge of {last_pass})"
+        else:
+            last_pass = next((k for kernel, k in APL_PASS_KERNELS.items()
+                              if f"::{kernel}" in e.name), last_pass)
+        print(f"  {n:3d} {ms:9.4f} ms {e.name[:100]}{note}")
+    print(f"{label}: the merges, one launch each: "
+          + ", ".join(f"{k} {ms:.4f}" for k, ms in merges)
+          + f" ms ({sum(ms for _, ms in merges):.4f} ms in all)")
 
 
 def apl_phases(dev, data):

@@ -1,5 +1,6 @@
-"""The ablation tools (``acf_tpu_torch/tools/k3b_ablation.py``,
-``k3c_ablation.py``, ``k3d_ablation.py``, ``k3e_ablation.py``) make their
+"""The ablation tools (``acf_tpu_torch/tools/k3a_ablation.py``,
+``k3b_ablation.py``, ``k3c_ablation.py``, ``k3d_ablation.py``,
+``k3e_ablation.py``) make their
 variants by text substitution of ``csrc/apl_gen.cu``: each must find its form
 in the committed source and change it, so a later edit of the kernels cannot
 silently time the unchanged kernel under a variant's name."""
@@ -7,10 +8,12 @@ silently time the unchanged kernel under a variant's name."""
 import pytest
 
 from acf_tpu_torch.ops import _build
-from acf_tpu_torch.tools import k3b_ablation, k3c_ablation, k3d_ablation, k3e_ablation
+from acf_tpu_torch.tools import (k3a_ablation, k3b_ablation, k3c_ablation, k3d_ablation,
+                                 k3e_ablation)
 
 SOURCE = (_build.CSRC_DIR / "apl_gen.cu").read_text()
 EXPECTED = {
+    k3a_ablation: ("as_is", "no_merge", "no_math", "neither"),
     k3b_ablation: ("as_is", "no_store", "no_loads", "no_traffic", "no_math"),
     k3c_ablation: ("as_is", "no_loads", "no_math", "neither"),
     k3d_ablation: ("as_is", "no_loads", "no_math", "neither"),
@@ -29,6 +32,15 @@ def test_variant_applies_to_the_committed_source(tool, name):
     assert len(set(texts.values())) == len(texts)
 
 
+def committed_form(tool):
+    """(marker, variants) of the form of ``tool``'s kernel that the committed
+    source holds: the redesign of each kernel (K3a's ``own_loop``, the other
+    tools' ``staged``)."""
+    forms = [form for form in tool.FORMS.values() if SOURCE.count(form[0]) == 1]
+    assert len(forms) == 1, [form[0] for form in forms]
+    return forms[0]
+
+
 @pytest.mark.parametrize("tool", list(EXPECTED),
                          ids=lambda v: v.__name__.rsplit(".", 1)[-1])
 def test_an_unknown_or_broken_form_is_refused(tool):
@@ -36,7 +48,7 @@ def test_an_unknown_or_broken_form_is_refused(tool):
     anchor of that form, stops the tool rather than timing the wrong text."""
     with pytest.raises(SystemExit, match="no known form"):
         tool.variants("")
-    marker, staged = tool.FORMS["staged"]
+    marker, staged = committed_form(tool)
     old = next(old for subs in staged.values() for old, _ in subs if marker not in old)
     with pytest.raises(SystemExit, match="does not match exactly once"):
         tool.variants(SOURCE.replace(old, old + old))
@@ -45,11 +57,12 @@ def test_an_unknown_or_broken_form_is_refused(tool):
 @pytest.mark.parametrize("tool", list(EXPECTED),
                          ids=lambda v: v.__name__.rsplit(".", 1)[-1])
 def test_staged_anchors_match_the_committed_source_once(tool):
-    """Each tool's marker and every anchor of its staged form occur exactly
-    once in the committed source: the kernels name their staged tiles apart
-    (K3b ``sN``/``cn``, K3c ``sZc``/``cz``, K3d ``sZ``/``sM``, K3e
-    ``sZe``/``sMe``), so no tool's anchor also matches another kernel."""
-    marker, staged = tool.FORMS["staged"]
+    """Each tool's marker and every anchor of its committed form occur
+    exactly once in the committed source: the kernels name their staged tiles
+    apart (K3a ``sUa``/``sQa``, K3b ``sN``/``cn``, K3c ``sZc``/``cz``, K3d
+    ``sZ``/``sM``, K3e ``sZe``/``sMe``), so no tool's anchor also matches
+    another kernel."""
+    marker, staged = committed_form(tool)
     assert SOURCE.count(marker) == 1
     for subs in staged.values():
         for old, _ in subs:
@@ -98,3 +111,19 @@ def test_k3c_forms_are_told_apart_by_their_markers():
     assert "expf(" not in texts["no_math"][texts["no_math"].index("fake_kernel("):
                                            texts["no_math"].index("// ---- K3d")]
     assert SOURCE.count("z[(size_t)row * g.I + item] = v[j];") == 1  # K3b's store only
+
+
+def test_k3a_forms_are_told_apart_by_their_markers():
+    """The committed source has the redesign's marker and not the earlier
+    kernel's (``chunk_loop``, commit 69f9b76, gone with it); ``no_merge`` drops K3a's merge
+    and keeps K3b's, ``no_math`` leaves K3a no absorb and K3b its own."""
+    (chunk, _), (own, _) = k3a_ablation.FORMS["chunk"], k3a_ablation.FORMS["own_loop"]
+    assert SOURCE.count(own) == 1 and SOURCE.count(chunk) == 0
+    assert "chunk_loop" not in SOURCE
+    texts = k3a_ablation.variants(SOURCE)
+    k3a = lambda text: text[text.index("stats1_kernel("):text.index("// ---- K3b")]
+    assert "stat_absorb" in k3a(texts["as_is"]) and "stat_absorb" not in k3a(texts["no_math"])
+    assert "stat_absorb<true>(m[i], l[i], v, live);" in texts["no_math"]  # K3b's
+    for name in ("no_merge", "neither"):
+        assert "combine_stats(part, m1, l1" not in texts[name]
+        assert "combine_stats(part, m2, l2" in texts[name]  # K3b's merge stays

@@ -174,3 +174,19 @@ def test_k3c_footprint_keeps_two_blocks_an_sm():
     assert 2 * (smem_footprints(64)["apl_fake"] + 1024) <= 233_472
     assert smem_footprints(MAX_D)["apl_fake"] < smem_footprints(MAX_D)["apl_grad"]
     assert smem_footprints(184)["apl_fake"] <= SMEM_LIMIT
+
+
+def test_k3a_footprint_fits_its_blocks_an_sm():
+    """K3a's user tile and two Q_g tiles fit as many blocks on an SM at d = 64
+    as its ``__launch_bounds__`` asks for (``kStatsBlocks`` in apl_gen.cu,
+    three), each with the 1 KB the card reserves a block."""
+    import re
+
+    from acf_tpu_torch.ops import _build
+
+    source = (_build.CSRC_DIR / "apl_gen.cu").read_text()
+    blocks = int(re.search(r"constexpr int kStatsBlocks = (\d+);", source).group(1))
+    assert blocks == 3
+    assert smem_footprints(64)["apl_stats1"] == 52_224
+    assert blocks * (smem_footprints(64)["apl_stats1"] + 1024) <= 233_472
+    assert 2 * (smem_footprints(MAX_D)["apl_stats1"] + 1024) <= 233_472
