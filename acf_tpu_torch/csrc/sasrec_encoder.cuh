@@ -1,8 +1,11 @@
 // Shared by K2a (sasrec_encoder_fwd.cu) and K2b (sasrec_encoder_bwd.cu): the
-// structs the wrappers pass by value, and the per-block device steps of the
-// SASRec encoder (LayerNorm rows, register-tiled d x d products with their
-// epilogues, causal attention rows). Every step works on [rows][ld] f32
-// buffers in shared memory, rows padded to an odd number of 16-byte units.
+// structs the wrappers pass by value, the small helpers, the products'
+// epilogue, and K2a's per-block device steps of the SASRec encoder
+// (LayerNorm rows, register-tiled d x d products, causal attention rows;
+// K2b has copies of its own). Every step works on [rows][ld] f32 buffers in
+// shared memory, rows padded to an odd number of 16-byte units. The Wᵀ
+// products (TRANS), `attention_rows`' P and `block_forward`'s `keep_all`
+// served the earlier K2b and are unused now.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -301,8 +304,7 @@ __device__ void attention_rows(const float* q, const float* k, const float* v, f
 }
 
 // One encoder block forward on the rows of shared buffer X (its input, kept),
-// through Q, K, V, into X (the output): the same steps for K2a and for K2b's
-// rematerialisation. With `keep_all` (K2b) nothing is overwritten: QIN holds
+// through Q, K, V, into X (the output). With `keep_all` nothing is overwritten: QIN holds
 // q_in, A the attention output, X2 the LN2 output, F1 the FFN hidden after
 // its dropout, F the FFN sum before LN3, and P the softmax rows; X is then
 // left as the block's input. Without it (K2a) QIN = A = X2 = X, F1 = Q and

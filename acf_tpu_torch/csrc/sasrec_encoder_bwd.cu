@@ -21,8 +21,7 @@
 // then dx = drop_emb(G * mask) and dpos = Σ_users dx. LNᵀ(dy) is
 // (dx̂ - mean(dx̂) - x̂ mean(dx̂ x̂)) / σ with dx̂ = γ dy, and it adds dy x̂ and
 // dy to dγ and dβ. Masked queries and keys get exactly zero gradient (the
-// reference's -2³²+1 underflows to a probability of exactly 0), so they are
-// skipped, which is exact.
+// reference's -2³²+1 underflows to a probability of exactly 0).
 //
 // Bound on an H100: operations. The backward's own work per row and block
 // is ten d x d products (five dY Wᵀ, five Xᵀ dY: 20 d² FLOP) and the
@@ -34,31 +33,59 @@
 // masks, the weights and gradients: about 50 MB at T=50) take 0.015 ms at
 // 3.35 TB/s.
 //
-// Design (simple first: plain fp32 FMAs, no TF32, no fast math):
+// Design (plain fp32 FMAs, no TF32, no fast math). A block's work is a
+// chain of short phases between barriers, each bound by latency, so the
+// design keeps 16 warps on every SM and takes device memory out of the
+// phases (tools/k2b_ablation.py times each choice against the alternative):
 //   * Memory: K2a's training form saves each block's input (and LN_f's) to
 //     a [nb + 1, B, T, d] workspace. K2b rematerialises one block at a time
-//     from its saved input, in shared memory, with the forward's own device
-//     steps (sasrec_encoder.cuh), and backpropagates through it. Ten
-//     [rows][ld] buffers (the block input, q_in, q, k, v, the attention
-//     output, x2, the FFN hidden, the FFN sum, the running gradient), the
-//     [rows][Ts] softmax probabilities (overwritten by dS), one score row
-//     per warp, the ids mask and a [warps][2d] scratch: 152,360 bytes at
-//     T=50, d=64, so windows up to T=74 at d=64 (check_supported).
-//     Buffers are reused as soon as they are dead (dV, dQ, dK take the
-//     attention output's, x2's and the hidden's places).
+//     from its saved input in shared memory and backpropagates through it.
+//     A 512-thread block takes ~32 rows (one user at T >= 17, four at T=8),
+//     one block an SM (two 256-thread blocks of two users were 13 % slower
+//     at T=8). Seven [rows][ld] buffers: the rematerialisation needs six
+//     (q_in, then x2, then the FFN sum; q, k, v; the attention output; the
+//     FFN hidden) beside the running gradient G. The block input is read
+//     from `saved` into LN1 and read again before LN1ᵀ, and x2 is recomputed
+//     from the attention output where the backward needs it again. Beside
+//     them the [rows][Ts] probabilities (then dS), the probabilities'
+//     dropout mask as bytes, one score row per warp, the ids mask, a
+//     [warps][2d] scratch, two weight slots and the user group's scalars:
+//     154,684 bytes at T=50, d=64 (check_supported has the widest windows).
+//   * Registers: 512 threads leave 128 a thread, and the products need
+//     most of them, so nothing that is not in use waits in a register: the
+//     group's scalars (struct Group) sit in shared memory and are read
+//     where they are used, a leaf's offset in the partial slice and a
+//     block's mask pointers are formed at their use, LayerNorm parameter
+//     sums accumulate in shared memory, the products' k loops and the
+//     weight gradients' row loops are unrolled twice. 0 bytes of spill.
+//   * Weights in shared memory: every d x d product streams its weight
+//     through the two slots with cp.async, one k-slice ahead (the whole
+//     weight at d <= 64, 32 rows at d = 128), across products: the next
+//     product's first slice flies while this one multiplies. A slot holds
+//     rows of W for x W and columns of W (rows of Wᵀ) for dY Wᵀ, so each
+//     k-step reads 16-byte units of shared memory. A thread owns up to 3
+//     rows x 4 columns: for x W columns 4c..4c+3, for dY Wᵀ columns c,
+//     c + d/4, c + d/2, c + 3d/4 (so a quarter-warp reads eight different
+//     banks). dq_in's three products run as one pass, added in order
+//     (G + dQ Wqᵀ, then + dK Wkᵀ, then + dV Wvᵀ).
 //   * Weight gradients without atomics: a persistent grid of as many
 //     blocks as fit the card at once. Block c walks the user groups c,
 //     c + grid, ... and adds each group's gradients into a partial slice
-//     of device memory that it alone owns (the first group stores); a
-//     second kernel sums the slices in block order. Every sum has a fixed
-//     order, so two calls on the same inputs give bit-identical gradients.
-//     The products Xᵀ dY are written out here (4 x 4 register tiles per
-//     thread, rows in order, masked rows skipped).
-//   * LayerNorm parameter gradients: each warp sums its rows' dy x̂ and dy
-//     in registers, then the warps' sums are added in warp order.
-//   * Attention backward: one warp per row, as in K2a: a query row's dP and
-//     dS over its keys j <= i and its dQ; a key row's dV and dK over the
-//     queries i >= j (reading the probability column).
+//     of device memory that it alone owns (the first group stores). Every
+//     thread holds 4 x 2 tiles of Xᵀ dY (and the tiles of row 0 the bias
+//     sum), rows in order, the slice's earlier values loaded before the
+//     rows; q, k and v share one pass over q_in, in 4 x 1 tiles. A masked
+//     row's dY is exactly 0, so it adds exact zeros and is not skipped. A
+//     second kernel sums the slices in block order, many threads an output
+//     (the design of apl_gen.cu's sum_combine). Two calls give
+//     bit-identical gradients.
+//   * LayerNorm: one warp per row; each warp sums its rows' dy x̂ and dy,
+//     then the warps' sums are added in warp order. LN3ᵀ also writes
+//     drop_f2 of its result (dF2) for the FFN's backward.
+//   * Attention: one warp per row, as in K2a. The probability rows are
+//     zero past the diagonal and for masked queries, so the backward's
+//     loops take no branch per step; the dropout mask is read from shared
+//     memory. dQ and dK (a query row's and a key row's) share one phase.
 //   * dx only (the inner FGSM gradient of ASASRec: only x needs a
 //     gradient): no partial slices, no weight-gradient work, no second
 //     kernel; one block per user group.
@@ -69,81 +96,342 @@
 
 namespace {
 
-constexpr int kBuffers = 10;  // BWD_BUFFERS in ops/sasrec_fused.py
+constexpr int kBuffers = 7;          // BWD_BUFFERS in ops/sasrec_fused.py
+constexpr int kSliceFloats = 4096;   // BWD_SLICE_FLOATS: a weight slice's floats at most
+constexpr int kMaxRowsPerThread = 3; // rows of a product's register tile
+constexpr int kGroupFloats = 12;     // BWD_GROUP_FLOATS: the group's scalars (struct Group)
+constexpr int kReduceOuts = 32;      // the reduction: outputs a block,
+constexpr int kReduceSlices = 8;     // contiguous slices of the parts a block,
+constexpr int kReduceUnroll = 16;    // loads a thread issues before it adds them
 
-// Offsets of one block's leaves in the flat gradient (grad_size and
+// Rows of W (or of Wᵀ) in one staged slice, and the floats of one slot.
+inline int slice_rows(int d) {
+  const int k = kSliceFloats / d / 4 * 4;
+  return k < d ? k : d;
+}
+inline int slot_floats(int d) {
+  const int ks = slice_rows(d);
+  const int a = ks * row_ld(d), b = d * row_ld(ks);
+  return a > b ? a : b;
+}
+
+// The leaves of one encoder block in the flat gradient (grad_size and
 // _grad_tree in ops/sasrec_fused.py): ln1, wq, wk, wv, ln2, conv1, conv2,
 // ln3, each LayerNorm as gamma then beta and each dense as w then b.
-struct BlockGradOff { int ln1, wq, bq, wk, bk, wv, bv, ln2, w1, b1, w2, b2, ln3; };
+enum Leaf { kLn1, kWq, kBq, kWk, kBk, kWv, kBv, kLn2, kW1, kB1, kW2, kB2, kLn3 };
 
-__device__ BlockGradOff block_grad_off(int blk, int d) {
-  const int o = blk * (5 * d * d + 11 * d), dd = d * d;
-  return {o,                    o + 2 * d,            o + 2 * d + dd,
-          o + 3 * d + dd,       o + 3 * d + 2 * dd,   o + 4 * d + 2 * dd,
-          o + 4 * d + 3 * dd,   o + 5 * d + 3 * dd,   o + 7 * d + 3 * dd,
-          o + 7 * d + 4 * dd,   o + 8 * d + 4 * dd,   o + 8 * d + 5 * dd,
-          o + 9 * d + 5 * dd};
+// Where leaf k of encoder block `blk` lies in a partial slice: the block's
+// 5 d² + 11 d floats, then a d + b d² into them. Computed where it is used,
+// so no offset waits in a register through the phases.
+__device__ __forceinline__ float* leaf(float* part, int blk, Leaf k, int d) {
+  int a = 0, b = 0;
+  switch (k) {
+    case kLn1: a = 0; b = 0; break;
+    case kWq: a = 2; b = 0; break;
+    case kBq: a = 2; b = 1; break;
+    case kWk: a = 3; b = 1; break;
+    case kBk: a = 3; b = 2; break;
+    case kWv: a = 4; b = 2; break;
+    case kBv: a = 4; b = 3; break;
+    case kLn2: a = 5; b = 3; break;
+    case kW1: a = 7; b = 3; break;
+    case kB1: a = 7; b = 4; break;
+    case kW2: a = 8; b = 4; break;
+    case kB2: a = 8; b = 5; break;
+    case kLn3: a = 9; b = 5; break;
+  }
+  return part + blk * (5 * d * d + 11 * d) + a * d + b * d * d;
+}
+
+// A block's [B, T, d] dropout mask at the group's first row, or null.
+__device__ __forceinline__ const unsigned char* mask_rows(const unsigned char* m, size_t row0,
+                                                         int d) {
+  return m == nullptr ? nullptr : m + row0 * d;
 }
 
 __device__ __forceinline__ void add_to(float* dst, float v, bool first) {
   *dst = first ? v : *dst + v;
 }
 
-// part[k][c] (+)= Σ_r X[r][k] dY[r][c] over the unmasked rows (masked rows
-// have dY = 0 exactly); each thread owns 4 x 4 tiles and sums rows in order.
-__device__ void wgrad(const float* X, const float* dY, const float* M, float* part,
-                      bool first, int R, int d, int ld) {
-  const int n4 = d / 4;
-  for (int tile = threadIdx.x; tile < n4 * n4; tile += blockDim.x) {
-    const int k0 = 4 * (tile / n4), c0 = 4 * (tile % n4);
-    float4 acc[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) acc[i] = make_float4(0.f, 0.f, 0.f, 0.f);
-    for (int r = 0; r < R; ++r) {
-      if (M[r] == 0.f) continue;
-      const float4 a = *reinterpret_cast<const float4*>(X + r * ld + k0);
-      const float4 g = *reinterpret_cast<const float4*>(dY + r * ld + c0);
-      fma4(acc[0], a.x, g);
-      fma4(acc[1], a.y, g);
-      fma4(acc[2], a.z, g);
-      fma4(acc[3], a.w, g);
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  const unsigned saddr = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" :: "r"(saddr), "l"(src));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// ---- the weight stream ------------------------------------------------------
+
+// A d x d weight as a product reads it: W (x W) or Wᵀ (dY Wᵀ); w null: none.
+struct WRef { const float* w; bool trans; };
+
+// Two slots of shared memory through which the weights' k-slices stream,
+// one ahead of the slice being multiplied. `cur` is the slot of the next
+// slice to multiply; `pending` says whether it is already in flight.
+struct Pipe {
+  float* base;   // slot 0; slot 1 follows at base + slot
+  int slot, cur;
+  bool pending;
+  int ks, ldk;  // rows a slice, the row stride of a Wᵀ slice
+  __device__ float* at(int k) const { return base + k * slot; }
+};
+
+// Issue the copy of k-slice [k0, k0 + ks) of W into `dst`: rows W[k0 + kk]
+// as dst[kk][0, d) with stride ld (x W), or columns as dst[c][kk] with
+// stride ldk (dY Wᵀ). Every thread takes part; one cp.async group.
+__device__ void stage_slice(float* dst, WRef W, int k0, const Pipe& pp, int d, int ld) {
+  const int kn = min(pp.ks, d - k0);
+  if (!W.trans) {
+    const int units = d / 4;
+    for (int i = threadIdx.x; i < kn * units; i += blockDim.x) {
+      const int kk = i / units, c = (i % units) * 4;
+      cp_async16(dst + kk * ld + c, W.w + static_cast<size_t>(k0 + kk) * d + c);
     }
+  } else {
+    const int units = kn / 4;
+    for (int i = threadIdx.x; i < d * units; i += blockDim.x) {
+      const int c = i / units, kk = (i % units) * 4;
+      cp_async16(dst + c * pp.ldk + kk, W.w + static_cast<size_t>(c) * d + k0 + kk);
+    }
+  }
+  cp_async_commit();
+}
+
+// out = epilogue(in[0] W[0]) (TRANS: in[0] W[0]ᵀ) for rows r < R, all
+// [R][ld] in shared memory, with the header's epilogue (bias, relu, mask,
+// gate, res); then each further product is added onto out in turn
+// (((res + p0) + p1) + p2), each thread updating its own elements. `next`
+// is the weight of the product after this one, whose first slice is staged
+// during this one's last. A thread owns ROWS rows (rg + i * row_groups) x 4
+// columns and sums k in order with FMAs; R <= ROWS * row_groups (the C
+// entry checks it).
+template <int ROWS, bool TRANS, int NP>
+__device__ void product(Pipe& pp, const float* const (&in)[NP], const float* const (&W)[NP],
+                        WRef next, float* out, const Epilogue& e, int R, int d, int ld) {
+  const int groups = d / 4;
+  const int row_groups = blockDim.x / groups;
+  const int cg = threadIdx.x % groups, rg = threadIdx.x / groups;
+  const bool active = rg < row_groups;  // idle when groups does not divide the block
+  const int nsl = (d + pp.ks - 1) / pp.ks;
+  // this thread's output columns: 4cg..4cg+3 (x W), or cg + groups * j (dY Wᵀ)
+  auto col = [&](int j) { return TRANS ? cg + groups * j : 4 * cg + j; };
+  unsigned mk[ROWS];  // the dropout mask's 4 bytes a row, read before the products
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      float4* dst = reinterpret_cast<float4*>(part + (k0 + i) * d + c0);
-      float4 o = acc[i];
-      if (!first) {
-        const float4 p = *dst;
-        o = make_float4(p.x + o.x, p.y + o.y, p.z + o.z, p.w + o.w);
+  for (int i = 0; i < ROWS; ++i) {
+    const int r = rg + i * row_groups;
+    mk[i] = 0;
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      if (active && r < R && e.mask != nullptr)
+        mk[i] |= static_cast<unsigned>(e.mask[static_cast<size_t>(r) * d + col(j)]) << (8 * j);
+  }
+  if (!pp.pending) stage_slice(pp.at(pp.cur), WRef{W[0], TRANS}, 0, pp, d, ld);
+#pragma unroll
+  for (int p = 0; p < NP; ++p) {
+    float4 acc[ROWS];
+#pragma unroll
+    for (int i = 0; i < ROWS; ++i) acc[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int s = 0; s < nsl; ++s) {
+      cp_async_wait_all();
+      __syncthreads();  // slice s has landed; every thread is done with the other slot
+      const WRef following = s + 1 < nsl ? WRef{W[p], TRANS}
+                             : p + 1 < NP ? WRef{W[p + 1 < NP ? p + 1 : p], TRANS}
+                                          : next;
+      if (following.w != nullptr)
+        stage_slice(pp.at(pp.cur ^ 1), following, s + 1 < nsl ? (s + 1) * pp.ks : 0, pp, d,
+                    ld);
+      const float* sw = pp.at(pp.cur);
+      pp.cur ^= 1;
+      if (!active) continue;
+      const int k0 = s * pp.ks, kn = min(pp.ks, d - k0);
+      // unrolled twice: more would spend registers the 512-thread block lacks
+#pragma unroll 2
+      for (int kk = 0; kk < kn; kk += 4) {
+        float4 w[4];  // x W: W[k0 + kk + j][4cg..]; dY Wᵀ: W[cg + groups j][k0 + kk..]
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          w[j] = *reinterpret_cast<const float4*>(
+              TRANS ? sw + (cg + groups * j) * pp.ldk + kk : sw + (kk + j) * ld + 4 * cg);
+#pragma unroll
+        for (int i = 0; i < ROWS; ++i) {
+          const int r = rg + i * row_groups;
+          const float4 a = r < R ? *reinterpret_cast<const float4*>(in[p] + r * ld + k0 + kk)
+                                 : make_float4(0.f, 0.f, 0.f, 0.f);
+          float4& o = acc[i];
+          if (TRANS) {
+            o.x = fmaf(a.x, w[0].x, o.x); o.x = fmaf(a.y, w[0].y, o.x);
+            o.x = fmaf(a.z, w[0].z, o.x); o.x = fmaf(a.w, w[0].w, o.x);
+            o.y = fmaf(a.x, w[1].x, o.y); o.y = fmaf(a.y, w[1].y, o.y);
+            o.y = fmaf(a.z, w[1].z, o.y); o.y = fmaf(a.w, w[1].w, o.y);
+            o.z = fmaf(a.x, w[2].x, o.z); o.z = fmaf(a.y, w[2].y, o.z);
+            o.z = fmaf(a.z, w[2].z, o.z); o.z = fmaf(a.w, w[2].w, o.z);
+            o.w = fmaf(a.x, w[3].x, o.w); o.w = fmaf(a.y, w[3].y, o.w);
+            o.w = fmaf(a.z, w[3].z, o.w); o.w = fmaf(a.w, w[3].w, o.w);
+          } else {
+            fma4(o, a.x, w[0]);
+            fma4(o, a.y, w[1]);
+            fma4(o, a.z, w[2]);
+            fma4(o, a.w, w[3]);
+          }
+        }
       }
-      *dst = o;
     }
+    if (!active) continue;
+#pragma unroll
+    for (int i = 0; i < ROWS; ++i) {
+      const int r = rg + i * row_groups;
+      if (r >= R) break;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int c = col(j);
+        const float a = (&acc[i].x)[j];
+        float o;
+        if (p > 0) {
+          o = a + out[r * ld + c];
+        } else {
+          o = a + (e.bias != nullptr ? __ldg(e.bias + c) : 0.f);
+          if (e.relu) o = fmaxf(o, 0.f);
+          if (e.mask != nullptr) o = drop(o, (mk[i] >> (8 * j)) & 0xffu, e.keep);
+          if (e.gate != nullptr) o = e.gate[r * ld + c] > 0.f ? o : 0.f;
+          if (e.res != nullptr) o += e.res[r * ld + c];
+        }
+        out[r * ld + c] = o;
+      }
+    }
+  }
+  pp.pending = next.w != nullptr;
+}
+
+// The register tile with the fewest rows that covers R in one pass.
+template <bool TRANS, int NP>
+__device__ void dense(Pipe& pp, const float* const (&in)[NP], const float* const (&W)[NP],
+                      WRef next, float* out, const Epilogue& e, int R, int d, int ld) {
+  const int row_groups = blockDim.x / (d / 4);
+  if (R <= row_groups)
+    product<1, TRANS, NP>(pp, in, W, next, out, e, R, d, ld);
+  else if (R <= 2 * row_groups)
+    product<2, TRANS, NP>(pp, in, W, next, out, e, R, d, ld);
+  else
+    product<3, TRANS, NP>(pp, in, W, next, out, e, R, d, ld);
+}
+
+// ---- weight gradients ---------------------------------------------------------
+
+// For each p < NP: wp[p][k][c] (+)= Σ_r X[r][k] dY[p][r][c] and bp[p][c]
+// (+)= Σ_r dY[p][r][c] over the rows (a masked row's dY is exactly 0 and
+// its X finite, so it adds exact zeros). Each thread owns 4 x CW tiles
+// (k0..k0+3, c0..c0+CW-1) and sums the rows in order; the tiles of k0 = 0
+// also sum the bias. The partial's earlier values are loaded before the
+// rows.
+template <int NP, int CW>
+__device__ void wgrad(const float* X, const float* const (&dY)[NP], float* const (&wp)[NP],
+                      float* const (&bp)[NP], bool first, int R, int d, int ld) {
+  const int nc = d / CW;
+  for (int tile = threadIdx.x; tile < d / 4 * nc; tile += blockDim.x) {
+    const int k0 = 4 * (tile / nc), c0 = CW * (tile % nc);
+    const bool bias = k0 == 0;
+    float acc[NP][4][CW], prev[NP][4][CW], bsum[NP][CW], bprev[NP][CW];
+#pragma unroll
+    for (int p = 0; p < NP; ++p)
+#pragma unroll
+      for (int j = 0; j < CW; ++j) {
+        bsum[p][j] = 0.f;
+        bprev[p][j] = bias && !first ? bp[p][c0 + j] : 0.f;
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          acc[p][i][j] = 0.f;
+          prev[p][i][j] = first ? 0.f : wp[p][(k0 + i) * d + c0 + j];
+        }
+      }
+#pragma unroll 2
+    for (int r = 0; r < R; ++r) {
+      const float4 a = *reinterpret_cast<const float4*>(X + r * ld + k0);
+#pragma unroll
+      for (int p = 0; p < NP; ++p) {
+        float gv[CW];  // dY[p][r][c0, c0 + CW), one load
+        if constexpr (CW == 2) {
+          const float2 v = *reinterpret_cast<const float2*>(dY[p] + r * ld + c0);
+          gv[0] = v.x;
+          gv[1] = v.y;
+        } else {
+          gv[0] = dY[p][r * ld + c0];
+        }
+#pragma unroll
+        for (int j = 0; j < CW; ++j) {
+          const float g = gv[j];
+          acc[p][0][j] = fmaf(a.x, g, acc[p][0][j]);
+          acc[p][1][j] = fmaf(a.y, g, acc[p][1][j]);
+          acc[p][2][j] = fmaf(a.z, g, acc[p][2][j]);
+          acc[p][3][j] = fmaf(a.w, g, acc[p][3][j]);
+          if (bias) bsum[p][j] += g;
+        }
+      }
+    }
+#pragma unroll
+    for (int p = 0; p < NP; ++p)
+#pragma unroll
+      for (int j = 0; j < CW; ++j) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          wp[p][(k0 + i) * d + c0 + j] = first ? acc[p][i][j] : prev[p][i][j] + acc[p][i][j];
+        if (bias) bp[p][c0 + j] = first ? bsum[p][j] : bprev[p][j] + bsum[p][j];
+      }
   }
 }
 
-// part[c] (+)= Σ_r dY[r][c] over the unmasked rows.
-__device__ void bgrad(const float* dY, const float* M, float* part, bool first, int R,
-                      int d, int ld) {
-  for (int c = threadIdx.x; c < d; c += blockDim.x) {
+// ---- LayerNorm ------------------------------------------------------------------
+
+// dst[r] = LN(src[r]) for rows r < R from rows of stride sld (device memory
+// or shared), also copied to `copy` ([R][ld]) when it is not null; one warp
+// per row, the forward's arithmetic (layer_norm_rows).
+__device__ void ln_rows(const float* src, int sld, float* copy, float* dst, LayerNormW p, int R,
+                        int d, int ld) {
+  const int lane = threadIdx.x & 31;
+  for (int r = threadIdx.x >> 5; r < R; r += blockDim.x >> 5) {
+    float v[kMaxColsPerLane];
     float s = 0.f;
-    for (int r = 0; r < R; ++r)
-      if (M[r] != 0.f) s += dY[r * ld + c];
-    add_to(part + c, s, first);
+#pragma unroll
+    for (int m = 0; m < kMaxColsPerLane; ++m) {
+      const int c = lane + 32 * m;
+      v[m] = c < d ? src[static_cast<size_t>(r) * sld + c] : 0.f;
+      s += v[m];
+      if (copy != nullptr && c < d) copy[r * ld + c] = v[m];
+    }
+    const float mean = warp_sum(s) / d;
+    float q = 0.f;
+#pragma unroll
+    for (int m = 0; m < kMaxColsPerLane; ++m) {
+      const float dv = v[m] - mean;
+      if (lane + 32 * m < d) q = fmaf(dv, dv, q);
+    }
+    const float denom = sqrtf(warp_sum(q) / d + kEps);
+#pragma unroll
+    for (int m = 0; m < kMaxColsPerLane; ++m) {
+      const int c = lane + 32 * m;
+      if (c < d) dst[r * ld + c] = __ldg(p.gamma + c) * (v[m] - mean) / denom + __ldg(p.beta + c);
+    }
   }
 }
 
 // G[r] <- LNᵀ(G[r] (* M[r] when M is given)) for the LayerNorm whose input
 // rows are X (its moments recomputed as the forward computes them); one
-// warp per row. Each warp's Σ dy x̂ and Σ dy go to scratch[warp][0, d) and
-// [d, 2d).
+// warp per row. With `dropped`, also dropped[r] = drop(G[r]) with `mask`
+// ([R][d] in device memory, or null: a copy); it may alias X. Each warp
+// sums its rows' dy x̂ and dy, in row order, into scratch[warp][0, d) and
+// [d, 2d) (in shared memory, not in registers).
 __device__ void ln_bwd_rows(const float* X, float* G, LayerNormW p, const float* M,
-                            float* scratch, int R, int d, int ld) {
+                            float* scratch, int R, int d, int ld, float* dropped = nullptr,
+                            const unsigned char* mask = nullptr, float keep = 1.f) {
   const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  float pg[kMaxColsPerLane], pb[kMaxColsPerLane];
-#pragma unroll
-  for (int m = 0; m < kMaxColsPerLane; ++m) pg[m] = pb[m] = 0.f;
-  for (int r = warp; r < R; r += blockDim.x >> 5) {
+  float* sg = scratch + (threadIdx.x >> 5) * 2 * d;  // this warp's Σ dy x̂, then Σ dy
+  for (int c = lane; c < 2 * d; c += 32) sg[c] = 0.f;
+  for (int r = threadIdx.x >> 5; r < R; r += blockDim.x >> 5) {
     float v[kMaxColsPerLane];
     float s = 0.f;
 #pragma unroll
@@ -160,21 +448,19 @@ __device__ void ln_bwd_rows(const float* X, float* G, LayerNormW p, const float*
       if (lane + 32 * m < d) q = fmaf(dv, dv, q);
     }
     const float sigma = sqrtf(warp_sum(q) / d + kEps);
-    const float keep = M == nullptr ? 1.f : M[r];
-    float xh[kMaxColsPerLane], dxh[kMaxColsPerLane];
+    const float mr = M == nullptr ? 1.f : M[r];
     float s1 = 0.f, s2 = 0.f;
 #pragma unroll
     for (int m = 0; m < kMaxColsPerLane; ++m) {
       const int c = lane + 32 * m;
-      xh[m] = dxh[m] = 0.f;
       if (c < d) {
-        xh[m] = (v[m] - mean) / sigma;
-        const float dy = G[r * ld + c] * keep;
-        pg[m] = fmaf(dy, xh[m], pg[m]);
-        pb[m] += dy;
-        dxh[m] = dy * __ldg(p.gamma + c);
-        s1 += dxh[m];
-        s2 = fmaf(dxh[m], xh[m], s2);
+        const float xh = (v[m] - mean) / sigma;
+        const float dy = G[r * ld + c] * mr;
+        sg[c] = fmaf(dy, xh, sg[c]);
+        sg[d + c] += dy;
+        v[m] = dy * __ldg(p.gamma + c);  // dx̂
+        s1 += v[m];
+        s2 = fmaf(v[m], xh, s2);
       }
     }
     const float m1 = warp_sum(s1) / d;
@@ -182,15 +468,11 @@ __device__ void ln_bwd_rows(const float* X, float* G, LayerNormW p, const float*
 #pragma unroll
     for (int m = 0; m < kMaxColsPerLane; ++m) {
       const int c = lane + 32 * m;
-      if (c < d) G[r * ld + c] = (dxh[m] - m1 - xh[m] * m2) / sigma;
-    }
-  }
-#pragma unroll
-  for (int m = 0; m < kMaxColsPerLane; ++m) {
-    const int c = lane + 32 * m;
-    if (c < d) {
-      scratch[warp * 2 * d + c] = pg[m];
-      scratch[warp * 2 * d + d + c] = pb[m];
+      if (c >= d) continue;
+      const float g = (v[m] - m1 - (X[r * ld + c] - mean) / sigma * m2) / sigma;  // x̂ again
+      G[r * ld + c] = g;
+      if (dropped != nullptr)
+        dropped[r * ld + c] = mask == nullptr ? g : drop(g, mask[r * d + c], keep);
     }
   }
 }
@@ -205,11 +487,103 @@ __device__ void ln_grad_flush(const float* scratch, float* part, bool first, int
   }
 }
 
-// dV[j] = Σ_{i >= j} p'_ij dA[i] over the unmasked queries i of key j's
-// user (p' = drop_p(P)); 0 for a masked key. One warp per key row.
-__device__ void attn_bwd_dv(const float* P, const unsigned char* pm, float keep,
-                            const float* dA, float* dV, const float* M, int R, int T, int Ts,
-                            int d, int ld) {
+// ---- attention ------------------------------------------------------------------
+
+// A[r] = QIN[r] + Σ_j drop_p(p_rj) V[j] over the keys j <= r of row r's
+// user whose mask is set, p_r = softmax_j(q_r·k_j / √d); P[r] keeps p_r
+// before the dropout, 0 for masked keys, past the diagonal and for a
+// masked query (whose A is QIN). `pm` is the block's [R][T] dropout mask
+// in shared memory, or null. One warp per row; `scores` holds one row of
+// Ts floats per warp. The arithmetic is K2a's (attention_rows).
+__device__ void attention_fwd(const float* q, const float* k, const float* v, const float* qin,
+                              float* a, float* scores, float* P, const unsigned char* pm,
+                              float keep, const float* M, int R, int T, int Ts, int d,
+                              int ld) {
+  const int lane = threadIdx.x & 31;
+  const float scale = sqrtf(static_cast<float>(d));
+  float* s = scores + (threadIdx.x >> 5) * Ts;
+  for (int r = threadIdx.x >> 5; r < R; r += blockDim.x >> 5) {
+    float* pr = P + r * Ts;
+    if (M[r] == 0.f) {  // a masked query: no attention, zero probabilities
+      for (int c = lane; c < d; c += 32) a[r * ld + c] = qin[r * ld + c];
+      for (int j = lane; j < Ts; j += 32) pr[j] = 0.f;
+      continue;
+    }
+    const int i = r % T;  // position in the window
+    const int u0 = r - i; // the user's first row
+    const float* qr = q + r * ld;
+    float m = -INFINITY;
+    for (int j = lane; j <= i; j += 32) {
+      float dot = -INFINITY;  // a masked key: weight exactly 0, as -2^32+1 gives
+      if (M[u0 + j] != 0.f) {
+        const float* kr = k + (u0 + j) * ld;
+        float a0 = 0.f, a1 = 0.f, a2 = 0.f, a3 = 0.f;  // four independent chains
+        for (int c = 0; c < d; c += 4) {
+          const float4 x = *reinterpret_cast<const float4*>(qr + c);
+          const float4 y = *reinterpret_cast<const float4*>(kr + c);
+          a0 = fmaf(x.x, y.x, a0);
+          a1 = fmaf(x.y, y.y, a1);
+          a2 = fmaf(x.z, y.z, a2);
+          a3 = fmaf(x.w, y.w, a3);
+        }
+        dot = ((a0 + a1) + (a2 + a3)) / scale;
+      }
+      s[j] = dot;
+      m = fmaxf(m, dot);
+    }
+    m = warp_max(m);  // finite: key i is unmasked because query i is
+    float sum = 0.f;
+    for (int j = lane; j <= i; j += 32) {
+      const float e = expf(s[j] - m);
+      s[j] = e;
+      sum += e;
+    }
+    sum = warp_sum(sum);
+    for (int j = lane; j < Ts; j += 32) {
+      float p = j <= i ? s[j] / sum : 0.f;
+      pr[j] = p;
+      if (pm != nullptr && j <= i) p = drop(p, pm[r * T + j], keep);
+      s[j] = p;
+    }
+    __syncwarp();
+    float acc[kMaxColsPerLane];
+#pragma unroll
+    for (int c = 0; c < kMaxColsPerLane; ++c) acc[c] = 0.f;
+    int j = 0;
+    for (; j + 4 <= i + 1; j += 4) {  // four keys a step: their loads overlap
+      const float4 p4 = *reinterpret_cast<const float4*>(s + j);
+      if (p4.x == 0.f && p4.y == 0.f && p4.z == 0.f && p4.w == 0.f) continue;  // padding
+      const float* vr = v + (u0 + j) * ld + lane;
+#pragma unroll
+      for (int c = 0; c < kMaxColsPerLane; ++c) {
+        if (lane + 32 * c >= d) continue;
+        float t = acc[c];
+        t = fmaf(p4.x, vr[32 * c], t);
+        t = fmaf(p4.y, vr[ld + 32 * c], t);
+        t = fmaf(p4.z, vr[2 * ld + 32 * c], t);
+        t = fmaf(p4.w, vr[3 * ld + 32 * c], t);
+        acc[c] = t;
+      }
+    }
+    for (; j <= i; ++j) {
+      const float pj = s[j];
+      const float* vr = v + (u0 + j) * ld + lane;
+#pragma unroll
+      for (int c = 0; c < kMaxColsPerLane; ++c)
+        if (lane + 32 * c < d) acc[c] = fmaf(pj, vr[32 * c], acc[c]);
+    }
+#pragma unroll
+    for (int c = 0; c < kMaxColsPerLane; ++c)
+      if (lane + 32 * c < d) a[r * ld + lane + 32 * c] = qin[r * ld + lane + 32 * c] + acc[c];
+    __syncwarp();  // this warp's next row rewrites s
+  }
+}
+
+// dV[j] = Σ_{i >= j} p'_ij dA[i] over the queries i of key j's user
+// (p' = drop_p(P), 0 for a masked query); 0 for a masked key. One warp per
+// key row.
+__device__ void attn_bwd_dv(const float* P, const unsigned char* pm, float keep, const float* dA,
+                            float* dV, const float* M, int R, int T, int Ts, int d, int ld) {
   const int lane = threadIdx.x & 31;
   for (int j = threadIdx.x >> 5; j < R; j += blockDim.x >> 5) {
     float acc[kMaxColsPerLane];
@@ -217,8 +591,8 @@ __device__ void attn_bwd_dv(const float* P, const unsigned char* pm, float keep,
     for (int c = 0; c < kMaxColsPerLane; ++c) acc[c] = 0.f;
     if (M[j] != 0.f) {
       const int jj = j % T, u0 = j - jj;
+#pragma unroll 4
       for (int i = j; i < u0 + T; ++i) {
-        if (M[i] == 0.f) continue;
         float p = P[i * Ts + jj];
         if (pm != nullptr) p = drop(p, pm[i * T + jj], keep);
         const float* ar = dA + i * ld + lane;
@@ -234,8 +608,8 @@ __device__ void attn_bwd_dv(const float* P, const unsigned char* pm, float keep,
 }
 
 // P[r] <- dS[r] = P[r] ∘ (dP[r] - Σ_j dP_rj P_rj), dP_rj = drop_p(dA[r]·V[j]),
-// over the keys j <= r of an unmasked query row r. One warp per row;
-// `scores` holds one row of dP per warp.
+// over the keys j <= r of an unmasked query row r (a masked query's row
+// stays 0). One warp per row; `scores` holds one row of dP per warp.
 __device__ void attn_bwd_ds(float* P, float* scores, const unsigned char* pm, float keep,
                             const float* dA, const float* V, const float* M, int R, int T,
                             int Ts, int d, int ld) {
@@ -271,17 +645,21 @@ __device__ void attn_bwd_ds(float* P, float* scores, const unsigned char* pm, fl
   }
 }
 
-// dQ[r] = Σ_{j <= r} dS_rj K[j] / √d for an unmasked query row r (else 0).
-__device__ void attn_bwd_dq(const float* dS, const float* K, float* dQ, const float* M,
-                            int R, int T, int Ts, int d, int ld) {
+// Row r's dQ[r] = Σ_{j <= r} dS_rj K[j] / √d and then, as key, dK[r] =
+// Σ_{i >= r} dS_ir Q[i] / √d (dS is 0 for masked queries and keys); 0 for
+// a masked row. One warp per row.
+__device__ void attn_bwd_dqk(const float* dS, const float* K, const float* Q, float* dQ,
+                             float* dK, const float* M, int R, int T, int Ts, int d, int ld) {
   const int lane = threadIdx.x & 31;
   const float scale = sqrtf(static_cast<float>(d));
   for (int r = threadIdx.x >> 5; r < R; r += blockDim.x >> 5) {
+    const bool live = M[r] != 0.f;
+    const int i = r % T, u0 = r - i;
     float acc[kMaxColsPerLane];
 #pragma unroll
     for (int c = 0; c < kMaxColsPerLane; ++c) acc[c] = 0.f;
-    if (M[r] != 0.f) {
-      const int i = r % T, u0 = r - i;
+    if (live) {
+#pragma unroll 4
       for (int j = 0; j <= i; ++j) {
         const float ds = dS[r * Ts + j];
         const float* kr = K + (u0 + j) * ld + lane;
@@ -291,27 +669,15 @@ __device__ void attn_bwd_dq(const float* dS, const float* K, float* dQ, const fl
       }
     }
 #pragma unroll
-    for (int c = 0; c < kMaxColsPerLane; ++c)
+    for (int c = 0; c < kMaxColsPerLane; ++c) {
       if (lane + 32 * c < d) dQ[r * ld + lane + 32 * c] = acc[c] / scale;
-  }
-}
-
-// dK[j] = Σ_{i >= j} dS_ij Q[i] / √d over the unmasked queries i (0 for a
-// masked key).
-__device__ void attn_bwd_dk(const float* dS, const float* Q, float* dK, const float* M,
-                            int R, int T, int Ts, int d, int ld) {
-  const int lane = threadIdx.x & 31;
-  const float scale = sqrtf(static_cast<float>(d));
-  for (int j = threadIdx.x >> 5; j < R; j += blockDim.x >> 5) {
-    float acc[kMaxColsPerLane];
-#pragma unroll
-    for (int c = 0; c < kMaxColsPerLane; ++c) acc[c] = 0.f;
-    if (M[j] != 0.f) {
-      const int jj = j % T, u0 = j - jj;
-      for (int i = j; i < u0 + T; ++i) {
-        if (M[i] == 0.f) continue;
-        const float ds = dS[i * Ts + jj];
-        const float* qr = Q + i * ld + lane;
+      acc[c] = 0.f;
+    }
+    if (live) {
+#pragma unroll 4
+      for (int q = r; q < u0 + T; ++q) {
+        const float ds = dS[q * Ts + i];
+        const float* qr = Q + q * ld + lane;
 #pragma unroll
         for (int c = 0; c < kMaxColsPerLane; ++c)
           if (lane + 32 * c < d) acc[c] = fmaf(ds, qr[32 * c], acc[c]);
@@ -319,7 +685,7 @@ __device__ void attn_bwd_dk(const float* dS, const float* Q, float* dK, const fl
     }
 #pragma unroll
     for (int c = 0; c < kMaxColsPerLane; ++c)
-      if (lane + 32 * c < d) dK[j * ld + lane + 32 * c] = acc[c] / scale;
+      if (lane + 32 * c < d) dK[r * ld + lane + 32 * c] = acc[c] / scale;
   }
 }
 
@@ -332,153 +698,209 @@ __device__ void load_rows(const float* src, float* dst, int R, int d, int ld) {
   }
 }
 
+// The user group's scalars, in shared memory: each phase reads them where
+// it uses them, so no register holds them through the phases (at 512
+// threads a thread has 128 registers, and the products need most of them).
+struct Group {
+  float* part;            // this block's partial slice, or null (dx only)
+  size_t row0;            // the group's first row of [B, T]
+  const float* next_wq;   // the last block's Wq for this block's next group, or null
+  int R, users;
+  bool first;             // this block's first group: it stores, later ones add
+};
+static_assert(sizeof(Group) <= kGroupFloats * sizeof(float), "Group outgrows its floats");
+
 __global__ void __launch_bounds__(kMaxThreads, 1)
 sasrec_encoder_bwd_kernel(const EncoderW w, const DropoutMasks dm,
                           const unsigned char* __restrict__ ids_mask,
                           const float* __restrict__ g, const float* __restrict__ saved,
                           float* __restrict__ dx, float* __restrict__ partial, int B, int T,
-                          int d, int users_per_block, int ld, int Ts, int n_grad, int groups) {
+                          int d, int users_per_block, int ld, int Ts, int ks, int ldk,
+                          int slot, int n_grad, int groups) {
   extern __shared__ __align__(16) float smem[];
   const int rows = users_per_block * T;
   const int warps = blockDim.x >> 5;
-  float* H = smem;                  // the block's input (LN1's)
-  float* QIN = H + rows * ld;       // q_in
-  float* Q = QIN + rows * ld;
-  float* K = Q + rows * ld;
-  float* V = K + rows * ld;
-  float* A = V + rows * ld;         // attention output (LN2's input); then dV
-  float* X2 = A + rows * ld;        // LN2's output; then dQ
-  float* F1 = X2 + rows * ld;       // FFN hidden after dropout; then dZ1; then dK
-  float* F = F1 + rows * ld;        // FFN sum (LN3's input); then dF2
-  float* G = F + rows * ld;         // the running gradient
-  float* P = G + rows * ld;         // [rows][Ts] probabilities, then dS
-  float* S = P + rows * Ts;         // [warps][Ts] score rows
-  float* M = S + warps * Ts;        // [rows] ids mask as 0/1
-  float* LS = M + rows;             // [warps][2d] LayerNorm gradient sums
-  const float keep = dm.keep;
-  const BlockBufs bufs{H, QIN, Q, K, V, A, X2, F1, F, P, S, M};
-  const size_t plane = static_cast<size_t>(B) * T * d;  // one [B, T, d] of `saved`
+  Group* gs = reinterpret_cast<Group*>(smem);
+  // seven [rows][ld] buffers; their contents through one encoder block:
+  float* X0 = smem + kGroupFloats;  // LN_f's input; the attention output A; dV
+  float* X1 = X0 + rows * ld;    // q_in; x2; the FFN sum F; dF2; x2 again; dQ
+  float* X2 = X1 + rows * ld;    // q; the block input H
+  float* X3 = X2 + rows * ld;    // k; q_in again
+  float* X4 = X3 + rows * ld;    // v
+  float* X5 = X4 + rows * ld;    // the FFN hidden F1; dZ1; dK
+  float* G = X5 + rows * ld;     // the running gradient
+  float* P = G + rows * ld;      // [rows][Ts] probabilities, then dS
+  float* SW = P + rows * Ts;     // two weight slots
+  float* S = SW + 2 * slot;      // [warps][Ts] score rows
+  float* M = S + warps * Ts;     // [rows] ids mask as 0/1
+  float* LS = M + rows;          // [warps][2d] LayerNorm gradient sums
+  unsigned char* PM = reinterpret_cast<unsigned char*>(LS + warps * 2 * d);  // [rows][T]
   const int nb = w.num_blocks;
-  const int lnf_off = nb * (5 * d * d + 11 * d);
-  const int pos_off = lnf_off + 2 * d;
+  const size_t plane = static_cast<size_t>(B) * T;  // rows of one [B, T, d] of `saved`
+  Pipe pp{SW, slot, 0, false, ks, ldk};
 
   for (int group = blockIdx.x; group < groups; group += gridDim.x) {
-    const bool first = group == static_cast<int>(blockIdx.x);
-    const int b0 = group * users_per_block;
-    const int users = min(users_per_block, B - b0);
-    const int R = users * T;
-    const size_t row0 = static_cast<size_t>(b0) * T;
-    float* part = partial == nullptr ? nullptr : partial + static_cast<size_t>(blockIdx.x) * n_grad;
-    __syncthreads();  // the previous group is done with every buffer
-    for (int r = threadIdx.x; r < R; r += blockDim.x) M[r] = ids_mask[row0 + r] ? 1.f : 0.f;
-    load_rows(g + row0 * d, G, R, d, ld);
-    load_rows(saved + nb * plane + row0 * d, H, R, d, ld);
+    __syncthreads();  // the previous group is done with every buffer and with gs
+    if (threadIdx.x == 0) {
+      const int users = min(users_per_block, B - group * users_per_block);
+      const bool last = group + static_cast<int>(gridDim.x) >= groups;
+      *gs = Group{partial == nullptr ? nullptr : partial + static_cast<size_t>(blockIdx.x) * n_grad,
+                  static_cast<size_t>(group) * users_per_block * T,
+                  last ? nullptr : w.blocks[nb - 1].wq.w, users * T, users,
+                  group == static_cast<int>(blockIdx.x)};
+    }
     __syncthreads();
-    ln_bwd_rows(H, G, w.ln_f, nullptr, LS, R, d, ld);  // every row feeds dβ_f
+    for (int r = threadIdx.x; r < gs->R; r += blockDim.x)
+      M[r] = ids_mask[gs->row0 + r] ? 1.f : 0.f;
+    load_rows(g + gs->row0 * d, G, gs->R, d, ld);
+    load_rows(saved + (nb * plane + gs->row0) * d, X0, gs->R, d, ld);
     __syncthreads();
-    if (part != nullptr) ln_grad_flush(LS, part + lnf_off, first, d);
+    ln_bwd_rows(X0, G, w.ln_f, nullptr, LS, gs->R, d, ld);  // every row feeds dβ_f
+    __syncthreads();
+    if (gs->part != nullptr) ln_grad_flush(LS, gs->part + nb * (5 * d * d + 11 * d), gs->first, d);
 
     for (int blk = nb - 1; blk >= 0; --blk) {
       const BlockW& p = w.blocks[blk];
-      const BlockGradOff off = block_grad_off(blk, d);
-      const unsigned char* pm = dm.p[blk] == nullptr ? nullptr : dm.p[blk] + row0 * T;
-      const unsigned char* f1m = dm.f1[blk] == nullptr ? nullptr : dm.f1[blk] + row0 * d;
-      const unsigned char* f2m = dm.f2[blk] == nullptr ? nullptr : dm.f2[blk] + row0 * d;
-      load_rows(saved + blk * plane + row0 * d, H, R, d, ld);
+      // per-block pointers are formed where they are used: the block input
+      // saved[blk], the dropout masks (the probabilities' staged in PM)
+
+      // the rematerialised forward
+      if (dm.p[blk] != nullptr)
+        for (int idx = threadIdx.x; idx < gs->R * T; idx += blockDim.x)
+          PM[idx] = dm.p[blk][gs->row0 * T + idx];
+      ln_rows(saved + (blk * plane + gs->row0) * d, d, nullptr, X1, p.ln1, gs->R, d, ld);  // q_in
+      dense<false, 1>(pp, {X1}, {p.wq.w}, WRef{p.wk.w, false}, X2, epi(p.wq.b), gs->R, d, ld);
+      dense<false, 1>(pp, {X1}, {p.wk.w}, WRef{p.wv.w, false}, X3, epi(p.wk.b), gs->R, d, ld);
+      dense<false, 1>(pp, {X1}, {p.wv.w}, WRef{p.conv1.w, false}, X4, epi(p.wv.b), gs->R, d, ld);
       __syncthreads();
-      block_forward(p, bufs, pm, f1m, f2m, keep, true, R, T, Ts, d, ld);
+      attention_fwd(X2, X3, X4, X1, X0, S, P, dm.p[blk] == nullptr ? nullptr : PM, dm.keep, M,
+                    gs->R, T, Ts, d, ld);
+      __syncthreads();
+      ln_rows(X0, ld, nullptr, X1, p.ln2, gs->R, d, ld);  // x2
+      dense<false, 1>(pp, {X1}, {p.conv1.w}, WRef{p.conv2.w, false}, X5,
+                      epi(p.conv1.b, true, mask_rows(dm.f1[blk], gs->row0, d), dm.keep), gs->R,
+                      d, ld);  // F1
+      dense<false, 1>(pp, {X5}, {p.conv2.w}, WRef{p.conv2.w, true}, X1,
+                      epi(p.conv2.b, false, mask_rows(dm.f2[blk], gs->row0, d), dm.keep, nullptr,
+                          X1),
+                      gs->R, d, ld);  // F
+      __syncthreads();
 
       // LN3 (its output was masked by the ids mask), then the FFN
-      ln_bwd_rows(F, G, p.ln3, M, LS, R, d, ld);  // G = dF (= dX2 so far)
+      ln_bwd_rows(X1, G, p.ln3, M, LS, gs->R, d, ld, X1, mask_rows(dm.f2[blk], gs->row0, d),
+                  dm.keep);  // G = dF, X1 = dF2 = drop_f2(dF)
       __syncthreads();
-      if (part != nullptr) ln_grad_flush(LS, part + off.ln3, first, d);
-      for (int idx = threadIdx.x; idx < R * d; idx += blockDim.x) {
-        const int r = idx / d, c = idx % d;
-        const float v = G[r * ld + c];
-        F[r * ld + c] = f2m == nullptr ? v : drop(v, f2m[idx], keep);  // dF2
-      }
+      if (gs->part != nullptr) ln_grad_flush(LS, leaf(gs->part, blk, kLn3, d), gs->first, d);
+      if (gs->part != nullptr)
+        wgrad<1, 2>(X5, {X1}, {leaf(gs->part, blk, kW2, d)}, {leaf(gs->part, blk, kB2, d)},
+                    gs->first, gs->R, d, ld);
+      dense<true, 1>(pp, {X1}, {p.conv2.w}, WRef{p.conv1.w, true}, X5,
+                     epi(nullptr, false, mask_rows(dm.f1[blk], gs->row0, d), dm.keep, X5), gs->R,
+                     d, ld);  // dZ1
       __syncthreads();
-      if (part != nullptr) {
-        wgrad(F1, F, M, part + off.w2, first, R, d, ld);
-        bgrad(F, M, part + off.b2, first, R, d, ld);
-      }
+      ln_rows(X0, ld, nullptr, X1, p.ln2, gs->R, d, ld);  // x2 again
       __syncthreads();
-      dense_rows<true>(F, F1, p.conv2.w, epi(nullptr, false, f1m, keep, F1), R, d, ld);  // dZ1
+      if (gs->part != nullptr)
+        wgrad<1, 2>(X1, {X5}, {leaf(gs->part, blk, kW1, d)}, {leaf(gs->part, blk, kB1, d)},
+                    gs->first, gs->R, d, ld);
+      // dX2 = dF + dZ1 W1ᵀ
+      dense<true, 1>(pp, {X5}, {p.conv1.w}, WRef{p.wq.w, true}, G,
+                     epi(nullptr, false, nullptr, 1.f, nullptr, G), gs->R, d, ld);
       __syncthreads();
-      if (part != nullptr) {
-        wgrad(X2, F1, M, part + off.w1, first, R, d, ld);
-        bgrad(F1, M, part + off.b1, first, R, d, ld);
-      }
-      dense_rows<true>(F1, G, p.conv1.w, epi(nullptr, false, nullptr, 1.f, nullptr, G), R, d,
-                       ld);  // dX2 = dF + dZ1 W1ᵀ
+      ln_bwd_rows(X0, G, p.ln2, nullptr, LS, gs->R, d, ld);  // G = dA
       __syncthreads();
-      ln_bwd_rows(A, G, p.ln2, nullptr, LS, R, d, ld);  // G = dA
-      __syncthreads();
-      if (part != nullptr) ln_grad_flush(LS, part + off.ln2, first, d);
 
-      // attention: dV into A, dS over P, dQ into X2, dK into F1
-      attn_bwd_dv(P, pm, keep, G, A, M, R, T, Ts, d, ld);
+      // attention: dV into X0, dS over P, dQ into X1, dK into X5
+      if (gs->part != nullptr) ln_grad_flush(LS, leaf(gs->part, blk, kLn2, d), gs->first, d);
+      attn_bwd_dv(P, dm.p[blk] == nullptr ? nullptr : PM, dm.keep, G, X0, M, gs->R, T, Ts, d, ld);
       __syncthreads();
-      attn_bwd_ds(P, S, pm, keep, G, V, M, R, T, Ts, d, ld);
+      attn_bwd_ds(P, S, dm.p[blk] == nullptr ? nullptr : PM, dm.keep, G, X4, M, gs->R, T, Ts, d,
+                  ld);
       __syncthreads();
-      attn_bwd_dq(P, K, X2, M, R, T, Ts, d, ld);
-      attn_bwd_dk(P, Q, F1, M, R, T, Ts, d, ld);
+      attn_bwd_dqk(P, X3, X2, X1, X5, M, gs->R, T, Ts, d, ld);
       __syncthreads();
-      if (part != nullptr) {
-        wgrad(QIN, X2, M, part + off.wq, first, R, d, ld);
-        bgrad(X2, M, part + off.bq, first, R, d, ld);
-        wgrad(QIN, F1, M, part + off.wk, first, R, d, ld);
-        bgrad(F1, M, part + off.bk, first, R, d, ld);
-        wgrad(QIN, A, M, part + off.wv, first, R, d, ld);
-        bgrad(A, M, part + off.bv, first, R, d, ld);
-      }
-      // dq_in = dA + dQ Wqᵀ + dK Wkᵀ + dV Wvᵀ, added in that order
-      dense_rows<true>(X2, G, p.wq.w, epi(nullptr, false, nullptr, 1.f, nullptr, G), R, d, ld);
+      ln_rows(saved + (blk * plane + gs->row0) * d, d, X2, X3, p.ln1, gs->R, d, ld);  // H, q_in
       __syncthreads();
-      dense_rows<true>(F1, G, p.wk.w, epi(nullptr, false, nullptr, 1.f, nullptr, G), R, d, ld);
+      if (gs->part != nullptr)
+        wgrad<3, 1>(X3, {X1, X5, X0},
+                    {leaf(gs->part, blk, kWq, d), leaf(gs->part, blk, kWk, d),
+                     leaf(gs->part, blk, kWv, d)},
+                    {leaf(gs->part, blk, kBq, d), leaf(gs->part, blk, kBk, d),
+                     leaf(gs->part, blk, kBv, d)},
+                    gs->first, gs->R, d, ld);
+      // dq_in = dA + dQ Wqᵀ + dK Wkᵀ + dV Wvᵀ, added in that order; the
+      // next block's (or group's) first weight flies behind them
+      const WRef next{blk > 0 ? w.blocks[blk - 1].wq.w : gs->next_wq, false};
+      dense<true, 3>(pp, {X1, X5, X0}, {p.wq.w, p.wk.w, p.wv.w}, next, G,
+                     epi(nullptr, false, nullptr, 1.f, nullptr, G), gs->R, d, ld);
       __syncthreads();
-      dense_rows<true>(A, G, p.wv.w, epi(nullptr, false, nullptr, 1.f, nullptr, G), R, d, ld);
+      ln_bwd_rows(X2, G, p.ln1, nullptr, LS, gs->R, d, ld);  // G = the block input's gradient
       __syncthreads();
-      ln_bwd_rows(H, G, p.ln1, nullptr, LS, R, d, ld);  // G = the block input's gradient
-      __syncthreads();
-      if (part != nullptr) ln_grad_flush(LS, part + off.ln1, first, d);
+      if (gs->part != nullptr) ln_grad_flush(LS, leaf(gs->part, blk, kLn1, d), gs->first, d);
     }
 
     // the input: x0 = drop_emb(x + pos) * mask
-    const unsigned char* emb = dm.emb == nullptr ? nullptr : dm.emb + row0 * d;
-    for (int idx = threadIdx.x; idx < R * d; idx += blockDim.x) {
+    const unsigned char* emb = mask_rows(dm.emb, gs->row0, d);
+    for (int idx = threadIdx.x; idx < gs->R * d; idx += blockDim.x) {
       const int r = idx / d, c = idx % d;
       float v = G[r * ld + c] * M[r];
-      if (emb != nullptr) v = drop(v, emb[idx], keep);
-      dx[row0 * d + idx] = v;
+      if (emb != nullptr) v = drop(v, emb[idx], dm.keep);
+      dx[gs->row0 * d + idx] = v;
       G[r * ld + c] = v;
     }
     __syncthreads();
-    if (part != nullptr)
+    if (gs->part != nullptr) {
+      float* pos = gs->part + nb * (5 * d * d + 11 * d) + 2 * d;  // after ln_f's
       for (int idx = threadIdx.x; idx < T * d; idx += blockDim.x) {
         const int t = idx / d, c = idx % d;
         float s = 0.f;
-        for (int u = 0; u < users; ++u) s += G[(u * T + t) * ld + c];
-        add_to(part + pos_off + idx, s, first);
+        for (int u = 0; u < gs->users; ++u) s += G[(u * T + t) * ld + c];
+        add_to(pos + idx, s, gs->first);
       }
+    }
   }
 }
 
-// grad[k] = Σ_c partial[c][k], the blocks' slices summed in block order.
-__global__ void sasrec_encoder_bwd_reduce(const float* __restrict__ partial, int ctas, int n,
-                                          float* __restrict__ grad) {
-  for (int k = blockIdx.x * blockDim.x + threadIdx.x; k < n; k += gridDim.x * blockDim.x) {
-    float s = 0.f;
-    for (int c = 0; c < ctas; ++c) s += partial[static_cast<size_t>(c) * n + k];
-    grad[k] = s;
+// grad[k] = Σ_c partial[c][k], the blocks' slices summed in block order: a
+// block of 256 threads takes kReduceOuts outputs, lane k of every warp the
+// output blockIdx.x * kReduceOuts + k (each load of a part is one 128-byte
+// run), warp s the s-th of kReduceSlices contiguous slices of the parts.
+// A thread issues kReduceUnroll loads before it adds them in part order;
+// warp 0 then adds the slices in slice order. The order depends on the
+// count of parts alone.
+__global__ void __launch_bounds__(kReduceOuts * kReduceSlices)
+sasrec_encoder_bwd_reduce(const float* __restrict__ partial, int ctas, int n,
+                          float* __restrict__ grad) {
+  __shared__ float ss[kReduceSlices][kReduceOuts];
+  const int lane = threadIdx.x % kReduceOuts, slice = threadIdx.x / kReduceOuts;
+  const int idx = blockIdx.x * kReduceOuts + lane;
+  const int per = (ctas + kReduceSlices - 1) / kReduceSlices;
+  const int c0 = min(ctas, slice * per), c1 = min(ctas, c0 + per);
+  float s = 0.f;
+  for (int c = c0; idx < n && c < c1; c += kReduceUnroll) {
+    float v[kReduceUnroll];
+#pragma unroll
+    for (int k = 0; k < kReduceUnroll; ++k)
+      v[k] = c + k < c1 ? partial[static_cast<size_t>(c + k) * n + idx] : 0.f;
+#pragma unroll
+    for (int k = 0; k < kReduceUnroll; ++k)
+      if (c + k < c1) s += v[k];
   }
+  ss[slice][lane] = s;
+  __syncthreads();
+  if (slice != 0 || idx >= n) return;
+#pragma unroll
+  for (int k = 1; k < kReduceSlices; ++k) s += ss[k][lane];
+  grad[idx] = s;
 }
 
 size_t bwd_smem_bytes(int users_per_block, int T, int d, int threads) {
   const size_t rows = static_cast<size_t>(users_per_block) * T;
   const size_t warps = threads / 32;
   const size_t Ts = score_ld(T);
-  return (kBuffers * rows * row_ld(d) + rows * Ts + warps * Ts + rows + warps * 2 * d) *
+  return (kGroupFloats + kBuffers * rows * row_ld(d) + rows * Ts +
+          2 * static_cast<size_t>(slot_floats(d)) + warps * Ts + rows + warps * 2 * d +
+          (rows * T + 3) / 4) *
          sizeof(float);
 }
 
@@ -506,9 +928,9 @@ extern "C" int acf_sasrec_encoder_bwd_ctas(int threads, int smem_bytes) {
 // [ctas, grad_size] `partial` workspace, on `stream`. `saved` holds the
 // block inputs K2a's training form wrote. `users_per_block`, `threads` and
 // `smem_bytes` come from the wrapper's layout (`_bwd_layout`); a launch
-// whose bytes disagree with this file's formula is refused. Without
-// gradients `ctas` must be the number of user groups. Returns the
-// cudaError_t of the launches.
+// whose bytes disagree with this file's formula, or whose rows a product's
+// register tile cannot cover, is refused. Without gradients `ctas` must be
+// the number of user groups. Returns the cudaError_t of the launches.
 extern "C" int acf_sasrec_encoder_bwd(EncoderW w, DropoutMasks dm,
                                       const unsigned char* ids_mask, const float* g,
                                       const float* saved, float* dx, float* partial,
@@ -516,6 +938,7 @@ extern "C" int acf_sasrec_encoder_bwd(EncoderW w, DropoutMasks dm,
                                       int threads, int smem_bytes, int ctas, void* stream) {
   if (B <= 0 || T <= 0 || d <= 0 || d % 4 != 0 || d > 32 * kMaxColsPerLane ||
       users_per_block <= 0 || (threads != 256 && threads != kMaxThreads) ||
+      users_per_block * T > kMaxRowsPerThread * (threads / (d / 4)) ||
       w.num_blocks < 0 || w.num_blocks > kMaxBlocks || (partial == nullptr) != (grad == nullptr))
     return (int)cudaErrorInvalidValue;
   const int groups = (B + users_per_block - 1) / users_per_block;
@@ -531,14 +954,15 @@ extern "C" int acf_sasrec_encoder_bwd(EncoderW w, DropoutMasks dm,
       sasrec_encoder_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
   if (err != cudaSuccess) return (int)err;
   const int n_grad = w.num_blocks * (5 * d * d + 11 * d) + 2 * d + T * d;
+  const int ks = slice_rows(d);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   sasrec_encoder_bwd_kernel<<<ctas, threads, smem_bytes, s>>>(
       w, dm, ids_mask, g, saved, dx, partial, B, T, d, users_per_block, row_ld(d),
-      score_ld(T), n_grad, groups);
+      score_ld(T), ks, row_ld(ks), slot_floats(d), n_grad, groups);
   err = cudaGetLastError();
   if (err != cudaSuccess || partial == nullptr) return (int)err;
-  const int blocks = (n_grad + 255) / 256;
-  const int grid = blocks < 1024 ? blocks : 1024;
-  sasrec_encoder_bwd_reduce<<<grid, 256, 0, s>>>(partial, ctas, n_grad, grad);
+  const int blocks = (n_grad + kReduceOuts - 1) / kReduceOuts;
+  sasrec_encoder_bwd_reduce<<<blocks, kReduceOuts * kReduceSlices, 0, s>>>(partial, ctas, n_grad,
+                                                                        grad);
   return (int)cudaGetLastError();
 }

@@ -49,7 +49,11 @@ MAX_T = 200
 MAX_D = 128
 ROWS_PER_BLOCK = 32            # a block groups users until it holds ~32 rows
 SMEM_LIMIT = 232_448           # shared memory one Hopper block may use (227 KB)
-BWD_BUFFERS = 10               # [rows, ld] activation buffers of K2b
+BWD_BUFFERS = 7                # [rows, ld] activation buffers of K2b
+BWD_THREADS = 512              # K2b's block: 16 warps, one block an SM
+BWD_SLICE_FLOATS = 4096        # floats of W in one of K2b's staged weight slices, at most
+BWD_ROWS_PER_THREAD = 3        # rows of a K2b product's register tile, at most
+BWD_GROUP_FLOATS = 12          # K2b's user-group scalars in shared memory
 ROADMAP_ITEM = ("ROADMAP.md Queue 2, 'K2a/K2b: multi-head and longer "
                 "windows'")
 
@@ -242,7 +246,7 @@ def _ld(d: int) -> int:
 
 
 def _group(t: int):
-    """(users per block, threads) of both kernels."""
+    """(users per block, threads) of K2a."""
     users = max(1, ROWS_PER_BLOCK // t)
     return users, 512 if users * t >= 128 else 256
 
@@ -258,19 +262,36 @@ def _layout(t: int, d: int):
     return users, threads, 4 * floats
 
 
+def _bwd_slot(d: int) -> int:
+    """Floats of one of K2b's two weight slots: a k-slice of W (the whole
+    weight up to d = 64) as rows of W, or as rows of Wᵀ, whichever is
+    larger."""
+    ks = min(d, BWD_SLICE_FLOATS // d // 4 * 4)
+    return max(ks * _ld(d), d * _ld(ks))
+
+
 def _bwd_layout(t: int, d: int):
-    """(users per block, threads, shared-memory bytes) of a K2b launch: ten
-    [rows, ld] f32 buffers (the block's input, q_in, q, k, v, the attention
-    output, x2, the FFN hidden, the FFN sum and the running gradient), the
-    [rows, Ts] softmax probabilities, one score row per warp, the ids mask,
-    and a [warps, 2d] scratch for the LayerNorm parameter gradients."""
-    users, threads = _group(t)
+    """(users per block, threads, shared-memory bytes) of a K2b launch: ~32
+    rows and 512 threads, one block an SM. The bytes: the user group's
+    scalars, seven [rows, ld] f32 buffers (the rematerialised block's six
+    and the running gradient), the [rows, Ts] softmax probabilities, two
+    weight slots, one score row per warp, the ids mask, a [warps, 2d]
+    scratch for the LayerNorm parameter gradients and the probabilities'
+    dropout mask as [rows, T] bytes. The C entry recomputes the bytes and
+    refuses a launch that disagrees."""
+    users = max(1, ROWS_PER_BLOCK // t)
+    return users, BWD_THREADS, _bwd_bytes(users, BWD_THREADS, t, d)
+
+
+def _bwd_bytes(users: int, threads: int, t: int, d: int) -> int:
+    """K2b's shared-memory bytes for a block of ``users`` windows and
+    ``threads`` threads (``bwd_smem_bytes`` in the C entry)."""
     rows = users * t
     ts = (t + 3) // 4 * 4
     warps = threads // 32
-    floats = (BWD_BUFFERS * rows * _ld(d) + rows * ts + warps * ts + rows
-              + warps * 2 * d)
-    return users, threads, 4 * floats
+    floats = (BWD_GROUP_FLOATS + BWD_BUFFERS * rows * _ld(d) + rows * ts + 2 * _bwd_slot(d)
+              + warps * ts + rows + warps * 2 * d + -(-rows * t // 4))
+    return 4 * floats
 
 
 def _widest(t_max, fits) -> int:
@@ -285,9 +306,16 @@ def max_window(d: int) -> int:
     return _widest(MAX_T, lambda t: _layout(t, d)[2] <= SMEM_LIMIT)
 
 
+def _bwd_fits(t: int, d: int) -> bool:
+    """K2b's block fits one SM, and a product's register tile covers its
+    rows (the C entry checks both)."""
+    users, threads, smem = _bwd_layout(t, d)
+    return smem <= SMEM_LIMIT and users * t <= BWD_ROWS_PER_THREAD * (threads // (d // 4))
+
+
 def max_train_window(d: int) -> int:
     """The widest window K2b (and so training) takes at width ``d``."""
-    return _widest(MAX_T, lambda t: _bwd_layout(t, d)[2] <= SMEM_LIMIT)
+    return _widest(MAX_T, lambda t: _bwd_fits(t, d))
 
 
 def check_supported(t: int, d: int, num_heads: int, num_blocks: int = 2,

@@ -1,7 +1,7 @@
-"""What the kernel ablation tools (``k3b_ablation``, ``k3c_ablation``,
-``k3d_ablation``, ``k3e_ablation``) share: variants of ``csrc/apl_gen.cu``
-made by text substitution, built in parallel with ``nvcc``, checked against
-the plain version and timed in turns on one card.
+"""What the kernel ablation tools (``k3a_ablation`` to ``k3e_ablation``,
+``k2b_ablation``) share: variants of one CUDA source made by text
+substitution, built in parallel with ``nvcc``, checked against the plain
+version and timed in turns on one card.
 
 Each tool gives its ``FORMS``: for each form of its kernel that was
 measured, a marker (a line only that form has) and the (old, new)
@@ -10,6 +10,10 @@ shares:
 
     python -m acf_tpu_torch.tools.<tool> [--source LABEL=PATH ...]
         [--rounds N] [--json PATH]
+
+A tool names its source file (``apl_gen.cu`` by default), the prefix of
+the C entries it binds, the tolerance of its checks and the label of the
+shapes it times.
 """
 
 from __future__ import annotations
@@ -28,6 +32,8 @@ from acf_tpu_torch.ops import _build
 TOL = 1e-4  # chip_smoke.py's APL_TOL, of the output's scale
 SHAPE = (512, 64, 23_701)  # APL's B, d and I at Video scale
 W, T = 0.2, 0.2  # APL's p_aux and temperature
+APL = dict(source="apl_gen.cu", prefix="acf_apl_", tol=TOL,
+           shape=f"B={SHAPE[0]} d={SHAPE[1]} I={SHAPE[2]}")
 
 
 def variants(source: str, forms: dict, kernel: str) -> dict[str, str]:
@@ -61,9 +67,11 @@ def ptxas_lines(log: str, kernel: str) -> list[str]:
     return out
 
 
-def build_all(texts: dict[str, str], kernel: str) -> dict[str, ctypes.CDLL]:
-    """One shared library per variant, compiled in parallel; prints the
-    ptxas lines of ``kernel`` for each."""
+def build_all(texts: dict[str, str], kernel: str, prefix: str = "acf_apl_"
+              ) -> dict[str, ctypes.CDLL]:
+    """One shared library per variant, compiled in parallel, its C entries
+    named ``prefix...`` bound; prints the ptxas lines of ``kernel`` for
+    each. Each library keeps its source text as ``lib.text``."""
     out_dir = _build.BUILD_DIR / "ablation"
     out_dir.mkdir(parents=True, exist_ok=True)
     jobs = {}
@@ -81,7 +89,8 @@ def build_all(texts: dict[str, str], kernel: str) -> dict[str, ctypes.CDLL]:
             raise SystemExit(f"nvcc failed on {key}:\n{log}")
         print(f"built {key}: {kernel} " + " | ".join(ptxas_lines(log, kernel)))
         libs[key] = ctypes.CDLL(str(lib))
-        for name in (n for n in _build.SIGNATURES if n.startswith("acf_apl_")):
+        libs[key].text = texts[key]
+        for name in (n for n in _build.SIGNATURES if n.startswith(prefix)):
             fn = getattr(libs[key], name)
             fn.argtypes = _build.SIGNATURES[name]
             fn.restype = ctypes.c_int
@@ -122,75 +131,85 @@ def device_ms(fn, iters=50, warmup=10) -> float:
     return total / 1e3 / iters
 
 
-def run(doc: str, kernel: str, variants_of, setup, check=lambda outputs: []) -> None:
+def run(doc: str, kernel: str, variants_of, setup, check=lambda outputs, extras: [], *,
+        source: str = APL["source"], prefix: str = APL["prefix"], tol: float = APL["tol"],
+        shape: str = APL["shape"], read=lambda path: Path(path).read_text()) -> None:
     """The command line of an ablation tool (``doc`` is its docstring).
 
-    Builds every variant (``variants_of(text)``) of every ``--source``,
-    printing ``kernel``'s ptxas lines. ``setup(dev)`` makes the inputs at
-    ``SHAPE`` once and returns ``(want, call_of, extras_of)``: ``want`` maps
-    each output's name to its plain value, ``call_of(lib)`` launches the
-    kernel under study once and returns its outputs in that order, and
-    ``extras_of(lib)`` gives {label: call} of other kernels of an as-is
-    build, timed beside it. Each ``as_is`` must agree with ``want`` within
-    ``TOL`` of its scale, give the same bits on two calls and pass
-    ``check(outputs)``, a list of (what, ok); the other variants compute
-    something else on purpose. Rounds time every call in turn, forward
-    then backward."""
+    Builds every variant (``variants_of(text)``) of every ``--source`` (a
+    copy of ``csrc/<source>``; ``read(path)`` gives the text to build),
+    printing ``kernel``'s ptxas lines and binding the C entries named
+    ``prefix...``. ``setup(dev)`` makes the inputs once and returns
+    ``(want, call_of, extras_of)``, or a dict {case label: that} to time
+    several shapes: ``want`` maps each output's name to its plain value,
+    ``call_of(lib)`` launches the kernel under study once and returns its
+    outputs in that order, and ``extras_of(lib)`` gives {label: call} of
+    other calls of an as-is build, timed beside it. Each ``as_is`` must
+    agree with ``want`` within ``tol`` of its scale, give the same bits on
+    two calls and pass ``check(outputs, extras)``, a list of (what, ok);
+    the other variants compute something else on purpose. Rounds time
+    every call in turn, forward then backward."""
     ap = argparse.ArgumentParser(description=doc.splitlines()[0])
     ap.add_argument("--source", action="append", default=[],
-                    help="LABEL=PATH of a copy of apl_gen.cu (repeatable)")
+                    help=f"LABEL=PATH of a copy of {source} (repeatable)")
     ap.add_argument("--rounds", type=int, default=2)
     ap.add_argument("--json", type=Path, help="also write the results here")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("the ablation tools need a CUDA GPU")
-    sources = dict(s.split("=", 1) for s in args.source) or {"head": str(_build.CSRC_DIR /
-                                                                         "apl_gen.cu")}
+    sources = dict(s.split("=", 1) for s in args.source) or {"head": str(_build.CSRC_DIR / source)}
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True, text=True).stdout
     print(f"card: {card.strip()}")
     texts = {f"{label}:{name}": text for label, path in sources.items()
-             for name, text in variants_of(Path(path).read_text()).items()}
-    libs = build_all(texts, kernel)
+             for name, text in variants_of(read(path)).items()}
+    libs = build_all(texts, kernel, prefix)
 
-    want, call_of, extras_of = setup(torch.device("cuda", 0))
-    calls, first = {}, None
-    for key, lib in libs.items():
-        calls[key] = call_of(lib)
-        if not key.endswith(":as_is"):
-            continue
-        got = [t.clone() for t in calls[key]()]
-        again = [t.clone() for t in calls[key]()]
-        torch.cuda.synchronize()
-        for (name, w_), g_ in zip(want.items(), got):
-            err, scale = float((g_ - w_).abs().max()), float(w_.abs().max())
-            print(f"{key} {name}: max |kernel - plain| {err:.3e} of scale {scale:.4g}")
-            if not err <= TOL * scale:
-                raise SystemExit(f"{key} {name} disagrees with its plain version")
-        for what, ok in [("two calls bit-identical",
-                          all(torch.equal(g_, a_) for g_, a_ in zip(got, again))), *check(got)]:
-            print(f"{key}: {what}: {ok}")
-            if not ok:
-                raise SystemExit(f"{key}: not {what}")
-        if first is None:
-            first = key, got
-        else:
-            same = all(torch.equal(g_, f_) for g_, f_ in zip(got, first[1]))
-            print(f"{key} and {first[0]}: {', '.join(want)} bit-identical: {same}")
-        for label, call in extras_of(lib).items():
-            calls[key.replace(":as_is", f":{label}")] = call
+    cases = setup(torch.device("cuda", 0))
+    if not isinstance(cases, dict):
+        cases = {"": cases}
+    calls = {}
+    for case, (want, call_of, extras_of) in cases.items():
+        first = None
+        for key, lib in libs.items():
+            name = f"{case} {key}".strip()
+            calls[name] = call_of(lib)
+            if not key.endswith(":as_is"):
+                continue
+            extras = extras_of(lib)
+            got = [t.clone() for t in calls[name]()]
+            again = [t.clone() for t in calls[name]()]
+            torch.cuda.synchronize()
+            for (out, w_), g_ in zip(want.items(), got):
+                err, scale = float((g_ - w_).abs().max()), float(w_.abs().max())
+                print(f"{name} {out}: max |kernel - plain| {err:.3e} of scale {scale:.4g}")
+                if not err <= tol * scale:
+                    raise SystemExit(f"{name} {out} disagrees with its plain version")
+            for what, ok in [("two calls bit-identical",
+                              all(torch.equal(g_, a_) for g_, a_ in zip(got, again))),
+                             *check(got, extras)]:
+                print(f"{name}: {what}: {ok}")
+                if not ok:
+                    raise SystemExit(f"{name}: not {what}")
+            if first is None:
+                first = name, got
+            else:
+                same = all(torch.equal(g_, f_) for g_, f_ in zip(got, first[1]))
+                print(f"{name} and {first[0]}: {', '.join(want)} bit-identical: {same}")
+            for label, call in extras.items():
+                calls[name.replace(":as_is", f":{label}")] = call
     samples = {key: [] for key in calls}
     order = list(calls)
     for rnd in range(args.rounds):
         for key in (order if rnd % 2 == 0 else order[::-1]):
             samples[key].append(device_ms(calls[key]))
-    b, d, num_items = SHAPE
-    print(f"device ms per call at B={b} d={d} I={num_items} (torch.profiler, 50 calls a "
-          f"sample, rounds forward then backward):")
+    print(f"device ms per call at {shape} (torch.profiler, 50 calls a sample, rounds forward "
+          f"then backward):")
+    width = max(24, *map(len, samples))
     for key, s in samples.items():
-        print(f"  {key:24s} " + "  ".join(f"{v:.4f}" for v in s)
+        print(f"  {key:{width}s} " + "  ".join(f"{v:.4f}" for v in s)
               + f"   mean {sum(s) / len(s):.4f}")
-    result = {"card": card.strip(), "shape": list(SHAPE), "timer": "profiler", "ms": samples}
+    result = {"card": card.strip(), "shape": shape, "timer": "profiler", "ms": samples}
     print(json.dumps(result))
     if args.json:
         args.json.parent.mkdir(parents=True, exist_ok=True)

@@ -167,4 +167,4 @@ def setup(dev):
 
 if __name__ == "__main__":
     ablation.run(__doc__, "grad_kernel", variants, setup,
-                 check=lambda out: [("dQ's pad row 0", not out[0][0].any())])
+                 check=lambda out, _: [("dQ's pad row 0", not out[0][0].any())])

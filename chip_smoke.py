@@ -10,8 +10,8 @@ Phases, any failure exits non-zero:
 
   1. card   — ``nvidia-smi`` name and power limit, torch's device name;
   2. build  — compile every kernel in ``acf_tpu_torch/csrc`` with nvcc and
-              print its ``-Xptxas -v`` lines; every K3 kernel and the
-              merges of their partials must spill nothing;
+              print its ``-Xptxas -v`` lines; K2b, its reduction, every K3
+              kernel and the merges of their partials must spill nothing;
   3. K1     — the rank-count kernel against its plain PyTorch version on
               standard-normal inputs, B in {8, 512}, I in {300, 23700},
               d = 64 (plus two narrower widths), with and without bias
@@ -45,7 +45,9 @@ Phases, any failure exits non-zero:
  12. K2b (the encoder backward) against its plain versions,
               ``encoder_bwd_math`` and torch.autograd through
               ``encoder_math``: dx and every leaf, with and without masks, in
-              its dx-only mode, at T in {8, 50} (d = 64, B = 512) and two
+              its dx-only mode, at T in {8, 50} (d = 64, B = 512), at T = 1
+              and the widest training windows (T = 74 and the limit at
+              d = 64, T = 40 and the limit at d = 128; B = 64) and two
               short cases at d = 36, B = 7; over the tree and leaf by leaf
               (the key biases, whose gradient is analytically zero, must
               be rounding noise); two calls bit-identical; ``ValueError``
@@ -60,7 +62,9 @@ Phases, any failure exits non-zero:
               steps an epoch) and maxlen 50 (best of 3 epochs after a
               warm-up), the device's idle share and top operations of one
               step, and K2a's training form and K2b alone at B = 512,
-              d = 64, T in {8, 50} beside their plain versions and bounds;
+              d = 64, T in {8, 50} beside their plain versions and bounds
+              (K2b in its full and dx-only forms, and its reduction pass
+              per launch);
  15. K3a-K3e (APL's generator chain) against their plain versions at APL's
               geometry (B = 512, d = 64, I = 23,701), a ragged case
               (B = 7, d = 36, I = 1,100), K3b-K3e's staging edges
@@ -207,6 +211,16 @@ def device_ms(fn, iters: int = 50, warmup: int = 10) -> float:
     print(f"timer: the profiler saw no device time; CUDA events time the next "
           f"measurement at {ms:.4f} ms per call")
     return ms
+
+
+def kernel_ms(fn, name: str, iters: int = 50):
+    """Mean device milliseconds per launch of the kernel of ``fn`` whose name
+    holds ``name`` (torch.profiler over ``iters`` calls), or None where the
+    profiler saw no device time."""
+    for e in device_events(fn, iters):
+        if name in e.key:
+            return e.self_device_time_total / 1e3 / e.count
+    return None
 
 
 def timer_since(mark: int) -> str:
@@ -805,10 +819,15 @@ def check_k2b(dev):
 
     g = torch.Generator(device=dev).manual_seed(12)
     max_err = 0.0
+    # (d, T, B, masks): the training windows; T = 1; the widest windows K2b
+    # took before its seven-buffer layout (74 at d = 64, 40 at d = 128) and
+    # the widest it takes now; short ragged cases at d = 36
     cases = ((64, 8, 512, True), (64, 8, 512, False), (64, 50, 512, True),
-             (64, 50, 512, False), (36, 13, 7, True), (36, 8, 7, False))  # (d, T, B, masks)
+             (64, 50, 512, False), (64, 1, 64, True), (64, 74, 64, True),
+             (64, max_train_window(64), 64, True), (128, 40, 64, True),
+             (128, max_train_window(128), 64, True), (36, 13, 7, True), (36, 8, 7, False))
     for d, t, b, with_masks in cases:
-        model, params = sasrec_model(dev, 100, 1000, 50, d=d, jitter=True)
+        model, params = sasrec_model(dev, 100, 1000, max(t, 50), d=d, jitter=True)
         keep = 1.0 - model.dropout_rate
         x, mask = k2a_inputs(dev, params, b, t, d, g)
         masks = model._dropout_masks(g, b, t) if with_masks else None
@@ -1049,6 +1068,8 @@ def k2_train_timing(dev, windows=(8, 50), b=TRAIN_BATCH, main_t=50):
         bwd_ms = device_ms(lambda: encoder_bwd(params, x, mask, cot, saved, masks, keep))
         dx_ms = device_ms(lambda: encoder_bwd(params, x, mask, cot, saved, masks, keep,
                                               weight_grads=False))
+        reduce_ms = kernel_ms(lambda: encoder_bwd(params, x, mask, cot, saved, masks, keep),
+                              "sasrec_encoder_bwd_reduce")
         bwd_plain = device_ms(lambda: encoder_bwd_math(params, x, mask, masks, keep, cot),
                               PLAIN_ITERS, 2)
         (ff, fb), (bf, bb) = k2_train_work(b, t, D, model.num_blocks)
@@ -1059,14 +1080,16 @@ def k2_train_timing(dev, windows=(8, 50), b=TRAIN_BATCH, main_t=50):
               f"bound {fwd_bound:.4f} ms ({fwd_by}: {ff / 1e9:.3f} GFLOP, {fb / 1e6:.2f} MB)")
         print(f"K2b at B={b} T={t} d={D}: {bwd_ms:.4f} ms ({bwd_bound / bwd_ms:.3f} of the bound; "
               f"{bf / (bwd_ms * 1e-3) / 1e12:.2f} TFLOP/s of its own work), dx-only {dx_ms:.4f} ms, "
-              f"plain {bwd_plain:.4f} ms, bound {bwd_bound:.4f} ms ({bwd_by}: {bf / 1e9:.3f} "
+              f"the reduction pass "
+              + ("not measured" if reduce_ms is None else f"{reduce_ms:.4f} ms per launch")
+              + f", plain {bwd_plain:.4f} ms, bound {bwd_bound:.4f} ms ({bwd_by}: {bf / 1e9:.3f} "
               f"GFLOP, {bb / 1e6:.2f} MB)")
         if t == main_t:
             entries["fwd"] = {"ms": fwd_ms, "plain_ms": fwd_plain, "bound_ms": fwd_bound,
                               "bound_by": fwd_by, "library_ms": None, "timer": fwd_timer}
             entries["bwd"] = {"ms": bwd_ms, "plain_ms": bwd_plain, "bound_ms": bwd_bound,
                               "bound_by": bwd_by, "library_ms": None, "dx_only_ms": dx_ms,
-                              "timer": timer_since(mark)}
+                              "reduce_ms": reduce_ms, "timer": timer_since(mark)}
     return entries["fwd"], entries["bwd"]
 
 
@@ -1156,8 +1179,11 @@ APL_TOL = 1e-4
 # take (MAX_D), where K3e's shared memory is the largest, with odd I
 APL_CASES = ((512, D, 23_701), (7, 36, 1_100), (65, 64, 131), (70, 128, 517))
 APL_PRODUCTS = {"apl_stats1": 1, "apl_z": 1, "apl_fake": 1, "apl_bigr": 2, "apl_grad": 4}
-APL_PTXAS = ("stats1_kernel", "z_kernel", "fake_kernel", "bigr_kernel", "grad_kernel",
-             "stat_combine", "sum_combine")
+# Kernels whose ptxas lines must show no stack frame and no spill: K2b and
+# its reduction, the K3 passes and the merges of their partials.
+NO_SPILL_KERNELS = ("sasrec_encoder_bwd_kernel", "sasrec_encoder_bwd_reduce", "stats1_kernel",
+                    "z_kernel", "fake_kernel", "bigr_kernel", "grad_kernel", "stat_combine",
+                    "sum_combine")
 # The pass kernels of apl_gen.cu, by their names in a profile ("...::z_kernel(...")
 APL_PASS_KERNELS = {"stats1_kernel": "K3a", "z_kernel": "K3b", "fake_kernel": "K3c",
                     "bigr_kernel": "K3d", "grad_kernel": "K3e"}
@@ -1166,17 +1192,18 @@ APL_REPLACES = {"apl_stats1": 67, "apl_z": 83, "apl_fake": 111, "apl_bigr": 141,
 
 
 def check_no_spill(log):
-    """Phase 2: the K3 kernels' and their merges' ptxas lines in the build
-    log show no stack frame and no spill (their designs keep the row scalars
-    and tiles in registers and shared memory)."""
+    """Phase 2: the ptxas lines of K2b, its reduction, the K3 kernels and
+    their merges in the build log show no stack frame and no spill (their
+    designs keep their tiles and row scalars in registers and shared
+    memory)."""
     from acf_tpu_torch.tools.ablation import ptxas_lines
 
-    for kernel in APL_PTXAS:
+    for kernel in NO_SPILL_KERNELS:
         lines = [x for x in ptxas_lines(log, kernel) if "spill" in x]
         check(bool(lines) and all(x.startswith("0 bytes stack frame, 0 bytes spill stores, "
                                                "0 bytes spill loads") for x in lines),
               f"{kernel}: ptxas reports a stack frame or spills: {lines}")
-    print(f"ptxas: {', '.join(APL_PTXAS)} spill nothing")
+    print(f"ptxas: {', '.join(NO_SPILL_KERNELS)} spill nothing")
 
 
 def apl_inputs(dev, b, d, num_items, seed):

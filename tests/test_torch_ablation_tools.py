@@ -1,33 +1,42 @@
 """The ablation tools (``acf_tpu_torch/tools/k3a_ablation.py``,
 ``k3b_ablation.py``, ``k3c_ablation.py``, ``k3d_ablation.py``,
-``k3e_ablation.py``) make their
-variants by text substitution of ``csrc/apl_gen.cu``: each must find its form
-in the committed source and change it, so a later edit of the kernels cannot
-silently time the unchanged kernel under a variant's name."""
+``k3e_ablation.py``, ``k2b_ablation.py``) make their variants by text
+substitution of ``csrc/apl_gen.cu`` (K2b's: of ``sasrec_encoder_bwd.cu`` with
+its header and K2a's file): each must find its form in the committed source
+and change it, so a later edit of the kernels cannot silently time the
+unchanged kernel under a variant's name."""
 
 import pytest
 
 from acf_tpu_torch.ops import _build
-from acf_tpu_torch.tools import (k3a_ablation, k3b_ablation, k3c_ablation, k3d_ablation,
-                                 k3e_ablation)
+from acf_tpu_torch.tools import (k2b_ablation, k3a_ablation, k3b_ablation, k3c_ablation,
+                                 k3d_ablation, k3e_ablation)
 
 SOURCE = (_build.CSRC_DIR / "apl_gen.cu").read_text()
+K2B_SOURCE = k2b_ablation.read(str(_build.CSRC_DIR / "sasrec_encoder_bwd.cu"))
 EXPECTED = {
     k3a_ablation: ("as_is", "no_merge", "no_math", "neither"),
     k3b_ablation: ("as_is", "no_store", "no_loads", "no_traffic", "no_math"),
     k3c_ablation: ("as_is", "no_loads", "no_math", "neither"),
     k3d_ablation: ("as_is", "no_loads", "no_math", "neither"),
     k3e_ablation: ("as_is", "no_loads", "no_math", "neither", "no_grads"),
+    k2b_ablation: ("as_is", "no_wload", "no_attn_bwd", "no_remat", "no_reduce", "ldg_weights",
+                   "three_products", "late_partial"),
 }
+
+
+def source_of(tool):
+    return K2B_SOURCE if tool is k2b_ablation else SOURCE
 
 
 @pytest.mark.parametrize("tool,name", [(tool, name) for tool, names in EXPECTED.items()
                                        for name in names],
                          ids=lambda v: getattr(v, "__name__", v).rsplit(".", 1)[-1])
 def test_variant_applies_to_the_committed_source(tool, name):
-    texts = tool.variants(SOURCE)
+    source = source_of(tool)
+    texts = tool.variants(source)
     assert sorted(texts) == sorted(EXPECTED[tool])
-    assert (texts[name] == SOURCE) == (name == "as_is")
+    assert (texts[name] == source) == (name == "as_is")
     # the variants differ from each other: none is a no-op copy of another
     assert len(set(texts.values())) == len(texts)
 
@@ -36,7 +45,7 @@ def committed_form(tool):
     """(marker, variants) of the form of ``tool``'s kernel that the committed
     source holds: the redesign of each kernel (K3a's ``own_loop``, the other
     tools' ``staged``)."""
-    forms = [form for form in tool.FORMS.values() if SOURCE.count(form[0]) == 1]
+    forms = [form for form in tool.FORMS.values() if source_of(tool).count(form[0]) == 1]
     assert len(forms) == 1, [form[0] for form in forms]
     return forms[0]
 
@@ -51,7 +60,7 @@ def test_an_unknown_or_broken_form_is_refused(tool):
     marker, staged = committed_form(tool)
     old = next(old for subs in staged.values() for old, _ in subs if marker not in old)
     with pytest.raises(SystemExit, match="does not match exactly once"):
-        tool.variants(SOURCE.replace(old, old + old))
+        tool.variants(source_of(tool).replace(old, old + old))
 
 
 @pytest.mark.parametrize("tool", list(EXPECTED),
@@ -63,10 +72,10 @@ def test_staged_anchors_match_the_committed_source_once(tool):
     ``sZ``/``sM``, K3e ``sZe``/``sMe``), so no tool's anchor also matches
     another kernel."""
     marker, staged = committed_form(tool)
-    assert SOURCE.count(marker) == 1
+    assert source_of(tool).count(marker) == 1
     for subs in staged.values():
         for old, _ in subs:
-            assert SOURCE.count(old) == 1, old
+            assert source_of(tool).count(old) == 1, old
 
 
 def test_k3b_forms_are_told_apart_by_their_markers():
@@ -127,3 +136,37 @@ def test_k3a_forms_are_told_apart_by_their_markers():
     for name in ("no_merge", "neither"):
         assert "combine_stats(part, m1, l1" not in texts[name]
         assert "combine_stats(part, m2, l2" in texts[name]  # K3b's merge stays
+
+
+def test_k2b_forms_are_told_apart_by_their_markers():
+    """The committed K2b text (header, backward, K2a's forward) holds the
+    staged form's marker and not commit 202a5d5's, every variant keeps the
+    marker (so its launch layout is found), and each variant takes out what
+    it names: the weights' copies and reads, the attention backward's
+    calls, the rematerialised forward, the reduction's launch. K2a's code,
+    in the same text, is untouched by every variant."""
+    (remat, _), (staged, _) = k2b_ablation.FORMS["remat"], k2b_ablation.FORMS["staged"]
+    assert K2B_SOURCE.count(staged) == 1 and K2B_SOURCE.count(remat) == 0
+    texts = k2b_ablation.variants(K2B_SOURCE)
+    assert {k2b_ablation.form_of(text) for text in texts.values()} == {"staged"}
+    assert "cp_async16(dst" not in texts["no_wload"]
+    assert "attn_bwd_dqk(P" not in texts["no_attn_bwd"]
+    assert "attention_fwd(X2" not in texts["no_remat"]
+    assert "sasrec_encoder_bwd_reduce<<<" not in texts["no_reduce"]
+    assert "ldg4(W[p]" in texts["ldg_weights"] and "cp_async16(dst" not in texts["ldg_weights"]
+    assert "dense<true, 3>" not in texts["three_products"]
+    assert "first ? 0.f : wp[p]" not in texts["late_partial"]
+    fwd = K2B_SOURCE[K2B_SOURCE.index("sasrec_encoder_fwd_kernel("):]
+    assert all(text.endswith(fwd) for text in texts.values())
+
+
+def test_k2b_layouts_of_both_forms():
+    """The remat form's layout is the one its C entry checked (ten buffers,
+    152,360 bytes at T=50, 92,544 at T=8); the staged form's is the
+    committed ``_bwd_layout``."""
+    from acf_tpu_torch.ops.sasrec_fused import _bwd_layout
+
+    assert k2b_ablation.LAYOUTS["remat"](50, 64) == (1, 256, 152_360)
+    assert k2b_ablation.LAYOUTS["remat"](8, 64) == (4, 256, 92_544)
+    for t in (1, 8, 50, 74):
+        assert k2b_ablation.LAYOUTS["staged"](t, 64) == _bwd_layout(t, 64)

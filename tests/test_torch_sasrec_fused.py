@@ -29,7 +29,7 @@ from acf_tpu_torch.ops import sasrec_fused
 from acf_tpu_torch.ops.sasrec_fused import (
     _bwd_layout, _flat_leaves, _grad_tree, _layout, _tree_from, check_supported,
     encoder_bwd_math, encoder_math, fused_encoder, fused_encoder_plain, grad_size,
-    max_train_window, max_window,
+    SMEM_LIMIT, max_train_window, max_window,
 )
 
 CPU = "cpu"
@@ -318,12 +318,32 @@ def test_check_supported_takes_the_training_windows_at_d64(t):
 
 
 def test_max_train_window_follows_shared_memory():
-    assert max_train_window(64) == 74
-    assert _bwd_layout(74, 64)[2] <= 232_448 < _bwd_layout(75, 64)[2]
+    assert max_train_window(64) == 79  # K2b took 74 before its seven-buffer layout
+    assert _bwd_layout(79, 64)[2] <= 232_448 < _bwd_layout(80, 64)[2]
+    assert max_train_window(128) == 44  # 40 before
+    assert _bwd_layout(44, 128)[2] <= 232_448 < _bwd_layout(45, 128)[2]
     assert 1 <= max_train_window(128) < max_train_window(64) <= max_window(64)
-    with pytest.raises(ValueError, match="K2b .* 1 to 74 items at d=64; got t=75"):
-        check_supported(75, 64, 1, 2, train=True)
-    check_supported(75, 64, 1, 2)  # the forward alone takes it
+    with pytest.raises(ValueError, match="K2b .* 1 to 79 items at d=64; got t=80"):
+        check_supported(80, 64, 1, 2, train=True)
+    check_supported(80, 64, 1, 2)  # the forward alone takes it
+
+
+# An H100 SM: 233,472 bytes of shared memory (228 KB), 1,024 of them kept
+# per resident block; 65,536 registers, K2b's kernel takes at most 128 a
+# thread (__launch_bounds__(512, 1)).
+SM_SMEM, BLOCK_RESERVED, SM_REGISTERS, K2B_REGISTERS = 233_472, 1_024, 65_536, 128
+
+
+@pytest.mark.parametrize("t", [8, 50])
+def test_k2b_layout_runs_16_warps_an_sm(t):
+    """The training windows of the repo (maxlen 8 and 50) give K2b at least
+    16 resident warps on every SM, and at B=512 at least 128 user groups
+    (T=8: 128 groups of four users, each SM but four takes one)."""
+    users, threads, smem = _bwd_layout(t, 64)
+    assert smem <= SMEM_LIMIT
+    blocks = min(SM_SMEM // (smem + BLOCK_RESERVED), SM_REGISTERS // (K2B_REGISTERS * threads))
+    assert blocks >= 1 and threads // 32 * blocks >= 16
+    assert -(-512 // users) >= 128
 
 
 def test_grad_tree_matches_the_kernel_offsets():
