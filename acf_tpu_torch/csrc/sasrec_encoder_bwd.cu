@@ -82,7 +82,7 @@
 //   * LayerNorm: one warp per row; each warp sums its rows' dy x̂ and dy,
 //     then the warps' sums are added in warp order. LN3ᵀ also writes
 //     drop_f2 of its result (dF2) for the FFN's backward.
-//   * Attention: one warp per row, as in K2a. The probability rows are
+//   * Attention: one warp per row. The probability rows are
 //     zero past the diagonal and for masked queries, so the backward's
 //     loops take no branch per step; the dropout mask is read from shared
 //     memory. dQ and dK (a query row's and a key row's) share one phase.
@@ -97,12 +97,13 @@
 namespace {
 
 constexpr int kBuffers = 7;          // BWD_BUFFERS in ops/sasrec_fused.py
-constexpr int kSliceFloats = 4096;   // BWD_SLICE_FLOATS: a weight slice's floats at most
 constexpr int kMaxRowsPerThread = 3; // rows of a product's register tile
 constexpr int kGroupFloats = 12;     // BWD_GROUP_FLOATS: the group's scalars (struct Group)
 constexpr int kReduceOuts = 32;      // the reduction: outputs a block,
 constexpr int kReduceSlices = 8;     // contiguous slices of the parts a block,
 constexpr int kReduceUnroll = 16;    // loads a thread issues before it adds them
+
+inline int score_ld(int T) { return (T + 3) / 4 * 4; }  // 16-byte aligned score rows
 
 // Rows of W (or of Wᵀ) in one staged slice, and the floats of one slot.
 inline int slice_rows(int d) {
@@ -151,161 +152,6 @@ __device__ __forceinline__ const unsigned char* mask_rows(const unsigned char* m
 
 __device__ __forceinline__ void add_to(float* dst, float v, bool first) {
   *dst = first ? v : *dst + v;
-}
-
-__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
-  const unsigned saddr = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" :: "r"(saddr), "l"(src));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
-
-// ---- the weight stream ------------------------------------------------------
-
-// A d x d weight as a product reads it: W (x W) or Wᵀ (dY Wᵀ); w null: none.
-struct WRef { const float* w; bool trans; };
-
-// Two slots of shared memory through which the weights' k-slices stream,
-// one ahead of the slice being multiplied. `cur` is the slot of the next
-// slice to multiply; `pending` says whether it is already in flight.
-struct Pipe {
-  float* base;   // slot 0; slot 1 follows at base + slot
-  int slot, cur;
-  bool pending;
-  int ks, ldk;  // rows a slice, the row stride of a Wᵀ slice
-  __device__ float* at(int k) const { return base + k * slot; }
-};
-
-// Issue the copy of k-slice [k0, k0 + ks) of W into `dst`: rows W[k0 + kk]
-// as dst[kk][0, d) with stride ld (x W), or columns as dst[c][kk] with
-// stride ldk (dY Wᵀ). Every thread takes part; one cp.async group.
-__device__ void stage_slice(float* dst, WRef W, int k0, const Pipe& pp, int d, int ld) {
-  const int kn = min(pp.ks, d - k0);
-  if (!W.trans) {
-    const int units = d / 4;
-    for (int i = threadIdx.x; i < kn * units; i += blockDim.x) {
-      const int kk = i / units, c = (i % units) * 4;
-      cp_async16(dst + kk * ld + c, W.w + static_cast<size_t>(k0 + kk) * d + c);
-    }
-  } else {
-    const int units = kn / 4;
-    for (int i = threadIdx.x; i < d * units; i += blockDim.x) {
-      const int c = i / units, kk = (i % units) * 4;
-      cp_async16(dst + c * pp.ldk + kk, W.w + static_cast<size_t>(c) * d + k0 + kk);
-    }
-  }
-  cp_async_commit();
-}
-
-// out = epilogue(in[0] W[0]) (TRANS: in[0] W[0]ᵀ) for rows r < R, all
-// [R][ld] in shared memory, with the header's epilogue (bias, relu, mask,
-// gate, res); then each further product is added onto out in turn
-// (((res + p0) + p1) + p2), each thread updating its own elements. `next`
-// is the weight of the product after this one, whose first slice is staged
-// during this one's last. A thread owns ROWS rows (rg + i * row_groups) x 4
-// columns and sums k in order with FMAs; R <= ROWS * row_groups (the C
-// entry checks it).
-template <int ROWS, bool TRANS, int NP>
-__device__ void product(Pipe& pp, const float* const (&in)[NP], const float* const (&W)[NP],
-                        WRef next, float* out, const Epilogue& e, int R, int d, int ld) {
-  const int groups = d / 4;
-  const int row_groups = blockDim.x / groups;
-  const int cg = threadIdx.x % groups, rg = threadIdx.x / groups;
-  const bool active = rg < row_groups;  // idle when groups does not divide the block
-  const int nsl = (d + pp.ks - 1) / pp.ks;
-  // this thread's output columns: 4cg..4cg+3 (x W), or cg + groups * j (dY Wᵀ)
-  auto col = [&](int j) { return TRANS ? cg + groups * j : 4 * cg + j; };
-  unsigned mk[ROWS];  // the dropout mask's 4 bytes a row, read before the products
-#pragma unroll
-  for (int i = 0; i < ROWS; ++i) {
-    const int r = rg + i * row_groups;
-    mk[i] = 0;
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      if (active && r < R && e.mask != nullptr)
-        mk[i] |= static_cast<unsigned>(e.mask[static_cast<size_t>(r) * d + col(j)]) << (8 * j);
-  }
-  if (!pp.pending) stage_slice(pp.at(pp.cur), WRef{W[0], TRANS}, 0, pp, d, ld);
-#pragma unroll
-  for (int p = 0; p < NP; ++p) {
-    float4 acc[ROWS];
-#pragma unroll
-    for (int i = 0; i < ROWS; ++i) acc[i] = make_float4(0.f, 0.f, 0.f, 0.f);
-    for (int s = 0; s < nsl; ++s) {
-      cp_async_wait_all();
-      __syncthreads();  // slice s has landed; every thread is done with the other slot
-      const WRef following = s + 1 < nsl ? WRef{W[p], TRANS}
-                             : p + 1 < NP ? WRef{W[p + 1 < NP ? p + 1 : p], TRANS}
-                                          : next;
-      if (following.w != nullptr)
-        stage_slice(pp.at(pp.cur ^ 1), following, s + 1 < nsl ? (s + 1) * pp.ks : 0, pp, d,
-                    ld);
-      const float* sw = pp.at(pp.cur);
-      pp.cur ^= 1;
-      if (!active) continue;
-      const int k0 = s * pp.ks, kn = min(pp.ks, d - k0);
-      // unrolled twice: more would spend registers the 512-thread block lacks
-#pragma unroll 2
-      for (int kk = 0; kk < kn; kk += 4) {
-        float4 w[4];  // x W: W[k0 + kk + j][4cg..]; dY Wᵀ: W[cg + groups j][k0 + kk..]
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-          w[j] = *reinterpret_cast<const float4*>(
-              TRANS ? sw + (cg + groups * j) * pp.ldk + kk : sw + (kk + j) * ld + 4 * cg);
-#pragma unroll
-        for (int i = 0; i < ROWS; ++i) {
-          const int r = rg + i * row_groups;
-          const float4 a = r < R ? *reinterpret_cast<const float4*>(in[p] + r * ld + k0 + kk)
-                                 : make_float4(0.f, 0.f, 0.f, 0.f);
-          float4& o = acc[i];
-          if (TRANS) {
-            o.x = fmaf(a.x, w[0].x, o.x); o.x = fmaf(a.y, w[0].y, o.x);
-            o.x = fmaf(a.z, w[0].z, o.x); o.x = fmaf(a.w, w[0].w, o.x);
-            o.y = fmaf(a.x, w[1].x, o.y); o.y = fmaf(a.y, w[1].y, o.y);
-            o.y = fmaf(a.z, w[1].z, o.y); o.y = fmaf(a.w, w[1].w, o.y);
-            o.z = fmaf(a.x, w[2].x, o.z); o.z = fmaf(a.y, w[2].y, o.z);
-            o.z = fmaf(a.z, w[2].z, o.z); o.z = fmaf(a.w, w[2].w, o.z);
-            o.w = fmaf(a.x, w[3].x, o.w); o.w = fmaf(a.y, w[3].y, o.w);
-            o.w = fmaf(a.z, w[3].z, o.w); o.w = fmaf(a.w, w[3].w, o.w);
-          } else {
-            fma4(o, a.x, w[0]);
-            fma4(o, a.y, w[1]);
-            fma4(o, a.z, w[2]);
-            fma4(o, a.w, w[3]);
-          }
-        }
-      }
-    }
-    if (!active) continue;
-#pragma unroll
-    for (int i = 0; i < ROWS; ++i) {
-      const int r = rg + i * row_groups;
-      if (r >= R) break;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int c = col(j);
-        const float a = (&acc[i].x)[j];
-        float o;
-        if (p > 0) {
-          o = a + out[r * ld + c];
-        } else {
-          o = a + (e.bias != nullptr ? __ldg(e.bias + c) : 0.f);
-          if (e.relu) o = fmaxf(o, 0.f);
-          if (e.mask != nullptr) o = drop(o, (mk[i] >> (8 * j)) & 0xffu, e.keep);
-          if (e.gate != nullptr) o = e.gate[r * ld + c] > 0.f ? o : 0.f;
-          if (e.res != nullptr) o += e.res[r * ld + c];
-        }
-        out[r * ld + c] = o;
-      }
-    }
-  }
-  pp.pending = next.w != nullptr;
 }
 
 // The register tile with the fewest rows that covers R in one pass.
@@ -389,7 +235,8 @@ __device__ void wgrad(const float* X, const float* const (&dY)[NP], float* const
 
 // dst[r] = LN(src[r]) for rows r < R from rows of stride sld (device memory
 // or shared), also copied to `copy` ([R][ld]) when it is not null; one warp
-// per row, the forward's arithmetic (layer_norm_rows).
+// per row, the forward's formula (K2a's ln_pairs sums the moments in
+// another order).
 __device__ void ln_rows(const float* src, int sld, float* copy, float* dst, LayerNormW p, int R,
                         int d, int ld) {
   const int lane = threadIdx.x & 31;

@@ -37,65 +37,320 @@
 // (nb + 1) B T d floats more (19.7 MB): 0.013 ms at 3.35 TB/s, still below
 // the operations.
 //
-// Design (simple first; the TPU's two attention forms, unrolled for T < 32
-// and block-diagonal for T >= 32, were a layout choice of the TPU and are
-// not carried over: one form covers every T). The work per block is small
-// and mostly chains of dependent steps, so the design is about keeping
-// enough warps and independent instructions in flight:
-//   * One block per user, or per group of users holding ~32 rows when the
-//     window is short (4 users at T=8, so B=512 fills 128 of the 132 SMs).
-//     256 threads, 512 from 128 rows on. Blocks share nothing, so there are
-//     no atomics and the result is deterministic.
-//   * All activations of the block's rows stay in dynamic shared memory:
-//     four [rows][ld] f32 buffers (x, q, k, v), one score row of T per warp
-//     and the ids mask. Nothing between the input and the output touches
-//     device memory. At d=64 this holds windows up to T=200 (231,200 bytes).
-//     At most 64 registers a thread, so four 256-thread blocks fit an SM
-//     at T=50.
-//   * The d x d products are register-tiled: each thread owns 1, 2 or 4 rows
-//     (the fewest that cover the block in one pass) x 4 columns, reads its
-//     rows as float4 from shared memory and the weight rows as float4
-//     through the read-only cache, and sums k in order with plain fp32 FMAs.
-//     Rows are padded to an odd number of 16-byte units so neighbouring
-//     rows fall in distinct banks.
-//   * Attention: one warp per query row; lanes split the keys j <= i (the
-//     dots for j > i are never computed; masked keys get a score of -inf
-//     and no dot), each dot in four independent FMA chains; then the warp's
-//     softmax weights multiply v four keys at a time, lanes split over
-//     columns. A masked query is skipped: the reference's masked
-//     probabilities are exact zeros, so its output is q_in.
-//   * LayerNorm: one warp per row, warp-shuffle sums.
-//   * The weights come as one struct of pointers passed by value; nothing is
-//     packed or copied per call.
-// Requires d % 4 == 0, d <= 128, 16-byte aligned x and weights (checked by
-// the wrapper). Later work: staging the weights in shared memory where it
-// has room, skipping padded rows, and multi-head windows.
+// Design (plain fp32 FMAs, no TF32, no fast math). A block is a chain of
+// some fifteen short phases between barriers, each bound by latency more
+// than by FMAs or bytes, so the design keeps device memory out of the
+// phases, gives each warp two rows' independent work where a phase is a row
+// a warp, and gives each launch the registers its occupancy allows
+// (tools/k2a_ablation.py times each choice against the kernel before it):
+//   * One block per user, or per group of users holding ~16 rows when the
+//     window is short (two at T=8, so B=512 gives 256 blocks and every SM
+//     work). 256 threads, 512 from 128 rows on or where 256 would leave a
+//     thread more than 4 rows of a product. 128 registers a thread: two
+//     256-thread blocks an SM, or one of 512 (three at 80 registers spilled
+//     and were slower). Blocks share nothing: no atomics, and two calls give
+//     the same bits.
+//   * Shared memory: four [rows][ld] f32 buffers (x, q, k, v), two weight
+//     slots and the ids mask as bytes. Every d x d product streams its
+//     weight through the slots with cp.async (the header's product, shared
+//     with K2b): the whole weight at d <= 64 (32 rows at d = 128) where the
+//     slots fit beside the buffers at the block's occupancy, narrower
+//     k-slices at the widest windows (24 rows at T=200, d=64; 4 at T=108,
+//     d=128), one slice ahead and across products. So the next product's
+//     weight flies during this one, W1's during the attention and LN2, the
+//     next block's Wq during LN3, and the first block's Wq during the input
+//     load. Each k-step reads 16-byte units of shared memory. A thread owns
+//     1, 2, 4 or 8 rows (the fewest that cover the block in one pass; the
+//     kernel is built for each, so its five products are inlined with their
+//     tile) x 4 columns and sums k in order; the dropout mask's 4 bytes of
+//     each of its rows are read in one word before the k loop.
+//   * Attention: one warp per pair of a user's rows; one read of each key
+//     row serves both rows' dots (four independent FMA chains a row; the
+//     dots for j > i are never computed; masked keys get a score of -inf and
+//     no dot), and lane l holds the scores of keys l, l + 32, ... (T <= 224)
+//     in registers, so no score row takes shared memory. The weights (the
+//     probability's dropout byte applied where the weight is formed) then go
+//     through the pair's q rows, spent by then, up to 64 keys at a time, and
+//     multiply v four keys a step, one read of each value row for both rows.
+//     A masked query is skipped: the reference's masked probabilities are
+//     exact zeros, so its output is q_in.
+//   * LayerNorm: two rows a warp, a half-warp a row, 16-byte units, the
+//     moments by half-warp sums (ln_pairs). The saved block inputs are
+//     written by the LayerNorm that already reads them (LN1, and LN_f for
+//     its own input) as 16-byte units; LN3 applies the ids mask.
+// Requires d % 4 == 0, d <= 128, T <= 224, 16-byte aligned x and weights
+// (checked by the wrapper). Later work: q, k and v in one pass over q_in, a
+// layout of several users a 512-thread block at T=50, skipping masked rows,
+// multi-head windows.
 
 #include "sasrec_encoder.cuh"
 
 namespace {
 
-__global__ void __launch_bounds__(kMaxThreads, 2)
+constexpr int kMaxKeysPerLane = 7;  // an attention row's scores a lane holds: T <= 224
+constexpr int kUnitsPerLane = 2;    // a LayerNorm row's 16-byte units a lane holds: d <= 128
+
+__device__ __forceinline__ float half_sum(float v) {  // over the lanes of a half-warp
+#pragma unroll
+  for (int off = 8; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
+  return v;
+}
+
+// FWD_MAX_ROWS in ops/sasrec_fused.py: the rows of a product's register tile
+// at most, and FWD_BLOCKS_AN_SM: the blocks an SM that the registers of a
+// thread allow (128 a thread: two 256-thread blocks, or one of 512).
+constexpr int fwd_max_rows(int threads) { return threads == 256 ? 4 : 8; }
+constexpr int fwd_blocks_an_sm(int threads) { return threads == 256 ? 2 : 1; }
+
+// K2a's shared memory for a block of `rows` rows with weight slices of `ks`
+// rows: four [rows][ld] buffers, two [ks][ld] slots, the ids mask as bytes
+// (`_fwd_bytes` in ops/sasrec_fused.py).
+size_t fwd_smem_bytes(int rows, int d, int ks) {
+  return (4 * static_cast<size_t>(rows) + 2 * static_cast<size_t>(ks)) * row_ld(d) *
+             sizeof(float) +
+         (static_cast<size_t>(rows) + 3) / 4 * 4;
+}
+
+// The slice rows ks (a multiple of 4, 4 <= ks <= d) for which `smem_bytes`
+// is fwd_smem_bytes(rows, d, ks), or 0 if there is none. The wrapper's
+// layout chooses ks (`_fwd_slice`); the bytes carry it.
+int fwd_slice_of(int smem_bytes, int rows, int d) {
+  const size_t base = fwd_smem_bytes(rows, d, 0);
+  const size_t four = fwd_smem_bytes(rows, d, 4) - base;  // both slots' bytes a 4 rows
+  if (smem_bytes <= 0 || static_cast<size_t>(smem_bytes) < base + four) return 0;
+  const size_t extra = static_cast<size_t>(smem_bytes) - base;
+  const size_t ks = extra / four * 4;
+  return extra % four == 0 && ks <= static_cast<size_t>(d) ? static_cast<int>(ks) : 0;
+}
+
+// The rows of a product's register tile that a launch needs: the fewest of
+// 1, 2, 4, 8 (up to fwd_max_rows) whose tiles cover `rows` in one pass (0:
+// none does).
+int fwd_tile_rows(int rows, int d, int threads) {
+  const int row_groups = threads / (d / 4);
+  for (int r = 1; r <= fwd_max_rows(threads); r *= 2)
+    if (rows <= r * row_groups) return r;
+  return 0;
+}
+
+// dst[r] = LN(src[r]) for rows r < R, times M[r] where M is given (0/1
+// bytes): src rows [R][ld] in shared memory, dst rows of stride dld in
+// shared memory (may alias src) or device memory; with `copy`, src[r] is
+// also copied to rows of stride cld in device memory. Two rows a warp, one a
+// half-warp: a lane holds up to kUnitsPerLane 16-byte units of its row, and
+// the moments are sums over the half-warp.
+__device__ void ln_pairs(const float* src, float* copy, int cld, float* dst, int dld,
+                         LayerNormW p, const unsigned char* M, int R, int d, int ld) {
+  const int hl = threadIdx.x & 15;           // lane in the half-warp
+  const int h = (threadIdx.x >> 4) & 1;      // the warp's half
+  const int units = d / 4;
+  const int warps = blockDim.x >> 5;
+  for (int r0 = 2 * (threadIdx.x >> 5); r0 < R; r0 += 2 * warps) {
+    const int r = r0 + h;
+    const bool live = r < R;  // both halves take part in the sums
+    float4 v[kUnitsPerLane];
+    float s = 0.f;
+#pragma unroll
+    for (int m = 0; m < kUnitsPerLane; ++m) {
+      const int u = hl + 16 * m;
+      v[m] = live && u < units ? *reinterpret_cast<const float4*>(src + r * ld + 4 * u)
+                               : make_float4(0.f, 0.f, 0.f, 0.f);
+      s += (v[m].x + v[m].y) + (v[m].z + v[m].w);
+      if (copy != nullptr && live && u < units)
+        *reinterpret_cast<float4*>(copy + r * cld + 4 * u) = v[m];
+    }
+    const float mean = half_sum(s) / d;
+    float q = 0.f;
+#pragma unroll
+    for (int m = 0; m < kUnitsPerLane; ++m) {
+      if (hl + 16 * m >= units) continue;
+      const float4 c = make_float4(v[m].x - mean, v[m].y - mean, v[m].z - mean, v[m].w - mean);
+      q = fmaf(c.x, c.x, q); q = fmaf(c.y, c.y, q); q = fmaf(c.z, c.z, q); q = fmaf(c.w, c.w, q);
+    }
+    const float denom = sqrtf(half_sum(q) / d + kEps);
+    if (!live) continue;
+    const float keep = M == nullptr ? 1.f : static_cast<float>(M[r]);
+#pragma unroll
+    for (int m = 0; m < kUnitsPerLane; ++m) {
+      const int u = hl + 16 * m;
+      if (u >= units) continue;
+      const float4 g = ldg4(p.gamma + 4 * u), b = ldg4(p.beta + 4 * u);
+      const float4 y = make_float4((g.x * (v[m].x - mean) / denom + b.x) * keep,
+                                   (g.y * (v[m].y - mean) / denom + b.y) * keep,
+                                   (g.z * (v[m].z - mean) / denom + b.z) * keep,
+                                   (g.w * (v[m].w - mean) / denom + b.w) * keep);
+      *reinterpret_cast<float4*>(dst + r * dld + 4 * u) = y;
+    }
+  }
+}
+
+// x[r] += Σ_j drop_p(p_rj) v_j over the keys j <= r of row r's user whose
+// mask M is set, p_r = softmax_j(q_r·k_j / √d), dropped with `pm` (the
+// block's [R][T] prob-mask rows in device memory, or null) after the query
+// masking; x holds q_in (the residual). One warp per pair of a user's rows
+// (ia, ia + 1; the second absent when T is odd), so one read of each key
+// row serves both rows' dots and one read of each value row both sums. Lane
+// l holds the scores of keys l + 32 m of both rows in registers; the weights
+// then go through the rows of q, spent once the scores are formed, up to 64
+// keys at a time. KEYS: the keys a lane holds a row (T <= 32 KEYS), so the
+// loops over them are unrolled only as far as the window needs.
+template <int KEYS>
+__device__ void attention_rows(float* q, const float* k, const float* v, float* x,
+                               const unsigned char* M, int R, int T, int d, int ld,
+                               const unsigned char* pm, float keep) {
+  const int lane = threadIdx.x & 31;
+  const float scale = sqrtf(static_cast<float>(d));
+  const int chunk = ld < 64 ? ld : 64;  // keys whose weights a row of q holds at once
+  const int half = (T + 1) / 2;          // row pairs of a user
+  const int pairs = R / T * half;
+  for (int pr = threadIdx.x >> 5; pr < pairs; pr += blockDim.x >> 5) {
+    const int u0 = pr / half * T;        // the user's first row
+    const int ia = pr % half * 2, ib = ia + 1;
+    const int ra = u0 + ia, rb = u0 + ib;
+    const bool la = M[ra] != 0, lb = ib < T && M[rb] != 0;  // the rows that attend
+    if (!la && !lb) continue;  // masked queries: probabilities are exact zeros
+    const int i = lb ? ib : ia;  // the last key either row takes
+    float* qa = q + (la ? ra : rb) * ld;  // q rows; a row that does not attend
+    float* qb = q + (lb ? rb : ra) * ld;  // takes the other's (rb may be past R)
+    float sa[KEYS], sb[KEYS];
+    float mxa = -INFINITY, mxb = -INFINITY;
+#pragma unroll
+    for (int m = 0; m < KEYS; ++m) {
+      sa[m] = sb[m] = -INFINITY;  // a masked key: weight exactly 0, as -2^32+1 gives
+      const int j = lane + 32 * m;
+      if (32 * m > i) continue;  // no key of this lane's m-th set is causal
+      if (j <= i && M[u0 + j] != 0) {
+        const float* kr = k + (u0 + j) * ld;
+        float a0 = 0.f, a1 = 0.f, a2 = 0.f, a3 = 0.f;  // four independent chains a row
+        float b0 = 0.f, b1 = 0.f, b2 = 0.f, b3 = 0.f;
+#pragma unroll 2
+        for (int c = 0; c < d; c += 4) {
+          const float4 y = *reinterpret_cast<const float4*>(kr + c);
+          const float4 xa = *reinterpret_cast<const float4*>(qa + c);
+          const float4 xb = *reinterpret_cast<const float4*>(qb + c);
+          a0 = fmaf(xa.x, y.x, a0); a1 = fmaf(xa.y, y.y, a1);
+          a2 = fmaf(xa.z, y.z, a2); a3 = fmaf(xa.w, y.w, a3);
+          b0 = fmaf(xb.x, y.x, b0); b1 = fmaf(xb.y, y.y, b1);
+          b2 = fmaf(xb.z, y.z, b2); b3 = fmaf(xb.w, y.w, b3);
+        }
+        if (la && j <= ia) sa[m] = ((a0 + a1) + (a2 + a3)) / scale;
+        if (lb) sb[m] = ((b0 + b1) + (b2 + b3)) / scale;
+      }
+      mxa = fmaxf(mxa, sa[m]);
+      mxb = fmaxf(mxb, sb[m]);
+    }
+    mxa = warp_max(mxa);  // finite for an attending row: its own key is unmasked
+    mxb = warp_max(mxb);
+    float suma = 0.f, sumb = 0.f;
+#pragma unroll
+    for (int m = 0; m < KEYS; ++m) {
+      if (32 * m > i) continue;
+      sa[m] = la ? expf(sa[m] - mxa) : 0.f;  // 0 past the diagonal and for masked keys
+      sb[m] = lb ? expf(sb[m] - mxb) : 0.f;
+      suma += sa[m];
+      sumb += sb[m];
+    }
+    suma = warp_sum(suma);  // every lane is done with both rows of q
+    sumb = warp_sum(sumb);
+#pragma unroll
+    for (int m = 0; m < KEYS; ++m) {
+      if (32 * m > i) continue;
+      if (la) sa[m] /= suma;
+      if (lb) sb[m] /= sumb;
+      if (pm != nullptr) {
+        const int j = lane + 32 * m;
+        sa[m] = drop(sa[m], la && j <= ia ? pm[static_cast<size_t>(ra) * T + j] : 0, keep);
+        sb[m] = drop(sb[m], lb && j <= ib ? pm[static_cast<size_t>(rb) * T + j] : 0, keep);
+      }
+    }
+    float acca[kMaxColsPerLane], accb[kMaxColsPerLane];  // keys 4s, 4s + 2, then the tail
+    float odda[kMaxColsPerLane], oddb[kMaxColsPerLane];  // keys 4s + 1, 4s + 3
+#pragma unroll
+    for (int c = 0; c < kMaxColsPerLane; ++c) acca[c] = accb[c] = odda[c] = oddb[c] = 0.f;
+    for (int c0 = 0; c0 <= i; c0 += chunk) {
+#pragma unroll
+      for (int m = 0; m < KEYS; ++m) {
+        const int j = lane + 32 * m;
+        if (j >= c0 && j < c0 + chunk && j <= i) {  // a row that does not attend
+          if (la) qa[j - c0] = sa[m];                // shares the other's q row and
+          if (lb) qb[j - c0] = sb[m];                // sums weights it never adds
+        }
+      }
+      __syncwarp();
+      const int n = min(chunk, i + 1 - c0);  // causal keys of this chunk
+      const float* vr = v + (u0 + c0) * ld + lane;
+      int j = 0;
+#pragma unroll 2
+      for (; j + 4 <= n; j += 4) {  // four keys a step: their loads overlap
+        const float4 pa = *reinterpret_cast<const float4*>(qa + j);
+        const float4 pb = *reinterpret_cast<const float4*>(qb + j);
+        if (pa.x == 0.f && pa.y == 0.f && pa.z == 0.f && pa.w == 0.f && pb.x == 0.f &&
+            pb.y == 0.f && pb.z == 0.f && pb.w == 0.f)
+          continue;  // padding
+        const float* vj = vr + j * ld;
+#pragma unroll
+        for (int c = 0; c < kMaxColsPerLane; ++c) {
+          if (lane + 32 * c >= d) continue;
+          const float v0 = vj[32 * c], v1 = vj[ld + 32 * c];
+          const float v2 = vj[2 * ld + 32 * c], v3 = vj[3 * ld + 32 * c];
+          acca[c] = fmaf(pa.z, v2, fmaf(pa.x, v0, acca[c]));
+          odda[c] = fmaf(pa.w, v3, fmaf(pa.y, v1, odda[c]));
+          accb[c] = fmaf(pb.z, v2, fmaf(pb.x, v0, accb[c]));
+          oddb[c] = fmaf(pb.w, v3, fmaf(pb.y, v1, oddb[c]));
+        }
+      }
+      for (; j < n; ++j) {
+        const float pa = qa[j], pb = qb[j];
+        const float* vj = vr + j * ld;
+#pragma unroll
+        for (int c = 0; c < kMaxColsPerLane; ++c) {
+          if (lane + 32 * c >= d) continue;
+          acca[c] = fmaf(pa, vj[32 * c], acca[c]);
+          accb[c] = fmaf(pb, vj[32 * c], accb[c]);
+        }
+      }
+      __syncwarp();  // the next chunk rewrites both rows of q
+    }
+#pragma unroll
+    for (int c = 0; c < kMaxColsPerLane; ++c) {
+      if (lane + 32 * c >= d) continue;
+      if (la) x[ra * ld + lane + 32 * c] += acca[c] + odda[c];
+      if (lb) x[rb * ld + lane + 32 * c] += accb[c] + oddb[c];
+    }
+  }
+}
+
+// ROWS rows in a thread's product tile (fwd_tile_rows), THREADS threads a
+// block and the registers that fwd_blocks_an_sm(THREADS) blocks an SM allow.
+template <int ROWS, int THREADS>
+__global__ void __launch_bounds__(THREADS, fwd_blocks_an_sm(THREADS))
 sasrec_encoder_fwd_kernel(const EncoderW w, const DropoutMasks dm, const float* __restrict__ x,
                           const unsigned char* __restrict__ ids_mask,
                           float* __restrict__ out, float* __restrict__ saved, int B, int T,
-                          int d, int users_per_block, int ld, int Ts) {
+                          int d, int users_per_block, int ld, int ks) {
   extern __shared__ __align__(16) float smem[];
   const int b0 = blockIdx.x * users_per_block;
   const int R = min(users_per_block, B - b0) * T;  // this block's rows
   const int rows = users_per_block * T;            // rows each buffer holds
-  float* X = smem;
-  float* Q = X + rows * ld;
-  float* K = Q + rows * ld;
-  float* V = K + rows * ld;
-  float* S = V + rows * ld;                // [warps][Ts] softmax rows
-  float* M = S + (blockDim.x >> 5) * Ts;   // [rows] ids mask as 0/1
+  float* X = smem;              // x; q_in; the attention output; x2; the block output
+  float* Q = X + rows * ld;     // q; the FFN hidden
+  float* K = Q + rows * ld;     // k; the FFN sum before LN3
+  float* V = K + rows * ld;     // v
+  float* SW = V + rows * ld;    // two [ks][ld] weight slots
+  unsigned char* M = reinterpret_cast<unsigned char*>(SW + 2 * ks * ld);  // [rows] ids mask
   const size_t row0 = static_cast<size_t>(b0) * T;  // first global row
+  const size_t plane = static_cast<size_t>(B) * T;  // rows of one [B, T, d] of `saved`
+  const int nb = w.num_blocks;
+  Pipe pp{SW, ks * ld, 0, false, ks, 0};
+  if (nb > 0) {  // the first product's weight flies during the input load
+    stage_slice(pp.at(0), WRef{w.blocks[0].wq.w, false}, 0, pp, d, ld);
+    pp.pending = true;
+  }
+
   const unsigned char* mask = ids_mask + row0;
+  for (int r = threadIdx.x; r < R; r += blockDim.x) M[r] = mask[r] != 0;
   const float* xb = x + row0 * d;
   const unsigned char* emb = dm.emb == nullptr ? nullptr : dm.emb + row0 * d;
-
-  for (int r = threadIdx.x; r < R; r += blockDim.x) M[r] = mask[r] ? 1.f : 0.f;
   const int groups = d / 4;
   for (int idx = threadIdx.x; idx < R * groups; idx += blockDim.x) {
     const int r = idx / groups, c = (idx % groups) * 4;
@@ -113,26 +368,41 @@ sasrec_encoder_fwd_kernel(const EncoderW w, const DropoutMasks dm, const float* 
   }
   __syncthreads();
 
-  const BlockBufs bufs{X, X, Q, K, V, X, X, Q, K, nullptr, S, M};
-  for (int blk = 0; blk < w.num_blocks; ++blk) {
-    if (saved != nullptr) {  // the block's input, for K2b
-      float* dst = saved + (static_cast<size_t>(blk) * B * T + row0) * d;
-      for (int idx = threadIdx.x; idx < R * d; idx += blockDim.x)
-        dst[idx] = X[(idx / d) * ld + idx % d];
-    }
-    const size_t mrow = row0 * d;
-    block_forward(w.blocks[blk], bufs,
-                  dm.p[blk] == nullptr ? nullptr : dm.p[blk] + row0 * T,
-                  dm.f1[blk] == nullptr ? nullptr : dm.f1[blk] + mrow,
-                  dm.f2[blk] == nullptr ? nullptr : dm.f2[blk] + mrow, dm.keep, false,
-                  R, T, Ts, d, ld);
+  for (int blk = 0; blk < nb; ++blk) {
+    const BlockW& p = w.blocks[blk];
+    const size_t mrow = row0 * d;  // the block's first element of a [B, T, d] mask
+    // q_in, in place; the block's input also goes to `saved` for K2b
+    ln_pairs(X, saved == nullptr ? nullptr : saved + (blk * plane + row0) * d, d, X, ld, p.ln1,
+             nullptr, R, d, ld);
+    // q, k, v; each product's weight slices stream in behind the one before
+    product<ROWS, false, 1>(pp, {X}, {p.wq.w}, WRef{p.wk.w, false}, Q, epi(p.wq.b), R, d, ld);
+    product<ROWS, false, 1>(pp, {X}, {p.wk.w}, WRef{p.wv.w, false}, K, epi(p.wk.b), R, d, ld);
+    product<ROWS, false, 1>(pp, {X}, {p.wv.w}, WRef{p.conv1.w, false}, V, epi(p.wv.b), R, d,
+                            ld);
+    __syncthreads();
+    const unsigned char* pm = dm.p[blk] == nullptr ? nullptr : dm.p[blk] + row0 * T;
+    if (T <= 64)
+      attention_rows<2>(Q, K, V, X, M, R, T, d, ld, pm, dm.keep);
+    else
+      attention_rows<kMaxKeysPerLane>(Q, K, V, X, M, R, T, d, ld, pm, dm.keep);
+    __syncthreads();
+    ln_pairs(X, nullptr, 0, X, ld, p.ln2, nullptr, R, d, ld);  // x2, in place
+    product<ROWS, false, 1>(
+        pp, {X}, {p.conv1.w}, WRef{p.conv2.w, false}, Q,
+        epi(p.conv1.b, true, dm.f1[blk] == nullptr ? nullptr : dm.f1[blk] + mrow, dm.keep), R, d,
+        ld);  // the FFN hidden
+    product<ROWS, false, 1>(
+        pp, {Q}, {p.conv2.w}, WRef{blk + 1 < nb ? w.blocks[blk + 1].wq.w : nullptr, false}, K,
+        epi(p.conv2.b, false, dm.f2[blk] == nullptr ? nullptr : dm.f2[blk] + mrow, dm.keep,
+            nullptr, X),
+        R, d, ld);  // the FFN sum, + x2
+    __syncthreads();
+    ln_pairs(K, nullptr, 0, X, ld, p.ln3, M, R, d, ld);  // the block's output
+    __syncthreads();
   }
-  if (saved != nullptr) {  // LN_f's input
-    float* dst = saved + (static_cast<size_t>(w.num_blocks) * B * T + row0) * d;
-    for (int idx = threadIdx.x; idx < R * d; idx += blockDim.x)
-      dst[idx] = X[(idx / d) * ld + idx % d];
-  }
-  layer_norm_rows(X, out + row0 * d, d, w.ln_f, nullptr, R, d, ld);
+  // out = LN_f(x); LN_f's input also goes to `saved`
+  ln_pairs(X, saved == nullptr ? nullptr : saved + (nb * plane + row0) * d, d, out + row0 * d, d,
+           w.ln_f, nullptr, R, d, ld);
 }
 
 }  // namespace
@@ -140,31 +410,41 @@ sasrec_encoder_fwd_kernel(const EncoderW w, const DropoutMasks dm, const float* 
 // Writes out [B, T, d] (and, when `saved` is not null, the block inputs
 // [num_blocks + 1, B, T, d]) on `stream`. `users_per_block`, `threads` and
 // `smem_bytes` come from the wrapper's layout (ops/sasrec_fused.py
-// `_layout`); a launch whose bytes disagree with this file's formula, or
-// exceed the device's limit, is refused. Returns the cudaError_t of the
-// launch.
+// `_layout`); a launch whose bytes are not this file's formula for any
+// slice, whose rows a product's register tile cannot cover, or that exceeds
+// the device's limit, is refused. Returns the cudaError_t of the launch.
 extern "C" int acf_sasrec_encoder_fwd(EncoderW w, DropoutMasks dm, const float* x,
                                       const unsigned char* ids_mask, float* out, float* saved,
                                       int B, int T, int d, int users_per_block,
                                       int threads, int smem_bytes, void* stream) {
-  if (B <= 0 || T <= 0 || d <= 0 || d % 4 != 0 || d > 32 * kMaxColsPerLane ||
-      users_per_block <= 0 || (threads != 256 && threads != kMaxThreads) ||
-      w.num_blocks < 0 || w.num_blocks > kMaxBlocks)
+  if (B <= 0 || T <= 0 || T > 32 * kMaxKeysPerLane || d <= 0 || d % 4 != 0 ||
+      d > 32 * kMaxColsPerLane || users_per_block <= 0 ||
+      (threads != 256 && threads != kMaxThreads) || w.num_blocks < 0 ||
+      w.num_blocks > kMaxBlocks)
     return (int)cudaErrorInvalidValue;
-  const int ld = row_ld(d);
-  const int Ts = score_ld(T);
-  const size_t rows = static_cast<size_t>(users_per_block) * T;
-  const size_t need = (4 * rows * ld + static_cast<size_t>(threads / 32) * Ts + rows) * sizeof(float);
-  if (need != static_cast<size_t>(smem_bytes)) return (int)cudaErrorInvalidValue;
+  const int rows = users_per_block * T;
+  const int tile = fwd_tile_rows(rows, d, threads);
+  if (tile == 0) return (int)cudaErrorInvalidValue;
+  const int ks = fwd_slice_of(smem_bytes, rows, d);
+  if (ks == 0) return (int)cudaErrorInvalidValue;
   int dev = 0, optin = 0;
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   if (smem_bytes > optin) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(
-      sasrec_encoder_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+  using Kernel = decltype(&sasrec_encoder_fwd_kernel<1, 256>);
+  const Kernel kernel =
+      threads == 256 ? (tile == 1   ? &sasrec_encoder_fwd_kernel<1, 256>
+                        : tile == 2 ? &sasrec_encoder_fwd_kernel<2, 256>
+                                    : &sasrec_encoder_fwd_kernel<4, 256>)
+                     : (tile == 1   ? &sasrec_encoder_fwd_kernel<1, kMaxThreads>
+                        : tile == 2 ? &sasrec_encoder_fwd_kernel<2, kMaxThreads>
+                        : tile == 4 ? &sasrec_encoder_fwd_kernel<4, kMaxThreads>
+                                    : &sasrec_encoder_fwd_kernel<8, kMaxThreads>);
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
   if (err != cudaSuccess) return (int)err;
   const int grid = (B + users_per_block - 1) / users_per_block;
-  sasrec_encoder_fwd_kernel<<<grid, threads, smem_bytes, static_cast<cudaStream_t>(stream)>>>(
-      w, dm, x, ids_mask, out, saved, B, T, d, users_per_block, ld, Ts);
+  kernel<<<grid, threads, smem_bytes, static_cast<cudaStream_t>(stream)>>>(
+      w, dm, x, ids_mask, out, saved, B, T, d, users_per_block, row_ld(d), ks);
   return (int)cudaGetLastError();
 }

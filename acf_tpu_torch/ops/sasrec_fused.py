@@ -47,11 +47,16 @@ LN_EPS = 1e-8
 # ICDM 2018).
 MAX_T = 200
 MAX_D = 128
-ROWS_PER_BLOCK = 32            # a block groups users until it holds ~32 rows
+ROWS_PER_BLOCK = 32            # a K2b block groups users until it holds ~32 rows
+FWD_ROWS_PER_BLOCK = 16        # a K2a block groups users until it holds ~16 rows
+FWD_MAX_ROWS = {256: 4, 512: 8}      # rows of a K2a product's register tile, at most
+FWD_BLOCKS_AN_SM = {256: 2, 512: 1}  # K2a blocks an SM that its registers allow
 SMEM_LIMIT = 232_448           # shared memory one Hopper block may use (227 KB)
+SM_SMEM = 233_472              # shared memory of a Hopper SM (228 KB) ...
+BLOCK_RESERVED = 1_024         # ... of which each resident block keeps 1 KB
+SLICE_FLOATS = 4096            # floats of W in one staged weight slice (K2a, K2b), at most
 BWD_BUFFERS = 7                # [rows, ld] activation buffers of K2b
 BWD_THREADS = 512              # K2b's block: 16 warps, one block an SM
-BWD_SLICE_FLOATS = 4096        # floats of W in one of K2b's staged weight slices, at most
 BWD_ROWS_PER_THREAD = 3        # rows of a K2b product's register tile, at most
 BWD_GROUP_FLOATS = 12          # K2b's user-group scalars in shared memory
 ROADMAP_ITEM = ("ROADMAP.md Queue 2, 'K2a/K2b: multi-head and longer "
@@ -245,28 +250,56 @@ def _ld(d: int) -> int:
     return 4 * ((d // 4) | 1)  # odd number of 16-byte units per row
 
 
-def _group(t: int):
-    """(users per block, threads) of K2a."""
-    users = max(1, ROWS_PER_BLOCK // t)
-    return users, 512 if users * t >= 128 else 256
-
-
-def _layout(t: int, d: int):
-    """(users per block, threads, shared-memory bytes) of a K2a launch: four
-    [rows, ld] f32 activation buffers (x, q, k, v), one 16-byte aligned
-    score row of T per warp and the ids mask of the rows. The C entry
-    recomputes the bytes and refuses a launch that disagrees."""
-    users, threads = _group(t)
+def _group(t: int, d: int):
+    """(users per block, threads) of K2a: users until the block holds ~16
+    rows (two at T=8, so B=512 gives 256 blocks); 512 threads from 128 rows
+    on, or where 256 would leave a thread more than FWD_MAX_ROWS[256] rows
+    of a product."""
+    users = max(1, FWD_ROWS_PER_BLOCK // t)
     rows = users * t
-    floats = 4 * rows * _ld(d) + threads // 32 * ((t + 3) // 4 * 4) + rows
-    return users, threads, 4 * floats
+    wide = rows >= 128 or rows > FWD_MAX_ROWS[256] * (256 // (d // 4))
+    return users, 512 if wide else 256
+
+
+def _fwd_slice(rows: int, d: int, threads: int) -> int:
+    """Rows of W in one of K2a's two staged weight slots: the most, a
+    multiple of 4 up to the whole weight (at most SLICE_FLOATS floats of
+    it), with which FWD_BLOCKS_AN_SM[threads] blocks still fit an SM; where
+    the buffers alone leave no room for that, the most with which one block
+    fits. The C entry reads ks back from the bytes."""
+    per_block = SM_SMEM // FWD_BLOCKS_AN_SM[threads] - BLOCK_RESERVED
+    widest = min(d, SLICE_FLOATS // d // 4 * 4)
+    for limit in (per_block, SMEM_LIMIT):
+        for ks in range(widest, 3, -4):
+            if _fwd_bytes(rows, d, ks) <= limit:
+                return ks
+    return 4
+
+
+def _fwd_bytes(rows: int, d: int, ks: int) -> int:
+    """K2a's shared-memory bytes: four [rows, ld] f32 activation buffers (x,
+    q, k, v), two [ks, ld] weight slots and the ids mask as bytes
+    (``fwd_smem_bytes`` in the C entry)."""
+    return 4 * (4 * rows * _ld(d) + 2 * ks * _ld(d) + -(-rows // 4))
+
+
+def _layout(t: int, d: int, users: int | None = None, threads: int | None = None,
+            ks: int | None = None):
+    """(users per block, threads, shared-memory bytes) of a K2a launch, in
+    :func:`_group`'s geometry and with :func:`_fwd_slice`'s slices unless
+    ``users`` and ``threads``, or ``ks``, are given. The C entry refuses
+    bytes that are not :func:`_fwd_bytes` of some slice."""
+    if users is None:
+        users, threads = _group(t, d)
+    rows = users * t
+    return users, threads, _fwd_bytes(rows, d, ks or _fwd_slice(rows, d, threads))
 
 
 def _bwd_slot(d: int) -> int:
     """Floats of one of K2b's two weight slots: a k-slice of W (the whole
     weight up to d = 64) as rows of W, or as rows of Wᵀ, whichever is
     larger."""
-    ks = min(d, BWD_SLICE_FLOATS // d // 4 * 4)
+    ks = min(d, SLICE_FLOATS // d // 4 * 4)
     return max(ks * _ld(d), d * _ld(ks))
 
 
@@ -301,9 +334,16 @@ def _widest(t_max, fits) -> int:
     return t
 
 
+def _fwd_fits(t: int, d: int) -> bool:
+    """K2a's block fits one SM, and a product's register tile covers its
+    rows (the C entry checks both)."""
+    users, threads, smem = _layout(t, d)
+    return smem <= SMEM_LIMIT and users * t <= FWD_MAX_ROWS[threads] * (threads // (d // 4))
+
+
 def max_window(d: int) -> int:
     """The widest window K2a takes at width ``d`` (0 if none fits)."""
-    return _widest(MAX_T, lambda t: _layout(t, d)[2] <= SMEM_LIMIT)
+    return _widest(MAX_T, lambda t: _fwd_fits(t, d))
 
 
 def _bwd_fits(t: int, d: int) -> bool:

@@ -56,7 +56,7 @@ from pathlib import Path
 
 import torch
 
-from acf_tpu_torch.tools import ablation
+from acf_tpu_torch.tools import ablation, k2a_ablation
 
 TOL = 1e-4  # chip_smoke.py's K2B_TOL, of the tree's scale
 KINK = 2e-5  # chip_smoke.py's KINK
@@ -282,11 +282,13 @@ def caller(lib, x, weight_grads=True, layout=None):
 
 
 def k2a_caller(lib, x):
-    """A function that launches K2a's training form of ``lib`` once on ``x``."""
-    from acf_tpu_torch.ops.sasrec_fused import _layout, _masks, _weights
+    """A function that launches K2a's training form of ``lib`` once on ``x``,
+    in the launch layout of the form of K2a that ``lib`` holds
+    (``k2a_ablation.LAYOUTS``)."""
+    from acf_tpu_torch.ops.sasrec_fused import _masks, _weights
 
     t, nb, dev = x["x"].shape[1], len(x["params"]["blocks"]), x["x"].device
-    users, threads, smem = _layout(t, D)
+    users, threads, smem = k2a_ablation.LAYOUTS[k2a_ablation.form_of(lib.text)](t, D)
     out = torch.empty(B, t, D, device=dev)
     saved = torch.empty(nb + 1, B, t, D, device=dev)
     args = [_weights(x["params"], t, D, dev), _masks(x["masks"], x["keep"], nb, B, t, D, dev),

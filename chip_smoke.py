@@ -10,8 +10,8 @@ Phases, any failure exits non-zero:
 
   1. card   — ``nvidia-smi`` name and power limit, torch's device name;
   2. build  — compile every kernel in ``acf_tpu_torch/csrc`` with nvcc and
-              print its ``-Xptxas -v`` lines; K2b, its reduction, every K3
-              kernel and the merges of their partials must spill nothing;
+              print its ``-Xptxas -v`` lines; K2a, K2b, its reduction, every
+              K3 kernel and the merges of their partials must spill nothing;
   3. K1     — the rank-count kernel against its plain PyTorch version on
               standard-normal inputs, B in {8, 512}, I in {300, 23700},
               d = 64 (plus two narrower widths), with and without bias
@@ -25,9 +25,10 @@ Phases, any failure exits non-zero:
               ``score_all`` + mask + ``torch.topk`` on 256 users, timed;
   6. K2a    — the SASRec encoder-forward kernel against its plain PyTorch
               version, T in {1, 8, 23, 31, 32, 50, 200} x B in {7, 512} at
-              d = 64 and d = 36, each batch with a left-padded and an
-              all-padding window; ``fused_encoder`` must raise ValueError
-              for T = 201 at d = 64 and for num_heads = 2;
+              d = 64 and d = 36, and the widest window at d = 128
+              (``max_window(128)``, B in {7, 133}), each batch with a
+              left-padded and an all-padding window; ``fused_encoder`` must
+              raise ValueError for T = 201 at d = 64 and for num_heads = 2;
   7. SASRec (d = 64, 2 blocks, 1 head, random weights from a seed) at
               maxlen 50 on a synthetic ml-1m-shaped set (6,040 users x
               3,706 items, 994k rows: every window is T = 50):
@@ -36,12 +37,14 @@ Phases, any failure exits non-zero:
   8. the same at maxlen 8 (the protocol geometry) on the Video-shaped set;
   9. ``recommend`` top-10 for every user of the maxlen-50 set (K2a once per
               batch), checked like phase 5, timed;
- 10. K2a alone at B = 512, d = 64, T in {8, 50, 200}, beside its plain
-              version and its bound;
+ 10. K2a alone at B = 512, d = 64, T in {8, 50, 200}, in its inference
+              and training forms, beside its plain version and its bound;
  11. K2a's dropout form against its plain version, T in {1, 8, 33, 50} x
-              B in {7, 512} at d = 64 and d = 36, padded windows, masks drawn
-              once per case and shared; LN_f of the saved LN_f input must
-              give the output;
+              B in {7, 512} at d = 64 and d = 36, and the widest windows (T =
+              200 at d = 64, ``max_window(128)`` at d = 128; B in {7, 133}),
+              padded windows, masks drawn once per case and shared; the
+              saved block inputs against the plain ones, and LN_f of the
+              saved LN_f input must give the output;
  12. K2b (the encoder backward) against its plain versions,
               ``encoder_bwd_math`` and torch.autograd through
               ``encoder_math``: dx and every leaf, with and without masks, in
@@ -61,10 +64,10 @@ Phases, any failure exits non-zero:
  14. training timing: ASASRec examples/s at maxlen 8 (Video shape, 60
               steps an epoch) and maxlen 50 (best of 3 epochs after a
               warm-up), the device's idle share and top operations of one
-              step, and K2a's training form and K2b alone at B = 512,
-              d = 64, T in {8, 50} beside their plain versions and bounds
-              (K2b in its full and dx-only forms, and its reduction pass
-              per launch);
+              step, and K2a (training and inference forms) and K2b alone at
+              B = 512, d = 64, T in {8, 50} beside their plain versions and
+              bounds (K2b in its full and dx-only forms, and its reduction
+              pass per launch);
  15. K3a-K3e (APL's generator chain) against their plain versions at APL's
               geometry (B = 512, d = 64, I = 23,701), a ragged case
               (B = 7, d = 36, I = 1,100), K3b-K3e's staging edges
@@ -499,6 +502,7 @@ def time_serving(label, dev, model, params, data, users):
 
 K2A_WINDOWS = (1, 8, 23, 31, 32, 50, 200)
 K2A_WIDTHS = (64, 36)
+K2A_EDGE_BATCH = (7, 133)  # the widest windows: 133 blocks, one more than an H100's SMs
 # Max |kernel - plain| of the encoder outputs. Both run in f32 but sum the
 # d-term products, the softmax denominators and the LayerNorm moments in
 # different orders; the outputs are LayerNorm'd to unit scale, so 1e-4 is
@@ -541,6 +545,17 @@ def k2a_inputs(dev, params, b, t, d, g, padded=True):
     return params["item_emb"][seq] * math.sqrt(d), seq != 0
 
 
+def k2a_cases(windows):
+    """(d, T, B) of K2a's checks: ``windows`` x B in {7, 512} at each of
+    K2A_WIDTHS, then the widest window at d = 128 (``max_window(128)``) at
+    K2A_EDGE_BATCH."""
+    from acf_tpu_torch.ops.sasrec_fused import max_window
+
+    wide = max_window(128)
+    return ([(d, t, b) for d in K2A_WIDTHS for t in windows for b in (7, 512)]
+            + [(128, wide, b) for b in K2A_EDGE_BATCH])
+
+
 def check_k2a(dev):
     """Phase 6: K2a against its plain version, and its refusals. Returns the
     max |difference| over all cases."""
@@ -549,23 +564,24 @@ def check_k2a(dev):
 
     g = torch.Generator(device=dev).manual_seed(1)
     max_err = 0.0
-    for d in K2A_WIDTHS:
-        model, params = sasrec_model(dev, 100, 1000, max(K2A_WINDOWS), d=d, jitter=True)
-        for t in K2A_WINDOWS:
-            for b in (7, 512):
-                x, mask = k2a_inputs(dev, params, b, t, d, g)
-                before = fused_encoder.launches
-                got = fused_encoder(model, params, x, mask)
-                torch.cuda.synchronize()
-                check(fused_encoder.launches == before + 1,
-                      f"K2a d={d} T={t} B={b}: the launch counter did not move once")
-                ref = fused_encoder_plain(params, x, mask)
-                check(bool(torch.isfinite(got).all()), f"K2a d={d} T={t} B={b}: not finite")
-                err = float((got - ref).abs().max())
-                max_err = max(max_err, err)
-                print(f"K2a d={d} T={t} B={b}: max |kernel - plain| {err:.3e} "
-                      f"(outputs up to {float(ref.abs().max()):.3f})")
-                check(err <= K2A_TOL, f"K2a d={d} T={t} B={b}: max |d| {err} > {K2A_TOL}")
+    models = {}
+    for d, t, b in k2a_cases(K2A_WINDOWS):
+        if d not in models:
+            models[d] = sasrec_model(dev, 100, 1000, max(K2A_WINDOWS), d=d, jitter=True)
+        model, params = models[d]
+        x, mask = k2a_inputs(dev, params, b, t, d, g)
+        before = fused_encoder.launches
+        got = fused_encoder(model, params, x, mask)
+        torch.cuda.synchronize()
+        check(fused_encoder.launches == before + 1,
+              f"K2a d={d} T={t} B={b}: the launch counter did not move once")
+        ref = fused_encoder_plain(params, x, mask)
+        check(bool(torch.isfinite(got).all()), f"K2a d={d} T={t} B={b}: not finite")
+        err = float((got - ref).abs().max())
+        max_err = max(max_err, err)
+        print(f"K2a d={d} T={t} B={b}: max |kernel - plain| {err:.3e} "
+              f"(outputs up to {float(ref.abs().max()):.3f})")
+        check(err <= K2A_TOL, f"K2a d={d} T={t} B={b}: max |d| {err} > {K2A_TOL}")
 
     _, params = sasrec_model(dev, 100, 1000, max(K2A_WINDOWS))
     refused = (("T=201 at d=64", SASRec(100, 1000, D, maxlen=201), 201),
@@ -595,8 +611,9 @@ def k2a_work(b, t, d, num_blocks):
 
 def k2a_timing(dev, windows=(8, 50, 200), b=BATCH_USERS, main_t=50):
     """Phase 10: K2a alone at B=512, d=64 on full windows (every id nonzero,
-    so the causal-pair count is exactly what the data needs), beside its
-    plain version. Returns the entry at the main path's shape (T=50)."""
+    so the causal-pair count is exactly what the data needs), in its
+    inference form beside its plain version, then its training form.
+    Returns the inference entry at the main path's shape (T=50)."""
     from acf_tpu_torch.ops.sasrec_fused import fused_encoder, fused_encoder_plain
 
     model, params = sasrec_model(dev, 100, 1000, max(windows))
@@ -608,16 +625,33 @@ def k2a_timing(dev, windows=(8, 50, 200), b=BATCH_USERS, main_t=50):
         ms = device_ms(lambda: fused_encoder(model, params, x, mask))
         plain_ms = device_ms(lambda: fused_encoder_plain(params, x, mask), PLAIN_ITERS, 2)
         flops, nbytes = k2a_work(b, t, D, model.num_blocks)
-        bound_s = max(flops / FP32_FLOPS, nbytes / HBM_BYTES_PER_S)
-        bound_by = "operations" if flops / FP32_FLOPS >= nbytes / HBM_BYTES_PER_S else "bytes"
+        bound_ms, bound_by = bound(flops, nbytes)
         print(f"K2a device time at B={b} T={t} d={D}: kernel {ms:.4f} ms "
-              f"({flops / (ms * 1e-3) / 1e12:.2f} TFLOP/s, {bound_s * 1e3 / ms:.3f} of "
-              f"the bound), plain {plain_ms:.4f} ms, bound {bound_s * 1e3:.4f} ms "
+              f"({flops / (ms * 1e-3) / 1e12:.2f} TFLOP/s, {bound_ms / ms:.3f} of "
+              f"the bound), plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
               f"({bound_by}: {flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.2f} MB)")
         if t == main_t:
-            entry = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_s * 1e3,
+            entry = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
                      "bound_by": bound_by, "library_ms": None, "timer": timer_since(mark)}
+        k2a_train_line(dev, model, params, x, mask, g)
     return entry
+
+
+def k2a_train_line(dev, model, params, x, mask, g):
+    """Prints K2a's training form (dropout masks, block inputs saved) alone
+    on these inputs beside its bound; returns its device ms."""
+    from acf_tpu_torch.ops.sasrec_fused import encoder_fwd
+
+    b, t, _ = x.shape
+    keep = 1.0 - model.dropout_rate
+    masks = model._dropout_masks(g, b, t)
+    ms = device_ms(lambda: encoder_fwd(params, x, mask, masks, keep, save=True))
+    (flops, nbytes), _ = k2_train_work(b, t, D, model.num_blocks)
+    bound_ms, bound_by = bound(flops, nbytes)
+    print(f"K2a training form (dropout, saving block inputs) at B={b} T={t} d={D}: {ms:.4f} ms "
+          f"({bound_ms / ms:.3f} of the bound), bound {bound_ms:.4f} ms ({bound_by}: "
+          f"{flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.2f} MB)")
+    return ms
 
 
 def run_sasrec_eval(dev, label, data, maxlen):
@@ -761,33 +795,44 @@ def near_kink_users(params, x, mask, masks, keep):
 
 def check_k2a_dropout(dev):
     """Phase 11: K2a's dropout form (saving the block inputs, as training
-    runs it) against its plain version. Returns the max |difference|."""
+    runs it) against its plain version, at the training windows and the
+    widest windows K2a takes. Returns the max |difference|."""
     from acf_tpu_torch.nn.layers import layer_norm
-    from acf_tpu_torch.ops.sasrec_fused import encoder_fwd, fused_encoder, fused_encoder_plain
+    from acf_tpu_torch.ops.sasrec_fused import (
+        _block, _input, encoder_fwd, fused_encoder, fused_encoder_plain,
+    )
 
     g = torch.Generator(device=dev).manual_seed(11)
     max_err = 0.0
-    for d in K2A_WIDTHS:
-        model, params = sasrec_model(dev, 100, 1000, max(K2_TRAIN_WINDOWS), d=d, jitter=True)
+    models = {}
+    for d, t, b in (k2a_cases(K2_TRAIN_WINDOWS)
+                    + [(64, max(K2A_WINDOWS), b) for b in K2A_EDGE_BATCH]):
+        if d not in models:
+            models[d] = sasrec_model(dev, 100, 1000, max(K2A_WINDOWS), d=d, jitter=True)
+        model, params = models[d]
         keep = 1.0 - model.dropout_rate
-        for t in K2_TRAIN_WINDOWS:
-            for b in (7, 512):
-                x, mask = k2a_inputs(dev, params, b, t, d, g)
-                masks = model._dropout_masks(g, b, t)
-                before = fused_encoder.launches
-                got, saved = encoder_fwd(params, x, mask, masks, keep, save=True)
-                torch.cuda.synchronize()
-                check(fused_encoder.launches == before + 1,
-                      f"K2a dropout d={d} T={t} B={b}: the launch counter did not move once")
-                ref = fused_encoder_plain(params, x, mask, masks, keep)
-                check(bool(torch.isfinite(got).all()), f"K2a dropout d={d} T={t} B={b}: not finite")
-                err = float((got - ref).abs().max())
-                again = float((layer_norm(params["ln_f"], saved[-1]) - got).abs().max())
-                max_err = max(max_err, err)
-                print(f"K2a dropout d={d} T={t} B={b}: max |kernel - plain| {err:.3e}; "
-                      f"LN_f(saved LN_f input) vs output {again:.3e}")
-                check(err <= K2A_TOL, f"K2a dropout d={d} T={t} B={b}: max |d| {err} > {K2A_TOL}")
-                check(again <= K2A_TOL, f"K2a dropout d={d} T={t} B={b}: the saved inputs are wrong")
+        x, mask = k2a_inputs(dev, params, b, t, d, g)
+        masks = model._dropout_masks(g, b, t)
+        before = fused_encoder.launches
+        got, saved = encoder_fwd(params, x, mask, masks, keep, save=True)
+        torch.cuda.synchronize()
+        check(fused_encoder.launches == before + 1,
+              f"K2a dropout d={d} T={t} B={b}: the launch counter did not move once")
+        ref = fused_encoder_plain(params, x, mask, masks, keep)
+        check(bool(torch.isfinite(got).all()), f"K2a dropout d={d} T={t} B={b}: not finite")
+        err = float((got - ref).abs().max())
+        h, blocks_in = _input(params, x, mask, masks, keep), []
+        for i, blk in enumerate(params["blocks"]):
+            blocks_in.append(h)
+            h, _ = _block(blk, h, mask, 1, masks["blocks"][i], keep)
+        saved_err = float((saved - torch.stack([*blocks_in, h])).abs().max())
+        again = float((layer_norm(params["ln_f"], saved[-1]) - got).abs().max())
+        max_err = max(max_err, err, saved_err)
+        print(f"K2a dropout d={d} T={t} B={b}: max |kernel - plain| {err:.3e}; saved block "
+              f"inputs {saved_err:.3e}; LN_f(saved LN_f input) vs output {again:.3e}")
+        check(err <= K2A_TOL, f"K2a dropout d={d} T={t} B={b}: max |d| {err} > {K2A_TOL}")
+        check(saved_err <= K2A_TOL and again <= K2A_TOL,
+              f"K2a dropout d={d} T={t} B={b}: the saved inputs are wrong")
     return max_err
 
 
@@ -1072,9 +1117,13 @@ def k2_train_timing(dev, windows=(8, 50), b=TRAIN_BATCH, main_t=50):
                               "sasrec_encoder_bwd_reduce")
         bwd_plain = device_ms(lambda: encoder_bwd_math(params, x, mask, masks, keep, cot),
                               PLAIN_ITERS, 2)
+        inf_ms = device_ms(lambda: encoder_fwd(params, x, mask))
         (ff, fb), (bf, bb) = k2_train_work(b, t, D, model.num_blocks)
         fwd_bound, fwd_by = bound(ff, fb)
         bwd_bound, bwd_by = bound(bf, bb)
+        inf_bound, inf_by = bound(*k2a_work(b, t, D, model.num_blocks))
+        print(f"K2a inference form at B={b} T={t} d={D}: {inf_ms:.4f} ms ({inf_bound / inf_ms:.3f} "
+              f"of the bound), bound {inf_bound:.4f} ms ({inf_by})")
         print(f"K2a training form (dropout, saving block inputs) at B={b} T={t} d={D}: "
               f"{fwd_ms:.4f} ms ({fwd_bound / fwd_ms:.3f} of the bound), plain {fwd_plain:.4f} ms, "
               f"bound {fwd_bound:.4f} ms ({fwd_by}: {ff / 1e9:.3f} GFLOP, {fb / 1e6:.2f} MB)")
@@ -1179,11 +1228,12 @@ APL_TOL = 1e-4
 # take (MAX_D), where K3e's shared memory is the largest, with odd I
 APL_CASES = ((512, D, 23_701), (7, 36, 1_100), (65, 64, 131), (70, 128, 517))
 APL_PRODUCTS = {"apl_stats1": 1, "apl_z": 1, "apl_fake": 1, "apl_bigr": 2, "apl_grad": 4}
-# Kernels whose ptxas lines must show no stack frame and no spill: K2b and
-# its reduction, the K3 passes and the merges of their partials.
-NO_SPILL_KERNELS = ("sasrec_encoder_bwd_kernel", "sasrec_encoder_bwd_reduce", "stats1_kernel",
-                    "z_kernel", "fake_kernel", "bigr_kernel", "grad_kernel", "stat_combine",
-                    "sum_combine")
+# Kernels whose ptxas lines must show no stack frame and no spill: K2a (both
+# thread counts), K2b and its reduction, the K3 passes and the merges of
+# their partials.
+NO_SPILL_KERNELS = ("sasrec_encoder_fwd_kernel", "sasrec_encoder_bwd_kernel",
+                    "sasrec_encoder_bwd_reduce", "stats1_kernel", "z_kernel", "fake_kernel",
+                    "bigr_kernel", "grad_kernel", "stat_combine", "sum_combine")
 # The pass kernels of apl_gen.cu, by their names in a profile ("...::z_kernel(...")
 APL_PASS_KERNELS = {"stats1_kernel": "K3a", "z_kernel": "K3b", "fake_kernel": "K3c",
                     "bigr_kernel": "K3d", "grad_kernel": "K3e"}
@@ -1192,9 +1242,9 @@ APL_REPLACES = {"apl_stats1": 67, "apl_z": 83, "apl_fake": 111, "apl_bigr": 141,
 
 
 def check_no_spill(log):
-    """Phase 2: the ptxas lines of K2b, its reduction, the K3 kernels and
-    their merges in the build log show no stack frame and no spill (their
-    designs keep their tiles and row scalars in registers and shared
+    """Phase 2: the ptxas lines of K2a, K2b, its reduction, the K3 kernels
+    and their merges in the build log show no stack frame and no spill
+    (their designs keep their tiles and row scalars in registers and shared
     memory)."""
     from acf_tpu_torch.tools.ablation import ptxas_lines
 

@@ -1,19 +1,21 @@
 """The ablation tools (``acf_tpu_torch/tools/k3a_ablation.py``,
 ``k3b_ablation.py``, ``k3c_ablation.py``, ``k3d_ablation.py``,
-``k3e_ablation.py``, ``k2b_ablation.py``) make their variants by text
-substitution of ``csrc/apl_gen.cu`` (K2b's: of ``sasrec_encoder_bwd.cu`` with
-its header and K2a's file): each must find its form in the committed source
-and change it, so a later edit of the kernels cannot silently time the
-unchanged kernel under a variant's name."""
+``k3e_ablation.py``, ``k2b_ablation.py``, ``k2a_ablation.py``) make their
+variants by text substitution of ``csrc/apl_gen.cu`` (K2b's: of
+``sasrec_encoder_bwd.cu`` with its header and K2a's file; K2a's: of
+``sasrec_encoder_fwd.cu`` with its header): each must find its form in the
+committed source and change it, so a later edit of the kernels cannot
+silently time the unchanged kernel under a variant's name."""
 
 import pytest
 
 from acf_tpu_torch.ops import _build
-from acf_tpu_torch.tools import (k2b_ablation, k3a_ablation, k3b_ablation, k3c_ablation,
-                                 k3d_ablation, k3e_ablation)
+from acf_tpu_torch.tools import (k2a_ablation, k2b_ablation, k3a_ablation, k3b_ablation,
+                                 k3c_ablation, k3d_ablation, k3e_ablation)
 
 SOURCE = (_build.CSRC_DIR / "apl_gen.cu").read_text()
 K2B_SOURCE = k2b_ablation.read(str(_build.CSRC_DIR / "sasrec_encoder_bwd.cu"))
+K2A_SOURCE = k2a_ablation.read(str(_build.CSRC_DIR / "sasrec_encoder_fwd.cu"))
 EXPECTED = {
     k3a_ablation: ("as_is", "no_merge", "no_math", "neither"),
     k3b_ablation: ("as_is", "no_store", "no_loads", "no_traffic", "no_math"),
@@ -22,11 +24,13 @@ EXPECTED = {
     k3e_ablation: ("as_is", "no_loads", "no_math", "neither", "no_grads"),
     k2b_ablation: ("as_is", "no_wload", "no_attn_bwd", "no_remat", "no_reduce", "ldg_weights",
                    "three_products", "late_partial"),
+    k2a_ablation: ("as_is", "no_wload", "no_attn", "no_ln", "no_saved", "ldg_weights",
+                   "regs80", "no_pv", "keys7"),
 }
 
 
 def source_of(tool):
-    return K2B_SOURCE if tool is k2b_ablation else SOURCE
+    return {k2b_ablation: K2B_SOURCE, k2a_ablation: K2A_SOURCE}.get(tool, SOURCE)
 
 
 @pytest.mark.parametrize("tool,name", [(tool, name) for tool, names in EXPECTED.items()
@@ -170,3 +174,44 @@ def test_k2b_layouts_of_both_forms():
     assert k2b_ablation.LAYOUTS["remat"](8, 64) == (4, 256, 92_544)
     for t in (1, 8, 50, 74):
         assert k2b_ablation.LAYOUTS["staged"](t, 64) == _bwd_layout(t, 64)
+
+
+def test_k2a_forms_are_told_apart_by_their_markers():
+    """The committed K2a text (the forward with its header inlined) holds the
+    staged form's marker and not commit 6a7587e's, every variant keeps the
+    marker (so its launch layout is found), and each variant takes out what
+    it names: the weights' copies and reads, the attention's call, the
+    LayerNorms' moments, both copies to ``saved``, the attention's sum over
+    v, its score registers, the 256-thread kernel's registers. K2b's text holds the same form of K2a, so
+    its tool launches K2a in that form's layout."""
+    (ldg, _), (staged, _) = k2a_ablation.FORMS["ldg"], k2a_ablation.FORMS["staged"]
+    assert K2A_SOURCE.count(staged) == 1 and K2A_SOURCE.count(ldg) == 0
+    texts = k2a_ablation.variants(K2A_SOURCE)
+    assert {k2a_ablation.form_of(text) for text in texts.values()} == {"staged"}
+    assert "cp_async16(dst" not in texts["no_wload"]
+    assert "attention_rows<2>(Q" not in texts["no_attn"]
+    assert "half_sum(s) / d" not in texts["no_ln"]
+    assert "saved == nullptr ? nullptr : saved" not in texts["no_saved"]
+    assert "ldg4(W[p]" in texts["ldg_weights"] and "cp_async16(dst" not in texts["ldg_weights"]
+    assert "c0 <= i; c0 += chunk" not in texts["no_pv"]
+    assert "if (T <= 64)" not in texts["keys7"]
+    assert "fwd_blocks_an_sm(THREADS))" not in texts["regs80"]
+    assert k2a_ablation.form_of(K2B_SOURCE) == "staged"
+
+
+def test_k2a_layouts_of_both_forms():
+    """The ldg form's layout is the one its C entry checked (four buffers, a
+    score row a warp, the ids mask as floats: 56,264 bytes at T=50, 35,200
+    at T=8); the staged form's is the committed ``_layout``, in its own
+    geometry or another one given."""
+    from acf_tpu_torch.ops.sasrec_fused import _fwd_bytes, _fwd_slice, _layout
+
+    assert k2a_ablation.LAYOUTS["ldg"](50, 64) == (1, 256, 56_264)
+    assert k2a_ablation.LAYOUTS["ldg"](8, 64) == (4, 256, 35_200)
+    for t in (1, 8, 50, 200):
+        assert k2a_ablation.LAYOUTS["staged"](t, 64) == _layout(t, 64)
+    for t, layouts in k2a_ablation.OTHER_LAYOUTS.items():
+        for users, threads, ks in layouts.values():
+            rows = users * t
+            assert k2a_ablation.LAYOUTS["staged"](t, 64, users, threads, ks) == (
+                users, threads, _fwd_bytes(rows, 64, ks or _fwd_slice(rows, 64, threads)))

@@ -346,6 +346,26 @@ def test_k2b_layout_runs_16_warps_an_sm(t):
     assert -(-512 // users) >= 128
 
 
+# K2a's kernel takes at most 128 registers a thread at either thread count
+# (__launch_bounds__(256, 2) and (512, 1)).
+K2A_REGISTERS = 128
+
+
+@pytest.mark.parametrize("t,users,blocks", [(8, 2, 256), (50, 1, 512)])
+def test_k2a_layout_runs_16_warps_an_sm(t, users, blocks):
+    """K2a's layout at the repo's windows (maxlen 8 and 50): about 16 rows a
+    block (two users at T=8, one at T=50) on 256 threads, whose shared
+    memory and registers let two blocks share an SM (16 warps); at B=512,
+    T=8 gives 256 blocks, so every one of an H100's 132 SMs takes work."""
+    from acf_tpu_torch.ops.sasrec_fused import FWD_BLOCKS_AN_SM
+
+    got, threads, smem = _layout(t, 64)
+    assert (got, threads) == (users, 256) and smem <= SMEM_LIMIT
+    per_sm = min(SM_SMEM // (smem + BLOCK_RESERVED), SM_REGISTERS // (K2A_REGISTERS * threads))
+    assert per_sm == FWD_BLOCKS_AN_SM[threads] == 2 and threads // 32 * per_sm == 16
+    assert -(-512 // users) == blocks >= 132
+
+
 def test_grad_tree_matches_the_kernel_offsets():
     """The flat gradient's leaf order and offsets are the ones
     csrc/sasrec_encoder_bwd.cu computes (block_grad_off, lnf_off,
