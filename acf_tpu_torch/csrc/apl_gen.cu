@@ -93,6 +93,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "cp_async.cuh"
+
 namespace {
 
 constexpr int kTile = 64;                  // users and items per tile
@@ -107,38 +109,6 @@ constexpr int kNoiseLd = kTile + 16;       // K3b-K3e: noise (z) tile row stride
                                            // a warp's two rows 16 banks apart)
 constexpr int kMemLd = 4 * kRunUnits;      // K3b, K3d, K3e: member tile row stride (bytes)
 constexpr float kEps = 1e-20f;
-
-__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool valid) {
-  const unsigned saddr = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  const int src_bytes = valid ? 16 : 0;  // 0: zero-fill the destination
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(saddr), "l"(src), "r"(src_bytes));
-}
-
-// A copy of kBytes (16 or 4) of which only the first src_bytes are read (the
-// rest zero-filled).
-template <int kBytes>
-__device__ __forceinline__ void cp_async_n(void* dst, const void* src, int src_bytes) {
-  const unsigned saddr = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  if constexpr (kBytes == 16)
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-                 :: "r"(saddr), "l"(src), "r"(src_bytes));
-  else
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
-                 :: "r"(saddr), "l"(src), "r"(src_bytes));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-__device__ __forceinline__ void cp_async_wait_all_but_newest() {
-  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
 
 // Copy rows [row0, row0 + kTile) of a row-major [n, d] table into a [kTile][ld]
 // shared tile; rows at or past n are zero-filled.
@@ -247,10 +217,6 @@ struct Geo {
   int n_chunks;  // item chunks of K3a-K3d
 };
 
-// Row stride of a shared tile: an odd number of 16-byte units, so the float4
-// reads of 8 neighbouring rows fall in 8 distinct bank groups.
-__host__ __device__ inline int row_ld(int d) { return 4 * ((d / 4) | 1); }
-
 // ---- K3a --------------------------------------------------------------------
 // Block: the user tile blockIdx.y and the item tiles [t0, t1) of chunk
 // blockIdx.x, one (m, l) partial per user and chunk. Shared memory holds the
@@ -291,7 +257,7 @@ stats1_kernel(const float* __restrict__ pu, const float* __restrict__ Qg,
   for (int t = t0, buf = 0; t < t1; ++t, buf ^= 1) {
     if (t + 1 < t1) stage_rows(sQa + (buf ^ 1) * tile_f, Qg, (t + 1) * kTile, g.I, g.d, g.ld);
     cp_async_commit();  // possibly empty: keeps one group per iteration
-    cp_async_wait_all_but_newest();
+    cp_async_wait<1>();
     __syncthreads();
     float acc[kSub][kSub];
     tile_dot<1>(sUa, sQa + buf * tile_f, g.ld, g.d, ty, tx, acc);
@@ -414,7 +380,7 @@ z_kernel(const float* __restrict__ pu, const float* __restrict__ Qg,
   for (int t = t0, buf = 0; t < t1; ++t, buf ^= 1) {
     if (t + 1 < t1) stage(t + 1, buf ^ 1);
     cp_async_commit();  // possibly empty: keeps one group per iteration
-    cp_async_wait_all_but_newest();
+    cp_async_wait<1>();
     __syncthreads();
     float acc[kSub][kSub];
     tile_dot(sU, sQ + buf * tile_f, g.ld, g.d, ty, tx, acc);
@@ -512,7 +478,7 @@ fake_kernel(const float* __restrict__ pu_c, const float* __restrict__ Qc,
   for (int t = t0, buf = 0; t < t1; ++t, buf ^= 1) {
     if (t + 1 < t1) stage(t + 1, buf ^ 1);
     cp_async_commit();  // possibly empty: keeps one group per iteration
-    cp_async_wait_all_but_newest();
+    cp_async_wait<1>();
     __syncthreads();
     float acc[kSub][kSub];
     tile_dot(sU, sQc + buf * tile_f, g.ld, g.d, ty, tx, acc);
@@ -602,7 +568,7 @@ bigr_kernel(const float* __restrict__ pu_g, const float* __restrict__ Qg,
     s[0] = make_float4(m1[row], 1.f / l1[row], w / nuniq[row], nuniq[row]);
     s[1] = make_float4(m2[row], 1.f / l2[row], a[row], fake[row]);
   }
-  cp_async_wait_all();
+  cp_async_wait<0>();
   __syncthreads();
 
   float acc_r[kSub] = {0.f, 0.f, 0.f, 0.f};
@@ -620,7 +586,7 @@ bigr_kernel(const float* __restrict__ pu_g, const float* __restrict__ Qg,
       stage_rows(sQc, Qc, i0 + kTile, g.I, g.d, g.ld);
     }
     cp_async_commit();  // possibly empty
-    cp_async_wait_all_but_newest();  // this tile's z and member
+    cp_async_wait<1>();  // this tile's z and member
     __syncthreads();
 #pragma unroll
     for (int i = 0; i < kSub; ++i) {
@@ -648,7 +614,7 @@ bigr_kernel(const float* __restrict__ pu_g, const float* __restrict__ Qg,
         }
       }
     }
-    cp_async_wait_all();  // the next tile's Q_g, Q_c
+    cp_async_wait<0>();  // the next tile's Q_g, Q_c
     __syncthreads();      // ... seen by all, and every read of sZ, sM done
   }
 #pragma unroll
@@ -815,7 +781,7 @@ grad_kernel(const float* __restrict__ pu_g, const float* __restrict__ Qg,
   for (int ut = 0; ut < n_user_tiles; ++ut) {
     const int u0 = ut * kTile;
     const bool next = ut + 1 < n_user_tiles;
-    cp_async_wait_all();  // every copy of this user tile
+    cp_async_wait<0>();  // every copy of this user tile
     if (threadIdx.x < kTile) {  // the row this thread copied the scalars of
       float* s = sSe + threadIdx.x * kGradScalars;
       s[1] = 1.f / s[1];

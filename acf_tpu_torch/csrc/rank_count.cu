@@ -8,163 +8,367 @@
 // in true float32, without materialising the [B, I] score matrix.
 //
 // Bound on an H100: compute. The work is 2*B*I*d float32 operations done as
-// FMAs outside the tensor cores (67 TFLOP/s non-tensor FP32 peak); at Video
-// shape for all users, 2 * 31k * 23.7k * 64 ~= 9.4e10 FLOP ~= 1.4 ms, while
-// the bytes (the tables plus per-user scalars, ~14 MB) take ~4 us at
+// FMAs outside the tensor cores (67 TFLOP/s non-tensor FP32 peak): at the
+// evaluation's tile of 512 users, I = 23,701 and d = 64, 1.55 GFLOP, 0.0232
+// ms, while the bytes (the tables plus per-user scalars, ~6 MB) take ~2 us at
 // 3.35 TB/s. TF32 tensor-core products are not float32 and would move rank
 // positions, so they are not used.
 //
-// Design (simple first): a 2-D grid of user tiles x item splits, because
-// blocks run in parallel and nothing carries between them (the TPU kernel ran
-// its item tiles in order into one resident accumulator).
-//   * A block stages its 64-user tile in shared memory once and streams the
-//     64-item tiles of its split (tiles split, split + splits, ...) through
-//     two shared-memory buffers with cp.async, so the next tile's copy runs
-//     while the current one is computed. Rows stay row-major, padded so that
-//     16-byte reads of neighbouring rows fall in distinct bank groups.
-//   * Each of the 256 threads keeps a 4-user x 4-item register tile (users
-//     ty + 16i, items tx + 16j) of dot products, summed over k = 0..d-1 in
-//     order with plain fp32 FMAs, reading 4 k at a time as float4.
-//   * Item 0, each user's gt column and the ragged tail j >= I are masked
-//     in-kernel (the copy zero-fills rows past I), so the table is never
-//     padded or copied in device memory.
-//   * Per-thread counts are reduced over the 16 threads that share a user
-//     with warp shuffles, and one int32 atomicAdd per user and block merges
-//     the splits. Integer atomics keep the result deterministic.
-// Requires d % 4 == 0 and 16-byte aligned u and e (checked by the wrapper).
-// Later work: wgmma/TMA pipelines and 3xTF32 error-compensated tensor-core
-// products to approach the bound.
+// Design:
+//   * Each of 256 threads keeps an 8 x kRI register tile of dot products
+//     (users ty + 16i, items tx + 16j), summed over k = 0..d-1 in order with
+//     plain fp32 FMAs (acc = fmaf(u_k, e_k, acc)), the bias added after, as
+//     every earlier form of this kernel did: the counts do not depend on the
+//     tile, the slices or the grid.
+//   * Two unit shapes: 128 users x 256 items (8 x 16 a thread, 254
+//     registers, one block an SM) where there are at least as many such units
+//     as SMs, as at the Video-shaped evaluation; else 128 x 128 (8 x 8, 128
+//     registers, two blocks an SM), which keeps more SMs busy on a small
+//     table (the ml-1m shape has 60 wide units for 132 SMs).
+//   * A warp is 4 user lanes x 8 item lanes, so a float4 read of 8 item rows
+//     (or of 4 user rows) from shared memory is one wavefront; per four k a
+//     thread reads 8 + kRI float4 for 32 kRI FMAs.
+//   * Both operands stream with k: slices of 32 k of the unit's item and user
+//     rows go through a ring of two shared-memory slots, one slice ahead, one
+//     __syncthreads a slice. One thread issues each slice as two TMA boxes of
+//     [rows][36] floats, counted on the slot's mbarrier: 36-float rows (an
+//     odd number of 16-byte units) put neighbouring rows in distinct bank
+//     groups with no swizzle, and the tensor maps zero-fill rows past B and I
+//     and columns past d. A unit's last slice also carries the items' bias
+//     and the users' thresholds and gt (4-byte cp.async), so the epilogue
+//     reads no device memory. Shared memory does not grow with d: every
+//     d % 4 == 0 runs.
+//   * A flat list of (user tile, item tile) units, user tile major. The grid
+//     is as many blocks as are resident at once, or fewer where that evens
+//     out the runs; each block takes a contiguous run of the list, so it
+//     stays on one user tile as long as it can.
+//   * Item 0, each user's gt and the ragged tail j >= I are masked in the
+//     epilogue from the staged data, so the table is never padded or copied
+//     in device memory.
+//   * The 8 lanes of a warp that share a user halve their 8 users' counts
+//     into one user a lane (7 shuffles); a lane keeps its user's count over
+//     the block's units of that user tile, then adds it to `out` with one
+//     int32 atomicAdd. Integer atomics keep the result deterministic.
+// Requires d % 4 == 0 and 16-byte aligned u and e (the wrapper checks,
+// acf_tpu_torch/ops/ranking.py, check_supported; so do the tensor maps).
+// acf_tpu_torch/tools/k1_ablation.py times variants of this file, each with
+// one design choice swapped (the constants marked "ablation" among them).
+// Later work: 3xTF32 or wgmma products, which sum in another order
+// (ROADMAP.md, the product shared by K3a-K3e).
 
+#include <cuda.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "cp_async.cuh"
 
 namespace {
 
-constexpr int kBU = 64;                    // users per block
-constexpr int kBI = 64;                    // items per tile
-constexpr int kTile = 4;                   // users (and items) per thread
-constexpr int kLanes = 16;                 // threads along items (and users)
-constexpr int kThreads = kLanes * kLanes;  // 256
-constexpr int kBlocksPerSm = 2;            // grid sizing target (one wave)
+constexpr int kSliceK = 32;              // ablation: k values a ring slot holds
+constexpr int kStages = 2;               // ablation: ring slots
+constexpr int kRU = 8;                   // ablation: users a thread (at most 8)
+constexpr int kThreads = 256;
+constexpr int kUsers = 16 * kRU;         // users a unit
+constexpr int kLdk = row_ld(kSliceK);    // a slot's row stride (floats)
 
-__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool valid) {
-  const unsigned saddr = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  const int src_bytes = valid ? 16 : 0;  // 0: zero-fill the destination
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(saddr), "l"(src), "r"(src_bytes));
+// A unit shape: RI items a thread, BLOCKS blocks an SM. A slot holds the
+// unit's kItems item rows and kUsers user rows, [.][kLdk], then at kExtra
+// its item bias [kItems], its users' thresholds [kUsers] and gt [kUsers].
+template <int RI, int BLOCKS>
+struct Shape {
+  static constexpr int kRI = RI, kBlocks = BLOCKS;
+  static constexpr int kItems = 16 * RI;
+  static constexpr int kExtra = (kItems + kUsers) * kLdk;
+  static constexpr int kSlotFloats = kExtra + kItems + 2 * kUsers;
+  static constexpr unsigned kSlotTx = (kItems + kUsers) * kLdk * 4;  // bytes of its two boxes
+  static_assert(kSlotFloats * 4 % 128 == 0 && kItems * kLdk * 4 % 128 == 0,
+                "TMA boxes land 128-byte aligned");
+};
+using Wide = Shape<16, 1>;
+using Narrow = Shape<8, 2>;              // ablation: the narrow shape
+
+struct Args {
+  const float* bias;    // may be null
+  const float* thresh;
+  const int* gt;        // may be null
+  int* out;
+  int B, I, d;
+  int n_item_tiles, n_units, n_slices;
+};
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
 }
 
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
+__device__ __forceinline__ void mbar_init(uint64_t* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" :: "r"(smem_u32(bar)));
 }
 
-__device__ __forceinline__ void cp_async_wait_all_but_newest() {
-  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
 }
 
-// Copy `rows` rows of a row-major [n, d] table starting at row0 into a
-// [rows][ld] shared tile; rows at or past n are zero-filled.
-__device__ __forceinline__ void stage_rows(float* dst, const float* src, int row0,
-                                           int n, int d, int ld, int rows) {
-  const int chunks = d / 4;
-  for (int idx = threadIdx.x; idx < rows * chunks; idx += kThreads) {
-    const int r = idx / chunks, c = (idx % chunks) * 4;
-    const int row = row0 + r;
-    const bool valid = row < n;
-    cp_async16(dst + r * ld + c, src + (size_t)(valid ? row : 0) * d + c, valid);
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
+  asm volatile("{\n .reg .pred p;\n WAIT_%=:\n"
+               " mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+               " @!p bra WAIT_%=;\n}\n" :: "r"(smem_u32(bar)), "r"(parity) : "memory");
+}
+
+// The box of `map` at column c0, row r0 into dst (TMA), counted on `bar`.
+__device__ __forceinline__ void tma_box(float* dst, const CUtensorMap* map, int c0, int r0,
+                                        uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.tile.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3}], [%4];\n"
+      :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(r0),
+         "r"(smem_u32(bar)) : "memory");
+}
+
+// The block's units: first + n * stride for n < count. Here a contiguous
+// run of the flat list (the split grid of tools/k1_ablation.py strides).
+struct Walk {
+  int first, stride, count;
+};
+
+__device__ __forceinline__ Walk walk(const Args& a) {
+  const int first = static_cast<int>(static_cast<long long>(blockIdx.x) * a.n_units / gridDim.x);
+  const int end = static_cast<int>(static_cast<long long>(blockIdx.x + 1) * a.n_units / gridDim.x);
+  return {first, 1, end - first};
+}
+
+// Issue the copies of the walk's step `step` (slice ks of its unit n) into
+// `slot`, the boxes counted on `bar`.
+template <class S>
+__device__ __forceinline__ void stage(float* slot, uint64_t* bar, const Args& a,
+                                      const CUtensorMap& tm_e, const CUtensorMap& tm_u,
+                                      const Walk& w, int step) {
+  const int n = step / a.n_slices, ks = step - n * a.n_slices;
+  const int unit = w.first + n * w.stride;
+  const int ut = unit / a.n_item_tiles;
+  const int u0 = ut * kUsers, i0 = (unit - ut * a.n_item_tiles) * S::kItems;
+  if (threadIdx.x == 0) {
+    mbar_expect_tx(bar, S::kSlotTx);
+    tma_box(slot, &tm_e, ks * kSliceK, i0, bar);
+    tma_box(slot + S::kItems * kLdk, &tm_u, ks * kSliceK, u0, bar);
   }
-}
-
-__global__ void __launch_bounds__(kThreads, kBlocksPerSm)
-rank_count_kernel(const float* __restrict__ u, const float* __restrict__ e,
-                  const float* __restrict__ bias,
-                  const float* __restrict__ thresh,
-                  const int* __restrict__ gt, int* __restrict__ out,
-                  int B, int I, int d, int ld, int n_item_tiles) {
-  extern __shared__ __align__(16) float smem[];
-  float* sU = smem;  // [kBU][ld] user tile; two [kBI][ld] item tiles follow
-
-  const int tx = threadIdx.x % kLanes;  // items tx + 16j
-  const int ty = threadIdx.x / kLanes;  // users ty + 16i
-  const int u0 = blockIdx.x * kBU;
-
-  int tile = blockIdx.y;
-  stage_rows(sU, u, u0, B, d, ld, kBU);
-  stage_rows(smem + kBU * ld, e, tile * kBI, I, d, ld, kBI);
-  cp_async_commit();
-
-  float t[kTile];
-  int g[kTile];
-  int cnt[kTile];
-#pragma unroll
-  for (int i = 0; i < kTile; ++i) {
-    const int row = u0 + ty + kLanes * i;
-    t[i] = row < B ? thresh[row] : 0.f;
-    g[i] = (gt != nullptr && row < B) ? gt[row] : 0;
-    cnt[i] = 0;
-  }
-
-  for (int buf = 0; tile < n_item_tiles; tile += gridDim.y, buf ^= 1) {
-    const int next = tile + gridDim.y;
-    if (next < n_item_tiles)
-      stage_rows(smem + (kBU + (buf ^ 1) * kBI) * ld, e, next * kBI, I, d, ld, kBI);
-    cp_async_commit();  // possibly empty: keeps one group per iteration
-    cp_async_wait_all_but_newest();
-    __syncthreads();  // this tile (and the user tile) visible to all threads
-
-    const float* se = smem + (kBU + buf * kBI) * ld;
-    float acc[kTile][kTile];
-#pragma unroll
-    for (int i = 0; i < kTile; ++i)
-#pragma unroll
-      for (int j = 0; j < kTile; ++j) acc[i][j] = 0.f;
-
-#pragma unroll 2
-    for (int k = 0; k < d; k += 4) {
-      float4 a[kTile], b[kTile];
-#pragma unroll
-      for (int i = 0; i < kTile; ++i)
-        a[i] = *reinterpret_cast<const float4*>(&sU[(ty + kLanes * i) * ld + k]);
-#pragma unroll
-      for (int j = 0; j < kTile; ++j)
-        b[j] = *reinterpret_cast<const float4*>(&se[(tx + kLanes * j) * ld + k]);
-#pragma unroll
-      for (int i = 0; i < kTile; ++i)
-#pragma unroll
-        for (int j = 0; j < kTile; ++j) {
-          float s = acc[i][j];
-          s = fmaf(a[i].x, b[j].x, s);
-          s = fmaf(a[i].y, b[j].y, s);
-          s = fmaf(a[i].z, b[j].z, s);
-          s = fmaf(a[i].w, b[j].w, s);
-          acc[i][j] = s;
-        }
+  if (ks != a.n_slices - 1) return;
+  // the unit's last slice: what its epilogue reads, zero where there is none
+  float* x = slot + S::kExtra;
+  for (int idx = threadIdx.x; idx < S::kItems + 2 * kUsers; idx += kThreads) {
+    const void* src = a.thresh;
+    bool valid;
+    if (idx < S::kItems) {
+      const int item = i0 + idx;
+      valid = a.bias != nullptr && item < a.I;
+      if (valid) src = a.bias + item;
+    } else if (idx < S::kItems + kUsers) {
+      const int row = u0 + idx - S::kItems;
+      valid = row < a.B;
+      if (valid) src = a.thresh + row;
+    } else {
+      const int row = u0 + idx - S::kItems - kUsers;
+      valid = a.gt != nullptr && row < a.B;
+      if (valid) src = a.gt + row;
     }
+    cp_async_n<4>(x + idx, src, valid ? 4 : 0);
+  }
+}
 
-    const int i0 = tile * kBI;
+// acc[i][j] += the products of user row ty + 16i (sa, row stride lda) and
+// item row tx + 16j (sb) over k < kn, one FMA at a time in k order. The k
+// loop is not unrolled: at two blocks an SM the 64 sums, 8 user float4 and an
+// item float4 take the 128 registers, and unrolled twice it spills.
+template <int RI>
+__device__ __forceinline__ void slice_dot(float (&acc)[kRU][RI], const float* sa, int lda,
+                                          const float* sb, int kn) {
+#pragma unroll 1
+  for (int k = 0; k < kn; k += 4) {
+    float4 a[kRU];
 #pragma unroll
-    for (int j = 0; j < kTile; ++j) {
-      const int item = i0 + tx + kLanes * j;
-      if (item <= 0 || item >= I) continue;  // pad id 0 and the ragged tail
-      const float bj = bias != nullptr ? bias[item] : 0.f;
+    for (int i = 0; i < kRU; ++i) a[i] = *reinterpret_cast<const float4*>(sa + 16 * i * lda + k);
 #pragma unroll
-      for (int i = 0; i < kTile; ++i) {
-        const float s = bias != nullptr ? acc[i][j] + bj : acc[i][j];
-        cnt[i] += (s >= t[i] && item != g[i]) ? 1 : 0;
+    for (int j = 0; j < RI; ++j) {
+      const float4 b = *reinterpret_cast<const float4*>(sb + 16 * j * kLdk + k);
+#pragma unroll
+      for (int i = 0; i < kRU; ++i) {
+        float s = acc[i][j];
+        s = fmaf(a[i].x, b.x, s);
+        s = fmaf(a[i].y, b.y, s);
+        s = fmaf(a[i].z, b.z, s);
+        s = fmaf(a[i].w, b.w, s);
+        acc[i][j] = s;
       }
     }
-    __syncthreads();  // all reads of this buffer done before it is refilled
+  }
+}
+
+template <class S>
+__global__ void __launch_bounds__(kThreads, S::kBlocks)
+rank_count_kernel(const Args a, const __grid_constant__ CUtensorMap tm_e,
+                  const __grid_constant__ CUtensorMap tm_u) {
+  constexpr int kRI = S::kRI, kItems = S::kItems;
+  extern __shared__ __align__(128) float smem[];
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + kStages * S::kSlotFloats);  // one a slot
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < kStages; ++i) mbar_init(bars + i);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int ty = (warp >> 1) * 4 + (lane >> 3);  // users ty + 16i
+  const int tx = (warp & 1) * 8 + (lane & 7);    // items tx + 16j
+  const Walk w = walk(a);
+  const int steps = w.count * a.n_slices;  // step s: slice s % n_slices of unit s / n_slices
+
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < steps) stage<S>(smem + s * S::kSlotFloats, bars + s, a, tm_e, tm_u, w, s);
+    cp_async_commit();  // possibly empty: one group a step
   }
 
-  // lanes 0-15 and 16-31 of a warp each hold one user group's 16 item groups
+  float acc[kRU][kRI];
 #pragma unroll
-  for (int i = 0; i < kTile; ++i) {
-    int c = cnt[i];
+  for (int i = 0; i < kRU; ++i)
 #pragma unroll
-    for (int off = kLanes / 2; off > 0; off >>= 1)
-      c += __shfl_xor_sync(0xffffffffu, c, off);
-    const int row = u0 + ty + kLanes * i;
-    if (tx == 0 && row < B && c != 0) atomicAdd(&out[row], c);
+    for (int j = 0; j < kRI; ++j) acc[i][j] = 0.f;
+  int run = 0;  // this lane's user's count over the block's units of its user tile
+  for (int s = 0, slot = 0; s < steps; ++s, slot = slot + 1 == kStages ? 0 : slot + 1) {
+    mbar_wait(bars + slot, (s / kStages) & 1);  // step s's boxes
+    cp_async_wait<kStages - 2>();               // this thread's copies of step s's extras
+    __syncthreads();  // step s visible; the slot of step s - 1 read by all: refill it
+    if (s + kStages - 1 < steps) {
+      const int prev = slot == 0 ? kStages - 1 : slot - 1;
+      stage<S>(smem + prev * S::kSlotFloats, bars + prev, a, tm_e, tm_u, w, s + kStages - 1);
+    }
+    cp_async_commit();
+
+    const int n = s / a.n_slices, ks = s - n * a.n_slices;
+    const int unit = w.first + n * w.stride;
+    const int ut = unit / a.n_item_tiles;
+    const float* cur = smem + slot * S::kSlotFloats;
+    const int k0 = ks * kSliceK;
+    slice_dot<kRI>(acc, cur + (kItems + ty) * kLdk, kLdk, cur + tx * kLdk,
+                   min(kSliceK, a.d - k0));
+
+    if (ks == a.n_slices - 1) {  // the unit's epilogue
+      const float* x = cur + S::kExtra;
+      const int* sg = reinterpret_cast<const int*>(x + kItems + kUsers);
+      const int i0 = (unit - ut * a.n_item_tiles) * kItems;
+      float t[kRU];
+      int g[kRU], c[kRU];
+#pragma unroll
+      for (int i = 0; i < kRU; ++i) {
+        t[i] = x[kItems + ty + 16 * i];
+        g[i] = sg[ty + 16 * i];
+        c[i] = 0;
+      }
+#pragma unroll
+      for (int j = 0; j < kRI; ++j) {
+        const int item = i0 + tx + 16 * j;
+        if (item <= 0 || item >= a.I) continue;  // pad id 0 and the ragged tail
+        const float bj = x[tx + 16 * j];
+#pragma unroll
+        for (int i = 0; i < kRU; ++i) c[i] += (acc[i][j] + bj >= t[i] && item != g[i]) ? 1 : 0;
+      }
+      // the 8 lanes sharing users (lane & 7 their items) halve the counts:
+      // lane l keeps user ty + 16 (l & 7)'s (with kRU < 8, lanes l & 7 < kRU)
+#pragma unroll
+      for (int h = kRU / 2; h >= 1; h /= 2) {
+        const bool upper = lane & h;
+#pragma unroll
+        for (int i = 0; i < h; ++i) {
+          const int send = upper ? c[i] : c[i + h];
+          c[i] = (upper ? c[i + h] : c[i]) + __shfl_xor_sync(0xffffffffu, send, h);
+        }
+      }
+#pragma unroll
+      for (int h = kRU; h < 8; h *= 2) c[0] += __shfl_xor_sync(0xffffffffu, c[0], h);
+      run += c[0];
+      if (n + 1 == w.count || (unit + w.stride) / a.n_item_tiles != ut) {
+        const int row = ut * kUsers + ty + 16 * (lane & 7);
+        if ((lane & 7) < kRU && row < a.B && run != 0) atomicAdd(a.out + row, run);
+        run = 0;
+      }
+#pragma unroll
+      for (int i = 0; i < kRU; ++i)
+#pragma unroll
+        for (int j = 0; j < kRI; ++j) acc[i][j] = 0.f;
+    }
   }
+}
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// A TMA map of the row-major [rows, d] f32 table at base, in boxes of
+// [box_rows][kLdk]: a box lands in a slot as it is, with the slot's row
+// stride; reads past the table are zeros.
+cudaError_t encode_rows(CUtensorMap* map, const float* base, int rows, int d, int box_rows) {
+  static EncodeTiled encode = nullptr;
+  if (encode == nullptr) {
+    void* fn = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    const cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn,
+                                                    cudaEnableDefault, &found);
+    if (err != cudaSuccess) return err;
+    if (found != cudaDriverEntryPointSuccess || fn == nullptr) return cudaErrorNotSupported;
+    encode = reinterpret_cast<EncodeTiled>(fn);
+  }
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(d), static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(d) * sizeof(float)};
+  const cuuint32_t box[2] = {static_cast<cuuint32_t>(kLdk), static_cast<cuuint32_t>(box_rows)};
+  const cuuint32_t elem[2] = {1, 1};
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, const_cast<float*>(base),
+                            dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                            CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+constexpr int kMaxDevices = 64;
+
+// Launch the kernel of shape S on `a` (the tables u and e, the SM count sms
+// of device dev) on `stream`.
+template <class S>
+cudaError_t launch(Args a, const float* u, const float* e, int dev, int sms,
+                   cudaStream_t stream) {
+  a.n_item_tiles = (a.I + S::kItems - 1) / S::kItems;
+  const int user_tiles = (a.B + kUsers - 1) / kUsers;
+  a.n_units = user_tiles * a.n_item_tiles;
+  const size_t smem = kStages * (S::kSlotFloats * sizeof(float) + sizeof(uint64_t));
+  // once a device (and shared-memory size): the attributes, and the blocks
+  // resident at once
+  static size_t smem_of[kMaxDevices];
+  static int slots_of[kMaxDevices];
+  cudaError_t err;
+  if (smem_of[dev] != smem) {
+    err = cudaFuncSetAttribute(rank_count_kernel<S>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem);
+    if (err != cudaSuccess) return err;
+    err = cudaFuncSetAttribute(rank_count_kernel<S>,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               (int)cudaSharedmemCarveoutMaxShared);
+    if (err != cudaSuccess) return err;
+    int per_sm = 0;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, rank_count_kernel<S>, kThreads,
+                                                        smem);
+    if (err != cudaSuccess) return err;
+    if (per_sm < 1) return cudaErrorInvalidConfiguration;
+    slots_of[dev] = sms * per_sm;
+    smem_of[dev] = smem;
+  }
+  const int slots = slots_of[dev];
+  const int rounds = (a.n_units + slots - 1) / slots;  // units the longest run takes
+  const int grid = (a.n_units + rounds - 1) / rounds;
+  CUtensorMap tm_e, tm_u;
+  err = encode_rows(&tm_e, e, a.I, a.d, S::kItems);
+  if (err != cudaSuccess) return err;
+  err = encode_rows(&tm_u, u, a.B, a.d, kUsers);
+  if (err != cudaSuccess) return err;
+  rank_count_kernel<S><<<grid, kThreads, smem, stream>>>(a, tm_e, tm_u);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -176,23 +380,22 @@ extern "C" int acf_rank_count(const float* u, const float* e,
                               const int* gt, int* out, int B, int I, int d,
                               void* stream) {
   if (B <= 0 || I <= 0 || d <= 0 || d % 4 != 0) return (int)cudaErrorInvalidValue;
-  // row stride in 16-byte units odd: 8 neighbouring rows hit 8 bank groups
-  const int ld = d + ((d / 4) % 2 == 0 ? 4 : 8);
-  const size_t smem = (size_t)(kBU + 2 * kBI) * ld * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      rank_count_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  static int sms_of[kMaxDevices];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return (int)err;
-  int dev = 0, sms = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  const int user_tiles = (B + kBU - 1) / kBU;
-  const int n_item_tiles = (I + kBI - 1) / kBI;
-  int splits = (kBlocksPerSm * (sms > 0 ? sms : 1) + user_tiles - 1) / user_tiles;
-  if (splits > n_item_tiles) splits = n_item_tiles;
-  if (splits > 65535) splits = 65535;
-  if (splits < 1) splits = 1;
-  rank_count_kernel<<<dim3(user_tiles, splits), kThreads, smem,
-                      static_cast<cudaStream_t>(stream)>>>(
-      u, e, bias, thresh, gt, out, B, I, d, ld, n_item_tiles);
-  return (int)cudaGetLastError();
+  if (dev < 0 || dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
+  if (sms_of[dev] == 0) {
+    err = cudaDeviceGetAttribute(&sms_of[dev], cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return (int)err;
+    if (sms_of[dev] < 1) return (int)cudaErrorInvalidConfiguration;
+  }
+  const int sms = sms_of[dev];
+  const Args a{bias, thresh, gt, out, B, I, d, 0, 0, (d + kSliceK - 1) / kSliceK};
+  const auto s = static_cast<cudaStream_t>(stream);
+  // wide units where there are enough of them to give every SM one
+  const long long wide_units = static_cast<long long>((B + kUsers - 1) / kUsers) *
+                               ((I + Wide::kItems - 1) / Wide::kItems);
+  return (int)(wide_units >= sms ? launch<Wide>(a, u, e, dev, sms, s)
+                                 : launch<Narrow>(a, u, e, dev, sms, s));
 }

@@ -10,6 +10,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "cp_async.cuh"
+
 constexpr int kMaxBlocks = 8;  // ENCODER_MAX_BLOCKS in ops/_build.py
 
 // The weights, one pointer per param leaf (EncoderWeights in ops/_build.py).
@@ -46,8 +48,6 @@ constexpr int kMaxThreads = 512;
 constexpr int kMaxColsPerLane = 4;  // d <= 128 over 32 lanes
 constexpr int kSliceFloats = 4096;  // SLICE_FLOATS in ops/sasrec_fused.py: a weight slice's floats at most
 constexpr float kEps = 1e-8f;
-
-inline int row_ld(int d) { return 4 * ((d / 4) | 1); }  // odd number of 16-byte units
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
@@ -95,19 +95,6 @@ __device__ __forceinline__ Epilogue epi(const float* bias = nullptr, bool relu =
 __device__ __forceinline__ void fma4(float4& o, float a, float4 w) {
   o.x = fmaf(a, w.x, o.x); o.y = fmaf(a, w.y, o.y);
   o.z = fmaf(a, w.z, o.z); o.w = fmaf(a, w.w, o.w);
-}
-
-__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
-  const unsigned saddr = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" :: "r"(saddr), "l"(src));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
 // ---- the weight stream ------------------------------------------------------
@@ -183,7 +170,7 @@ __device__ __forceinline__ void product(Pipe& pp, const float* const (&in)[NP],
 #pragma unroll
     for (int i = 0; i < ROWS; ++i) acc[i] = make_float4(0.f, 0.f, 0.f, 0.f);
     for (int s = 0; s < nsl; ++s) {
-      cp_async_wait_all();
+      cp_async_wait<0>();
       __syncthreads();  // slice s has landed; every thread is done with the other slot
       const WRef following = s + 1 < nsl ? WRef{W[p], TRANS}
                              : p + 1 < NP ? WRef{W[p + 1 < NP ? p + 1 : p], TRANS}

@@ -4,8 +4,10 @@
 The leave-one-out evaluator needs, per user, the number of catalog items
 scoring >= the held-out item. On a CUDA tensor :func:`rank_positions_dot`
 launches the hand-written kernel ``csrc/rank_count.cu`` (K1), which streams
-item tiles through shared memory so the [B, I] score matrix never exists in
-device memory; on a CPU tensor it takes :func:`rank_positions_dot_plain`.
+k-slices of user and item tiles through shared memory so the [B, I] score
+matrix never exists in device memory; on a CPU tensor it takes
+:func:`rank_positions_dot_plain`. The kernel's limits are stated once, in
+:func:`check_supported`.
 
 Rounding note: the kernel sums each dot product in its own order (fp32 FMAs
 over k), so an item whose score ties the threshold within rounding can flip
@@ -16,6 +18,8 @@ count, so it is handled exactly.
 from __future__ import annotations
 
 import torch
+
+ROADMAP_ITEM = "ROADMAP.md Queue 2, 'K1: any width and alignment'"
 
 
 def rank_positions_dot_plain(u_repr, item_emb, thresholds, bias=None, gt=None):
@@ -55,6 +59,20 @@ def _check(u_repr, item_emb, thresholds, bias, gt):
             raise ValueError(f"{name} must be contiguous")
 
 
+def check_supported(u_repr, item_emb):
+    """Raise ``ValueError`` unless K1 takes these [B, d] user rows and [I, d]
+    item table: d % 4 == 0, d >= 4 and both 16-byte aligned (the kernel
+    copies rows 16 bytes at a time). Any such d and any B, I run."""
+    d = u_repr.shape[1]
+    if d % 4 or d < 4:
+        raise ValueError(f"rank_positions_dot on CUDA needs d % 4 == 0 and d >= 4, got d={d} "
+                         f"(other widths are lifted by {ROADMAP_ITEM})")
+    for name, x in (("u_repr", u_repr), ("item_emb", item_emb)):
+        if x.data_ptr() % 16:
+            raise ValueError(f"rank_positions_dot on CUDA needs {name} 16-byte aligned "
+                             f"(unaligned views are lifted by {ROADMAP_ITEM})")
+
+
 def rank_positions_dot(u_repr, item_emb, thresholds, bias=None, gt=None):
     """Count catalog items with ``u·e + bias_e >= threshold`` per user.
 
@@ -79,13 +97,9 @@ def rank_positions_dot(u_repr, item_emb, thresholds, bias=None, gt=None):
         return rank_positions_dot_plain(u_repr, item_emb, thresholds, bias, gt)
     if dev.type != "cuda":
         raise ValueError(f"rank_positions_dot runs on cpu or cuda, not {dev}")
+    check_supported(u_repr, item_emb)
     b, d = u_repr.shape
     num_items = item_emb.shape[0]
-    if d % 4 or d > 256:  # 16-byte copies; the tiles must fit in shared memory
-        raise ValueError(f"rank_positions_dot on CUDA needs d % 4 == 0 and "
-                         f"d <= 256, got d={d}")
-    if u_repr.data_ptr() % 16 or item_emb.data_ptr() % 16:
-        raise ValueError("u_repr and item_emb must be 16-byte aligned on CUDA")
     out = torch.zeros(b, dtype=torch.int32, device=dev)
     if b == 0 or num_items == 0:
         return out.to(torch.float32)

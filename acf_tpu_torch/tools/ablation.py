@@ -13,7 +13,8 @@ shares:
 
 A tool names its source file (``apl_gen.cu`` by default), the prefix of
 the C entries it binds, the tolerance of its checks and the label of the
-shapes it times.
+shapes it times. A source's ``#include "..."`` of a header beside it is
+inlined (``read_source``), so a variant builds alone in the build directory.
 """
 
 from __future__ import annotations
@@ -22,6 +23,7 @@ import argparse
 import ctypes
 import hashlib
 import json
+import re
 import subprocess
 from pathlib import Path
 
@@ -32,8 +34,32 @@ from acf_tpu_torch.ops import _build
 TOL = 1e-4  # chip_smoke.py's APL_TOL, of the output's scale
 SHAPE = (512, 64, 23_701)  # APL's B, d and I at Video scale
 W, T = 0.2, 0.2  # APL's p_aux and temperature
+PROFILER_TRIES = 3  # chip_smoke.py's
 APL = dict(source="apl_gen.cu", prefix="acf_apl_", tol=TOL,
            shape=f"B={SHAPE[0]} d={SHAPE[1]} I={SHAPE[2]}")
+
+
+_LOCAL_INCLUDE = re.compile(r'^#include "([^"]+)"\n', re.MULTILINE)
+
+
+def read_source(path, seen: set | None = None) -> str:
+    """The text of the CUDA source at ``path`` with each ``#include "X"`` of a
+    file beside it replaced by that file's text, recursively and each file
+    once (names in ``seen`` are already in: their includes are dropped)."""
+    src = Path(path)
+    seen = set() if seen is None else seen
+
+    def inline(match):
+        name = match.group(1)
+        if name in seen:
+            return ""
+        seen.add(name)
+        header = src.parent / name
+        if not header.exists():
+            raise SystemExit(f"{src} includes {name}, which is not beside it")
+        return read_source(header, seen)
+
+    return _LOCAL_INCLUDE.sub(inline, src.read_text())
 
 
 def variants(source: str, forms: dict, kernel: str) -> dict[str, str]:
@@ -112,28 +138,30 @@ def launcher(fn, args, name, outputs):
     return call
 
 
-def device_ms(fn, iters=50, warmup=10) -> float:
-    """Mean device milliseconds per call (torch.profiler, every kernel)."""
+def device_ms(fn, iters=50, warmup=10, only: str | None = None) -> float:
+    """Mean device milliseconds per call (torch.profiler): every kernel's, or
+    with ``only`` those whose name holds it."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(warmup):
         fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
+    for _ in range(PROFILER_TRIES):  # CUPTI now and then returns a session with no device events
         torch.cuda.synchronize()
-    total = sum(e.self_device_time_total for e in prof.key_averages()
-                if e.device_type == DeviceType.CUDA)
-    if total <= 0:
-        raise SystemExit("the profiler saw no device time")
-    return total / 1e3 / iters
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        total = sum(e.self_device_time_total for e in prof.key_averages()
+                    if e.device_type == DeviceType.CUDA and (only is None or only in e.key))
+        if total > 0:
+            return total / 1e3 / iters
+    raise SystemExit(f"the profiler saw no device time in {PROFILER_TRIES} sessions")
 
 
 def run(doc: str, kernel: str, variants_of, setup, check=lambda outputs, extras: [], *,
-        source: str = APL["source"], prefix: str = APL["prefix"], tol: float = APL["tol"],
-        shape: str = APL["shape"], read=lambda path: Path(path).read_text()) -> None:
+        source: str = APL["source"], prefix: str = APL["prefix"], tol: float | None = APL["tol"],
+        shape: str = APL["shape"], read=read_source, cross_check=None) -> None:
     """The command line of an ablation tool (``doc`` is its docstring).
 
     Builds every variant (``variants_of(text)``) of every ``--source`` (a
@@ -144,11 +172,14 @@ def run(doc: str, kernel: str, variants_of, setup, check=lambda outputs, extras:
     several shapes: ``want`` maps each output's name to its plain value,
     ``call_of(lib)`` launches the kernel under study once and returns its
     outputs in that order, and ``extras_of(lib)`` gives {label: call} of
-    other calls of an as-is build, timed beside it. Each ``as_is`` must
-    agree with ``want`` within ``tol`` of its scale, give the same bits on
+    other calls of an as-is build, timed beside it (a call with an ``only``
+    attribute is timed by the kernels whose name holds it). Each ``as_is`` must
+    agree with ``want`` within ``tol`` of its scale (``tol`` None: the
+    difference is printed, and ``check`` judges it), give the same bits on
     two calls and pass ``check(outputs, extras)``, a list of (what, ok);
-    the other variants compute something else on purpose. Rounds time
-    every call in turn, forward then backward."""
+    the other variants compute something else on purpose. Before any of
+    that, ``cross_check(libs)`` (if given) returns (what, ok) pairs over
+    every build. Rounds time every call in turn, forward then backward."""
     ap = argparse.ArgumentParser(description=doc.splitlines()[0])
     ap.add_argument("--source", action="append", default=[],
                     help=f"LABEL=PATH of a copy of {source} (repeatable)")
@@ -164,6 +195,10 @@ def run(doc: str, kernel: str, variants_of, setup, check=lambda outputs, extras:
     texts = {f"{label}:{name}": text for label, path in sources.items()
              for name, text in variants_of(read(path)).items()}
     libs = build_all(texts, kernel, prefix)
+    for what, ok in (cross_check(libs) if cross_check else []):
+        print(f"{what}: {ok}")
+        if not ok:
+            raise SystemExit(f"not {what}")
 
     cases = setup(torch.device("cuda", 0))
     if not isinstance(cases, dict):
@@ -183,7 +218,7 @@ def run(doc: str, kernel: str, variants_of, setup, check=lambda outputs, extras:
             for (out, w_), g_ in zip(want.items(), got):
                 err, scale = float((g_ - w_).abs().max()), float(w_.abs().max())
                 print(f"{name} {out}: max |kernel - plain| {err:.3e} of scale {scale:.4g}")
-                if not err <= tol * scale:
+                if tol is not None and not err <= tol * scale:
                     raise SystemExit(f"{name} {out} disagrees with its plain version")
             for what, ok in [("two calls bit-identical",
                               all(torch.equal(g_, a_) for g_, a_ in zip(got, again))),
@@ -202,7 +237,7 @@ def run(doc: str, kernel: str, variants_of, setup, check=lambda outputs, extras:
     order = list(calls)
     for rnd in range(args.rounds):
         for key in (order if rnd % 2 == 0 else order[::-1]):
-            samples[key].append(device_ms(calls[key]))
+            samples[key].append(device_ms(calls[key], only=getattr(calls[key], "only", None)))
     print(f"device ms per call at {shape} (torch.profiler, 50 calls a sample, rounds forward "
           f"then backward):")
     width = max(24, *map(len, samples))

@@ -167,12 +167,10 @@ OTHER_LAYOUTS = {50: {"three_an_sm": (1, 256, 40), "two_users": (2, 512, None),
 
 
 def read(path: str) -> str:
-    """The forward of one commit with its header inlined."""
-    src = Path(path)
-    text = src.read_text()
-    if text.count(INCLUDE) != 1:
-        raise SystemExit(f"{src} does not include {HEADER} once")
-    return text.replace(INCLUDE, (src.parent / HEADER).read_text())
+    """The forward of one commit with its headers inlined."""
+    if Path(path).read_text().count(INCLUDE) != 1:
+        raise SystemExit(f"{path} does not include {HEADER} once")
+    return ablation.read_source(path)
 
 
 def variants(source: str) -> dict[str, str]:

@@ -193,16 +193,15 @@ LAYOUTS = {"remat": _remat_layout, "staged": _staged_layout}
 
 def read(path: str) -> str:
     """The header, the backward and (where it lies beside them) the forward
-    of one commit as one text: the header in place of the backward's
+    of one commit as one text: the headers in place of the backward's
     include, the forward appended without its own."""
     src = Path(path)
-    text = src.read_text()
-    header = (src.parent / HEADER).read_text()
-    if text.count(INCLUDE) != 1:
+    if src.read_text().count(INCLUDE) != 1:
         raise SystemExit(f"{src} does not include {HEADER} once")
-    text = text.replace(INCLUDE, header)
+    seen = set()
+    text = ablation.read_source(src, seen)
     if (src.parent / FWD).exists():
-        text += "\n" + (src.parent / FWD).read_text().replace(INCLUDE, "")
+        text += "\n" + ablation.read_source(src.parent / FWD, seen)
     return text
 
 

@@ -10,17 +10,25 @@ Phases, any failure exits non-zero:
 
   1. card   — ``nvidia-smi`` name and power limit, torch's device name;
   2. build  — compile every kernel in ``acf_tpu_torch/csrc`` with nvcc and
-              print its ``-Xptxas -v`` lines; K2a, K2b, its reduction, every
-              K3 kernel and the merges of their partials must spill nothing;
+              print its ``-Xptxas -v`` lines; K1, K2a, K2b, its reduction,
+              every K3 kernel and the merges of their partials must spill
+              nothing;
   3. K1     — the rank-count kernel against its plain PyTorch version on
-              standard-normal inputs, B in {8, 512}, I in {300, 23700},
-              d = 64 (plus two narrower widths), with and without bias
-              and gt;
+              standard-normal inputs at every ``K1_SHAPES`` case
+              (``acf_tpu_torch/tools/k1_ablation.py``: B in {8, 512} x I in
+              {300, 23700} at d = 64, two narrower widths, and the edges of
+              its units (128 users x 128 or 256 items): B in {1, 127, 129,
+              513}, I in {2, 129, 3707, 23700, 40000}, d in {4, 36, 128, 256,
+              260}), with and without bias and gt, two calls bit-identical;
+              ``ValueError`` for d = 6 and for a ``u_repr`` one float off
+              16-byte alignment, with no launch;
   4. eval   — MF-BPR (d = 64, random weights from a seed) on a synthetic
               Video-shaped dataset (31k users x 23.7k items, ~300k
               interactions): ``FullRankEvaluator.evaluate_model`` through
               K1, checked against the dense ``positions(score_all)`` path,
-              timed; K1 timed alone at the path's shapes;
+              timed; K1 timed alone at the path's shape (B = 512, I =
+              23,701) and at the ml-1m shape of phase 7 (I = 3,707), its
+              kernel alone too;
   5. serve  — ``recommend`` top-10 for every user, checked against a dense
               ``score_all`` + mask + ``torch.topk`` on 256 users, timed;
   6. K2a    — the SASRec encoder-forward kernel against its plain PyTorch
@@ -262,32 +270,19 @@ def best_wall_s(fn, reps: int = 3) -> float:
     return min(times)
 
 
-def near_tie_items(u, E, t, bias, gt, b):
-    """Items of user ``b`` whose f32 score lies within 1e-5 of the
-    threshold, relative to max(|t|, 1) (items 0 and gt excluded)."""
-    s = E @ u[b]
-    if bias is not None:
-        s = s + bias
-    near = (s - t[b]).abs() <= 1e-5 * max(abs(float(t[b])), 1.0)
-    near[0] = False
-    if gt is not None:
-        near[int(gt[b])] = False
-    return int(near.sum())
-
-
-K1_SHAPES = ((8, 300, D), (8, 23_700, D), (512, 300, D), (512, 23_700, D),
-             (100, 1_000, 8), (100, 1_000, 36))  # (B, I, d)
-
-
-def check_k1(dev, shapes=K1_SHAPES):
-    """K1 against its plain version. Returns the max |count difference|."""
+def check_k1(dev):
+    """K1 against its plain version on every ``K1_SHAPES`` case (B, I, d;
+    ``acf_tpu_torch/tools/k1_ablation.py``), two calls bit for bit, and its
+    ``ValueError`` outside its limits with no launch. Returns the max |count
+    difference|."""
     from acf_tpu_torch.ops.ranking import rank_positions_dot, rank_positions_dot_plain
+    from acf_tpu_torch.tools.k1_ablation import K1_SHAPES, near_tie_items
 
     g = torch.Generator(device=dev).manual_seed(0)
     before = rank_positions_dot.launches
     max_err = 0.0
     cases = 0
-    for b, n_items, d in shapes:
+    for b, n_items, d in K1_SHAPES:
         for with_bias_gt in (False, True):
             u = torch.randn(b, d, generator=g, device=dev)
             E = torch.randn(n_items, d, generator=g, device=dev)
@@ -297,6 +292,8 @@ def check_k1(dev, shapes=K1_SHAPES):
             gt = (torch.randint(1, n_items, (b,), generator=g, device=dev,
                                 dtype=torch.int32) if with_bias_gt else None)
             got = rank_positions_dot(u, E, t, bias=bias, gt=gt)
+            check(torch.equal(got, rank_positions_dot(u, E, t, bias=bias, gt=gt)),
+                  f"K1 B={b} I={n_items} d={d}: two calls differ")
             ref = rank_positions_dot_plain(u, E, t, bias=bias, gt=gt)
             diff = (got - ref).abs()
             max_err = max(max_err, float(diff.max()))
@@ -308,9 +305,24 @@ def check_k1(dev, shapes=K1_SHAPES):
                       f"K1 B={b} I={n_items}: user {row} differs with no near tie")
             cases += 1
             print(f"K1 B={b} I={n_items} d={d} bias+gt={with_bias_gt}: "
-                  f"{len(differing)} of {b} users differ by 1 at near ties")
-    check(rank_positions_dot.launches - before == cases,
-          "K1 launch counter did not move once per case")
+                  f"{len(differing)} of {b} users differ by 1 at near ties; "
+                  f"two calls bit-identical")
+    check(rank_positions_dot.launches - before == 2 * cases,
+          "K1 launch counter did not move once per call")
+
+    E, t = torch.zeros(10, 64, device=dev), torch.zeros(4, device=dev)
+    refused = (("d=6", (torch.zeros(4, 6, device=dev), torch.zeros(10, 6, device=dev), t)),
+               ("u_repr offset by one float",
+                (torch.zeros(4 * 64 + 1, device=dev)[1:].view(4, 64), E, t)))
+    for label, args in refused:
+        before = rank_positions_dot.launches
+        try:
+            rank_positions_dot(*args)
+        except ValueError as e:
+            print(f"K1 {label}: raises ValueError as it should: {e}")
+        else:
+            fail(f"K1 {label}: rank_positions_dot did not raise")
+        check(rank_positions_dot.launches == before, f"K1 {label}: launched anyway")
     return max_err
 
 
@@ -425,36 +437,59 @@ def check_serving(dev, model, params, data, label="serve", counter=None, k=10,
     return users
 
 
-def k1_timing(dev, model, params, ev):
-    """K1 alone at the main path's shapes (one user tile of the Video-shaped
-    evaluation), beside its plain version and one torch.matmul of the same
-    product. Returns the kernel's entry for the kernels line (without
-    launches and max_abs_err)."""
+def k1_work(b, n_items, d):
+    """(bound ms, bound_by) of K1 on [b, d] users and an [n_items, d] table:
+    2·B·I·d FLOP; u, E, t and gt read, the counts written."""
+    return bound(2.0 * b * n_items * d, 4.0 * (b * d + n_items * d + 3 * b))
+
+
+def k1_line(label, reprs, table, t, gt):
+    """Times K1 on these inputs (the wrapper's device time, its kernel's alone,
+    back to back), its plain version and one torch.matmul of the product;
+    prints them beside the bound and returns the entry's numbers."""
     from acf_tpu_torch.ops.ranking import rank_positions_dot, rank_positions_dot_plain
 
+    b, d = reprs.shape
+    n_items = table.shape[0]
+    ms = device_ms(lambda: rank_positions_dot(reprs, table, t, gt=gt))
+    alone_ms = kernel_ms(lambda: rank_positions_dot(reprs, table, t, gt=gt), "rank_count_kernel")
+    plain_ms = device_ms(lambda: rank_positions_dot_plain(reprs, table, t, gt=gt), PLAIN_ITERS)
+    library_ms = device_ms(lambda: torch.matmul(reprs, table.T))
+    back_to_back_ms = elapsed_ms(lambda: rank_positions_dot(reprs, table, t, gt=gt))
+    bound_ms, bound_by = k1_work(b, n_items, d)
+    alone = "not measured" if alone_ms is None else f"{alone_ms:.4f} ms"
+    print(f"K1 device time {label} at B={b} I={n_items} d={d}: wrapper {ms:.4f} ms "
+          f"({2.0 * b * n_items * d / (ms * 1e-3) / 1e12:.2f} TFLOP/s; the kernel alone "
+          f"{alone}), plain {plain_ms:.4f} ms, torch.matmul of the product {library_ms:.4f} "
+          f"ms, bound {bound_ms:.4f} ms ({bound_by}); K1 wrapper back to back "
+          f"{back_to_back_ms:.4f} ms per call (CUDA events)")
+    return {"ms": ms, "kernel_alone_ms": alone_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": library_ms}
+
+
+def k1_timing(dev, model, params, ev):
+    """K1 alone at the main paths' shapes: one user tile of the Video-shaped
+    MF-BPR evaluation, and B=512 against the ml-1m-shaped table of the
+    SASRec maxlen-50 evaluation (I = 3,707; standard-normal rows, the
+    thresholds the gt's scores). Returns the kernel's entry for the kernels
+    line (without launches and max_abs_err); the ml-1m numbers under
+    ``"ml1m"``."""
     users = ev._users_d[:ev.batch_users]
     gt = ev._gt_d[:ev.batch_users].contiguous()
     reprs = params["P"][users].contiguous()
     table = params["Q"]
     t = (reprs * table[gt.long()]).sum(dim=1).contiguous()
-    b, d = reprs.shape
-    n_items = table.shape[0]
     mark = len(EVENT_TIMED)
-    ms = device_ms(lambda: rank_positions_dot(reprs, table, t, gt=gt))
-    plain_ms = device_ms(lambda: rank_positions_dot_plain(reprs, table, t, gt=gt))
-    library_ms = device_ms(lambda: torch.matmul(reprs, table.T))
-    back_to_back_ms = elapsed_ms(lambda: rank_positions_dot(reprs, table, t, gt=gt))
-    flops = 2.0 * b * n_items * d
-    nbytes = 4.0 * (b * d + n_items * d + 3 * b)  # u, E, t, gt in; counts out
-    bound_s = max(flops / FP32_FLOPS, nbytes / HBM_BYTES_PER_S)
-    bound_by = "operations" if flops / FP32_FLOPS >= nbytes / HBM_BYTES_PER_S else "bytes"
-    print(f"K1 device time at B={b} I={n_items} d={d}: kernel {ms:.4f} ms "
-          f"({flops / (ms * 1e-3) / 1e12:.2f} TFLOP/s), plain {plain_ms:.4f} ms, "
-          f"torch.matmul of the product {library_ms:.4f} ms, bound "
-          f"{bound_s * 1e3:.4f} ms ({bound_by}); K1 wrapper back to back "
-          f"{back_to_back_ms:.4f} ms per call (CUDA events)")
-    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_s * 1e3,
-            "bound_by": bound_by, "library_ms": library_ms, "timer": timer_since(mark)}
+    entry = k1_line("(MF-BPR eval tile, Video shape)", reprs, table, t, gt)
+    g = torch.Generator(device=dev).manual_seed(2)
+    reprs = torch.randn(ev.batch_users, D, generator=g, device=dev)
+    table = torch.randn(ML1M_ITEMS + 1, D, generator=g, device=dev)
+    gt = torch.randint(1, ML1M_ITEMS + 1, (ev.batch_users,), generator=g, device=dev,
+                       dtype=torch.int32)
+    t = (reprs * table[gt.long()]).sum(dim=1).contiguous()
+    entry["ml1m"] = k1_line("(ml-1m shape)", reprs, table, t, gt)
+    entry["timer"] = timer_since(mark)
+    return entry
 
 
 def device_breakdown(label, fn, wall_s, top=6):
@@ -1228,10 +1263,10 @@ APL_TOL = 1e-4
 # take (MAX_D), where K3e's shared memory is the largest, with odd I
 APL_CASES = ((512, D, 23_701), (7, 36, 1_100), (65, 64, 131), (70, 128, 517))
 APL_PRODUCTS = {"apl_stats1": 1, "apl_z": 1, "apl_fake": 1, "apl_bigr": 2, "apl_grad": 4}
-# Kernels whose ptxas lines must show no stack frame and no spill: K2a (both
-# thread counts), K2b and its reduction, the K3 passes and the merges of
-# their partials.
-NO_SPILL_KERNELS = ("sasrec_encoder_fwd_kernel", "sasrec_encoder_bwd_kernel",
+# Kernels whose ptxas lines must show no stack frame and no spill: K1, K2a
+# (both thread counts), K2b and its reduction, the K3 passes and the merges
+# of their partials.
+NO_SPILL_KERNELS = ("rank_count_kernel", "sasrec_encoder_fwd_kernel", "sasrec_encoder_bwd_kernel",
                     "sasrec_encoder_bwd_reduce", "stats1_kernel", "z_kernel", "fake_kernel",
                     "bigr_kernel", "grad_kernel", "stat_combine", "sum_combine")
 # The pass kernels of apl_gen.cu, by their names in a profile ("...::z_kernel(...")
@@ -1242,8 +1277,8 @@ APL_REPLACES = {"apl_stats1": 67, "apl_z": 83, "apl_fake": 111, "apl_bigr": 141,
 
 
 def check_no_spill(log):
-    """Phase 2: the ptxas lines of K2a, K2b, its reduction, the K3 kernels
-    and their merges in the build log show no stack frame and no spill
+    """Phase 2: the ptxas lines of K1, K2a, K2b, its reduction, the K3
+    kernels and their merges in the build log show no stack frame and no spill
     (their designs keep their tiles and row scalars in registers and shared
     memory)."""
     from acf_tpu_torch.tools.ablation import ptxas_lines

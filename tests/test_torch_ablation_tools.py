@@ -1,21 +1,24 @@
 """The ablation tools (``acf_tpu_torch/tools/k3a_ablation.py``,
 ``k3b_ablation.py``, ``k3c_ablation.py``, ``k3d_ablation.py``,
-``k3e_ablation.py``, ``k2b_ablation.py``, ``k2a_ablation.py``) make their
-variants by text substitution of ``csrc/apl_gen.cu`` (K2b's: of
-``sasrec_encoder_bwd.cu`` with its header and K2a's file; K2a's: of
-``sasrec_encoder_fwd.cu`` with its header): each must find its form in the
+``k3e_ablation.py``, ``k2b_ablation.py``, ``k2a_ablation.py``,
+``k1_ablation.py``) make their variants by text substitution of
+``csrc/apl_gen.cu`` (K2b's: of ``sasrec_encoder_bwd.cu`` with its header and
+K2a's file; K2a's: of ``sasrec_encoder_fwd.cu`` with its header; K1's: of
+``rank_count.cu`` with its header): each must find its form in the
 committed source and change it, so a later edit of the kernels cannot
 silently time the unchanged kernel under a variant's name."""
 
 import pytest
 
 from acf_tpu_torch.ops import _build
-from acf_tpu_torch.tools import (k2a_ablation, k2b_ablation, k3a_ablation, k3b_ablation,
-                                 k3c_ablation, k3d_ablation, k3e_ablation)
+from acf_tpu_torch.tools import (ablation, k1_ablation, k2a_ablation, k2b_ablation,
+                                 k3a_ablation, k3b_ablation, k3c_ablation, k3d_ablation,
+                                 k3e_ablation)
 
 SOURCE = (_build.CSRC_DIR / "apl_gen.cu").read_text()
 K2B_SOURCE = k2b_ablation.read(str(_build.CSRC_DIR / "sasrec_encoder_bwd.cu"))
 K2A_SOURCE = k2a_ablation.read(str(_build.CSRC_DIR / "sasrec_encoder_fwd.cu"))
+K1_SOURCE = ablation.read_source(_build.CSRC_DIR / "rank_count.cu")
 EXPECTED = {
     k3a_ablation: ("as_is", "no_merge", "no_math", "neither"),
     k3b_ablation: ("as_is", "no_store", "no_loads", "no_traffic", "no_math"),
@@ -26,11 +29,15 @@ EXPECTED = {
                    "three_products", "late_partial"),
     k2a_ablation: ("as_is", "no_wload", "no_attn", "no_ln", "no_saved", "ldg_weights",
                    "regs80", "no_pv", "keys7"),
+    k1_ablation: ("as_is", "narrow_only", "wide_only", "tile4x4", "items64", "slice16",
+                  "stages3", "bias_ldg", "split_grid", "users_resident", "unroll2", "no_copies",
+                  "no_bload", "no_epilogue"),
 }
 
 
 def source_of(tool):
-    return {k2b_ablation: K2B_SOURCE, k2a_ablation: K2A_SOURCE}.get(tool, SOURCE)
+    return {k2b_ablation: K2B_SOURCE, k2a_ablation: K2A_SOURCE,
+            k1_ablation: K1_SOURCE}.get(tool, SOURCE)
 
 
 @pytest.mark.parametrize("tool,name", [(tool, name) for tool, names in EXPECTED.items()
@@ -215,3 +222,53 @@ def test_k2a_layouts_of_both_forms():
             rows = users * t
             assert k2a_ablation.LAYOUTS["staged"](t, 64, users, threads, ks) == (
                 users, threads, _fwd_bytes(rows, 64, ks or _fwd_slice(rows, 64, threads)))
+
+
+def test_sources_build_alone_with_their_headers_inlined():
+    """``read_source`` puts each header a source includes in place of its
+    ``#include``, once, so a variant compiles alone in the build directory:
+    every kernel source's text holds no local include and one copy of the
+    shared cp.async helpers."""
+    header = (_build.CSRC_DIR / "cp_async.cuh").read_text()
+    for text in (K1_SOURCE, K2A_SOURCE, K2B_SOURCE,
+                 ablation.read_source(_build.CSRC_DIR / "apl_gen.cu")):
+        assert '#include "' not in text
+        assert text.count(header) == 1
+    for name in ("rank_count.cu", "apl_gen.cu", "sasrec_encoder.cuh"):
+        text = (_build.CSRC_DIR / name).read_text()
+        assert "cp.async.cg.shared.global" not in text and "int row_ld(" not in text
+
+
+def test_k1_forms_and_variants():
+    """The committed K1 holds the flat form's marker and not the split
+    form's (commit 950a8bf, which has no variants); the slot variants change
+    one "ablation" constant only, and each other variant swaps the code it
+    names."""
+    (split, none), (flat, _) = k1_ablation.FORMS["split"], k1_ablation.FORMS["flat"]
+    assert K1_SOURCE.count(flat) == 1 and K1_SOURCE.count(split) == 0 and none == {}
+    texts = k1_ablation.variants(K1_SOURCE)
+    for name in ("slice16", "stages3"):
+        changed = [line for line in texts[name].splitlines()
+                   if line not in K1_SOURCE.splitlines()]
+        assert len(changed) == 1 and "// ablation:" in changed[0], (name, changed)
+    for name in ("narrow_only", "tile4x4", "items64"):
+        assert "false ? launch<Wide>" in texts[name]
+    assert "true ? launch<Wide>" in texts["wide_only"]
+    assert "Shape<4, 2>" in texts["items64"] and "kRU = 4;" in texts["tile4x4"]
+    assert "__ldg(a.bias + item)" in texts["bias_ldg"] and "__ldg" not in K1_SOURCE
+    assert "gridDim.x / (a.n_units / a.n_item_tiles)" in texts["split_grid"]
+    resident = texts["users_resident"]
+    assert "resident = ut;" in resident and "&tm_u, ks * kSliceK, u0" not in resident
+    assert "#pragma unroll 2" in texts["unroll2"]
+    assert "tma_box(" not in texts["no_copies"].split("__global__")[0].split("stage(")[-1]
+    assert set(k1_ablation.CHANGE_COUNTS) < set(texts) and set(k1_ablation.MAX_D) < set(texts)
+
+
+def test_k1_shapes_cover_the_unit_edges():
+    """``K1_SHAPES`` (checked by ``chip_smoke.py`` and the tool) holds one user,
+    user counts either side of 128-user units, item counts either side of
+    128-item units and of the ml-1m table, and widths from 4 past 256."""
+    bs, items, ds = (set(x) for x in zip(*k1_ablation.K1_SHAPES))
+    assert {1, 127, 129, 512, 513} <= bs
+    assert {2, 129, 3_707, 23_700, 40_000} <= items
+    assert {4, 36, 64, 128, 256, 260} <= ds and all(d % 4 == 0 for d in ds)

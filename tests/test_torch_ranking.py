@@ -8,7 +8,8 @@ import pytest
 import torch
 
 from acf_tpu.ops.ranking import rank_positions_dot as jax_rank_positions_dot
-from acf_tpu_torch.ops.ranking import rank_positions_dot, rank_positions_dot_plain
+from acf_tpu_torch.ops.ranking import (ROADMAP_ITEM, check_supported, rank_positions_dot,
+                                       rank_positions_dot_plain)
 
 
 def _inputs(seed, b, d, n_items, with_bias_gt):
@@ -72,3 +73,23 @@ def test_wrapper_rejects_bad_inputs(bad):
         gt = gt.long()
     with pytest.raises((TypeError, ValueError)):
         rank_positions_dot(u, E, t, bias=bias, gt=gt)
+
+
+@pytest.mark.parametrize("d", [4, 8, 64, 256, 260, 1024])
+def test_check_supported_takes_any_width_divisible_by_4(d):
+    """K1 streams k in slices, so no width limit is left but d % 4 == 0."""
+    check_supported(torch.zeros(3, d), torch.zeros(5, d))
+
+
+@pytest.mark.parametrize("case", ["d=6", "d=2", "d=0", "u_repr offset", "item_emb offset"])
+def test_check_supported_refuses_what_the_kernel_cannot_copy(case):
+    """The kernel copies rows 16 bytes at a time: d % 4 != 0, d < 4 or a
+    table not 16-byte aligned raise ValueError naming the ROADMAP item."""
+    d = {"d=6": 6, "d=2": 2, "d=0": 0}.get(case, 64)
+    u, E = torch.zeros(3, d), torch.zeros(5, d)
+    if case == "u_repr offset":
+        u = torch.zeros(3 * d + 1)[1:].view(3, d)
+    elif case == "item_emb offset":
+        E = torch.zeros(5 * d + 1)[1:].view(5, d)
+    with pytest.raises(ValueError, match=ROADMAP_ITEM.split(",")[0]):
+        check_supported(u, E)
