@@ -67,6 +67,13 @@ class PairwiseModel:
         loss; models that fold a regularizer into ``loss`` override."""
         return self.loss(params, batch, generator)[0]
 
+    def primary_loss(self, loss, aux):
+        """The differentiable primary (pre-regularizer) loss of a ``loss``
+        call that returned ``(loss, aux)``: what the FGSM wrapper adds at the
+        perturbed point. Default: ``aux["loss"]``, the JAX zoo's convention;
+        models whose aux values are detached override."""
+        return aux.get("loss", loss)
+
     def score_all(self, params, users, hists):
         raise NotImplementedError
 

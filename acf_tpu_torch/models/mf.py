@@ -1,11 +1,20 @@
-"""Matrix-factorization models: MF-BPR (with its APR adversarial fields) and
+"""Matrix-factorization models: MF-BPR with its APR adversarial variant, and
 pointwise MF (counterpart of ``acf_tpu/models/mf.py``).
 
 The hyperparameter fields match the JAX dataclasses so configurations carry
-across. :meth:`MFBPR.loss` is the clean BPR objective (the pretraining of
-APL's generator); APR (``adversarial=True``), DNS (``dns > 1``), PGD
-(``adv_steps > 1``) and ``PointwiseMF.loss`` are not ported yet (ROADMAP.md
-Queue 1 item 3) and raise.
+across. :meth:`MFBPR.loss` is the clean BPR objective, or with
+``adversarial=True`` APR: the clean loss plus ``reg_adv`` times the BPR loss
+at embedding rows moved by FGSM deltas (``adv_mode="grad"``: ε times the
+row-normalized gradient of the clean loss, ``adv_steps`` PGD-style steps;
+``"random"``: ε times row-normalized truncated-normal noise). For the
+reference configuration (grad mode, one step) :attr:`MFBPR.manual_grads`
+gives APR's gradients in closed form, which the pair trainer takes instead
+of autograd up to ``manual_grads_max_batch``. DNS (``dns > 1``) lives in the
+pair trainer (``acf_tpu_torch/train/trainer.py``).
+
+The inner FGSM gradient is taken on detached copies of the tables with
+their own gathers, so it never touches the graph of the loss the caller
+differentiates, and it is constant under that outer gradient.
 """
 
 from __future__ import annotations
@@ -15,9 +24,9 @@ import dataclasses
 import torch
 
 from acf_tpu_torch.device import resolve_device
-from acf_tpu_torch.models.base import PairwiseModel, bpr_pair_loss
-
-NOT_PORTED = "is not ported yet (ROADMAP.md Queue 1 item 3)"
+from acf_tpu_torch.models.base import (
+    PairwiseModel, bpr_pair_loss, project_rows, row_normalize,
+)
 
 
 def _trunc_normal(generator, shape, std=0.01):
@@ -41,6 +50,34 @@ def _mf_factored_scorer(model):
     return model._fs
 
 
+def _mf_adv_encoders(model):
+    """The user and item towers (``acf_tpu/models/mf.py`` ``adv_encoders``):
+    name -> (side, fn(params, ids) -> [N, d], width)."""
+    d = model.dim
+    return {
+        "u": ("user", lambda p, ids: p["P"][ids], d),
+        "i": ("item", lambda p, ids: p["Q"][ids], d),
+    }
+
+
+def _pair_bpr(p, qp, qn):
+    """(pos scores, neg scores) of gathered rows p [B, d], qp, qn."""
+    return torch.sum(p * qp, dim=-1), torch.sum(p * qn, dim=-1)
+
+
+def _acc(diff):
+    """The share of pairs with ``diff > 0``, as an f32 mean of a bool."""
+    return torch.mean((diff > 0).to(torch.float32))
+
+
+def _clip_grad_coef(diff):
+    """(clipped diff, dL/ddiff) of ``softplus(-clip(diff, -80, 1e8))``: the
+    clip passes no gradient outside its range, inclusive at the ends."""
+    diff_c = torch.clamp(diff, -80.0, 1e8)
+    in_range = ((diff >= -80.0) & (diff <= 1e8)).to(torch.float32)
+    return diff_c, -torch.sigmoid(-diff_c) * in_range
+
+
 @dataclasses.dataclass(eq=False)
 class MFBPR(PairwiseModel):
     """MF with BPR loss; APR (FGSM on embedding rows) when ``adversarial``.
@@ -57,6 +94,8 @@ class MFBPR(PairwiseModel):
     init_std: float = 0.01
     dns: int = 1  # >1 = hardest-of-k dynamic negative sampling
     adv_steps: int = 1  # >1 = multi-step (PGD-style) perturbation
+    # the closed form aggregates duplicate rows with [B, B] and [2B, 2B]
+    # equality matrices, so past this batch size the trainer takes autograd
     manual_grads_max_batch: int = 4096
 
     def init_params(self, generator: torch.Generator, device=None):
@@ -67,6 +106,17 @@ class MFBPR(PairwiseModel):
             "Q": _trunc_normal(generator, (self.num_items, self.dim),
                                self.init_std).to(dev),
         }
+
+    # -- scoring ------------------------------------------------------------
+    def _pair_scores(self, params, users, items, dP=None, dQ=None):
+        """(scores [B], user rows, item rows), the rows moved by the
+        perturbation tables ``dP``/``dQ`` when given."""
+        p = params["P"][users]
+        q = params["Q"][items]
+        if dP is not None:
+            p = p + dP[users]
+            q = q + dQ[items]
+        return torch.sum(p * q, dim=-1), p, q
 
     def score_all(self, params, users, hists):
         return params["P"][users] @ params["Q"].T
@@ -79,31 +129,187 @@ class MFBPR(PairwiseModel):
     def factored_scorer(self):
         return _mf_factored_scorer(self)
 
-    def loss(self, params, batch, generator=None):
-        """The clean BPR loss (summed over the batch) plus ``reg`` times
-        mean(p² + q_pos² + q_neg²); aux ``loss`` (BPR alone) and ``acc``
-        (the share of pairs with pos scored above neg)."""
-        for flag, what in ((self.adversarial, "APR (adversarial=True)"),
-                           (self.dns > 1, "DNS (dns > 1)"),
-                           (self.adv_steps > 1, "multi-step FGSM (adv_steps > 1)")):
-            if flag:
-                raise NotImplementedError(f"MFBPR {what} {NOT_PORTED}")
-        users, pos, neg = batch
-        p = params["P"][users]
-        qp = params["Q"][pos]
-        qn = params["Q"][neg]
-        pos_s = torch.sum(p * qp, dim=-1)
-        neg_s = torch.sum(p * qn, dim=-1)
-        loss = bpr_pair_loss(pos_s, neg_s)
+    # -- training loss ------------------------------------------------------
+    def _clean_loss(self, params, users, pos, neg):
+        """(BPR loss, mean(p² + q_pos² + q_neg²), acc, the gathered rows
+        (p, q_pos, q_neg)) of the batch."""
+        p, qp, qn = params["P"][users], params["Q"][pos], params["Q"][neg]
+        pos_s, neg_s = _pair_bpr(p, qp, qn)
         reg_term = torch.mean(torch.square(p) + torch.square(qp) + torch.square(qn))
-        acc = torch.mean(((pos_s - neg_s) > 0).to(torch.float32))
-        return loss + self.reg * reg_term, {"loss": loss, "acc": acc}
+        return bpr_pair_loss(pos_s, neg_s), reg_term, _acc(pos_s - neg_s), (p, qp, qn)
+
+    def _clean_table_grads(self, params, users, pos, neg, dP=None, dQ=None):
+        """Dense gradients (gP, gQ) of the raw BPR loss at the tables moved
+        by ``dP``/``dQ``, taken on detached copies (their own gathers,
+        ``torch.autograd.grad`` without ``create_graph``) and returned
+        detached: constant under any outer gradient."""
+        P = params["P"].detach().requires_grad_(True)
+        Q = params["Q"].detach().requires_grad_(True)
+        with torch.enable_grad():
+            pos_s, _, _ = self._pair_scores({"P": P, "Q": Q}, users, pos, dP, dQ)
+            neg_s, _, _ = self._pair_scores({"P": P, "Q": Q}, users, neg, dP, dQ)
+            gP, gQ = torch.autograd.grad(bpr_pair_loss(pos_s, neg_s), (P, Q))
+        return gP.detach(), gQ.detach()
+
+    def fgsm_deltas(self, params, users, pos, neg, generator=None, noise=None):
+        """Perturbation tables (dP [U, d], dQ [I, d]) for the adversarial
+        objective, constant under the outer gradient.
+
+        ``adv_steps=1`` (reference semantics, evaluation_adv.py:192-203):
+        ε times the row-normalized gradient of the *clean* BPR loss wrt the
+        full tables; rows outside the batch get zero delta. ``adv_steps>1``
+        iterates PGD-style (MSAP, arXiv:2010.01329): step ε/adv_steps, the
+        gradient taken at the perturbed point, each row projected back into
+        the ε-ball. ``adv_mode="random"``: ε times row-normalized
+        truncated-normal (std 0.01) tables, drawn from ``generator`` or
+        given as ``noise`` = (gP, gQ) (how a test hands over JAX's draws).
+        """
+        if self.adv_mode == "random":
+            if noise is None:
+                noise = (_trunc_normal(generator, tuple(params["P"].shape), 0.01),
+                         _trunc_normal(generator, tuple(params["Q"].shape), 0.01))
+            gP, gQ = noise
+            return (self.eps * row_normalize(gP.detach()),
+                    self.eps * row_normalize(gQ.detach()))
+        alpha = self.eps / self.adv_steps
+        dP = torch.zeros_like(params["P"].detach())
+        dQ = torch.zeros_like(params["Q"].detach())
+        for _ in range(self.adv_steps):
+            gP, gQ = self._clean_table_grads(params, users, pos, neg, dP, dQ)
+            dP = project_rows(dP + alpha * row_normalize(gP), self.eps)
+            dQ = project_rows(dQ + alpha * row_normalize(gQ), self.eps)
+        return dP, dQ
+
+    # -- closed-form step gradients -----------------------------------------
+    @property
+    def manual_grads(self):
+        """Closed-form gradient function of the APR step, or None.
+
+        Defined only for the reference configuration (grad-mode single-step
+        FGSM); other modes train through autograd. It writes one
+        ``index_add_`` per table and no dense intermediate: duplicate batch
+        rows are aggregated (what the dense gradient does before the FGSM
+        normalize) by products with 0/1 equality matrices.
+        """
+        if (self.adversarial and self.adv_mode == "grad"
+                and self.adv_steps == 1):
+            return self._apr_manual_grads
+        return None
+
+    def _apr_manual_grads(self, params, batch, generator=None):
+        """({"P": gP, "Q": gQ}, aux) of APR's objective at ``params`` on
+        ``batch`` = (users, pos, neg); aux as :meth:`loss` gives it."""
+        users, pos, neg = batch
+        B = users.shape[0]
+        d = self.dim
+        P, Q = params["P"].detach(), params["Q"].detach()
+
+        p = P[users]
+        qp = Q[pos]
+        qn = Q[neg]
+
+        # clean BPR: L = sum softplus(-clip(s+ - s-)); dL/ddiff = -sigmoid(-diff)
+        diff = torch.sum(p * (qp - qn), dim=-1)
+        diff_c, c = _clip_grad_coef(diff)
+        loss = torch.sum(torch.logaddexp(torch.zeros_like(diff_c), -diff_c))
+        acc = _acc(diff)
+
+        # per-occurrence clean gradient rows of L wrt P and Q (pos, then neg)
+        gp_rows = c[:, None] * (qp - qn)
+        gq_rows = torch.cat([c[:, None] * p, -c[:, None] * p], dim=0)
+
+        # the FGSM deltas read the row-aggregated clean gradient: duplicate
+        # batch slots of one table row share one summed gradient
+        eq_u = (users[:, None] == users[None, :]).to(torch.float32)
+        agg_p = torch.matmul(eq_u, gp_rows)
+        items2 = torch.cat([pos, neg], dim=0)
+        eq_i = (items2[:, None] == items2[None, :]).to(torch.float32)
+        agg_q = torch.matmul(eq_i, gq_rows)
+
+        dP = self.eps * row_normalize(agg_p)       # [B, d] rows for users
+        dQp = self.eps * row_normalize(agg_q[:B])  # rows for pos
+        dQn = self.eps * row_normalize(agg_q[B:])  # rows for neg
+
+        # the adversarial pair loss at the perturbed point
+        ph = p + dP
+        qph = qp + dQp
+        qnh = qn + dQn
+        diff_a = torch.sum(ph * (qph - qnh), dim=-1)
+        diff_ac, ca = _clip_grad_coef(diff_a)
+        loss_adv = torch.sum(torch.logaddexp(torch.zeros_like(diff_ac), -diff_ac))
+        acc_adv = _acc(diff_a)
+
+        # total rows: clean + reg_adv * adversarial, plus the reg term the
+        # objective counts twice (evaluation_adv.py:175-177), 2 * 2 reg / (B d)
+        rcoef = 4.0 * self.reg / (B * d)
+        wa = (self.reg_adv * ca)[:, None]
+        rows_p = gp_rows + wa * (qph - qnh)
+        rows_q = gq_rows + torch.cat([wa * ph, -wa * ph], dim=0)
+        if self.reg != 0.0:
+            rows_p = rows_p + rcoef * p
+            rows_q = rows_q + rcoef * torch.cat([qp, qn], dim=0)
+
+        grads = {"P": torch.zeros_like(P).index_add_(0, users, rows_p),
+                 "Q": torch.zeros_like(Q).index_add_(0, items2, rows_q)}
+        aux = {"loss": loss, "acc": acc, "loss_adv": loss_adv, "acc_adv": acc_adv}
+        return grads, aux
+
+    def adv_target_loss(self, params, batch, generator=None):
+        """FGSM linearization target: the raw BPR loss WITHOUT the reg term
+        (the reference's delta is the gradient of the pre-reg pairwise
+        loss, evaluation_adv.py:162 vs 192-203)."""
+        users, pos, neg = batch
+        return self._clean_loss(params, users, pos, neg)[0]
+
+    def adv_encoders(self):
+        """Embedding towers for the popularity discriminators (AdversarialBPR
+        discriminates on the user and pos-item embeddings, reference
+        BPR.py:112-123)."""
+        return _mf_adv_encoders(self)
+
+    def loss(self, params, batch, generator=None, noise=None):
+        """The BPR loss (summed over the batch) plus ``reg`` times mean(p² +
+        q_pos² + q_neg²); aux ``loss`` (BPR alone, differentiable) and
+        ``acc``. With ``adversarial`` it adds ``reg_adv`` times the BPR
+        loss at the perturbed rows and the reg term a second time, and aux
+        ``loss_adv`` and ``acc_adv``. ``generator`` or ``noise`` feed the
+        random mode (:meth:`fgsm_deltas`)."""
+        users, pos, neg = batch
+        loss, reg_term, acc, (p, qp, qn) = self._clean_loss(params, users, pos, neg)
+        opt_loss = loss + self.reg * reg_term
+        aux = {"loss": loss, "acc": acc}
+        if not self.adversarial:
+            return opt_loss, aux
+        if self.adv_mode == "grad" and self.adv_steps == 1:
+            # hot path: row_normalize commutes with the row gather, so the
+            # dense gradient is gathered and normalized at the batch rows
+            # and no delta table is written
+            gP, gQ = self._clean_table_grads(params, users, pos, neg)
+            dPu = self.eps * row_normalize(gP[users])
+            dQp = self.eps * row_normalize(gQ[pos])
+            dQn = self.eps * row_normalize(gQ[neg])
+            pos_a = torch.sum((p + dPu) * (qp + dQp), dim=-1)
+            neg_a = torch.sum((p + dPu) * (qn + dQn), dim=-1)
+        else:
+            dP, dQ = self.fgsm_deltas(params, users, pos, neg, generator, noise)
+            pu = p + dP[users]
+            pos_a = torch.sum(pu * (qp + dQ[pos]), dim=-1)
+            neg_a = torch.sum(pu * (qn + dQ[neg]), dim=-1)
+        loss_adv = bpr_pair_loss(pos_a, neg_a)
+        # the reference adds the clean-embedding reg term a second time
+        # (evaluation_adv.py:175-177 reuses the clean lookups)
+        opt_loss = opt_loss + self.reg_adv * loss_adv + self.reg * reg_term
+        aux["loss_adv"] = loss_adv.detach()
+        aux["acc_adv"] = _acc(pos_a - neg_a)
+        return opt_loss, aux
 
 
 @dataclasses.dataclass(eq=False)
 class PointwiseMF(PairwiseModel):
     """Keras-style pointwise MF (reference MF.py:7-59): sigmoid(u·i) with
-    binary cross-entropy."""
+    binary cross-entropy; the trainer feeds (user, pos, neg) and the loss
+    takes pos as label 1 and neg as label 0 (MF.py:42-56 draws one negative
+    per positive)."""
 
     init_scale: float = 0.05  # keras Embedding default: uniform(-0.05, 0.05)
 
@@ -127,5 +333,19 @@ class PointwiseMF(PairwiseModel):
     def factored_scorer(self):
         return _mf_factored_scorer(self)
 
+    def adv_encoders(self):
+        """AMF discriminates on the raw user and item tables
+        (reference MF.py:80-98)."""
+        return _mf_adv_encoders(self)
+
     def loss(self, params, batch, generator=None):
-        raise NotImplementedError(f"PointwiseMF.loss {NOT_PORTED}")
+        """The mean BCE over the 2B pointwise examples (pos labelled 1, neg
+        0); aux ``loss`` (the same value) and ``acc``."""
+        users, pos, neg = batch
+        p = params["P"][users]
+        pos_s, neg_s = _pair_bpr(p, params["Q"][pos], params["Q"][neg])
+        logits = torch.cat([pos_s, neg_s])
+        labels = torch.cat([torch.ones_like(pos_s), torch.zeros_like(neg_s)])
+        bce = torch.logaddexp(torch.zeros_like(logits), logits) - labels * logits
+        loss = torch.mean(bce)
+        return loss, {"loss": loss, "acc": _acc(pos_s - neg_s)}

@@ -191,6 +191,12 @@ class SASRec(SequenceModel):
         users, seq, pos, neg = batch
         return self._clean_loss_fn(params, seq, pos, neg)
 
+    def primary_loss(self, loss, aux):
+        """The returned loss: aux values are detached, and without the
+        adversary (which the FGSM wrapper refuses) ``aux["loss"]`` is this
+        loss's value, ``l2_emb`` term included, as in the JAX package."""
+        return loss
+
     def _eps_tree(self, params):
         """Per-leaf perturbation radii: 0.0 for leaves the protocol leaves
         clean (the reference assigns dense deltas ONLY for the Q projection,

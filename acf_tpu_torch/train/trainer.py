@@ -8,12 +8,14 @@ kinds of epoch, chosen as the JAX package chooses them:
   checked first, with its ``init_opt_state`` for the optimizer slots;
 * sequence models (``batch_kind == "seq"``): draw a packed window batch
   (:func:`acf_tpu_torch.sampling.sample_seq_window_batch`), take
-  ``loss_window``'s value and gradient, apply the update
-  (:func:`seq_train_step`);
+  ``loss_window``'s value and gradient (or ``loss``'s on the expanded
+  batch, for a model without ``loss_window`` such as the FGSM wrapper),
+  apply the update (:func:`seq_train_step`);
 * pair models: shuffle the train pairs into the epoch's batches, draw one
-  uniform negative per pair, take ``loss``'s value and gradient, apply the
-  update (:func:`pair_train_step`). DNS (``dns > 1``) and APR raise in the
-  model (ROADMAP.md Queue 1 item 3).
+  uniform negative per pair (with DNS, ``dns > 1``, the highest scored of
+  ``dns`` such draws), take the gradient of ``loss`` by autograd or, for
+  APR's reference configuration, the model's closed form
+  (``manual_grads``), apply the update (:func:`pair_train_step`).
 
 Each step is one function of (params, optimizer state, batch, draws), so a
 test can drive it with the JAX package's draws, and the epoch functions
@@ -84,23 +86,60 @@ def _add_stats(sums, aux):
         sums[k] = v.detach() if k not in sums else sums[k] + v.detach()
 
 
-def pair_train_step(model, optimizer, params, opt_state, batch, generator=None):
-    """One step of a pair model: the value and gradient of ``model.loss``
-    at ``params`` on ``batch`` = (users, pos, neg), then the optimizer's
-    update. Returns (params, opt_state, aux)."""
+def pair_train_step(model, optimizer, params, opt_state, batch, generator=None,
+                    manual_grads=None):
+    """One step of a pair model on ``batch`` = (users, pos, neg): the
+    gradient of ``model.loss`` at ``params`` by autograd, or
+    ``manual_grads(params, batch, generator) -> (grads, aux)`` when given,
+    then the optimizer's update. Returns (params, opt_state, aux)."""
+    if manual_grads is not None:
+        with torch.no_grad():
+            grads, aux = manual_grads(params, batch, generator)
+        params, opt_state = optimizer.update(grads, opt_state, params)
+        return params, opt_state, aux
     params, opt_state, _, aux = grad_update(optimizer, params, opt_state,
                                             lambda prm: model.loss(prm, batch, generator))
     return params, opt_state, aux
 
 
+def dns_negatives(model, params, users, hist_rows, cands):
+    """DNS (reference evaluation_adv.py:349-367): of the ``dns`` negatives
+    ``cands`` [B, dns], the one ``model.score_some`` scores highest at
+    ``params`` (the first on ties, as ``jnp.argmax``)."""
+    with torch.no_grad():
+        scores = model.score_some(params, users, hist_rows, cands)
+    return cands.gather(1, torch.argmax(scores, dim=1)[:, None])[:, 0]
+
+
 def make_pair_epoch_fn(model, optimizer, batch_size: int, num_batches: int):
     """The one-epoch function for pair models (``acf_tpu/train/trainer.py``'s
-    ``make_pair_epoch_fn`` with ``dns == 1``): ``epoch_fn(params,
-    opt_state, data, generator, batches=None, cands=None) -> (params,
-    opt_state, stats)`` with ``data`` holding ``pairs_u``, ``pairs_i`` and
-    ``hist`` on the device. ``batches`` [num_batches, batch_size] (pair
-    indices) and ``cands`` [num_batches, R, batch_size] (negative
-    candidates) replace the draws from ``generator`` when given."""
+    ``make_pair_epoch_fn``): ``epoch_fn(params, opt_state, data, generator,
+    batches=None, cands=None) -> (params, opt_state, stats)`` with ``data``
+    holding ``pairs_u``, ``pairs_i`` and ``hist`` on the device.
+    ``batches`` [num_batches, batch_size] (pair indices) and ``cands``
+    (negative candidates: [num_batches, R, batch_size], or [num_batches,
+    dns, R, batch_size] with DNS) replace the draws from ``generator`` when
+    given.
+
+    The step takes the model's closed-form gradients when it has them
+    (``manual_grads``, APR) and ``batch_size <= model.manual_grads_max_batch``
+    (its equality matrices grow as B²); otherwise autograd."""
+    dns = getattr(model, "dns", 1)
+    manual_grads = getattr(model, "manual_grads", None)
+    if manual_grads is not None and batch_size > getattr(model, "manual_grads_max_batch", 4096):
+        manual_grads = None
+
+    def negatives(params, u, hist_rows, step, generator, cands):
+        if dns <= 1:
+            if cands is None:
+                return uniform_negatives(generator, hist_rows, model.num_items)
+            return negatives_from_draws(cands[step], hist_rows)
+        if cands is None:
+            drawn = [uniform_negatives(generator, hist_rows, model.num_items)
+                     for _ in range(dns)]
+        else:
+            drawn = [negatives_from_draws(c, hist_rows) for c in cands[step]]
+        return dns_negatives(model, params, u, hist_rows, torch.stack(drawn, dim=1))
 
     def epoch_fn(params, opt_state, data, generator, batches=None, cands=None):
         if batches is None:
@@ -111,27 +150,42 @@ def make_pair_epoch_fn(model, optimizer, batch_size: int, num_batches: int):
             idx = batches[step]
             u, pos = data["pairs_u"][idx], data["pairs_i"][idx]
             hist_rows = data["hist"][u]
-            if cands is None:
-                neg = uniform_negatives(generator, hist_rows, model.num_items)
-            else:
-                neg = negatives_from_draws(cands[step], hist_rows)
+            neg = negatives(params, u, hist_rows, step, generator, cands)
             params, opt_state, aux = pair_train_step(model, optimizer, params, opt_state,
-                                                     (u, pos, neg), generator)
+                                                     (u, pos, neg), generator, manual_grads)
             _add_stats(sums, aux)
         return params, opt_state, _mean_stats(sums, num_batches)
 
     return epoch_fn
 
 
+def window_loss(model):
+    """``model.loss_window``, or ``model.loss`` on the expanded batch
+    (``seq = window[:, :-1]``, ``pos = window[:, 1:]``) for a model without
+    one (the FGSM wrapper around a sequence model) or with
+    ``use_window_loss = False``, the JAX package's switch to the expanded
+    form."""
+    if getattr(model, "use_window_loss", True) and hasattr(model, "loss_window"):
+        return model.loss_window
+
+    def expanded(params, batch, generator=None, **masks):
+        users, window, neg = batch
+        return model.loss(params, (users, window[:, :-1], window[:, 1:], neg), generator,
+                          **masks)
+
+    return expanded
+
+
 def seq_train_step(model, optimizer, params, opt_state, batch, generator=None,
                    masks=None, adv_masks=None):
-    """One training step: the value and gradient of ``model.loss_window`` at
+    """One training step: the value and gradient of :func:`window_loss` at
     ``params`` on ``batch`` = (users, window, neg), dropout from
     ``generator`` or the injected ``masks``/``adv_masks``, then the
     optimizer's update. Returns (params, opt_state, aux)."""
+    loss_fn = window_loss(model)
+    kw = {k: v for k, v in (("masks", masks), ("adv_masks", adv_masks)) if v is not None}
     params, opt_state, _, aux = grad_update(
-        optimizer, params, opt_state,
-        lambda prm: model.loss_window(prm, batch, generator, masks=masks, adv_masks=adv_masks))
+        optimizer, params, opt_state, lambda prm: loss_fn(prm, batch, generator, **kw))
     return params, opt_state, aux
 
 
@@ -158,8 +212,9 @@ def make_seq_epoch_fn(model, optimizer, batch_size: int, num_batches: int):
 class Trainer:
     """Epoch-driven trainer with reference-protocol evaluation and logging.
 
-    Pair models (MF-BPR's clean loss) and sequence models (SASRec, ASASRec)
-    train on the epochs this module builds; a model with ``make_epoch_fn``
+    Pair models (MF-BPR, APR, DNS, pointwise MF) and sequence models
+    (SASRec, ASASRec), bare or in the FGSM wrapper, train on the epochs this
+    module builds; a model with ``make_epoch_fn``
     (APL) brings its own. ``config.membership_len`` truncates the histories
     the pair sampler's rejection reads, except for sequence models and
     models marked ``uses_full_hist`` (APL's positive mixture), whose

@@ -96,7 +96,25 @@ Phases, any failure exits non-zero:
               one critic step's device busy and idle time; the generator
               step's launches one line each in launch order, then each
               merge of the partials alone; APL epochs' seconds and
-              examples/s, every sample printed.
+              examples/s, every sample printed;
+ 18. APR on the ml-1m-shaped set (MF-BPR d = 64, batch 512,
+              Adagrad(0.05, 0.1), eps 0.5, reg_adv 1; ``bench.py:66-85``):
+              ``fit_two_phase`` (1 clean epoch, then 1 APR epoch with the
+              slots reset and every step on the closed form, an evaluation
+              through K1 after each, its launches counted); at the params it
+              leaves, one step's closed-form gradients against autograd on
+              the card and against the CPU's closed form on the same batch
+              (its duplicate rows counted), and one step each of APR, DNS
+              (dns = 3), PGD (adv_steps = 3), random mode and PointwiseMF on
+              the card against the same step on the CPU with the same draws;
+              ``FGSMAdversarial(MFBPR)`` against the built-in APR's autograd
+              step; one ``FGSMAdversarial(SASRec)`` step at maxlen 50 (K2a 3
+              and K2b 3 launches) against the same step through the plain
+              encoder, ReLU's kink handled as in phases 12-13;
+ 19. APR timing: examples/s of 3 epochs after a warm-up (every sample and
+              the median, host clock), one step's wall time, launches,
+              device busy and idle time and largest device operations,
+              beside the card's name and power limit.
 
 Kernel times come from torch.profiler's device time. A measurement whose
 profile holds no device time in three sessions is timed with CUDA events
@@ -1030,15 +1048,9 @@ def check_training_step(dev, data, maxlen=50):
         check(scale_err <= STEP_TOL, f"{label}: gradients differ by {scale_err} of scale")
 
 
-def run_fit_two_phase(dev, data, maxlen=50):
-    """Phase 13, second half: ``fit_two_phase`` (1 clean epoch, then 1
-    asasrec epoch with the Adam slots carried), an evaluation after each,
-    all counters read around it. Returns (K2a, K2b, K1 launches)."""
-    from acf_tpu_torch.models.sasrec import SASRec
-    from acf_tpu_torch.ops.ranking import rank_positions_dot
-    from acf_tpu_torch.ops.sasrec_fused import encoder_bwd, fused_encoder
-    from acf_tpu_torch.train import TrainConfig, adam, fit_two_phase
-    from acf_tpu_torch.train import trainer as trainer_mod
+def lines_writer():
+    """An OutputWriter that keeps its lines (``.lines``) and prints them, all
+    but the K = 1..100 sweep, which is counted, not shown."""
     from acf_tpu_torch.utils.io import OutputWriter
 
     class Lines(OutputWriter):
@@ -1048,8 +1060,21 @@ def run_fit_two_phase(dev, data, maxlen=50):
 
         def line(self, output):
             self.lines.append(output)
-            if not output.startswith("K = "):  # the K = 1..100 sweep is counted, not shown
+            if not output.startswith("K = "):
                 print(f"  {output}")
+
+    return Lines()
+
+
+def run_fit_two_phase(dev, data, maxlen=50):
+    """Phase 13, second half: ``fit_two_phase`` (1 clean epoch, then 1
+    asasrec epoch with the Adam slots carried), an evaluation after each,
+    all counters read around it. Returns (K2a, K2b, K1 launches)."""
+    from acf_tpu_torch.models.sasrec import SASRec
+    from acf_tpu_torch.ops.ranking import rank_positions_dot
+    from acf_tpu_torch.ops.sasrec_fused import encoder_bwd, fused_encoder
+    from acf_tpu_torch.train import TrainConfig, adam, fit_two_phase
+    from acf_tpu_torch.train import trainer as trainer_mod
 
     stats = []
     real_run_epoch = trainer_mod.Trainer.run_epoch
@@ -1062,7 +1087,7 @@ def run_fit_two_phase(dev, data, maxlen=50):
     clean = SASRec(data.num_users, data.num_items, D, maxlen=maxlen)
     adv = SASRec(data.num_users, data.num_items, D, maxlen=maxlen, adversarial=True, eps=0.5,
                  reg_adv=1.0)
-    writer = Lines()
+    writer = lines_writer()
     n_steps = int((data.hist_len >= 1).sum()) // TRAIN_BATCH
     tiles = math.ceil(len(data.eval_users()) / BATCH_USERS)
     trainer_mod.Trainer.run_epoch = run_epoch
@@ -1652,6 +1677,416 @@ def apl_phases(dev, data):
             for name in APL_PRODUCTS]
 
 
+# --- APR: MF-BPR's adversarial half of the main path ----------------------------
+
+# The APR configuration of bench.py:66-85: MF-BPR d = 64, batch 512,
+# Adagrad(0.05, initial_accumulator_value=0.1), then eps 0.5, reg_adv 1.
+APR = dict(eps=0.5, reg_adv=1.0)
+# Two computations of one APR step, by the max |a - b| over a tree (the P and
+# Q gradients, or the update one Adagrad step makes) divided by the largest
+# |b| entry: the closed form against autograd on the card, the card against
+# the CPU on the same draws. Both run in f32 but sum duplicate rows in
+# another order (the equality-matrix products against autograd's dense
+# scatter; the card's index_add_ adds with atomics, in an order of its own),
+# and FGSM normalizes each row's sum, so an ulp of a row's gradient turns its
+# delta by ulp / |row|. 1e-5 is ~100 ulps of the tree's scale; a duplicate
+# row left out of the sum, a reg term missing or a sign flipped moves 1e-2
+# of it and more. An update is read back as new - old params, which
+# resolves it only to an ulp of the param it was added to, so its bound adds
+# one ulp of the largest param (PointwiseMF's mean loss moves params ~1e-2
+# by updates ~1e-6). Losses to rtol 1e-5. Accuracies (f32 means of a sign
+# over B pairs) may differ by 1/B: a pair whose scores tie within rounding
+# counts on one side only.
+APR_TOL = 1e-5
+APR_EPOCHS = 3
+
+
+def apr_draws(data, seed, dns=1, rounds=8):
+    """One step's draws from ``seed``, on the CPU: pair indices [B] and
+    negative candidates [R, B] ([dns, R, B] with DNS)."""
+    g = torch.Generator().manual_seed(seed)
+    idx = torch.randperm(data.num_pairs, generator=g)[:TRAIN_BATCH]
+    shape = (rounds, TRAIN_BATCH) if dns <= 1 else (dns, rounds, TRAIN_BATCH)
+    return idx, torch.randint(1, data.num_items, shape, generator=g, dtype=torch.int32)
+
+
+def apr_batch(tdata, idx, cands):
+    """(users, pos, neg) of the drawn pairs on ``tdata``'s device."""
+    from acf_tpu_torch.sampling import negatives_from_draws
+
+    dev = tdata["pairs_u"].device
+    idx = idx.to(dev)
+    u, pos = tdata["pairs_u"][idx], tdata["pairs_i"][idx]
+    return u, pos, negatives_from_draws(cands.to(dev), tdata["hist"][u])
+
+
+def check_stats(label, got, ref):
+    """Aux values of one step on two sides: losses to rtol 1e-5, accuracies
+    within 1/B."""
+    check(set(got) == set(ref), f"{label}: aux {sorted(got)} vs {sorted(ref)}")
+    for k, v in ref.items():
+        d = abs(float(got[k]) - float(v))
+        if k.startswith("acc"):
+            check(d <= 1.0 / TRAIN_BATCH + 1e-7, f"{label}: {k} {got[k]} vs {v}")
+        else:
+            check(math.isfinite(float(got[k])) and d <= 1e-5 * abs(float(v)),
+                  f"{label}: {k} {got[k]} vs {v}")
+
+
+def apr_step(model, params, tdata, idx, cands, noise=None):
+    """One Adagrad(0.05, 0.1) step of ``model`` from fresh slots on the
+    params' device: the pair epoch (``make_pair_epoch_fn``, one batch) with
+    these draws injected; with ``noise`` (random mode), the loss the epoch
+    differentiates at that noise. Returns ([update of P, of Q], stats)."""
+    from acf_tpu_torch.train import adagrad
+    from acf_tpu_torch.train.optim import grad_update
+    from acf_tpu_torch.train.trainer import make_pair_epoch_fn
+
+    opt = adagrad(0.05, initial_accumulator_value=0.1)
+    dev = params["P"].device
+    if noise is None:
+        epoch = make_pair_epoch_fn(model, opt, TRAIN_BATCH, 1)
+        new, _, stats = epoch(params, opt.init(params), tdata, None, idx.to(dev)[None],
+                              cands.to(dev)[None])
+    else:
+        batch = apr_batch(tdata, idx, cands)
+        noise = tuple(x.to(dev) for x in noise)
+        new, _, _, aux = grad_update(opt, params, opt.init(params),
+                                     lambda prm: model.loss(prm, batch, noise=noise))
+        stats = {k: float(v.detach()) for k, v in aux.items()}
+    return [(new[k] - params[k]).cpu() for k in ("P", "Q")], stats
+
+
+def run_apr_fit_two_phase(data):
+    """Phase 18, first part: ``fit_two_phase`` as the README's quick start
+    runs it (one clean MF-BPR epoch, then one APR epoch with the Adagrad
+    slots reset, an evaluation through K1 after each), the counters read
+    around it. Returns (the trainer, K1's launches)."""
+    from acf_tpu_torch.models.mf import MFBPR
+    from acf_tpu_torch.ops.ranking import rank_positions_dot
+    from acf_tpu_torch.train import TrainConfig, adagrad, fit_two_phase
+    from acf_tpu_torch.train import trainer as trainer_mod
+
+    clean = MFBPR(data.num_users, data.num_items, D)
+    adv = MFBPR(data.num_users, data.num_items, D, adversarial=True, **APR)
+    closed = []
+    real_closed = adv._apr_manual_grads
+
+    def counted(*args):
+        closed.append(1)
+        return real_closed(*args)
+
+    adv._apr_manual_grads = counted  # what adv.manual_grads hands the epoch
+    stats, seen = [], {}
+    Trainer = trainer_mod.Trainer
+    real_run, real_switch = Trainer.run_epoch, Trainer.switch_model
+
+    def run_epoch(self):
+        stats.append(real_run(self))
+        return stats[-1]
+
+    def switch_model(self, model, reset_opt=True):
+        real_switch(self, model, reset_opt)
+        slots = self.opt_state["sum_of_squares"].values()
+        seen.update(trainer=self, slots=(min(float(v.min()) for v in slots),
+                                         max(float(v.max()) for v in slots)))
+
+    writer = lines_writer()
+    tiles = math.ceil(len(data.eval_users()) / BATCH_USERS)
+    Trainer.run_epoch, Trainer.switch_model = run_epoch, switch_model
+    try:
+        rank_positions_dot.launches = 0
+        t0 = time.perf_counter()
+        best = fit_two_phase(clean, adv, data, adagrad(0.05, initial_accumulator_value=0.1),
+                             TrainConfig(batch_size=TRAIN_BATCH, epochs=2, verbose=1),
+                             adv_epoch=1, writer=writer)  # the main path
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        k1 = rank_positions_dot.launches
+    finally:
+        Trainer.run_epoch, Trainer.switch_model = real_run, real_switch
+    tr = seen["trainer"]
+    print(f"apr fit_two_phase: {tr.num_batches} steps of {TRAIN_BATCH} an epoch, {tiles} eval "
+          f"tiles; {wall:.2f} s; K1 launches {k1}; closed-form steps {len(closed)}; slots after "
+          f"the switch {seen['slots']}; best epoch {best['epoch']} NDCG@10 {best['ndcg']:.6f}")
+    print(f"apr fit_two_phase epoch stats: {stats}")
+    check(k1 == 2 * tiles, f"apr fit_two_phase: K1 launched {k1} times, not {2 * tiles}")
+    check(len(closed) == tr.num_batches, f"apr fit_two_phase: {len(closed)} closed-form steps "
+          f"in an epoch of {tr.num_batches}")
+    check(all(abs(v - 0.1) < 1e-7 for v in seen["slots"]),
+          f"apr fit_two_phase: the Adagrad slots were not reset at the switch {seen['slots']}")
+    epochs = [ln for ln in writer.lines if ln.startswith("Epoch ") and "HR =" in ln]
+    check(len(epochs) == 2 and not any("NaN" in ln for ln in writer.lines),
+          "apr fit_two_phase: not two evaluated epochs")
+    check(sum(ln.startswith("K = ") for ln in writer.lines) == 100,
+          "apr fit_two_phase: no K = 1..100 sweep at the end")
+    check(len(stats) == 2 and all(math.isfinite(v) for s in stats for v in s.values()),
+          f"apr fit_two_phase: non-finite epoch stats {stats}")
+    check(set(stats[0]) == {"loss", "acc"}
+          and set(stats[1]) == {"loss", "acc", "loss_adv", "acc_adv"},
+          "apr fit_two_phase: the phases did not run clean then APR")
+    check(math.isfinite(best["ndcg"]) and best["epoch"] == 1, "apr fit_two_phase: no best epoch")
+    return tr, k1
+
+
+def check_apr_steps(tr):
+    """Phase 18, second part, at the params ``fit_two_phase`` left: one APR
+    step's closed form against autograd on the card and against the CPU's
+    closed form on the same batch; one step each of APR, DNS (dns = 3, on
+    APR), PGD (adv_steps = 3), random mode and PointwiseMF on the card
+    against the same step on the CPU with the same draws. Returns the APR
+    batch."""
+    from acf_tpu_torch.models.mf import MFBPR, PointwiseMF, _trunc_normal
+
+    data = tr.data
+    U, I = data.num_users, data.num_items
+    params = {k: v.detach() for k, v in tr.params.items()}
+    cpu_params = {k: v.cpu() for k, v in params.items()}
+    cpu_data = {k: v.cpu() for k, v in tr.dev.items()}
+    apr = MFBPR(U, I, D, adversarial=True, **APR)
+
+    idx, cands = apr_draws(data, seed=18)
+    batch = apr_batch(tr.dev, idx, cands)
+    users, pos, neg = batch
+    items2 = torch.cat([pos, neg])
+    both = len(set(pos.tolist()) & set(neg.tolist()))
+    print(f"apr batch: {TRAIN_BATCH - int(torch.unique(users).numel())} duplicate user slots, "
+          f"{2 * TRAIN_BATCH - int(torch.unique(items2).numel())} duplicate item slots of "
+          f"{2 * TRAIN_BATCH}, {both} items both a positive and a negative")
+    g_closed, aux_closed = apr.manual_grads(params, batch)
+    prm = {k: v.clone().requires_grad_(True) for k, v in params.items()}
+    loss, aux_auto = apr.loss(prm, batch)
+    g_auto = torch.autograd.grad(loss, [prm["P"], prm["Q"]])
+    aux_auto = {k: v.detach() for k, v in aux_auto.items()}
+    g_cpu, aux_cpu = apr.manual_grads(cpu_params, tuple(x.cpu() for x in batch))
+    closed = [g_closed["P"], g_closed["Q"]]
+    e_auto = tree_err(closed, g_auto)
+    e_cpu = tree_err([g.cpu() for g in closed], [g_cpu["P"], g_cpu["Q"]])
+    print(f"apr closed form on the card: vs autograd max |d| {e_auto[0]:.3e} ({e_auto[1]:.2e} of "
+          f"scale), vs the CPU's closed form {e_cpu[0]:.3e} ({e_cpu[1]:.2e}); aux "
+          + ", ".join(f"{k} {float(v):.6f}/{float(aux_auto[k]):.6f}/{float(aux_cpu[k]):.6f}"
+                      for k, v in sorted(aux_closed.items())) + " (closed/autograd/CPU)")
+    check_stats("apr closed form vs autograd", aux_closed, aux_auto)
+    check_stats("apr closed form vs the CPU", aux_closed, aux_cpu)
+    for label, (_, r) in (("autograd", e_auto), ("the CPU", e_cpu)):
+        check(r <= APR_TOL, f"apr closed form vs {label}: {r:.3e} of scale > {APR_TOL}")
+
+    ulp = torch.finfo(torch.float32).eps * max(float(v.abs().max()) for v in cpu_params.values())
+    g = torch.Generator().manual_seed(19)
+    noise = (_trunc_normal(g, (U, D), 0.01), _trunc_normal(g, (I, D), 0.01))
+    cases = (("apr", apr, 1, None),
+             ("dns=3 apr", MFBPR(U, I, D, adversarial=True, dns=3, **APR), 3, None),
+             ("adv_steps=3", MFBPR(U, I, D, adversarial=True, adv_steps=3, **APR), 1, None),
+             ("random mode", MFBPR(U, I, D, adversarial=True, adv_mode="random", **APR), 1,
+              noise),
+             ("PointwiseMF", PointwiseMF(U, I, D), 1, None))
+    for n, (label, model, dns, nz) in enumerate(cases):
+        idx, cands = apr_draws(data, seed=20 + n, dns=dns)
+        upd, stats = apr_step(model, params, tr.dev, idx, cands, nz)
+        upd_cpu, stats_cpu = apr_step(model, cpu_params, cpu_data, idx, cands, nz)
+        err, r = tree_err(upd, upd_cpu)
+        scale = max(float(u.abs().max()) for u in upd_cpu)
+        bound_ = APR_TOL * scale + ulp
+        print(f"{label} step, card vs CPU (same draws): update max |d| {err:.3e} ({r:.2e} of "
+              f"its scale {scale:.3e}; bound {bound_:.3e} with an ulp of the params {ulp:.1e}); "
+              + ", ".join(f"{k} {stats[k]:.6f}/{stats_cpu[k]:.6f}" for k in sorted(stats)))
+        check_stats(f"{label} step", stats, stats_cpu)
+        check(err <= bound_, f"{label} step: the card's update differs from the CPU's by "
+              f"{err:.3e} > {bound_:.3e}")
+    return batch
+
+
+def check_fgsm_mf(tr, batch):
+    """Phase 18: ``FGSMAdversarial(MFBPR)`` against the built-in APR's
+    autograd step at reg = 0 on the card: the loss, aux and both
+    gradients."""
+    from acf_tpu_torch.adversarial import FGSMAdversarial
+    from acf_tpu_torch.models.mf import MFBPR
+
+    U, I = tr.data.num_users, tr.data.num_items
+    out = {}
+    for label, model in (("apr", MFBPR(U, I, D, adversarial=True, **APR)),
+                         ("wrapper", FGSMAdversarial(U, I, D, base=MFBPR(U, I, D), **APR))):
+        prm = {k: v.detach().clone().requires_grad_(True) for k, v in tr.params.items()}
+        loss, aux = model.loss(prm, batch)
+        out[label] = ({k: float(v.detach()) for k, v in aux.items()},
+                      torch.autograd.grad(loss, [prm["P"], prm["Q"]]))
+    err, r = tree_err(out["wrapper"][1], out["apr"][1])
+    print(f"FGSMAdversarial(MFBPR) vs APR on the card: gradients max |d| {err:.3e} ({r:.2e} of "
+          f"scale); " + ", ".join(f"{k} {v:.6f}/{out['apr'][0][k]:.6f}"
+                                  for k, v in sorted(out["wrapper"][0].items())))
+    check_stats("FGSMAdversarial(MFBPR) vs APR", out["wrapper"][0], out["apr"][0])
+    check(r <= APR_TOL, f"FGSMAdversarial(MFBPR): gradients differ from APR's by {r:.3e}")
+
+
+def drop_kink_units(params, x, ids, masks, keep):
+    """Drops (in ``masks``, in place) every FFN unit of an unmasked row whose
+    ReLU pre-activation lies within KINK of 0 in the plain forward, block by
+    block, since a block's input depends on the masks before it. A dropped
+    unit passes nothing forward or back on either side, so its gate cannot
+    differ between them. Returns the count dropped."""
+    from acf_tpu_torch.ops.sasrec_fused import _block, _input
+
+    h = _input(params, x, ids, masks, keep)
+    dropped = 0
+    for i, blk in enumerate(params["blocks"]):
+        bm = masks["blocks"][i]
+        _, c = _block(blk, h, ids, 1, bm, keep)
+        near = (c["z1"].abs() <= KINK) & ids[:, :, None]
+        bm["f1"] &= ~near
+        dropped += int(near.sum())
+        h, _ = _block(blk, h, ids, 1, bm, keep)
+    return dropped
+
+
+@torch.no_grad()
+def fgsm_sasrec_inputs(dev, data, base, plain, params, maxlen):
+    """A batch and the dropout masks of the clean and the perturbed pass,
+    with the rule of phases 12-13 for ReLU near 0: users near a kink in the
+    linearization's forward (no dropout) get another user's rows; units near
+    a kink in the clean training pass, and then in the perturbed pass (its
+    inputs moved by the plain wrapper's deltas), are dropped. Returns
+    (batch, masks, adv_masks, users replaced, units dropped)."""
+    from acf_tpu_torch.sampling import sample_seq_window_batch
+    from acf_tpu_torch.utils.tree import tree_leaves
+
+    g = torch.Generator(device=dev).manual_seed(18)
+    hist = torch.as_tensor(data.hist, device=dev)
+    eligible = torch.as_tensor(np.nonzero(data.hist_len >= 2)[0].astype(np.int32), device=dev)
+    users, window, neg = sample_seq_window_batch(g, hist, eligible, maxlen, data.num_items,
+                                                 TRAIN_BATCH)
+    masks = base._dropout_masks(g, TRAIN_BATCH, maxlen)
+    adv_masks = base._dropout_masks(g, TRAIN_BATCH, maxlen)
+    keep = 1.0 - base.dropout_rate
+    scale = math.sqrt(D)
+    near = near_kink_users(params, params["item_emb"][window[:, :-1]] * scale,
+                           window[:, :-1] != 0, None, 1.0)
+    ok = torch.nonzero(~near).flatten()
+    rep = ok[torch.arange(int(near.sum()), device=dev) % len(ok)]
+    for rows in (users, window, neg, *tree_leaves(masks), *tree_leaves(adv_masks)):
+        rows[near] = rows[rep]
+    batch = (users, window[:, :-1], window[:, 1:], neg)
+    ids = batch[1] != 0
+    dropped = drop_kink_units(params, params["item_emb"][batch[1]] * scale, ids, masks, keep)
+    delta = plain.deltas(params, batch)
+    dropped += drop_kink_units(params, (params["item_emb"] + delta["item_emb"])[batch[1]] * scale,
+                               ids, adv_masks, keep)
+    return batch, masks, adv_masks, int(near.sum()), dropped
+
+
+def check_fgsm_sasrec(dev, data, maxlen=50):
+    """Phase 18: one step of ``FGSMAdversarial(SASRec)`` (d = 64, 2 blocks,
+    dropout 0.5) at maxlen 50: K2a three times (the clean pass, the
+    linearization, the perturbed pass) and K2b three times (the
+    linearization's dx-only), its loss, aux and every gradient leaf against
+    the same step through the plain encoder."""
+    from acf_tpu_torch.adversarial import FGSMAdversarial
+    from acf_tpu_torch.models.sasrec import SASRec
+    from acf_tpu_torch.ops.sasrec_fused import encoder_bwd, fused_encoder
+    from acf_tpu_torch.utils.tree import tree_leaves, tree_map
+
+    base = SASRec(data.num_users, data.num_items, D, maxlen=maxlen)
+    wrap = FGSMAdversarial(data.num_users, data.num_items, D, base=base, **APR)
+    plain = FGSMAdversarial(data.num_users, data.num_items, D, base=plain_encoder_model(base),
+                            **APR)
+    params = base.init_params(torch.Generator(device=dev).manual_seed(18), device=dev)
+    batch, masks, adv_masks, replaced, dropped = fgsm_sasrec_inputs(dev, data, base, plain,
+                                                                    params, maxlen)
+
+    def value_and_grads(model):
+        prm = tree_map(lambda x: x.detach().requires_grad_(True), params)
+        loss, aux = model.loss(prm, batch, masks=masks, adv_masks=adv_masks)
+        grads = torch.autograd.grad(loss, tree_leaves(prm))
+        return float(loss.detach()), {k: float(v.detach()) for k, v in aux.items()}, grads
+
+    fused_encoder.launches = encoder_bwd.launches = 0
+    loss, aux, grads = value_and_grads(wrap)  # the wrapper's step through the kernels
+    torch.cuda.synchronize()
+    k2a, k2b = fused_encoder.launches, encoder_bwd.launches
+    p_loss, p_aux, p_grads = value_and_grads(plain)
+    check((fused_encoder.launches, encoder_bwd.launches) == (k2a, k2b),
+          "FGSMAdversarial(SASRec): the plain step launched a kernel")
+    err, r = tree_err(grads, p_grads)
+    rel = abs(loss - p_loss) / abs(p_loss)
+    print(f"FGSMAdversarial(SASRec) step (maxlen {maxlen}, B={TRAIN_BATCH}): {replaced} users "
+          f"near a ReLU kink in the linearization replaced, {dropped} units near one in the "
+          f"training passes dropped; K2a {k2a}, K2b {k2b} launches; loss {loss:.6f} vs plain "
+          f"{p_loss:.6f} (rel {rel:.2e}); aux "
+          + ", ".join(f"{k} {v:.6f}/{p_aux[k]:.6f}" for k, v in sorted(aux.items()))
+          + f"; every gradient leaf max |d| {err:.3e} ({r:.2e} of scale)")
+    check(k2a == 3 and k2b == 3, f"FGSMAdversarial(SASRec): K2a {k2a}, K2b {k2b}, not 3 and 3")
+    check(math.isfinite(loss) and rel <= 1e-5, f"FGSMAdversarial(SASRec): loss rel {rel}")
+    rel_adv = abs(aux["loss_adv"] - p_aux["loss_adv"]) / abs(p_aux["loss_adv"])
+    check(rel_adv <= 1e-5, f"FGSMAdversarial(SASRec): loss_adv rel {rel_adv}")
+    check(r <= STEP_TOL, f"FGSMAdversarial(SASRec): gradients differ by {r:.3e} of scale")
+
+
+def time_apr(data):
+    """Phase 19: APR examples/s over ``APR_EPOCHS`` epochs after a warm-up
+    epoch (host clock around ``Trainer.run_epoch``, which ends in a host
+    transfer of the epoch's stats), every sample and their median; one
+    step's wall time, device busy and idle time, launches and largest device
+    operations, beside the card's name and power limit."""
+    from acf_tpu_torch.models.mf import MFBPR
+    from acf_tpu_torch.sampling import sample_pair_epoch, uniform_negatives
+    from acf_tpu_torch.train import TrainConfig, Trainer, adagrad
+    from acf_tpu_torch.train.trainer import pair_train_step
+
+    model = MFBPR(data.num_users, data.num_items, D, adversarial=True, **APR)
+    tr = Trainer(model, data, adagrad(0.05, initial_accumulator_value=0.1),
+                 TrainConfig(batch_size=TRAIN_BATCH, verbose=10 ** 9))
+    tr.run_epoch()  # warm-up
+    samples = []
+    for _ in range(APR_EPOCHS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        stats = tr.run_epoch()
+        samples.append(time.perf_counter() - t0)
+    check(all(math.isfinite(v) for v in stats.values()), f"apr timing: non-finite stats {stats}")
+    examples = tr.num_batches * TRAIN_BATCH
+    median_s = sorted(samples)[len(samples) // 2]
+    card = card_line()
+    print(f"apr timing ({card}): {tr.num_batches} steps of {TRAIN_BATCH} an epoch; median "
+          f"{examples / median_s:.1f} examples/s; samples "
+          + ", ".join(f"{examples / s:.1f}" for s in samples)
+          + " examples/s (" + ", ".join(f"{s:.4f}" for s in samples) + " s); timer: host clock "
+          "around Trainer.run_epoch, which ends in a host transfer")
+
+    batches = sample_pair_epoch(tr.generator, data.num_pairs, TRAIN_BATCH, tr.num_batches)
+    step_n = [0]
+
+    def step():
+        idx = batches[step_n[0] % tr.num_batches]
+        step_n[0] += 1
+        u, pos = tr.dev["pairs_u"][idx], tr.dev["pairs_i"][idx]
+        neg = uniform_negatives(tr.generator, tr.dev["hist"][u], data.num_items)
+        tr.params, tr.opt_state, _ = pair_train_step(model, tr.optimizer, tr.params, tr.opt_state,
+                                                     (u, pos, neg), tr.generator,
+                                                     model.manual_grads)
+
+    step_s = median_s / tr.num_batches
+    alone_s = best_wall_s(step, reps=20)
+    print(f"apr step ({card}): {step_s * 1e3:.4f} ms in the median epoch over its steps, "
+          f"{alone_s * 1e3:.4f} ms alone (best of 20, each ending in a synchronize)")
+    launches = device_events(step, in_order=True)
+    print(f"apr step: {len(launches)} device launches" if launches
+          else "apr step: launches not measured (the profiler saw no device time)")
+    device_breakdown(f"apr step ({card})", step, step_s, top=10)
+
+
+def apr_phases(dev, data):
+    """Phases 18-19 on the ml-1m-shaped set. Returns K1's launches in APR's
+    fit_two_phase."""
+    tr, k1 = run_apr_fit_two_phase(data)
+    batch = check_apr_steps(tr)
+    check_fgsm_mf(tr, batch)
+    check_fgsm_sasrec(dev, data)
+    lap("18")
+    time_apr(data)
+    lap("19")
+    return k1
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke run needs a GPU")
@@ -1715,11 +2150,15 @@ def main():
     # 15-17. APL: K3a-K3e, the pretrained protocol at Video scale, timing
     k3_entries = apl_phases(dev, data)
 
+    # 18-19. APR on the ml-1m-shaped set: fit_two_phase, the steps against
+    # autograd and the CPU, the FGSM wrapper, timing
+    k1_apr = apr_phases(dev, ml1m)
+
     kernels = [{
         "name": "rank_count", "route": "cuda",
         "source": "acf_tpu_torch/csrc/rank_count.cu",
         "replaces": "acf_tpu/ops/ranking.py:39",
-        "launches": launches, "max_abs_err": max_err, **entry,
+        "launches": launches, "max_abs_err": max_err, **entry, "launches_apr": k1_apr,
     }, k2a_entry, k2b_entry, *k3_entries]
     check(all(k["launches"] > 0 for k in kernels), "a kernel of the path never launched")
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s")

@@ -61,7 +61,8 @@ def test_importing_the_port_loads_no_jax():
             "acf_tpu_torch.ops.sasrec_fused, acf_tpu_torch.sampling, acf_tpu_torch.train, "
             "acf_tpu_torch.train.trainer, acf_tpu_torch.train.optim, acf_tpu_torch.utils.io, "
             "acf_tpu_torch.utils.tree, acf_tpu_torch.models.apl, "
-            "acf_tpu_torch.ops.apl_gen_fused; "
+            "acf_tpu_torch.ops.apl_gen_fused, acf_tpu_torch.adversarial, "
+            "acf_tpu_torch.adversarial.fgsm; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'optax', 'acf_tpu')); print(bad); "
             "sys.exit(1 if bad else 0)")
@@ -143,9 +144,13 @@ def test_pair_and_apl_trainers_need_cuda_unless_cpu_is_asked():
     from acf_tpu_torch.models.apl import APL
     from acf_tpu_torch.train import TrainConfig, Trainer, adagrad, sgd
 
+    from acf_tpu_torch.adversarial import FGSMAdversarial
+
     data = _port_data()
-    for model, opt in ((MFBPR(data.num_users, data.num_items, 4), adagrad(0.1)),
-                       (APL(data.num_users, data.num_items, 4), sgd(0.05))):
+    U, I = data.num_users, data.num_items
+    for model, opt in ((MFBPR(U, I, 4), adagrad(0.1)), (APL(U, I, 4), sgd(0.05)),
+                       (MFBPR(U, I, 4, adversarial=True), adagrad(0.1)),
+                       (FGSMAdversarial(U, I, 4, base=MFBPR(U, I, 4)), adagrad(0.1))):
         with pytest.raises(RuntimeError, match="CUDA"):
             Trainer(model, data, opt, TrainConfig(batch_size=16))
         tr = Trainer(model, data, opt, TrainConfig(batch_size=16, device="cpu"))

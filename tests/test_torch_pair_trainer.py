@@ -162,8 +162,10 @@ def test_membership_len_truncates_the_pair_sampler_not_apl():
 
 def test_switch_model_and_fit_two_phase_for_pair_models():
     """A pair model through ``switch_model`` (fresh or carried Adagrad
-    slots) and ``fit_two_phase`` (clean, then a regularized MF-BPR: APR
-    itself raises until ROADMAP.md Queue 1 item 3)."""
+    slots) and ``fit_two_phase`` (clean, then a regularized MF-BPR); the
+    switch to APR trains with its adversarial stats, and DNS and pointwise
+    MF train (``tests/test_torch_apr.py`` holds them against the JAX
+    package)."""
     data = port_data(1)
     clean = MFBPR(data.num_users, data.num_items, 8)
     regd = MFBPR(data.num_users, data.num_items, 8, reg=0.01)
@@ -182,12 +184,13 @@ def test_switch_model_and_fit_two_phase_for_pair_models():
     assert best["epoch"] >= 3 and best["ndcg"] > 0
     adv = MFBPR(data.num_users, data.num_items, 8, adversarial=True)
     tr.switch_model(adv)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
-        tr.run_epoch()
+    stats = tr.run_epoch()
+    assert set(stats) == {"loss", "acc", "loss_adv", "acc_adv"}
+    assert stats["loss_adv"] > stats["loss"]
     for model in (MFBPR(data.num_users, data.num_items, 8, dns=2),
                   PointwiseMF(data.num_users, data.num_items, 8)):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
-            Trainer(model, data, adagrad(0.1), config()).run_epoch()
+        stats = Trainer(model, data, adagrad(0.1), config()).run_epoch()
+        assert set(stats) == {"loss", "acc"} and np.isfinite(stats["loss"])
 
 
 def test_pair_epoch_draws_from_its_generator():

@@ -26,7 +26,7 @@ from acf_tpu.train.checkpoint import _flatten_with_names as jax_named
 from acf_tpu.train.checkpoint import save_params as jax_save_params
 from acf_tpu_torch.compat.jax_params import params_from_numpy
 from acf_tpu_torch.data import Interactions
-from acf_tpu_torch.models.mf import MFBPR
+from acf_tpu_torch.models.mf import MFBPR, PointwiseMF
 from acf_tpu_torch.models.sasrec import SASRec
 from acf_tpu_torch.sampling import seq_window_from_draws
 from acf_tpu_torch.train import TrainConfig, Trainer, adam, fit_two_phase
@@ -201,10 +201,14 @@ def test_switch_model_resets_best_and_carries_or_resets_adam():
     tr.switch_model(adv)  # reset (the default)
     assert int(tr.opt_state["count"]) == 0
     assert not any(bool(x.any()) for _, x in _flatten_with_names(tr.opt_state["mu"]))
-    # a pair model is taken now (the pair trainer); APR itself is not ported
-    tr.switch_model(MFBPR(data.num_users, data.num_items, 8, adversarial=True))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
-        tr.run_epoch()
+    # a pair model is taken too (the pair trainer's epoch): APR trains on
+    # tables of its own, since switch_model keeps the params
+    apr = MFBPR(data.num_users, data.num_items, 8, adversarial=True)
+    tr.switch_model(apr)
+    tr.params = apr.init_params(torch.Generator().manual_seed(0), device=CPU)
+    tr.opt_state = tr.optimizer.init(tr.params)
+    stats = tr.run_epoch()
+    assert {"loss_adv", "acc_adv"} <= set(stats) and np.isfinite(stats["loss_adv"])
 
 
 def test_fit_two_phase_runs_clean_then_asasrec(tmp_path):
@@ -288,14 +292,20 @@ def test_epoch_fn_runs_num_batches_steps_and_run_epochs_stacks():
 
 
 def test_pair_models_are_not_trained_yet():
-    """The pair trainer trains the clean MF-BPR loss; what of the pair
-    models is not ported yet (APR, ROADMAP.md Queue 1 item 3) raises."""
+    """The name predates APR's port. The pair trainer now trains every pair
+    model of the port: MF-BPR's clean loss, APR (``adversarial=True``, its
+    closed form), DNS (``dns > 1``) and ``PointwiseMF``
+    (``tests/test_torch_apr.py`` holds them against the JAX package)."""
     data = port_data()
     tr = Trainer(MFBPR(data.num_users, data.num_items, 8), data, adam(1e-3), config())
     assert set(tr.run_epoch()) == {"acc", "loss"}
     apr = MFBPR(data.num_users, data.num_items, 8, adversarial=True)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
-        Trainer(apr, data, adam(1e-3), config()).run_epoch()
+    assert set(Trainer(apr, data, adam(1e-3), config()).run_epoch()) == {
+        "acc", "loss", "acc_adv", "loss_adv"}
+    for model in (MFBPR(data.num_users, data.num_items, 8, dns=3),
+                  PointwiseMF(data.num_users, data.num_items, 8)):
+        stats = Trainer(model, data, adam(1e-3), config()).run_epoch()
+        assert set(stats) == {"acc", "loss"} and np.isfinite(stats["loss"])
 
 
 def test_fit_two_phase_resumes_and_takes_a_pretrain(tmp_path):
