@@ -6,9 +6,9 @@ sequence model of the port: perturb embedding rows by ε times the
 row-normalized gradient of the model's own unregularized loss
 (``adv_target_loss``), then add the model's primary loss at the perturbed
 point (its aux ``loss``) with weight ``reg_adv``; ``adv_steps > 1`` iterates
-PGD-style (MSAP, arXiv:2010.01329). The perturbed leaves default to every
+PGD-style (MSAP, arXiv:2010.01329). The perturbed leaves are every
 top-level 2-D parameter whose leading dimension is the user or item count
-(the embedding tables); pass ``leaves`` to override.
+(the embedding tables).
 
 Use with the two-phase protocol like APR::
 
@@ -29,7 +29,7 @@ loss).
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Optional, Tuple
+from typing import Any
 
 import torch
 
@@ -43,7 +43,6 @@ class FGSMAdversarial(PairwiseModel):
     eps: float = 0.5
     reg_adv: float = 1.0
     adv_steps: int = 1
-    leaves: Optional[Tuple[str, ...]] = None  # None = auto-detect tables
 
     def __post_init__(self):
         # what is already adversarial, or brings its own epoch (APL), is
@@ -78,15 +77,13 @@ class FGSMAdversarial(PairwiseModel):
 
     # -- adversarial objective ------------------------------------------
     def _leaf_names(self, params):
-        if self.leaves is not None:
-            return tuple(self.leaves)
         names = [k for k, v in params.items()
                  if isinstance(v, torch.Tensor) and v.dim() == 2
                  and v.shape[0] in (self.num_users, self.num_items)]
         if not names:
             raise ValueError(
                 "FGSMAdversarial found no embedding-like top-level leaves "
-                f"in {list(params)}; pass leaves=(...) explicitly")
+                f"in {list(params)}")
         return tuple(names)
 
     def deltas(self, params, batch, generator=None):

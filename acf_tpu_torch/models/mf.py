@@ -280,21 +280,10 @@ class MFBPR(PairwiseModel):
         aux = {"loss": loss, "acc": acc}
         if not self.adversarial:
             return opt_loss, aux
-        if self.adv_mode == "grad" and self.adv_steps == 1:
-            # hot path: row_normalize commutes with the row gather, so the
-            # dense gradient is gathered and normalized at the batch rows
-            # and no delta table is written
-            gP, gQ = self._clean_table_grads(params, users, pos, neg)
-            dPu = self.eps * row_normalize(gP[users])
-            dQp = self.eps * row_normalize(gQ[pos])
-            dQn = self.eps * row_normalize(gQ[neg])
-            pos_a = torch.sum((p + dPu) * (qp + dQp), dim=-1)
-            neg_a = torch.sum((p + dPu) * (qn + dQn), dim=-1)
-        else:
-            dP, dQ = self.fgsm_deltas(params, users, pos, neg, generator, noise)
-            pu = p + dP[users]
-            pos_a = torch.sum(pu * (qp + dQ[pos]), dim=-1)
-            neg_a = torch.sum(pu * (qn + dQ[neg]), dim=-1)
+        dP, dQ = self.fgsm_deltas(params, users, pos, neg, generator, noise)
+        pu = p + dP[users]
+        pos_a = torch.sum(pu * (qp + dQ[pos]), dim=-1)
+        neg_a = torch.sum(pu * (qn + dQ[neg]), dim=-1)
         loss_adv = bpr_pair_loss(pos_a, neg_a)
         # the reference adds the clean-embedding reg term a second time
         # (evaluation_adv.py:175-177 reuses the clean lookups)

@@ -162,10 +162,8 @@ def make_pair_epoch_fn(model, optimizer, batch_size: int, num_batches: int):
 def window_loss(model):
     """``model.loss_window``, or ``model.loss`` on the expanded batch
     (``seq = window[:, :-1]``, ``pos = window[:, 1:]``) for a model without
-    one (the FGSM wrapper around a sequence model) or with
-    ``use_window_loss = False``, the JAX package's switch to the expanded
-    form."""
-    if getattr(model, "use_window_loss", True) and hasattr(model, "loss_window"):
+    one (the FGSM wrapper around a sequence model)."""
+    if hasattr(model, "loss_window"):
         return model.loss_window
 
     def expanded(params, batch, generator=None, **masks):

@@ -108,9 +108,10 @@ Phases, any failure exits non-zero:
               (dns = 3), PGD (adv_steps = 3), random mode and PointwiseMF on
               the card against the same step on the CPU with the same draws;
               ``FGSMAdversarial(MFBPR)`` against the built-in APR's autograd
-              step; one ``FGSMAdversarial(SASRec)`` step at maxlen 50 (K2a 3
-              and K2b 3 launches) against the same step through the plain
-              encoder, ReLU's kink handled as in phases 12-13;
+              step; one ``FGSMAdversarial(SASRec)`` step at maxlen 50
+              through the trainer's ``seq_train_step`` (K2a 3 and K2b 3
+              launches) against the same step through the plain encoder,
+              ReLU's kink handled as in phases 12-13;
  19. APR timing: examples/s of 3 epochs after a warm-up (every sample and
               the median, host clock), one step's wall time, launches,
               device busy and idle time and largest device operations,
@@ -1946,7 +1947,8 @@ def fgsm_sasrec_inputs(dev, data, base, plain, params, maxlen):
     linearization's forward (no dropout) get another user's rows; units near
     a kink in the clean training pass, and then in the perturbed pass (its
     inputs moved by the plain wrapper's deltas), are dropped. Returns
-    (batch, masks, adv_masks, users replaced, units dropped)."""
+    (batch = (users, window, neg), masks, adv_masks, users replaced, units
+    dropped)."""
     from acf_tpu_torch.sampling import sample_seq_window_batch
     from acf_tpu_torch.utils.tree import tree_leaves
 
@@ -1965,25 +1967,44 @@ def fgsm_sasrec_inputs(dev, data, base, plain, params, maxlen):
     rep = ok[torch.arange(int(near.sum()), device=dev) % len(ok)]
     for rows in (users, window, neg, *tree_leaves(masks), *tree_leaves(adv_masks)):
         rows[near] = rows[rep]
-    batch = (users, window[:, :-1], window[:, 1:], neg)
-    ids = batch[1] != 0
-    dropped = drop_kink_units(params, params["item_emb"][batch[1]] * scale, ids, masks, keep)
-    delta = plain.deltas(params, batch)
-    dropped += drop_kink_units(params, (params["item_emb"] + delta["item_emb"])[batch[1]] * scale,
+    seq = window[:, :-1]
+    ids = seq != 0
+    dropped = drop_kink_units(params, params["item_emb"][seq] * scale, ids, masks, keep)
+    delta = plain.deltas(params, (users, seq, window[:, 1:], neg))
+    dropped += drop_kink_units(params, (params["item_emb"] + delta["item_emb"])[seq] * scale,
                                ids, adv_masks, keep)
-    return batch, masks, adv_masks, int(near.sum()), dropped
+    return (users, window, neg), masks, adv_masks, int(near.sum()), dropped
+
+
+class GradTap:
+    """An optimizer that keeps the gradient tree the step hands it, then
+    applies ``opt``'s update."""
+
+    def __init__(self, opt):
+        self.opt, self.grads = opt, None
+
+    def init(self, params):
+        return self.opt.init(params)
+
+    def update(self, grads, state, params):
+        self.grads = grads
+        return self.opt.update(grads, state, params)
 
 
 def check_fgsm_sasrec(dev, data, maxlen=50):
-    """Phase 18: one step of ``FGSMAdversarial(SASRec)`` (d = 64, 2 blocks,
-    dropout 0.5) at maxlen 50: K2a three times (the clean pass, the
-    linearization, the perturbed pass) and K2b three times (the
-    linearization's dx-only), its loss, aux and every gradient leaf against
-    the same step through the plain encoder."""
+    """Phase 18: one training step of ``FGSMAdversarial(SASRec)`` (d = 64,
+    2 blocks, dropout 0.5) at maxlen 50 through the trainer's own step
+    (``seq_train_step``, which takes the wrapper's ``loss`` on the expanded
+    batch): K2a three times (the clean pass, the linearization, the
+    perturbed pass) and K2b three times (the linearization's dx-only); its
+    aux and every leaf of the gradient it hands the optimizer against the
+    same step through the plain encoder."""
     from acf_tpu_torch.adversarial import FGSMAdversarial
     from acf_tpu_torch.models.sasrec import SASRec
     from acf_tpu_torch.ops.sasrec_fused import encoder_bwd, fused_encoder
-    from acf_tpu_torch.utils.tree import tree_leaves, tree_map
+    from acf_tpu_torch.train import adam
+    from acf_tpu_torch.train.trainer import seq_train_step
+    from acf_tpu_torch.utils.tree import tree_leaves
 
     base = SASRec(data.num_users, data.num_items, D, maxlen=maxlen)
     wrap = FGSMAdversarial(data.num_users, data.num_items, D, base=base, **APR)
@@ -1993,31 +2014,34 @@ def check_fgsm_sasrec(dev, data, maxlen=50):
     batch, masks, adv_masks, replaced, dropped = fgsm_sasrec_inputs(dev, data, base, plain,
                                                                     params, maxlen)
 
-    def value_and_grads(model):
-        prm = tree_map(lambda x: x.detach().requires_grad_(True), params)
-        loss, aux = model.loss(prm, batch, masks=masks, adv_masks=adv_masks)
-        grads = torch.autograd.grad(loss, tree_leaves(prm))
-        return float(loss.detach()), {k: float(v.detach()) for k, v in aux.items()}, grads
+    def step(model):
+        opt = GradTap(adam(1e-3))
+        new, _, aux = seq_train_step(model, opt, params, opt.init(params), batch,
+                                     masks=masks, adv_masks=adv_masks)
+        check(all(bool(torch.isfinite(v).all()) for v in tree_leaves(new)),
+              "FGSMAdversarial(SASRec): the step's params are not finite")
+        return {k: float(v) for k, v in aux.items()}, tree_leaves(opt.grads)
 
     fused_encoder.launches = encoder_bwd.launches = 0
-    loss, aux, grads = value_and_grads(wrap)  # the wrapper's step through the kernels
+    aux, grads = step(wrap)  # the wrapper's step through the kernels
     torch.cuda.synchronize()
     k2a, k2b = fused_encoder.launches, encoder_bwd.launches
-    p_loss, p_aux, p_grads = value_and_grads(plain)
+    p_aux, p_grads = step(plain)
     check((fused_encoder.launches, encoder_bwd.launches) == (k2a, k2b),
           "FGSMAdversarial(SASRec): the plain step launched a kernel")
     err, r = tree_err(grads, p_grads)
-    rel = abs(loss - p_loss) / abs(p_loss)
-    print(f"FGSMAdversarial(SASRec) step (maxlen {maxlen}, B={TRAIN_BATCH}): {replaced} users "
-          f"near a ReLU kink in the linearization replaced, {dropped} units near one in the "
-          f"training passes dropped; K2a {k2a}, K2b {k2b} launches; loss {loss:.6f} vs plain "
-          f"{p_loss:.6f} (rel {rel:.2e}); aux "
+    rel = {k: abs(aux[k] - p_aux[k]) / abs(p_aux[k]) for k in ("loss", "loss_adv")}
+    print(f"FGSMAdversarial(SASRec) step through seq_train_step (maxlen {maxlen}, "
+          f"B={TRAIN_BATCH}): {replaced} users near a ReLU kink in the linearization replaced, "
+          f"{dropped} units near one in the training passes dropped; K2a {k2a}, K2b {k2b} "
+          "launches; aux "
           + ", ".join(f"{k} {v:.6f}/{p_aux[k]:.6f}" for k, v in sorted(aux.items()))
-          + f"; every gradient leaf max |d| {err:.3e} ({r:.2e} of scale)")
+          + f" (loss rel {rel['loss']:.2e}, loss_adv rel {rel['loss_adv']:.2e}); every leaf of "
+          f"the gradient handed to the optimizer max |d| {err:.3e} ({r:.2e} of scale)")
     check(k2a == 3 and k2b == 3, f"FGSMAdversarial(SASRec): K2a {k2a}, K2b {k2b}, not 3 and 3")
-    check(math.isfinite(loss) and rel <= 1e-5, f"FGSMAdversarial(SASRec): loss rel {rel}")
-    rel_adv = abs(aux["loss_adv"] - p_aux["loss_adv"]) / abs(p_aux["loss_adv"])
-    check(rel_adv <= 1e-5, f"FGSMAdversarial(SASRec): loss_adv rel {rel_adv}")
+    check(all(math.isfinite(aux[k]) for k in aux), f"FGSMAdversarial(SASRec): aux {aux}")
+    for k, v in rel.items():
+        check(v <= 1e-5, f"FGSMAdversarial(SASRec): {k} rel {v}")
     check(r <= STEP_TOL, f"FGSMAdversarial(SASRec): gradients differ by {r:.3e} of scale")
 
 

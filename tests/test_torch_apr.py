@@ -176,20 +176,26 @@ def test_fgsm_deltas_match_jax(adv_steps):
         assert not torch.allclose(one[0], td[0])
 
 
-def test_row_level_path_matches_table_path():
-    """The gather-then-normalize hot path of ``loss`` gives the adversarial
-    loss of scoring with the full ``fgsm_deltas`` tables
-    (``tests/test_mf.py:106``)."""
+def test_loss_holds_the_deltas_constant():
+    """The gradient of ``loss`` treats the FGSM deltas as constants (JAX's
+    ``stop_gradient``): it equals the gradient of the same objective with
+    the tables of ``fgsm_deltas`` fed in as fixed inputs."""
     from acf_tpu_torch.models.base import bpr_pair_loss
 
-    _, tm, _, tp = both(JaxMFBPR, MFBPR, adversarial=True)
+    _, tm, _, tp = both(JaxMFBPR, MFBPR, adversarial=True, reg=0.01)
     users, pos, neg = map(torch.from_numpy, batch_with_duplicates(seed=5))
-    _, aux = tm.loss(tp, (users, pos, neg))
     dP, dQ = tm.fgsm_deltas(tp, users, pos, neg)
-    pos_a, _, _ = tm._pair_scores(tp, users, pos, dP, dQ)
-    neg_a, _, _ = tm._pair_scores(tp, users, neg, dP, dQ)
-    np.testing.assert_allclose(float(aux["loss_adv"]), float(bpr_pair_loss(pos_a, neg_a)),
-                               rtol=1e-6)
+    assert not dP.requires_grad and not dQ.requires_grad
+    prm = {k: v.clone().requires_grad_(True) for k, v in tp.items()}
+    clean, reg_term, _, _ = tm._clean_loss(prm, users, pos, neg)
+    pos_a, _, _ = tm._pair_scores(prm, users, pos, dP, dQ)
+    neg_a, _, _ = tm._pair_scores(prm, users, neg, dP, dQ)
+    want = clean + 2 * tm.reg * reg_term + tm.reg_adv * bpr_pair_loss(pos_a, neg_a)
+    want_g = torch.autograd.grad(want, (prm["P"], prm["Q"]))
+    loss, _, grads = port_value_and_grads(tm, tp, (users, pos, neg))
+    np.testing.assert_allclose(loss, float(want), **TOL)
+    for k, b in zip("PQ", want_g):
+        np.testing.assert_allclose(grads[k].numpy(), b.numpy(), **TOL, err_msg=k)
 
 
 def test_row_normalize_keeps_zero_rows_zero():
@@ -201,8 +207,8 @@ def test_row_normalize_keeps_zero_rows_zero():
 
 @pytest.mark.parametrize("adv_steps", [1, 3])
 def test_table_path_loss_matches_jax(adv_steps):
-    """The table path of ``loss`` (``adv_steps > 1``; at one step, the hot
-    path): loss, aux and gradients against JAX's."""
+    """``loss`` through the ``fgsm_deltas`` tables at one step and at three:
+    loss, aux and gradients against JAX's."""
     jm, tm, jp, tp = both(JaxMFBPR, MFBPR, adversarial=True, adv_steps=adv_steps, reg=0.01)
     u, i, j = batch_with_duplicates(seed=6)
     want = jax.value_and_grad(jm.loss, has_aux=True)(

@@ -187,7 +187,7 @@ def test_linearizes_on_unregularized_loss():
 def test_leaf_autodetect():
     """Top-level 2-D leaves with a user- or item-count leading dimension: the
     item table of the port's SASRec (not ``pos_emb`` or a block's weights),
-    both MF tables; ``leaves`` overrides; none found raises."""
+    both MF tables; none found raises."""
     data = seq_data(seed=20)
     U, I = data.num_users, data.num_items
     w = FGSMAdversarial(U, I, 8, base=SASRec(U, I, 8, maxlen=MAXLEN))
@@ -199,7 +199,6 @@ def test_leaf_autodetect():
     mf = FGSMAdversarial(U, I, 8, base=MFBPR(U, I, 8, dns=3))
     mp = mf.init_params(torch.Generator().manual_seed(0), device=CPU)
     assert mf._leaf_names(mp) == ("P", "Q") and mf.batch_kind == "pair" and mf.dns == 3
-    assert FGSMAdversarial(U, I, 8, base=MFBPR(U, I, 8), leaves=("Q",))._leaf_names(mp) == ("Q",)
     with pytest.raises(ValueError, match="no embedding-like"):
         mf._leaf_names({"w": torch.zeros(3, 3), "b": torch.zeros(U)})
 
@@ -300,20 +299,21 @@ def test_wrapper_trains_through_the_trainer():
         assert {"loss_adv", "acc_adv"} <= set(stats) and np.isfinite(stats["loss_adv"])
 
 
-def test_use_window_loss_switch_takes_the_expanded_batch():
-    """``use_window_loss = False`` (the JAX package's switch) sends a model
-    with ``loss_window`` through ``loss`` on the expanded batch, with the
-    same value and gradients."""
+def test_expanded_batch_fallback_matches_loss_window():
+    """The wrapper has no ``loss_window``, so the sequence step takes its
+    ``loss`` on the expanded batch; at ``reg_adv = 0`` that is the base's
+    loss there, with the value and gradients of the base's
+    ``loss_window``."""
     data = seq_port_data(seed=5)
     model = SASRec(data.num_users, data.num_items, 16, maxlen=8, dropout_rate=0.0)
+    wrap = FGSMAdversarial(data.num_users, data.num_items, 16, base=model, reg_adv=0.0)
     params = model.init_params(torch.Generator().manual_seed(0), device=CPU)
     tr = Trainer(model, data, adam(1e-3), seq_config())
     batch = sample_seq_window_batch(torch.Generator().manual_seed(1), tr.dev["hist"],
                                     tr.dev["eligible"], 8, data.num_items, 16)
     assert window_loss(model) == model.loss_window
-    model.use_window_loss = False
-    expanded = window_loss(model)
-    assert expanded != model.loss_window
+    expanded = window_loss(wrap)
+    assert not hasattr(wrap, "loss_window")
     out = {}
     for name, fn in (("window", model.loss_window), ("expanded", expanded)):
         prm = tree_map(lambda x: x.clone().requires_grad_(True), params)
