@@ -1,0 +1,327 @@
+"""The port's command line (counterpart of ``acf_tpu/cli/main.py``): one entry
+point for the reference's three run scripts, training on the GPU.
+
+It parses the JAX CLI's whole flag union (run.py:25-75, run_adv.py:15-54,
+run_adv_ori.py:17-64), so every command line of ``scripts/`` and ``docs/``
+parses, plus ``--device`` (default ``cuda``; ``cpu`` runs on the CPU and is
+what the tests pass). It builds the models the port has, with the JAX CLI's
+hyperparameters and optimizers:
+
+  mf bpr bpr-tf apr amf amf2 abpr neumf aneumf sasrec asasrec asasrec2 apl
+
+and refuses, with the ROADMAP item that ports it, every model and flag it
+does not have yet (``UNPORTED_MODELS``, ``refuse_unported``): nothing falls
+back to another model or to the CPU.
+
+Two-phase adversarial staging (apr/asasrec/asasrec2, and any model under
+``--fgsm``) follows run_adv.py:97-120: clean training until --adv_epoch,
+then the adversarial objective continues from the same parameters.
+
+Usage:
+    python -m acf_tpu_torch.cli.main --model apr --data video --path data/ \\
+        --epochs 200 --adv_epoch 100 --d 64
+"""
+
+from __future__ import annotations
+
+import argparse
+import contextlib
+import dataclasses
+import os
+from datetime import datetime
+
+import torch
+
+from acf_tpu_torch.data import load_dataset
+from acf_tpu_torch.device import resolve_device
+from acf_tpu_torch.train import TrainConfig, Trainer, adagrad, adam, fit_two_phase, sgd
+from acf_tpu_torch.train.checkpoint import save_params
+from acf_tpu_torch.utils.io import OutputWriter
+
+# Models of the JAX CLI that the port does not have yet, and the ROADMAP
+# item (Queue 1) that ports them. The labels are stable: ROADMAP.md lists
+# them and the tests match them.
+ITEM_10 = "ROADMAP Queue 1, item 10 ('Sequence zoo')"
+ITEM_12 = "ROADMAP Queue 1, item 12 ('Sparse row-space step')"
+ITEM_13 = "ROADMAP Queue 1, item 13 ('Distribution')"
+ITEM_14 = "ROADMAP Queue 1, item 14 ('Full CLI flag union')"
+ITEM_15 = "ROADMAP Queue 1, item 15 ('IRGAN and the naive baselines')"
+UNPORTED_MODELS = {
+    **dict.fromkeys(("gru4rec", "caser", "dream", "dream-tf", "drcf", "dsin"), ITEM_10),
+    **dict.fromkeys(("irgan", "pop", "mrv", "mfv", "av"), ITEM_15),
+}
+PORTED_MODELS = ("mf", "bpr", "bpr-tf", "apr", "amf", "amf2", "abpr", "neumf", "aneumf",
+                 "sasrec", "asasrec", "asasrec2", "apl")
+
+
+def build_parser():
+    p = argparse.ArgumentParser(description="Adversarial CF on the GPU (PyTorch + CUDA)")
+    p.add_argument("--path", type=str, default="", help="data directory root")
+    p.add_argument("--opath", type=str, default="out/", help="output dir")
+    p.add_argument("--model", type=str, default="bpr")
+    p.add_argument("--data", "--dataset", dest="data", type=str, default="video")
+    p.add_argument("--d", "--embed_size", dest="d", type=int, default=64)
+    p.add_argument("--maxlen", type=int, default=50)
+    p.add_argument("--train_dtype", default="float32", choices=["bfloat16", "float32"],
+                   help="SASRec train-path encoder compute dtype; bfloat16 is not ported "
+                        "(" + ITEM_14 + ")")
+    p.add_argument("--epochs", type=int, default=100)
+    p.add_argument("--adv_epoch", "--adv_epochs", dest="adv_epoch", type=int, default=50,
+                   help="epoch at which the adversarial phase starts")
+    p.add_argument("--bs", "--batch_size", dest="bs", type=int, default=512)
+    p.add_argument("--lr", type=float, default=None,
+                   help="learning rate. Default: 0.05 for the adagrad models (reference "
+                        "evaluation_adv.py:205-207); an explicit --lr always wins")
+    p.add_argument("--reg", type=float, default=0.0)
+    p.add_argument("--reg_adv", type=float, default=1.0)
+    p.add_argument("--eps", type=float, default=0.5)
+    p.add_argument("--eps_pos", type=float, default=0.0)
+    p.add_argument("--eps_dense", type=float, default=0.0)
+    p.add_argument("--eps_conv", type=float, default=0.0)
+    p.add_argument("--eps_stage2", type=float, default=0.0,
+                   help="staged-epsilon schedule for two-phase adversarial models: enter "
+                        "the adversarial phase at --eps, then raise eps to THIS value at "
+                        "--stage2_epoch (docs/PARITY.md)")
+    p.add_argument("--stage2_epoch", type=int, default=0,
+                   help="epoch at which --eps_stage2 takes over (required with "
+                        "--eps_stage2; must satisfy adv_epoch < stage2_epoch < epochs)")
+    p.add_argument("--adv", type=str, default="grad", choices=["grad", "random"])
+    p.add_argument("--adv_steps", type=int, default=1,
+                   help="PGD-style multi-step perturbation for apr (1 = the reference's "
+                        "single FGSM step; MSAP arXiv:2010.01329)")
+    p.add_argument("--fgsm", action="store_true",
+                   help="wrap the chosen model in embedding-space FGSM/PGD adversarial "
+                        "training with --adv_epoch two-phase staging")
+    p.add_argument("--dns", type=int, default=1,
+                   help="dynamic negative sampling: candidates per positive")
+    p.add_argument("--loss", type=str, default="",
+                   help="model loss variant: apl log|wgan|hinge (APL.py:62); gru4rec "
+                        "bpr|top1|ce")
+    p.add_argument("--final_act", type=str, default="linear",
+                   choices=["linear", "relu", "tanh"], help="gru4rec output activation")
+    p.add_argument("--hidden_act", type=str, default="tanh", choices=["tanh", "relu"],
+                   help="gru4rec cell activation")
+    p.add_argument("--sess_count", type=int, default=5, help="dsin: number of sessions S")
+    p.add_argument("--dsin_bi", action="store_true",
+                   help="dsin: bidirectional interest evolution")
+    p.add_argument("--sess_len", type=int, default=0,
+                   help="dsin: items per session (0 = maxlen // sess_count)")
+    p.add_argument("--irgan_pair", action="store_true",
+                   help="irgan: pairwise discriminator (DIS2, IRGAN.py:277-343)")
+    p.add_argument("--sparse", action="store_true",
+                   help="row-space sparse Adagrad step for bpr/apr; not ported (" + ITEM_12
+                        + ")")
+    p.add_argument("--dedup", type=str, default="auto", choices=["auto", "matmul", "sort"],
+                   help="duplicate-row aggregation program for --sparse")
+    p.add_argument("--pre", type=str, default="",
+                   help="npz params or full train-state snapshot to warm-start matching "
+                        "params from (either package's files)")
+    p.add_argument("--restore", type=str, default="",
+                   help="full train-state snapshot (params+opt+RNG) to resume from "
+                        "(reference --restore, run_adv.py:97-120)")
+    p.add_argument("--restore_epoch", type=int, default=0,
+                   help="first epoch to RUN after restoring (a snapshot named '-e' was "
+                        "saved after epoch e completed, so pass e+1 to resume)")
+    p.add_argument("--ckpt_dir", type=str, default="Pretrain",
+                   help="directory for periodic --ckpt snapshots")
+    p.add_argument("--w", type=float, default=0.001, help="popularity-discriminator weight")
+    p.add_argument("--pp", type=float, default=0.2, help="popularity percent")
+    p.add_argument("--eval_mode", "--eval", dest="eval_mode", type=str, default="all",
+                   choices=["all", "sample"])
+    p.add_argument("--verbose", "--verbose_eval", dest="verbose", type=int, default=1)
+    p.add_argument("--save_model", type=int, default=0,
+                   help="1 = save params on every new best NDCG (.best.npz) and after every "
+                        "epoch (.last.npz) under h5/ (reference run.py:257-272)")
+    p.add_argument("--topk", type=int, default=10)
+    p.add_argument("--ckpt", type=int, default=0)
+    p.add_argument("--seed", type=int, default=2019)
+    p.add_argument("--nrows", type=int, default=0, help="truncate the dataset (smoke runs)")
+    p.add_argument("--profile", type=str, default="",
+                   help="directory for a torch.profiler Chrome trace of the run (open with "
+                        "Perfetto or chrome://tracing)")
+    p.add_argument("--mesh", type=str, default="",
+                   help="DATAxMODEL device mesh; not ported (" + ITEM_13 + ")")
+    p.add_argument("--device", type=str, default="cuda",
+                   help="torch device to train and evaluate on (default cuda; raises "
+                        "without a GPU unless cpu is asked)")
+    return p
+
+
+def _not_ported(what, item):
+    return SystemExit(f"{what} is not ported to acf_tpu_torch yet: {item} ports it")
+
+
+def refuse_unported(args):
+    """SystemExit naming the model or flag and the ROADMAP item that ports
+    it, for anything of the JAX CLI the port does not have yet."""
+    if args.model in UNPORTED_MODELS:
+        raise _not_ported(f"--model {args.model}", UNPORTED_MODELS[args.model])
+    if args.sparse:
+        raise _not_ported("--sparse", ITEM_12)
+    if args.mesh:
+        raise _not_ported(f"--mesh {args.mesh}", ITEM_13)
+    if args.train_dtype == "bfloat16":
+        raise _not_ported("--train_dtype bfloat16", ITEM_14)
+
+
+def make_model(name, data, args):
+    """name → (model, optimizer, clean_model_for_phase1 | None), with the JAX
+    CLI's hyperparameters and optimizers (``acf_tpu/cli/main.py:175-282``)."""
+    from acf_tpu_torch.adversarial.popularity import PopularityAdversarial
+    from acf_tpu_torch.models.apl import APL
+    from acf_tpu_torch.models.mf import MFBPR, PointwiseMF
+    from acf_tpu_torch.models.neumf import NeuMF
+    from acf_tpu_torch.models.sasrec import SASRec
+
+    if name in UNPORTED_MODELS:
+        raise _not_ported(f"--model {name}", UNPORTED_MODELS[name])
+    U, I, d = data.num_users, data.num_items, args.d
+    adam_ = adam(0.001)
+    lr = 0.05 if args.lr is None else args.lr
+    adagrad_ = adagrad(lr, initial_accumulator_value=0.1)
+
+    def popularity(base, simultaneous=False):
+        return PopularityAdversarial(U, I, d, base=base, weight=args.w, pop_percent=args.pp,
+                                     simultaneous=simultaneous)
+
+    if name == "mf":
+        return PointwiseMF(U, I, d), adam_, None
+    if name in ("bpr", "bpr-tf"):
+        return MFBPR(U, I, d, reg=args.reg, dns=args.dns), adagrad_, None
+    if name == "apr":
+        clean = MFBPR(U, I, d, reg=args.reg, dns=args.dns)
+        adv = MFBPR(U, I, d, reg=args.reg, adversarial=True, eps=args.eps,
+                    reg_adv=args.reg_adv, adv_mode=args.adv, dns=args.dns,
+                    adv_steps=args.adv_steps)
+        return adv, adagrad_, clean
+    if name in ("amf", "amf2"):
+        # amf2 = FastAdversarialMF: simultaneous two-player updates
+        # (reference FastAdversarialMF.py:64-74)
+        return popularity(PointwiseMF(U, I, d), simultaneous=(name == "amf2")), adam_, None
+    if name == "abpr":
+        return popularity(MFBPR(U, I, d)), adam_, None
+    if name == "neumf":
+        return NeuMF(U, I, d), adam_, None
+    if name == "aneumf":
+        return popularity(NeuMF(U, I, d)), adam_, None
+    if name == "sasrec":
+        return SASRec(U, I, d, maxlen=args.maxlen), adam(0.001, b2=0.98), None
+    if name in ("asasrec", "asasrec2"):
+        clean = SASRec(U, I, d, maxlen=args.maxlen)
+        adv = SASRec(U, I, d, maxlen=args.maxlen, adversarial=True, adv_mode=name,
+                     eps=args.eps, reg_adv=args.reg_adv, eps_pos=args.eps_pos,
+                     eps_dense=args.eps_dense, eps_conv=args.eps_conv,
+                     adv_steps=args.adv_steps)
+        return adv, adam(0.001, b2=0.98), clean
+    if name == "apl":
+        return APL(U, I, d, loss_function=args.loss or "log"), sgd(0.05), None
+    raise ValueError(f"unknown model {name!r}")
+
+
+@contextlib.contextmanager
+def profiled(trace_dir: str, device: torch.device):
+    """torch.profiler over the block (CPU ops, and the GPU's kernels on a
+    CUDA device); its Chrome trace is written into ``trace_dir`` when the
+    block ends, also when it raises."""
+    from torch.profiler import ProfilerActivity, profile
+
+    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if device.type == "cuda" else [])
+    prof = profile(activities=acts)
+    prof.start()
+    try:
+        yield
+    finally:
+        prof.stop()
+        os.makedirs(trace_dir, exist_ok=True)
+        prof.export_chrome_trace(os.path.join(trace_dir, "acf_tpu_torch.pt.trace.json"))
+
+
+def main(argv=None):
+    args = build_parser().parse_args(argv)
+    refuse_unported(args)
+    device = resolve_device(args.device)
+    data = load_dataset(args.data, args.path or "data/", eval_mode=args.eval_mode,
+                        nrows=args.nrows or None)
+    model, optimizer, clean = make_model(args.model, data, args)
+    if args.fgsm:
+        from acf_tpu_torch.adversarial import FGSMAdversarial
+
+        if clean is not None or args.model in ("amf", "amf2", "abpr", "aneumf", "apl"):
+            raise SystemExit(f"--fgsm does not apply to {args.model!r} "
+                             "(already adversarial, or it brings its own epoch)")
+        clean = model
+        model = FGSMAdversarial(data.num_users, data.num_items, args.d, base=clean,
+                                eps=args.eps, reg_adv=args.reg_adv, adv_steps=args.adv_steps)
+
+    run_name = "%s_%s_d%d_%s" % (args.data, args.model, args.d,
+                                 datetime.now().strftime("%Y_%m_%d_%H_%M_%S"))
+    writer = OutputWriter(args.opath, run_name)
+    writer.line("Load data done. #user=%d, #item=%d, #train=%d, #test=%d"
+                % (data.num_users, data.num_items, data.num_pairs, len(data.eval_users())))
+    if args.save_model:
+        os.makedirs("h5", exist_ok=True)  # reference save dir (run.py:260)
+    cfg = TrainConfig(batch_size=args.bs, epochs=args.epochs, verbose=args.verbose,
+                      topk=args.topk, eval_sampled=(args.eval_mode == "sample"),
+                      ckpt_every=args.ckpt,
+                      ckpt_path=(f"{args.ckpt_dir}/{args.data}/{args.model}"
+                                 if args.ckpt else None),
+                      save_model_path=(f"h5/{run_name}" if args.save_model else None),
+                      seed=args.seed, device=str(device))
+    restore = (args.restore, args.restore_epoch) if args.restore else None
+    with contextlib.ExitStack() as stack:
+        if args.profile:
+            stack.enter_context(profiled(args.profile, device))
+        best = _run(args, data, model, clean, optimizer, cfg, writer, restore)
+    if args.profile:
+        writer.line(f"Profiler trace written to {args.profile}")
+    writer.line("End. Best Iteration %d: HR = %.4f, NDCG = %.4f"
+                % (best.get("epoch", -1), best.get("hr", 0.0), best.get("ndcg", 0.0)))
+    return best
+
+
+def _run(args, data, model, clean, optimizer, cfg, writer, restore):
+    # asasrec carries Adam slots into phase 2 (full-variable Saver,
+    # utils.py:306-315); apr resets them (embeddings-only Saver,
+    # evaluation_adv.py:235)
+    reset_opt = args.model not in ("asasrec", "asasrec2")
+    if args.eps_stage2 > 0.0 and clean is None:
+        raise SystemExit(f"--eps_stage2 only applies to two-phase adversarial models "
+                         f"(apr/asasrec/asasrec2), not --model {args.model}")
+    if clean is not None and args.eps_stage2 > 0.0:
+        # staged-epsilon three-phase protocol:
+        # clean 0..adv_epoch -> eps adv_epoch..stage2_epoch -> eps_stage2
+        if restore:
+            raise SystemExit("--eps_stage2 does not support --restore")
+        if not (args.adv_epoch < args.stage2_epoch < cfg.epochs):
+            raise SystemExit("--eps_stage2 requires --adv_epoch < --stage2_epoch < --epochs "
+                             f"(got {args.adv_epoch} / {args.stage2_epoch} / {cfg.epochs})")
+        adv_hi = dataclasses.replace(model, eps=args.eps_stage2)
+        tr = Trainer(clean, data, optimizer, cfg, writer)
+        if args.pre:
+            tr.load_pretrain(args.pre)
+        tr.fit(epochs=args.adv_epoch, final=False)
+        if cfg.ckpt_path:  # mirror fit_two_phase's phase-boundary saves
+            save_params(cfg.ckpt_path + "-pretrain", tr.params)
+        tr.switch_model(model, reset_opt=reset_opt)
+        tr.fit(epochs=args.stage2_epoch, epoch_start=args.adv_epoch, final=False)
+        tr.switch_model(adv_hi, reset_opt=False)
+        best = tr.fit(epochs=cfg.epochs, epoch_start=args.stage2_epoch)
+        if cfg.ckpt_path:
+            save_params(cfg.ckpt_path + "-final", tr.params)
+        return best
+    if clean is not None:
+        return fit_two_phase(clean, model, data, optimizer, cfg, adv_epoch=args.adv_epoch,
+                             writer=writer, restore=restore, pretrain=args.pre or None,
+                             reset_opt=reset_opt)
+    trainer = Trainer(model, data, optimizer, cfg, writer)
+    if args.pre:
+        loaded = trainer.load_pretrain(args.pre)
+        writer.line(f"Loaded pretrained leaves: {loaded}")
+    if restore:
+        trainer.restore_checkpoint(restore[0])
+        return trainer.fit(epoch_start=restore[1])
+    return trainer.fit()
+
+
+if __name__ == "__main__":
+    main()

@@ -1,9 +1,10 @@
 """Dataset ingestion for implicit-feedback top-N recommendation.
 
 The port's own copy of ``acf_tpu/data/datasets.py`` (numpy on the host, as
-there), so that the port imports nothing of the JAX package. The file
-readers use pandas only; the reference package's native C++ parser is not
-carried over.
+there), so that the port imports nothing of the JAX package. The two-column
+and the rating readers go through the port's native C++ parser
+(:mod:`acf_tpu_torch.data.native_io`, built at first use; a failed build
+raises), the rest through pandas.
 
 Re-implements the *semantics* of the reference's four loaders (reference
 Dataset.py:8-327 and utils.py:44-79) as dense numpy arrays instead of scipy dok
@@ -32,6 +33,8 @@ from typing import Optional
 
 import numpy as np
 import pandas as pd
+
+from acf_tpu_torch.data import native_io
 
 
 @dataclasses.dataclass
@@ -319,12 +322,19 @@ def _load_negative_file(path: str, num_users: int, eval_users: np.ndarray):
 
 def _load_two_col(path: str) -> pd.DataFrame:
     """`uid iid` space-separated, chronological per user (Video/Beauty/Steam
-    .txt; reference utils.py:62-72)."""
-    return pd.read_csv(path, sep=" ", names=["uid", "iid"])
+    .txt; reference utils.py:62-72), through the native parser."""
+    u, i = native_io.parse_two_col(path)
+    return pd.DataFrame({"uid": u, "iid": i})
 
 
 def _load_rating_tsv(path: str) -> pd.DataFrame:
-    """`uid\\tiid\\trating\\ttimestamp` (reference utils.py:54-60)."""
+    """`uid\\tiid\\trating\\ttimestamp` (reference utils.py:54-60), through
+    the native parser; a file it mostly cannot parse (text timestamps) goes
+    to pandas, as in the JAX package."""
+    parsed = native_io.parse_rating(path)
+    if parsed is not None:
+        u, i, r, t = parsed
+        return pd.DataFrame({"uid": u, "iid": i, "rating": r, "timestamp": t})
     return pd.read_csv(path, sep="\t", names=["uid", "iid", "rating", "timestamp"])
 
 

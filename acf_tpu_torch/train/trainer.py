@@ -4,8 +4,10 @@ Each epoch is a Python loop of ``num_batches`` steps on the device, and one
 host transfer per epoch reads the mean of the steps' aux values. Three
 kinds of epoch, chosen as the JAX package chooses them:
 
-* a model's own ``make_epoch_fn`` (APL's critic-then-generator epoch),
-  checked first, with its ``init_opt_state`` for the optimizer slots;
+* a model's own ``make_epoch_fn`` (APL's critic-then-generator epoch, the
+  popularity adversaries' discriminator-then-recommender epoch), checked
+  first, with its ``init_opt_state`` for the optimizer slots and its
+  ``extra_device_data`` on the device;
 * sequence models (``batch_kind == "seq"``): draw a packed window batch
   (:func:`acf_tpu_torch.sampling.sample_seq_window_batch`), take
   ``loss_window``'s value and gradient (or ``loss``'s on the expanded
@@ -212,8 +214,8 @@ class Trainer:
 
     Pair models (MF-BPR, APR, DNS, pointwise MF) and sequence models
     (SASRec, ASASRec), bare or in the FGSM wrapper, train on the epochs this
-    module builds; a model with ``make_epoch_fn``
-    (APL) brings its own. ``config.membership_len`` truncates the histories
+    module builds; a model with ``make_epoch_fn`` (APL, the popularity
+    adversaries) brings its own. ``config.membership_len`` truncates the histories
     the pair sampler's rejection reads, except for sequence models and
     models marked ``uses_full_hist`` (APL's positive mixture), whose
     objective reads the whole history."""
@@ -239,6 +241,7 @@ class Trainer:
             "eligible": torch.as_tensor(
                 np.nonzero(data.hist_len >= 2)[0].astype(np.int32), device=self.device),
         }
+        self._add_device_data(model)
         if hasattr(model, "make_epoch_fn"):
             self.num_batches = max(data.num_pairs // config.batch_size, 1)
         elif model.batch_kind == "seq":
@@ -253,6 +256,14 @@ class Trainer:
         self.params = model.init_params(self.generator, device=self.device)
         self.opt_state = self._init_opt_state(model)
         self.best = {"ndcg": -1.0, "epoch": -1, "result": None}
+
+    def _add_device_data(self, model):
+        """A model's ``extra_device_data(data)`` (e.g. the popularity pools
+        of :class:`acf_tpu_torch.adversarial.PopularityAdversarial`), put on
+        the trainer's device beside the pairs and histories."""
+        if hasattr(model, "extra_device_data"):
+            self.dev.update({k: torch.as_tensor(v, device=self.device)
+                             for k, v in model.extra_device_data(self.data).items()})
 
     def _make_epoch_fn(self, model):
         """The model's own epoch (checked first: a sequence model may bring
@@ -403,6 +414,7 @@ class Trainer:
         self.model = model
         if reset_opt:
             self.opt_state = self._init_opt_state(model)
+        self._add_device_data(model)
         self.epoch_fn = self._make_epoch_fn(model)
         # keep the evaluator when the new model needs the same eval geometry
         if self._eval_key(model) != old_eval_key:

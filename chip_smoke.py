@@ -115,7 +115,26 @@ Phases, any failure exits non-zero:
  19. APR timing: examples/s of 3 epochs after a warm-up (every sample and
               the median, host clock), one step's wall time, launches,
               device busy and idle time and largest device operations,
-              beside the card's name and power limit.
+              beside the card's name and power limit;
+ 20. the command line (``acf_tpu_torch.cli.main``) at d = 64, batch 512:
+              the reference's files written from a seed (``Video.txt``,
+              31,000 users x 23,700 items, 300,000 rows; ``ml-1m.*.rating``,
+              6,040 x 3,706, 994,000 + 6,040 rows), each parsed by the native
+              parser and by pandas (equal, both timed); in-process runs of
+              APR on the ml-1m files (2 epochs, the adversarial phase from
+              epoch 1; K1 24 launches) and of AMF, AMF2, ABPR and ANeuMF on
+              the Video file (1 epoch each; K1 61 launches each but ANeuMF,
+              which evaluates densely), each ``.out`` file checked (the
+              ``Load data done`` counts against pandas' own, an evaluated
+              line an epoch, the K sweep, the ``End.`` line); then, after a
+              warm-up epoch, one AMF, ABPR and ANeuMF step on the card against
+              the same step on the CPU from the same params, Adam states and
+              draws (``APR_TOL`` of the update's scale plus an ulp of the
+              largest param);
+ 21. the adversaries' timing: examples/s of 3 epochs after the warm-up
+              (every sample and the median, host clock), one step's launches,
+              wall time, device busy and idle time; the Video-scale NeuMF
+              evaluation's seconds and device busy time.
 
 Kernel times come from torch.profiler's device time. A measurement whose
 profile holds no device time in three sessions is timed with CUDA events
@@ -2111,6 +2130,297 @@ def apr_phases(dev, data):
     return k1
 
 
+# --- The command line and the popularity adversaries ----------------------------
+
+# The popularity adversaries' configuration of the CLI (acf_tpu/cli/main.py:
+# 214-230): Adam(0.001) for the recommender and the discriminators, w 0.001,
+# pp 0.2; d = 64, batch 512 on the Video file.
+POP_MODELS = ("amf", "abpr", "aneumf")
+POP_EPOCHS = 3
+
+
+def write_reference_files(root: Path, seed: int = 20):
+    """The reference's file formats from a seed, drawn like ``bench.py:41-57``
+    (uniform users and items, rows in chronological order): ``Video.txt``
+    (31,000 users x 23,700 items, 300,000 rows of ``uid iid``) and
+    ``ml-1m.train.rating`` (6,040 x 3,706, 994,000 rows of ``uid iid rating
+    timestamp``) with ``ml-1m.test.rating`` (one later row a user). Returns
+    the frames as written."""
+    import pandas as pd
+
+    rng = np.random.default_rng(seed)
+    video = pd.DataFrame({"uid": rng.integers(1, VIDEO_USERS + 1, VIDEO_INTERACTIONS),
+                          "iid": rng.integers(1, VIDEO_ITEMS + 1, VIDEO_INTERACTIONS)})
+    video.to_csv(root / "Video.txt", sep=" ", header=False, index=False)
+    n = ML1M_INTERACTIONS
+    train = pd.DataFrame({"uid": rng.integers(1, ML1M_USERS + 1, n),
+                          "iid": rng.integers(1, ML1M_ITEMS + 1, n),
+                          "rating": rng.integers(1, 6, n),
+                          "timestamp": 978_300_000 + np.arange(n, dtype=np.int64)})
+    test = pd.DataFrame({"uid": np.arange(1, ML1M_USERS + 1),
+                         "iid": rng.integers(1, ML1M_ITEMS + 1, ML1M_USERS),
+                         "rating": rng.integers(1, 6, ML1M_USERS),
+                         "timestamp": 978_300_000 + n + np.arange(ML1M_USERS, dtype=np.int64)})
+    for name, df in (("train", train), ("test", test)):
+        df.to_csv(root / f"ml-1m.{name}.rating", sep="\t", header=False, index=False)
+    return video, pd.concat([train, test], ignore_index=True)
+
+
+def expected_counts(df):
+    """The ``Load data done`` numbers of a frame, by pandas alone: users and
+    items (each with the pad id 0), unique train pairs (every row but each
+    user's last, in time order) and test users."""
+    if "timestamp" in df:
+        df = df.sort_values(["uid", "timestamp"], kind="stable")
+    else:
+        df = df.sort_values("uid", kind="stable")
+    last = ~df["uid"].duplicated(keep="last")
+    train = df[~last].drop_duplicates(["uid", "iid"])
+    return (df["uid"].nunique() + 1, df["iid"].nunique() + 1, len(train),
+            int(last.sum()))
+
+
+def check_parsers(root: Path):
+    """The native parser against pandas on both files, each timed."""
+    import pandas as pd
+
+    from acf_tpu_torch.data import native_io
+
+    for path, parse, cols, sep in (
+            (root / "Video.txt", native_io.parse_two_col, ["uid", "iid"], " "),
+            (root / "ml-1m.train.rating", native_io.parse_rating,
+             ["uid", "iid", "rating", "timestamp"], "\t")):
+        t0 = time.perf_counter()
+        got = parse(str(path))
+        native_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        df = pd.read_csv(path, sep=sep, names=cols)
+        pandas_s = time.perf_counter() - t0
+        check(got is not None and len(got) == len(cols), f"native parser refused {path.name}")
+        for a, col in zip(got, cols):
+            check(np.array_equal(a, df[col].to_numpy()),
+                  f"native parser and pandas differ on {path.name} column {col}")
+        print(f"parse {path.name} ({len(df)} rows): native {native_s:.4f} s, pandas "
+              f"{pandas_s:.4f} s ({pandas_s / native_s:.1f}x), equal on every column "
+              "(host clock)")
+
+
+def run_cli(root: Path, argv, counts, epochs, counter=None):
+    """``acf_tpu_torch.cli.main.main`` in-process on the files under ``root``
+    (its echo of the log kept off the terminal), the .out file checked: the
+    ``Load data done`` line with ``counts``, one evaluated line an epoch and
+    the ``End.`` line. Returns (seconds, launches of ``counter`` in the run,
+    the last trainer the run fitted)."""
+    import contextlib
+    import io
+
+    from acf_tpu_torch.cli.main import main as cli_main
+    from acf_tpu_torch.train import Trainer
+
+    opath = root / "out" / argv[1]
+    fitted, real_fit = [], Trainer.fit
+
+    def fit(self, *args, **kwargs):
+        fitted.append(self)
+        return real_fit(self, *args, **kwargs)
+
+    if counter is not None:
+        counter.launches = 0
+    Trainer.fit = fit
+    try:
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            best = cli_main([*argv, "--path", str(root), "--opath", f"{opath}/"])  # the main path
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        Trainer.fit = real_fit
+    launches = counter.launches if counter is not None else None
+    outs = sorted(opath.glob("*.out"))
+    check(len(outs) == 1, f"cli {argv}: {len(outs)} .out files")
+    lines = outs[0].read_text().splitlines()
+    want = "Load data done. #user=%d, #item=%d, #train=%d, #test=%d" % counts
+    epoch_lines = [ln for ln in lines if ln.startswith("Epoch ") and "HR =" in ln]
+    print(f"cli {' '.join(argv)}: {wall:.2f} s (host clock, data loading included); "
+          + (f"K1 launches {launches}; " if counter is not None else "")
+          + f"best epoch {best['epoch']} NDCG@10 {best['ndcg']:.6f}")
+    for ln in [lines[0], *epoch_lines, lines[-1]]:
+        print(f"  {ln}")
+    check(lines[0] == want, f"cli {argv}: {lines[0]!r}, expected {want!r}")
+    check(len(epoch_lines) == epochs and not any("NaN" in ln for ln in lines),
+          f"cli {argv}: {len(epoch_lines)} evaluated epochs, expected {epochs}")
+    check(lines[-1].startswith("End. Best Iteration ") and math.isfinite(best["ndcg"]),
+          f"cli {argv}: no End. line")
+    check(sum(ln.startswith("K = ") for ln in lines) == 100, f"cli {argv}: no K sweep")
+    check(any(f.suffix == ".hr" for f in opath.iterdir()), f"cli {argv}: no .hr file")
+    return wall, launches, fitted[-1]
+
+
+def cli_runs(root: Path, video, ml1m):
+    """Phase 20, the CLI: APR on the ml-1m files (2 epochs, the adversarial
+    phase from epoch 1), then AMF, AMF2, ABPR and ANeuMF one epoch each on
+    the Video file, K1 counted around each. Returns (K1's launches by run,
+    the trainers of the Video runs by model)."""
+    from acf_tpu_torch.ops.ranking import rank_positions_dot
+
+    common = ["--d", str(D), "--bs", str(TRAIN_BATCH)]
+    counts = {"ml-1m": expected_counts(ml1m), "video": expected_counts(video)}
+    tiles = {k: math.ceil(c[3] / BATCH_USERS) for k, c in counts.items()}
+    k1, trainers = {}, {}
+    _, k1["apr_ml1m"], _ = run_cli(root, ["--model", "apr", "--data", "ml-1m", "--epochs", "2",
+                                          "--adv_epoch", "1", *common], counts["ml-1m"], 2,
+                                   rank_positions_dot)
+    check(k1["apr_ml1m"] == 2 * tiles["ml-1m"],
+          f"cli apr: K1 launched {k1['apr_ml1m']} times, not {2 * tiles['ml-1m']}")
+    for model in ("amf", "amf2", "abpr", "aneumf"):
+        wall, n, tr = run_cli(root, ["--model", model, "--data", "video", "--epochs", "1",
+                                     *common], counts["video"], 1, rank_positions_dot)
+        tr.cli_s = wall
+        trainers[model] = tr
+        want = 0 if model == "aneumf" else tiles["video"]  # ANeuMF evaluates densely
+        check(n == want, f"cli {model}: K1 launched {n} times, not {want}")
+        k1[f"{model}_video"] = n
+    return k1, trainers
+
+
+def pop_draws(tr, seed):
+    """One step's draws on the CPU: pair indices [1, B], negative candidates
+    [1, R, B] and the index draws into the four pools ([1, B] for the
+    discriminators, [1, B // 2] for the recommender)."""
+    from acf_tpu_torch.adversarial.popularity import ADV_DRAWS, POOL_DRAWS
+
+    g = torch.Generator().manual_seed(seed)
+    idx = torch.randperm(tr.data.num_pairs, generator=g)[:TRAIN_BATCH][None]
+    cands = torch.randint(1, tr.data.num_items, (1, 8, TRAIN_BATCH), generator=g,
+                          dtype=torch.int32)
+    draws = {name: torch.randint(0, tr.dev[pool].shape[0],
+                                 (1, TRAIN_BATCH if (name, pool) in POOL_DRAWS else
+                                  TRAIN_BATCH // 2), generator=g)
+             for name, pool in POOL_DRAWS + ADV_DRAWS}
+    return idx, cands, draws
+
+
+def check_pop_step(label, tr, seed):
+    """One step of the trainer's model on the card and on the CPU from the
+    trainer's params and Adam states, with the same injected draws: every
+    leaf's update (both players) within APR_TOL of the update's scale plus an
+    ulp of the largest param, the stats as phase 18 holds them."""
+    from acf_tpu_torch.utils.tree import tree_leaves, tree_map
+
+    idx, cands, draws = pop_draws(tr, seed)
+    out = {}
+    for side, dev in (("card", tr.device), ("cpu", torch.device("cpu"))):
+        params = tree_map(lambda x: x.detach().to(dev), tr.params)
+        opt_state = tree_map(lambda x: x.to(dev), tr.opt_state)
+        data = {k: v.to(dev) for k, v in tr.dev.items()}
+        epoch = tr.model.make_epoch_fn(tr.optimizer, TRAIN_BATCH, 1, data)
+        new, _, stats = epoch(params, opt_state, data, None, idx.to(dev), cands.to(dev),
+                              {k: v.to(dev) for k, v in draws.items()})
+        out[side] = ([(a - b).cpu() for a, b in zip(tree_leaves(new), tree_leaves(params))],
+                     stats, max(float(x.abs().max()) for x in tree_leaves(params)))
+    (upd, stats, top), (upd_cpu, stats_cpu, _) = out["card"], out["cpu"]
+    err, r = tree_err(upd, upd_cpu)
+    scale = max(float(u.abs().max()) for u in upd_cpu)
+    ulp = torch.finfo(torch.float32).eps * top
+    bound_ = APR_TOL * scale + ulp
+    print(f"{label} step, card vs CPU (same params, Adam states and draws): update max |d| "
+          f"{err:.3e} ({r:.2e} of its scale {scale:.3e}; bound {bound_:.3e} with an ulp of the "
+          f"params {ulp:.1e}) over {len(upd)} leaves; "
+          + ", ".join(f"{k} {stats[k]:.6f}/{stats_cpu[k]:.6f}" for k in sorted(stats)))
+    check_stats(f"{label} step", stats, stats_cpu)
+    check(err <= bound_, f"{label} step: the card's update differs from the CPU's by "
+          f"{err:.3e} > {bound_:.3e}")
+
+
+def time_pop(label, tr):
+    """Phase 21 for one adversary, on the trainer of its CLI run (whose
+    epoch is the warm-up): examples/s of ``POP_EPOCHS`` epochs (host clock
+    around ``Trainer.run_epoch``, every sample and the median); one step's
+    launches, its wall time alone, device busy and idle time and largest
+    device operations."""
+    from acf_tpu_torch.sampling import sample_pair_epoch
+
+    samples = []
+    for _ in range(POP_EPOCHS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        stats = tr.run_epoch()
+        samples.append(time.perf_counter() - t0)
+    check(all(math.isfinite(v) for v in stats.values()), f"{label} timing: stats {stats}")
+    examples = tr.num_batches * TRAIN_BATCH
+    median_s = sorted(samples)[len(samples) // 2]
+    card = card_line()
+    print(f"{label} timing ({card}): {tr.num_batches} steps of {TRAIN_BATCH} an epoch; median "
+          f"{examples / median_s:.1f} examples/s; samples "
+          + ", ".join(f"{examples / s:.1f}" for s in samples)
+          + f" examples/s ({', '.join(f'{s:.4f}' for s in samples)} s; the warm-up was the CLI "
+          f"run's epoch, {tr.cli_s:.2f} s with its loading and evaluation); timer: host clock "
+          "around Trainer.run_epoch, which ends in a host transfer")
+    # one step of the epoch: a batch of the epoch's pairs, the negatives and
+    # the pool draws from the trainer's generator, both players' updates
+    epoch = tr.model.make_epoch_fn(tr.optimizer, TRAIN_BATCH, 1, tr.dev)
+    batches = sample_pair_epoch(tr.generator, tr.data.num_pairs, TRAIN_BATCH, tr.num_batches)
+    step_n = [0]
+
+    def step():
+        idx = batches[step_n[0] % tr.num_batches][None]
+        step_n[0] += 1
+        tr.params, tr.opt_state, _ = epoch(tr.params, tr.opt_state, tr.dev, tr.generator, idx)
+
+    step_s = median_s / tr.num_batches
+    alone_s = best_wall_s(step, reps=20)
+    print(f"{label} step ({card}): {step_s * 1e3:.4f} ms in the median epoch over its steps, "
+          f"{alone_s * 1e3:.4f} ms alone (best of 20, each ending in a host transfer of its "
+          "stats and a synchronize)")
+    launches = device_events(step, in_order=True)
+    print(f"{label} step: {len(launches)} device launches" if launches
+          else f"{label} step: launches not measured (the profiler saw no device time)")
+    device_breakdown(f"{label} step ({card})", step, step_s, top=8)
+    return examples / median_s
+
+
+def time_neumf_eval(tr):
+    """Phase 21: the Video-scale NeuMF evaluation (dense: every user tile of
+    128 scores the whole catalog through the tower in chunks of 4,096 items),
+    its seconds (host clock, one run after phase 20's) and the device's busy
+    time in it."""
+    ev = tr.evaluator
+    users, items = len(ev.users), tr.data.num_items
+    t0 = time.perf_counter()
+    res = tr.evaluate()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    check(np.isfinite(res.hr).all() and res.hr.shape == (users, 100),
+          "aneumf evaluation: not finite or the wrong shape")
+    d = D
+    flop = 2.0 * users * items * (2 * d * 2 * d + 2 * d * d + 2 * d)
+    print(f"aneumf evaluation ({card_line()}): {users} users x {items} items in tiles of "
+          f"{ev.batch_users}: {wall:.4f} s (host clock); the tower's products {flop:.3e} FLOP, "
+          f"{flop / FP32_FLOPS:.4f} s at the card's float32 peak")
+    device_breakdown("aneumf evaluation", tr.evaluate, wall, top=8)
+
+
+def cli_phases(dev):
+    """Phases 20-21. Returns K1's launches in the CLI runs, by run."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        t0 = time.perf_counter()
+        video, ml1m = write_reference_files(root)
+        print(f"reference files written in {time.perf_counter() - t0:.2f} s: Video.txt "
+              f"{len(video)} rows, ml-1m.*.rating {len(ml1m)} rows")
+        check_parsers(root)
+        k1, trainers = cli_runs(root, video, ml1m)
+    for n, name in enumerate(POP_MODELS):
+        check_pop_step(name, trainers[name], seed=200 + n)
+    lap("20")
+    for name in POP_MODELS:
+        time_pop(name, trainers[name])
+    time_neumf_eval(trainers["aneumf"])
+    lap("21")
+    return k1
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke run needs a GPU")
@@ -2141,6 +2451,12 @@ def main():
     if log.exists():
         print(log.read_text().strip())
         check_no_spill(log.read_text())
+    from acf_tpu_torch.data import native_io
+
+    t0 = time.perf_counter()
+    native_io.library()
+    print(f"build: {native_io.lib_path().name} (g++, the native parser) ready in "
+          f"{time.perf_counter() - t0:.2f} s")
     lap("1-2")
 
     # 3. K1 against its plain version
@@ -2178,11 +2494,16 @@ def main():
     # autograd and the CPU, the FGSM wrapper, timing
     k1_apr = apr_phases(dev, ml1m)
 
+    # 20-21. The command line on the reference's file formats, the popularity
+    # adversaries' steps against the CPU, their timing
+    k1_cli = cli_phases(dev)
+
     kernels = [{
         "name": "rank_count", "route": "cuda",
         "source": "acf_tpu_torch/csrc/rank_count.cu",
         "replaces": "acf_tpu/ops/ranking.py:39",
         "launches": launches, "max_abs_err": max_err, **entry, "launches_apr": k1_apr,
+        "launches_cli": k1_cli,
     }, k2a_entry, k2b_entry, *k3_entries]
     check(all(k["launches"] > 0 for k in kernels), "a kernel of the path never launched")
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s")

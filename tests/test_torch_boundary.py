@@ -62,7 +62,9 @@ def test_importing_the_port_loads_no_jax():
             "acf_tpu_torch.train.trainer, acf_tpu_torch.train.optim, acf_tpu_torch.utils.io, "
             "acf_tpu_torch.utils.tree, acf_tpu_torch.models.apl, "
             "acf_tpu_torch.ops.apl_gen_fused, acf_tpu_torch.adversarial, "
-            "acf_tpu_torch.adversarial.fgsm; "
+            "acf_tpu_torch.adversarial.fgsm, acf_tpu_torch.adversarial.popularity, "
+            "acf_tpu_torch.models.neumf, acf_tpu_torch.data.native_io, acf_tpu_torch.cli, "
+            "acf_tpu_torch.cli.main; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'optax', 'acf_tpu')); print(bad); "
             "sys.exit(1 if bad else 0)")

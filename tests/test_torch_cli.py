@@ -1,0 +1,321 @@
+"""The port's command line (``acf_tpu_torch/cli/main.py``) on the CPU
+(``--device cpu``, the bundled ``data/brightkite.txt`` as ``--data test``,
+d = 8), against the JAX package's (``acf_tpu/cli/main.py``): ``make_model``
+builds the same classes with the same hyperparameters and optimizers for
+the same command line; the runs of ``tests/test_cli.py`` that the port
+supports write the JAX CLI's files in its format; every model and flag the
+port does not have yet exits naming the ROADMAP item that ports it.
+
+Optimizers are compared by what they do: three updates of the same params
+by the same gradients, to rtol 1e-5 (the port's Adagrad differs from
+optax's by an ulp on the CPU, ``tests/test_torch_optim.py``)."""
+
+import dataclasses
+import os
+import re
+
+import numpy as np
+import optax
+import pytest
+import torch
+
+from acf_tpu.cli.main import build_parser as jax_build_parser
+from acf_tpu.cli.main import make_model as jax_make_model
+from acf_tpu.data import load_dataset as jax_load_dataset
+from acf_tpu.train import TrainConfig as JaxConfig
+from acf_tpu.train import Trainer as JaxTrainer
+from acf_tpu.train.checkpoint import save_params as jax_save_params
+from acf_tpu_torch.cli import main as cli
+from acf_tpu_torch.data import load_dataset
+from acf_tpu_torch.ops.ranking import rank_positions_dot
+
+ARGS = ["--data", "test", "--path", "data/", "--epochs", "2", "--d", "8", "--bs", "64",
+        "--maxlen", "5", "--device", "cpu"]
+# fields of the JAX dataclasses that only configure TPU code paths
+TPU_ONLY_FIELDS = {"fused", "pack_attention", "train_dtype", "manual_gen", "fused_gen"}
+TWO_PHASE = ("apr", "asasrec", "asasrec2")
+
+
+@pytest.fixture(scope="module")
+def datasets():
+    return load_dataset("test", "data/"), jax_load_dataset("test", "data/")
+
+
+def run(tmp_path, *argv, sub=""):
+    """The port's CLI on ``ARGS`` + ``argv``; returns (best, the .out lines)."""
+    opath = str(tmp_path / sub) + "/"
+    best = cli.main(ARGS + list(argv) + ["--opath", opath])
+    outs = [f for f in os.listdir(opath) if f.endswith(".out")]
+    assert len(outs) == 1, outs
+    return best, (tmp_path / sub / outs[0]).read_text().splitlines()
+
+
+def same_fields(port, ref, path="model"):
+    assert type(port).__name__ == type(ref).__name__, path
+    ours = {f.name for f in dataclasses.fields(port)}
+    theirs = {f.name for f in dataclasses.fields(ref)}
+    assert ours <= theirs and theirs - ours <= TPU_ONLY_FIELDS, (path, theirs ^ ours)
+    for name in ours:
+        a, b = getattr(port, name), getattr(ref, name)
+        if dataclasses.is_dataclass(a):
+            same_fields(a, b, f"{path}.{name}")
+        else:
+            assert a == b, (path, name, a, b)
+
+
+def same_updates(port_opt, jax_opt):
+    """Three updates of one param tree by random gradients agree."""
+    rng = np.random.default_rng(0)
+    p = {"w": rng.standard_normal((3, 4)).astype(np.float32)}
+    tp = {"w": torch.from_numpy(p["w"].copy())}
+    ts, js, jp = port_opt.init(tp), jax_opt.init(p), p
+    for _ in range(3):
+        g = {"w": rng.standard_normal((3, 4)).astype(np.float32)}
+        tp, ts = port_opt.update({"w": torch.from_numpy(g["w"])}, ts, tp)
+        up, js = jax_opt.update(g, js, jp)
+        jp = optax.apply_updates(jp, up)
+        np.testing.assert_allclose(tp["w"].numpy(), np.asarray(jp["w"]), rtol=1e-5, atol=1e-7)
+
+
+MAKE_CASES = [(name, []) for name in cli.PORTED_MODELS] + [
+    ("bpr", ["--lr", "0.1", "--reg", "0.01", "--dns", "3"]),
+    ("apr", ["--adv", "random", "--eps", "0.3", "--reg_adv", "2", "--adv_steps", "2",
+             "--dns", "2", "--lr", "0.05"]),
+    ("amf", ["--w", "0.05", "--pp", "0.3"]),
+    ("aneumf", ["--w", "0.01", "--pp", "0.1"]),
+    ("asasrec2", ["--eps_pos", "0.1", "--eps_dense", "0.2", "--eps_conv", "0.3",
+                  "--maxlen", "7", "--adv_steps", "3"]),
+    ("apl", ["--loss", "wgan"]),
+]
+
+
+@pytest.mark.parametrize("name,extra", MAKE_CASES,
+                         ids=[f"{n}{'-' + e[0] if e else ''}" for n, e in MAKE_CASES])
+def test_make_model_agrees_with_the_jax_cli(datasets, name, extra):
+    """For every model the port accepts, and flag variants: the model's
+    class and every hyperparameter field (the wrapped base's too), the
+    clean phase-1 model, and the optimizer's updates."""
+    argv = ["--model", name] + extra
+    args = cli.build_parser().parse_args(ARGS + argv)
+    jargs = jax_build_parser().parse_args(ARGS[:-2] + argv)
+    port, jax_out = cli.make_model(name, datasets[0], args), jax_make_model(name, datasets[1],
+                                                                           jargs)
+    same_fields(port[0], jax_out[0])
+    assert (port[2] is None) == (jax_out[2] is None) == (name not in TWO_PHASE)
+    if port[2] is not None:
+        same_fields(port[2], jax_out[2], "clean")
+    same_updates(port[1], jax_out[1])
+
+
+def test_parser_takes_every_jax_flag():
+    """The flag union of the JAX CLI, unchanged, plus ``--device``: every
+    option string and its default."""
+    ours, theirs = cli.build_parser(), jax_build_parser()
+    opts = {o: a for a in ours._actions for o in a.option_strings}
+    for action in theirs._actions:
+        for o in action.option_strings:
+            assert o in opts, o
+            assert opts[o].default == action.default and opts[o].dest == action.dest, o
+    assert opts["--device"].default == "cuda"
+    assert set(opts) - {o for a in theirs._actions for o in a.option_strings} == {"--device"}
+
+
+def test_apr_run_writes_the_jax_cli_files_and_lines(tmp_path):
+    """The acceptance run (APR two-phase, 2 epochs): ``.out``/``.hr``/``.ndcg``
+    files as the JAX CLI writes them, the same ``Load data done`` line, and
+    every line of the same form (numbers aside) in the same order."""
+    argv = ["--model", "apr", "--adv_epoch", "1"]
+    best, lines = run(tmp_path, *argv, sub="port")
+    assert np.isfinite(best["ndcg"]) and rank_positions_dot.launches == 0
+    outs = sorted(f.rsplit(".", 1)[1] for f in os.listdir(tmp_path / "port"))
+    assert outs == ["hr", "ndcg", "out"]
+    from acf_tpu.cli.main import main as jax_main
+
+    jax_main(ARGS[:-2] + argv + ["--opath", str(tmp_path / "jax") + "/"])
+    jout = [f for f in os.listdir(tmp_path / "jax") if f.endswith(".out")][0]
+    jlines = (tmp_path / "jax" / jout).read_text().splitlines()
+    assert lines[0] == jlines[0] == "Load data done. #user=401, #item=865, #train=4987, #test=400"
+
+    def form(line):
+        return re.sub(r"-?\d+(\.\d+)?", "#", line)
+
+    assert [form(x) for x in lines] == [form(x) for x in jlines]
+    assert lines[-1].startswith("End. Best Iteration ")
+    assert sum(x.startswith("K = ") for x in lines) == 100
+    hr = np.loadtxt(tmp_path / "port" / [f for f in os.listdir(tmp_path / "port")
+                                         if f.endswith(".hr")][0])
+    assert hr.shape == (400,)
+
+
+@pytest.mark.parametrize("name", [m for m in cli.PORTED_MODELS if m != "apr"])
+def test_every_model_trains_through_the_cli(tmp_path, name):
+    """One epoch of each model the port accepts (two-phase models one clean
+    and one adversarial), an evaluation after each, the K sweep and the
+    ``End.`` line."""
+    extra = ["--adv_epoch", "1"] if name in TWO_PHASE else ["--epochs", "1"]
+    best, lines = run(tmp_path, "--model", name, *extra)
+    assert np.isfinite(best["ndcg"]) and best["epoch"] >= 0
+    epochs = [x for x in lines if x.startswith("Epoch ") and "HR =" in x]
+    assert len(epochs) == (2 if name in TWO_PHASE else 1)
+    assert lines[-1].startswith("End. Best Iteration")
+
+
+def test_sampled_eval(tmp_path):
+    best, lines = run(tmp_path, "--model", "bpr", "--eval_mode", "sample")
+    assert np.isfinite(best["ndcg"])
+    assert sum(x.startswith("K = ") for x in lines) == 10  # K = 1..10 in sampled mode
+
+
+def test_checkpoint_restore_resume(tmp_path):
+    """Periodic full-state snapshots and ``--restore`` resume (reference
+    --restore semantics, run_adv.py:97-120)."""
+    ck = str(tmp_path / "ck")
+    run(tmp_path, "--model", "bpr", "--ckpt", "1", "--ckpt_dir", ck, sub="a")
+    assert os.path.exists(f"{ck}/test/bpr-1.npz")
+    best, lines = run(tmp_path, "--model", "bpr", "--epochs", "3", "--restore",
+                      f"{ck}/test/bpr-1", "--restore_epoch", "2", sub="b")
+    assert np.isfinite(best["ndcg"]) and best["epoch"] == 2
+    assert [x.split()[1] for x in lines if x.startswith("Epoch ") and "HR =" in x] == ["2"]
+
+
+def test_two_phase_restore_into_adv_phase(tmp_path):
+    ck = str(tmp_path / "ck")
+    run(tmp_path, "--model", "apr", "--adv_epoch", "1", "--ckpt", "1", "--ckpt_dir", ck,
+        sub="a")
+    assert os.path.exists(f"{ck}/test/apr-pretrain.npz")
+    best, lines = run(tmp_path, "--model", "apr", "--adv_epoch", "1", "--epochs", "3",
+                      "--restore", f"{ck}/test/apr-1", "--restore_epoch", "2", sub="b")
+    assert np.isfinite(best["ndcg"])
+    epochs = [x for x in lines if x.startswith("Epoch ") and "HR =" in x]
+    assert [x.split()[1] for x in epochs] == ["2"] and "ACC_adv" in epochs[0]
+
+
+def test_tiny_dataset_smaller_than_batch(tmp_path):
+    """num_pairs < batch_size must not crash the epoch sampler."""
+    best, _ = run(tmp_path, "--model", "bpr", "--nrows", "300", "--bs", "512")
+    assert np.isfinite(best["ndcg"])
+
+
+def test_pre_accepts_either_packages_files(tmp_path, datasets):
+    """``--pre`` reads a params npz and a full train-state snapshot, the
+    port's and the JAX package's (``save_params`` and
+    ``Trainer.save_checkpoint``): the leaves are loaded, not left at their
+    init."""
+    ck = str(tmp_path / "ck")
+    run(tmp_path, "--model", "bpr", "--ckpt", "1", "--ckpt_dir", ck, sub="a")
+    jt = JaxTrainer(jax_make_model("bpr", datasets[1], jax_build_parser().parse_args(
+        ARGS[:-2]))[0], datasets[1], optax.adagrad(0.05), JaxConfig(batch_size=64))
+    jax_save_params(str(tmp_path / "jax_params"), jt.params)
+    jt.save_checkpoint(str(tmp_path / "jax_state"))
+    for i, src in enumerate((f"{ck}/test/bpr-1", str(tmp_path / "jax_params"),
+                             str(tmp_path / "jax_state"))):
+        _, lines = run(tmp_path, "--model", "bpr", "--epochs", "1", "--pre", src, sub=f"p{i}")
+        assert "Loaded pretrained leaves: ['P', 'Q']" in lines, (src, lines[:2])
+
+
+def test_save_model_and_aliases(tmp_path):
+    """``--save_model`` writes .best/.last param snapshots under h5/
+    (reference run.py:257-272); --dataset/--adv_epochs/--eval/--verbose_eval
+    alias the run_adv_ori.py flag names."""
+    cwd = os.getcwd()
+    root = os.path.abspath(".")
+    os.chdir(tmp_path)
+    try:
+        best = cli.main(["--dataset", "test", "--path", os.path.join(root, "data"),
+                         "--epochs", "2", "--d", "8", "--bs", "64", "--model", "bpr",
+                         "--save_model", "1", "--verbose_eval", "1", "--eval", "all",
+                         "--adv_epochs", "1", "--device", "cpu", "--opath", str(tmp_path) + "/"])
+        assert best["epoch"] >= 0
+        h5 = os.listdir(tmp_path / "h5")
+        assert any(f.endswith(".best.npz") for f in h5) and any(f.endswith(".last.npz")
+                                                               for f in h5), h5
+    finally:
+        os.chdir(cwd)
+
+
+def test_fgsm_wrapper(tmp_path):
+    """``--fgsm`` wraps a clean model in the FGSM adversary with two-phase
+    staging (``tests/test_cli.py::test_cli_fgsm_wrapper`` on a ported
+    model)."""
+    best, lines = run(tmp_path, "--model", "bpr", "--fgsm", "--adv_epoch", "1", "--eps", "0.1")
+    assert np.isfinite(best["ndcg"])
+    epochs = [x for x in lines if x.startswith("Epoch ") and "HR =" in x]
+    accs = [re.findall(r"ACC = (\S+) ACC_adv = (\S+)", x)[0] for x in epochs]
+    assert accs[0][0] == accs[0][1] and accs[1][0] != accs[1][1]
+
+
+@pytest.mark.parametrize("name", ["apr", "amf", "aneumf", "apl"])
+def test_fgsm_refuses_adversarial_models(tmp_path, name):
+    with pytest.raises(SystemExit, match="fgsm"):
+        cli.main(ARGS + ["--model", name, "--fgsm", "--opath", str(tmp_path) + "/"])
+
+
+def test_profile_trace(tmp_path):
+    trace_dir = str(tmp_path / "trace")
+    best, lines = run(tmp_path, "--model", "bpr", "--epochs", "1", "--profile", trace_dir)
+    assert np.isfinite(best["ndcg"])
+    assert any(f.endswith(".pt.trace.json") for f in os.listdir(trace_dir))
+    assert f"Profiler trace written to {trace_dir}" in lines
+
+
+def test_profile_trace_is_written_when_the_run_raises(tmp_path):
+    trace_dir = str(tmp_path / "trace")
+    with pytest.raises(SystemExit, match="stage2_epoch"):
+        cli.main(ARGS + ["--model", "apr", "--eps_stage2", "0.8", "--stage2_epoch", "5",
+                         "--profile", trace_dir, "--opath", str(tmp_path) + "/"])
+    assert os.listdir(trace_dir)
+
+
+def test_staged_eps_three_phase(tmp_path):
+    """``--eps_stage2``: clean, then eps, then eps_stage2 (APR, its Adagrad
+    slots reset at the first switch only); the epoch ordering is
+    validated, and ``--restore`` refused."""
+    best, lines = run(tmp_path, "--model", "apr", "--epochs", "3", "--adv_epoch", "1",
+                      "--eps", "0.5", "--eps_stage2", "0.8", "--stage2_epoch", "2")
+    assert best["epoch"] >= 2
+    assert len([x for x in lines if x.startswith("Epoch ") and "HR =" in x]) == 3
+    for bad in (["--adv_epoch", "2", "--stage2_epoch", "1"],
+                ["--adv_epoch", "1", "--stage2_epoch", "2", "--restore", "x"]):
+        with pytest.raises(SystemExit, match="stage2"):
+            cli.main(ARGS + ["--model", "apr", "--epochs", "3", "--eps_stage2", "0.8", *bad,
+                             "--opath", str(tmp_path) + "/"])
+
+
+def test_staged_eps_rejects_single_phase_models(tmp_path):
+    with pytest.raises(SystemExit, match="two-phase"):
+        cli.main(ARGS + ["--model", "sasrec", "--eps_stage2", "0.8", "--stage2_epoch", "1",
+                         "--opath", str(tmp_path) + "/"])
+
+
+REFUSALS = ([(["--model", m], f"--model {m}", item) for m, item in cli.UNPORTED_MODELS.items()]
+            + [(["--model", "apr", "--sparse"], "--sparse", cli.ITEM_12),
+               (["--model", "bpr", "--mesh", "4x2"], "--mesh 4x2", cli.ITEM_13),
+               (["--model", "sasrec", "--train_dtype", "bfloat16"], "--train_dtype bfloat16",
+                cli.ITEM_14)])
+
+
+@pytest.mark.parametrize("argv,what,item", REFUSALS, ids=[r[1] for r in REFUSALS])
+def test_unported_models_and_flags_name_their_roadmap_item(argv, what, item):
+    """Each exits before reading data (the path does not exist), naming the
+    model or flag and its ROADMAP item; ``make_model`` refuses the model
+    names too. The labels are the ones ROADMAP.md lists."""
+    with pytest.raises(SystemExit) as e:
+        cli.main(["--path", "/nonexistent/", "--device", "cpu", *argv])
+    assert str(e.value) == f"{what} is not ported to acf_tpu_torch yet: {item} ports it"
+    assert item in open(os.path.join(os.path.dirname(__file__), "..", "ROADMAP.md")).read()
+    if argv[1] in cli.UNPORTED_MODELS:
+        args = cli.build_parser().parse_args(ARGS + argv)
+        with pytest.raises(SystemExit, match=re.escape(item)):
+            cli.make_model(argv[1], None, args)
+    assert set(cli.UNPORTED_MODELS) | set(cli.PORTED_MODELS) >= {
+        "mf", "bpr", "apr", "amf", "amf2", "abpr", "neumf", "aneumf", "sasrec", "asasrec",
+        "asasrec2", "gru4rec", "caser", "dream", "drcf", "dsin", "irgan", "apl", "pop", "mrv",
+        "mfv", "av"}  # the JAX CLI's model names (acf_tpu/cli/main.py:6-7)
+
+
+def test_the_default_device_needs_cuda(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is valid here")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        cli.main(ARGS[:-2] + ["--model", "bpr", "--opath", str(tmp_path) + "/"])
+    assert not os.listdir(tmp_path)  # raised before writing anything
