@@ -20,10 +20,19 @@ Randomness: the JAX wrapper splits its key into one for the clean call (and
 the linearization) and one for the perturbed call. Here one
 :class:`torch.Generator` goes to the clean call and then to the perturbed
 call, so each call draws its own dropout masks; ``masks`` and ``adv_masks``
-hand them over instead (the clean and the perturbed pass's). The perturbed
+hand them over instead (the clean and the perturbed pass's). A base with
+``dropout_masks(generator, batch)`` (Caser, DSIN) gets both drawn up front
+when they are not given, and the clean pass's masks go to its
+linearization too, as the JAX wrapper's shared key does. The perturbed
 addend is the base's aux ``loss``, the JAX package's convention, through
 ``base.primary_loss`` (SASRec's aux values are detached: it returns its
 loss).
+
+A base's own epoch is not delegated, as in the JAX package: a sequence
+model that brings one (Caser's sliding windows) trains under the wrapper
+through the trainer's sequence epoch. A pair model's own epoch (APL's
+minimax, the popularity players) is its only training procedure, so such a
+base is refused.
 """
 
 from __future__ import annotations
@@ -45,10 +54,12 @@ class FGSMAdversarial(PairwiseModel):
     adv_steps: int = 1
 
     def __post_init__(self):
-        # what is already adversarial, or brings its own epoch (APL), is
-        # refused, as the JAX package's CLI refuses --fgsm for it
+        # what is already adversarial, or is trained only by its own epoch
+        # (APL, the popularity players), is refused, as the JAX package's
+        # CLI refuses --fgsm for it
         if (isinstance(self.base, FGSMAdversarial) or getattr(self.base, "adversarial", False)
-                or hasattr(self.base, "make_epoch_fn")):
+                or (hasattr(self.base, "make_epoch_fn")
+                    and getattr(self.base, "batch_kind", "pair") != "seq")):
             raise ValueError(f"FGSMAdversarial does not wrap {type(self.base).__name__} "
                              "(already adversarial, or it brings its own epoch)")
         # delegate the trainer-facing surface to the base model
@@ -86,14 +97,15 @@ class FGSMAdversarial(PairwiseModel):
                 f"in {list(params)}")
         return tuple(names)
 
-    def deltas(self, params, batch, generator=None):
+    def deltas(self, params, batch, generator=None, masks=None):
         """ε-ball perturbations of the selected leaves, constant under the
         outer gradient: ``adv_steps`` steps of ε/adv_steps along the
         row-normalized gradient of ``base.adv_target_loss`` (the
         UNREGULARIZED loss, as APR linearizes on its raw BPR loss,
         evaluation_adv.py:162 vs 192-203) at the perturbed point, each row
         projected into the ε-ball. Each gradient is taken on detached
-        copies with the other leaves constant."""
+        copies with the other leaves constant; ``masks`` (the clean pass's
+        dropout masks) go to the linearization when given."""
         names = self._leaf_names(params)
         fixed = tree_map(lambda x: x.detach(), params)
         alpha = self.eps / self.adv_steps
@@ -104,8 +116,10 @@ class FGSMAdversarial(PairwiseModel):
                 shifted[k] = (fixed[k] + delta[k]).requires_grad_(True)
             wanted = [shifted[k] for k in names]
             with torch.enable_grad():
-                g = torch.autograd.grad(self.base.adv_target_loss(shifted, batch, generator),
-                                        wanted, allow_unused=True)
+                g = torch.autograd.grad(
+                    self.base.adv_target_loss(shifted, batch, generator,
+                                              **({} if masks is None else {"masks": masks})),
+                    wanted, allow_unused=True)
             delta = {k: project_rows(delta[k] + alpha * row_normalize(
                 torch.zeros_like(w) if gk is None else gk), self.eps)
                 for k, w, gk in zip(names, wanted, g)}
@@ -116,9 +130,15 @@ class FGSMAdversarial(PairwiseModel):
         pre-regularizer loss at the perturbed point (``base.primary_loss``:
         its aux ``loss``, as the JAX wrapper reads it); aux adds ``loss_adv``
         and ``acc_adv`` (the base's ``acc`` there)."""
+        draw = getattr(self.base, "dropout_masks", None)
+        lin_masks = None
+        if draw is not None:
+            masks = draw(generator, batch) if masks is None else masks
+            adv_masks = draw(generator, batch) if adv_masks is None else adv_masks
+            lin_masks = masks
         loss, aux = self.base.loss(params, batch, generator,
                                    **({} if masks is None else {"masks": masks}))
-        delta = self.deltas(params, batch, generator)
+        delta = self.deltas(params, batch, generator, lin_masks)
         perturbed = dict(params)
         for k, d in delta.items():
             perturbed[k] = params[k] + d

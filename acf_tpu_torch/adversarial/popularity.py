@@ -37,7 +37,7 @@ import torch
 
 from acf_tpu_torch.data.datasets import Interactions
 from acf_tpu_torch.device import resolve_device
-from acf_tpu_torch.models.base import PairwiseModel
+from acf_tpu_torch.models.base import PairwiseModel, softplus
 from acf_tpu_torch.nn.layers import dense, init_dense
 from acf_tpu_torch.sampling.negatives import (
     negatives_from_draws, sample_pair_epoch, uniform_negatives,
@@ -55,7 +55,7 @@ ADV_DRAWS = (("adv_pop_u", "pop_u"), ("adv_rare_u", "rare_u"), ("adv_pop_i", "po
 
 
 def _bce_with_logits(logits, labels):
-    return torch.mean(torch.logaddexp(torch.zeros_like(logits), logits) - labels * logits)
+    return torch.mean(softplus(logits) - labels * logits)
 
 
 def disc_forward(dp, x):

@@ -8,6 +8,7 @@ what the tests pass). It builds the models the port has, with the JAX CLI's
 hyperparameters and optimizers:
 
   mf bpr bpr-tf apr amf amf2 abpr neumf aneumf sasrec asasrec asasrec2 apl
+  gru4rec dream dream-tf caser drcf dsin
 
 and refuses, with the ROADMAP item that ports it, every model and flag it
 does not have yet (``UNPORTED_MODELS``, ``refuse_unported``): nothing falls
@@ -41,17 +42,14 @@ from acf_tpu_torch.utils.io import OutputWriter
 # Models of the JAX CLI that the port does not have yet, and the ROADMAP
 # item (Queue 1) that ports them. The labels are stable: ROADMAP.md lists
 # them and the tests match them.
-ITEM_10 = "ROADMAP Queue 1, item 10 ('Sequence zoo')"
 ITEM_12 = "ROADMAP Queue 1, item 12 ('Sparse row-space step')"
 ITEM_13 = "ROADMAP Queue 1, item 13 ('Distribution')"
 ITEM_14 = "ROADMAP Queue 1, item 14 ('Full CLI flag union')"
 ITEM_15 = "ROADMAP Queue 1, item 15 ('IRGAN and the naive baselines')"
-UNPORTED_MODELS = {
-    **dict.fromkeys(("gru4rec", "caser", "dream", "dream-tf", "drcf", "dsin"), ITEM_10),
-    **dict.fromkeys(("irgan", "pop", "mrv", "mfv", "av"), ITEM_15),
-}
+UNPORTED_MODELS = dict.fromkeys(("irgan", "pop", "mrv", "mfv", "av"), ITEM_15)
 PORTED_MODELS = ("mf", "bpr", "bpr-tf", "apr", "amf", "amf2", "abpr", "neumf", "aneumf",
-                 "sasrec", "asasrec", "asasrec2", "apl")
+                 "sasrec", "asasrec", "asasrec2", "apl", "gru4rec", "dream", "dream-tf",
+                 "caser", "drcf", "dsin")
 
 
 def build_parser():
@@ -169,6 +167,11 @@ def make_model(name, data, args):
     CLI's hyperparameters and optimizers (``acf_tpu/cli/main.py:175-282``)."""
     from acf_tpu_torch.adversarial.popularity import PopularityAdversarial
     from acf_tpu_torch.models.apl import APL
+    from acf_tpu_torch.models.caser import Caser
+    from acf_tpu_torch.models.dream import DREAM
+    from acf_tpu_torch.models.drcf import DRCF
+    from acf_tpu_torch.models.dsin import DSIN
+    from acf_tpu_torch.models.gru4rec import GRU4Rec
     from acf_tpu_torch.models.mf import MFBPR, PointwiseMF
     from acf_tpu_torch.models.neumf import NeuMF
     from acf_tpu_torch.models.sasrec import SASRec
@@ -213,6 +216,22 @@ def make_model(name, data, args):
                      eps_dense=args.eps_dense, eps_conv=args.eps_conv,
                      adv_steps=args.adv_steps)
         return adv, adam(0.001, b2=0.98), clean
+    if name == "gru4rec":
+        return GRU4Rec(U, I, d, maxlen=args.maxlen, loss_type=args.loss or "bpr",
+                       final_act=args.final_act, hidden_act=args.hidden_act), adam_, None
+    if name in ("dream", "dream-tf"):
+        return DREAM(U, I, d, maxlen=args.maxlen), adam_, None
+    if name == "drcf":
+        return DRCF(U, I, d, maxlen=args.maxlen), adam_, None
+    if name == "caser":
+        return Caser(U, I, d, maxlen=args.maxlen), adam_, None
+    if name == "dsin":
+        # sessions sized so that sess_count * sess_len ≈ --maxlen unless
+        # given; Adam(1e-4), the JAX package's tuned rate, unless --lr is
+        ls = args.sess_len or max(args.maxlen // args.sess_count, 1)
+        return DSIN(U, I, d, sess_count=args.sess_count, sess_len=ls,
+                    loss_type=args.loss or "bce", bi_evolution=args.dsin_bi), \
+            adam(1e-4 if args.lr is None else args.lr), None
     if name == "apl":
         return APL(U, I, d, loss_function=args.loss or "log"), sgd(0.05), None
     raise ValueError(f"unknown model {name!r}")

@@ -30,7 +30,7 @@ import dataclasses
 import torch
 
 from acf_tpu_torch.device import resolve_device
-from acf_tpu_torch.models.base import PairwiseModel
+from acf_tpu_torch.models.base import PairwiseModel, softplus
 from acf_tpu_torch.ops.apl_gen_fused import EPS, NEG, apl_gen_backward, apl_gen_forward
 from acf_tpu_torch.sampling.negatives import sample_pair_epoch
 from acf_tpu_torch.train.optim import grad_update, sgd
@@ -47,11 +47,6 @@ def gumbel_softmax(u, probs, temperature):
     """softmax((log(probs + 1e-20) + gumbel(u)) / T): the input is a
     probability vector, not logits (APL.py:42-47)."""
     return torch.softmax((torch.log(probs + EPS) + gumbel(u)) / temperature, dim=-1)
-
-
-def _softplus_neg(y):
-    """log(1 + exp(−y)), as ``jnp.logaddexp(0, −y)``."""
-    return torch.logaddexp(torch.zeros_like(y), -y)
 
 
 def membership(hist_rows, num_items: int):
@@ -126,7 +121,7 @@ class APL(PairwiseModel):
         g = params["g"]
         ps = torch.sum(g["P"][users] * g["Q"][pos], dim=-1)
         ns = torch.sum(g["P"][users] * g["Q"][neg], dim=-1)
-        loss = torch.mean(_softplus_neg(ps - ns))
+        loss = torch.mean(softplus(-(ps - ns)))
         return loss, {"loss": loss, "acc": torch.mean((ps > ns).to(torch.float32))}
 
     def _losses(self, real, fake, g_l2, c_l2):
@@ -138,8 +133,8 @@ class APL(PairwiseModel):
             hinge = torch.mean(torch.clamp(1.0 - y, min=0.0))
             return -hinge + self.reg_g * g_l2, hinge + self.reg_c * c_l2
         # log loss (stable): log σ(y) = −softplus(−y)
-        return (torch.mean(-_softplus_neg(y)) + self.reg_g * g_l2,
-                torch.mean(_softplus_neg(y)) + self.reg_c * c_l2)
+        return (torch.mean(-softplus(-y)) + self.reg_g * g_l2,
+                torch.mean(softplus(-y)) + self.reg_c * c_l2)
 
     # -- the two steps -------------------------------------------------------------
     def critic_loss(self, c_params, g_params, users, items, u):

@@ -29,11 +29,17 @@ def row_normalize(x, eps: float = 1e-12):
     return x / torch.clamp(norm, min=eps)
 
 
+def softplus(x):
+    """``log(1 + e^x)`` as the JAX package writes it, ``logaddexp(0, x)``
+    (``torch.nn.functional.softplus`` rounds its gradient otherwise)."""
+    return torch.logaddexp(torch.zeros_like(x), x)
+
+
 def bpr_pair_loss(pos_scores, neg_scores):
     """The reference's numerically-stable BPR objective
     (evaluation_adv.py:160-162): ``sum(softplus(-(clip(pos - neg))))``."""
     diff = torch.clamp(pos_scores - neg_scores, -80.0, 1e8)
-    return torch.sum(torch.logaddexp(torch.zeros_like(diff), -diff))
+    return torch.sum(softplus(-diff))
 
 
 def project_rows(d, eps, dim=-1):
@@ -59,13 +65,14 @@ class PairwiseModel:
     def loss(self, params, batch, generator=None):
         raise NotImplementedError
 
-    def adv_target_loss(self, params, batch, generator=None):
+    def adv_target_loss(self, params, batch, generator=None, **masks):
         """Linearization target for FGSM/PGD perturbations: the
         UNREGULARIZED training loss. The reference's FGSM linearizes on the
         raw BPR/pointwise loss (evaluation_adv.py:192-203, SASRec.py:365-371),
         never on the regularized objective. The default returns the full
-        loss; models that fold a regularizer into ``loss`` override."""
-        return self.loss(params, batch, generator)[0]
+        loss (``masks``, a model's injected dropout masks, passed on);
+        models that fold a regularizer into ``loss`` override."""
+        return self.loss(params, batch, generator, **masks)[0]
 
     def primary_loss(self, loss, aux):
         """The differentiable primary (pre-regularizer) loss of a ``loss``

@@ -25,7 +25,7 @@ import torch
 
 from acf_tpu_torch.device import resolve_device
 from acf_tpu_torch.models.base import (
-    PairwiseModel, bpr_pair_loss, project_rows, row_normalize,
+    PairwiseModel, bpr_pair_loss, project_rows, row_normalize, softplus,
 )
 
 
@@ -211,7 +211,7 @@ class MFBPR(PairwiseModel):
         # clean BPR: L = sum softplus(-clip(s+ - s-)); dL/ddiff = -sigmoid(-diff)
         diff = torch.sum(p * (qp - qn), dim=-1)
         diff_c, c = _clip_grad_coef(diff)
-        loss = torch.sum(torch.logaddexp(torch.zeros_like(diff_c), -diff_c))
+        loss = torch.sum(softplus(-diff_c))
         acc = _acc(diff)
 
         # per-occurrence clean gradient rows of L wrt P and Q (pos, then neg)
@@ -236,7 +236,7 @@ class MFBPR(PairwiseModel):
         qnh = qn + dQn
         diff_a = torch.sum(ph * (qph - qnh), dim=-1)
         diff_ac, ca = _clip_grad_coef(diff_a)
-        loss_adv = torch.sum(torch.logaddexp(torch.zeros_like(diff_ac), -diff_ac))
+        loss_adv = torch.sum(softplus(-diff_ac))
         acc_adv = _acc(diff_a)
 
         # total rows: clean + reg_adv * adversarial, plus the reg term the
@@ -335,6 +335,6 @@ class PointwiseMF(PairwiseModel):
         pos_s, neg_s = _pair_bpr(p, params["Q"][pos], params["Q"][neg])
         logits = torch.cat([pos_s, neg_s])
         labels = torch.cat([torch.ones_like(pos_s), torch.zeros_like(neg_s)])
-        bce = torch.logaddexp(torch.zeros_like(logits), logits) - labels * logits
+        bce = softplus(logits) - labels * logits
         loss = torch.mean(bce)
         return loss, {"loss": loss, "acc": _acc(pos_s - neg_s)}

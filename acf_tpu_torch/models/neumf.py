@@ -22,7 +22,7 @@ import dataclasses
 import torch
 
 from acf_tpu_torch.device import resolve_device
-from acf_tpu_torch.models.base import PairwiseModel
+from acf_tpu_torch.models.base import PairwiseModel, softplus
 from acf_tpu_torch.nn.layers import dense, init_dense
 from acf_tpu_torch.utils.tree import tree_map
 
@@ -84,7 +84,7 @@ class NeuMF(PairwiseModel):
         neg_l = self._logits(params, users, neg)
         logits = torch.cat([pos_l, neg_l])
         labels = torch.cat([torch.ones_like(pos_l), torch.zeros_like(neg_l)])
-        loss = torch.mean(torch.logaddexp(torch.zeros_like(logits), logits) - labels * logits)
+        loss = torch.mean(softplus(logits) - labels * logits)
         acc = torch.mean(((pos_l - neg_l) > 0).to(torch.float32))
         return loss, {"loss": loss, "acc": acc}
 

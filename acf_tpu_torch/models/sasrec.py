@@ -31,7 +31,7 @@ import math
 import torch
 
 from acf_tpu_torch.device import resolve_device
-from acf_tpu_torch.models.base import SequenceModel, project_rows, row_normalize
+from acf_tpu_torch.models.base import SequenceModel, project_rows, row_normalize, softplus
 from acf_tpu_torch.nn.layers import glorot_uniform, init_dense, init_layer_norm, trunc_normal
 from acf_tpu_torch.ops.sasrec_fused import encoder_math, fused_encoder
 from acf_tpu_torch.utils.tree import tree_leaves, tree_map, tree_unflatten
@@ -152,9 +152,8 @@ class SASRec(SequenceModel):
         neg_logit = torch.sum(neg_e * reprs, -1)
         ist = (pos != 0).to(torch.float32)
         n = torch.clamp(ist.sum(), min=1.0)
-        zero = torch.zeros_like(pos_logit)
-        loss = (torch.sum(torch.logaddexp(zero, -pos_logit) * ist)
-                + torch.sum(torch.logaddexp(zero, neg_logit) * ist)) / n
+        loss = (torch.sum(softplus(-pos_logit) * ist)
+                + torch.sum(softplus(neg_logit) * ist)) / n
         auc = torch.sum(((torch.sign(pos_logit - neg_logit) + 1) / 2) * ist) / n
         return loss, auc.detach()
 

@@ -57,3 +57,18 @@ def init_dense(generator: torch.Generator, d_in: int, d_out: int):
 
 def dense(p, x):
     return x @ p["w"] + p["b"]
+
+
+def dropout(x, rate: float, train: bool, generator: torch.Generator = None, mask=None):
+    """Inverted dropout (tf.layers.Dropout semantics): kept units scaled by
+    1 / (1 - rate), dropped ones 0. ``mask`` (bool, True = kept, the shape
+    of ``x``) is the keep-mask, drawn from ``generator`` on its device when
+    not given; identity outside training or at rate 0."""
+    if not train or rate == 0.0:
+        return x
+    keep = 1.0 - rate
+    if mask is None:
+        if generator is None:
+            raise ValueError("dropout needs a torch.Generator or an injected mask")
+        mask = torch.rand(x.shape, generator=generator, device=generator.device) < keep
+    return torch.where(mask, x / keep, 0.0)

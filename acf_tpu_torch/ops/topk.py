@@ -120,3 +120,60 @@ def recommend(model, params, data, users, k: int = 10, batch_users: int = 512,
     outs = [core(params, ub, hb) for ub, hb in batches]
     return (torch.cat([s for s, _ in outs]).cpu().numpy(),
             torch.cat([i for _, i in outs]).to(torch.int32).cpu().numpy())
+
+
+class SessionStream:
+    """Stateful session-stream recommender: the serving surface of GRU4Rec's
+    streaming API (reference ``predict_next_batch``, GRU4Rec.py:285-327).
+
+    A fixed number of parallel session slots, one event per slot per call,
+    the hidden state carried between calls on the device. It wraps any
+    model exposing
+
+      * ``init_state(batch_size, device) -> state``
+      * ``step_state(params, state, items, reset_mask) -> (state, scores [B, I])``
+
+    Feed one item id per slot (0 = no event for that slot this tick: its
+    state is untouched) and get the top-k next items of every slot back;
+    ``reset_mask`` starts a new session in a slot (the reference resets the
+    slot's state when its session id changes, GRU4Rec.py:314-318)::
+
+        stream = SessionStream(model, params, batch_size=128, k=10)
+        scores, items = stream.push(first_events)
+        scores, items = stream.push(next_events)           # state carried
+        stream.push(ev, reset_mask=(session_id != prev))   # new sessions
+
+    Each call runs the cell, the catalog's scores (the pad item 0 set to
+    ``NEG``) and ``torch.topk`` on ``device`` (default ``cuda``); only the
+    [B, k] results come back to the host.
+    """
+
+    def __init__(self, model, params, batch_size: int, k: int = 10, device=None):
+        if not hasattr(model, "step_state"):
+            raise ValueError(f"{type(model).__name__} has no streaming step_state API "
+                             "(GRU4Rec-style session models only)")
+        self.model = model
+        self.params = params
+        self.batch_size = int(batch_size)
+        self.k = int(k)
+        self.device = resolve_device(device)
+        self.reset()
+
+    @torch.no_grad()
+    def push(self, items, reset_mask=None):
+        """Consume one event per slot; return (scores [B, k] float32, items
+        [B, k] int32) numpy arrays, the next-item prediction of every
+        slot."""
+        items = torch.as_tensor(np.asarray(items, dtype=np.int32), device=self.device)
+        if tuple(items.shape) != (self.batch_size,):
+            raise ValueError(f"items must be [{self.batch_size}], got {tuple(items.shape)}")
+        reset = None if reset_mask is None else torch.as_tensor(
+            np.asarray(reset_mask, dtype=bool), device=self.device)
+        self.state, scores = self.model.step_state(self.params, self.state, items, reset)
+        scores[:, 0] = NEG  # the pad item is never recommended
+        s, i = torch.topk(scores, self.k, dim=1)
+        return s.cpu().numpy(), i.to(torch.int32).cpu().numpy()
+
+    def reset(self):
+        """Reset every slot (the end of all sessions)."""
+        self.state = self.model.init_state(self.batch_size, self.device)

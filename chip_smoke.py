@@ -126,7 +126,12 @@ Phases, any failure exits non-zero:
               the Video file (1 epoch each; K1 61 launches each but ANeuMF,
               which evaluates densely), each ``.out`` file checked (the
               ``Load data done`` counts against pandas' own, an evaluated
-              line an epoch, the K sweep, the ``End.`` line); then, after a
+              line an epoch, the K sweep, the ``End.`` line); the sequence
+              zoo's runs on the Video file (``ZOO_CLI``: GRU4Rec, DREAM and
+              DREAM-TF at maxlen 8, Caser and DRCF at 5, DSIN as 2 sessions
+              of 4, one epoch each, and Caser under ``--fgsm`` one clean and
+              one adversarial epoch; K1 61 launches an evaluation, none for
+              DRCF and DSIN); then, after a
               warm-up epoch, one AMF, ABPR and ANeuMF step on the card against
               the same step on the CPU from the same params, Adam states and
               draws (``APR_TOL`` of the update's scale plus an ulp of the
@@ -134,7 +139,24 @@ Phases, any failure exits non-zero:
  21. the adversaries' timing: examples/s of 3 epochs after the warm-up
               (every sample and the median, host clock), one step's launches,
               wall time, device busy and idle time; the Video-scale NeuMF
-              evaluation's seconds and device busy time.
+              evaluation's seconds and device busy time;
+ 22. the sequence zoo on the Video-shaped set of phase 4 at its full width
+              (d = 64, batch 512, Adam(1e-3), DSIN Adam(1e-4); GRU4Rec with
+              the bpr, top1 and ce losses and DREAM at maxlen 8, Caser and
+              DRCF at 5, DSIN as 2 sessions of 4 with and without
+              ``bi_evolution``, ``FGSMAdversarial`` around GRU4Rec and
+              Caser): per configuration one step's loss and gradient on the
+              card against the CPU from the same params, batch and masks
+              (``ZOO_TOL``; under the wrapper its deltas first, then the
+              step at the CPU's deltas), examples/s of 3 epochs after a
+              warm-up (Caser on its own sliding-window epoch), one step's
+              launches, wall time and device busy and idle time, and one
+              ``evaluate_model`` with K1 counted (61 launches for the
+              factored models, checked against the dense path; 0 for DRCF
+              and DSIN, dense, timed beside their products' FLOP); then
+              ``SessionStream`` on 512 slots over 8 events with a reset,
+              each push's top-10 against ``torch.topk`` of the dense scores
+              of its state, and its users/s.
 
 Kernel times come from torch.profiler's device time. A measurement whose
 profile holds no device time in three sessions is timed with CUDA events
@@ -2137,6 +2159,12 @@ def apr_phases(dev, data):
 # pp 0.2; d = 64, batch 512 on the Video file.
 POP_MODELS = ("amf", "abpr", "aneumf")
 POP_EPOCHS = 3
+# The zoo's CLI runs on the Video file: (model, epochs, flags); Caser under
+# --fgsm one clean and one adversarial epoch.
+ZOO_CLI = (("gru4rec", 1, ["--maxlen", "8"]), ("dream", 1, ["--maxlen", "8"]),
+           ("dream-tf", 1, ["--maxlen", "8"]), ("caser", 1, ["--maxlen", "5"]),
+           ("drcf", 1, ["--maxlen", "5"]), ("dsin", 1, ["--maxlen", "8", "--sess_count", "2"]),
+           ("caser", 2, ["--maxlen", "5", "--fgsm", "--adv_epoch", "1"]))
 
 
 def write_reference_files(root: Path, seed: int = 20):
@@ -2217,7 +2245,7 @@ def run_cli(root: Path, argv, counts, epochs, counter=None):
     from acf_tpu_torch.cli.main import main as cli_main
     from acf_tpu_torch.train import Trainer
 
-    opath = root / "out" / argv[1]
+    opath = root / "out" / (argv[1] + ("_fgsm" if "--fgsm" in argv else ""))
     fitted, real_fit = [], Trainer.fit
 
     def fit(self, *args, **kwargs):
@@ -2259,7 +2287,8 @@ def run_cli(root: Path, argv, counts, epochs, counter=None):
 def cli_runs(root: Path, video, ml1m):
     """Phase 20, the CLI: APR on the ml-1m files (2 epochs, the adversarial
     phase from epoch 1), then AMF, AMF2, ABPR and ANeuMF one epoch each on
-    the Video file, K1 counted around each. Returns (K1's launches by run,
+    the Video file, then the zoo's runs (``ZOO_CLI``), K1 counted around
+    each. Returns (K1's launches by run,
     the trainers of the Video runs by model)."""
     from acf_tpu_torch.ops.ranking import rank_positions_dot
 
@@ -2280,6 +2309,12 @@ def cli_runs(root: Path, video, ml1m):
         want = 0 if model == "aneumf" else tiles["video"]  # ANeuMF evaluates densely
         check(n == want, f"cli {model}: K1 launched {n} times, not {want}")
         k1[f"{model}_video"] = n
+    for model, epochs, extra in ZOO_CLI:
+        _, n, _ = run_cli(root, ["--model", model, "--data", "video", "--epochs", str(epochs),
+                                 *extra, *common], counts["video"], epochs, rank_positions_dot)
+        want = 0 if model in ("drcf", "dsin") else epochs * tiles["video"]  # dense: DRCF, DSIN
+        check(n == want, f"cli {model} {extra}: K1 launched {n} times, not {want}")
+        k1[f"{model}{'_fgsm' if '--fgsm' in extra else ''}_video"] = n
     return k1, trainers
 
 
@@ -2421,6 +2456,378 @@ def cli_phases(dev):
     lap("21")
     return k1
 
+# --- the sequence zoo: phase 22 --------------------------------------------------
+
+# The zoo at its full width (scripts/zoo_video.py:35-66,89): d = 64, batch 512,
+# Adam(1e-3) (DSIN Adam(1e-4)), maxlen 8 for GRU4Rec and DREAM, 5 for Caser
+# and DRCF, DSIN as 2 sessions of 4 items, on the Video-shaped set.
+ZOO_EPOCHS = 3
+# One step on the card against the same step on the CPU from the same params
+# and draws: the loss to rtol 1e-5 and the accuracies within 1/B
+# (``check_stats``), every gradient leaf by the max |d| over the tree over its
+# largest entry. Both sides are f32 and sum in their own orders (the
+# recurrences' products, the in-batch [T, B, B] logits, the embedding
+# gathers' backward scatters); 1e-5 is ~100 ulps of the tree's scale, where a
+# missing term or a wrong mask moves 1e-3 and more. Rows holding a ReLU input
+# within KINK of 0 (relative to that input's largest entry) in the CPU forward
+# are replaced by other rows first, as phases 13 and 18 do: their gating may
+# differ between the two sides.
+ZOO_TOL = 1e-5
+ZOO_SLOTS = 512
+ZOO_EVENTS = 8
+
+
+def zoo_models(data):
+    """(label, model, optimizer) of every configuration phase 22 drives."""
+    from acf_tpu_torch.adversarial import FGSMAdversarial
+    from acf_tpu_torch.models.caser import Caser
+    from acf_tpu_torch.models.dream import DREAM
+    from acf_tpu_torch.models.drcf import DRCF
+    from acf_tpu_torch.models.dsin import DSIN
+    from acf_tpu_torch.models.gru4rec import GRU4Rec
+    from acf_tpu_torch.train import adam
+
+    U, I = data.num_users, data.num_items
+    return [
+        ("gru4rec-bpr", GRU4Rec(U, I, D, maxlen=8), adam(1e-3)),
+        ("gru4rec-top1", GRU4Rec(U, I, D, maxlen=8, loss_type="top1"), adam(1e-3)),
+        ("gru4rec-ce", GRU4Rec(U, I, D, maxlen=8, loss_type="ce"), adam(1e-3)),
+        ("dream", DREAM(U, I, D, maxlen=8), adam(1e-3)),
+        ("caser", Caser(U, I, D, maxlen=5), adam(1e-3)),
+        ("drcf", DRCF(U, I, D, maxlen=5), adam(1e-3)),
+        ("dsin", DSIN(U, I, D, sess_count=2, sess_len=4), adam(1e-4)),
+        ("dsin-bi", DSIN(U, I, D, sess_count=2, sess_len=4, bi_evolution=True), adam(1e-4)),
+        ("fgsm-gru4rec", FGSMAdversarial(U, I, D, base=GRU4Rec(U, I, D, maxlen=8), **APR),
+         adam(1e-3)),
+        ("fgsm-caser", FGSMAdversarial(U, I, D, base=Caser(U, I, D, maxlen=5), **APR),
+         adam(1e-3)),
+    ]
+
+
+def zoo_batch(tr, seed):
+    """One training batch of the trainer's model as its epoch draws it,
+    drawn on the CPU from ``seed``: Caser's windows with ``target_len``
+    uniform negatives, or the sequence sampler's window; and the dropout
+    masks of a base that draws them (the perturbed pass's too under the
+    wrapper). Returns (batch, masks kwargs)."""
+    from acf_tpu_torch.sampling import sample_seq_window_batch, uniform_negatives
+
+    model = tr.model
+    g = torch.Generator().manual_seed(seed)
+    hist = tr.dev["hist"].cpu()
+    if hasattr(model, "make_epoch_fn"):
+        idx = torch.randperm(tr.dev["win_seq"].shape[0], generator=g)[:TRAIN_BATCH]
+        users, seq, pos = (tr.dev[k].cpu()[idx] for k in ("win_user", "win_seq", "win_pos"))
+        neg = torch.stack([uniform_negatives(g, hist[users], model.num_items)
+                           for _ in range(model.target_len)], dim=1)
+        batch = (users, seq, pos, neg)
+    else:
+        users, window, neg = sample_seq_window_batch(g, hist, tr.dev["eligible"].cpu(),
+                                                     model.maxlen, model.num_items, TRAIN_BATCH)
+        batch = (users, window[:, :-1], window[:, 1:], neg)
+    base = getattr(model, "base", model)
+    kw = {}
+    if hasattr(base, "dropout_masks"):
+        kw["masks"] = base.dropout_masks(g, batch)
+        if base is not model:
+            kw["adv_masks"] = base.dropout_masks(g, batch)
+    return batch, kw
+
+
+def relu_kink_rows(fn, b):
+    """[b] bool: the rows (leading dim b) of the inputs of ``torch.relu`` in
+    one call of ``fn`` on the CPU that hold an entry within KINK of 0,
+    relative to that input's largest |entry|."""
+    near = torch.zeros(b, dtype=torch.bool)
+    real = torch.relu
+
+    def relu(x):
+        if x.dim() >= 1 and x.shape[0] == b:
+            a = x.detach().abs()
+            near.logical_or_((a <= KINK * a.max()).reshape(b, -1).any(dim=1))
+        return real(x)
+
+    torch.relu = relu
+    try:
+        fn()
+    finally:
+        torch.relu = real
+    return near
+
+
+def zoo_grads(model, params, batch, kw):
+    """(aux floats, gradient leaves) of ``model.loss`` at ``params``."""
+    from acf_tpu_torch.utils.tree import tree_leaves, tree_map
+
+    prm = tree_map(lambda x: x.detach().clone().requires_grad_(True), params)
+    loss, aux = model.loss(prm, batch, None, **kw)
+    leaves = tree_leaves(prm)
+    grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    return ({k: float(v.detach()) for k, v in aux.items()},
+            [torch.zeros_like(x) if g is None else g for x, g in zip(leaves, grads)])
+
+
+def replace_kink_rows(label, fn, batch, kw):
+    """Rows of the batch (and of its masks) holding a ReLU input near a kink
+    in ``fn(batch, kw)`` on the CPU, replaced in place by clean rows, once;
+    none may remain. Returns how many were replaced."""
+    from acf_tpu_torch.utils.tree import tree_leaves
+
+    near = relu_kink_rows(lambda: fn(batch, kw), TRAIN_BATCH)
+    n = int(near.sum())
+    if n:
+        ok = torch.nonzero(~near).flatten()
+        check(len(ok) >= TRAIN_BATCH // 2, f"{label} step: {n} rows near a ReLU kink")
+        rep = ok[torch.arange(n) % len(ok)]
+        for rows in (*batch, *tree_leaves(kw)):
+            rows[near] = rows[rep]
+        check(not bool(relu_kink_rows(lambda: fn(batch, kw), TRAIN_BATCH).any()),
+              f"{label} step: rows near a ReLU kink remain after their replacement")
+    return n
+
+
+def check_zoo_step(label, tr, seed):
+    """One training step's loss and gradient on the card against the CPU,
+    from the trainer's params and one batch and mask draw, rows near a ReLU
+    kink replaced. Under the FGSM wrapper the deltas are held against the
+    CPU's first (to 1e-4 of eps: a row's direction turns by its rounding over
+    its norm, which the H100 runs put below 1e-6 of eps), then the CPU's
+    deltas go to both sides, so the step compares at the same perturbed point
+    and its rows are replaced once for good."""
+    from acf_tpu_torch.utils.tree import tree_map
+
+    model, dev = tr.model, tr.device
+    cpu_params = tree_map(lambda x: x.detach().cpu(), tr.params)
+    batch, kw = zoo_batch(tr, seed)
+
+    def on_card(b, k):
+        return tuple(x.to(dev) for x in b), tree_map(lambda x: x.to(dev), k)
+
+    replaced = 0
+    wrapped = hasattr(model, "base")
+    if wrapped:
+        clean_kw = {"masks": kw["masks"]} if "masks" in kw else {}
+        replaced += replace_kink_rows(
+            label, lambda b, k: zoo_grads(model.base, cpu_params, b, clean_kw), batch, kw)
+        delta = model.deltas(cpu_params, batch, None, kw.get("masks"))
+        b_card, k_card = on_card(batch, kw)
+        delta_card = model.deltas(tr.params, b_card, None, k_card.get("masks"))
+        d_err = max(float((delta_card[n].cpu() - v).abs().max()) for n, v in delta.items())
+        print(f"{label} deltas ({', '.join(delta)}), card vs CPU: max |d| {d_err:.3e} "
+              f"({d_err / model.eps:.2e} of eps)")
+        check(d_err <= 1e-4 * model.eps, f"{label}: the card's deltas differ by {d_err:.3e}")
+        model.deltas = lambda params, *a, **k: {n: v.to(params[n].device)
+                                                for n, v in delta.items()}
+    try:
+        replaced += replace_kink_rows(label, lambda b, k: zoo_grads(model, cpu_params, b, k),
+                                      batch, kw)
+        aux, grads = zoo_grads(model, tr.params, *on_card(batch, kw))
+        aux_cpu, grads_cpu = zoo_grads(model, cpu_params, batch, kw)
+    finally:
+        if wrapped:
+            del model.deltas
+    err, r = tree_err([g.cpu() for g in grads], grads_cpu)
+    print(f"{label} step, card vs CPU (same params, batch and masks"
+          + (", the CPU's deltas" if wrapped else "")
+          + f"; {replaced} rows near a ReLU kink replaced): gradient max |d| {err:.3e} "
+          f"({r:.2e} of the tree's scale, tolerance {ZOO_TOL:.0e}) over {len(grads)} leaves; "
+          + ", ".join(f"{k} {aux[k]:.6f}/{aux_cpu[k]:.6f}" for k in sorted(aux)))
+    check_stats(f"{label} step", aux, aux_cpu)
+    check(r <= ZOO_TOL, f"{label} step: the card's gradient differs from the CPU's by {r:.3e} "
+          f"of the tree's scale > {ZOO_TOL}")
+
+
+def zoo_dense_flop(model, users, items):
+    """FLOP of a dense evaluation's products (DRCF's MLP, DSIN's activation
+    pools and DNN) over ``users`` x ``items`` pairs."""
+    d = model.dim
+    if type(model).__name__ == "DRCF":
+        h = d // 2
+        macs = (1 + 3 * h) * 3 * d + 3 * d * 2 * d + 2 * d * d + 2 * d + 1 + 2 * (d + h)
+    else:
+        macs = 4 * model.sess_count * d + 4 * d * d + 2 * d * d + d
+    return 2.0 * users * items * macs
+
+
+def zoo_eval(label, tr):
+    """``evaluate_model`` on the trainer's params, K1 counted around it: one
+    launch a user tile for the factored models (checked against the dense
+    path), none for DRCF and DSIN (dense). Returns K1's launches."""
+    from acf_tpu_torch.ops.ranking import rank_positions_dot
+
+    ev, model, params = tr.evaluator, tr.model, tr.params
+    tiles = math.ceil(len(ev.users) / ev.batch_users)
+    factored = model.factored_scorer() is not None
+    rank_positions_dot.launches = 0
+    t0 = time.perf_counter()
+    res = ev.evaluate_model(model, params)  # the main path
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = rank_positions_dot.launches
+    want = tiles if factored else 0
+    check(launches == want, f"{label} evaluation: K1 launched {launches} times, not {want}")
+    check(np.isfinite(res.hr).all() and res.hr.shape == (len(ev.users), ev.K),
+          f"{label} evaluation: not finite or the wrong shape")
+    hr, ndcg, auc = res.at_k(10)
+    extra = ""
+    if not factored:
+        flop = zoo_dense_flop(getattr(model, "base", model), len(ev.users), tr.data.num_items)
+        extra = (f"; dense products {flop:.3e} FLOP, {flop / FP32_FLOPS:.4f} s at the card's "
+                 "float32 peak")
+    print(f"{label} evaluation ({card_line()}): {len(ev.users)} users in {tiles} tiles of "
+          f"{ev.batch_users}, K1 launches {launches}; {wall:.4f} s (host clock, the first call)"
+          f"{extra}; HR@10 {hr:.6f} NDCG@10 {ndcg:.6f} AUC {auc:.6f}")
+    if factored:
+        check_against_dense(label, ev, model, params, res)
+    else:
+        check_chunks(label, ev, model, params)
+    return launches
+
+
+def check_chunks(label, ev, model, params):
+    """``score_all`` (chunks of ``_item_chunk`` items, the last one short)
+    against one ``score_some`` over the whole catalog, for the evaluator's
+    first user tile, to ``ZOO_TOL`` of the scores' scale."""
+    u, h = ev._users_d[:ev.batch_users], ev._hists_d[:ev.batch_users]
+    items = torch.arange(model.num_items, device=u.device)[None, :].expand(u.shape[0], -1)
+    with torch.no_grad():
+        chunked = model.score_all(params, u, h)
+        whole = model.score_some(params, u, h, items)
+    err, r = tree_err([chunked], [whole])
+    print(f"{label} score_all in chunks of {model._item_chunk} (the last "
+          f"{model.num_items % model._item_chunk or model._item_chunk} items) vs one score_some "
+          f"over {model.num_items} items, {u.shape[0]} users: max |d| {err:.3e} "
+          f"({r:.2e} of the scores' scale, tolerance {ZOO_TOL:.0e})")
+    check(chunked.shape == whole.shape and r <= ZOO_TOL,
+          f"{label}: score_all's chunks differ from score_some by {r:.3e} of the scale")
+
+
+def zoo_one_step(tr):
+    """One step of the trainer's epoch as a call: the model's own epoch
+    (Caser) over one batch of windows, or the sequence epoch at one step;
+    each ends in the host transfer of its stats."""
+    from acf_tpu_torch.train.trainer import make_seq_epoch_fn
+
+    model, dev = tr.model, tr.dev
+    if hasattr(model, "make_epoch_fn"):
+        dev = dict(dev, **{k: dev[k][:TRAIN_BATCH] for k in ("win_seq", "win_user", "win_pos")})
+        one = model.make_epoch_fn(tr.optimizer, TRAIN_BATCH, 1, dev)
+    else:
+        one = make_seq_epoch_fn(model, tr.optimizer, TRAIN_BATCH, 1)
+
+    def step():
+        tr.params, tr.opt_state, _ = one(tr.params, tr.opt_state, dev, tr.generator)
+
+    return step
+
+
+def time_zoo(label, tr):
+    """Examples/s of ``ZOO_EPOCHS`` epochs after a warm-up epoch (host clock
+    around ``Trainer.run_epoch``, every sample and the median); one step's
+    wall time, launches and device busy and idle time."""
+    tr.run_epoch()
+    samples = []
+    for _ in range(ZOO_EPOCHS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        stats = tr.run_epoch()
+        samples.append(time.perf_counter() - t0)
+    check(all(math.isfinite(v) for v in stats.values()), f"{label} timing: stats {stats}")
+    steps = getattr(tr.epoch_fn, "num_batches", tr.num_batches)
+    examples = steps * TRAIN_BATCH
+    median_s = sorted(samples)[len(samples) // 2]
+    card = card_line()
+    print(f"{label} timing ({card}): {steps} steps of {TRAIN_BATCH} an epoch; median "
+          f"{median_s:.4f} s, {examples / median_s:.1f} examples/s; samples "
+          + ", ".join(f"{s:.4f}" for s in samples)
+          + " s (host clock around Trainer.run_epoch, after a warm-up epoch)")
+    step = zoo_one_step(tr)
+    step_s = median_s / steps
+    alone_s = best_wall_s(step, reps=10)
+    launches = device_events(step, in_order=True)
+    print(f"{label} step ({card}): {step_s * 1e3:.4f} ms in the median epoch over its steps, "
+          f"{alone_s * 1e3:.4f} ms alone (best of 10); "
+          + (f"{len(launches)} device launches" if launches
+             else "launches not measured (the profiler saw no device time)"))
+    device_breakdown(f"{label} step ({card})", step, step_s, top=5)
+
+
+def check_session_stream(dev, tr, data):
+    """``SessionStream`` of the trained GRU4Rec on ``ZOO_SLOTS`` slots over
+    ``ZOO_EVENTS`` events (each slot a user's last items, 0 where the
+    history is shorter; a third of the slots reset at the fifth event):
+    every push's top-10 against ``torch.topk`` of the dense scores of the
+    state it leaves, and that state against the same stream's on the CPU
+    (to ``ZOO_TOL`` of its scale); then users/s over the events (host clock,
+    each push ending in its host transfer)."""
+    from acf_tpu_torch.ops.topk import NEG, SessionStream
+    from acf_tpu_torch.utils.tree import tree_map
+
+    model, params = tr.model, tr.params
+    events = data.hist[1:ZOO_SLOTS + 1, -ZOO_EVENTS:]
+    reset = np.arange(ZOO_SLOTS) % 3 == 0
+    stream = SessionStream(model, params, batch_size=ZOO_SLOTS, k=10, device=dev)
+    cpu_stream = SessionStream(model, tree_map(lambda x: x.detach().cpu(), params),
+                               batch_size=ZOO_SLOTS, k=10, device="cpu")
+    ties, state_r = 0, 0.0
+    for e in range(ZOO_EVENTS):
+        s, it = stream.push(events[:, e], reset if e == 4 else None)
+        cpu_stream.push(events[:, e], reset if e == 4 else None)
+        _, r = tree_err([stream.state.cpu()], [cpu_stream.state])
+        check(r <= ZOO_TOL, f"SessionStream event {e}: the card's state differs from the "
+              f"CPU's by {r:.3e} of its scale")
+        state_r = max(state_r, r)
+        with torch.no_grad():
+            scores = model._act(stream.state @ params["W"].T + params["b"])
+            scores[:, 0] = NEG
+            ref_s, ref_i = torch.topk(scores, 11, dim=1)
+        ref_s, ref_i = ref_s.cpu().numpy(), ref_i.cpu().numpy()
+        np.testing.assert_allclose(s, ref_s[:, :10], rtol=1e-6, atol=0)
+        for r, j in zip(*np.nonzero(it != ref_i[:, :10])):
+            gap = min(abs(ref_s[r, j] - ref_s[r, j + 1]),
+                      abs(ref_s[r, j] - ref_s[r, j - 1]) if j else np.inf)
+            check(gap <= 1e-6 * abs(ref_s[r, j]),
+                  f"SessionStream event {e} slot {r} rank {j}: {it[r, j]} vs {ref_i[r, j]}")
+            ties += 1
+    check(float(stream.state.abs().sum()) > 0, "SessionStream: the state never moved")
+    stream.reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for e in range(ZOO_EVENTS):
+        stream.push(events[:, e], reset if e == 4 else None)
+    wall = time.perf_counter() - t0
+    print(f"SessionStream ({card_line()}): {ZOO_SLOTS} slots x {ZOO_EVENTS} events (one reset "
+          f"of {int(reset.sum())} slots), each push's top-10 equal to torch.topk of the dense "
+          f"scores of its state ({ties} slots differ only at ties), its state within "
+          f"{state_r:.2e} of its scale of the CPU stream's (tolerance {ZOO_TOL:.0e}); "
+          f"{ZOO_SLOTS * ZOO_EVENTS / wall:.1f} users/s ({wall / ZOO_EVENTS * 1e3:.4f} ms a push, "
+          "host clock)")
+
+
+def zoo_phase(dev, data):
+    """Phase 22, the sequence zoo on the Video-shaped set: per configuration
+    a trainer (params from its seed), one step on the card against the CPU,
+    its epochs timed, an evaluation with K1 counted; then the session
+    stream. Returns K1's launches by configuration."""
+    from acf_tpu_torch.train import TrainConfig, Trainer
+
+    check(not torch.backends.cuda.matmul.allow_tf32 and not torch.backends.cudnn.allow_tf32,
+          "TF32 is on")
+    k1, gru = {}, None
+    for n, (label, model, opt) in enumerate(zoo_models(data)):
+        t0 = time.perf_counter()
+        tr = Trainer(model, data, opt, TrainConfig(batch_size=TRAIN_BATCH, verbose=10 ** 9,
+                                                   seed=220 + n, device=str(dev)))
+        check_zoo_step(label, tr, seed=300 + n)
+        time_zoo(label, tr)
+        k1[label] = zoo_eval(label, tr)
+        print(f"phase 22 {label}: {time.perf_counter() - t0:.1f} s")
+        if label == "gru4rec-bpr":
+            gru = tr
+    check_session_stream(dev, gru, data)
+    return k1
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke run needs a GPU")
@@ -2498,12 +2905,17 @@ def main():
     # adversaries' steps against the CPU, their timing
     k1_cli = cli_phases(dev)
 
+    # 22. The sequence zoo: steps against the CPU, timing, evaluations, the
+    # session stream
+    k1_zoo = zoo_phase(dev, data)
+    lap("22")
+
     kernels = [{
         "name": "rank_count", "route": "cuda",
         "source": "acf_tpu_torch/csrc/rank_count.cu",
         "replaces": "acf_tpu/ops/ranking.py:39",
         "launches": launches, "max_abs_err": max_err, **entry, "launches_apr": k1_apr,
-        "launches_cli": k1_cli,
+        "launches_cli": k1_cli, "launches_zoo": k1_zoo,
     }, k2a_entry, k2b_entry, *k3_entries]
     check(all(k["launches"] > 0 for k in kernels), "a kernel of the path never launched")
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s")

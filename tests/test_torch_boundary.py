@@ -64,7 +64,9 @@ def test_importing_the_port_loads_no_jax():
             "acf_tpu_torch.ops.apl_gen_fused, acf_tpu_torch.adversarial, "
             "acf_tpu_torch.adversarial.fgsm, acf_tpu_torch.adversarial.popularity, "
             "acf_tpu_torch.models.neumf, acf_tpu_torch.data.native_io, acf_tpu_torch.cli, "
-            "acf_tpu_torch.cli.main; "
+            "acf_tpu_torch.cli.main, acf_tpu_torch.nn.rnn, acf_tpu_torch.models.gru4rec, "
+            "acf_tpu_torch.models.dream, acf_tpu_torch.models.caser, "
+            "acf_tpu_torch.models.drcf, acf_tpu_torch.models.dsin; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'optax', 'acf_tpu')); print(bad); "
             "sys.exit(1 if bad else 0)")
@@ -174,3 +176,41 @@ def test_cpu_apl_step_counts_no_launch():
     tr.evaluate()
     assert np.isfinite(stats["loss"]) and tr.num_batches >= 1
     assert [k.launches for k in KERNELS] + [rank_positions_dot.launches] == before == [0] * 6
+
+
+def test_zoo_entry_points_need_cuda_unless_cpu_is_asked():
+    """The sequence zoo's trainers (Caser's own epoch, the FGSM wrapper
+    around it), its session stream and its params default to CUDA and
+    raise without it; asked for the CPU, an epoch and an evaluation run
+    there with no kernel launch (K1's plain version for the factored
+    models, the dense path for DRCF and DSIN)."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is valid here")
+    from acf_tpu_torch.adversarial import FGSMAdversarial
+    from acf_tpu_torch.models.caser import Caser
+    from acf_tpu_torch.models.dream import DREAM
+    from acf_tpu_torch.models.drcf import DRCF
+    from acf_tpu_torch.models.dsin import DSIN
+    from acf_tpu_torch.models.gru4rec import GRU4Rec
+    from acf_tpu_torch.ops.topk import SessionStream
+    from acf_tpu_torch.train import TrainConfig, Trainer, adam
+
+    data = _port_data()
+    U, I = data.num_users, data.num_items
+    models = [GRU4Rec(U, I, 4, maxlen=3), DREAM(U, I, 4, maxlen=3), Caser(U, I, 4, maxlen=3),
+              DRCF(U, I, 4, maxlen=3), DSIN(U, I, 4, sess_count=2, sess_len=2),
+              FGSMAdversarial(U, I, 4, base=Caser(U, I, 4, maxlen=3))]
+    for model in models:
+        with pytest.raises(RuntimeError, match="CUDA"):
+            Trainer(model, data, adam(1e-3), TrainConfig(batch_size=16))
+        with pytest.raises(RuntimeError, match="CUDA"):
+            model.init_params(torch.Generator().manual_seed(0))
+        tr = Trainer(model, data, adam(1e-3), TrainConfig(batch_size=16, verbose=10 ** 9,
+                                                          device="cpu"))
+        assert np.isfinite(tr.run_epoch()["loss"])
+        assert tr.evaluate().auc.size == len(data.eval_users())
+    with pytest.raises(RuntimeError, match="CUDA"):
+        SessionStream(models[0], tr.params, batch_size=2)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        models[0].init_state(2)
+    assert rank_positions_dot.launches == 0
