@@ -4,15 +4,16 @@ point for the reference's three run scripts, training on the GPU.
 It parses the JAX CLI's whole flag union (run.py:25-75, run_adv.py:15-54,
 run_adv_ori.py:17-64), so every command line of ``scripts/`` and ``docs/``
 parses, plus ``--device`` (default ``cuda``; ``cpu`` runs on the CPU and is
-what the tests pass). It builds the models the port has, with the JAX CLI's
+what the tests pass). It builds every model of the JAX CLI, with its
 hyperparameters and optimizers:
 
   mf bpr bpr-tf apr amf amf2 abpr neumf aneumf sasrec asasrec asasrec2 apl
-  gru4rec dream dream-tf caser drcf dsin
+  gru4rec dream dream-tf caser drcf dsin irgan pop mrv mfv av
 
-and refuses, with the ROADMAP item that ports it, every model and flag it
-does not have yet (``UNPORTED_MODELS``, ``refuse_unported``): nothing falls
-back to another model or to the CPU.
+(``bpr``, ``bpr-tf`` and ``apr`` with ``--sparse`` on the row-space step)
+and refuses, with the ROADMAP item that ports it, each flag it does not
+have yet (``refuse_unported``: ``--mesh``, ``--train_dtype bfloat16``):
+nothing falls back to another model or to the CPU.
 
 Two-phase adversarial staging (apr/asasrec/asasrec2, and any model under
 ``--fgsm``) follows run_adv.py:97-120: clean training until --adv_epoch,
@@ -37,19 +38,20 @@ from acf_tpu_torch.data import load_dataset
 from acf_tpu_torch.device import resolve_device
 from acf_tpu_torch.train import TrainConfig, Trainer, adagrad, adam, fit_two_phase, sgd
 from acf_tpu_torch.train.checkpoint import save_params
+from acf_tpu_torch.train.trainer import profiled
 from acf_tpu_torch.utils.io import OutputWriter
 
-# Models of the JAX CLI that the port does not have yet, and the ROADMAP
-# item (Queue 1) that ports them. The labels are stable: ROADMAP.md lists
-# them and the tests match them.
-ITEM_12 = "ROADMAP Queue 1, item 12 ('Sparse row-space step')"
+# Flags of the JAX CLI that the port does not have yet, and the ROADMAP item
+# (Queue 1) that ports them. The labels are stable: ROADMAP.md lists them and
+# the tests match them.
 ITEM_13 = "ROADMAP Queue 1, item 13 ('Distribution')"
 ITEM_14 = "ROADMAP Queue 1, item 14 ('Full CLI flag union')"
-ITEM_15 = "ROADMAP Queue 1, item 15 ('IRGAN and the naive baselines')"
-UNPORTED_MODELS = dict.fromkeys(("irgan", "pop", "mrv", "mfv", "av"), ITEM_15)
 PORTED_MODELS = ("mf", "bpr", "bpr-tf", "apr", "amf", "amf2", "abpr", "neumf", "aneumf",
                  "sasrec", "asasrec", "asasrec2", "apl", "gru4rec", "dream", "dream-tf",
-                 "caser", "drcf", "dsin")
+                 "caser", "drcf", "dsin", "irgan", "pop", "mrv", "mfv", "av")
+NAIVE_MODELS = ("pop", "mrv", "mfv", "av")
+# models that --fgsm cannot wrap: already adversarial, or no embedding tables
+NOT_WRAPPABLE = ("amf", "amf2", "abpr", "aneumf", "irgan", "apl") + NAIVE_MODELS
 
 
 def build_parser():
@@ -107,8 +109,8 @@ def build_parser():
     p.add_argument("--irgan_pair", action="store_true",
                    help="irgan: pairwise discriminator (DIS2, IRGAN.py:277-343)")
     p.add_argument("--sparse", action="store_true",
-                   help="row-space sparse Adagrad step for bpr/apr; not ported (" + ITEM_12
-                        + ")")
+                   help="row-space sparse Adagrad step for bpr/apr (no dense table work "
+                        "per step)")
     p.add_argument("--dedup", type=str, default="auto", choices=["auto", "matmul", "sort"],
                    help="duplicate-row aggregation program for --sparse")
     p.add_argument("--pre", type=str, default="",
@@ -150,34 +152,49 @@ def _not_ported(what, item):
 
 
 def refuse_unported(args):
-    """SystemExit naming the model or flag and the ROADMAP item that ports
-    it, for anything of the JAX CLI the port does not have yet."""
-    if args.model in UNPORTED_MODELS:
-        raise _not_ported(f"--model {args.model}", UNPORTED_MODELS[args.model])
-    if args.sparse:
-        raise _not_ported("--sparse", ITEM_12)
+    """SystemExit naming the flag and the ROADMAP item that ports it, for
+    anything of the JAX CLI the port does not have yet."""
     if args.mesh:
         raise _not_ported(f"--mesh {args.mesh}", ITEM_13)
     if args.train_dtype == "bfloat16":
         raise _not_ported("--train_dtype bfloat16", ITEM_14)
 
 
+def _check_sparse_flags(args):
+    """The row-space sparse step supports neither random-delta FGSM nor DNS
+    nor multi-step perturbations: refuse rather than train a different
+    objective (the JAX CLI's messages)."""
+    if args.adv != "grad":
+        raise SystemExit("--sparse supports --adv grad only "
+                         "(the sparse step has no random-delta branch); "
+                         "drop --sparse or use --adv grad")
+    if args.dns > 1:
+        raise SystemExit("--sparse does not support --dns > 1 "
+                         "(no DNS candidate selection in the sparse step); "
+                         "drop --sparse or --dns")
+    if args.adv_steps > 1:
+        raise SystemExit("--sparse does not support --adv_steps > 1 "
+                         "(single-step FGSM only in the sparse step); "
+                         "drop --sparse or --adv_steps")
+
+
 def make_model(name, data, args):
     """name → (model, optimizer, clean_model_for_phase1 | None), with the JAX
     CLI's hyperparameters and optimizers (``acf_tpu/cli/main.py:175-282``)."""
     from acf_tpu_torch.adversarial.popularity import PopularityAdversarial
+    from acf_tpu_torch.models import naive
     from acf_tpu_torch.models.apl import APL
     from acf_tpu_torch.models.caser import Caser
     from acf_tpu_torch.models.dream import DREAM
     from acf_tpu_torch.models.drcf import DRCF
     from acf_tpu_torch.models.dsin import DSIN
     from acf_tpu_torch.models.gru4rec import GRU4Rec
+    from acf_tpu_torch.models.irgan import IRGAN
     from acf_tpu_torch.models.mf import MFBPR, PointwiseMF
     from acf_tpu_torch.models.neumf import NeuMF
     from acf_tpu_torch.models.sasrec import SASRec
+    from acf_tpu_torch.ops.sparse_step import SparseMFBPR
 
-    if name in UNPORTED_MODELS:
-        raise _not_ported(f"--model {name}", UNPORTED_MODELS[name])
     U, I, d = data.num_users, data.num_items, args.d
     adam_ = adam(0.001)
     lr = 0.05 if args.lr is None else args.lr
@@ -189,6 +206,13 @@ def make_model(name, data, args):
 
     if name == "mf":
         return PointwiseMF(U, I, d), adam_, None
+    if name in ("bpr", "bpr-tf", "apr") and args.sparse:
+        _check_sparse_flags(args)
+        clean = SparseMFBPR(U, I, d, reg=args.reg, lr=lr, dedup=args.dedup)
+        if name != "apr":
+            return clean, adagrad_, None
+        return dataclasses.replace(clean, adversarial=True, eps=args.eps,
+                                   reg_adv=args.reg_adv), adagrad_, clean
     if name in ("bpr", "bpr-tf"):
         return MFBPR(U, I, d, reg=args.reg, dns=args.dns), adagrad_, None
     if name == "apr":
@@ -234,25 +258,13 @@ def make_model(name, data, args):
             adam(1e-4 if args.lr is None else args.lr), None
     if name == "apl":
         return APL(U, I, d, loss_function=args.loss or "log"), sgd(0.05), None
+    if name == "irgan":
+        return IRGAN(U, I, d, pairwise_d=args.irgan_pair), sgd(0.001), None
+    naive_cls = {"pop": naive.MostPopular, "mrv": naive.MostRecentlyVisit,
+                 "mfv": naive.MostFrequentlyVisit, "av": naive.AlreadyVisit}
+    if name in naive_cls:
+        return naive_cls[name](U, I, d, data=data), adam_, None
     raise ValueError(f"unknown model {name!r}")
-
-
-@contextlib.contextmanager
-def profiled(trace_dir: str, device: torch.device):
-    """torch.profiler over the block (CPU ops, and the GPU's kernels on a
-    CUDA device); its Chrome trace is written into ``trace_dir`` when the
-    block ends, also when it raises."""
-    from torch.profiler import ProfilerActivity, profile
-
-    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if device.type == "cuda" else [])
-    prof = profile(activities=acts)
-    prof.start()
-    try:
-        yield
-    finally:
-        prof.stop()
-        os.makedirs(trace_dir, exist_ok=True)
-        prof.export_chrome_trace(os.path.join(trace_dir, "acf_tpu_torch.pt.trace.json"))
 
 
 def main(argv=None):
@@ -265,9 +277,15 @@ def main(argv=None):
     if args.fgsm:
         from acf_tpu_torch.adversarial import FGSMAdversarial
 
-        if clean is not None or args.model in ("amf", "amf2", "abpr", "aneumf", "apl"):
+        if clean is not None or args.model in NOT_WRAPPABLE:
             raise SystemExit(f"--fgsm does not apply to {args.model!r} "
-                             "(already adversarial, or it brings its own epoch)")
+                             "(already adversarial, or no embedding tables)")
+        if args.sparse:
+            # the wrapper would take SparseMFBPR's slot dict but not its
+            # epoch: the pair epoch would then update the wrong state
+            raise SystemExit("--fgsm does not combine with --sparse "
+                             "(the row-space step has its own fused FGSM); "
+                             "use --model apr --sparse for sparse APR")
         clean = model
         model = FGSMAdversarial(data.num_users, data.num_items, args.d, base=clean,
                                 eps=args.eps, reg_adv=args.reg_adv, adv_steps=args.adv_steps)
@@ -279,7 +297,9 @@ def main(argv=None):
                 % (data.num_users, data.num_items, data.num_pairs, len(data.eval_users())))
     if args.save_model:
         os.makedirs("h5", exist_ok=True)  # reference save dir (run.py:260)
-    cfg = TrainConfig(batch_size=args.bs, epochs=args.epochs, verbose=args.verbose,
+    # the naive baselines need one pass (run.py:275-276)
+    epochs = 1 if args.model in NAIVE_MODELS else args.epochs
+    cfg = TrainConfig(batch_size=args.bs, epochs=epochs, verbose=args.verbose,
                       topk=args.topk, eval_sampled=(args.eval_mode == "sample"),
                       ckpt_every=args.ckpt,
                       ckpt_path=(f"{args.ckpt_dir}/{args.data}/{args.model}"

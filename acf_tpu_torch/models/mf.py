@@ -70,6 +70,24 @@ def _acc(diff):
     return torch.mean((diff > 0).to(torch.float32))
 
 
+def equality(ids):
+    """[N, N] float32: 1 where ``ids[i] == ids[j]``. Its product with
+    per-occurrence rows [N, d] gives each row its duplicate group's sum."""
+    return (ids[:, None] == ids[None, :]).to(torch.float32)
+
+
+def equality_deltas(ids):
+    """``delta(g, eps)``: eps times the row-normalized sum of each slot's
+    duplicate group of rows ``g`` [N, d] (the FGSM delta of a table row that
+    several slots of ``ids`` share)."""
+    eq = equality(ids)
+
+    def delta(g, eps):
+        return eps * row_normalize(torch.matmul(eq, g))
+
+    return delta
+
+
 def _clip_grad_coef(diff):
     """(clipped diff, dL/ddiff) of ``softplus(-clip(diff, -80, 1e8))``: the
     clip passes no gradient outside its range, inclusive at the ends."""
@@ -200,59 +218,60 @@ class MFBPR(PairwiseModel):
         """({"P": gP, "Q": gQ}, aux) of APR's objective at ``params`` on
         ``batch`` = (users, pos, neg); aux as :meth:`loss` gives it."""
         users, pos, neg = batch
-        B = users.shape[0]
-        d = self.dim
         P, Q = params["P"].detach(), params["Q"].detach()
+        items2 = torch.cat([pos, neg], dim=0)
+        rows_p, rows_q, aux = self.row_grads(P[users], Q[pos], Q[neg], equality_deltas(users),
+                                             equality_deltas(items2))
+        grads = {"P": torch.zeros_like(P).index_add_(0, users, rows_p),
+                 "Q": torch.zeros_like(Q).index_add_(0, items2, rows_q)}
+        return grads, aux
 
-        p = P[users]
-        qp = Q[pos]
-        qn = Q[neg]
+    def row_grads(self, p, qp, qn, delta_u, delta_i):
+        """The closed-form gradients of the step's objective (the clean one,
+        or with ``adversarial`` APR's with one grad-mode FGSM step) with
+        respect to the gathered rows p [B, d], q_pos and q_neg, one row per
+        occurrence: (rows_p [B, d], rows_q [2B, d], the pos rows then the
+        neg rows, aux as :meth:`loss` gives it). The FGSM deltas are
+        ``delta_u(g, eps)`` and ``delta_i(g, eps)`` of the clean loss's rows
+        (the users'; the items', pos then neg): each sums the rows of an
+        id's duplicate slots before the row normalize, as the dense gradient
+        does (:func:`equality_deltas`)."""
+        B, d = p.shape
 
         # clean BPR: L = sum softplus(-clip(s+ - s-)); dL/ddiff = -sigmoid(-diff)
         diff = torch.sum(p * (qp - qn), dim=-1)
         diff_c, c = _clip_grad_coef(diff)
-        loss = torch.sum(softplus(-diff_c))
-        acc = _acc(diff)
+        aux = {"loss": torch.sum(softplus(-diff_c)), "acc": _acc(diff)}
 
         # per-occurrence clean gradient rows of L wrt P and Q (pos, then neg)
-        gp_rows = c[:, None] * (qp - qn)
-        gq_rows = torch.cat([c[:, None] * p, -c[:, None] * p], dim=0)
+        rows_p = c[:, None] * (qp - qn)
+        rows_q = torch.cat([c[:, None] * p, -c[:, None] * p], dim=0)
+        n_reg = 1
+        if self.adversarial:
+            dP = delta_u(rows_p, self.eps)  # [B, d] rows for users
+            dQ = delta_i(rows_q, self.eps)  # [2B, d] rows for pos, then neg
 
-        # the FGSM deltas read the row-aggregated clean gradient: duplicate
-        # batch slots of one table row share one summed gradient
-        eq_u = (users[:, None] == users[None, :]).to(torch.float32)
-        agg_p = torch.matmul(eq_u, gp_rows)
-        items2 = torch.cat([pos, neg], dim=0)
-        eq_i = (items2[:, None] == items2[None, :]).to(torch.float32)
-        agg_q = torch.matmul(eq_i, gq_rows)
+            # the adversarial pair loss at the perturbed point
+            ph = p + dP
+            qph = qp + dQ[:B]
+            qnh = qn + dQ[B:]
+            diff_a = torch.sum(ph * (qph - qnh), dim=-1)
+            diff_ac, ca = _clip_grad_coef(diff_a)
+            aux["loss_adv"] = torch.sum(softplus(-diff_ac))
+            aux["acc_adv"] = _acc(diff_a)
 
-        dP = self.eps * row_normalize(agg_p)       # [B, d] rows for users
-        dQp = self.eps * row_normalize(agg_q[:B])  # rows for pos
-        dQn = self.eps * row_normalize(agg_q[B:])  # rows for neg
-
-        # the adversarial pair loss at the perturbed point
-        ph = p + dP
-        qph = qp + dQp
-        qnh = qn + dQn
-        diff_a = torch.sum(ph * (qph - qnh), dim=-1)
-        diff_ac, ca = _clip_grad_coef(diff_a)
-        loss_adv = torch.sum(softplus(-diff_ac))
-        acc_adv = _acc(diff_a)
-
-        # total rows: clean + reg_adv * adversarial, plus the reg term the
-        # objective counts twice (evaluation_adv.py:175-177), 2 * 2 reg / (B d)
-        rcoef = 4.0 * self.reg / (B * d)
-        wa = (self.reg_adv * ca)[:, None]
-        rows_p = gp_rows + wa * (qph - qnh)
-        rows_q = gq_rows + torch.cat([wa * ph, -wa * ph], dim=0)
+            # clean + reg_adv * adversarial; the objective counts the reg
+            # term twice (evaluation_adv.py:175-177)
+            wa = (self.reg_adv * ca)[:, None]
+            rows_p = rows_p + wa * (qph - qnh)
+            rows_q = rows_q + torch.cat([wa * ph, -wa * ph], dim=0)
+            n_reg = 2
         if self.reg != 0.0:
+            # d/dx of reg * mean(p² + q_pos² + q_neg²) over B d entries, n_reg times
+            rcoef = 2.0 * n_reg * self.reg / (B * d)
             rows_p = rows_p + rcoef * p
             rows_q = rows_q + rcoef * torch.cat([qp, qn], dim=0)
-
-        grads = {"P": torch.zeros_like(P).index_add_(0, users, rows_p),
-                 "Q": torch.zeros_like(Q).index_add_(0, items2, rows_q)}
-        aux = {"loss": loss, "acc": acc, "loss_adv": loss_adv, "acc_adv": acc_adv}
-        return grads, aux
+        return rows_p, rows_q, aux
 
     def adv_target_loss(self, params, batch, generator=None):
         """FGSM linearization target: the raw BPR loss WITHOUT the reg term

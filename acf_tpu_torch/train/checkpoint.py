@@ -8,7 +8,8 @@ other. A full train state (:func:`save_state`) holds ``params/…``, the
 optimizer slots under the names optax's chained state takes in the JAX
 package's snapshots (Adam's ``opt/0/.count``, ``opt/0/.mu/…``,
 ``opt/0/.nu/…``; Adagrad's ``opt/0/.sum_of_squares/…``; SGD has none; a
-per-player state such as APL's under ``opt/g/…`` and ``opt/c/…``), and
+per-player state such as APL's under ``opt/g/…`` and ``opt/c/…``; the
+sparse step's slots as ``opt/accP`` and ``opt/accQ``), and
 ``rng``, the trainer's
 ``torch.Generator`` state (the JAX snapshots hold a ``key`` instead, which
 the port cannot use: restoring one keeps the current generator).
@@ -70,7 +71,13 @@ def load_params(path: str, like):
 def _opt_names(opt_state, prefix="opt/"):
     """[(npz name, leaf)] of an optimizer state: the first chained state's
     fields under ``<prefix>0/.<field>``; per-player states under
-    ``<prefix><player>/``."""
+    ``<prefix><player>/``; a model's own slot tensor (SparseMFBPR's
+    ``accP``) under its key; nothing for a model without a state (the
+    naive baselines' ``()``)."""
+    if isinstance(opt_state, torch.Tensor):
+        return [(prefix[:-1], opt_state)]
+    if not isinstance(opt_state, dict):
+        return []
     if not is_opt_fields(opt_state):
         return [x for k, v in opt_state.items() for x in _opt_names(v, f"{prefix}{k}/")]
     return [(f"{prefix}0/.{field}" + (f"/{n}" if n else ""), leaf)

@@ -32,8 +32,10 @@ and the two-phase staging of :func:`fit_two_phase`.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
+import os
 import time
 from typing import Optional
 
@@ -209,6 +211,24 @@ def make_seq_epoch_fn(model, optimizer, batch_size: int, num_batches: int):
     return epoch_fn
 
 
+@contextlib.contextmanager
+def profiled(trace_dir: str, device: torch.device):
+    """torch.profiler over the block (CPU ops, and the GPU's kernels on a
+    CUDA device); its Chrome trace is written into ``trace_dir`` when the
+    block ends, also when it raises."""
+    from torch.profiler import ProfilerActivity, profile
+
+    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if device.type == "cuda" else [])
+    prof = profile(activities=acts)
+    prof.start()
+    try:
+        yield
+    finally:
+        prof.stop()
+        os.makedirs(trace_dir, exist_ok=True)
+        prof.export_chrome_trace(os.path.join(trace_dir, "acf_tpu_torch.pt.trace.json"))
+
+
 class Trainer:
     """Epoch-driven trainer with reference-protocol evaluation and logging.
 
@@ -289,6 +309,15 @@ class Trainer:
         """``n`` epochs; the per-epoch stats stacked on a leading axis."""
         out = [self.run_epoch() for _ in range(n)]
         return {k: np.asarray([s[k] for s in out]) for k in out[0]}
+
+    def profile_epoch(self, trace_dir: str):
+        """One epoch and one evaluation under torch.profiler, its Chrome
+        trace written into ``trace_dir`` (open it with Perfetto or
+        chrome://tracing). Returns (the epoch's stats, the evaluation)."""
+        with profiled(trace_dir, self.device):
+            stats = self.run_epoch()
+            res = self.evaluate()
+        return stats, res
 
     @torch.no_grad()
     def evaluate(self):

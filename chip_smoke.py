@@ -156,7 +156,25 @@ Phases, any failure exits non-zero:
               and DSIN, dense, timed beside their products' FLOP); then
               ``SessionStream`` on 512 slots over 8 events with a reset,
               each push's top-10 against ``torch.topk`` of the dense scores
-              of its state, and its users/s.
+              of its state, and its users/s;
+ 23. the single-device remainder at full width: the sparse row-space
+              APR step (``SparseMFBPR``, the configuration of phase 18,
+              ``dedup="auto"``) on the ml-1m-shaped set: ``fit_two_phase``
+              (1 clean + 1 APR epoch, the slots reset, row 0 of both tables
+              and both slots bit for bit around each epoch, K1 24 launches),
+              one clean and one APR step against the CPU, the sort program
+              and the dense pair step (``APR_TOL``), examples/s of 3 epochs
+              and one step's launches and busy share; IRGAN (d = 64, batch
+              512, SGD(0.001), T 0.2, lambda 0.2) on the Video-shaped set:
+              for the pointwise and the pairwise D one D and one G step
+              against the CPU on injected draws, an epoch with both pad rows
+              kept, 3 timed epochs, one D and one G step profiled, an
+              evaluation through K1 (61); the naive baselines' dense
+              evaluations (every position equal to the CPU's, timed); the
+              command line on phase 20's files (``apr
+              --sparse``, ``bpr --sparse --dedup sort``, ``irgan`` with and
+              without ``--irgan_pair``, ``pop mrv mfv av``, K1 counted) and
+              its refusals with the JAX CLI's messages.
 
 Kernel times come from torch.profiler's device time. A measurement whose
 profile holds no device time in three sessions is timed with CUDA events
@@ -873,6 +891,18 @@ def tree_err(got, ref):
     err = max(float((a - b).abs().max()) for a, b in zip(got, ref))
     scale = max(float(b.abs().max()) for b in ref)
     return err, err / max(scale, 1e-30)
+
+
+def check_close(label, got, ref, top):
+    """``got`` against ``ref`` (lists of tensors) within APR_TOL of ref's
+    scale plus an ulp of ``top``: an update read back as new - old params
+    resolves only to an ulp of the largest entry it was added to. Returns
+    the line that reports it."""
+    err, r = tree_err(got, ref)
+    scale = max(float(x.abs().max()) for x in ref)
+    bound_ = APR_TOL * scale + torch.finfo(torch.float32).eps * top
+    check(err <= bound_, f"{label}: max |d| {err:.3e} > {bound_:.3e}")
+    return f"max |d| {err:.3e} ({r:.2e} of its scale {scale:.3e}; bound {bound_:.3e})"
 
 
 def near_kink_users(params, x, mask, masks, keep):
@@ -1913,7 +1943,7 @@ def check_apr_steps(tr):
     for label, (_, r) in (("autograd", e_auto), ("the CPU", e_cpu)):
         check(r <= APR_TOL, f"apr closed form vs {label}: {r:.3e} of scale > {APR_TOL}")
 
-    ulp = torch.finfo(torch.float32).eps * max(float(v.abs().max()) for v in cpu_params.values())
+    top = max(float(v.abs().max()) for v in cpu_params.values())
     g = torch.Generator().manual_seed(19)
     noise = (_trunc_normal(g, (U, D), 0.01), _trunc_normal(g, (I, D), 0.01))
     cases = (("apr", apr, 1, None),
@@ -1926,15 +1956,10 @@ def check_apr_steps(tr):
         idx, cands = apr_draws(data, seed=20 + n, dns=dns)
         upd, stats = apr_step(model, params, tr.dev, idx, cands, nz)
         upd_cpu, stats_cpu = apr_step(model, cpu_params, cpu_data, idx, cands, nz)
-        err, r = tree_err(upd, upd_cpu)
-        scale = max(float(u.abs().max()) for u in upd_cpu)
-        bound_ = APR_TOL * scale + ulp
-        print(f"{label} step, card vs CPU (same draws): update max |d| {err:.3e} ({r:.2e} of "
-              f"its scale {scale:.3e}; bound {bound_:.3e} with an ulp of the params {ulp:.1e}); "
+        line = check_close(f"{label} step: the card's update vs the CPU's", upd, upd_cpu, top)
+        print(f"{label} step, card vs CPU (same draws): update {line}; "
               + ", ".join(f"{k} {stats[k]:.6f}/{stats_cpu[k]:.6f}" for k in sorted(stats)))
         check_stats(f"{label} step", stats, stats_cpu)
-        check(err <= bound_, f"{label} step: the card's update differs from the CPU's by "
-              f"{err:.3e} > {bound_:.3e}")
     return batch
 
 
@@ -2245,7 +2270,8 @@ def run_cli(root: Path, argv, counts, epochs, counter=None):
     from acf_tpu_torch.cli.main import main as cli_main
     from acf_tpu_torch.train import Trainer
 
-    opath = root / "out" / (argv[1] + ("_fgsm" if "--fgsm" in argv else ""))
+    opath = root / "out" / "_".join([argv[1]] + [a.lstrip("-") for a in argv
+                                                 if a in ("--fgsm", "--sparse", "--irgan_pair")])
     fitted, real_fit = [], Trainer.fit
 
     def fit(self, *args, **kwargs):
@@ -2354,29 +2380,24 @@ def check_pop_step(label, tr, seed):
         out[side] = ([(a - b).cpu() for a, b in zip(tree_leaves(new), tree_leaves(params))],
                      stats, max(float(x.abs().max()) for x in tree_leaves(params)))
     (upd, stats, top), (upd_cpu, stats_cpu, _) = out["card"], out["cpu"]
-    err, r = tree_err(upd, upd_cpu)
-    scale = max(float(u.abs().max()) for u in upd_cpu)
-    ulp = torch.finfo(torch.float32).eps * top
-    bound_ = APR_TOL * scale + ulp
-    print(f"{label} step, card vs CPU (same params, Adam states and draws): update max |d| "
-          f"{err:.3e} ({r:.2e} of its scale {scale:.3e}; bound {bound_:.3e} with an ulp of the "
-          f"params {ulp:.1e}) over {len(upd)} leaves; "
+    line = check_close(f"{label} step: the card's update vs the CPU's", upd, upd_cpu, top)
+    print(f"{label} step, card vs CPU (same params, Adam states and draws): update {line} over "
+          f"{len(upd)} leaves; "
           + ", ".join(f"{k} {stats[k]:.6f}/{stats_cpu[k]:.6f}" for k in sorted(stats)))
     check_stats(f"{label} step", stats, stats_cpu)
-    check(err <= bound_, f"{label} step: the card's update differs from the CPU's by "
-          f"{err:.3e} > {bound_:.3e}")
 
 
-def time_pop(label, tr):
-    """Phase 21 for one adversary, on the trainer of its CLI run (whose
-    epoch is the warm-up): examples/s of ``POP_EPOCHS`` epochs (host clock
-    around ``Trainer.run_epoch``, every sample and the median); one step's
-    launches, its wall time alone, device busy and idle time and largest
-    device operations."""
+def time_own_epochs(label, tr, epochs, warm_up):
+    """Examples/s of ``epochs`` epochs of a model that brings its own epoch
+    (host clock around ``Trainer.run_epoch``, every sample and the median;
+    ``warm_up`` says which epoch warmed it up); one step of that epoch (a
+    batch of its pairs, the other draws from the trainer's generator): its
+    wall time alone, launches, device busy and idle time and largest device
+    operations."""
     from acf_tpu_torch.sampling import sample_pair_epoch
 
     samples = []
-    for _ in range(POP_EPOCHS):
+    for _ in range(epochs):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         stats = tr.run_epoch()
@@ -2388,11 +2409,9 @@ def time_pop(label, tr):
     print(f"{label} timing ({card}): {tr.num_batches} steps of {TRAIN_BATCH} an epoch; median "
           f"{examples / median_s:.1f} examples/s; samples "
           + ", ".join(f"{examples / s:.1f}" for s in samples)
-          + f" examples/s ({', '.join(f'{s:.4f}' for s in samples)} s; the warm-up was the CLI "
-          f"run's epoch, {tr.cli_s:.2f} s with its loading and evaluation); timer: host clock "
-          "around Trainer.run_epoch, which ends in a host transfer")
-    # one step of the epoch: a batch of the epoch's pairs, the negatives and
-    # the pool draws from the trainer's generator, both players' updates
+          + f" examples/s ({', '.join(f'{s:.4f}' for s in samples)} s; the warm-up was "
+          f"{warm_up}); timer: host clock around Trainer.run_epoch, which ends in a host "
+          "transfer")
     epoch = tr.model.make_epoch_fn(tr.optimizer, TRAIN_BATCH, 1, tr.dev)
     batches = sample_pair_epoch(tr.generator, tr.data.num_pairs, TRAIN_BATCH, tr.num_batches)
     step_n = [0]
@@ -2405,13 +2424,12 @@ def time_pop(label, tr):
     step_s = median_s / tr.num_batches
     alone_s = best_wall_s(step, reps=20)
     print(f"{label} step ({card}): {step_s * 1e3:.4f} ms in the median epoch over its steps, "
-          f"{alone_s * 1e3:.4f} ms alone (best of 20, each ending in a host transfer of its "
-          "stats and a synchronize)")
+          f"{alone_s * 1e3:.4f} ms alone (best of 20, each a one-batch epoch ending in a host "
+          "transfer of its stats and a synchronize)")
     launches = device_events(step, in_order=True)
     print(f"{label} step: {len(launches)} device launches" if launches
           else f"{label} step: launches not measured (the profiler saw no device time)")
     device_breakdown(f"{label} step ({card})", step, step_s, top=8)
-    return examples / median_s
 
 
 def time_neumf_eval(tr):
@@ -2451,7 +2469,9 @@ def cli_phases(dev):
         check_pop_step(name, trainers[name], seed=200 + n)
     lap("20")
     for name in POP_MODELS:
-        time_pop(name, trainers[name])
+        tr = trainers[name]
+        time_own_epochs(name, tr, POP_EPOCHS, f"the CLI run's epoch, {tr.cli_s:.2f} s with its "
+                        "loading and evaluation")
     time_neumf_eval(trainers["aneumf"])
     lap("21")
     return k1
@@ -2828,6 +2848,450 @@ def zoo_phase(dev, data):
     return k1
 
 
+# --- the single-device remainder: phase 23 -------------------------------------
+
+# SparseMFBPR as the JAX CLI builds `apr --sparse` (acf_tpu/cli/main.py:198-208)
+# at the headline configuration of bench.py:66-85: d = 64, batch 512,
+# Adagrad(0.05, 0.1), eps 0.5, reg_adv 1, dedup "auto" (the equality product
+# at this batch). Its steps are held to APR_TOL as phase 18's are.
+SPARSE_EPOCHS = 3
+# IRGAN as the JAX CLI builds it (acf_tpu/cli/main.py:269-270): d = 64,
+# SGD(0.001) for both players, T 0.2, lambda 0.2; batch 512 on the
+# Video-shaped set of phase 4.
+IRGAN_EPOCHS = 3
+NAIVE = (("pop", "MostPopular"), ("mrv", "MostRecentlyVisit"),
+         ("mfv", "MostFrequentlyVisit"), ("av", "AlreadyVisit"))
+# the command line's refusals of phase 23, with the JAX CLI's messages
+# (acf_tpu/cli/main.py:158-172, 296-311)
+REST_REFUSALS = (
+    (["--model", "apr", "--sparse", "--adv", "random"],
+     "--sparse supports --adv grad only (the sparse step has no random-delta branch); "
+     "drop --sparse or use --adv grad"),
+    (["--model", "apr", "--sparse", "--dns", "2"],
+     "--sparse does not support --dns > 1 (no DNS candidate selection in the sparse step); "
+     "drop --sparse or --dns"),
+    (["--model", "apr", "--sparse", "--adv_steps", "2"],
+     "--sparse does not support --adv_steps > 1 (single-step FGSM only in the sparse step); "
+     "drop --sparse or --adv_steps"),
+    (["--model", "bpr", "--sparse", "--fgsm"],
+     "--fgsm does not combine with --sparse (the row-space step has its own fused FGSM); "
+     "use --model apr --sparse for sparse APR"),
+    (["--model", "irgan", "--fgsm"],
+     "--fgsm does not apply to 'irgan' (already adversarial, or no embedding tables)"),
+)
+
+
+def run_sparse_fit_two_phase(data):
+    """Phase 23, sparse APR: ``fit_two_phase`` with a clean and an APR
+    SparseMFBPR (one epoch each, the slots reset at the switch, an
+    evaluation through K1 after each), row 0 of both tables and of both
+    slots checked bit for bit around every epoch, K1 counted. Returns (the
+    trainer, K1's launches)."""
+    from acf_tpu_torch.ops.ranking import rank_positions_dot
+    from acf_tpu_torch.ops.sparse_step import SparseMFBPR
+    from acf_tpu_torch.train import TrainConfig, adagrad, fit_two_phase
+    from acf_tpu_torch.train import trainer as trainer_mod
+
+    clean = SparseMFBPR(data.num_users, data.num_items, D)
+    adv = SparseMFBPR(data.num_users, data.num_items, D, adversarial=True, **APR)
+    stats, seen, pad_kept = [], {}, []
+    Trainer = trainer_mod.Trainer
+    real_run, real_switch = Trainer.run_epoch, Trainer.switch_model
+
+    def pad_rows(self):
+        return torch.stack([self.params["P"][0], self.params["Q"][0],
+                            self.opt_state["accP"][0], self.opt_state["accQ"][0]])
+
+    def run_epoch(self):
+        before = pad_rows(self).clone()
+        stats.append(real_run(self))
+        pad_kept.append(torch.equal(pad_rows(self), before))
+        return stats[-1]
+
+    def switch_model(self, model, reset_opt=True):
+        real_switch(self, model, reset_opt)
+        slots = self.opt_state.values()
+        seen.update(trainer=self, slots=(min(float(v.min()) for v in slots),
+                                         max(float(v.max()) for v in slots)))
+
+    writer = lines_writer()
+    tiles = math.ceil(len(data.eval_users()) / BATCH_USERS)
+    Trainer.run_epoch, Trainer.switch_model = run_epoch, switch_model
+    try:
+        rank_positions_dot.launches = 0
+        t0 = time.perf_counter()
+        best = fit_two_phase(clean, adv, data, adagrad(0.05, initial_accumulator_value=0.1),
+                             TrainConfig(batch_size=TRAIN_BATCH, epochs=2, verbose=1),
+                             adv_epoch=1, writer=writer)  # the main path
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        k1 = rank_positions_dot.launches
+    finally:
+        Trainer.run_epoch, Trainer.switch_model = real_run, real_switch
+    tr = seen["trainer"]
+    print(f"sparse apr fit_two_phase: dedup {adv.dedup_mode(TRAIN_BATCH)}, {tr.num_batches} steps "
+          f"of {TRAIN_BATCH} an epoch, {tiles} eval tiles; {wall:.2f} s; K1 launches {k1}; slots "
+          f"after the switch {seen['slots']}; row 0 and its slots kept bit for bit in every epoch "
+          f"{all(pad_kept)}; best epoch {best['epoch']} NDCG@10 {best['ndcg']:.6f}")
+    print(f"sparse apr fit_two_phase epoch stats: {stats}")
+    check(k1 == 2 * tiles, f"sparse apr fit_two_phase: K1 launched {k1} times, not {2 * tiles}")
+    check(len(pad_kept) == 2 and all(pad_kept),
+          "sparse apr fit_two_phase: row 0 of a table or of its slot moved in an epoch")
+    check(all(abs(v - 0.1) < 1e-7 for v in seen["slots"]),
+          f"sparse apr fit_two_phase: the slots were not reset at the switch {seen['slots']}")
+    epochs = [ln for ln in writer.lines if ln.startswith("Epoch ") and "HR =" in ln]
+    check(len(epochs) == 2 and sum(ln.startswith("K = ") for ln in writer.lines) == 100,
+          "sparse apr fit_two_phase: not two evaluated epochs and a K sweep")
+    check(set(stats[0]) == {"loss", "acc"} and set(stats[1]) == {"loss", "acc", "acc_adv"}
+          and all(math.isfinite(v) for s in stats for v in s.values()),
+          f"sparse apr fit_two_phase: the phases did not run clean then APR: {stats}")
+    check(math.isfinite(best["ndcg"]) and best["epoch"] == 1,
+          "sparse apr fit_two_phase: no best epoch")
+    return tr, k1
+
+
+def sparse_step(model, params, tdata, idx, cands):
+    """One row-space step of ``model`` from fresh slots with these draws
+    (its epoch over one injected batch). Returns ([the update of P, of Q],
+    [the slots' increments], stats)."""
+    dev = params["P"].device
+    opt = model.init_opt_state(None, params)
+    epoch = model.make_epoch_fn(None, TRAIN_BATCH, 1)
+    new, new_opt, stats = epoch(params, opt, tdata, None, idx.to(dev)[None],
+                                cands.to(dev)[None])
+    return ([(new[k] - params[k]).cpu() for k in ("P", "Q")],
+            [(new_opt[k] - opt[k]).cpu() for k in ("accP", "accQ")], stats)
+
+
+def slot_top(increments):
+    """The largest slot value after a step from fresh slots (0.1 each)."""
+    return 0.1 + max(float(a.max()) for a in increments)
+
+
+def check_sparse_steps(tr):
+    """Phase 23, at the params ``fit_two_phase`` left: one clean and one APR
+    row-space step on the card against the same step on the CPU, against
+    the other dedup program on the card (sort) and against the dense pair
+    step on the card (autograd clean, the closed form under APR), all from
+    fresh slots with the same draws: the params' updates, the slots'
+    increments (the dense step's are not compared) and the stats."""
+    from acf_tpu_torch.models.mf import MFBPR
+    from acf_tpu_torch.ops.sparse_step import SparseMFBPR
+
+    data = tr.data
+    U, I = data.num_users, data.num_items
+    params = {k: v.detach() for k, v in tr.params.items()}
+    cpu_params = {k: v.cpu() for k, v in params.items()}
+    cpu_data = {k: v.cpu() for k, v in tr.dev.items()}
+    top = max(float(v.abs().max()) for v in cpu_params.values())
+    for n, adversarial in enumerate((False, True)):
+        label = "sparse apr" if adversarial else "sparse clean"
+        kw = dict(adversarial=True, **APR) if adversarial else {}
+        model = SparseMFBPR(U, I, D, **kw)
+        idx, cands = apr_draws(data, seed=230 + n)
+        upd, acc, stats = sparse_step(model, params, tr.dev, idx, cands)
+        upd_c, acc_c, stats_c = sparse_step(model, cpu_params, cpu_data, idx, cands)
+        upd_s, acc_s, stats_s = sparse_step(SparseMFBPR(U, I, D, dedup="sort", **kw), params,
+                                            tr.dev, idx, cands)
+        upd_d, stats_d = apr_step(MFBPR(U, I, D, **kw), params, tr.dev, idx, cands)
+        lines = [
+            ("the CPU", check_close(f"{label} vs the CPU", upd, upd_c, top),
+             check_close(f"{label} slots vs the CPU", acc, acc_c, slot_top(acc_c)),
+             stats_c),
+            ("dedup sort", check_close(f"{label} vs dedup sort", upd, upd_s, top),
+             check_close(f"{label} slots vs dedup sort", acc, acc_s, slot_top(acc_s)),
+             stats_s),
+            ("the dense step", check_close(f"{label} vs the dense step", upd, upd_d, top), "",
+             {k: v for k, v in stats_d.items() if k in stats}),
+        ]
+        for other, u_line, a_line, ref in lines:
+            check_stats(f"{label} vs {other}", stats, ref)
+            print(f"{label} step (card, dedup matmul) vs {other} (same draws): update {u_line}"
+                  + (f"; slots {a_line}" if a_line else "") + "; "
+                  + ", ".join(f"{k} {float(stats[k]):.6f}/{float(ref[k]):.6f}"
+                              for k in sorted(ref)))
+
+
+def irgan_draws(data, seed):
+    """One step's draws from ``seed`` on the CPU: pair indices [B], D's
+    uniforms [B, I], G's mixture choices [B, 2], uniforms [B, 2, I] and
+    history draws [B, 2]."""
+    from acf_tpu_torch.models.irgan import G_SAMPLES, uniforms
+
+    g = torch.Generator().manual_seed(seed)
+    b, n = TRAIN_BATCH, data.num_items
+    idx = torch.randperm(data.num_pairs, generator=g)[:b]
+    return (idx, uniforms(g, (b, n)), torch.rand((b, G_SAMPLES), generator=g) < 0.2,
+            uniforms(g, (b, G_SAMPLES, n)), torch.randint(0, 2 ** 31 - 1, (b, G_SAMPLES),
+                                                          generator=g))
+
+
+def check_irgan_steps(dev, data):
+    """Phase 23: for the pointwise and the pairwise D, one D step and one G
+    step on the card against the CPU from the same params and injected
+    draws: D's fakes and G's samples equal, G's rewards within APR_TOL of
+    their scale plus what an ulp of sigmoid(D) near 0.5 gives them, then
+    both players' updates of the one-batch epoch (a D
+    step, then a G step against the new D) within APR_TOL of the update's
+    scale plus an ulp of the largest param, D's loss to rtol 1e-5 and G's
+    within what the rewards' bound gives it: G's loss is a mean of terms
+    log p * reward of both signs (the rewards 2(sigmoid(D) - 0.5) lie
+    around 0) that cancels to a small share of them, so it is held to
+    max |log p| times the rewards' bound plus APR_TOL of the terms' scale,
+    both read from the CPU's step at the first D."""
+    from acf_tpu_torch.models.irgan import IRGAN, g_row_logits
+    from acf_tpu_torch.utils.tree import tree_leaves, tree_map
+
+    cpu = torch.device("cpu")
+    tdata = {k: torch.as_tensor(v) for k, v in (("pairs_u", data.pairs_u),
+                                                ("pairs_i", data.pairs_i), ("hist", data.hist))}
+    for n, pairwise in enumerate((False, True)):
+        label = f"irgan ({'pairwise' if pairwise else 'pointwise'} D)"
+        model = IRGAN(data.num_users, data.num_items, D, pairwise_d=pairwise)
+        params = model.init_params(torch.Generator(device=dev).manual_seed(240 + n), device=dev)
+        idx, d_u, mix, g_u, g_idx = irgan_draws(data, 250 + n)
+        out = {}
+        for side, where in (("card", dev), ("cpu", cpu)):
+            prm = tree_map(lambda x: x.to(where), params)
+            dd = {k: v.to(where) for k, v in tdata.items()}
+            u, pos = dd["pairs_u"][idx.to(where)], dd["pairs_i"][idx.to(where)]
+            fake = model.d_fakes(prm["g"], u, d_u.to(where))
+            sample, reward = model.g_samples(prm["g"], prm["d"], u, dd["hist"][u], mix.to(where),
+                                             g_u.to(where), g_idx.to(where))
+            epoch = model.make_epoch_fn(None, TRAIN_BATCH, 1)
+            new, _, stats = epoch(prm, model.init_opt_state(None, prm), dd, None,
+                                  idx.to(where)[None], d_u.to(where)[None], mix.to(where)[None],
+                                  g_u.to(where)[None], g_idx.to(where)[None])
+            out[side] = (fake.cpu(), sample.cpu(), reward.cpu(),
+                         [(a - b).cpu() for a, b in zip(tree_leaves(new), tree_leaves(prm))],
+                         stats)
+            lp = torch.gather(torch.log_softmax(g_row_logits(prm["g"], u), dim=-1), 1,
+                              sample).cpu()
+        (fake, sample, reward, upd, stats), (fake_c, sample_c, reward_c, upd_c, stats_c) = (
+            out["card"], out["cpu"])
+        check(torch.equal(fake, fake_c), f"{label}: D's fakes differ between the card and the CPU")
+        check(torch.equal(sample, sample_c), f"{label}: G's samples differ")
+        check(int(fake.min()) >= 1 and int(sample.min()) >= 1, f"{label}: the pad item was drawn")
+        # sigmoid(D) - 0.5 cancels: an ulp of sigmoid near 0.5 on either side
+        # reaches the reward through the factor 2 p/pn <= 2 / (1 - lambda)
+        r_top = 2.0 / (1.0 - model.sample_lambda)
+        r_line = check_close(f"{label} rewards", [reward], [reward_c], r_top)
+        r_bound = (APR_TOL * float(reward_c.abs().max())
+                   + torch.finfo(torch.float32).eps * r_top)
+        g_bound = (float(lp.abs().max()) * r_bound
+                   + APR_TOL * float((lp * reward_c).abs().max()))
+        top = max(float(x.abs().max()) for x in tree_leaves(params))
+        u_line = check_close(f"{label} updates", upd, upd_c, top)
+        d_rel = abs(stats["d_loss"] - stats_c["d_loss"]) / abs(stats_c["d_loss"])
+        g_abs = abs(stats["loss"] - stats_c["loss"])
+        print(f"{label} D step + G step, card vs CPU (same params and draws): fakes and samples "
+              f"equal ({int(mix.sum())} of {mix.numel()} samples from the history); rewards "
+              f"{r_line}; both players' updates {u_line}; d_loss {stats['d_loss']:.6f}/"
+              f"{stats_c['d_loss']:.6f} (rel {d_rel:.2e}), loss {stats['loss']:.4e}/"
+              f"{stats_c['loss']:.4e} (|d| {g_abs:.2e}, bound {g_bound:.2e})")
+        check(d_rel <= 1e-5, f"{label}: d_loss rel {d_rel:.2e}")
+        check(g_abs <= g_bound, f"{label}: G's loss differs by {g_abs:.2e} > {g_bound:.2e}")
+
+
+def time_irgan(dev, data):
+    """Phase 23: a pointwise IRGAN trainer on the Video-shaped set: one
+    epoch (the warm-up) with both players' pad rows checked bit for bit,
+    ``IRGAN_EPOCHS`` timed epochs (every sample and the median, host clock),
+    one D step and one G step under the profiler (launches, busy and idle
+    time), and an evaluation through K1 (counted, checked against the dense
+    path). Returns K1's launches."""
+    from acf_tpu_torch.models.irgan import G_SAMPLES, IRGAN, uniforms
+    from acf_tpu_torch.ops.ranking import rank_positions_dot
+    from acf_tpu_torch.sampling import sample_pair_epoch
+    from acf_tpu_torch.train import TrainConfig, Trainer, sgd
+
+    model = IRGAN(data.num_users, data.num_items, D)
+    tr = Trainer(model, data, sgd(0.001), TrainConfig(batch_size=TRAIN_BATCH, verbose=10 ** 9,
+                                                      seed=260, device=str(dev)))
+    pad = {s: tr.params[s]["Q"][0].clone() for s in ("g", "d")}
+    t0 = time.perf_counter()
+    tr.run_epoch()
+    first_s = time.perf_counter() - t0
+    kept = all(torch.equal(tr.params[s]["Q"][0], pad[s]) for s in ("g", "d"))
+    print(f"irgan epoch 1 (the warm-up): {first_s:.4f} s; the pad rows of both item tables kept "
+          f"bit for bit: {kept}")
+    check(kept, "irgan: a pad row of an item table moved in an epoch")
+    samples = []
+    for _ in range(IRGAN_EPOCHS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        stats = tr.run_epoch()
+        samples.append(time.perf_counter() - t0)
+    check(all(math.isfinite(v) for v in stats.values()), f"irgan timing: stats {stats}")
+    examples = tr.num_batches * TRAIN_BATCH
+    median_s = sorted(samples)[len(samples) // 2]
+    card = card_line()
+    print(f"irgan timing ({card}): {tr.num_batches} D steps and {tr.num_batches} G steps of "
+          f"{TRAIN_BATCH} an epoch; median {examples / median_s:.1f} examples/s; samples "
+          + ", ".join(f"{examples / s:.1f}" for s in samples)
+          + " examples/s (" + ", ".join(f"{s:.4f}" for s in samples) + " s); stats "
+          f"{stats}; timer: host clock around Trainer.run_epoch, which ends in a host transfer")
+    batches = sample_pair_epoch(tr.generator, data.num_pairs, TRAIN_BATCH, tr.num_batches)
+    g, b, n = tr.generator, TRAIN_BATCH, data.num_items
+    step_n = [0]
+
+    def pair():
+        idx = batches[step_n[0] % tr.num_batches]
+        step_n[0] += 1
+        return tr.dev["pairs_u"][idx], tr.dev["pairs_i"][idx]
+
+    def d_step():
+        u, pos = pair()
+        p = tr.params
+        d, _, loss = model.d_step(p["d"], {}, p["g"], u, pos, uniforms(g, (b, n)))
+        tr.params = {"g": p["g"], "d": d}
+        return float(loss)
+
+    def g_step():
+        u, _ = pair()
+        p = tr.params
+        mix = torch.rand((b, G_SAMPLES), generator=g, device=g.device) < model.sample_lambda
+        idx = torch.randint(0, 2 ** 31 - 1, (b, G_SAMPLES), generator=g, device=g.device)
+        gp, _, loss = model.g_step(p["g"], {}, p["d"], u, tr.dev["hist"][u], mix,
+                                   uniforms(g, (b, G_SAMPLES, n)), idx)
+        tr.params = {"g": gp, "d": p["d"]}
+        return float(loss)
+
+    for label, fn in (("irgan D step", d_step), ("irgan G step", g_step)):
+        alone_s = best_wall_s(fn, reps=10)
+        launches = device_events(fn, in_order=True)
+        print(f"{label} ({card}): {alone_s * 1e3:.4f} ms alone (best of 10, each ending in a "
+              "host transfer of its loss); "
+              + (f"{len(launches)} device launches" if launches
+                 else "launches not measured (the profiler saw no device time)"))
+        device_breakdown(f"{label} ({card})", fn, alone_s, top=6)
+    ev = tr.evaluator
+    tiles = math.ceil(len(ev.users) / ev.batch_users)
+    rank_positions_dot.launches = 0
+    t0 = time.perf_counter()
+    res = ev.evaluate_model(model, tr.params)  # the main path
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    k1 = rank_positions_dot.launches
+    hr, ndcg, auc = res.at_k(10)
+    print(f"irgan evaluation ({card}): {len(ev.users)} users in {tiles} tiles, K1 launches {k1}; "
+          f"{wall:.4f} s (host clock, one call); HR@10 {hr:.6f} NDCG@10 {ndcg:.6f} AUC {auc:.6f}")
+    check(k1 == tiles, f"irgan evaluation: K1 launched {k1} times, not {tiles}")
+    check_against_dense("irgan", ev, model, tr.params, res)
+    return k1
+
+
+def naive_evals(dev, data, ev):
+    """Phase 23: each naive baseline's dense evaluation at Video scale on
+    the card (K1 not launched; one call timed, host clock, and its device
+    busy time), every user's position equal to the same evaluation's on the
+    CPU."""
+    from acf_tpu_torch.eval import FullRankEvaluator
+    from acf_tpu_torch.models import naive
+    from acf_tpu_torch.ops.ranking import rank_positions_dot
+
+    cpu_ev = FullRankEvaluator(data, batch_users=ev.batch_users, device="cpu")
+    tiles = math.ceil(len(ev.users) / ev.batch_users)
+    for flag, name in NAIVE:
+        model = getattr(naive, name)(data.num_users, data.num_items, D, data=data)
+        params = model.init_params(None, device=dev)
+        rank_positions_dot.launches = 0
+        t0 = time.perf_counter()
+        res = ev.evaluate_model(model, params)  # the main path
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        check(rank_positions_dot.launches == 0, f"{flag}: K1 launched in a dense evaluation")
+        t0 = time.perf_counter()
+        cpu_pos = cpu_ev.positions(model.score_all, {k: v.cpu() for k, v in params.items()})
+        cpu_s = time.perf_counter() - t0
+        check(np.array_equal(ev.positions(model.score_all, params), cpu_pos),
+              f"{flag}: positions differ between the card and the CPU")
+        check(np.isfinite(res.hr).all() and res.hr.shape == (len(ev.users), ev.K),
+              f"{flag}: evaluation not finite or the wrong shape")
+        hr, ndcg, auc = res.at_k(10)
+        print(f"{flag} ({name}) evaluation ({card_line()}): {len(ev.users)} users in {tiles} "
+              f"dense tiles, K1 launches 0; {wall:.4f} s (host clock, one call); every "
+              f"position equal to the CPU's ({cpu_s:.2f} s there); HR@10 {hr:.6f} NDCG@10 "
+              f"{ndcg:.6f} AUC {auc:.6f}")
+        device_breakdown(f"{flag} evaluation", lambda: ev.evaluate_model(model, params), wall,
+                         top=4)
+
+
+def rest_cli(dev):
+    """Phase 23, the command line on phase 20's files (written again from
+    the same seed): ``apr --sparse`` on the ml-1m files (1 clean + 1 APR
+    epoch), ``bpr --sparse --dedup sort``, ``irgan`` and ``irgan
+    --irgan_pair`` and the naive baselines on the Video file (1 epoch), K1
+    counted around each; then the refusals with the JAX CLI's messages.
+    Returns K1's launches by run."""
+    import contextlib
+    import io
+    import tempfile
+
+    from acf_tpu_torch.cli.main import main as cli_main
+    from acf_tpu_torch.ops.ranking import rank_positions_dot
+
+    common = ["--d", str(D), "--bs", str(TRAIN_BATCH)]
+    k1 = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        video, ml1m = write_reference_files(root)
+        counts = {"ml-1m": expected_counts(ml1m), "video": expected_counts(video)}
+        tiles = {k: math.ceil(c[3] / BATCH_USERS) for k, c in counts.items()}
+        runs = [("apr_sparse_ml1m", ["--model", "apr", "--sparse", "--data", "ml-1m",
+                                     "--epochs", "2", "--adv_epoch", "1"], "ml-1m", 2),
+                ("bpr_sparse_sort_video", ["--model", "bpr", "--sparse", "--dedup", "sort",
+                                           "--data", "video", "--epochs", "1"], "video", 1),
+                ("irgan_video", ["--model", "irgan", "--data", "video", "--epochs", "1"],
+                 "video", 1),
+                ("irgan_pair_video", ["--model", "irgan", "--irgan_pair", "--data", "video",
+                                      "--epochs", "1"], "video", 1)]
+        runs += [(f"{flag}_video", ["--model", flag, "--data", "video", "--epochs", "1"],
+                  "video", 1) for flag, _ in NAIVE]
+        for key, argv, name, epochs in runs:
+            _, n, tr = run_cli(root, [*argv, *common], counts[name], epochs, rank_positions_dot)
+            want = 0 if key.split("_")[0] in dict(NAIVE) else epochs * tiles[name]
+            check(n == want, f"cli {argv}: K1 launched {n} times, not {want}")
+            kind = type(tr.model).__name__
+            check("sparse" not in argv or (kind == "SparseMFBPR" and tr.model.dedup_mode(
+                TRAIN_BATCH) == ("sort" if "sort" in argv else "matmul")),
+                f"cli {argv}: trained {kind}, not the row-space step")
+            k1[key] = n
+        for argv, message in REST_REFUSALS:
+            try:
+                with contextlib.redirect_stdout(io.StringIO()):
+                    cli_main([*argv, "--data", "video", "--path", str(root),
+                              "--opath", f"{root}/out/refused/", *common])
+            except SystemExit as e:
+                check(str(e) == message, f"cli {argv}: refused with {str(e)!r}, not {message!r}")
+                print(f"cli {' '.join(argv)}: refused: {e}")
+            else:
+                fail(f"cli {argv} ran; the JAX CLI refuses it")
+    return k1
+
+
+def rest_phase(dev, video, ml1m, ev):
+    """Phase 23: the sparse row-space APR step at the ml-1m shape, IRGAN
+    and the naive baselines at the Video shape, and their command lines.
+    Returns K1's launches by path."""
+    t0 = time.perf_counter()
+    tr, k1_sparse = run_sparse_fit_two_phase(ml1m)
+    check_sparse_steps(tr)
+    time_own_epochs("sparse apr", tr, SPARSE_EPOCHS, "fit_two_phase's APR epoch")
+    print(f"phase 23 sparse apr: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    check_irgan_steps(dev, video)
+    k1_irgan = time_irgan(dev, video)
+    print(f"phase 23 irgan: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    naive_evals(dev, video, ev)
+    print(f"phase 23 naive: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    k1_cli = rest_cli(dev)
+    print(f"phase 23 cli: {time.perf_counter() - t0:.1f} s")
+    return {"sparse_fit_two_phase": k1_sparse, "irgan_eval": k1_irgan, "cli": k1_cli}
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke run needs a GPU")
@@ -2910,12 +3374,17 @@ def main():
     k1_zoo = zoo_phase(dev, data)
     lap("22")
 
+    # 23. The single-device remainder: the sparse row-space APR step, IRGAN,
+    # the naive baselines, their command lines
+    k1_rest = rest_phase(dev, data, ml1m, ev)
+    lap("23")
+
     kernels = [{
         "name": "rank_count", "route": "cuda",
         "source": "acf_tpu_torch/csrc/rank_count.cu",
         "replaces": "acf_tpu/ops/ranking.py:39",
         "launches": launches, "max_abs_err": max_err, **entry, "launches_apr": k1_apr,
-        "launches_cli": k1_cli, "launches_zoo": k1_zoo,
+        "launches_cli": k1_cli, "launches_zoo": k1_zoo, "launches_rest": k1_rest,
     }, k2a_entry, k2b_entry, *k3_entries]
     check(all(k["launches"] > 0 for k in kernels), "a kernel of the path never launched")
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s")

@@ -66,13 +66,34 @@ def test_importing_the_port_loads_no_jax():
             "acf_tpu_torch.models.neumf, acf_tpu_torch.data.native_io, acf_tpu_torch.cli, "
             "acf_tpu_torch.cli.main, acf_tpu_torch.nn.rnn, acf_tpu_torch.models.gru4rec, "
             "acf_tpu_torch.models.dream, acf_tpu_torch.models.caser, "
-            "acf_tpu_torch.models.drcf, acf_tpu_torch.models.dsin; "
+            "acf_tpu_torch.models.drcf, acf_tpu_torch.models.dsin, "
+            "acf_tpu_torch.ops.sparse_step, acf_tpu_torch.models.irgan, "
+            "acf_tpu_torch.models.naive, acf_tpu_torch.data.process, "
+            "acf_tpu_torch.compat.reference_checkpoints; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'jaxlib', 'optax', 'acf_tpu')); print(bad); "
+            "('jax', 'jaxlib', 'optax', 'acf_tpu', 'tensorflow', 'h5py')); print(bad); "
             "sys.exit(1 if bad else 0)")
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_tensorflow_and_h5py_only_inside_the_checkpoint_loaders():
+    """The reference-checkpoint loaders import tensorflow and h5py inside
+    their functions (the GPU machine has neither), and nothing else of the
+    port, nor ``chip_smoke.py``, imports them or that module."""
+    lazy = ("tensorflow", "h5py")
+    loaders = ROOT / "acf_tpu_torch" / "compat" / "reference_checkpoints.py"
+    tree = ast.parse(loaders.read_text())
+    top = [n for n in tree.body if isinstance(n, (ast.Import, ast.ImportFrom))]
+    assert not [a.name for n in top if isinstance(n, ast.Import) for a in n.names
+                if a.name.split(".")[0] in lazy]
+    assert {m.split(".")[0] for m in _imports(loaders)} >= set(lazy)
+    for path in _port_files():
+        if path != loaders:
+            bad = [m for m in _imports(path) if m.split(".")[0] in lazy
+                   or m == "acf_tpu_torch.compat.reference_checkpoints"]
+            assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
 
 
 def test_precision_policy():
@@ -159,6 +180,33 @@ def test_pair_and_apl_trainers_need_cuda_unless_cpu_is_asked():
             Trainer(model, data, opt, TrainConfig(batch_size=16))
         tr = Trainer(model, data, opt, TrainConfig(batch_size=16, device="cpu"))
         assert tr.dev["pairs_u"].device.type == "cpu"
+
+
+def test_sparse_irgan_and_naive_entry_points_need_cuda_unless_cpu_is_asked():
+    """The sparse step's, IRGAN's and the naive baselines' trainers and
+    params default to CUDA and raise without it; asked for the CPU, an
+    epoch and an evaluation run there with no launch of K1 (its plain
+    version for SparseMFBPR and IRGAN, the dense path for the naive ones)."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is valid here")
+    from acf_tpu_torch.models.irgan import IRGAN
+    from acf_tpu_torch.models.naive import MostPopular
+    from acf_tpu_torch.ops.sparse_step import SparseMFBPR
+    from acf_tpu_torch.train import TrainConfig, Trainer, adagrad
+
+    data = _port_data()
+    U, I = data.num_users, data.num_items
+    for model in (SparseMFBPR(U, I, 4, adversarial=True), IRGAN(U, I, 4),
+                  MostPopular(U, I, 4, data=data)):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            Trainer(model, data, adagrad(0.1), TrainConfig(batch_size=16))
+        with pytest.raises(RuntimeError, match="CUDA"):
+            model.init_params(torch.Generator().manual_seed(0))
+        tr = Trainer(model, data, adagrad(0.1), TrainConfig(batch_size=16, verbose=10 ** 9,
+                                                            device="cpu"))
+        assert np.isfinite(tr.run_epoch()["loss"])
+        assert tr.evaluate().auc.size == len(data.eval_users())
+    assert rank_positions_dot.launches == 0
 
 
 def test_cpu_apl_step_counts_no_launch():

@@ -2,8 +2,8 @@
 (``--device cpu``, the bundled ``data/brightkite.txt`` as ``--data test``,
 d = 8), against the JAX package's (``acf_tpu/cli/main.py``): ``make_model``
 builds the same classes with the same hyperparameters and optimizers for
-the same command line; the runs of ``tests/test_cli.py`` that the port
-supports write the JAX CLI's files in its format; every model and flag the
+the same command line; the runs of ``tests/test_cli.py`` write the JAX CLI's files in its format;
+the combinations the JAX CLI refuses exit with its messages; every flag the
 port does not have yet exits naming the ROADMAP item that ports it.
 
 Optimizers are compared by what they do: three updates of the same params
@@ -20,6 +20,7 @@ import pytest
 import torch
 
 from acf_tpu.cli.main import build_parser as jax_build_parser
+from acf_tpu.cli.main import main as jax_main
 from acf_tpu.cli.main import make_model as jax_make_model
 from acf_tpu.data import load_dataset as jax_load_dataset
 from acf_tpu.train import TrainConfig as JaxConfig
@@ -63,6 +64,8 @@ def same_fields(port, ref, path="model"):
         a, b = getattr(port, name), getattr(ref, name)
         if dataclasses.is_dataclass(a):
             same_fields(a, b, f"{path}.{name}")
+        elif isinstance(a, np.ndarray):  # the naive baselines' dataset
+            np.testing.assert_array_equal(a, b, err_msg=f"{path}.{name}")
         else:
             assert a == b, (path, name, a, b)
 
@@ -94,6 +97,12 @@ MAKE_CASES = [(name, []) for name in cli.PORTED_MODELS] + [
     ("caser", ["--maxlen", "7"]),
     ("dsin", ["--sess_count", "2", "--sess_len", "3", "--dsin_bi", "--loss", "bpr"]),
     ("dsin", ["--lr", "0.01"]),
+    ("irgan", ["--irgan_pair"]),
+    ("apr", ["--sparse"]),
+    ("apr", ["--sparse", "--eps", "0.3", "--reg_adv", "2", "--reg", "0.01", "--lr", "0.1",
+             "--dedup", "matmul"]),
+    ("bpr", ["--sparse", "--dedup", "sort"]),
+    ("bpr-tf", ["--sparse", "--reg", "0.01"]),
 ]
 
 
@@ -252,6 +261,27 @@ def test_fgsm_wrapper(tmp_path):
     assert accs[0][0] == accs[0][1] and accs[1][0] != accs[1][1]
 
 
+@pytest.mark.parametrize("argv", [["--model", "apr", "--sparse", "--adv_epoch", "1"],
+                                  ["--model", "bpr", "--sparse", "--dedup", "sort",
+                                   "--epochs", "1"],
+                                  ["--model", "irgan", "--irgan_pair", "--epochs", "1"],
+                                  ["--model", "pop", "--epochs", "3"]],
+                         ids=["apr-sparse", "bpr-sparse-sort", "irgan-pair", "pop-3"])
+def test_sparse_irgan_pair_and_naive_runs(tmp_path, argv):
+    """``apr --sparse`` two-phase (a clean and an APR epoch on the row-space
+    step, the slots reset), ``bpr --sparse --dedup sort``, the pairwise
+    IRGAN, and a naive baseline held to one epoch whatever ``--epochs``
+    says (run.py:275-276)."""
+    best, lines = run(tmp_path, *argv)
+    assert np.isfinite(best["ndcg"]) and best["epoch"] >= 0
+    epochs = [x for x in lines if x.startswith("Epoch ") and "HR =" in x]
+    assert len(epochs) == (2 if argv[1] == "apr" else 1)
+    if argv[1] == "apr":
+        accs = [re.findall(r"ACC = (\S+) ACC_adv = (\S+)", x)[0] for x in epochs]
+        assert accs[0][0] == accs[0][1] and accs[1][0] != accs[1][1]
+    assert lines[-1].startswith("End. Best Iteration")
+
+
 def test_fgsm_wrapper_around_caser(tmp_path):
     """``--fgsm`` around Caser: its clean phase on its own sliding-window
     epoch, the adversarial phase on the sequence epoch (the wrapper does
@@ -264,10 +294,42 @@ def test_fgsm_wrapper_around_caser(tmp_path):
     assert lines[-1].startswith("End. Best Iteration")
 
 
-@pytest.mark.parametrize("name", ["apr", "amf", "aneumf", "apl"])
-def test_fgsm_refuses_adversarial_models(tmp_path, name):
-    with pytest.raises(SystemExit, match="fgsm"):
-        cli.main(ARGS + ["--model", name, "--fgsm", "--opath", str(tmp_path) + "/"])
+def jax_exit(tmp_path, argv):
+    """The JAX CLI's SystemExit message for ``argv`` on the same data."""
+    with pytest.raises(SystemExit) as e:
+        jax_main(ARGS[:-2] + argv + ["--opath", str(tmp_path / "jax") + "/"])
+    return str(e.value)
+
+
+FGSM_REFUSALS = [["--model", m, "--fgsm"] for m in
+                 ("apr", "amf", "aneumf", "apl", "irgan", "pop", "mrv", "mfv", "av")] + [
+    ["--model", "bpr", "--sparse", "--fgsm"], ["--model", "apr", "--sparse", "--fgsm"]]
+
+
+@pytest.mark.parametrize("argv", FGSM_REFUSALS,
+                         ids=[a[1] + ("-sparse" if "--sparse" in a else "") for a in FGSM_REFUSALS])
+def test_fgsm_refuses_adversarial_models(tmp_path, argv):
+    """``--fgsm`` refuses the models that are already adversarial or have
+    no embedding tables, and ``--sparse``, with the JAX CLI's messages."""
+    with pytest.raises(SystemExit) as e:
+        cli.main(ARGS + argv + ["--opath", str(tmp_path) + "/"])
+    assert "fgsm" in str(e.value) and str(e.value) == jax_exit(tmp_path, argv)
+
+
+SPARSE_REFUSALS = [["--model", "apr", "--sparse", "--adv", "random"],
+                   ["--model", "bpr", "--sparse", "--dns", "2"],
+                   ["--model", "apr", "--sparse", "--adv_steps", "2"]]
+
+
+@pytest.mark.parametrize("argv", SPARSE_REFUSALS, ids=["adv-random", "dns-2", "adv_steps-2"])
+def test_sparse_refuses_what_the_row_space_step_lacks(tmp_path, argv, datasets):
+    """``_check_sparse_flags``: random deltas, DNS and multi-step PGD exit
+    with the JAX CLI's messages, from ``main`` and from ``make_model``."""
+    with pytest.raises(SystemExit) as e:
+        cli.main(ARGS + argv + ["--opath", str(tmp_path) + "/"])
+    assert str(e.value).startswith("--sparse ") and str(e.value) == jax_exit(tmp_path, argv)
+    with pytest.raises(SystemExit, match=re.escape(str(e.value))):
+        cli.make_model(argv[1], datasets[0], cli.build_parser().parse_args(ARGS + argv))
 
 
 def test_profile_trace(tmp_path):
@@ -307,30 +369,24 @@ def test_staged_eps_rejects_single_phase_models(tmp_path):
                          "--opath", str(tmp_path) + "/"])
 
 
-REFUSALS = ([(["--model", m], f"--model {m}", item) for m, item in cli.UNPORTED_MODELS.items()]
-            + [(["--model", "apr", "--sparse"], "--sparse", cli.ITEM_12),
-               (["--model", "bpr", "--mesh", "4x2"], "--mesh 4x2", cli.ITEM_13),
-               (["--model", "sasrec", "--train_dtype", "bfloat16"], "--train_dtype bfloat16",
-                cli.ITEM_14)])
+REFUSALS = [(["--model", "bpr", "--mesh", "4x2"], "--mesh 4x2", cli.ITEM_13),
+            (["--model", "sasrec", "--train_dtype", "bfloat16"], "--train_dtype bfloat16",
+             cli.ITEM_14)]
 
 
 @pytest.mark.parametrize("argv,what,item", REFUSALS, ids=[r[1] for r in REFUSALS])
 def test_unported_models_and_flags_name_their_roadmap_item(argv, what, item):
     """Each exits before reading data (the path does not exist), naming the
-    model or flag and its ROADMAP item; ``make_model`` refuses the model
-    names too. The labels are the ones ROADMAP.md lists."""
+    flag and its ROADMAP item. The labels are the ones ROADMAP.md lists.
+    Every model name of the JAX CLI is ported."""
     with pytest.raises(SystemExit) as e:
         cli.main(["--path", "/nonexistent/", "--device", "cpu", *argv])
     assert str(e.value) == f"{what} is not ported to acf_tpu_torch yet: {item} ports it"
     assert item in open(os.path.join(os.path.dirname(__file__), "..", "ROADMAP.md")).read()
-    if argv[1] in cli.UNPORTED_MODELS:
-        args = cli.build_parser().parse_args(ARGS + argv)
-        with pytest.raises(SystemExit, match=re.escape(item)):
-            cli.make_model(argv[1], None, args)
-    assert set(cli.UNPORTED_MODELS) | set(cli.PORTED_MODELS) >= {
+    assert set(cli.PORTED_MODELS) >= {
         "mf", "bpr", "apr", "amf", "amf2", "abpr", "neumf", "aneumf", "sasrec", "asasrec",
         "asasrec2", "gru4rec", "caser", "dream", "drcf", "dsin", "irgan", "apl", "pop", "mrv",
-        "mfv", "av"}  # the JAX CLI's model names (acf_tpu/cli/main.py:6-7)
+        "mfv", "av"}  # the JAX CLI's model names (acf_tpu/cli/main.py:6-8)
 
 
 def test_the_default_device_needs_cuda(tmp_path):

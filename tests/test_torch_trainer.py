@@ -308,6 +308,23 @@ def test_pair_models_are_not_trained_yet():
         assert set(stats) == {"acc", "loss"} and np.isfinite(stats["loss"])
 
 
+def test_profile_epoch_writes_a_trace(tmp_path):
+    """``Trainer.profile_epoch`` (``acf_tpu/train/trainer.py:323-331``): one
+    epoch and one evaluation under torch.profiler, a Chrome trace in the
+    directory holding the epoch's ops; the stats and the evaluation as
+    ``run_epoch`` and ``evaluate`` give them."""
+    import json
+
+    data = port_data(seed=3)
+    tr = Trainer(MFBPR(data.num_users, data.num_items, 8), data, adam(1e-3), config())
+    stats, res = tr.profile_epoch(str(tmp_path / "trace"))
+    assert set(stats) == {"loss", "acc"} and np.isfinite(stats["loss"])
+    assert res.hr.shape == (len(data.eval_users()), 100)
+    trace = tmp_path / "trace" / "acf_tpu_torch.pt.trace.json"
+    names = {e.get("name") for e in json.loads(trace.read_text())["traceEvents"]}
+    assert {"aten::index_add_", "aten::mm"} & names, sorted(names)[:20]
+
+
 def test_fit_two_phase_resumes_and_takes_a_pretrain(tmp_path):
     """``restore=(path, epoch)`` resumes in the phase ``epoch`` falls in from
     the snapshot written after epoch - 1, so a run cut there ends with the
