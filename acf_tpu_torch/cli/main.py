@@ -12,8 +12,17 @@ hyperparameters and optimizers:
 
 (``bpr``, ``bpr-tf`` and ``apr`` with ``--sparse`` on the row-space step)
 and refuses, with the ROADMAP item that ports it, each flag it does not
-have yet (``refuse_unported``: ``--mesh``, ``--train_dtype bfloat16``):
-nothing falls back to another model or to the CPU.
+have yet (``refuse_unported``: ``--mesh`` for a model outside ``MESH_MODELS``
+or under ``--fgsm``, ``--train_dtype bfloat16``): nothing falls back to
+another model or to the CPU.
+
+``--mesh DATAxMODEL`` trains data-parallel over ``torch.distributed`` ranks,
+one process a rank, and evaluates sharded over both axes
+(:mod:`acf_tpu_torch.parallel`). Under ``torchrun`` the ranks come from its
+environment; without it only ``1x1`` runs, in a group of one process. Only
+rank 0 writes the ``.out``/``.hr``/``.ndcg`` files and the snapshots::
+
+    torchrun --nproc_per_node 1 -m acf_tpu_torch.cli.main --model apr --mesh 1x1 ...
 
 Two-phase adversarial staging (apr/asasrec/asasrec2, and any model under
 ``--fgsm``) follows run_adv.py:97-120: clean training until --adv_epoch,
@@ -36,20 +45,23 @@ import torch
 
 from acf_tpu_torch.data import load_dataset
 from acf_tpu_torch.device import resolve_device
+from acf_tpu_torch.parallel.mesh import ITEM_18
 from acf_tpu_torch.train import TrainConfig, Trainer, adagrad, adam, fit_two_phase, sgd
 from acf_tpu_torch.train.checkpoint import save_params
 from acf_tpu_torch.train.trainer import profiled
 from acf_tpu_torch.utils.io import OutputWriter
 
 # Flags of the JAX CLI that the port does not have yet, and the ROADMAP item
-# (Queue 1) that ports them. The labels are stable: ROADMAP.md lists them and
-# the tests match them.
-ITEM_13 = "ROADMAP Queue 1, item 13 ('Distribution')"
+# (Queue 1) that ports them (ITEM_18, the bespoke models under --mesh, comes
+# from acf_tpu_torch.parallel.mesh). The labels are stable: ROADMAP.md lists
+# them and the tests match them.
 ITEM_14 = "ROADMAP Queue 1, item 14 ('Full CLI flag union')"
 PORTED_MODELS = ("mf", "bpr", "bpr-tf", "apr", "amf", "amf2", "abpr", "neumf", "aneumf",
                  "sasrec", "asasrec", "asasrec2", "apl", "gru4rec", "dream", "dream-tf",
                  "caser", "drcf", "dsin", "irgan", "pop", "mrv", "mfv", "av")
 NAIVE_MODELS = ("pop", "mrv", "mfv", "av")
+# models that train under --mesh (with --sparse too, for bpr, bpr-tf and apr)
+MESH_MODELS = ("mf", "bpr", "bpr-tf", "apr", "sasrec", "asasrec", "asasrec2")
 # models that --fgsm cannot wrap: already adversarial, or no embedding tables
 NOT_WRAPPABLE = ("amf", "amf2", "abpr", "aneumf", "irgan", "apl") + NAIVE_MODELS
 
@@ -140,7 +152,11 @@ def build_parser():
                    help="directory for a torch.profiler Chrome trace of the run (open with "
                         "Perfetto or chrome://tracing)")
     p.add_argument("--mesh", type=str, default="",
-                   help="DATAxMODEL device mesh; not ported (" + ITEM_13 + ")")
+                   help="DATAxMODEL mesh of torch.distributed ranks (e.g. 2x1: the batch split "
+                        "2-way over \"data\"; 1x2: the item table's rows 2-way over \"model\" "
+                        "in evaluation, and the sparse step's tables): one process a rank, "
+                        "started by torchrun; without it only 1x1. For " + ", ".join(MESH_MODELS)
+                        + " and --sparse; other models: " + ITEM_18)
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device to train and evaluate on (default cuda; raises "
                         "without a GPU unless cpu is asked)")
@@ -154,8 +170,9 @@ def _not_ported(what, item):
 def refuse_unported(args):
     """SystemExit naming the flag and the ROADMAP item that ports it, for
     anything of the JAX CLI the port does not have yet."""
-    if args.mesh:
-        raise _not_ported(f"--mesh {args.mesh}", ITEM_13)
+    if args.mesh and (args.model not in MESH_MODELS or args.fgsm):
+        what = f"--mesh {args.mesh} with --model {args.model}" + (" --fgsm" if args.fgsm else "")
+        raise _not_ported(what, ITEM_18)
     if args.train_dtype == "bfloat16":
         raise _not_ported("--train_dtype bfloat16", ITEM_14)
 
@@ -268,9 +285,28 @@ def make_model(name, data, args):
 
 
 def main(argv=None):
+    """Parse ``argv`` and run; returns the best epoch's record. With
+    ``--mesh`` the process group is initialised here when it is not yet, and
+    destroyed again at the end."""
+    import torch.distributed as dist
+
     args = build_parser().parse_args(argv)
     refuse_unported(args)
-    device = resolve_device(args.device)
+    if not args.mesh:
+        return _main(args, None)
+    from acf_tpu_torch.parallel.mesh import mesh_from_spec
+
+    owned = not dist.is_initialized()
+    try:
+        return _main(args, mesh_from_spec(args.mesh, args.device))
+    finally:
+        if owned and dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def _main(args, mesh):
+    device = resolve_device(args.device) if mesh is None else mesh.device
+    main_rank = mesh is None or mesh.rank == 0
     data = load_dataset(args.data, args.path or "data/", eval_mode=args.eval_mode,
                         nrows=args.nrows or None)
     model, optimizer, clean = make_model(args.model, data, args)
@@ -292,11 +328,17 @@ def main(argv=None):
 
     run_name = "%s_%s_d%d_%s" % (args.data, args.model, args.d,
                                  datetime.now().strftime("%Y_%m_%d_%H_%M_%S"))
-    writer = OutputWriter(args.opath, run_name)
+    writer = OutputWriter(args.opath, run_name) if main_rank else OutputWriter(None, None)
     writer.line("Load data done. #user=%d, #item=%d, #train=%d, #test=%d"
                 % (data.num_users, data.num_items, data.num_pairs, len(data.eval_users())))
-    if args.save_model:
+    if args.save_model and main_rank:
         os.makedirs("h5", exist_ok=True)  # reference save dir (run.py:260)
+    if mesh is not None:
+        import torch.distributed as dist
+
+        writer.line("Mesh: data=%d model=%d over %d rank(s), %s on %s"
+                    % (mesh.shape["data"], mesh.shape["model"], mesh.size, dist.get_backend(),
+                       device))
     # the naive baselines need one pass (run.py:275-276)
     epochs = 1 if args.model in NAIVE_MODELS else args.epochs
     cfg = TrainConfig(batch_size=args.bs, epochs=epochs, verbose=args.verbose,
@@ -305,7 +347,7 @@ def main(argv=None):
                       ckpt_path=(f"{args.ckpt_dir}/{args.data}/{args.model}"
                                  if args.ckpt else None),
                       save_model_path=(f"h5/{run_name}" if args.save_model else None),
-                      seed=args.seed, device=str(device))
+                      seed=args.seed, device=str(device), mesh=mesh)
     restore = (args.restore, args.restore_epoch) if args.restore else None
     with contextlib.ExitStack() as stack:
         if args.profile:
@@ -339,13 +381,13 @@ def _run(args, data, model, clean, optimizer, cfg, writer, restore):
         if args.pre:
             tr.load_pretrain(args.pre)
         tr.fit(epochs=args.adv_epoch, final=False)
-        if cfg.ckpt_path:  # mirror fit_two_phase's phase-boundary saves
+        if cfg.ckpt_path and tr.is_main:  # mirror fit_two_phase's phase-boundary saves
             save_params(cfg.ckpt_path + "-pretrain", tr.params)
         tr.switch_model(model, reset_opt=reset_opt)
         tr.fit(epochs=args.stage2_epoch, epoch_start=args.adv_epoch, final=False)
         tr.switch_model(adv_hi, reset_opt=False)
         best = tr.fit(epochs=cfg.epochs, epoch_start=args.stage2_epoch)
-        if cfg.ckpt_path:
+        if cfg.ckpt_path and tr.is_main:
             save_params(cfg.ckpt_path + "-final", tr.params)
         return best
     if clean is not None:

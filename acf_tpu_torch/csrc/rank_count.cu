@@ -3,9 +3,12 @@
 // Replaces the TPU kernel `_count_kernel` in acf_tpu/ops/ranking.py (entry
 // `rank_positions_dot`). For every user b it counts the items j with
 //
-//     u_b . e_j + bias_j >= t_b,   j != 0, j != gt_b, j < I
+//     u_b . e_j + bias_j >= t_b,   id_base + j != 0, id_base + j != gt_b, j < I
 //
-// in true float32, without materialising the [B, I] score matrix.
+// in true float32, without materialising the [B, I] score matrix. `id_base`
+// is the global id of the table's first row: 0 for a whole catalog, the
+// shard's offset for a catalog shard (acf_tpu_torch/parallel/sharded_eval.py),
+// whose I is then the shard's real rows.
 //
 // Bound on an H100: compute. The work is 2*B*I*d float32 operations done as
 // FMAs outside the tensor cores (67 TFLOP/s non-tensor FP32 peak): at the
@@ -44,7 +47,8 @@
 //     stays on one user tile as long as it can.
 //   * Item 0, each user's gt and the ragged tail j >= I are masked in the
 //     epilogue from the staged data, so the table is never padded or copied
-//     in device memory.
+//     in device memory. On a shard the gt is made local as it is read
+//     (gt - id_base), so the compare in the count is the same instruction.
 //   * The 8 lanes of a warp that share a user halve their 8 users' counts
 //     into one user a lane (7 shuffles); a lane keeps its user's count over
 //     the block's units of that user tile, then adds it to `out` with one
@@ -94,6 +98,7 @@ struct Args {
   int* out;
   int B, I, d;
   int n_item_tiles, n_units, n_slices;
+  int id_base;          // the global id of row 0 of the table
 };
 
 __device__ __forceinline__ unsigned smem_u32(const void* p) {
@@ -259,13 +264,13 @@ rank_count_kernel(const Args a, const __grid_constant__ CUtensorMap tm_e,
 #pragma unroll
       for (int i = 0; i < kRU; ++i) {
         t[i] = x[kItems + ty + 16 * i];
-        g[i] = sg[ty + 16 * i];
+        g[i] = sg[ty + 16 * i] - a.id_base;  // the gt's local row
         c[i] = 0;
       }
 #pragma unroll
       for (int j = 0; j < kRI; ++j) {
         const int item = i0 + tx + 16 * j;
-        if (item <= 0 || item >= a.I) continue;  // pad id 0 and the ragged tail
+        if (item + a.id_base <= 0 || item >= a.I) continue;  // pad id 0 and the ragged tail
         const float bj = x[tx + 16 * j];
 #pragma unroll
         for (int i = 0; i < kRU; ++i) c[i] += (acc[i][j] + bj >= t[i] && item != g[i]) ? 1 : 0;
@@ -373,13 +378,16 @@ cudaError_t launch(Args a, const float* u, const float* e, int dev, int sms,
 
 }  // namespace
 
-// Adds the counts into `out` (int32 [B], zeroed by the caller) on `stream`.
-// `bias` and `gt` may be null. Returns the cudaError_t of the launch.
-extern "C" int acf_rank_count(const float* u, const float* e,
-                              const float* bias, const float* thresh,
-                              const int* gt, int* out, int B, int I, int d,
-                              void* stream) {
-  if (B <= 0 || I <= 0 || d <= 0 || d % 4 != 0) return (int)cudaErrorInvalidValue;
+// Adds the counts into `out` (int32 [B], zeroed by the caller) on `stream`:
+// the table e is rows id_base .. id_base + I - 1 of the catalog, and `gt`
+// holds global ids. `bias` and `gt` may be null. Returns the cudaError_t of
+// the launch.
+extern "C" int acf_rank_count_shard(const float* u, const float* e,
+                                    const float* bias, const float* thresh,
+                                    const int* gt, int* out, int B, int I, int d,
+                                    int id_base, void* stream) {
+  if (B <= 0 || I <= 0 || d <= 0 || d % 4 != 0 || id_base < 0)
+    return (int)cudaErrorInvalidValue;
   static int sms_of[kMaxDevices];
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
@@ -391,11 +399,19 @@ extern "C" int acf_rank_count(const float* u, const float* e,
     if (sms_of[dev] < 1) return (int)cudaErrorInvalidConfiguration;
   }
   const int sms = sms_of[dev];
-  const Args a{bias, thresh, gt, out, B, I, d, 0, 0, (d + kSliceK - 1) / kSliceK};
+  const Args a{bias, thresh, gt, out, B, I, d, 0, 0, (d + kSliceK - 1) / kSliceK, id_base};
   const auto s = static_cast<cudaStream_t>(stream);
   // wide units where there are enough of them to give every SM one
   const long long wide_units = static_cast<long long>((B + kUsers - 1) / kUsers) *
                                ((I + Wide::kItems - 1) / Wide::kItems);
   return (int)(wide_units >= sms ? launch<Wide>(a, u, e, dev, sms, s)
                                  : launch<Narrow>(a, u, e, dev, sms, s));
+}
+
+// The whole catalog: acf_rank_count_shard with id_base 0.
+extern "C" int acf_rank_count(const float* u, const float* e,
+                              const float* bias, const float* thresh,
+                              const int* gt, int* out, int B, int I, int d,
+                              void* stream) {
+  return acf_rank_count_shard(u, e, bias, thresh, gt, out, B, I, d, 0, stream);
 }

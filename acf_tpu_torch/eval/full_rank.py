@@ -1,11 +1,14 @@
 """Leave-one-out evaluators on the device (counterpart of
-``acf_tpu/eval/full_rank.py``, without the mesh path).
+``acf_tpu/eval/full_rank.py``).
 
 Users are tiled into fixed-size batches; each tile scores the full catalog
 (or, for factored models, counts through the rank-count kernel), and the
 rank position of the held-out item is a masked comparison-sum. Tiles run as
 a Python loop on the device with one host transfer at the end; metrics are
-closed-form from the position (:mod:`acf_tpu_torch.eval.metrics`).
+closed-form from the position (:mod:`acf_tpu_torch.eval.metrics`). With a
+mesh, factored models are evaluated with each tile's users split over the
+"data" ranks and the item table's rows over the "model" ranks
+(:mod:`acf_tpu_torch.parallel.sharded_eval`).
 """
 
 from __future__ import annotations
@@ -60,6 +63,47 @@ def _positions_full(score_fn, params, users, hists, gt):
     return ge.sum(dim=1).to(torch.int32)  # [B]
 
 
+def correction_rows(hists: np.ndarray, gts: np.ndarray) -> np.ndarray:
+    """[B, C] per-user invalid-item array: the unique train items of each
+    row of ``hists`` and its gt, left-compacted and 0-padded (0 is handled
+    separately). Vectorized numpy."""
+    gts = gts.astype(np.int32)
+    h = hists.astype(np.int32)
+    # append the gt as an extra column, zeroed where it already appears in
+    # the row (set semantics) or where there is no gt
+    gt_col = np.where((h == gts[:, None]).any(1) | (gts == 0), 0, gts)[:, None]
+    h = np.concatenate([h, gt_col], axis=1)
+    # per-row unique: sort, keep first occurrences of nonzero runs
+    h.sort(axis=1)
+    first = np.ones_like(h, dtype=bool)
+    first[:, 1:] = h[:, 1:] != h[:, :-1]
+    first &= h != 0
+    # left-compact the unique entries (stable: uniques keep order)
+    order = np.argsort(~first, axis=1, kind="stable")
+    vals = np.take_along_axis(np.where(first, h, 0), order, axis=1)
+    width = int(first.sum(1).max()) if len(h) else 1
+    return vals[:, :max(width, 1)]
+
+
+def factored_thresholds(reprs, corr_rows, corr_bias, corr, gt):
+    """(thresholds t [B], the count of each user's train items scoring >= t
+    [B]) from the item rows of the correction array ``corr`` [B, C]:
+    ``corr_rows`` [B, C, d] and ``corr_bias`` [B, C] or None.
+
+    The gt is always present (exactly once) in the correction array; the
+    threshold is taken FROM these scores so the gt's own correction cancels
+    bit-exactly regardless of contraction order."""
+    s_corr = torch.einsum("bd,bcd->bc", reprs, corr_rows)
+    if corr_bias is not None:
+        s_corr = s_corr + corr_bias
+    is_gt = corr == gt[:, None]
+    t = torch.where(is_gt, s_corr, 0.0).sum(dim=1)
+    # the kernel masks the pad column and the gt column itself, so the
+    # correction only subtracts the user's (non-gt) train items
+    valid = (corr != 0) & ~is_gt
+    return t, ((s_corr >= t[:, None]) & valid).sum(dim=1)
+
+
 def _positions_factored(user_repr_fn, table_fn, params, users, hists, gt, corr):
     """Rank positions for dot-factored models via the rank-count kernel.
 
@@ -69,19 +113,9 @@ def _positions_factored(user_repr_fn, table_fn, params, users, hists, gt, corr):
     # contiguous: a model's representation may be a strided view
     reprs = user_repr_fn(params, users, hists).contiguous()  # [B, d]
     table, bias = table_fn(params)
-    s_corr = torch.einsum("bd,bcd->bc", reprs, table[corr.long()])
-    if bias is not None:
-        s_corr = s_corr + bias[corr.long()]
-    # The gt is always present (exactly once) in the correction array; take
-    # the threshold FROM s_corr so the gt's own correction cancels
-    # bit-exactly regardless of contraction order.
-    is_gt = corr == gt[:, None]
-    t = torch.where(is_gt, s_corr, 0.0).sum(dim=1)
-    # the kernel masks the pad column and the gt column itself, so the
-    # correction only subtracts the user's (non-gt) train items
+    t, n_corr = factored_thresholds(reprs, table[corr.long()],
+                                    None if bias is None else bias[corr.long()], corr, gt)
     total = rank_positions_dot(reprs, table, t, bias=bias, gt=gt)
-    valid = (corr != 0) & ~is_gt
-    n_corr = ((s_corr >= t[:, None]) & valid).sum(dim=1)
     return (total - n_corr.to(torch.float32)).to(torch.int32)
 
 
@@ -103,17 +137,24 @@ class FullRankEvaluator:
         num_items * 4`` bytes for the score matrix (dense path).
       K: metric cutoff sweep (reference reports K = 1..100).
       device: where the tiles live and run (default ``cuda``).
+      mesh: a :class:`acf_tpu_torch.parallel.mesh.Mesh`: factored models are
+        then evaluated sharded (:meth:`positions_sharded`), each tile's users
+        over "data" (the tile rounded up to divide the axis) and the item
+        rows over "model"; ``device`` is the mesh's.
     """
 
     def __init__(self, data: Interactions, batch_users: int = 512, K: int = 100,
-                 device=None):
-        self.device = resolve_device(device)
+                 device=None, mesh=None):
+        self.mesh = mesh
+        self.device = resolve_device(device if mesh is None else mesh.device)
         self.K = K
         self.data = data
         users = data.eval_users()
         self.users = users
         n = len(users)
         self.batch_users = min(batch_users, max(n, 1))
+        if mesh is not None:
+            self.batch_users += (-self.batch_users) % mesh.shape["data"]
         # pad to a multiple of the tile size; padded rows are dropped after.
         pad = (-n) % self.batch_users
         users_p = np.concatenate([users, np.zeros(pad, dtype=np.int32)])
@@ -128,28 +169,13 @@ class FullRankEvaluator:
         self._corr_d = None  # built lazily for the factored path
 
     def _corrections(self):
-        """[Up, C] per-user invalid-item array: unique train items ∪ {gt},
-        0-padded (0 is handled separately). Vectorized numpy."""
+        """[Up, C] per-user invalid-item array (:func:`correction_rows`) on
+        the device, built once."""
         if self._corr_d is None:
             users_p = self._users_p
-            gts = self.data.test_item[users_p].astype(np.int32)
-            h = self.data.hist[users_p].astype(np.int32)
-            # append the gt as an extra column, zeroed where it already
-            # appears in the row (set semantics) or where there is no gt
-            gt_col = np.where((h == gts[:, None]).any(1) | (gts == 0),
-                              0, gts)[:, None]
-            h = np.concatenate([h, gt_col], axis=1)
-            # per-row unique: sort, keep first occurrences of nonzero runs
-            h.sort(axis=1)
-            first = np.ones_like(h, dtype=bool)
-            first[:, 1:] = h[:, 1:] != h[:, :-1]
-            first &= h != 0
-            # left-compact the unique entries (stable: uniques keep order)
-            order = np.argsort(~first, axis=1, kind="stable")
-            vals = np.take_along_axis(np.where(first, h, 0), order, axis=1)
-            width = int(first.sum(1).max()) if len(h) else 1
-            self._corr_d = torch.as_tensor(vals[:, :max(width, 1)],
-                                           device=self.device)
+            self._corr_d = torch.as_tensor(
+                correction_rows(self.data.hist[users_p], self.data.test_item[users_p]),
+                device=self.device)
         return self._corr_d
 
     def _run_tiles(self, fn, *arrays) -> np.ndarray:
@@ -193,12 +219,43 @@ class FullRankEvaluator:
                                                   u, h, g, n),
             self._users_d, self._hists_d, self._gt_d, self._negs_d)
 
+    def positions_sharded(self, model, params) -> np.ndarray:
+        """Rank positions through the mesh (needs ``mesh`` and a factored
+        scorer): this rank counts its data rank's users of each tile against
+        its model rank's rows of the item table (K1 with the shard's
+        ``id_base``), the counts are summed over "model", and every rank gets
+        every position. Equal to :meth:`positions_factored` (see
+        :mod:`acf_tpu_torch.parallel.sharded_eval`)."""
+        from acf_tpu_torch.parallel.input_pipeline import replicate_result
+        from acf_tpu_torch.parallel.sharded_eval import ShardedTable, sharded_positions
+
+        mesh = self.mesh
+        if mesh is None:
+            raise ValueError("positions_sharded needs an evaluator built with a mesh")
+        user_repr_fn, table_fn = model.factored_scorer()
+        if self._users_d.shape[0] == 0:  # dataset with zero eval users
+            return np.zeros(0, dtype=np.int32)
+        shard = ShardedTable(mesh, *table_fn(params))
+        rows = mesh.rows(self.batch_users)
+        out = []
+        for s in range(0, self._users_d.shape[0], self.batch_users):
+            u, h, g, c = (x[s:s + self.batch_users][rows] for x in (
+                self._users_d, self._hists_d, self._gt_d, self._corrections()))
+            out.append(sharded_positions(shard, user_repr_fn(params, u, h).contiguous(), g, c))
+        local = torch.stack(out)  # [n_tiles, B / dp]
+        every = replicate_result(mesh, local[None], "data")  # [dp, n_tiles, B / dp]
+        return every.transpose(0, 1).reshape(-1).cpu().numpy()[: len(self.users)]
+
     def evaluate_model(self, model, params) -> EvalResult:
         """Evaluate a model through its factored scorer (the rank-count
-        kernel) when it has one, else through ``score_all``."""
+        kernel) when it has one, sharded when the evaluator has a mesh, else
+        through ``score_all``."""
         fs = getattr(model, "factored_scorer", lambda: None)()
         if fs is not None:
-            pos = self.positions_factored(fs[0], fs[1], params)
+            if self.mesh is not None:
+                pos = self.positions_sharded(model, params)
+            else:
+                pos = self.positions_factored(fs[0], fs[1], params)
             hr, ndcg, auc = metrics_from_position(pos, self._num_neg, self.K)
             return EvalResult(hr=hr, ndcg=ndcg, auc=auc)
         return self.evaluate(model.score_all, params)

@@ -30,7 +30,7 @@ import dataclasses
 import torch
 
 from acf_tpu_torch.device import resolve_device
-from acf_tpu_torch.models.base import PairwiseModel, softplus
+from acf_tpu_torch.models.base import PairwiseModel, scatter_rows, softplus
 from acf_tpu_torch.ops.apl_gen_fused import EPS, NEG, apl_gen_backward, apl_gen_forward
 from acf_tpu_torch.sampling.negatives import sample_pair_epoch
 from acf_tpu_torch.train.optim import grad_update, sgd
@@ -185,8 +185,7 @@ class APL(PairwiseModel):
             g_main = self._losses(real, f, 0.0, 0.0)[0]
             (a,) = torch.autograd.grad(g_main, f)
         dP_rows, dQ = apl_gen_backward(pu_g, pu_c, nuniq, a, res, w=w, temperature=T)
-        gP = torch.zeros_like(g_params["P"]).index_add_(0, users.long(),
-                                                         dP_rows + self.reg_g * pu_g)
+        gP = scatter_rows(g_params["P"].shape[0], users, dP_rows + self.reg_g * pu_g)
         gQ = dQ + self.reg_g * Qg
         g_l2 = (torch.sum(torch.square(pu_g)) + torch.sum(torch.square(Qg))) / 2
         return g_main.detach() + self.reg_g * g_l2, {"P": gP, "Q": gQ}

@@ -17,6 +17,7 @@ history items from ``hists`` and train on windowed sequences
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 
 import torch
@@ -42,6 +43,16 @@ def bpr_pair_loss(pos_scores, neg_scores):
     return torch.sum(softplus(-diff))
 
 
+def scatter_rows(num_rows: int, ids, rows):
+    """[num_rows, ...] zeros with each row of ``rows`` added at its id of
+    ``ids``: the accumulate form of ``index_put_``, which sums an id's
+    duplicates in their order in ``ids``, the same on every run (on CUDA it
+    sorts the ids, stably, and sums each run; ``index_add_`` adds there with
+    atomics, in an order that changes between runs)."""
+    out = rows.new_zeros((num_rows,) + tuple(rows.shape[1:]))
+    return out.index_put_((ids.long(),), rows, accumulate=True)
+
+
 def project_rows(d, eps, dim=-1):
     """Per-row L2 projection into the ε-ball:
     ``d * min(1, eps / max(||d||, 1e-12))``."""
@@ -58,6 +69,28 @@ class PairwiseModel:
     dim: int
 
     batch_kind = "pair"
+    # A mesh (acf_tpu_torch.parallel.mesh.Mesh) when this copy of the model
+    # computes one data rank's share of each loss (:func:`data_parallel`);
+    # None on one device.
+    data_mesh = None
+
+    def __getstate__(self):
+        """The hyperparameters: what a method caches on the instance (the
+        ``_fs`` closures of ``factored_scorer``) is left out, so a model
+        pickles (to a rank of :mod:`acf_tpu_torch.parallel.launch`)."""
+        return {k: v for k, v in self.__dict__.items() if not k.startswith("_")}
+
+    def data_share(self, x):
+        """``x``, a mean over this data rank's rows, as its share of the mean
+        over the global batch (every data rank holds as many rows)."""
+        return x if self.data_mesh is None else x / self.data_mesh.shape["data"]
+
+    def data_sum(self, x):
+        """``x`` summed over the data ranks, in place (``x`` itself on one
+        device)."""
+        if self.data_mesh is not None:
+            self.data_mesh.all_reduce(x.view(-1), "data")
+        return x
 
     def init_params(self, generator: torch.Generator, device=None):
         raise NotImplementedError
@@ -95,6 +128,18 @@ class PairwiseModel:
         kernel (:mod:`acf_tpu_torch.ops.ranking`). None otherwise.
         Implementations cache the returned closures on the instance."""
         return None
+
+
+def data_parallel(model, mesh):
+    """A copy of ``model`` whose losses are one data rank's share of the
+    loss of the global batch, so that the shares of the ranks sum to the
+    single-device loss (a sum stays a sum over the rank's rows, a mean over
+    the batch is divided by the data-axis size, and a count that normalises
+    a loss is summed over the ranks first), and whose FGSM directions come
+    from the table gradients summed over the data ranks."""
+    out = copy.copy(model)
+    out.data_mesh = mesh
+    return out
 
 
 @dataclasses.dataclass(eq=False)

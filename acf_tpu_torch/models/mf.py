@@ -25,7 +25,7 @@ import torch
 
 from acf_tpu_torch.device import resolve_device
 from acf_tpu_torch.models.base import (
-    PairwiseModel, bpr_pair_loss, project_rows, row_normalize, softplus,
+    PairwiseModel, bpr_pair_loss, project_rows, row_normalize, scatter_rows, softplus,
 )
 
 
@@ -153,21 +153,24 @@ class MFBPR(PairwiseModel):
         (p, q_pos, q_neg)) of the batch."""
         p, qp, qn = params["P"][users], params["Q"][pos], params["Q"][neg]
         pos_s, neg_s = _pair_bpr(p, qp, qn)
-        reg_term = torch.mean(torch.square(p) + torch.square(qp) + torch.square(qn))
-        return bpr_pair_loss(pos_s, neg_s), reg_term, _acc(pos_s - neg_s), (p, qp, qn)
+        reg_term = self.data_share(
+            torch.mean(torch.square(p) + torch.square(qp) + torch.square(qn)))
+        return (bpr_pair_loss(pos_s, neg_s), reg_term, self.data_share(_acc(pos_s - neg_s)),
+                (p, qp, qn))
 
     def _clean_table_grads(self, params, users, pos, neg, dP=None, dQ=None):
         """Dense gradients (gP, gQ) of the raw BPR loss at the tables moved
         by ``dP``/``dQ``, taken on detached copies (their own gathers,
         ``torch.autograd.grad`` without ``create_graph``) and returned
-        detached: constant under any outer gradient."""
+        detached: constant under any outer gradient. Under a mesh, summed
+        over the data ranks."""
         P = params["P"].detach().requires_grad_(True)
         Q = params["Q"].detach().requires_grad_(True)
         with torch.enable_grad():
             pos_s, _, _ = self._pair_scores({"P": P, "Q": Q}, users, pos, dP, dQ)
             neg_s, _, _ = self._pair_scores({"P": P, "Q": Q}, users, neg, dP, dQ)
             gP, gQ = torch.autograd.grad(bpr_pair_loss(pos_s, neg_s), (P, Q))
-        return gP.detach(), gQ.detach()
+        return self.data_sum(gP.detach()), self.data_sum(gQ.detach())
 
     def fgsm_deltas(self, params, users, pos, neg, generator=None, noise=None):
         """Perturbation tables (dP [U, d], dQ [I, d]) for the adversarial
@@ -204,10 +207,11 @@ class MFBPR(PairwiseModel):
         """Closed-form gradient function of the APR step, or None.
 
         Defined only for the reference configuration (grad-mode single-step
-        FGSM); other modes train through autograd. It writes one
-        ``index_add_`` per table and no dense intermediate: duplicate batch
-        rows are aggregated (what the dense gradient does before the FGSM
-        normalize) by products with 0/1 equality matrices.
+        FGSM); other modes train through autograd. It writes one scatter
+        per table (:func:`scatter_rows`: the same sums on every run) and no
+        dense intermediate: duplicate batch rows are aggregated (what the
+        dense gradient does before the FGSM normalize) by products with 0/1
+        equality matrices.
         """
         if (self.adversarial and self.adv_mode == "grad"
                 and self.adv_steps == 1):
@@ -220,11 +224,25 @@ class MFBPR(PairwiseModel):
         users, pos, neg = batch
         P, Q = params["P"].detach(), params["Q"].detach()
         items2 = torch.cat([pos, neg], dim=0)
-        rows_p, rows_q, aux = self.row_grads(P[users], Q[pos], Q[neg], equality_deltas(users),
-                                             equality_deltas(items2))
-        grads = {"P": torch.zeros_like(P).index_add_(0, users, rows_p),
-                 "Q": torch.zeros_like(Q).index_add_(0, items2, rows_q)}
+        if self.data_mesh is None or self.data_mesh.shape["data"] == 1:  # the whole batch here
+            delta_u, delta_i = equality_deltas(users), equality_deltas(items2)
+        else:
+            delta_u, delta_i = self._table_deltas(users, P.shape[0]), self._table_deltas(
+                items2, Q.shape[0])
+        rows_p, rows_q, aux = self.row_grads(P[users], Q[pos], Q[neg], delta_u, delta_i)
+        grads = {"P": scatter_rows(P.shape[0], users, rows_p),
+                 "Q": scatter_rows(Q.shape[0], items2, rows_q)}
         return grads, aux
+
+    def _table_deltas(self, ids, num_rows):
+        """``delta(g, eps)`` under a mesh: eps times the row-normalized row of
+        each slot's id in the dense clean gradient summed over the data ranks
+        (the rank's rows ``g`` [N, d] scattered, then summed), as the
+        single-device dense gradient gives it."""
+        def delta(g, eps):
+            return eps * row_normalize(self.data_sum(scatter_rows(num_rows, ids, g))[ids])
+
+        return delta
 
     def row_grads(self, p, qp, qn, delta_u, delta_i):
         """The closed-form gradients of the step's objective (the clean one,
@@ -241,7 +259,7 @@ class MFBPR(PairwiseModel):
         # clean BPR: L = sum softplus(-clip(s+ - s-)); dL/ddiff = -sigmoid(-diff)
         diff = torch.sum(p * (qp - qn), dim=-1)
         diff_c, c = _clip_grad_coef(diff)
-        aux = {"loss": torch.sum(softplus(-diff_c)), "acc": _acc(diff)}
+        aux = {"loss": torch.sum(softplus(-diff_c)), "acc": self.data_share(_acc(diff))}
 
         # per-occurrence clean gradient rows of L wrt P and Q (pos, then neg)
         rows_p = c[:, None] * (qp - qn)
@@ -258,7 +276,7 @@ class MFBPR(PairwiseModel):
             diff_a = torch.sum(ph * (qph - qnh), dim=-1)
             diff_ac, ca = _clip_grad_coef(diff_a)
             aux["loss_adv"] = torch.sum(softplus(-diff_ac))
-            aux["acc_adv"] = _acc(diff_a)
+            aux["acc_adv"] = self.data_share(_acc(diff_a))
 
             # clean + reg_adv * adversarial; the objective counts the reg
             # term twice (evaluation_adv.py:175-177)
@@ -268,7 +286,7 @@ class MFBPR(PairwiseModel):
             n_reg = 2
         if self.reg != 0.0:
             # d/dx of reg * mean(p² + q_pos² + q_neg²) over B d entries, n_reg times
-            rcoef = 2.0 * n_reg * self.reg / (B * d)
+            rcoef = self.data_share(2.0 * n_reg * self.reg / (B * d))
             rows_p = rows_p + rcoef * p
             rows_q = rows_q + rcoef * torch.cat([qp, qn], dim=0)
         return rows_p, rows_q, aux
@@ -308,7 +326,7 @@ class MFBPR(PairwiseModel):
         # (evaluation_adv.py:175-177 reuses the clean lookups)
         opt_loss = opt_loss + self.reg_adv * loss_adv + self.reg * reg_term
         aux["loss_adv"] = loss_adv.detach()
-        aux["acc_adv"] = _acc(pos_a - neg_a)
+        aux["acc_adv"] = self.data_share(_acc(pos_a - neg_a))
         return opt_loss, aux
 
 
@@ -355,5 +373,5 @@ class PointwiseMF(PairwiseModel):
         logits = torch.cat([pos_s, neg_s])
         labels = torch.cat([torch.ones_like(pos_s), torch.zeros_like(neg_s)])
         bce = softplus(logits) - labels * logits
-        loss = torch.mean(bce)
-        return loss, {"loss": loss, "acc": _acc(pos_s - neg_s)}
+        loss = self.data_share(torch.mean(bce))
+        return loss, {"loss": loss, "acc": self.data_share(_acc(pos_s - neg_s))}

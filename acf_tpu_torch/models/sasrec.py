@@ -151,7 +151,7 @@ class SASRec(SequenceModel):
         pos_logit = torch.sum(pos_e * reprs, -1)
         neg_logit = torch.sum(neg_e * reprs, -1)
         ist = (pos != 0).to(torch.float32)
-        n = torch.clamp(ist.sum(), min=1.0)
+        n = torch.clamp(self.data_sum(ist.sum()), min=1.0)  # the global count
         loss = (torch.sum(softplus(-pos_logit) * ist)
                 + torch.sum(softplus(neg_logit) * ist)) / n
         auc = torch.sum(((torch.sign(pos_logit - neg_logit) + 1) / 2) * ist) / n
@@ -216,12 +216,13 @@ class SASRec(SequenceModel):
     def _fgsm_emb_grad(self, loss_fn, params, *batch):
         """The dense item-table gradient of ``loss_fn`` at the clean point,
         with every other leaf constant: the encoder's backward computes dx
-        alone (K2b's dx-only mode on CUDA)."""
+        alone (K2b's dx-only mode on CUDA). Under a mesh, summed over the
+        data ranks."""
         emb = params["item_emb"].detach().requires_grad_(True)
         prm_c = tree_map(lambda x: x.detach(), params)
         prm_c["item_emb"] = emb
         with torch.enable_grad():
-            return torch.autograd.grad(loss_fn(prm_c, *batch), emb)[0]
+            return self.data_sum(torch.autograd.grad(loss_fn(prm_c, *batch), emb)[0])
 
     def _delta_tree(self, params, seq, pos, neg):
         """FGSM deltas as a zero-filled copy of ``params`` with perturbed
@@ -247,7 +248,7 @@ class SASRec(SequenceModel):
                 got = torch.autograd.grad(self._clean_loss_fn(shifted, seq, pos, neg), wanted)
             grads = [torch.zeros_like(x) for x in leaves]
             for i, gl in zip(names, got):
-                grads[i] = gl
+                grads[i] = self.data_sum(gl)
             g = tree_unflatten(params, grads)
             delta = tree_map(
                 lambda d, gl, e: project(d + (e / self.adv_steps) * _tf_l2_normalize(gl), e),
@@ -267,7 +268,7 @@ class SASRec(SequenceModel):
                                  generator=generator, masks=masks)
         loss, auc = self._pointwise_loss_rows(reprs, pos_e, neg_e, pos)
         if self.l2_emb:
-            loss = loss + self.l2_emb * torch.sum(torch.square(params["item_emb"]))
+            loss = loss + self.data_share(self.l2_emb * torch.sum(torch.square(params["item_emb"])))
         aux = {"loss": loss.detach(), "acc": auc}
         if self.adversarial:
             g_emb = self._fgsm_emb_grad(self._clean_loss_fn_window, params, window, neg)
@@ -296,7 +297,7 @@ class SASRec(SequenceModel):
                                  generator=generator, masks=masks)
         loss, auc = self._pointwise_loss_rows(reprs, pos_e, neg_e, pos)
         if self.l2_emb:
-            loss = loss + self.l2_emb * torch.sum(torch.square(params["item_emb"]))
+            loss = loss + self.data_share(self.l2_emb * torch.sum(torch.square(params["item_emb"])))
         aux = {"loss": loss.detach(), "acc": auc}
         if not self.adversarial:
             return loss, aux

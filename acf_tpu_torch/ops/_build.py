@@ -68,6 +68,7 @@ class DropoutMasks(ctypes.Structure):
 # C entry points: name -> argtypes (pointers and the stream as c_void_p)
 SIGNATURES = {
     "acf_rank_count": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "acf_rank_count_shard": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "acf_sasrec_encoder_fwd": [EncoderWeights, DropoutMasks, _P, _P, _P, _P,
                                _I, _I, _I, _I, _I, _I, _P],
     "acf_sasrec_encoder_bwd": [EncoderWeights, DropoutMasks, _P, _P, _P, _P, _P, _P,

@@ -22,15 +22,19 @@ import torch
 ROADMAP_ITEM = "ROADMAP.md Queue 2, 'K1: any width and alignment'"
 
 
-def rank_positions_dot_plain(u_repr, item_emb, thresholds, bias=None, gt=None):
+def rank_positions_dot_plain(u_repr, item_emb, thresholds, bias=None, gt=None, id_base=0):
     """Plain PyTorch version of :func:`rank_positions_dot`."""
     scores = u_repr @ item_emb.T
     if bias is not None:
         scores = scores + bias[None, :]
     ge = scores >= thresholds[:, None]
-    ge[:, 0] = False  # pad id
+    if id_base == 0:
+        ge[:, 0] = False  # pad id
     if gt is not None:
-        ge[torch.arange(ge.shape[0], device=ge.device), gt.long()] = False
+        local = gt.long() - id_base
+        inside = (local >= 0) & (local < ge.shape[1])
+        rows = torch.arange(ge.shape[0], device=ge.device)
+        ge[rows[inside], local[inside]] = False
     return ge.sum(dim=1).to(torch.float32)
 
 
@@ -73,7 +77,7 @@ def check_supported(u_repr, item_emb):
                              f"(unaligned views are lifted by {ROADMAP_ITEM})")
 
 
-def rank_positions_dot(u_repr, item_emb, thresholds, bias=None, gt=None):
+def rank_positions_dot(u_repr, item_emb, thresholds, bias=None, gt=None, id_base: int = 0):
     """Count catalog items with ``u·e + bias_e >= threshold`` per user.
 
     Args:
@@ -81,8 +85,11 @@ def rank_positions_dot(u_repr, item_emb, thresholds, bias=None, gt=None):
       item_emb: [I, d] float32 item table.
       thresholds: [B] float32 per-user gt scores.
       bias: optional [I] float32 per-item bias.
-      gt: optional [B] int32 per-user item column masked out of the count
+      gt: optional [B] int32 per-user item id masked out of the count
           (the held-out item). Defaults to 0 (already excluded as the pad id).
+      id_base: the global id of ``item_emb``'s first row (0 for the whole
+          catalog; a shard's offset for a catalog shard, whose table is then
+          the shard's real rows). ``gt`` and the pad id 0 are global ids.
 
     Returns:
       [B] float32 counts over all items except id 0 and ``gt`` — callers
@@ -92,9 +99,11 @@ def rank_positions_dot(u_repr, item_emb, thresholds, bias=None, gt=None):
     add one to ``rank_positions_dot.launches``) or raise.
     """
     _check(u_repr, item_emb, thresholds, bias, gt)
+    if id_base < 0:
+        raise ValueError(f"id_base must be >= 0, got {id_base}")
     dev = u_repr.device
     if dev.type == "cpu":
-        return rank_positions_dot_plain(u_repr, item_emb, thresholds, bias, gt)
+        return rank_positions_dot_plain(u_repr, item_emb, thresholds, bias, gt, id_base)
     if dev.type != "cuda":
         raise ValueError(f"rank_positions_dot runs on cpu or cuda, not {dev}")
     check_supported(u_repr, item_emb)
@@ -107,11 +116,11 @@ def rank_positions_dot(u_repr, item_emb, thresholds, bias=None, gt=None):
 
     lib = library()
     with torch.cuda.device(dev):
-        err = lib.acf_rank_count(
+        err = lib.acf_rank_count_shard(
             u_repr.data_ptr(), item_emb.data_ptr(),
             None if bias is None else bias.data_ptr(), thresholds.data_ptr(),
             None if gt is None else gt.data_ptr(), out.data_ptr(),
-            b, num_items, d, torch.cuda.current_stream(dev).cuda_stream)
+            b, num_items, d, id_base, torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"rank_count kernel launch failed: cudaError {err}")
     rank_positions_dot.launches += 1

@@ -28,12 +28,21 @@ everything in *row space*:
 The tables and the accumulators are copied once an epoch and updated in
 place within it, so a step moves O(B·d) bytes, not O(U·d + I·d).
 
-The ``"sort"`` program's scatter-add sums the duplicates of an id with
-atomics on CUDA, in an order that can change between runs, so two runs of
-that program can differ in the last bits of a row; the ``"matmul"`` program,
-which ``"auto"`` takes at the batch sizes the CLI uses, sums in a fixed
-order. The mesh epoch of the JAX package (tables row-sharded over
-devices) is not ported.
+Both programs sum an id's duplicates in a fixed order (the ``"sort"``
+program's scatter-add is :func:`scatter_rows`), so two runs of a step are
+equal bit for bit.
+
+With a mesh (``make_epoch_fn(..., mesh=)``; the JAX package's
+``_make_mesh_epoch_fn``) P, Q and both accumulators are row-sharded over the
+"model" axis for the epoch and the batch is replicated (the scaling axis of
+this step is "model": ``--mesh 1xN``). Each step assembles the gathered rows
+by the masked ``all_reduce`` of
+:func:`~acf_tpu_torch.parallel.sharded_embedding.sharded_lookup`, runs the
+same full-batch row-space math on every rank (the dedup over the whole
+batch keeps Adagrad's sum-then-square), and applies Adagrad to the rows of
+its own shard only, off-shard slots clipped into the window with a zero
+payload. The trajectory is the single-device one: the lookups are exact and
+every shard's rows see the same arithmetic.
 """
 
 from __future__ import annotations
@@ -42,7 +51,7 @@ import dataclasses
 
 import torch
 
-from acf_tpu_torch.models.base import row_normalize
+from acf_tpu_torch.models.base import row_normalize, scatter_rows
 from acf_tpu_torch.models.mf import MFBPR, equality
 from acf_tpu_torch.sampling.negatives import (
     negatives_from_draws, sample_pair_epoch, uniform_negatives,
@@ -84,7 +93,7 @@ def dedup_sort(ids):
     slots[:uniq.shape[0]] = uniq
 
     def agg(g):
-        return torch.zeros(n, g.shape[-1], dtype=g.dtype, device=g.device).index_add_(0, inv, g)
+        return scatter_rows(n, inv, g)
 
     def delta_rows(g, eps):
         return (eps * row_normalize(agg(g)))[inv]
@@ -94,10 +103,23 @@ def dedup_sort(ids):
 
 def sparse_adagrad_(table, acc, ids, g, lr, eps):
     """Adagrad on the rows ``ids`` of ``table`` and ``acc``, in place, as
-    optax computes it; each id at most once, pad slots with a zero row."""
+    optax computes it; each id at most once, but for slots with a zero row
+    (the pad slots, and a shard's off-shard slots), which add zeros."""
     acc_rows = acc[ids] + torch.square(g)
     table.index_add_(0, ids, -lr * g * torch.rsqrt(acc_rows + eps))
     acc.index_add_(0, ids, torch.square(g))
+
+
+def _shard_window(mesh, n: int, ids, g):
+    """(local ids, rows) of the slots of global ``ids`` for this model
+    rank's shard of ``n`` rows: ids outside the shard (and the pad slots
+    dedup parks at id 0, outside every shard but the first) clip into the
+    window with a zero row, so :func:`sparse_adagrad_` leaves each shard's
+    rows as the single-device update does, bit for bit."""
+    from acf_tpu_torch.parallel.sharded_embedding import local_window
+
+    lidx, ok = local_window(n, ids, mesh.model_index)
+    return lidx, torch.where(ok[:, None], g, 0.0)
 
 
 @dataclasses.dataclass(eq=False)
@@ -137,13 +159,17 @@ class SparseMFBPR(MFBPR):
         aux.pop("loss_adv", None)
         return uu, agg_u(rows_p), ii, agg_i(rows_q), aux
 
-    def make_epoch_fn(self, optimizer, batch_size: int, num_batches: int, dev=None):
+    def make_epoch_fn(self, optimizer, batch_size: int, num_batches: int, dev=None,
+                      mesh=None):
         """``epoch_fn(params, opt_state, data, generator, batches=None,
         cands=None) -> (params, opt_state, stats)``: the pair epoch's draws
         (``batches`` [num_batches, B] pair indices, ``cands`` [num_batches,
         R, B] negative candidates, drawn from ``generator`` in the pair
         epoch's order when not given) through the row-space step. Stats:
-        the mean ``loss`` and ``acc`` (and ``acc_adv``) over the steps."""
+        the mean ``loss`` and ``acc`` (and ``acc_adv``) over the steps.
+        With ``mesh`` the tables and slots are row-sharded over "model" for
+        the epoch (the module docstring) and come back whole on every
+        rank."""
         mode = self.dedup_mode(batch_size)
         lr, eps = self.lr, self.opt_eps
 
@@ -152,8 +178,18 @@ class SparseMFBPR(MFBPR):
             if batches is None:
                 batches = sample_pair_epoch(generator, data["pairs_u"].shape[0], batch_size,
                                             num_batches)
-            P, Q = params["P"].clone(), params["Q"].clone()
-            accP, accQ = opt_state["accP"].clone(), opt_state["accQ"].clone()
+            tables = [params["P"], params["Q"], opt_state["accP"], opt_state["accQ"]]
+            if mesh is None:
+                P, Q, accP, accQ = (x.clone() for x in tables)
+                lookup = (lambda tbl, ids: tbl[ids])
+                adagrad = sparse_adagrad_
+            else:
+                from acf_tpu_torch.parallel.sharded_embedding import shard_table, sharded_lookup
+
+                P, Q, accP, accQ = (shard_table(mesh, x) for x in tables)
+                lookup = (lambda tbl, ids: sharded_lookup(mesh, tbl, ids))
+                adagrad = (lambda tbl, acc, ids, g, lr, eps: sparse_adagrad_(
+                    tbl, acc, *_shard_window(mesh, tbl.shape[0], ids, g), lr, eps))
             sums = {}
             for step in range(num_batches):
                 idx = batches[step]
@@ -163,11 +199,16 @@ class SparseMFBPR(MFBPR):
                     neg = uniform_negatives(generator, hist_rows, self.num_items)
                 else:
                     neg = negatives_from_draws(cands[step], hist_rows)
-                uu, gP, ii, gQ, aux = self.row_space_grads(u, pos, neg, P[u], Q[pos], Q[neg],
-                                                           mode)
-                sparse_adagrad_(P, accP, uu, gP, lr, eps)
-                sparse_adagrad_(Q, accQ, ii, gQ, lr, eps)
+                uu, gP, ii, gQ, aux = self.row_space_grads(
+                    u, pos, neg, lookup(P, u), lookup(Q, pos), lookup(Q, neg), mode)
+                adagrad(P, accP, uu, gP, lr, eps)
+                adagrad(Q, accQ, ii, gQ, lr, eps)
                 _add_stats(sums, aux)
+            if mesh is not None:
+                from acf_tpu_torch.parallel.input_pipeline import replicate_result
+
+                P, Q, accP, accQ = (replicate_result(mesh, x, "model")[:full.shape[0]]
+                                    for x, full in zip((P, Q, accP, accQ), tables))
             return {"P": P, "Q": Q}, {"accP": accP, "accQ": accQ}, _mean_stats(sums, num_batches)
 
         return epoch_fn

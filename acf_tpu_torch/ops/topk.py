@@ -18,7 +18,7 @@ NEG = -3.0e38
 
 
 def topk_factored(u_repr, item_emb, hists, bias=None, k: int = 10,
-                  item_tile: int = 4096):
+                  item_tile: int = 4096, id_base: int = 0):
     """Top-K (scores, item ids) per user for dot-factored scorers.
 
     Args:
@@ -27,6 +27,8 @@ def topk_factored(u_repr, item_emb, hists, bias=None, k: int = 10,
       hists: [B, L] train items to exclude (0-padded; id 0 always excluded).
       bias: optional [I] item bias.
       k: results per user.
+      id_base: the global id of ``item_emb``'s first row (a catalog shard's
+        offset); ``hists`` and the results are global ids.
 
     Returns:
       (scores [B, k], items [B, k]) sorted descending. Slots past the
@@ -44,22 +46,22 @@ def topk_factored(u_repr, item_emb, hists, bias=None, k: int = 10,
             scores = scores + bias[None, start:start + width]
         # mask the pad id and the user's train items; history entries
         # outside this tile scatter into a spare last column
-        local = hists - start
+        local = hists - (id_base + start)
         inside = (local >= 0) & (local < width)
         invalid = torch.zeros(b, width + 1, dtype=torch.bool, device=scores.device)
         invalid.scatter_(1, torch.where(inside, local, width), True)
         invalid = invalid[:, :width]
-        if start == 0:
+        if id_base + start == 0:
             invalid[:, 0] = True
         s, idx = torch.topk(scores.masked_fill(invalid, NEG), min(k, width), dim=1)
         tile_s.append(s)
-        tile_i.append(idx + start)
-    all_s = torch.cat(tile_s, dim=1)
-    all_i = torch.cat(tile_i, dim=1)
+        tile_i.append(idx + (id_base + start))
+    all_s = u_repr.new_zeros((b, 0)) if not tile_s else torch.cat(tile_s, dim=1)
+    all_i = hists.new_zeros((b, 0)) if not tile_i else torch.cat(tile_i, dim=1)
     short = k - all_s.shape[1]
-    if short > 0:  # fewer items than k: fill with NEG slots past the catalog
+    if short > 0:  # fewer items than k: fill with NEG slots past the table
         all_s = torch.cat([all_s, all_s.new_full((b, short), NEG)], dim=1)
-        fill = num_items + torch.arange(short, device=all_i.device)
+        fill = id_base + num_items + torch.arange(short, device=all_i.device)
         all_i = torch.cat([all_i, fill.expand(b, short)], dim=1)
     s, idx = torch.topk(all_s, k, dim=1)
     return s, torch.gather(all_i, 1, idx)

@@ -30,16 +30,20 @@ import torch
 from acf_tpu_torch.utils.tree import tree_leaves, tree_map, tree_unflatten
 
 
-def grad_update(optimizer, params, opt_state, loss_fn):
+def grad_update(optimizer, params, opt_state, loss_fn, reduce=None):
     """One optimizer step: ``loss_fn(prm) -> (loss, aux)`` at ``params``
-    (leaves not reached by the loss get a zero gradient), then
+    (leaves not reached by the loss get a zero gradient), the gradient tree
+    through ``reduce`` when given (the sum over data ranks), then
     ``optimizer.update``. Returns (params, opt_state, loss, aux)."""
     prm = tree_map(lambda x: x.detach().requires_grad_(True), params)
     loss, aux = loss_fn(prm)
     leaves = tree_leaves(prm)
     grads = torch.autograd.grad(loss, leaves, allow_unused=True)
     grads = [torch.zeros_like(x) if g is None else g for x, g in zip(leaves, grads)]
-    params, opt_state = optimizer.update(tree_unflatten(params, grads), opt_state, params)
+    grads = tree_unflatten(params, grads)
+    if reduce is not None:
+        grads = reduce(grads)
+    params, opt_state = optimizer.update(grads, opt_state, params)
     return params, opt_state, loss.detach(), aux
 
 

@@ -23,6 +23,17 @@ Each step is one function of (params, optimizer state, batch, draws), so a
 test can drive it with the JAX package's draws, and the epoch functions
 take the epoch's draws injected the same way.
 
+With ``TrainConfig.mesh`` the pair and sequence epochs run data-parallel
+over the mesh's "data" axis: every rank draws the whole global batch (its
+negatives and dropout masks too) from the same seeded generator, as one
+device would, and takes its data rank's rows; its loss is its share of the
+global loss (:func:`acf_tpu_torch.models.base.data_parallel`); the
+gradients are summed over the data ranks before the update, so every rank
+applies the same update. The model ranks of one data row compute the same
+rows on whole tables; evaluation is sharded over both axes. Only MF-BPR
+(APR, DNS), pointwise MF, SASRec (ASASRec, ASASRec2) and the sparse step
+(its own mesh epoch) train under a mesh; the other models raise.
+
 :class:`Trainer` adds leave-one-out evaluation through
 :class:`acf_tpu_torch.eval.FullRankEvaluator` (so through K1 for factored
 models, and K2a for SASRec), best-NDCG tracking, the reference's epoch line
@@ -54,7 +65,7 @@ from acf_tpu_torch.train.checkpoint import (
 )
 from acf_tpu_torch.train.optim import grad_update
 from acf_tpu_torch.utils.io import OutputWriter
-from acf_tpu_torch.utils.tree import tree_unflatten
+from acf_tpu_torch.utils.tree import tree_map, tree_unflatten
 
 
 @dataclasses.dataclass
@@ -76,12 +87,21 @@ class TrainConfig:
     # <save_model_path>.last.npz. None = off.
     save_model_path: Optional[str] = None
     device: Optional[str] = None  # default cuda; "cpu" to train on the CPU
+    # a ("data", "model") acf_tpu_torch.parallel.mesh.Mesh: data-parallel
+    # training over "data" and evaluation sharded over both axes; the mesh's
+    # device is the trainer's. None = one device.
+    mesh: Optional[object] = None
 
 
-def _mean_stats(sums, n):
-    """One host transfer: the mean over ``n`` steps of each summed aux value."""
+def _mean_stats(sums, n, mesh=None):
+    """One host transfer: the mean over ``n`` steps of each summed aux value
+    (each rank's values its shares, summed over the data ranks under a
+    mesh)."""
     names = sorted(sums)
-    means = (torch.stack([sums[k] for k in names]) / n).cpu().tolist()
+    total = torch.stack([sums[k] for k in names])
+    if mesh is not None:
+        mesh.all_reduce(total, "data")
+    means = (total / n).cpu().tolist()
     return dict(zip(names, means))
 
 
@@ -91,18 +111,22 @@ def _add_stats(sums, aux):
 
 
 def pair_train_step(model, optimizer, params, opt_state, batch, generator=None,
-                    manual_grads=None):
+                    manual_grads=None, reduce=None):
     """One step of a pair model on ``batch`` = (users, pos, neg): the
     gradient of ``model.loss`` at ``params`` by autograd, or
     ``manual_grads(params, batch, generator) -> (grads, aux)`` when given,
-    then the optimizer's update. Returns (params, opt_state, aux)."""
+    through ``reduce`` when given (the sum over data ranks), then the
+    optimizer's update. Returns (params, opt_state, aux)."""
     if manual_grads is not None:
         with torch.no_grad():
             grads, aux = manual_grads(params, batch, generator)
+            if reduce is not None:
+                grads = reduce(grads)
         params, opt_state = optimizer.update(grads, opt_state, params)
         return params, opt_state, aux
     params, opt_state, _, aux = grad_update(optimizer, params, opt_state,
-                                            lambda prm: model.loss(prm, batch, generator))
+                                            lambda prm: model.loss(prm, batch, generator),
+                                            reduce)
     return params, opt_state, aux
 
 
@@ -115,7 +139,17 @@ def dns_negatives(model, params, users, hist_rows, cands):
     return cands.gather(1, torch.argmax(scores, dim=1)[:, None])[:, 0]
 
 
-def make_pair_epoch_fn(model, optimizer, batch_size: int, num_batches: int):
+def _data_parallel(mesh, batch_size: int):
+    """(this data rank's rows of a global batch, the gradient reduce: the
+    sum over the data ranks); every row and no reduce on one device."""
+    if mesh is None:
+        return slice(None), None
+    from acf_tpu_torch.parallel.mesh import all_reduce_tree
+
+    return mesh.rows(batch_size), lambda grads: all_reduce_tree(mesh, grads, "data")
+
+
+def make_pair_epoch_fn(model, optimizer, batch_size: int, num_batches: int, mesh=None):
     """The one-epoch function for pair models (``acf_tpu/train/trainer.py``'s
     ``make_pair_epoch_fn``): ``epoch_fn(params, opt_state, data, generator,
     batches=None, cands=None) -> (params, opt_state, stats)`` with ``data``
@@ -127,23 +161,29 @@ def make_pair_epoch_fn(model, optimizer, batch_size: int, num_batches: int):
 
     The step takes the model's closed-form gradients when it has them
     (``manual_grads``, APR) and ``batch_size <= model.manual_grads_max_batch``
-    (its equality matrices grow as B²); otherwise autograd."""
+    (its equality matrices grow as B²); otherwise autograd. With ``mesh``
+    (``model`` then :func:`~acf_tpu_torch.models.base.data_parallel`'s copy)
+    the draws are the global batch's and the step takes this data rank's
+    rows."""
+    rows, reduce = _data_parallel(mesh, batch_size)
     dns = getattr(model, "dns", 1)
     manual_grads = getattr(model, "manual_grads", None)
     if manual_grads is not None and batch_size > getattr(model, "manual_grads_max_batch", 4096):
         manual_grads = None
 
     def negatives(params, u, hist_rows, step, generator, cands):
+        """This rank's rows' negatives, of the global batch's draws."""
         if dns <= 1:
             if cands is None:
-                return uniform_negatives(generator, hist_rows, model.num_items)
-            return negatives_from_draws(cands[step], hist_rows)
+                return uniform_negatives(generator, hist_rows, model.num_items)[rows]
+            return negatives_from_draws(cands[step], hist_rows)[rows]
         if cands is None:
             drawn = [uniform_negatives(generator, hist_rows, model.num_items)
                      for _ in range(dns)]
         else:
             drawn = [negatives_from_draws(c, hist_rows) for c in cands[step]]
-        return dns_negatives(model, params, u, hist_rows, torch.stack(drawn, dim=1))
+        return dns_negatives(model, params, u[rows], hist_rows[rows],
+                             torch.stack(drawn, dim=1)[rows])
 
     def epoch_fn(params, opt_state, data, generator, batches=None, cands=None):
         if batches is None:
@@ -156,9 +196,10 @@ def make_pair_epoch_fn(model, optimizer, batch_size: int, num_batches: int):
             hist_rows = data["hist"][u]
             neg = negatives(params, u, hist_rows, step, generator, cands)
             params, opt_state, aux = pair_train_step(model, optimizer, params, opt_state,
-                                                     (u, pos, neg), generator, manual_grads)
+                                                     (u[rows], pos[rows], neg), generator,
+                                                     manual_grads, reduce)
             _add_stats(sums, aux)
-        return params, opt_state, _mean_stats(sums, num_batches)
+        return params, opt_state, _mean_stats(sums, num_batches, mesh)
 
     return epoch_fn
 
@@ -179,34 +220,55 @@ def window_loss(model):
 
 
 def seq_train_step(model, optimizer, params, opt_state, batch, generator=None,
-                   masks=None, adv_masks=None):
+                   masks=None, adv_masks=None, reduce=None):
     """One training step: the value and gradient of :func:`window_loss` at
     ``params`` on ``batch`` = (users, window, neg), dropout from
-    ``generator`` or the injected ``masks``/``adv_masks``, then the
-    optimizer's update. Returns (params, opt_state, aux)."""
+    ``generator`` or the injected ``masks``/``adv_masks``, the gradients
+    through ``reduce`` when given, then the optimizer's update. Returns
+    (params, opt_state, aux)."""
     loss_fn = window_loss(model)
     kw = {k: v for k, v in (("masks", masks), ("adv_masks", adv_masks)) if v is not None}
     params, opt_state, _, aux = grad_update(
-        optimizer, params, opt_state, lambda prm: loss_fn(prm, batch, generator, **kw))
+        optimizer, params, opt_state, lambda prm: loss_fn(prm, batch, generator, **kw), reduce)
     return params, opt_state, aux
 
 
-def make_seq_epoch_fn(model, optimizer, batch_size: int, num_batches: int):
+def _global_masks(model, generator, b: int):
+    """(masks, adv_masks) of a global batch of ``b`` windows, drawn in the
+    order one device draws them inside the loss (the training pass's, then
+    asasrec2's adversarial pass's), or None where the loss draws none."""
+    if getattr(model, "dropout_rate", 0.0) <= 0.0:
+        return None, None
+    masks = model._dropout_masks(generator, b, model.maxlen)
+    adv = (model._dropout_masks(generator, b, model.maxlen)
+           if model.adversarial and model.adv_mode == "asasrec2" else None)
+    return masks, adv
+
+
+def make_seq_epoch_fn(model, optimizer, batch_size: int, num_batches: int, mesh=None):
     """The one-epoch function for sequence models (WarpSampler semantics:
     users sampled with replacement, SASRecLayers.py:329-358):
     ``epoch_fn(params, opt_state, data, generator) -> (params, opt_state,
     stats)`` with ``data`` holding ``hist`` and ``eligible`` on the device
-    and ``stats`` the mean of each aux value over the steps."""
+    and ``stats`` the mean of each aux value over the steps. With ``mesh``
+    every rank draws the global batch and its dropout masks and steps on its
+    data rank's rows."""
+    rows, reduce = _data_parallel(mesh, batch_size)
 
     def epoch_fn(params, opt_state, data, generator):
         sums = {}
         for _ in range(num_batches):
             batch = sample_seq_window_batch(generator, data["hist"], data["eligible"],
                                             model.maxlen, model.num_items, batch_size)
+            masks = adv_masks = None
+            if mesh is not None:
+                masks, adv_masks = (m if m is None else tree_map(lambda x: x[rows], m)
+                                    for m in _global_masks(model, generator, batch_size))
+                batch = tuple(x[rows] for x in batch)
             params, opt_state, aux = seq_train_step(model, optimizer, params, opt_state,
-                                                    batch, generator)
+                                                    batch, generator, masks, adv_masks, reduce)
             _add_stats(sums, aux)
-        return params, opt_state, _mean_stats(sums, num_batches)
+        return params, opt_state, _mean_stats(sums, num_batches, mesh)
 
     return epoch_fn
 
@@ -238,7 +300,12 @@ class Trainer:
     adversaries) brings its own. ``config.membership_len`` truncates the histories
     the pair sampler's rejection reads, except for sequence models and
     models marked ``uses_full_hist`` (APL's positive mixture), whose
-    objective reads the whole history."""
+    objective reads the whole history.
+
+    With ``config.mesh`` (see the module docstring) only rank 0 writes
+    predictions, params and snapshots; a model that has no data-parallel
+    form raises ``NotImplementedError`` naming the ROADMAP item that brings
+    it."""
 
     def __init__(self, model, data: Interactions, optimizer,
                  config: TrainConfig = TrainConfig(),
@@ -248,7 +315,9 @@ class Trainer:
         self.optimizer = optimizer
         self.cfg = config
         self.writer = writer or OutputWriter(None, None)
-        self.device = resolve_device(config.device)
+        self.mesh = config.mesh
+        self.is_main = self.mesh is None or self.mesh.rank == 0
+        self.device = resolve_device(config.device if self.mesh is None else self.mesh.device)
         ml = config.membership_len
         if getattr(model, "batch_kind", "pair") == "seq" or \
                 getattr(model, "uses_full_hist", False):
@@ -287,12 +356,21 @@ class Trainer:
 
     def _make_epoch_fn(self, model):
         """The model's own epoch (checked first: a sequence model may bring
-        one), else the sequence or the pair epoch."""
+        one), else the sequence or the pair epoch; under a mesh the
+        data-parallel forms (the sparse step's own mesh epoch)."""
+        if self.mesh is not None:
+            _check_mesh_model(model)
         if hasattr(model, "make_epoch_fn"):
+            kw = {} if self.mesh is None else {"mesh": self.mesh}
             return model.make_epoch_fn(self.optimizer, self.cfg.batch_size, self.num_batches,
-                                       self.dev)
+                                       self.dev, **kw)
         make = make_seq_epoch_fn if model.batch_kind == "seq" else make_pair_epoch_fn
-        return make(model, self.optimizer, self.cfg.batch_size, self.num_batches)
+        if self.mesh is None:
+            return make(model, self.optimizer, self.cfg.batch_size, self.num_batches)
+        from acf_tpu_torch.models.base import data_parallel
+
+        return make(data_parallel(model, self.mesh), self.optimizer, self.cfg.batch_size,
+                    self.num_batches, mesh=self.mesh)
 
     def _init_opt_state(self, model):
         if hasattr(model, "init_opt_state"):
@@ -389,13 +467,14 @@ class Trainer:
                     # (evaluation_adv.py:292-294); sampled runs @topk
                     # (run.py:263-265)
                     col = (cfg.topk - 1) if cfg.eval_sampled else -1
-                    self.writer.predictions(f"{tag}.hr", res.hr[:, col])
-                    self.writer.predictions(f"{tag}.ndcg", res.ndcg[:, col])
-                    if cfg.save_model_path:  # reference .best.h5, run.py:260-262
+                    if self.is_main:
+                        self.writer.predictions(f"{tag}.hr", res.hr[:, col])
+                        self.writer.predictions(f"{tag}.ndcg", res.ndcg[:, col])
+                    if cfg.save_model_path and self.is_main:  # reference .best.h5, run.py:260-262
                         save_params(cfg.save_model_path + ".best", self.params)
-            if cfg.save_model_path:  # reference .last.h5, run.py:271-272
+            if cfg.save_model_path and self.is_main:  # reference .last.h5, run.py:271-272
                 save_params(cfg.save_model_path + ".last", self.params)
-            if cfg.ckpt_every and cfg.ckpt_path and epoch % cfg.ckpt_every == 0:
+            if cfg.ckpt_every and cfg.ckpt_path and epoch % cfg.ckpt_every == 0 and self.is_main:
                 self.save_checkpoint(f"{cfg.ckpt_path}-{epoch}")
         # the reference writes the K=1..100 sweep only at the terminal epoch
         # (evaluation_adv.py:295-300) — not between phases
@@ -457,7 +536,20 @@ class Trainer:
 
     def _make_evaluator(self, model):
         return FullRankEvaluator(self.data, batch_users=self._eval_key(model)[0],
-                                 device=self.device)
+                                 device=self.device, mesh=self.mesh)
+
+
+def _check_mesh_model(model):
+    """Raise unless ``model`` trains under a mesh: MF-BPR (APR, DNS),
+    pointwise MF, SASRec (ASASRec, ASASRec2) and the sparse step."""
+    from acf_tpu_torch.models.mf import MFBPR, PointwiseMF
+    from acf_tpu_torch.models.sasrec import SASRec
+    from acf_tpu_torch.ops.sparse_step import SparseMFBPR
+    from acf_tpu_torch.parallel.mesh import ITEM_18
+
+    if type(model) not in (MFBPR, PointwiseMF, SASRec, SparseMFBPR):
+        raise NotImplementedError(f"{type(model).__name__} under a mesh is not ported to "
+                                  f"acf_tpu_torch yet: {ITEM_18} ports it")
 
 
 def fit_two_phase(clean_model, adv_model, data: Interactions, optimizer,
@@ -484,7 +576,7 @@ def fit_two_phase(clean_model, adv_model, data: Interactions, optimizer,
         start = restore[1]
     if restore is None or restore[1] < adv_epoch:
         trainer.fit(epochs=adv_epoch, epoch_start=start, tag=tag, final=False)
-        if config.ckpt_path:
+        if config.ckpt_path and trainer.is_main:
             save_params(config.ckpt_path + "-pretrain", trainer.params)
         trainer.switch_model(adv_model, reset_opt=reset_opt)
         start = adv_epoch
@@ -493,6 +585,6 @@ def fit_two_phase(clean_model, adv_model, data: Interactions, optimizer,
         trainer.restore_checkpoint(restore[0])
         start = restore[1]
     best = trainer.fit(epochs=config.epochs, epoch_start=start, tag=tag)
-    if config.ckpt_path:
+    if config.ckpt_path and trainer.is_main:
         save_params(config.ckpt_path + "-final", trainer.params)
     return best

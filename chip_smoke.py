@@ -174,7 +174,31 @@ Phases, any failure exits non-zero:
               command line on phase 20's files (``apr
               --sparse``, ``bpr --sparse --dedup sort``, ``irgan`` with and
               without ``--irgan_pair``, ``pop mrv mfv av``, K1 counted) and
-              its refusals with the JAX CLI's messages.
+              its refusals with the JAX CLI's messages;
+ 24. determinism: one APR epoch at the ml-1m shape (the dense closed form)
+              and one APL epoch at the Video shape, each run twice from one
+              seed, every param and optimizer slot bit for bit (the count of
+              differing elements of each leaf printed);
+ 25. the mesh (``acf_tpu_torch/parallel/``): ``apr --mesh 1x1`` through the
+              command line on NCCL (a group of one process) on phase 20's
+              ml-1m file, K1 counted, its params and evaluation against phase
+              20's single-device run (``APR_TOL``); then two ranks on the one
+              card over gloo with CUDA tensors (``parallel/launch.py``),
+              meshes 1x2 and 2x1 launched at once (four ranks; the rank
+              functions are ``tests/torch_rank_cases.py``):
+              ``sharded_lookup`` against the dense gather
+              and its gradient (exact), MF-BPR positions at Video scale
+              through K1 with ``id_base`` (equal to one device's for every
+              user), top-10 of 4,096 users against ``recommend`` (but at
+              ties), the sharded APR step, the data-parallel trainer and
+              the sparse mesh epoch (each ``fit_two_phase``'s protocol at
+              the ml-1m shape: 150 clean steps, then 150 APR steps whose
+              stats must carry ``acc_adv``; ``APR_TOL``, the ranks' params
+              bit-equal), the adversarial
+              SASRec step at maxlen 50 through K2a and K2b (``STEP_TOL``);
+              a rank that never launched K1, K2a or K2b fails the phase. Its
+              wall times are gloo staging through the host, not NCCL or
+              multi-GPU times.
 
 Kernel times come from torch.profiler's device time. A measurement whose
 profile holds no device time in three sessions is timed with CUDA events
@@ -188,11 +212,14 @@ script, it fails before printing any result.
 
 from __future__ import annotations
 
+import dataclasses
+import importlib
 import json
 import math
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -348,6 +375,37 @@ def best_wall_s(fn, reps: int = 3) -> float:
     return min(times)
 
 
+def check_k1_shards(dev, g, b=512, n_items=23_700, d=D):
+    """K1 on catalog shards (``id_base``, the sharded evaluation's form): the
+    table split into m shards of ceil(I / m) rows (the last one's real rows
+    only), each shard's counts against the plain version with its
+    ``id_base`` (off by 1 at near ties only) and the shards' counts summed
+    against the whole table's kernel counts, exactly: the kernel sums every
+    dot product in one order whatever the table it is in."""
+    from acf_tpu_torch.ops.ranking import rank_positions_dot, rank_positions_dot_plain
+
+    u = torch.randn(b, d, generator=g, device=dev)
+    E = torch.randn(n_items, d, generator=g, device=dev)
+    t = torch.randn(b, generator=g, device=dev)
+    bias = torch.randn(n_items, generator=g, device=dev)
+    gt = torch.randint(1, n_items, (b,), generator=g, device=dev, dtype=torch.int32)
+    whole = rank_positions_dot(u, E, t, bias=bias, gt=gt)
+    for m in (2, 3, 7):
+        il = -(-n_items // m)
+        total = torch.zeros_like(whole)
+        for r in range(m):
+            rows = slice(r * il, min((r + 1) * il, n_items))
+            got = rank_positions_dot(u, E[rows], t, bias=bias[rows], gt=gt, id_base=r * il)
+            ref = rank_positions_dot_plain(u, E[rows], t, bias=bias[rows], gt=gt, id_base=r * il)
+            check(float((got - ref).abs().max()) <= 1.0,
+                  f"K1 shard {r} of {m}: counts differ from the plain version by more than 1")
+            total += got
+        check(torch.equal(total, whole),
+              f"K1 over {m} shards: the summed counts differ from the whole table's")
+        print(f"K1 B={b} I={n_items} d={d} over {m} shards (id_base): the shards' counts sum to "
+              "the whole table's exactly")
+
+
 def check_k1(dev):
     """K1 against its plain version on every ``K1_SHAPES`` case (B, I, d;
     ``acf_tpu_torch/tools/k1_ablation.py``), two calls bit for bit, and its
@@ -387,6 +445,7 @@ def check_k1(dev):
                   f"two calls bit-identical")
     check(rank_positions_dot.launches - before == 2 * cases,
           "K1 launch counter did not move once per call")
+    check_k1_shards(dev, g)
 
     E, t = torch.zeros(10, 64, device=dev), torch.zeros(4, device=dev)
     refused = (("d=6", (torch.zeros(4, 6, device=dev), torch.zeros(10, 6, device=dev), t)),
@@ -2314,17 +2373,17 @@ def cli_runs(root: Path, video, ml1m):
     """Phase 20, the CLI: APR on the ml-1m files (2 epochs, the adversarial
     phase from epoch 1), then AMF, AMF2, ABPR and ANeuMF one epoch each on
     the Video file, then the zoo's runs (``ZOO_CLI``), K1 counted around
-    each. Returns (K1's launches by run,
-    the trainers of the Video runs by model)."""
+    each. Returns (K1's launches by run, the trainers of the APR run and of
+    the Video runs by model)."""
     from acf_tpu_torch.ops.ranking import rank_positions_dot
 
     common = ["--d", str(D), "--bs", str(TRAIN_BATCH)]
     counts = {"ml-1m": expected_counts(ml1m), "video": expected_counts(video)}
     tiles = {k: math.ceil(c[3] / BATCH_USERS) for k, c in counts.items()}
     k1, trainers = {}, {}
-    _, k1["apr_ml1m"], _ = run_cli(root, ["--model", "apr", "--data", "ml-1m", "--epochs", "2",
-                                          "--adv_epoch", "1", *common], counts["ml-1m"], 2,
-                                   rank_positions_dot)
+    _, k1["apr_ml1m"], trainers["apr"] = run_cli(
+        root, ["--model", "apr", "--data", "ml-1m", "--epochs", "2", "--adv_epoch", "1",
+               *common], counts["ml-1m"], 2, rank_positions_dot)
     check(k1["apr_ml1m"] == 2 * tiles["ml-1m"],
           f"cli apr: K1 launched {k1['apr_ml1m']} times, not {2 * tiles['ml-1m']}")
     for model in ("amf", "amf2", "abpr", "aneumf"):
@@ -2454,7 +2513,8 @@ def time_neumf_eval(tr):
 
 
 def cli_phases(dev):
-    """Phases 20-21. Returns K1's launches in the CLI runs, by run."""
+    """Phases 20-21. Returns (K1's launches in the CLI runs, by run; the
+    APR run's trainer)."""
     import tempfile
 
     with tempfile.TemporaryDirectory() as tmp:
@@ -2474,7 +2534,7 @@ def cli_phases(dev):
                         "loading and evaluation")
     time_neumf_eval(trainers["aneumf"])
     lap("21")
-    return k1
+    return k1, trainers["apr"]
 
 # --- the sequence zoo: phase 22 --------------------------------------------------
 
@@ -3292,6 +3352,337 @@ def rest_phase(dev, video, ml1m, ev):
     return {"sparse_fit_two_phase": k1_sparse, "irgan_eval": k1_irgan, "cli": k1_cli}
 
 
+def epoch_twice(label, make):
+    """One epoch of two trainers that ``make()`` builds from one seed: every
+    param and optimizer slot must be equal bit for bit. Prints the count of
+    differing elements of each leaf."""
+    from acf_tpu_torch.train.checkpoint import state_arrays
+
+    runs = []
+    for _ in range(2):
+        tr = make()
+        t0 = time.perf_counter()
+        stats = tr.run_epoch()
+        torch.cuda.synchronize()
+        runs.append(state_arrays(tr.params, tr.opt_state))
+        print(f"determinism {label}: an epoch of {tr.num_batches} steps in "
+              f"{time.perf_counter() - t0:.2f} s: {stats}")
+    counts = {n: int(np.sum(a.view(np.uint8) != runs[1][n].view(np.uint8)))
+              for n, a in runs[0].items()}
+    print(f"determinism {label}: differing elements by leaf: {counts}")
+    check(not any(counts.values()), f"determinism {label}: two same-seed epochs differ")
+
+
+def determinism_phase(video, ml1m):
+    """Phase 24: one APR epoch at the ml-1m shape (the dense closed form) and
+    one APL epoch at the Video shape, each run twice from one seed."""
+    from acf_tpu_torch.models.apl import APL
+    from acf_tpu_torch.models.mf import MFBPR
+    from acf_tpu_torch.train import TrainConfig, Trainer, adagrad, sgd
+
+    cfg = TrainConfig(batch_size=TRAIN_BATCH, verbose=10 ** 9, seed=24)
+    epoch_twice("apr", lambda: Trainer(
+        MFBPR(ml1m.num_users, ml1m.num_items, D, adversarial=True, **APR), ml1m,
+        adagrad(0.05, initial_accumulator_value=0.1), cfg))
+    epoch_twice("apl", lambda: Trainer(APL(video.num_users, video.num_items, D), video,
+                                       sgd(0.05), cfg))
+
+
+# --- distribution: phase 25 ------------------------------------------------------
+
+MESH_SPECS = ("1x2", "2x1")  # two ranks on the one card, over gloo
+MESH_STEPS = 150             # steps of each phase of the clean -> APR runs held to one device
+MESH_SERVE_USERS = 4096
+# the rank functions, tests/torch_rank_cases.py, imported by their own name
+# (another package named "tests" may come first on the path)
+CASES = "torch_rank_cases"
+
+
+def rank_cases():
+    """The rank functions' module, its directory put on the path (the ranks
+    inherit the path)."""
+    if str(ROOT / "tests") not in sys.path:
+        sys.path.insert(0, str(ROOT / "tests"))
+    return importlib.import_module(CASES)
+
+
+def bpr_step_oracle(P, Q, users, pos, neg, eps, lr=0.05):
+    """One step of ``make_sharded_bpr_step``'s math on whole tables."""
+    from acf_tpu_torch.models.base import bpr_pair_loss, row_normalize
+
+    def grads(dP=None, dQ=None):
+        Pv, Qv = P.clone().requires_grad_(True), Q.clone().requires_grad_(True)
+        with torch.enable_grad():
+            Pa, Qa = (Pv, Qv) if dP is None else (Pv + dP, Qv + dQ)
+            pu = Pa[users]
+            loss = bpr_pair_loss((pu * Qa[pos]).sum(-1), (pu * Qa[neg]).sum(-1))
+            return torch.autograd.grad(loss, (Pv, Qv))
+
+    gP, gQ = grads()
+    if eps > 0.0:
+        aP, aQ = grads(eps * row_normalize(gP), eps * row_normalize(gQ))
+        gP, gQ = gP + aP, gQ + aQ
+    return P - lr * gP, Q - lr * gQ
+
+
+def sasrec_step_oracle(model, params, seq, pos, neg, lr=1e-3):
+    """One step of ``make_sharded_sasrec_step``'s math on the whole item
+    table, the encoder through K2a and K2b."""
+    from acf_tpu_torch.models.base import row_normalize
+    from acf_tpu_torch.utils.tree import tree_leaves, tree_map, tree_unflatten
+
+    ist = (pos != 0).to(torch.float32)
+
+    def grads(delta=None):
+        prm = tree_map(lambda x: x.detach().clone().requires_grad_(True), params)
+        with torch.enable_grad():
+            x = prm["item_emb"][seq] * math.sqrt(model.dim)
+            reprs = model.encode_core(prm, x, seq != 0)
+            tgt = prm["item_emb"] if delta is None else prm["item_emb"] + delta
+            zero = torch.zeros_like(reprs[..., 0])
+            loss = (torch.sum(torch.logaddexp(zero, -(tgt[pos] * reprs).sum(-1)) * ist)
+                    + torch.sum(torch.logaddexp(zero, (tgt[neg] * reprs).sum(-1)) * ist))
+            leaves = tree_leaves(prm)
+            got = torch.autograd.grad(loss, leaves, allow_unused=True)
+        return tree_unflatten(prm, [torch.zeros_like(x) if g is None else g
+                                    for x, g in zip(leaves, got)])
+
+    g = grads()
+    if model.adversarial:
+        ag = grads(model.eps * row_normalize(g["item_emb"]))
+        g = tree_map(lambda a, b: a + model.reg_adv * b, g, ag)
+    return tree_map(lambda p, d: p - lr * d, params, g)
+
+
+def mesh_cli(apr_ref):
+    """Phase 25, first part: ``--mesh 1x1`` through the command line's normal
+    path on NCCL (a group of one process), APR on phase 20's ml-1m file
+    (written again from its seed), K1 counted; its params and its best
+    evaluation against phase 20's single-device run."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from acf_tpu_torch.ops.ranking import rank_positions_dot
+
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        _, ml1m = write_reference_files(root)
+        counts = expected_counts(ml1m)
+        tiles = math.ceil(counts[3] / BATCH_USERS)
+        _, k1, tr = run_cli(root, ["--model", "apr", "--mesh", "1x1", "--data", "ml-1m",
+                                   "--epochs", "2", "--adv_epoch", "1", "--d", str(D), "--bs",
+                                   str(TRAIN_BATCH)], counts, 2, rank_positions_dot)
+    check(tr.mesh is not None and tr.mesh.shape == {"data": 1, "model": 1},
+          "cli --mesh 1x1: the trainer had no mesh")
+    check(not dist.is_initialized(), "cli --mesh 1x1: the process group outlived the run")
+    check(k1 == 2 * tiles, f"cli --mesh 1x1: K1 launched {k1} times, not {2 * tiles}")
+    names = sorted(tr.params)
+    err, rel = tree_err([tr.params[n].cpu() for n in names], [apr_ref.params[n].cpu() for n in names])
+    same = all(torch.equal(tr.params[n], apr_ref.params[n]) for n in names)
+    res, ref = tr.best["result"], apr_ref.best["result"]
+    hr_same = float((res.hr == ref.hr).all(axis=1).mean())
+    print(f"mesh cli apr --mesh 1x1 (NCCL, one rank): K1 {k1}; params against phase 20's "
+          f"single-device run max |d| {err:.3e} ({rel:.2e} of scale), bit-equal {same}; "
+          f"per-user HR@1..100 equal for {hr_same:.6f} of users")
+    check(rel <= APR_TOL, f"cli --mesh 1x1: params differ from one device by {rel:.3e}")
+    check(hr_same == 1.0 and np.array_equal(res.ndcg, ref.ndcg),
+          "cli --mesh 1x1: its evaluation differs from the single-device run's")
+    return k1
+
+
+def mesh_calls(dev, video, ml1m, mf):
+    """The rank cases of the two-rank phase and their single-device
+    references on ``dev``. Returns (calls, references)."""
+    from acf_tpu_torch.compat.jax_params import params_to_numpy
+    from acf_tpu_torch.models.mf import MFBPR
+    from acf_tpu_torch.models.sasrec import SASRec
+    from acf_tpu_torch.ops.sparse_step import SparseMFBPR
+    from acf_tpu_torch.ops.topk import recommend
+    from acf_tpu_torch.sampling import sample_seq_window_batch
+    from acf_tpu_torch.train import adagrad
+
+    model, params, ev = mf
+    # the ranks get copies without the device tensors that serving caches on a dataset
+    rank_video, rank_ml1m = dataclasses.replace(video), dataclasses.replace(ml1m)
+    rng = np.random.default_rng(25)
+    calls, refs = [], {}
+    # the lookup: the ml-1m item table, a batch's ids with their duplicates,
+    # whole-number cotangents (every order of their sums is exact)
+    table = rng.standard_normal((ml1m.num_items, D)).astype(np.float32)
+    ids = rng.integers(1, ml1m.num_items, (2, 2 * TRAIN_BATCH))
+    ct = rng.integers(-4, 5, (2, 2 * TRAIN_BATCH, D)).astype(np.float32)
+    calls.append(("lookup", (table, ids, ct)))
+    refs["lookup"] = (table, ids, ct)
+    # positions of phase 4's MF-BPR at Video scale, one device through K1
+    fs = model.factored_scorer()
+    refs["positions"] = ev.positions_factored(fs[0], fs[1], params)
+    prm = params_to_numpy(params)
+    calls.append(("evaluator", (MFBPR(video.num_users, video.num_items, D), prm, rank_video,
+                                BATCH_USERS)))
+    # top-10 of MESH_SERVE_USERS users
+    users = rng.choice(np.arange(1, video.num_users), MESH_SERVE_USERS,
+                       replace=False).astype(np.int32)
+    refs["serve"] = (users, recommend(model, params, video, users, k=10, device=dev))
+    calls.append(("recommend_bulk", (MFBPR(video.num_users, video.num_items, D), prm,
+                                     rank_video, users, 10, BATCH_USERS)))
+    # the sharded APR step at the ml-1m shape
+    P = (rng.standard_normal((ml1m.num_users, D)) * 0.01).astype(np.float32)
+    Q = (rng.standard_normal((ml1m.num_items, D)) * 0.01).astype(np.float32)
+    idx = rng.choice(ml1m.num_pairs, TRAIN_BATCH, replace=False)
+    batch = [ml1m.pairs_u[idx], ml1m.pairs_i[idx],
+             rng.integers(1, ml1m.num_items, TRAIN_BATCH).astype(np.int32)]
+    calls.append(("bpr_step", (P, Q, *batch, APR["eps"])))
+    refs["bpr_step"] = [x.cpu().numpy() for x in bpr_step_oracle(
+        *(torch.as_tensor(x, device=dev) for x in (P, Q)),
+        *(torch.as_tensor(b, device=dev).long() for b in batch), APR["eps"])]
+    # the adversarial SASRec step at maxlen 50, K2a and K2b
+    sas = SASRec(ml1m.num_users, ml1m.num_items, D, maxlen=50, adversarial=True)
+    g = torch.Generator(device=dev).manual_seed(25)
+    sprm = sas.init_params(g, device=dev)
+    eligible = torch.as_tensor(np.nonzero(ml1m.hist_len >= 2)[0].astype(np.int32), device=dev)
+    _, window, neg = sample_seq_window_batch(g, torch.as_tensor(ml1m.hist, device=dev),
+                                             eligible, 50, ml1m.num_items, TRAIN_BATCH)
+    seqb = [x.cpu().numpy() for x in (window[:, :-1], window[:, 1:], neg)]
+    calls.append(("sasrec_step", (SASRec(ml1m.num_users, ml1m.num_items, D, maxlen=50,
+                                         adversarial=True), params_to_numpy(sprm), *seqb)))
+    refs["sasrec_step"] = (params_to_numpy(sprm), params_to_numpy(sasrec_step_oracle(
+        sas, sprm, *(torch.as_tensor(b, device=dev).long() for b in seqb))))
+    # the data-parallel trainer and the sparse mesh epoch: fit_two_phase's
+    # protocol, MESH_STEPS clean steps, then MESH_STEPS APR steps, the slots reset
+    opt = adagrad(0.05, initial_accumulator_value=0.1)
+    for name, cls in (("apr_train", MFBPR), ("sparse", SparseMFBPR)):
+        models = [cls(ml1m.num_users, ml1m.num_items, D, **APR),
+                  cls(ml1m.num_users, ml1m.num_items, D, adversarial=True, **APR)]
+        args = (models, opt, rank_ml1m, [1, 1], MESH_STEPS, 25, TRAIN_BATCH)
+        calls.append(("train", args))
+        refs[name] = rank_cases().train(None, dev, *args)
+    return calls, refs
+
+
+def check_mesh_results(spec, res, refs, ml1m):
+    """Every rank's results of ``spec`` against the single-device references;
+    returns the ranks' launches {kernel: [by rank]}."""
+    names = ("lookup", "positions", "serve", "bpr_step", "sasrec_step", "apr_train", "sparse")
+    res = [dict(zip(names, r)) for r in res]
+    dp, m = (int(v) for v in spec.split("x"))
+    label = f"mesh {spec}"
+    # the lookup: rows and the gradient exact
+    table, ids, ct = refs["lookup"]
+    il = -(-table.shape[0] // m)
+    want = np.zeros_like(table)
+    for d in range(dp):
+        np.add.at(want, ids[d], ct[d])
+    for r, x in enumerate(res):
+        check(np.array_equal(x["lookup"]["rows"], table[ids[r // m]]),
+              f"{label} rank {r}: sharded_lookup rows differ from the dense gather")
+    grad = np.concatenate([res[mi]["lookup"]["grad"] for mi in range(m)])[:table.shape[0]]
+    check(np.array_equal(grad, want), f"{label}: the lookup's gradient differs from the dense "
+          f"one by {np.abs(grad - want).max()}")
+    # positions: equal to one device's K1 positions for every user
+    want_pos = refs["positions"]
+    for r, x in enumerate(res):
+        got = x["positions"]["pos"]
+        bad = np.nonzero(got != want_pos)[0]
+        for b in bad[:10]:
+            print(f"{label} rank {r}: user {b} position {got[b]} vs one device {want_pos[b]}")
+        check(len(bad) == 0, f"{label} rank {r}: {len(bad)} sharded K1 positions differ")
+    # top-10 against one device's recommend, ids but at near ties
+    users, (ws, wi) = refs["serve"]
+    for r, x in enumerate(res):
+        gs, gi = x["serve"]["scores"], x["serve"]["items"]
+        np.testing.assert_allclose(gs, ws, rtol=1e-5, atol=1e-9)
+        off = np.argwhere(gi != wi)
+        for row, j in off:
+            tol = 1e-6 * float(np.abs(ws[row]).max())
+            near = [ws[row, j - 1]] if j > 0 else []
+            near += [ws[row, j + 1]] if j + 1 < ws.shape[1] else []
+            check(min(abs(ws[row, j] - v) for v in near) <= tol,
+                  f"{label} rank {r}: user {users[row]} slot {j}: {gi[row, j]} vs "
+                  f"{wi[row, j]} without a tie")
+        if r == 0:
+            print(f"{label}: top-10 of {len(users)} users equal to one device's recommend but "
+                  f"{len(off)} slots at ties")
+    # the sharded APR step and the adversarial SASRec step
+    for r, x in enumerate(res):
+        err, rel = tree_err([torch.as_tensor(a) for a in (x["bpr_step"]["P"], x["bpr_step"]["Q"])],
+                            [torch.as_tensor(a) for a in refs["bpr_step"]])
+        check(rel <= APR_TOL, f"{label} rank {r}: the sharded APR step differs by {rel:.3e}")
+        before, after = refs["sasrec_step"]
+        from acf_tpu_torch.utils.tree import tree_leaves
+
+        got = [torch.as_tensor(a - b) for a, b in zip(tree_leaves(x["sasrec_step"]["params"]),
+                                                      tree_leaves(before))]
+        ref = [torch.as_tensor(a - b) for a, b in zip(tree_leaves(after), tree_leaves(before))]
+        s_err, s_rel = tree_err(got, ref)
+        if r == 0:
+            print(f"{label}: sharded APR step max |d| {err:.3e} ({rel:.2e} of scale); "
+                  f"adversarial SASRec step (maxlen 50) update max |d| {s_err:.3e} "
+                  f"({s_rel:.2e} of scale), K2a {x['sasrec_step']['k2a']} K2b "
+                  f"{x['sasrec_step']['k2b']} launches")
+        check(s_rel <= STEP_TOL, f"{label} rank {r}: the SASRec step's update differs by {s_rel}")
+    # the data-parallel trainer and the sparse mesh epoch, clean then APR
+    for name in ("apr_train", "sparse"):
+        ref = refs[name]["state"]
+        keys = sorted(ref)
+        for r, x in enumerate(res):
+            got = x[name]["state"]
+            err, rel = tree_err([torch.as_tensor(got[k]) for k in keys],
+                                [torch.as_tensor(ref[k]) for k in keys])
+            same = all(np.array_equal(got[k], ref[k]) for k in keys)
+            if r == 0:
+                print(f"{label}: {name} {MESH_STEPS} clean + {MESH_STEPS} APR steps against "
+                      f"one device: max |d| {err:.3e} ({rel:.2e} of scale), bit-equal {same}; "
+                      f"stats {x[name]['stats']} vs {refs[name]['stats']}")
+            check([sorted(s) for s in x[name]["stats"]] ==
+                  [sorted(s) for s in refs[name]["stats"]] and
+                  "acc_adv" not in x[name]["stats"][0] and "acc_adv" in x[name]["stats"][1],
+                  f"{label} rank {r}: {name}'s second phase is not APR: {x[name]['stats']}")
+            check(rel <= APR_TOL, f"{label} rank {r}: {name} differs from one device by {rel}")
+            check(all(np.array_equal(got[k], res[0][name]["state"][k]) for k in keys),
+                  f"{label}: rank {r}'s {name} params differ from rank 0's")
+    return {k: [x["positions"][k] + x["sasrec_step"][k] for x in res]
+            for k in ("k1", "k2a", "k2b")}
+
+
+def mesh_phase(dev, video, ml1m, mf, apr_ref):
+    """Phase 25: the mesh on the card. ``--mesh 1x1`` through the CLI on
+    NCCL, then two ranks on the one card over gloo with CUDA tensors (1x2 and
+    2x1, both launched at once): the sharded lookup, positions through K1
+    with ``id_base``, top-10, the sharded APR and SASRec steps, the
+    data-parallel trainer and the sparse mesh epoch (clean, then APR), each
+    against one device. Returns the kernels' launches in the mesh runs."""
+    from acf_tpu_torch.parallel import launch
+
+    t0 = time.perf_counter()
+    launches = {"nccl_cli_1x1": {"k1": mesh_cli(apr_ref)}}
+    print(f"phase 25 cli: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    calls, refs = mesh_calls(dev, video, ml1m, mf)
+    print(f"phase 25 references on one device: {time.perf_counter() - t0:.1f} s")
+
+    def two_ranks(spec):
+        t0 = time.perf_counter()
+        res = launch.run(f"{CASES}:several", 2, spec, "cuda:0", calls, device="cuda:0",
+                         backend="gloo", timeout=300.0)
+        return res, time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(MESH_SPECS)) as pool:  # both meshes at once: four ranks
+        runs = list(pool.map(two_ranks, MESH_SPECS))
+    print(f"phase 25 two-rank launches, {len(MESH_SPECS)} at once: "
+          f"{time.perf_counter() - t0:.1f} s")
+    for spec, (res, wall) in zip(MESH_SPECS, runs):
+        got = check_mesh_results(spec, res, refs, ml1m)
+        for k, v in got.items():
+            check(all(n > 0 for n in v), f"mesh {spec}: a rank never launched {k}: {v}")
+        launches[f"gloo_{spec}"] = got
+        print(f"mesh {spec}: two ranks on cuda:0 over gloo, launches by rank {got}; "
+              f"{wall:.1f} s with the ranks' start, beside the other mesh's launch (gloo "
+              "staging through the host: not an NCCL or multi-GPU time)")
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke run needs a GPU")
@@ -3367,7 +3758,7 @@ def main():
 
     # 20-21. The command line on the reference's file formats, the popularity
     # adversaries' steps against the CPU, their timing
-    k1_cli = cli_phases(dev)
+    k1_cli, apr_cli = cli_phases(dev)
 
     # 22. The sequence zoo: steps against the CPU, timing, evaluations, the
     # session stream
@@ -3379,13 +3770,24 @@ def main():
     k1_rest = rest_phase(dev, data, ml1m, ev)
     lap("23")
 
+    # 24. Two same-seed epochs of APR and of APL, bit for bit
+    determinism_phase(data, ml1m)
+    lap("24")
+
+    # 25. The mesh: --mesh 1x1 on NCCL, two ranks on the card over gloo
+    mesh = mesh_phase(dev, data, ml1m, (model, params, ev), apr_cli)
+    lap("25")
+
     kernels = [{
         "name": "rank_count", "route": "cuda",
         "source": "acf_tpu_torch/csrc/rank_count.cu",
         "replaces": "acf_tpu/ops/ranking.py:39",
         "launches": launches, "max_abs_err": max_err, **entry, "launches_apr": k1_apr,
         "launches_cli": k1_cli, "launches_zoo": k1_zoo, "launches_rest": k1_rest,
+        "launches_mesh": {run: v["k1"] for run, v in mesh.items()},
     }, k2a_entry, k2b_entry, *k3_entries]
+    for entry, key in ((k2a_entry, "k2a"), (k2b_entry, "k2b")):
+        entry["launches_mesh"] = {run: v[key] for run, v in mesh.items() if key in v}
     check(all(k["launches"] > 0 for k in kernels), "a kernel of the path never launched")
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(f"card: {card_line()}")

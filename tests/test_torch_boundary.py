@@ -69,7 +69,10 @@ def test_importing_the_port_loads_no_jax():
             "acf_tpu_torch.models.drcf, acf_tpu_torch.models.dsin, "
             "acf_tpu_torch.ops.sparse_step, acf_tpu_torch.models.irgan, "
             "acf_tpu_torch.models.naive, acf_tpu_torch.data.process, "
-            "acf_tpu_torch.compat.reference_checkpoints; "
+            "acf_tpu_torch.compat.reference_checkpoints, acf_tpu_torch.parallel.mesh, "
+            "acf_tpu_torch.parallel.input_pipeline, acf_tpu_torch.parallel.sharded_embedding, "
+            "acf_tpu_torch.parallel.sharded_eval, acf_tpu_torch.parallel.sharded_serve, "
+            "acf_tpu_torch.parallel.launch; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'optax', 'acf_tpu', 'tensorflow', 'h5py')); print(bad); "
             "sys.exit(1 if bad else 0)")
@@ -123,6 +126,27 @@ def test_entry_points_need_cuda_unless_cpu_is_asked():
     assert FullRankEvaluator(data, device="cpu").evaluate_model(model, params).auc.size
     assert recommend(model, params, data, data.eval_users()[:3], k=2,
                      device="cpu")[1].shape == (3, 2)
+
+
+def test_parallel_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is valid here")
+    import torch.distributed as dist
+
+    from acf_tpu_torch.parallel import launch
+    from acf_tpu_torch.parallel.mesh import init_distributed, make_mesh, mesh_from_spec
+
+    for var in ("RANK", "WORLD_SIZE", "LOCAL_RANK"):
+        monkeypatch.delenv(var, raising=False)
+    for entry in (init_distributed, make_mesh, lambda: mesh_from_spec("1x1")):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            entry()
+    assert not dist.is_initialized()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        launch.run("tests.torch_rank_cases:ping", 1, "1x1", timeout=60.0)
+    got = launch.run("tests.torch_rank_cases:ping", 1, "1x1", "cpu", device="cpu",
+                     timeout=60.0)
+    np.testing.assert_array_equal(got[0], [0.0, 0.0])
 
 
 def test_cpu_rank_counter_counts_no_launch():

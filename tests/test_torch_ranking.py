@@ -93,3 +93,42 @@ def test_check_supported_refuses_what_the_kernel_cannot_copy(case):
         E = torch.zeros(5 * d + 1)[1:].view(5, d)
     with pytest.raises(ValueError, match=ROADMAP_ITEM.split(",")[0]):
         check_supported(u, E)
+
+
+@pytest.mark.parametrize("m", [2, 3, 7])
+@pytest.mark.parametrize("with_bias_gt", [True, False], ids=["bias_gt", "plain"])
+def test_shard_counts_with_id_base_sum_to_the_whole_table(m, with_bias_gt):
+    """A catalog shard (rows id_base .. id_base + real - 1, the zero rows
+    that pad the last shard left out) counts its items with the pad id 0 and
+    the gt masked by global id; the shards' counts sum to the whole table's,
+    which is JAX's count (the sharded evaluation's merge)."""
+    u, E, t, bias, gt = _inputs(5, 16, 8, 301, with_bias_gt)
+    il = -(-301 // m)
+    total = np.zeros(16, np.float32)
+    for r in range(m):
+        rows = slice(r * il, min((r + 1) * il, 301))
+        got = rank_positions_dot(_t(u), _t(np.ascontiguousarray(E[rows])), _t(t),
+                                 bias=None if bias is None else _t(np.ascontiguousarray(bias[rows])),
+                                 gt=_t(gt), id_base=r * il)
+        scores = u @ E[rows].T + (0 if bias is None else bias[rows])
+        ge = scores >= t[:, None]
+        ids = np.arange(rows.start, rows.stop)
+        ge &= ids[None, :] != 0
+        if gt is not None:
+            ge &= ids[None, :] != gt[:, None]
+        np.testing.assert_array_equal(got.numpy(), ge.sum(1))
+        total += got.numpy()
+    np.testing.assert_array_equal(total, _numpy_count(u, E, t, bias, gt))
+    np.testing.assert_array_equal(total, np.asarray(jax_rank_positions_dot(
+        jnp.asarray(u), jnp.asarray(E), jnp.asarray(t), bias=_j(bias), gt=_j(gt),
+        item_tile=128, interpret=True)))
+
+
+def test_id_base_zero_is_the_whole_catalog_and_negative_raises():
+    u, E, t, bias, gt = _inputs(6, 8, 4, 50, True)
+    args = (_t(u), _t(E), _t(t))
+    np.testing.assert_array_equal(
+        rank_positions_dot(*args, bias=_t(bias), gt=_t(gt), id_base=0).numpy(),
+        rank_positions_dot(*args, bias=_t(bias), gt=_t(gt)).numpy())
+    with pytest.raises(ValueError, match="id_base"):
+        rank_positions_dot(*args, id_base=-1)
