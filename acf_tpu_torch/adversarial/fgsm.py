@@ -28,6 +28,12 @@ addend is the base's aux ``loss``, the JAX package's convention, through
 ``base.primary_loss`` (SASRec's aux values are detached: it returns its
 loss).
 
+Under a mesh (:func:`~acf_tpu_torch.models.base.data_parallel`, which
+copies the base too) the base's losses are this data rank's shares, so the
+added adversarial loss is one too, and each direction is row-normalized
+from the table gradient summed over the data ranks, as one device takes it
+from the global batch.
+
 A base's own epoch is not delegated, as in the JAX package: a sequence
 model that brings one (Caser's sliding windows) trains under the wrapper
 through the trainer's sequence epoch. A pair model's own epoch (APL's
@@ -104,8 +110,9 @@ class FGSMAdversarial(PairwiseModel):
         UNREGULARIZED loss, as APR linearizes on its raw BPR loss,
         evaluation_adv.py:162 vs 192-203) at the perturbed point, each row
         projected into the ε-ball. Each gradient is taken on detached
-        copies with the other leaves constant; ``masks`` (the clean pass's
-        dropout masks) go to the linearization when given."""
+        copies with the other leaves constant, and summed over the data
+        ranks before the row normalize; ``masks`` (the clean pass's dropout
+        masks) go to the linearization when given."""
         names = self._leaf_names(params)
         fixed = tree_map(lambda x: x.detach(), params)
         alpha = self.eps / self.adv_steps
@@ -121,9 +128,19 @@ class FGSMAdversarial(PairwiseModel):
                                               **({} if masks is None else {"masks": masks})),
                     wanted, allow_unused=True)
             delta = {k: project_rows(delta[k] + alpha * row_normalize(
-                torch.zeros_like(w) if gk is None else gk), self.eps)
+                self.data_sum(torch.zeros_like(w) if gk is None else gk)), self.eps)
                 for k, w, gk in zip(names, wanted, g)}
         return delta
+
+    def train_masks(self, generator, batch):
+        """The clean pass's masks, then the perturbed pass's: a base with
+        ``dropout_masks`` gets both drawn up front (:meth:`loss`), any other
+        base draws its own in each of its two loss calls."""
+        draw = getattr(self.base, "dropout_masks", None)
+        if draw is not None:
+            return draw(generator, batch), draw(generator, batch)
+        return self.base.train_masks(generator, batch)[0], self.base.train_masks(
+            generator, batch)[0]
 
     def loss(self, params, batch, generator=None, masks=None, adv_masks=None):
         """The base loss plus ``reg_adv`` times the base's primary,

@@ -25,6 +25,13 @@ discriminators' gradient the embeddings.
 
 Scoring, the loss and the factored scorer delegate to the base, so AMF and
 ABPR evaluate through K1 and ANeuMF through the dense path.
+
+Under a mesh (``make_epoch_fn(..., mesh=)`` on the data-parallel copy) every
+rank draws the global batch, its negatives, the pools' ids and the
+label-swapped halves, and takes its data rank's rows of each (of the halves
+joined end to end, so their labels go with them); each player's loss is the
+rank's share and each player's gradient is summed over the data ranks
+before its update.
 """
 
 from __future__ import annotations
@@ -43,7 +50,7 @@ from acf_tpu_torch.sampling.negatives import (
     negatives_from_draws, sample_pair_epoch, uniform_negatives,
 )
 from acf_tpu_torch.train.optim import adam, grad_update
-from acf_tpu_torch.train.trainer import _add_stats, _mean_stats
+from acf_tpu_torch.train.trainer import _add_stats, _data_parallel, _mean_stats
 from acf_tpu_torch.utils.tree import tree_map
 
 # the discriminator step's pool draws, [B] each, and the recommender step's
@@ -94,9 +101,16 @@ class PopularityAdversarial(PairwiseModel):
     def __post_init__(self):
         if not hasattr(self.base, "adv_encoders"):
             raise ValueError(f"{type(self.base).__name__} does not expose adv_encoders()")
-        self.encoders = self.base.adv_encoders()
         if hasattr(self.base, "eval_batch_users"):
             self.eval_batch_users = self.base.eval_batch_users
+
+    @property
+    def encoders(self):
+        """The base's ``adv_encoders()``, cached on the instance (and left
+        out when it pickles: they are closures)."""
+        if not hasattr(self, "_encoders"):
+            self._encoders = self.base.adv_encoders()
+        return self._encoders
 
     # -- params -------------------------------------------------------------
     def init_params(self, generator: torch.Generator, device=None):
@@ -151,52 +165,61 @@ class PopularityAdversarial(PairwiseModel):
     def _enc_ids(self, kind, ids):
         return ids["u" if kind == "user" else "i"]
 
+    def _bce(self, logits, labels):
+        return self.data_share(_bce_with_logits(logits, labels))
+
     def disc_loss(self, disc_params, base_params, pop_ids, rare_ids):
         """Mean BCE of every discriminator on the popular (label 1) and the
-        rare (label 0) embeddings, held constant."""
+        rare (label 0) embeddings, held constant (under a mesh, the rank's
+        share)."""
         total = 0.0
         for name, (kind, enc, _) in self.encoders.items():
             pop = enc(base_params, self._enc_ids(kind, pop_ids)).detach()
             rare = enc(base_params, self._enc_ids(kind, rare_ids)).detach()
             dp = disc_params[name]
-            total = total + _bce_with_logits(disc_forward(dp, pop), torch.ones_like(pop[:, 0]))
-            total = total + _bce_with_logits(disc_forward(dp, rare), torch.zeros_like(rare[:, 0]))
+            total = total + self._bce(disc_forward(dp, pop), torch.ones_like(pop[:, 0]))
+            total = total + self._bce(disc_forward(dp, rare), torch.zeros_like(rare[:, 0]))
         return total / (2 * len(self.encoders))
 
     def rec_loss(self, base_params, disc_params, batch, adv_ids, generator=None):
         """The base's loss plus ``weight`` times every discriminator's BCE
         on swapped labels (the popular half labelled 0, the rare half 1;
-        reference MF.py:179-189), the discriminators held constant. Returns
-        (loss, the base's aux)."""
+        reference MF.py:179-189), the discriminators held constant. Under a
+        mesh ``adv_ids`` are this data rank's rows of the two halves joined
+        end to end, and so are the labels. Returns (loss, the base's aux)."""
         main, aux = self.base.loss(base_params, batch, generator)
         adv = 0.0
         for name, (kind, enc, _) in self.encoders.items():
             ids = self._enc_ids(kind, adv_ids)
-            half = ids.shape[0] // 2
-            y = torch.cat([torch.zeros(half, device=ids.device),
-                           torch.ones(half, device=ids.device)])
+            n = self.data_count(ids.shape[0])
+            y = torch.cat([torch.zeros(n // 2, device=ids.device),
+                           torch.ones(n // 2, device=ids.device)])
+            if self.data_mesh is not None:
+                y = y[self.data_mesh.rows(n)]
             dp = tree_map(lambda x: x.detach(), disc_params[name])
-            adv = adv + _bce_with_logits(disc_forward(dp, enc(base_params, ids)), y)
+            adv = adv + self._bce(disc_forward(dp, enc(base_params, ids)), y)
         return main + self.weight * adv, aux
 
     def train_step(self, optimizer, params, opt_state, batch, pop_ids, rare_ids, adv_ids,
-                   generator=None):
+                   generator=None, reduce=None):
         """One step: the discriminators' Adam step on the pools' ids, then
-        the recommender's ``optimizer`` step. Returns (params, opt_state,
-        aux with ``d_loss``)."""
+        the recommender's ``optimizer`` step, each gradient through
+        ``reduce`` when given (the sum over the data ranks). Returns
+        (params, opt_state, aux with ``d_loss``)."""
         disc_new, d_opt, d_loss, _ = grad_update(
             self.disc_optimizer(), params["disc"], opt_state["disc"],
-            lambda dp: (self.disc_loss(dp, params["base"], pop_ids, rare_ids), None))
+            lambda dp: (self.disc_loss(dp, params["base"], pop_ids, rare_ids), None), reduce)
         disc_for_g = params["disc"] if self.simultaneous else disc_new
         base_new, b_opt, _, aux = grad_update(
             optimizer, params["base"], opt_state["base"],
-            lambda bp: self.rec_loss(bp, disc_for_g, batch, adv_ids, generator))
+            lambda bp: self.rec_loss(bp, disc_for_g, batch, adv_ids, generator), reduce)
         aux = dict(aux)
         aux["d_loss"] = d_loss
         return {"base": base_new, "disc": disc_new}, {"base": b_opt, "disc": d_opt}, aux
 
     # -- the epoch ----------------------------------------------------------
-    def make_epoch_fn(self, optimizer, batch_size: int, num_batches: int, dev=None):
+    def make_epoch_fn(self, optimizer, batch_size: int, num_batches: int, dev=None,
+                      mesh=None):
         """``epoch_fn(params, opt_state, data, generator, batches=None,
         cands=None, draws=None) -> (params, opt_state, stats)``. Per step,
         in the JAX package's order: the negatives, the four pool draws of
@@ -206,8 +229,17 @@ class PopularityAdversarial(PairwiseModel):
         ``cands`` [num_batches, R, batch_size] (negative candidates) and
         ``draws`` (a dict of index draws into the pools, ``POOL_DRAWS`` [num_batches,
         batch_size] and ``ADV_DRAWS`` [num_batches, batch_size // 2])
-        replace the draws from ``generator`` when given."""
+        replace the draws from ``generator`` when given. With ``mesh``
+        (``self`` then :func:`~acf_tpu_torch.models.base.data_parallel`'s
+        copy) each step takes this data rank's rows of every draw, so both
+        ``batch_size`` and ``batch_size // 2`` must divide over the data
+        axis."""
         half = batch_size // 2
+        rows, reduce = _data_parallel(mesh, batch_size)
+        if mesh is not None and half % mesh.shape["data"]:
+            raise ValueError(f"the label-swapped halves of {half} ids (batch {batch_size} // 2) "
+                             f"do not divide over a {mesh.shape['data']}-way data axis")
+        adv_rows = rows if mesh is None else mesh.rows(2 * half)
 
         def draw(data, generator, draws, step, name, pool, n):
             if draws is not None:
@@ -228,19 +260,19 @@ class PopularityAdversarial(PairwiseModel):
                 hist_rows = data["hist"][u]
                 neg = (uniform_negatives(generator, hist_rows, self.num_items) if cands is None
                        else negatives_from_draws(cands[step], hist_rows))
-                ids = {name: draw(data, generator, draws, step, name, pool, batch_size)
+                ids = {name: draw(data, generator, draws, step, name, pool, batch_size)[rows]
                        for name, pool in POOL_DRAWS}
                 pop_ids = {"u": ids["pop_u"], "i": ids["pop_i"]}
                 rare_ids = {"u": ids["rare_u"], "i": ids["rare_i"]}
                 # the recommender's draws (the discriminator step draws nothing)
                 adv = {name: draw(data, generator, draws, step, name, pool, half)
                        for name, pool in ADV_DRAWS}
-                adv_ids = {"u": torch.cat([adv["adv_pop_u"], adv["adv_rare_u"]]),
-                           "i": torch.cat([adv["adv_pop_i"], adv["adv_rare_i"]])}
+                adv_ids = {"u": torch.cat([adv["adv_pop_u"], adv["adv_rare_u"]])[adv_rows],
+                           "i": torch.cat([adv["adv_pop_i"], adv["adv_rare_i"]])[adv_rows]}
                 params, opt_state, aux = self.train_step(
-                    optimizer, params, opt_state, (u, pos, neg), pop_ids, rare_ids, adv_ids,
-                    generator)
+                    optimizer, params, opt_state, (u[rows], pos[rows], neg[rows]), pop_ids,
+                    rare_ids, adv_ids, generator, reduce)
                 _add_stats(sums, aux)
-            return params, opt_state, _mean_stats(sums, num_batches)
+            return params, opt_state, _mean_stats(sums, num_batches, mesh)
 
         return epoch_fn

@@ -11,13 +11,13 @@ hyperparameters and optimizers:
   gru4rec dream dream-tf caser drcf dsin irgan pop mrv mfv av
 
 (``bpr``, ``bpr-tf`` and ``apr`` with ``--sparse`` on the row-space step)
-and refuses, with the ROADMAP item that ports it, each flag it does not
-have yet (``refuse_unported``: ``--mesh`` for a model outside ``MESH_MODELS``
-or under ``--fgsm``, ``--train_dtype bfloat16``): nothing falls back to
-another model or to the CPU.
+and refuses, with the ROADMAP item that ports it, the one flag it does not
+have yet (``refuse_unported``: ``--train_dtype bfloat16``): nothing falls
+back to another model or to the CPU.
 
-``--mesh DATAxMODEL`` trains data-parallel over ``torch.distributed`` ranks,
-one process a rank, and evaluates sharded over both axes
+``--mesh DATAxMODEL`` trains any of them (``--fgsm`` and ``--sparse`` too)
+data-parallel over ``torch.distributed`` ranks, one process a rank, and
+evaluates factored models sharded over both axes
 (:mod:`acf_tpu_torch.parallel`). Under ``torchrun`` the ranks come from its
 environment; without it only ``1x1`` runs, in a group of one process. Only
 rank 0 writes the ``.out``/``.hr``/``.ndcg`` files and the snapshots::
@@ -45,23 +45,19 @@ import torch
 
 from acf_tpu_torch.data import load_dataset
 from acf_tpu_torch.device import resolve_device
-from acf_tpu_torch.parallel.mesh import ITEM_18
 from acf_tpu_torch.train import TrainConfig, Trainer, adagrad, adam, fit_two_phase, sgd
 from acf_tpu_torch.train.checkpoint import save_params
 from acf_tpu_torch.train.trainer import profiled
 from acf_tpu_torch.utils.io import OutputWriter
 
-# Flags of the JAX CLI that the port does not have yet, and the ROADMAP item
-# (Queue 1) that ports them (ITEM_18, the bespoke models under --mesh, comes
-# from acf_tpu_torch.parallel.mesh). The labels are stable: ROADMAP.md lists
-# them and the tests match them.
+# The flag of the JAX CLI that the port does not have yet, and the ROADMAP
+# item (Queue 1) that ports it. The label is stable: ROADMAP.md lists it and
+# the tests match it.
 ITEM_14 = "ROADMAP Queue 1, item 14 ('Full CLI flag union')"
 PORTED_MODELS = ("mf", "bpr", "bpr-tf", "apr", "amf", "amf2", "abpr", "neumf", "aneumf",
                  "sasrec", "asasrec", "asasrec2", "apl", "gru4rec", "dream", "dream-tf",
                  "caser", "drcf", "dsin", "irgan", "pop", "mrv", "mfv", "av")
 NAIVE_MODELS = ("pop", "mrv", "mfv", "av")
-# models that train under --mesh (with --sparse too, for bpr, bpr-tf and apr)
-MESH_MODELS = ("mf", "bpr", "bpr-tf", "apr", "sasrec", "asasrec", "asasrec2")
 # models that --fgsm cannot wrap: already adversarial, or no embedding tables
 NOT_WRAPPABLE = ("amf", "amf2", "abpr", "aneumf", "irgan", "apl") + NAIVE_MODELS
 
@@ -155,8 +151,8 @@ def build_parser():
                    help="DATAxMODEL mesh of torch.distributed ranks (e.g. 2x1: the batch split "
                         "2-way over \"data\"; 1x2: the item table's rows 2-way over \"model\" "
                         "in evaluation, and the sparse step's tables): one process a rank, "
-                        "started by torchrun; without it only 1x1. For " + ", ".join(MESH_MODELS)
-                        + " and --sparse; other models: " + ITEM_18)
+                        "started by torchrun; without it only 1x1. Every model, with --fgsm "
+                        "and --sparse too")
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device to train and evaluate on (default cuda; raises "
                         "without a GPU unless cpu is asked)")
@@ -170,9 +166,6 @@ def _not_ported(what, item):
 def refuse_unported(args):
     """SystemExit naming the flag and the ROADMAP item that ports it, for
     anything of the JAX CLI the port does not have yet."""
-    if args.mesh and (args.model not in MESH_MODELS or args.fgsm):
-        what = f"--mesh {args.mesh} with --model {args.model}" + (" --fgsm" if args.fgsm else "")
-        raise _not_ported(what, ITEM_18)
     if args.train_dtype == "bfloat16":
         raise _not_ported("--train_dtype bfloat16", ITEM_14)
 

@@ -21,6 +21,19 @@ The JAX package's formulation switches (``manual_gen``, ``fused_gen``,
 ``remat_gen``) and its cap on fused epochs (``max_fuse_epochs``, a TPU
 runtime workaround, ``docs/APL_RUNTIME_CRASH.md``) are not ported: the port
 has one path and dispatches one epoch at a time.
+
+Under a mesh (``make_epoch_fn(..., mesh=)`` on the data-parallel copy) every
+rank draws the global batch and its [B, I] uniforms and takes its data
+rank's rows: the critic's means are the rank's shares (its l2 term sums the
+rank's own rows) and its gradient is summed over the data ranks before the
+update, so the wgan clip acts on the same params everywhere. The generator
+step runs K3a–K3e on the rank's B/dp users, as one device runs them on B:
+K3a–K3d are per user, and K3e's Q_g gradient, a sum over users, is a
+partial that is summed over the data ranks with the scattered P_g rows. The
+whole-table terms (``reg_g`` times Q_g, and half of its squared norm in the
+loss) are added once, after the sum or as a share. The JAX package takes its
+autodiff generator under a mesh; this is the same closed form as on one
+device.
 """
 
 from __future__ import annotations
@@ -32,8 +45,10 @@ import torch
 from acf_tpu_torch.device import resolve_device
 from acf_tpu_torch.models.base import PairwiseModel, scatter_rows, softplus
 from acf_tpu_torch.ops.apl_gen_fused import EPS, NEG, apl_gen_backward, apl_gen_forward
+from acf_tpu_torch.parallel.mesh import all_reduce_tree
 from acf_tpu_torch.sampling.negatives import sample_pair_epoch
 from acf_tpu_torch.train.optim import grad_update, sgd
+from acf_tpu_torch.train.trainer import _data_parallel, _mean_stats
 from acf_tpu_torch.utils.tree import tree_map
 
 
@@ -121,20 +136,26 @@ class APL(PairwiseModel):
         g = params["g"]
         ps = torch.sum(g["P"][users] * g["Q"][pos], dim=-1)
         ns = torch.sum(g["P"][users] * g["Q"][neg], dim=-1)
-        loss = torch.mean(softplus(-(ps - ns)))
-        return loss, {"loss": loss, "acc": torch.mean((ps > ns).to(torch.float32))}
+        loss = self.data_share(torch.mean(softplus(-(ps - ns))))
+        return loss, {"loss": loss,
+                      "acc": self.data_share(torch.mean((ps > ns).to(torch.float32)))}
 
     def _losses(self, real, fake, g_l2, c_l2):
-        """(gen_loss, critic_loss) per APL.py:157-184."""
+        """(gen_loss, critic_loss) per APL.py:157-184; under a mesh each mean
+        over the batch is the rank's share (the l2 terms are as given)."""
         y = real - fake
+
+        def mean(x):
+            return self.data_share(torch.mean(x))
+
         if self.loss_function == "wgan":
-            return -torch.mean(fake) + self.reg_g * g_l2, torch.mean(-y)
+            return -mean(fake) + self.reg_g * g_l2, mean(-y)
         if self.loss_function == "hinge":
-            hinge = torch.mean(torch.clamp(1.0 - y, min=0.0))
+            hinge = mean(torch.clamp(1.0 - y, min=0.0))
             return -hinge + self.reg_g * g_l2, hinge + self.reg_c * c_l2
         # log loss (stable): log σ(y) = −softplus(−y)
-        return (torch.mean(-softplus(-y)) + self.reg_g * g_l2,
-                torch.mean(softplus(-y)) + self.reg_c * c_l2)
+        return (mean(-softplus(-y)) + self.reg_g * g_l2,
+                mean(softplus(-y)) + self.reg_c * c_l2)
 
     # -- the two steps -------------------------------------------------------------
     def critic_loss(self, c_params, g_params, users, items, u):
@@ -157,11 +178,13 @@ class APL(PairwiseModel):
                 + torch.sum(torch.square(fake_emb))) / 2
         return self._losses(real, fake, 0.0, c_l2)[1]
 
-    def critic_step(self, c_params, c_state, g_params, users, items, u):
-        """One SGD step of the critic; returns (c_params, c_state, loss)."""
+    def critic_step(self, c_params, c_state, g_params, users, items, u, reduce=None):
+        """One SGD step of the critic, its gradient through ``reduce`` when
+        given (the sum over the data ranks); returns (c_params, c_state,
+        loss)."""
         c_params, c_state, loss, _ = grad_update(
             sgd(self.lr), c_params, c_state,
-            lambda prm: (self.critic_loss(prm, g_params, users, items, u), None))
+            lambda prm: (self.critic_loss(prm, g_params, users, items, u), None), reduce)
         if self.loss_function == "wgan":
             c_params = tree_map(lambda x: torch.clamp(x, -0.05, 0.05), c_params)
         return c_params, c_state, loss
@@ -170,7 +193,10 @@ class APL(PairwiseModel):
         """The generator's loss and gradients ``{"P", "Q"}`` on one batch
         against the fixed critic (``gen_step_manual``'s closed form), with
         the Gumbel noise ``gnoise`` [B, I]: K3a–K3c, a = ∂L/∂fake through
-        the [B] loss head, K3d–K3e."""
+        the [B] loss head, K3d–K3e. Under a mesh the B rows are this data
+        rank's, the loss is its share and the gradients are the global
+        batch's: the scattered P rows and K3e's Q partial summed over the
+        data ranks, then ``reg_g`` times the whole Q added once."""
         w, T = self.p_aux_weight, self.temperature
         pu_g = g_params["P"][users]
         Qg = g_params["Q"]
@@ -185,12 +211,16 @@ class APL(PairwiseModel):
             g_main = self._losses(real, f, 0.0, 0.0)[0]
             (a,) = torch.autograd.grad(g_main, f)
         dP_rows, dQ = apl_gen_backward(pu_g, pu_c, nuniq, a, res, w=w, temperature=T)
-        gP = scatter_rows(g_params["P"].shape[0], users, dP_rows + self.reg_g * pu_g)
-        gQ = dQ + self.reg_g * Qg
-        g_l2 = (torch.sum(torch.square(pu_g)) + torch.sum(torch.square(Qg))) / 2
-        return g_main.detach() + self.reg_g * g_l2, {"P": gP, "Q": gQ}
+        grads = {"P": scatter_rows(g_params["P"].shape[0], users, dP_rows + self.reg_g * pu_g),
+                 "Q": dQ}
+        if self.data_mesh is not None:
+            grads = all_reduce_tree(self.data_mesh, grads, "data")
+        grads["Q"] = grads["Q"] + self.reg_g * Qg
+        g_l2 = (torch.sum(torch.square(pu_g)) + self.data_share(torch.sum(torch.square(Qg)))) / 2
+        return g_main.detach() + self.reg_g * g_l2, grads
 
-    def make_epoch_fn(self, optimizer, batch_size: int, num_batches: int, dev=None):
+    def make_epoch_fn(self, optimizer, batch_size: int, num_batches: int, dev=None,
+                      mesh=None):
         """``epoch_fn(params, opt_state, data, generator, batches=None,
         critic_u=None, gen_u=None) -> (params, opt_state, stats)``: every
         critic step on the epoch's batches with the generator fixed, then
@@ -199,7 +229,11 @@ class APL(PairwiseModel):
         ``gen_u`` [num_batches, B, I] replace the draws from ``generator``
         when given; otherwise each step draws its [B, I] uniforms when it
         runs. Stats: the mean generator ``loss``, the mean critic
-        ``d_loss`` and ``acc`` 0, as the JAX epoch reports them."""
+        ``d_loss`` and ``acc`` 0, as the JAX epoch reports them. With
+        ``mesh`` (``self`` then :func:`~acf_tpu_torch.models.base.
+        data_parallel`'s copy) the batches and uniforms are the global
+        batch's and each step takes this data rank's rows."""
+        rows, reduce = _data_parallel(mesh, batch_size)
 
         def epoch_fn(params, opt_state, data, generator, batches=None, critic_u=None,
                      gen_u=None):
@@ -212,24 +246,25 @@ class APL(PairwiseModel):
             if batches is None:
                 batches = sample_pair_epoch(generator, data["pairs_u"].shape[0], batch_size,
                                             num_batches)
-            steps = [(data["pairs_u"][idx], data["pairs_i"][idx]) for idx in batches]
+            steps = [(data["pairs_u"][idx[rows]], data["pairs_i"][idx[rows]])
+                     for idx in batches]
             g_params, c_params = params["g"], params["c"]
             g_state, c_state = opt_state["g"], opt_state["c"]
             d_loss = 0.0
             for step, (u, i) in enumerate(steps):
                 c_params, c_state, cl = self.critic_step(
-                    c_params, c_state, g_params, u, i, uniforms(critic_u, step))
+                    c_params, c_state, g_params, u, i, uniforms(critic_u, step)[rows], reduce)
                 d_loss = d_loss + cl
             opt = sgd(self.lr)
             g_loss = 0.0
             with torch.no_grad():
                 for step, (u, i) in enumerate(steps):
                     gl, grads = self.gen_step(g_params, c_params, u, i, data["hist"][u],
-                                              gumbel(uniforms(gen_u, step)))
+                                              gumbel(uniforms(gen_u, step)[rows]))
                     g_params, g_state = opt.update(grads, g_state, g_params)
                     g_loss = g_loss + gl
-            stats = (torch.stack([g_loss, d_loss]) / num_batches).cpu().tolist()
+            stats = _mean_stats({"loss": g_loss, "d_loss": d_loss}, num_batches, mesh)
             return ({"g": g_params, "c": c_params}, {"g": g_state, "c": c_state},
-                    {"loss": stats[0], "d_loss": stats[1], "acc": 0.0})
+                    dict(stats, acc=0.0))
 
         return epoch_fn

@@ -92,6 +92,30 @@ class PairwiseModel:
             self.data_mesh.all_reduce(x.view(-1), "data")
         return x
 
+    def data_count(self, n: int) -> int:
+        """``n``, this data rank's count of rows, as the global batch's
+        (every data rank holds as many rows): a batch factor of a loss."""
+        return n if self.data_mesh is None else n * self.data_mesh.shape["data"]
+
+    def data_gather(self, x):
+        """The global batch's rows of ``x``, this data rank's rows [n, ...]
+        (``x`` itself on one device): one ``all_reduce`` of zeros that hold
+        each rank's rows at its place."""
+        if self.data_mesh is None:
+            return x
+        mesh = self.data_mesh
+        out = x.new_zeros((self.data_count(x.shape[0]),) + tuple(x.shape[1:]))
+        out[mesh.rows(out.shape[0])] = x
+        return mesh.all_reduce(out, "data")
+
+    def train_masks(self, generator, batch):
+        """(masks, adv_masks): the dropout masks that one call of the
+        training loss on ``batch`` draws from ``generator``, in its order
+        (the training pass's, then an adversarial pass's), None where it
+        draws none. The mesh epochs draw them for the global batch and hand
+        each data rank its rows."""
+        return None, None
+
     def init_params(self, generator: torch.Generator, device=None):
         raise NotImplementedError
 
@@ -134,11 +158,15 @@ def data_parallel(model, mesh):
     """A copy of ``model`` whose losses are one data rank's share of the
     loss of the global batch, so that the shares of the ranks sum to the
     single-device loss (a sum stays a sum over the rank's rows, a mean over
-    the batch is divided by the data-axis size, and a count that normalises
-    a loss is summed over the ranks first), and whose FGSM directions come
-    from the table gradients summed over the data ranks."""
+    the batch is divided by the data-axis size, a count that normalises a
+    loss is summed over the ranks first, and a batch factor is the global
+    batch's), and whose FGSM directions come from the table gradients
+    summed over the data ranks. A wrapped ``base`` (the FGSM wrapper's, the
+    popularity adversaries') is copied the same way."""
     out = copy.copy(model)
     out.data_mesh = mesh
+    if getattr(model, "base", None) is not None:
+        out.base = data_parallel(model.base, mesh)
     return out
 
 

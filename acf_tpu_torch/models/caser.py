@@ -35,7 +35,7 @@ from acf_tpu_torch.sampling.negatives import (
     negatives_from_draws, sample_pair_epoch, uniform_negatives,
 )
 from acf_tpu_torch.train.optim import grad_update
-from acf_tpu_torch.train.trainer import _add_stats, _mean_stats
+from acf_tpu_torch.train.trainer import _add_stats, _data_parallel, _mean_stats
 from acf_tpu_torch.utils.tree import tree_map
 
 
@@ -117,14 +117,16 @@ class Caser(SequenceModel):
     def loss(self, params, batch, generator=None, masks=None):
         """−mean log σ(pos) − mean log(1 − σ(neg)) (Caser.py:152-158) on
         ``(users, seq [B, L], pos [B, M], neg [B, M])``, dropout from
-        ``masks`` or ``generator``."""
+        ``masks`` or ``generator``. Under a mesh this data rank's share: the
+        positives' count is the global batch's."""
         users, seq, pos, neg = batch
         x = self._user_repr(params, seq, users, train=True, generator=generator, masks=masks)
         pos_s = self._item_scores(params, x, pos)
         neg_s = self._item_scores(params, x, neg)
         pos_valid = (pos != 0).to(torch.float32)
-        n_pos = torch.clamp(pos_valid.sum(), min=1.0)
-        loss = torch.sum(softplus(-pos_s) * pos_valid) / n_pos + torch.mean(softplus(neg_s))
+        n_pos = torch.clamp(self.data_sum(pos_valid.sum()), min=1.0)  # the global count
+        loss = (torch.sum(softplus(-pos_s) * pos_valid) / n_pos
+                + self.data_share(torch.mean(softplus(neg_s))))
         acc = torch.sum((pos_s > neg_s) * pos_valid) / n_pos
         return loss, {"loss": loss, "acc": acc}
 
@@ -152,7 +154,7 @@ class Caser(SequenceModel):
             tgts = np.stack(tgt_l).astype(np.int32)
         return {"win_seq": seqs, "win_user": users, "win_pos": tgts}
 
-    def make_epoch_fn(self, optimizer, batch_size: int, num_batches: int, dev):
+    def make_epoch_fn(self, optimizer, batch_size: int, num_batches: int, dev, mesh=None):
         """``epoch_fn(params, opt_state, data, generator, batches=None,
         cands=None, masks=None) -> (params, opt_state, stats)`` over the
         windows of ``dev``: ``max(n_windows // batch_size, 1)`` steps
@@ -163,9 +165,14 @@ class Caser(SequenceModel):
         mask. ``batches`` [steps, batch_size] (window indices), ``cands``
         [steps, target_len, R, batch_size] (negative candidates) and
         ``masks`` [steps, batch_size, num_features] replace the draws from
-        ``generator`` when given, which come in that order within a step."""
+        ``generator`` when given, which come in that order within a step.
+        With ``mesh`` (``self`` then :func:`~acf_tpu_torch.models.base.
+        data_parallel`'s copy) the draws are the global batch's, each step
+        takes this data rank's rows and the gradients are summed over the
+        data ranks."""
         n_windows = int(dev["win_seq"].shape[0])
         steps = max(n_windows // batch_size, 1)
+        rows, reduce = _data_parallel(mesh, batch_size)
 
         def epoch_fn(params, opt_state, data, generator, batches=None, cands=None,
                      masks=None):
@@ -184,11 +191,12 @@ class Caser(SequenceModel):
                     negs = [negatives_from_draws(c, hist_rows) for c in cands[step]]
                 batch = (users, seq, pos, torch.stack(negs, dim=1))
                 m = self.dropout_masks(generator, batch) if masks is None else masks[step]
+                batch = tuple(x[rows] for x in batch)
                 params, opt_state, _, aux = grad_update(
                     optimizer, params, opt_state,
-                    lambda prm: self.loss(prm, batch, masks=m))
+                    lambda prm: self.loss(prm, batch, masks=m[rows]), reduce)
                 _add_stats(sums, aux)
-            return params, opt_state, _mean_stats(sums, steps)
+            return params, opt_state, _mean_stats(sums, steps, mesh)
 
         epoch_fn.num_batches = steps
         return epoch_fn

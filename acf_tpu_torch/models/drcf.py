@@ -111,7 +111,7 @@ class DRCF(SequenceModel):
         pos_s = self._predict(params, dyn, us, pos)
         neg_s = self._predict(params, dyn, us, neg)
         ist = (pos != 0).to(torch.float32)
-        n = torch.clamp(ist.sum(), min=1.0)
+        n = torch.clamp(self.data_sum(ist.sum()), min=1.0)  # the global count
         loss = torch.sum((1.0 + softplus(-(pos_s - neg_s))) * ist) / n
         acc = torch.sum((pos_s > neg_s) * ist) / n
         return loss, {"loss": loss, "acc": acc}

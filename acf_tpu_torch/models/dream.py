@@ -44,7 +44,7 @@ class DREAM(SequenceModel):
         pos_s = torch.sum(hs * params["emb"][pos], -1)
         neg_s = torch.sum(hs * params["emb"][neg], -1)
         ist = (pos != 0).to(torch.float32)
-        n = torch.clamp(ist.sum(), min=1.0)
+        n = torch.clamp(self.data_sum(ist.sum()), min=1.0)  # the global count
         # BCE(σ(pos − neg), 1) = softplus(−(pos − neg)) (DREAM.py:30-41)
         loss = torch.sum(softplus(-(pos_s - neg_s)) * ist) / n
         acc = torch.sum((pos_s > neg_s) * ist) / n

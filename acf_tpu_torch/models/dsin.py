@@ -126,6 +126,10 @@ class DSIN(SequenceModel):
         return [torch.rand(shape, generator=generator, device=generator.device)
                 < 1.0 - self.dropout for _ in range(3)]
 
+    def train_masks(self, generator, batch):
+        """The DNN's masks of one training pass (none without dropout)."""
+        return (self.dropout_masks(generator, batch) if self.dropout > 0.0 else None), None
+
     def _head(self, params, users, interests, items, train: bool = False, generator=None,
               masks=None):
         """Logits [B, M] of ``items`` [B, M] given the session interests;
@@ -161,7 +165,7 @@ class DSIN(SequenceModel):
                             torch.stack([pos_t, neg_t], dim=1), train=True,
                             generator=generator, masks=masks)  # [B, 2]
         valid = (pos_t != 0).to(torch.float32)
-        n = torch.clamp(valid.sum(), min=1.0)
+        n = torch.clamp(self.data_sum(valid.sum()), min=1.0)  # the global count
         if self.loss_type == "bpr":
             per = softplus(-(logits[:, 0] - logits[:, 1]))
         else:
@@ -175,7 +179,7 @@ class DSIN(SequenceModel):
             reg = (torch.sum(torch.square(params["user_emb"][users]))
                    + torch.sum(torch.square(emb[seq])) + torch.sum(torch.square(emb[pos_t]))
                    + torch.sum(torch.square(emb[neg_t])))
-            loss = loss + self.l2_emb * reg / max(float(users.shape[0]), 1.0)
+            loss = loss + self.l2_emb * reg / max(float(self.data_count(users.shape[0])), 1.0)
         return loss, {"loss": loss, "acc": acc}
 
     def score_all(self, params, users, hists):

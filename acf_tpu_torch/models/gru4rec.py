@@ -81,21 +81,27 @@ class GRU4Rec(SequenceModel):
 
     def loss(self, params, batch, generator=None):
         """Loss over the in-batch logits [T, B, B]; ``neg`` is unused (the
-        other rows' targets are the negatives). Draws nothing."""
+        other rows' targets are the negatives). Draws nothing. Under a mesh
+        the rows are this data rank's and the candidate columns the global
+        batch's targets (:meth:`data_gather`), so each (row, column) pair of
+        the global batch is counted on one rank, against the global
+        counts."""
         users, seq, pos, neg = batch
-        hs = self._hidden_states(params, seq)  # [B, T, d]
-        b = hs.shape[0]
-        w = params["W"][pos]  # [B, T, d] target output embeddings
-        bias = params["b"][pos]  # [B, T]
+        hs = self._hidden_states(params, seq)  # [B, T, d] (this rank's rows)
+        cols = self.data_gather(pos)  # [B_global, T]: the candidate targets
+        b = cols.shape[0]
+        start = 0 if self.data_mesh is None else self.data_mesh.rows(b).start
+        w = params["W"][cols]  # [B_global, T, d] target output embeddings
+        bias = params["b"][cols]  # [B_global, T]
         # yhat[t, i, j] = h_i(t) · w_j(t) + b_j(t)
         yhat = self._act(torch.einsum("itd,jtd->tij", hs, w) + bias.T[:, None, :])
         valid = (pos != 0).T  # [T, B]
         # a (step, row) counts iff its own target is valid; the candidate
         # columns are the valid targets of the same step
-        pair_ok = valid[:, None, :] & valid[:, :, None]  # [T, i, j]
-        n_pairs = torch.clamp(pair_ok.sum().to(torch.float32), min=1.0)
-        n_valid = torch.clamp(valid.sum().to(torch.float32), min=1.0)
-        diag = torch.diagonal(yhat, dim1=1, dim2=2)  # [T, B]
+        pair_ok = (cols != 0).T[:, None, :] & valid[:, :, None]  # [T, i, j]
+        n_pairs = torch.clamp(self.data_sum(pair_ok.sum().to(torch.float32)), min=1.0)
+        n_valid = torch.clamp(self.data_sum(valid.sum().to(torch.float32)), min=1.0)
+        diag = torch.diagonal(yhat, offset=start, dim1=1, dim2=2)  # [T, B]: row i's own target
         if self.loss_type == "bpr":
             lt = -torch.log(torch.sigmoid(diag[:, :, None] - yhat) + 1e-24)
             loss = torch.sum(lt * pair_ok) / n_pairs
@@ -105,7 +111,7 @@ class GRU4Rec(SequenceModel):
             loss = torch.sum(term * pair_ok) / n_pairs - torch.sum(corr * valid) / n_valid
         else:  # cross-entropy over the in-batch targets
             logp = torch.log_softmax(torch.where(pair_ok, yhat, -1e9), dim=-1)
-            ld = -torch.diagonal(logp, dim1=1, dim2=2)
+            ld = -torch.diagonal(logp, offset=start, dim1=1, dim2=2)
             loss = torch.sum(ld * valid) / n_valid
         acc = torch.sum((diag[:, :, None] > yhat) & pair_ok) / n_pairs
         return loss, {"loss": loss, "acc": acc}

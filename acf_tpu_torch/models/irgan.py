@@ -20,6 +20,13 @@ from G's distribution and a uniform position of the user's history. The
 pad item 0 gets no mass: its logit is −1e30 in G's softmax. The draws are
 plain PyTorch on the device, one [B, I] product of G a step (and the
 [B, 2, I] noise of the G step); the JAX package has no kernel here either.
+
+Under a mesh (``make_epoch_fn(..., mesh=)`` on the data-parallel copy)
+every rank draws the global batch and all of its noise, takes its data
+rank's rows, and sums each player's gradient over the data ranks before the
+update. D's loss is a sum whose regularizer is weighted by the global batch
+(``lamda_d / B`` and the 2B rows of the reference's broadcast), so the
+ranks' shares sum to one device's; G's mean is a share.
 """
 
 from __future__ import annotations
@@ -33,7 +40,7 @@ from acf_tpu_torch.models.apl import gumbel
 from acf_tpu_torch.models.base import PairwiseModel, softplus
 from acf_tpu_torch.sampling.negatives import sample_pair_epoch
 from acf_tpu_torch.train.optim import grad_update, sgd
-from acf_tpu_torch.train.trainer import _add_stats, _mean_stats
+from acf_tpu_torch.train.trainer import _add_stats, _data_parallel, _mean_stats
 
 PAD_LOGIT = -1e30
 NOISE_FLOOR = 1e-20  # the least uniform drawn for Gumbel noise
@@ -113,17 +120,18 @@ class IRGAN(PairwiseModel):
         g = params["g"]
         ps = torch.sum(g["P"][users] * g["Q"][pos], dim=-1)
         ns = torch.sum(g["P"][users] * g["Q"][neg], dim=-1)
-        loss = torch.mean(softplus(-(ps - ns)))
-        return loss, {"loss": loss, "acc": torch.mean((ps > ns).to(torch.float32))}
+        loss = self.data_share(torch.mean(softplus(-(ps - ns))))
+        return loss, {"loss": loss,
+                      "acc": self.data_share(torch.mean((ps > ns).to(torch.float32)))}
 
     # -- the players' losses --------------------------------------------------
     def d_loss(self, d_params, users, pos, fake, lam_d):
         """D's loss on one batch: sigmoid CE of (u, pos) labelled 1 and (u,
         fake) labelled 0, SUMMED, plus 2B times the L2 reg (the reference's
         [B] loss vector with the scalar reg broadcast onto it, whose sum
-        minimize() differentiates, IRGAN.py:250-256); with ``pairwise_d``
-        the sum of softplus(−pu ∘ (q_pos − q_fake)) per coordinate
-        (IRGAN.py:318-326)."""
+        minimize() differentiates, IRGAN.py:250-256; under a mesh the 2B of
+        the global batch); with ``pairwise_d`` the sum of softplus(−pu ∘
+        (q_pos − q_fake)) per coordinate (IRGAN.py:318-326)."""
         if self.pairwise_d:
             diff = d_params["P"][users] * (d_params["Q"][pos] - d_params["Q"][fake])
             return torch.sum(softplus(-diff))
@@ -136,17 +144,18 @@ class IRGAN(PairwiseModel):
         logits = torch.sum(pu * qi, dim=-1)
         ce = softplus(logits) - labels * logits
         reg = lam_d * (torch.sum(torch.square(pu)) / 2 + torch.sum(torch.square(qi)) / 2)
-        return torch.sum(ce) + labels.shape[0] * reg
+        return torch.sum(ce) + self.data_count(labels.shape[0]) * reg
 
     def g_loss(self, g_params, users, sample, reward, lam_g):
         """G's policy-gradient loss: −mean(log softmax[sample] · reward) +
-        the L2 reg (IRGAN.py:194-198)."""
+        the L2 reg (IRGAN.py:194-198); under a mesh the mean is the rank's
+        share."""
         logp = torch.log_softmax(g_row_logits(g_params, users), dim=-1)
         lp = torch.gather(logp, 1, sample)
         pu = g_params["P"][users]
         qi = g_params["Q"][sample]
         reg = lam_g * (torch.sum(torch.square(pu)) / 2 + torch.sum(torch.square(qi)) / 2)
-        return -torch.mean(lp * reward) + reg
+        return -self.data_share(torch.mean(lp * reward)) + reg
 
     # -- the draws ------------------------------------------------------------
     @torch.no_grad()
@@ -181,29 +190,33 @@ class IRGAN(PairwiseModel):
         reward = 2.0 * (torch.sigmoid(d_scores) - 0.5)
         return sample, reward * p_i / torch.clamp(pn_i, min=1e-20)
 
-    def d_step(self, d_params, d_state, g_params, users, pos, noise_u):
+    def d_step(self, d_params, d_state, g_params, users, pos, noise_u, reduce=None):
         """One D step: a fake a pair from G over ``noise_u`` [B, I], then
-        SGD(d_lr) on D's loss. Returns (d_params, d_state, loss)."""
+        SGD(d_lr) on D's loss, its gradient through ``reduce`` when given
+        (the sum over the data ranks). Returns (d_params, d_state, loss)."""
         fake = self.d_fakes(g_params, users, noise_u)
-        lam_d = self.lamda_d / users.shape[0]
+        lam_d = self.lamda_d / self.data_count(users.shape[0])
         d_params, d_state, loss, _ = grad_update(
             sgd(self.d_lr), d_params, d_state,
-            lambda prm: (self.d_loss(prm, users, pos, fake, lam_d), {}))
+            lambda prm: (self.d_loss(prm, users, pos, fake, lam_d), {}), reduce)
         return d_params, d_state, loss
 
-    def g_step(self, g_params, g_state, d_params, users, hist_rows, mix, noise_u, pos_idx):
+    def g_step(self, g_params, g_state, d_params, users, hist_rows, mix, noise_u, pos_idx,
+               reduce=None):
         """One G step: two samples a pair and their rewards against D
-        (:meth:`g_samples`), then SGD(g_lr) on G's policy-gradient loss.
-        Returns (g_params, g_state, loss)."""
+        (:meth:`g_samples`), then SGD(g_lr) on G's policy-gradient loss,
+        its gradient through ``reduce`` when given. Returns (g_params,
+        g_state, loss)."""
         sample, reward = self.g_samples(g_params, d_params, users, hist_rows, mix, noise_u,
                                         pos_idx)
-        lam_g = self.lamda_g / users.shape[0]
+        lam_g = self.lamda_g / self.data_count(users.shape[0])
         g_params, g_state, loss, _ = grad_update(
             sgd(self.g_lr), g_params, g_state,
-            lambda prm: (self.g_loss(prm, users, sample, reward, lam_g), {}))
+            lambda prm: (self.g_loss(prm, users, sample, reward, lam_g), {}), reduce)
         return g_params, g_state, loss
 
-    def make_epoch_fn(self, optimizer, batch_size: int, num_batches: int, dev=None):
+    def make_epoch_fn(self, optimizer, batch_size: int, num_batches: int, dev=None,
+                      mesh=None):
         """``epoch_fn(params, opt_state, data, generator, batches=None,
         d_u=None, g_mix=None, g_u=None, g_idx=None) -> (params, opt_state,
         stats)``: every D step on the epoch's batches with G fixed, then
@@ -214,8 +227,11 @@ class IRGAN(PairwiseModel):
         2] (non-negative ints) replace the draws from ``generator`` when
         given; otherwise each step draws its own when it runs. Stats: the
         mean G ``loss``, the mean ``d_loss`` and ``acc`` 0, as the JAX epoch
-        reports them."""
+        reports them. With ``mesh`` (``self`` then
+        :func:`~acf_tpu_torch.models.base.data_parallel`'s copy) every draw
+        is the global batch's and each step takes this data rank's rows."""
         b, n_items = batch_size, self.num_items
+        rows, reduce = _data_parallel(mesh, b)
 
         def epoch_fn(params, opt_state, data, generator, batches=None, d_u=None, g_mix=None,
                      g_u=None, g_idx=None):
@@ -230,7 +246,8 @@ class IRGAN(PairwiseModel):
             sums = {}
             for step, (u, pos) in enumerate(steps):
                 noise = draw(d_u, step, lambda: uniforms(generator, (b, n_items)))
-                d_params, d_state, loss = self.d_step(d_params, d_state, g_params, u, pos, noise)
+                d_params, d_state, loss = self.d_step(d_params, d_state, g_params, u[rows],
+                                                      pos[rows], noise[rows], reduce)
                 _add_stats(sums, {"d_loss": loss})
             for step, (u, _) in enumerate(steps):
                 mix = draw(g_mix, step, lambda: torch.rand(
@@ -240,10 +257,12 @@ class IRGAN(PairwiseModel):
                 pos_idx = draw(g_idx, step, lambda: torch.randint(
                     0, 2 ** 31 - 1, (b, G_SAMPLES), generator=generator,
                     device=generator.device))
+                u = u[rows]
                 g_params, g_state, loss = self.g_step(g_params, g_state, d_params, u,
-                                                      data["hist"][u], mix, noise, pos_idx)
+                                                      data["hist"][u], mix[rows], noise[rows],
+                                                      pos_idx[rows], reduce)
                 _add_stats(sums, {"loss": loss})
-            stats = dict(_mean_stats(sums, num_batches), acc=0.0)
+            stats = dict(_mean_stats(sums, num_batches, mesh), acc=0.0)
             return {"g": g_params, "d": d_params}, {"g": g_state, "d": d_state}, stats
 
         return epoch_fn

@@ -37,7 +37,9 @@ class _NaiveBase(PairwiseModel):
     def init_opt_state(self, optimizer, params):
         return ()
 
-    def make_epoch_fn(self, optimizer, batch_size: int, num_batches: int, dev=None):
+    def make_epoch_fn(self, optimizer, batch_size: int, num_batches: int, dev=None,
+                      mesh=None):
+        """The no-op epoch; a mesh changes nothing here and is ignored."""
         def epoch_fn(params, opt_state, data, generator):
             return params, opt_state, {"loss": 0.0, "acc": 0.0}
 

@@ -78,14 +78,15 @@ class NeuMF(PairwiseModel):
 
     def loss(self, params, batch, generator=None):
         """Mean BCE over the 2B pointwise examples (pos labelled 1, neg 0);
-        aux ``loss`` (the same value) and ``acc`` (pos logit above neg)."""
+        aux ``loss`` (the same value) and ``acc`` (pos logit above neg). Under
+        a mesh both are this data rank's shares."""
         users, pos, neg = batch
         pos_l = self._logits(params, users, pos)
         neg_l = self._logits(params, users, neg)
         logits = torch.cat([pos_l, neg_l])
         labels = torch.cat([torch.ones_like(pos_l), torch.zeros_like(neg_l)])
-        loss = torch.mean(softplus(logits) - labels * logits)
-        acc = torch.mean(((pos_l - neg_l) > 0).to(torch.float32))
+        loss = self.data_share(torch.mean(softplus(logits) - labels * logits))
+        acc = self.data_share(torch.mean(((pos_l - neg_l) > 0).to(torch.float32)))
         return loss, {"loss": loss, "acc": acc}
 
     def score_all(self, params, users, hists):

@@ -117,6 +117,17 @@ class SASRec(SequenceModel):
                 "blocks": [{"p": m(b, h, t, t), "f1": m(b, t, d), "f2": m(b, t, d)}
                            for _ in range(self.num_blocks)]}
 
+    def train_masks(self, generator, batch):
+        """The training pass's masks, then asasrec2's adversarial pass's, of
+        ``batch``'s windows (none without dropout)."""
+        if self.dropout_rate <= 0.0:
+            return None, None
+        b = batch[0].shape[0]
+        masks = self._dropout_masks(generator, b, self.maxlen)
+        adv = (self._dropout_masks(generator, b, self.maxlen)
+               if self.adversarial and self.adv_mode == "asasrec2" else None)
+        return masks, adv
+
     def encode(self, params, seq, train: bool = False, generator=None, masks=None):
         """[B, T] item ids → [B, T, d] sequence representations."""
         x = params["item_emb"][seq] * math.sqrt(self.dim)  # √d scale (SASRecLayers.py:129-130)

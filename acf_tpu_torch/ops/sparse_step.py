@@ -47,6 +47,7 @@ every shard's rows see the same arithmetic.
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 
 import torch
@@ -169,7 +170,12 @@ class SparseMFBPR(MFBPR):
         the mean ``loss`` and ``acc`` (and ``acc_adv``) over the steps.
         With ``mesh`` the tables and slots are row-sharded over "model" for
         the epoch (the module docstring) and come back whole on every
-        rank."""
+        rank. Every rank steps on the whole batch, so no loss is a share:
+        the trainer's data-parallel copy runs as the model itself."""
+        if self.data_mesh is not None:
+            model = copy.copy(self)
+            model.data_mesh = None
+            return model.make_epoch_fn(optimizer, batch_size, num_batches, dev, mesh)
         mode = self.dedup_mode(batch_size)
         lr, eps = self.lr, self.opt_eps
 

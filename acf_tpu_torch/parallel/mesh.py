@@ -25,12 +25,6 @@ import torch.distributed as dist
 from acf_tpu_torch.device import resolve_device
 from acf_tpu_torch.utils.tree import tree_leaves, tree_unflatten
 
-# The ROADMAP item (Queue 1) of the bespoke models under a mesh: the trainer
-# and the command line refuse them with this label. It is stable: ROADMAP.md
-# lists it and the tests match it.
-ITEM_18 = "ROADMAP Queue 1, item 18 ('Mesh epochs of the bespoke models')"
-
-
 def init_distributed(device=None, backend: Optional[str] = None,
                      init_method: Optional[str] = None, rank: Optional[int] = None,
                      world_size: Optional[int] = None) -> torch.device:

@@ -30,9 +30,12 @@ device would, and takes its data rank's rows; its loss is its share of the
 global loss (:func:`acf_tpu_torch.models.base.data_parallel`); the
 gradients are summed over the data ranks before the update, so every rank
 applies the same update. The model ranks of one data row compute the same
-rows on whole tables; evaluation is sharded over both axes. Only MF-BPR
-(APR, DNS), pointwise MF, SASRec (ASASRec, ASASRec2) and the sparse step
-(its own mesh epoch) train under a mesh; the other models raise.
+rows on whole tables; evaluation is sharded over both axes. Every model
+trains under a mesh: the generic epochs take the data-parallel copy, and a
+model's own epoch gets it and the mesh (``make_epoch_fn(..., mesh=)``) and
+draws, splits and sums the same way (the sparse step instead steps on the
+whole batch on every rank with its tables row-sharded over "model"; the
+naive baselines train nothing).
 
 :class:`Trainer` adds leave-one-out evaluation through
 :class:`acf_tpu_torch.eval.FullRankEvaluator` (so through K1 for factored
@@ -233,18 +236,6 @@ def seq_train_step(model, optimizer, params, opt_state, batch, generator=None,
     return params, opt_state, aux
 
 
-def _global_masks(model, generator, b: int):
-    """(masks, adv_masks) of a global batch of ``b`` windows, drawn in the
-    order one device draws them inside the loss (the training pass's, then
-    asasrec2's adversarial pass's), or None where the loss draws none."""
-    if getattr(model, "dropout_rate", 0.0) <= 0.0:
-        return None, None
-    masks = model._dropout_masks(generator, b, model.maxlen)
-    adv = (model._dropout_masks(generator, b, model.maxlen)
-           if model.adversarial and model.adv_mode == "asasrec2" else None)
-    return masks, adv
-
-
 def make_seq_epoch_fn(model, optimizer, batch_size: int, num_batches: int, mesh=None):
     """The one-epoch function for sequence models (WarpSampler semantics:
     users sampled with replacement, SASRecLayers.py:329-358):
@@ -263,7 +254,7 @@ def make_seq_epoch_fn(model, optimizer, batch_size: int, num_batches: int, mesh=
             masks = adv_masks = None
             if mesh is not None:
                 masks, adv_masks = (m if m is None else tree_map(lambda x: x[rows], m)
-                                    for m in _global_masks(model, generator, batch_size))
+                                    for m in model.train_masks(generator, batch))
                 batch = tuple(x[rows] for x in batch)
             params, opt_state, aux = seq_train_step(model, optimizer, params, opt_state,
                                                     batch, generator, masks, adv_masks, reduce)
@@ -302,10 +293,9 @@ class Trainer:
     models marked ``uses_full_hist`` (APL's positive mixture), whose
     objective reads the whole history.
 
-    With ``config.mesh`` (see the module docstring) only rank 0 writes
-    predictions, params and snapshots; a model that has no data-parallel
-    form raises ``NotImplementedError`` naming the ROADMAP item that brings
-    it."""
+    With ``config.mesh`` (see the module docstring) every model trains
+    data-parallel, and only rank 0 writes predictions, params and
+    snapshots."""
 
     def __init__(self, model, data: Interactions, optimizer,
                  config: TrainConfig = TrainConfig(),
@@ -356,21 +346,18 @@ class Trainer:
 
     def _make_epoch_fn(self, model):
         """The model's own epoch (checked first: a sequence model may bring
-        one), else the sequence or the pair epoch; under a mesh the
-        data-parallel forms (the sparse step's own mesh epoch)."""
+        one), else the sequence or the pair epoch; under a mesh each is
+        built from the data-parallel copy of the model, with the mesh."""
+        kw = {}
         if self.mesh is not None:
-            _check_mesh_model(model)
+            from acf_tpu_torch.models.base import data_parallel
+
+            model, kw = data_parallel(model, self.mesh), {"mesh": self.mesh}
         if hasattr(model, "make_epoch_fn"):
-            kw = {} if self.mesh is None else {"mesh": self.mesh}
             return model.make_epoch_fn(self.optimizer, self.cfg.batch_size, self.num_batches,
                                        self.dev, **kw)
         make = make_seq_epoch_fn if model.batch_kind == "seq" else make_pair_epoch_fn
-        if self.mesh is None:
-            return make(model, self.optimizer, self.cfg.batch_size, self.num_batches)
-        from acf_tpu_torch.models.base import data_parallel
-
-        return make(data_parallel(model, self.mesh), self.optimizer, self.cfg.batch_size,
-                    self.num_batches, mesh=self.mesh)
+        return make(model, self.optimizer, self.cfg.batch_size, self.num_batches, **kw)
 
     def _init_opt_state(self, model):
         if hasattr(model, "init_opt_state"):
@@ -537,19 +524,6 @@ class Trainer:
     def _make_evaluator(self, model):
         return FullRankEvaluator(self.data, batch_users=self._eval_key(model)[0],
                                  device=self.device, mesh=self.mesh)
-
-
-def _check_mesh_model(model):
-    """Raise unless ``model`` trains under a mesh: MF-BPR (APR, DNS),
-    pointwise MF, SASRec (ASASRec, ASASRec2) and the sparse step."""
-    from acf_tpu_torch.models.mf import MFBPR, PointwiseMF
-    from acf_tpu_torch.models.sasrec import SASRec
-    from acf_tpu_torch.ops.sparse_step import SparseMFBPR
-    from acf_tpu_torch.parallel.mesh import ITEM_18
-
-    if type(model) not in (MFBPR, PointwiseMF, SASRec, SparseMFBPR):
-        raise NotImplementedError(f"{type(model).__name__} under a mesh is not ported to "
-                                  f"acf_tpu_torch yet: {ITEM_18} ports it")
 
 
 def fit_two_phase(clean_model, adv_model, data: Interactions, optimizer,

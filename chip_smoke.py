@@ -198,7 +198,22 @@ Phases, any failure exits non-zero:
               SASRec step at maxlen 50 through K2a and K2b (``STEP_TOL``);
               a rank that never launched K1, K2a or K2b fails the phase. Its
               wall times are gloo staging through the host, not NCCL or
-              multi-GPU times.
+              multi-GPU times;
+ 26. every model under a mesh: two gloo ranks on the card at 1x2 and 2x1,
+              launched at once: K3a-K3e on each data rank's rows of one
+              Video-shaped APL generator batch (B=512 a rank at 1x2, 256 at
+              2x1) against their plain versions (``APL_TOL``), the pad
+              item's gradient 0; then, each against one device's run from
+              the same seed (``MESH_UPDATE_TOL`` on the update, the
+              discriminators at ``MESH_ADAM_TOL``, the stats, every rank's
+              state bit for bit, the factored ones' sharded evaluation):
+              APL's 4 critic and 4 generator steps at the Video shape (K3
+              4 launches a rank), 3 steps each of IRGAN, AMF, ABPR,
+              ANeuMF, NeuMF, GRU4Rec, DREAM, DRCF, DSIN, MostPopular and
+              the FGSM wrapper over MF-BPR, and Caser's epoch of a
+              1,500-user set; then ``apl`` and ``irgan --mesh 1x1`` through
+              the command line on NCCL against the same runs without it
+              (params and evaluation equal, K1 61).
 
 Kernel times come from torch.profiler's device time. A measurement whose
 profile holds no device time in three sessions is timed with CUDA events
@@ -1465,44 +1480,12 @@ def apl_inputs(dev, b, d, num_items, seed):
                 gnoise=gumbel(torch.rand(b, num_items, generator=g, device=dev)), a=f(b))
 
 
-def apl_pass(name, x, up, fn):
-    """One call of pass ``name`` through ``fn`` (the kernel or its plain
-    version) on ``x`` and the outputs ``up`` of the passes before it; every
-    pass's outputs as a tuple."""
-    wt = dict(w=0.2, temperature=0.2)
-    if name == "apl_stats1":
-        return fn(x["pu_g"], x["Qg"])
-    m1, l1 = up["apl_stats1"]
-    if name == "apl_z":
-        return fn(x["pu_g"], x["Qg"], x["member"], x["nuniq"], x["gnoise"], m1, l1, **wt)
-    z, m2, l2 = up["apl_z"]
-    if name == "apl_fake":
-        return (fn(x["pu_c"], x["Qc"], z, m2, l2),)
-    chain = (x["pu_g"], x["Qg"], x["pu_c"], x["Qc"], x["member"], x["nuniq"], z, m1, l1, m2,
-             l2, x["a"], up["apl_fake"][0])
-    if name == "apl_bigr":
-        return (fn(*chain, **wt),)
-    return fn(*chain, up["apl_bigr"][0], **wt)
-
-
-def apl_chain(x, up=None):
-    """K3a-K3e in order, each fed the outputs of the ones before it; or,
-    given the kernels' outputs ``up``, each plain version fed the kernel
-    outputs of the passes before it, so each kernel is checked alone."""
-    from acf_tpu_torch.ops import apl_gen_fused as ops
-
-    out = {}
-    for name in APL_PRODUCTS:
-        fn = getattr(ops, name if up is None else name + "_plain")
-        out[name] = apl_pass(name, x, out if up is None else up, fn)
-    return out
-
-
 def check_apl_kernels(dev):
     """Phase 15: K3a-K3e against their plain versions, two calls
     bit-identical, and the refusals. Returns {kernel: max |difference|}."""
     from acf_tpu_torch.ops.apl_gen_fused import KERNELS, apl_gen_forward
 
+    apl_chain = rank_cases().apl_chain  # K3a-K3e in order, or the plain versions alone
     names = list(APL_PRODUCTS)
     max_err = dict.fromkeys(names, 0.0)
     for b, d, num_items in APL_CASES:
@@ -1706,9 +1689,10 @@ def apl_timing(dev, tr, data, first_epoch_s, reps=2):
     examples/s. Returns {kernel: entry fields}."""
     from acf_tpu_torch.ops import apl_gen_fused as ops
 
+    cases = rank_cases()
     b, d, num_items = APL_CASES[0]
     x = apl_inputs(dev, b, d, num_items, seed=17)
-    got = apl_chain(x)
+    got = cases.apl_chain(x)
     mark = len(EVENT_TIMED)
     matmul_ms = device_ms(lambda: torch.matmul(x["pu_g"], x["Qg"].T))
     matmul_timer = timer_since(mark)
@@ -1716,8 +1700,8 @@ def apl_timing(dev, tr, data, first_epoch_s, reps=2):
     for name in APL_PRODUCTS:
         kernel, plain = getattr(ops, name), getattr(ops, name + "_plain")
         mark = len(EVENT_TIMED)
-        ms = device_ms(lambda: apl_pass(name, x, got, kernel))
-        plain_ms = device_ms(lambda: apl_pass(name, x, got, plain), PLAIN_ITERS, 2)
+        ms = device_ms(lambda: cases.apl_pass(name, x, got, kernel))
+        plain_ms = device_ms(lambda: cases.apl_pass(name, x, got, plain), PLAIN_ITERS, 2)
         bound_ms, bound_by = bound(*apl_work(name, b, d, num_items))
         library_ms = APL_PRODUCTS[name] * matmul_ms
         chain_ms += ms
@@ -2329,8 +2313,8 @@ def run_cli(root: Path, argv, counts, epochs, counter=None):
     from acf_tpu_torch.cli.main import main as cli_main
     from acf_tpu_torch.train import Trainer
 
-    opath = root / "out" / "_".join([argv[1]] + [a.lstrip("-") for a in argv
-                                                 if a in ("--fgsm", "--sparse", "--irgan_pair")])
+    opath = root / "out" / "_".join([argv[1]] + [a.lstrip("-") for a in argv if a in (
+        "--fgsm", "--sparse", "--irgan_pair", "--mesh")])
     fitted, real_fit = [], Trainer.fit
 
     def fit(self, *args, **kwargs):
@@ -3683,6 +3667,280 @@ def mesh_phase(dev, video, ml1m, mf, apr_ref):
     return launches
 
 
+# --- every model under a mesh: phase 26 ------------------------------------------
+
+MESH_APL_STEPS = 4    # critic and generator steps of APL's mesh runs at the Video shape
+MESH_MODEL_STEPS = 3  # steps of each other family's mesh runs (Caser: its epoch on a small set)
+# A mesh run's update (params after the steps less the seeded init) against
+# one device's, each entry within this share of the largest entry of one
+# device's update, plus an ulp of the param a step (an update read back as
+# new - old params resolves only to the param's ulp, and each step rounds
+# the param once; GRU4Rec's first updates, ~3e-6 on params of ~0.016, sit
+# within three ulps of them): the same steps with the sums over the data
+# ranks in another order (~1e-7). The runs train by SGD (APL's and
+# IRGAN's own, and the trainer's for every other family) or Adagrad (the
+# FGSM wrapper), whose updates follow the gradients: a loss share off by
+# the data axis moves the update by half of it. (Adam's first steps are
+# ±lr whatever the gradient's size, so it shows no such fault, and it turns
+# an entry whose gradient is rounding noise into a step of ~lr either way:
+# DRCF's under Adam at 2x1 differed from one device's by 9.5e-4, lr 1e-3.)
+MESH_UPDATE_TOL = 1e-4
+# The popularity discriminators train by their own Adam: their params
+# against one device's at the JAX package's bar for its mesh trainer
+# (tests/test_parallel.py:500-592), rtol and atol.
+MESH_ADAM_TOL = (1e-3, 5e-4)
+# a mesh run's sharded HR@10 and NDCG@10 against one device's: its params
+# differ by rounding, which can move a near tie's position
+MESH_EVAL_TOL = 1e-3
+MESH_CLI = ("apl", "irgan")
+MESH_SEED = 26
+
+
+def mesh_model_runs(video, small):
+    """name -> (models, optimizer, data, steps, evaluate): the families of
+    phase 26 at d=64, batch 512 (APL at the Video shape, the rest at a
+    smaller depth), each held against one device."""
+    from acf_tpu_torch.adversarial import FGSMAdversarial
+    from acf_tpu_torch.adversarial.popularity import PopularityAdversarial
+    from acf_tpu_torch.models.apl import APL
+    from acf_tpu_torch.models.caser import Caser
+    from acf_tpu_torch.models.dream import DREAM
+    from acf_tpu_torch.models.drcf import DRCF
+    from acf_tpu_torch.models.dsin import DSIN
+    from acf_tpu_torch.models.gru4rec import GRU4Rec
+    from acf_tpu_torch.models.irgan import IRGAN
+    from acf_tpu_torch.models.mf import MFBPR, PointwiseMF
+    from acf_tpu_torch.models.naive import MostPopular
+    from acf_tpu_torch.models.neumf import NeuMF
+    from acf_tpu_torch.train import adagrad, sgd
+
+    U, I = video.num_users, video.num_items
+    sU, sI = small.num_users, small.num_items
+    n, opt = MESH_MODEL_STEPS, sgd(0.05)
+
+    def pop(base):
+        return PopularityAdversarial(U, I, D, base=base)
+
+    return {
+        "apl": ([APL(U, I, D)], sgd(0.05), video, MESH_APL_STEPS, True),
+        "irgan": ([IRGAN(U, I, D)], sgd(0.001), video, n, True),
+        "amf": ([pop(PointwiseMF(U, I, D))], opt, video, n, True),
+        "abpr": ([pop(MFBPR(U, I, D))], opt, video, n, False),
+        "aneumf": ([pop(NeuMF(U, I, D))], opt, video, n, False),
+        "neumf": ([NeuMF(U, I, D)], opt, video, n, False),
+        "caser": ([Caser(sU, sI, D, maxlen=5)], opt, small, None, True),
+        "gru4rec": ([GRU4Rec(U, I, D, maxlen=8)], opt, video, n, True),
+        "dream": ([DREAM(U, I, D, maxlen=8)], opt, video, n, True),
+        "drcf": ([DRCF(U, I, D, maxlen=5)], opt, video, n, False),
+        "dsin": ([DSIN(U, I, D, sess_count=2, sess_len=4)], opt, video, n, False),
+        "pop": ([MostPopular(U, I, D, data=video)], opt, video, n, False),
+        "fgsm_mf": ([FGSMAdversarial(U, I, D, base=MFBPR(U, I, D), **APR)],
+                    adagrad(0.05, initial_accumulator_value=0.1), video, n, True),
+    }
+
+
+def mesh_model_call(run):
+    models, opt, data, steps, evaluate = run
+    return ("train", (models, opt, data, [1], steps, MESH_SEED, TRAIN_BATCH, True, None, None,
+                      evaluate))
+
+
+def mesh_model_inits(dev, runs):
+    """Each family's seeded init, by snapshot name: what the trainer draws
+    first from its generator (the same on every rank of the card)."""
+    from acf_tpu_torch.train.checkpoint import _flatten_with_names
+
+    out = {}
+    for name, run in runs.items():
+        g = torch.Generator(device=dev).manual_seed(MESH_SEED)
+        params = run[0][0].init_params(g, device=dev)
+        out[name] = {f"params/{k}": v.cpu().numpy() for k, v in _flatten_with_names(params)}
+    return out
+
+
+def check_mesh_models(spec, res, runs, refs, inits):
+    """Every rank's results of ``spec`` against one device's: K3a-K3e on the
+    rank's rows against their plain versions; each family's stats, update
+    (``MESH_UPDATE_TOL``; the discriminators' Adam params at
+    ``MESH_ADAM_TOL``) and sharded evaluation against one device's; every
+    rank's state equal. Returns the launches {family: {kernel: [by rank]}}."""
+    from acf_tpu_torch.ops.apl_gen_fused import KERNELS
+
+    names = ["apl_kernels", *runs]
+    res = [dict(zip(names, r)) for r in res]
+    dp = int(spec.split("x")[0])
+    label = f"mesh {spec}"
+    for r, x in enumerate(res):
+        k = x["apl_kernels"]
+        check(k["rows"] == TRAIN_BATCH // dp, f"{label} rank {r}: K3 ran on {k['rows']} rows, "
+              f"not {TRAIN_BATCH // dp}")
+        check(all(k[kern.__name__] == 1 for kern in KERNELS),
+              f"{label} rank {r}: the K3 check did not launch each kernel once: {k}")
+        parts = []
+        for name, outs in k["errs"].items():
+            for i, (err, scale) in enumerate(outs):
+                parts.append(f"{name}[{i}] {err:.2e} ({err / max(scale, 1e-30):.2e} of "
+                             f"{scale:.3g})")
+                check(math.isfinite(err) and err <= APL_TOL * scale,
+                      f"{label} rank {r} {name}[{i}]: max |kernel - plain| {err} > "
+                      f"{APL_TOL} x {scale}")
+        check(k["pad_grad"] == 0.0, f"{label} rank {r}: the pad item got a gradient")
+        print(f"{label} rank {r}: K3 at B={k['rows']} (its rows of {TRAIN_BATCH}), d={D}, "
+              f"I={VIDEO_ITEMS + 1}: max |kernel - plain| " + "; ".join(parts))
+    launches = {}
+    for name, run in runs.items():
+        ref, init = refs[name], inits[name]
+        models, _, data, steps = run[:4]
+        if steps is None:  # Caser's own epoch over its windows
+            steps = max(len(models[0].extra_device_data(data)["win_seq"]) // TRAIN_BATCH, 1)
+        disc = sorted(k for k in init if k.startswith("params/disc/"))
+        trained = sorted(k for k in init if k not in disc)
+        scale = max(float(np.abs(ref["state"][k] - init[k]).max()) for k in trained)
+        check(name == "pop" or scale > 0, f"{name}: one device's run did not move its params")
+        worst, worst_disc = 0.0, 0.0
+        for r, x in enumerate(res):
+            got = x[name]
+            check(set(got["state"]) == set(ref["state"]),
+                  f"{label} rank {r} {name}: state {sorted(got['state'])}")
+            for key in trained:
+                w, g = ref["state"][key], got["state"][key]
+                d = np.abs(g - w)
+                worst = max(worst, float(d.max()) if d.size else 0.0)
+                ulps = steps * np.spacing(np.maximum(np.abs(w), np.abs(g)))
+                check(bool(np.all(d <= MESH_UPDATE_TOL * scale + ulps)),
+                      f"{label} rank {r} {name} {key}: the update differs from one device's "
+                      f"by {float(d.max()):.3e}, its scale {scale:.3e}")
+            for key in disc:
+                w, g = ref["state"][key], got["state"][key]
+                d = np.abs(g - w)
+                worst_disc = max(worst_disc, float(d.max()))
+                check(bool(np.all(d <= MESH_ADAM_TOL[1] + MESH_ADAM_TOL[0] * np.abs(w))),
+                      f"{label} rank {r} {name} {key}: max |mesh - one device| {float(d.max())}")
+            check(len(got["stats"]) == len(ref["stats"]),
+                  f"{label} rank {r} {name}: stats {got['stats']} vs {ref['stats']}")
+            for s, w in zip(got["stats"], ref["stats"]):
+                check(set(s) == set(w), f"{label} rank {r} {name}: stats {s} vs {w}")
+                for key, v in w.items():
+                    tol = (1.0 / TRAIN_BATCH + 1e-7 if key.startswith("acc")
+                           else 1e-5 * abs(v) + 1e-8)
+                    check(math.isfinite(s[key]) and abs(s[key] - v) <= tol,
+                          f"{label} rank {r} {name}: {key} {s[key]} vs one device's {v}")
+            check(all(np.array_equal(got["state"][key], res[0][name]["state"][key])
+                      for key in got["state"]),
+                  f"{label}: rank {r}'s {name} state differs from rank 0's")
+            if "at10" in ref:
+                check(max(abs(a - b) for a, b in zip(got["at10"][:2], ref["at10"][:2]))
+                      <= MESH_EVAL_TOL, f"{label} rank {r} {name}: sharded HR/NDCG@10 "
+                      f"{got['at10']} vs one device's {ref['at10']}")
+        rel = worst / max(scale, 1e-30)
+        counts = {key: [x[name][key] for x in res]
+                  for key in ("k1", *(kern.__name__ for kern in KERNELS))}
+        launches[name] = {key: v for key, v in counts.items() if any(v)}
+        evaluated = (f"; sharded HR/NDCG/AUC@10 {res[0][name]['at10']} vs one device's "
+                     f"{ref['at10']}" if "at10" in ref else "")
+        adam = f"; discriminators max |d| {worst_disc:.3e}" if disc else ""
+        print(f"{label} {name}: {steps} steps; update max |mesh - one "
+              f"device| {worst:.3e} ({rel:.2e} of its scale {scale:.3e}){adam}; ranks "
+              f"bit-equal; stats {res[0][name]['stats']} vs {ref['stats']}{evaluated}; "
+              f"launches by rank {launches[name]}")
+    for kern in KERNELS:
+        got = launches["apl"].get(kern.__name__, [0] * len(res))
+        check(got == [MESH_APL_STEPS] * len(res),
+              f"{label} apl: {kern.__name__} launched {got} times by rank, not "
+              f"{MESH_APL_STEPS} each")
+    for name, run in runs.items():
+        check(not run[4] or all(n > 0 for n in launches[name].get("k1", [0])),
+              f"{label} {name}: a rank's sharded evaluation never launched K1")
+    return launches
+
+
+def mesh_models_cli(video_counts, root):
+    """Phase 26, last part: ``--mesh 1x1`` through the command line on NCCL
+    (a group of one process) for ``MESH_CLI``, each beside the same command
+    line without it, one epoch on phase 20's Video file: params and the
+    evaluation equal. Returns K1's launches by run."""
+    import torch.distributed as dist
+
+    from acf_tpu_torch.ops.ranking import rank_positions_dot
+
+    k1 = {}
+    for model in MESH_CLI:
+        argv = ["--model", model, "--data", "video", "--epochs", "1", "--d", str(D), "--bs",
+                str(TRAIN_BATCH)]
+        _, k_one, one = run_cli(root, argv, video_counts, 1, rank_positions_dot)
+        _, k_mesh, mesh = run_cli(root, [*argv, "--mesh", "1x1"], video_counts, 1,
+                                  rank_positions_dot)
+        check(mesh.mesh is not None and mesh.mesh.shape == {"data": 1, "model": 1},
+              f"cli {model} --mesh 1x1: the trainer had no mesh")
+        check(not dist.is_initialized(), f"cli {model} --mesh 1x1: the group outlived the run")
+        check(k_mesh == k_one > 0, f"cli {model}: K1 {k_mesh} under --mesh 1x1, {k_one} without")
+        keys = [(side, n) for side in sorted(one.params) for n in sorted(one.params[side])]
+        err, rel = tree_err([mesh.params[s][n].cpu() for s, n in keys],
+                            [one.params[s][n].cpu() for s, n in keys])
+        same = all(torch.equal(mesh.params[s][n], one.params[s][n]) for s, n in keys)
+        res, ref = mesh.best["result"], one.best["result"]
+        equal_eval = np.array_equal(res.hr, ref.hr) and np.array_equal(res.ndcg, ref.ndcg)
+        print(f"cli {model} --mesh 1x1 (NCCL, one rank): K1 {k_mesh}; params against the "
+              f"run without --mesh max |d| {err:.3e} ({rel:.2e} of scale), bit-equal {same}; "
+              f"per-user HR and NDCG@1..100 equal {equal_eval}")
+        check(rel <= APR_TOL, f"cli {model} --mesh 1x1: params differ from one device by {rel}")
+        check(equal_eval, f"cli {model} --mesh 1x1: its evaluation differs from one device's")
+        k1[f"cli_{model}_1x1"] = k_mesh
+    return k1
+
+
+def mesh_models_phase(dev, video):
+    """Phase 26: every model under a mesh on the card, two gloo ranks on
+    cuda:0 at 1x2 and 2x1 (both launched at once): K3a-K3e on each data
+    rank's rows of a Video-shaped generator batch against their plain
+    versions, APL's critic and generator steps at the Video shape and a few
+    steps of every other family, each against one device (params, sharded
+    evaluation), every rank's state bit-equal; then ``--mesh 1x1`` on NCCL
+    for ``MESH_CLI`` through the command line. Returns the launches
+    {run: {kernel: [by rank]}}."""
+    import tempfile
+
+    from acf_tpu_torch.parallel import launch
+
+    t0 = time.perf_counter()
+    small = make_synthetic(1_500, VIDEO_ITEMS, 15_000, seed=26)
+    rank_video, rank_small = dataclasses.replace(video), dataclasses.replace(small)
+    runs = mesh_model_runs(rank_video, rank_small)
+    inits = mesh_model_inits(dev, runs)
+    refs = {name: rank_cases().train(None, dev, *mesh_model_call(run)[1])
+            for name, run in runs.items()}
+    print(f"phase 26 references on one device: {time.perf_counter() - t0:.1f} s")
+    calls = [("apl_kernels", (rank_video, D, TRAIN_BATCH, MESH_SEED)),
+             *(mesh_model_call(run) for run in runs.values())]
+
+    def two_ranks(spec):
+        t0 = time.perf_counter()
+        res = launch.run(f"{CASES}:several", 2, spec, "cuda:0", calls, device="cuda:0",
+                         backend="gloo", timeout=600.0)
+        return res, time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(MESH_SPECS)) as pool:  # both meshes at once: four ranks
+        done = list(pool.map(two_ranks, MESH_SPECS))
+    print(f"phase 26 two-rank launches, {len(MESH_SPECS)} at once: "
+          f"{time.perf_counter() - t0:.1f} s")
+    launches = {}
+    for spec, (res, wall) in zip(MESH_SPECS, done):
+        for name, counts in check_mesh_models(spec, res, runs, refs, inits).items():
+            launches[f"{name}_gloo_{spec}"] = counts
+        print(f"mesh {spec}: every family on two ranks on cuda:0 over gloo in {wall:.1f} s "
+              "with the ranks' start, beside the other mesh's launch (gloo staging through "
+              "the host: not an NCCL or multi-GPU time)")
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        video_file, _ = write_reference_files(root)
+        k1 = mesh_models_cli(expected_counts(video_file), root)
+    launches.update({run: {"k1": [n]} for run, n in k1.items()})
+    print(f"phase 26 cli: {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke run needs a GPU")
@@ -3778,6 +4036,11 @@ def main():
     mesh = mesh_phase(dev, data, ml1m, (model, params, ev), apr_cli)
     lap("25")
 
+    # 26. Every model under a mesh: K3a-K3e on each rank's rows, APL at the
+    # Video shape and every other family against one device, --mesh 1x1 on NCCL
+    mesh_models = mesh_models_phase(dev, data)
+    lap("26")
+
     kernels = [{
         "name": "rank_count", "route": "cuda",
         "source": "acf_tpu_torch/csrc/rank_count.cu",
@@ -3785,7 +4048,11 @@ def main():
         "launches": launches, "max_abs_err": max_err, **entry, "launches_apr": k1_apr,
         "launches_cli": k1_cli, "launches_zoo": k1_zoo, "launches_rest": k1_rest,
         "launches_mesh": {run: v["k1"] for run, v in mesh.items()},
+        "launches_mesh_models": {run: v["k1"] for run, v in mesh_models.items() if "k1" in v},
     }, k2a_entry, k2b_entry, *k3_entries]
+    for entry in k3_entries:
+        entry["launches_mesh_models"] = {run: v[entry["name"]] for run, v in mesh_models.items()
+                                         if entry["name"] in v}
     for entry, key in ((k2a_entry, "k2a"), (k2b_entry, "k2b")):
         entry["launches_mesh"] = {run: v[key] for run, v in mesh.items() if key in v}
     check(all(k["launches"] > 0 for k in kernels), "a kernel of the path never launched")

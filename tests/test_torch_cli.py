@@ -370,23 +370,17 @@ def test_staged_eps_rejects_single_phase_models(tmp_path):
 
 
 # (test id, argv, what the message names, the ROADMAP label)
-REFUSALS = [("--mesh 4x2", ["--model", "apl", "--mesh", "4x2"], "--mesh 4x2 with --model apl",
-             cli.ITEM_18),
-            ("--train_dtype bfloat16", ["--model", "sasrec", "--train_dtype", "bfloat16"],
-             "--train_dtype bfloat16", cli.ITEM_14)] + [
-    (f"--mesh {m}", ["--model", *m.split(), "--mesh", "2x1"], f"--mesh 2x1 with --model {m}",
-     cli.ITEM_18)
-    for m in ("neumf", "caser", "irgan", "amf", "gru4rec", "pop", "bpr --fgsm")]
+REFUSALS = [("--train_dtype bfloat16", ["--model", "sasrec", "--train_dtype", "bfloat16"],
+             "--train_dtype bfloat16", cli.ITEM_14)]
 
 
 @pytest.mark.parametrize("argv,what,item", [r[1:] for r in REFUSALS], ids=[r[0] for r in REFUSALS])
 def test_unported_models_and_flags_name_their_roadmap_item(argv, what, item):
     """Each exits before reading data (the path does not exist) and before a
     process group starts, naming the flag and its ROADMAP item. The labels
-    are the ones ROADMAP.md lists (the bespoke models under ``--mesh``:
-    item 18; the MF and SASRec families and ``--sparse`` train under it).
-    Every model name of the JAX CLI is ported."""
-    assert not hasattr(cli, "ITEM_13")  # distribution's first half is ported
+    are the ones ROADMAP.md lists. Every model name of the JAX CLI is
+    ported, and trains under ``--mesh``."""
+    assert not hasattr(cli, "ITEM_13")  # distribution is ported
     with pytest.raises(SystemExit) as e:
         cli.main(["--path", "/nonexistent/", "--device", "cpu", *argv])
     assert str(e.value) == f"{what} is not ported to acf_tpu_torch yet: {item} ports it"

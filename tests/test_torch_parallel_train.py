@@ -208,32 +208,13 @@ def test_mesh_training_tracks_one_device(ranks, inputs, name):
             np.testing.assert_array_equal(a, b)
 
 
-def test_other_models_under_a_mesh_name_item_18(monkeypatch):
-    from acf_tpu_torch.adversarial import FGSMAdversarial
-    from acf_tpu_torch.models.caser import Caser
-    from acf_tpu_torch.parallel.mesh import ITEM_18, mesh_from_spec
-
-    for var in ("RANK", "WORLD_SIZE", "LOCAL_RANK"):
-        monkeypatch.delenv(var, raising=False)
-    data = Interactions(**dataclasses.asdict(synthetic_data(seed=3)))
-    U, I = data.num_users, data.num_items
-    try:
-        cfg = TrainConfig(mesh=mesh_from_spec("1x1", "cpu"))
-        for model in (Caser(U, I, 8, maxlen=5),
-                      FGSMAdversarial(U, I, 8, base=MFBPR(U, I, 8))):
-            with pytest.raises(NotImplementedError, match=type(model).__name__ +
-                               r" under a mesh is not ported to acf_tpu_torch yet: .*item 18"):
-                Trainer(model, data, adam(1e-3), cfg)
-    finally:
-        dist.destroy_process_group()
-    assert ITEM_18 in open(os.path.join(os.path.dirname(__file__), "..", "ROADMAP.md")).read()
-
-
 ARGS = ["--data", "test", "--path", "data/", "--epochs", "2", "--adv_epoch", "1", "--d", "8",
         "--bs", "64", "--device", "cpu"]
 
 
-@pytest.mark.parametrize("model", [["apr"], ["apr", "--sparse"]])
+@pytest.mark.parametrize("model", [["apr"], ["apr", "--sparse"], ["apl"], ["irgan"], ["amf"],
+                                   ["caser", "--maxlen", "5"], ["bpr", "--fgsm"]],
+                         ids=lambda m: " ".join(m))
 def test_cli_mesh_1x1_equals_one_device(tmp_path, monkeypatch, model):
     """``--mesh 1x1`` without torchrun: a gloo group of one process, the
     sharded evaluation and the data-parallel epoch. With one data rank every

@@ -22,15 +22,17 @@ import torch
 from acf_tpu_torch.compat.jax_params import params_from_numpy, params_to_numpy
 from acf_tpu_torch.parallel.input_pipeline import host_sharded_array, replicate_result
 from acf_tpu_torch.parallel.mesh import mesh_from_spec
+from acf_tpu_torch.utils.tree import tree_map
 
 
 def launches() -> dict:
     """The launch counters of the kernels that the mesh paths run."""
+    from acf_tpu_torch.ops.apl_gen_fused import KERNELS
     from acf_tpu_torch.ops.ranking import rank_positions_dot
     from acf_tpu_torch.ops.sasrec_fused import encoder_bwd, fused_encoder
 
     return {"k1": rank_positions_dot.launches, "k2a": fused_encoder.launches,
-            "k2b": encoder_bwd.launches}
+            "k2b": encoder_bwd.launches, **{k.__name__: k.launches for k in KERNELS}}
 
 
 def _whole(mesh, shard, rows):
@@ -124,15 +126,18 @@ def sasrec_step(spec, device, model, params, seq, pos, neg, lr=1e-3):
 
 
 def train(spec, device, models, optimizer, data, epochs, steps=None, seed=2019,
-          batch_size=512, reset_opt=True, init=None, draws=None):
+          batch_size=512, reset_opt=True, init=None, draws=None, evaluate=False):
     """A :class:`Trainer` over ``data`` with ``TrainConfig(mesh=...)`` (one
     device when ``spec`` is None): ``epochs[i]`` epochs of ``models[i]``,
     switching models in turn (``reset_opt`` as ``fit_two_phase``), each
     epoch of ``steps`` steps when given. ``init`` (numpy params) replaces
-    the seeded init; ``draws``, one (batches, cands) pair of numpy arrays an
-    epoch, are injected into the pair epochs in place of the trainer's own
-    draws. Returns the params and optimizer slots (by their snapshot names),
-    each epoch's stats and the kernels' launches."""
+    the seeded init; ``draws``, one tuple of numpy arrays (or dicts of them)
+    an epoch, the epoch function's draw arguments in order (the pair epoch's
+    batches and cands; a bespoke epoch's own), are injected in place of the
+    trainer's own draws. With ``evaluate`` the trainer's evaluation follows
+    (sharded over the mesh for a factored model): its HR, NDCG and AUC at
+    10 under ``at10``. Returns the params and optimizer slots (by their
+    snapshot names), each epoch's stats and the kernels' launches."""
     from acf_tpu_torch.train import TrainConfig, Trainer
     from acf_tpu_torch.train.checkpoint import state_arrays
 
@@ -157,11 +162,98 @@ def train(spec, device, models, optimizer, data, epochs, steps=None, seed=2019,
                 continue
             tr.params, tr.opt_state, s = tr.epoch_fn(
                 tr.params, tr.opt_state, tr.dev, tr.generator,
-                *(torch.as_tensor(x, device=tr.device) for x in drawn))
+                *tree_map(lambda x: torch.as_tensor(x, device=tr.device), tuple(drawn)))
             stats.append(s)
+    out = {"state": state_arrays(tr.params, tr.opt_state), "stats": stats}
+    if evaluate:
+        out["at10"] = tr.evaluate().at_k(10)
     if tr.device.type == "cuda":
         torch.cuda.synchronize(tr.device)
-    return {"state": state_arrays(tr.params, tr.opt_state), "stats": stats,
+    return {**out, **{k: v - before[k] for k, v in launches().items()}}
+
+
+def apl_pass(name, x, up, fn):
+    """One call of APL's generator pass ``name`` (``apl_stats1`` … ``apl_grad``,
+    K3a–K3e) through ``fn`` (the kernel's wrapper or its plain version) on the
+    step's inputs ``x`` and the outputs ``up`` of the passes before it; its
+    outputs as a tuple."""
+    wt = dict(w=0.2, temperature=0.2)
+    if name == "apl_stats1":
+        return fn(x["pu_g"], x["Qg"])
+    m1, l1 = up["apl_stats1"]
+    if name == "apl_z":
+        return fn(x["pu_g"], x["Qg"], x["member"], x["nuniq"], x["gnoise"], m1, l1, **wt)
+    z, m2, l2 = up["apl_z"]
+    if name == "apl_fake":
+        return (fn(x["pu_c"], x["Qc"], z, m2, l2),)
+    chain = (x["pu_g"], x["Qg"], x["pu_c"], x["Qc"], x["member"], x["nuniq"], z, m1, l1, m2,
+             l2, x["a"], up["apl_fake"][0])
+    if name == "apl_bigr":
+        return (fn(*chain, **wt),)
+    return fn(*chain, up["apl_bigr"][0], **wt)
+
+
+def apl_chain(x, up=None):
+    """K3a–K3e in order, each fed the outputs of the ones before it; or,
+    given the kernels' outputs ``up``, each plain version fed the kernel
+    outputs of the passes before it, so each kernel is checked alone."""
+    from acf_tpu_torch.ops import apl_gen_fused as ops
+
+    out = {}
+    for k in ops.KERNELS:
+        name = k.__name__
+        fn = getattr(ops, name if up is None else name + "_plain")
+        out[name] = apl_pass(name, x, out if up is None else up, fn)
+    return out
+
+
+def apl_kernels(spec, device, data, dim, batch_size, seed, scale=0.4):
+    """K3a–K3e on this data rank's rows of one global generator batch: tables
+    of ``scale`` times normal draws (logits of a few units), ``batch_size``
+    of ``data``'s pairs, the global [B, I] Gumbel noise and ∂L/∂fake of the
+    rank's share of the generator's loss, all drawn from ``seed`` alike on
+    every rank; each kernel's outputs against its plain version fed the
+    kernel outputs of the passes before it. Returns the rank's rows,
+    ``errs`` {kernel: [(max |kernel − plain|, max |plain|) of each
+    output]}, the pad item's largest Q gradient and the kernels' launches
+    in the check."""
+    from acf_tpu_torch.models.apl import APL, gumbel, membership
+    from acf_tpu_torch.models.base import data_parallel
+    from acf_tpu_torch.ops.apl_gen_fused import apl_gen_forward
+
+    mesh = mesh_from_spec(spec, device)
+    dev = mesh.device
+    model = data_parallel(APL(data.num_users, data.num_items, dim), mesh)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    U, I = data.num_users, data.num_items
+
+    def normal(*shape):
+        return scale * torch.randn(*shape, generator=g, device=dev)
+
+    Pg, Qg, Pc, Qc = normal(U, dim), normal(I, dim), normal(U, dim), normal(I, dim)
+    idx = torch.randint(0, data.num_pairs, (batch_size,), generator=g, device=dev)
+    noise = gumbel(torch.rand(batch_size, I, generator=g, device=dev))
+    rows = mesh.rows(batch_size)
+    u = torch.as_tensor(data.pairs_u, device=dev)[idx][rows].long()
+    i = torch.as_tensor(data.pairs_i, device=dev)[idx][rows].long()
+    member, nuniq = membership(torch.as_tensor(data.hist, device=dev)[u], I)
+    x = dict(pu_g=Pg[u], Qg=Qg, pu_c=Pc[u], Qc=Qc, member=member, nuniq=nuniq,
+             gnoise=noise[rows])
+    fake, _ = apl_gen_forward(x["pu_g"], Qg, x["pu_c"], Qc, member, nuniq, x["gnoise"],
+                              w=model.p_aux_weight, temperature=model.temperature)
+    real = torch.sum(x["pu_c"] * Qc[i], dim=-1)
+    with torch.enable_grad():
+        f = fake.detach().requires_grad_(True)
+        (x["a"],) = torch.autograd.grad(model._losses(real, f, 0.0, 0.0)[0], f)
+    before = launches()
+    got = apl_chain(x)
+    plain = apl_chain(x, up=got)
+    errs = {name: [(float((k - p).abs().max()), float(p.abs().max()))
+                   for k, p in zip(got[name], plain[name])] for name in got}
+    pad = float(got["apl_grad"][0][0].abs().max())
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    return {"rows": int(u.shape[0]), "errs": errs, "pad_grad": pad,
             **{k: v - before[k] for k, v in launches().items()}}
 
 
@@ -177,7 +269,6 @@ def seq_steps(spec, device, model, optimizer, params, batches, masks):
     from acf_tpu_torch.parallel.mesh import all_reduce_tree
     from acf_tpu_torch.train.checkpoint import state_arrays
     from acf_tpu_torch.train.trainer import seq_train_step
-    from acf_tpu_torch.utils.tree import tree_map
 
     mesh = mesh_from_spec(spec, device)
     dp = data_parallel(model, mesh)
