@@ -70,13 +70,15 @@ class FGSMAdversarial(PairwiseModel):
                              "(already adversarial, or it brings its own epoch)")
         # delegate the trainer-facing surface to the base model
         self.batch_kind = getattr(self.base, "batch_kind", "pair")
-        for attr in ("maxlen", "uses_full_hist", "dns", "eval_batch_users"):
+        for attr in ("maxlen", "uses_full_hist", "dns", "eval_batch_users",
+                     "repr_reads_table"):
             if hasattr(self.base, attr):
                 setattr(self, attr, getattr(self.base, attr))
         if hasattr(self.base, "extra_device_data"):
             self.extra_device_data = self.base.extra_device_data
         if hasattr(self.base, "init_opt_state"):
             self.init_opt_state = self.base.init_opt_state
+            self.opt_state_rows = self.base.opt_state_rows
 
     # -- delegation ----------------------------------------------------
     def init_params(self, generator: torch.Generator, device=None):

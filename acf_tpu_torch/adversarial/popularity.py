@@ -49,7 +49,7 @@ from acf_tpu_torch.nn.layers import dense, init_dense
 from acf_tpu_torch.sampling.negatives import (
     negatives_from_draws, sample_pair_epoch, uniform_negatives,
 )
-from acf_tpu_torch.train.optim import adam, grad_update
+from acf_tpu_torch.train.optim import adam, grad_update, player, whole
 from acf_tpu_torch.train.trainer import _add_stats, _data_parallel, _mean_stats
 from acf_tpu_torch.utils.tree import tree_map
 
@@ -103,6 +103,7 @@ class PopularityAdversarial(PairwiseModel):
             raise ValueError(f"{type(self.base).__name__} does not expose adv_encoders()")
         if hasattr(self.base, "eval_batch_users"):
             self.eval_batch_users = self.base.eval_batch_users
+        self.repr_reads_table = self.base.repr_reads_table
 
     @property
     def encoders(self):
@@ -126,6 +127,12 @@ class PopularityAdversarial(PairwiseModel):
     def init_opt_state(self, optimizer, params):
         return {"base": optimizer.init(params["base"]),
                 "disc": self.disc_optimizer().init(params["disc"])}
+
+    def opt_state_rows(self, optimizer, rows):
+        """Where each leaf of :meth:`init_opt_state` lives (the
+        optimizers' ``state_rows``)."""
+        return {"base": optimizer.state_rows(rows["base"]),
+                "disc": self.disc_optimizer().state_rows(rows["disc"])}
 
     def disc_optimizer(self):
         return adam(self.disc_lr)
@@ -205,14 +212,21 @@ class PopularityAdversarial(PairwiseModel):
         """One step: the discriminators' Adam step on the pools' ids, then
         the recommender's ``optimizer`` step, each gradient through
         ``reduce`` when given (the sum over the data ranks). Returns
-        (params, opt_state, aux with ``d_loss``)."""
+        (params, opt_state, aux with ``d_loss``). Under sharded storage
+        (``optimizer`` a :class:`~acf_tpu_torch.train.optim.Sharded`) each
+        player reads the other's leaves gathered whole, each gathered once a
+        step."""
+        d_optim, b_optim = (player(optimizer, "disc", self.disc_optimizer()),
+                            player(optimizer, "base"))
+        base_fixed = whole(b_optim, params["base"])
         disc_new, d_opt, d_loss, _ = grad_update(
-            self.disc_optimizer(), params["disc"], opt_state["disc"],
-            lambda dp: (self.disc_loss(dp, params["base"], pop_ids, rare_ids), None), reduce)
-        disc_for_g = params["disc"] if self.simultaneous else disc_new
+            d_optim, params["disc"], opt_state["disc"],
+            lambda dp: (self.disc_loss(dp, base_fixed, pop_ids, rare_ids), None), reduce)
+        disc_for_g = whole(d_optim, params["disc"] if self.simultaneous else disc_new)
         base_new, b_opt, _, aux = grad_update(
-            optimizer, params["base"], opt_state["base"],
-            lambda bp: self.rec_loss(bp, disc_for_g, batch, adv_ids, generator), reduce)
+            b_optim, params["base"], opt_state["base"],
+            lambda bp: self.rec_loss(bp, disc_for_g, batch, adv_ids, generator), reduce,
+            read=base_fixed)
         aux = dict(aux)
         aux["d_loss"] = d_loss
         return {"base": base_new, "disc": disc_new}, {"base": b_opt, "disc": d_opt}, aux

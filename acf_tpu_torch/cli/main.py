@@ -46,7 +46,6 @@ import torch
 from acf_tpu_torch.data import load_dataset
 from acf_tpu_torch.device import resolve_device
 from acf_tpu_torch.train import TrainConfig, Trainer, adagrad, adam, fit_two_phase, sgd
-from acf_tpu_torch.train.checkpoint import save_params
 from acf_tpu_torch.train.trainer import profiled
 from acf_tpu_torch.utils.io import OutputWriter
 
@@ -374,14 +373,14 @@ def _run(args, data, model, clean, optimizer, cfg, writer, restore):
         if args.pre:
             tr.load_pretrain(args.pre)
         tr.fit(epochs=args.adv_epoch, final=False)
-        if cfg.ckpt_path and tr.is_main:  # mirror fit_two_phase's phase-boundary saves
-            save_params(cfg.ckpt_path + "-pretrain", tr.params)
+        if cfg.ckpt_path:  # fit_two_phase's phase-boundary saves (every rank joins)
+            tr.save_params(cfg.ckpt_path + "-pretrain")
         tr.switch_model(model, reset_opt=reset_opt)
         tr.fit(epochs=args.stage2_epoch, epoch_start=args.adv_epoch, final=False)
         tr.switch_model(adv_hi, reset_opt=False)
         best = tr.fit(epochs=cfg.epochs, epoch_start=args.stage2_epoch)
-        if cfg.ckpt_path and tr.is_main:
-            save_params(cfg.ckpt_path + "-final", tr.params)
+        if cfg.ckpt_path:
+            tr.save_params(cfg.ckpt_path + "-final")
         return best
     if clean is not None:
         return fit_two_phase(clean, model, data, optimizer, cfg, adv_epoch=args.adv_epoch,

@@ -128,6 +128,25 @@ def _positions_sampled(score_some_fn, params, users, hists, gt, negs):
     return (scores[:, :-1] >= gt_score[:, None]).sum(dim=1).to(torch.int32)
 
 
+def _item_shard(mesh, model, table_fn, params, layout):
+    """(the :class:`~acf_tpu_torch.parallel.sharded_eval.ShardedTable` of
+    the model's item table, the params its user representations read):
+    a stored shard of the table taken as it stands, else the whole table
+    (gathered when stored sharded) shard by shard. A bias is 1-D, so it is
+    never stored sharded."""
+    from acf_tpu_torch.parallel.sharded_eval import ShardedTable
+
+    if layout is None:
+        return ShardedTable(mesh, *table_fn(params)), params
+    table, bias = table_fn(params)
+    rows = layout.rows_of(params, table)
+    if rows is None:
+        params = layout.gather(params)
+        return ShardedTable(mesh, *table_fn(params)), params
+    keep = () if getattr(model, "repr_reads_table", True) else (table,)
+    return ShardedTable(mesh, table, bias, rows=rows), layout.gather(params, keep=keep)
+
+
 class FullRankEvaluator:
     """Batched full-catalog (or sampled) leave-one-out evaluator.
 
@@ -219,13 +238,18 @@ class FullRankEvaluator:
                                                   u, h, g, n),
             self._users_d, self._hists_d, self._gt_d, self._negs_d)
 
-    def positions_sharded(self, model, params) -> np.ndarray:
+    def positions_sharded(self, model, params, layout=None) -> np.ndarray:
         """Rank positions through the mesh (needs ``mesh`` and a factored
         scorer): this rank counts its data rank's users of each tile against
         its model rank's rows of the item table (K1 with the shard's
         ``id_base``), the counts are summed over "model", and every rank gets
         every position. Equal to :meth:`positions_factored` (see
-        :mod:`acf_tpu_torch.parallel.sharded_eval`)."""
+        :mod:`acf_tpu_torch.parallel.sharded_eval`). ``params`` are stored
+        as ``layout`` (a :class:`~acf_tpu_torch.parallel.mesh.Layout`, or
+        None for whole leaves) says: a stored item shard is counted as it
+        stands; the user representations read the other leaves gathered
+        whole, and the item table too for a model whose representation reads
+        it (``repr_reads_table``, SASRec's)."""
         from acf_tpu_torch.parallel.input_pipeline import replicate_result
         from acf_tpu_torch.parallel.sharded_eval import ShardedTable, sharded_positions
 
@@ -235,7 +259,7 @@ class FullRankEvaluator:
         user_repr_fn, table_fn = model.factored_scorer()
         if self._users_d.shape[0] == 0:  # dataset with zero eval users
             return np.zeros(0, dtype=np.int32)
-        shard = ShardedTable(mesh, *table_fn(params))
+        shard, params = _item_shard(mesh, model, table_fn, params, layout)
         rows = mesh.rows(self.batch_users)
         out = []
         for s in range(0, self._users_d.shape[0], self.batch_users):
@@ -246,16 +270,20 @@ class FullRankEvaluator:
         every = replicate_result(mesh, local[None], "data")  # [dp, n_tiles, B / dp]
         return every.transpose(0, 1).reshape(-1).cpu().numpy()[: len(self.users)]
 
-    def evaluate_model(self, model, params) -> EvalResult:
+    def evaluate_model(self, model, params, layout=None) -> EvalResult:
         """Evaluate a model through its factored scorer (the rank-count
         kernel) when it has one, sharded when the evaluator has a mesh, else
-        through ``score_all``."""
+        through ``score_all``; ``params`` stored as ``layout`` says (a
+        trainer's sharded storage; None: whole)."""
         fs = getattr(model, "factored_scorer", lambda: None)()
+        if fs is not None and self.mesh is not None:
+            pos = self.positions_sharded(model, params, layout)
+            hr, ndcg, auc = metrics_from_position(pos, self._num_neg, self.K)
+            return EvalResult(hr=hr, ndcg=ndcg, auc=auc)
+        if layout is not None:
+            params = layout.gather(params)
         if fs is not None:
-            if self.mesh is not None:
-                pos = self.positions_sharded(model, params)
-            else:
-                pos = self.positions_factored(fs[0], fs[1], params)
+            pos = self.positions_factored(fs[0], fs[1], params)
             hr, ndcg, auc = metrics_from_position(pos, self._num_neg, self.K)
             return EvalResult(hr=hr, ndcg=ndcg, auc=auc)
         return self.evaluate(model.score_all, params)

@@ -47,7 +47,7 @@ from acf_tpu_torch.models.base import PairwiseModel, scatter_rows, softplus
 from acf_tpu_torch.ops.apl_gen_fused import EPS, NEG, apl_gen_backward, apl_gen_forward
 from acf_tpu_torch.parallel.mesh import all_reduce_tree
 from acf_tpu_torch.sampling.negatives import sample_pair_epoch
-from acf_tpu_torch.train.optim import grad_update, sgd
+from acf_tpu_torch.train.optim import grad_update, player, sgd, whole
 from acf_tpu_torch.train.trainer import _data_parallel, _mean_stats
 from acf_tpu_torch.utils.tree import tree_map
 
@@ -87,6 +87,7 @@ class APL(PairwiseModel):
     # the p_aux mixture reads the history as a set of positives: the trainer
     # must not truncate it with membership_len
     uses_full_hist = True
+    repr_reads_table = False  # the user representation is P_g's row
 
     def __post_init__(self):
         if self.loss_function not in ("log", "wgan", "hinge"):
@@ -111,6 +112,12 @@ class APL(PairwiseModel):
         optimizer is not used, as in the JAX package)."""
         opt = sgd(self.lr)
         return {"g": opt.init(params["g"]), "c": opt.init(params["c"])}
+
+    def opt_state_rows(self, optimizer, rows):
+        """Where each leaf of :meth:`init_opt_state` lives (the
+        optimizers' ``state_rows``)."""
+        opt = sgd(self.lr)
+        return {"g": opt.state_rows(rows["g"]), "c": opt.state_rows(rows["c"])}
 
     # evaluation ranks with the generator (APL.py:205-211)
     def score_all(self, params, users, hists):
@@ -178,12 +185,15 @@ class APL(PairwiseModel):
                 + torch.sum(torch.square(fake_emb))) / 2
         return self._losses(real, fake, 0.0, c_l2)[1]
 
-    def critic_step(self, c_params, c_state, g_params, users, items, u, reduce=None):
-        """One SGD step of the critic, its gradient through ``reduce`` when
-        given (the sum over the data ranks); returns (c_params, c_state,
+    def critic_step(self, c_params, c_state, g_params, users, items, u, reduce=None,
+                    optimizer=None):
+        """One SGD step of the critic (``optimizer``, default SGD(lr); a
+        :class:`~acf_tpu_torch.train.optim.Sharded` one under sharded
+        storage), its gradient through ``reduce`` when given (the sum over
+        the data ranks), ``g_params`` whole; returns (c_params, c_state,
         loss)."""
         c_params, c_state, loss, _ = grad_update(
-            sgd(self.lr), c_params, c_state,
+            sgd(self.lr) if optimizer is None else optimizer, c_params, c_state,
             lambda prm: (self.critic_loss(prm, g_params, users, items, u), None), reduce)
         if self.loss_function == "wgan":
             c_params = tree_map(lambda x: torch.clamp(x, -0.05, 0.05), c_params)
@@ -232,8 +242,13 @@ class APL(PairwiseModel):
         ``d_loss`` and ``acc`` 0, as the JAX epoch reports them. With
         ``mesh`` (``self`` then :func:`~acf_tpu_torch.models.base.
         data_parallel`'s copy) the batches and uniforms are the global
-        batch's and each step takes this data rank's rows."""
+        batch's and each step takes this data rank's rows. Under sharded
+        storage (``optimizer`` a :class:`~acf_tpu_torch.train.optim.Sharded`)
+        each phase reads the fixed player's leaves gathered once and the
+        stepping player's gathered each step; K3e's dQ_g, whole, is cut to
+        the rank's rows by the update."""
         rows, reduce = _data_parallel(mesh, batch_size)
+        opt_g, opt_c = (player(optimizer, k, sgd(self.lr)) for k in ("g", "c"))
 
         def epoch_fn(params, opt_state, data, generator, batches=None, critic_u=None,
                      gen_u=None):
@@ -251,17 +266,21 @@ class APL(PairwiseModel):
             g_params, c_params = params["g"], params["c"]
             g_state, c_state = opt_state["g"], opt_state["c"]
             d_loss = 0.0
+            g_fixed = whole(opt_g, g_params)
             for step, (u, i) in enumerate(steps):
                 c_params, c_state, cl = self.critic_step(
-                    c_params, c_state, g_params, u, i, uniforms(critic_u, step)[rows], reduce)
+                    c_params, c_state, g_fixed, u, i, uniforms(critic_u, step)[rows], reduce,
+                    opt_c)
                 d_loss = d_loss + cl
-            opt = sgd(self.lr)
+            del g_fixed
+            c_fixed = whole(opt_c, c_params)
             g_loss = 0.0
             with torch.no_grad():
                 for step, (u, i) in enumerate(steps):
-                    gl, grads = self.gen_step(g_params, c_params, u, i, data["hist"][u],
+                    gl, grads = self.gen_step(whole(opt_g, g_params), c_fixed, u, i,
+                                              data["hist"][u],
                                               gumbel(uniforms(gen_u, step)[rows]))
-                    g_params, g_state = opt.update(grads, g_state, g_params)
+                    g_params, g_state = opt_g.update(grads, g_state, g_params)
                     g_loss = g_loss + gl
             stats = _mean_stats({"loss": g_loss, "d_loss": d_loss}, num_batches, mesh)
             return ({"g": g_params, "c": c_params}, {"g": g_state, "c": c_state},

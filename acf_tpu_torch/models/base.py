@@ -73,6 +73,10 @@ class PairwiseModel:
     # computes one data rank's share of each loss (:func:`data_parallel`);
     # None on one device.
     data_mesh = None
+    # whether the user representation of factored_scorer() reads the item
+    # table (SASRec's does: the sharded evaluation then gathers it whole for
+    # the representations)
+    repr_reads_table = True
 
     def __getstate__(self):
         """The hyperparameters: what a method caches on the instance (the

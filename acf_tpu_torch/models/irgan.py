@@ -39,7 +39,7 @@ from acf_tpu_torch.device import resolve_device
 from acf_tpu_torch.models.apl import gumbel
 from acf_tpu_torch.models.base import PairwiseModel, softplus
 from acf_tpu_torch.sampling.negatives import sample_pair_epoch
-from acf_tpu_torch.train.optim import grad_update, sgd
+from acf_tpu_torch.train.optim import grad_update, player, sgd, whole
 from acf_tpu_torch.train.trainer import _add_stats, _data_parallel, _mean_stats
 
 PAD_LOGIT = -1e30
@@ -79,6 +79,7 @@ class IRGAN(PairwiseModel):
     # the positive mixture and the importance density read the whole
     # history: the trainer must not truncate it with membership_len
     uses_full_hist = True
+    repr_reads_table = False  # the user representation is G's P row
 
     def init_params(self, generator: torch.Generator, device=None):
         dev = resolve_device(device)
@@ -94,6 +95,12 @@ class IRGAN(PairwiseModel):
     def init_opt_state(self, optimizer, params):
         # the reference ignores the trainer's optimizer: both players SGD
         return {"g": sgd(self.g_lr).init(params["g"]), "d": sgd(self.d_lr).init(params["d"])}
+
+    def opt_state_rows(self, optimizer, rows):
+        """Where each leaf of :meth:`init_opt_state` lives (the
+        optimizers' ``state_rows``)."""
+        return {"g": sgd(self.g_lr).state_rows(rows["g"]),
+                "d": sgd(self.d_lr).state_rows(rows["d"])}
 
     # -- scoring: evaluation ranks with the generator (IRGAN.py:36-39) --------
     def score_all(self, params, users, hists):
@@ -190,29 +197,36 @@ class IRGAN(PairwiseModel):
         reward = 2.0 * (torch.sigmoid(d_scores) - 0.5)
         return sample, reward * p_i / torch.clamp(pn_i, min=1e-20)
 
-    def d_step(self, d_params, d_state, g_params, users, pos, noise_u, reduce=None):
+    def d_step(self, d_params, d_state, g_params, users, pos, noise_u, reduce=None,
+               optimizer=None):
         """One D step: a fake a pair from G over ``noise_u`` [B, I], then
-        SGD(d_lr) on D's loss, its gradient through ``reduce`` when given
-        (the sum over the data ranks). Returns (d_params, d_state, loss)."""
+        SGD(d_lr) (``optimizer``, sharded under sharded storage) on D's
+        loss, its gradient through ``reduce`` when given (the sum over the
+        data ranks); ``g_params`` whole. Returns (d_params, d_state,
+        loss)."""
         fake = self.d_fakes(g_params, users, noise_u)
         lam_d = self.lamda_d / self.data_count(users.shape[0])
         d_params, d_state, loss, _ = grad_update(
-            sgd(self.d_lr), d_params, d_state,
+            sgd(self.d_lr) if optimizer is None else optimizer, d_params, d_state,
             lambda prm: (self.d_loss(prm, users, pos, fake, lam_d), {}), reduce)
         return d_params, d_state, loss
 
     def g_step(self, g_params, g_state, d_params, users, hist_rows, mix, noise_u, pos_idx,
-               reduce=None):
+               reduce=None, optimizer=None):
         """One G step: two samples a pair and their rewards against D
-        (:meth:`g_samples`), then SGD(g_lr) on G's policy-gradient loss,
-        its gradient through ``reduce`` when given. Returns (g_params,
-        g_state, loss)."""
-        sample, reward = self.g_samples(g_params, d_params, users, hist_rows, mix, noise_u,
+        (:meth:`g_samples`, on G's leaves read whole), then SGD(g_lr)
+        (``optimizer``, sharded under sharded storage) on G's
+        policy-gradient loss, its gradient through ``reduce`` when given;
+        ``d_params`` whole. Returns (g_params, g_state, loss)."""
+        optimizer = sgd(self.g_lr) if optimizer is None else optimizer
+        g_read = whole(optimizer, g_params)  # gathered once: the samples and the loss read it
+        sample, reward = self.g_samples(g_read, d_params, users, hist_rows, mix, noise_u,
                                         pos_idx)
         lam_g = self.lamda_g / self.data_count(users.shape[0])
         g_params, g_state, loss, _ = grad_update(
-            sgd(self.g_lr), g_params, g_state,
-            lambda prm: (self.g_loss(prm, users, sample, reward, lam_g), {}), reduce)
+            optimizer, g_params, g_state,
+            lambda prm: (self.g_loss(prm, users, sample, reward, lam_g), {}), reduce,
+            read=g_read)
         return g_params, g_state, loss
 
     def make_epoch_fn(self, optimizer, batch_size: int, num_batches: int, dev=None,
@@ -229,9 +243,13 @@ class IRGAN(PairwiseModel):
         mean G ``loss``, the mean ``d_loss`` and ``acc`` 0, as the JAX epoch
         reports them. With ``mesh`` (``self`` then
         :func:`~acf_tpu_torch.models.base.data_parallel`'s copy) every draw
-        is the global batch's and each step takes this data rank's rows."""
+        is the global batch's and each step takes this data rank's rows.
+        Under sharded storage each phase reads the fixed player's leaves
+        gathered once."""
         b, n_items = batch_size, self.num_items
         rows, reduce = _data_parallel(mesh, b)
+        opt_g = player(optimizer, "g", sgd(self.g_lr))
+        opt_d = player(optimizer, "d", sgd(self.d_lr))
 
         def epoch_fn(params, opt_state, data, generator, batches=None, d_u=None, g_mix=None,
                      g_u=None, g_idx=None):
@@ -244,11 +262,14 @@ class IRGAN(PairwiseModel):
             g_params, d_params = params["g"], params["d"]
             g_state, d_state = opt_state["g"], opt_state["d"]
             sums = {}
+            g_fixed = whole(opt_g, g_params)
             for step, (u, pos) in enumerate(steps):
                 noise = draw(d_u, step, lambda: uniforms(generator, (b, n_items)))
-                d_params, d_state, loss = self.d_step(d_params, d_state, g_params, u[rows],
-                                                      pos[rows], noise[rows], reduce)
+                d_params, d_state, loss = self.d_step(d_params, d_state, g_fixed, u[rows],
+                                                      pos[rows], noise[rows], reduce, opt_d)
                 _add_stats(sums, {"d_loss": loss})
+            del g_fixed
+            d_fixed = whole(opt_d, d_params)
             for step, (u, _) in enumerate(steps):
                 mix = draw(g_mix, step, lambda: torch.rand(
                     (b, G_SAMPLES), generator=generator, device=generator.device)
@@ -258,9 +279,9 @@ class IRGAN(PairwiseModel):
                     0, 2 ** 31 - 1, (b, G_SAMPLES), generator=generator,
                     device=generator.device))
                 u = u[rows]
-                g_params, g_state, loss = self.g_step(g_params, g_state, d_params, u,
+                g_params, g_state, loss = self.g_step(g_params, g_state, d_fixed, u,
                                                       data["hist"][u], mix[rows], noise[rows],
-                                                      pos_idx[rows], reduce)
+                                                      pos_idx[rows], reduce, opt_g)
                 _add_stats(sums, {"loss": loss})
             stats = dict(_mean_stats(sums, num_batches, mesh), acc=0.0)
             return {"g": g_params, "d": d_params}, {"g": g_state, "d": d_state}, stats

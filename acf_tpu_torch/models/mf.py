@@ -15,6 +15,16 @@ pair trainer (``acf_tpu_torch/train/trainer.py``).
 The inner FGSM gradient is taken on detached copies of the tables with
 their own gathers, so it never touches the graph of the loss the caller
 differentiates, and it is constant under that outer gradient.
+
+The row path (``row_path``: clean MF-BPR, DNS, pointwise MF, and APR by its
+closed form) serves the trainer's sharded storage: :meth:`MFBPR.row_step`
+and :meth:`row_scores` read the batch's rows of P and Q through a
+:class:`~acf_tpu_torch.parallel.sharded_embedding.TableRows` (across
+"model" for a shard), take the gradients of those rows (the model's own
+loss on them by autograd, or APR's closed form) and scatter them into the
+rank's own rows, so no whole table is formed on a rank. The gathers are
+exact and each id's gradient rows are summed in the order a whole table's
+scatter sums them, so the step equals the whole-table step bit for bit.
 """
 
 from __future__ import annotations
@@ -48,6 +58,44 @@ def _mf_factored_scorer(model):
 
         model._fs = (user_repr, table)
     return model._fs
+
+
+class _RowPath:
+    """The row path of a model whose loss and ``score_some`` read its
+    tables P and Q only at the batch's ids (the module docstring)."""
+
+    row_path = True
+    repr_reads_table = False  # the factored user representation is P's row
+
+    def row_scores(self, tables, params, users, hists, items):
+        """``score_some`` on the rows of P and Q that ``tables`` reads for
+        ``users`` [B] and ``items`` [B, M]."""
+        b, k = items.shape
+        view = {"P": tables.rows("P", params["P"], users),
+                "Q": tables.rows("Q", params["Q"], items.reshape(-1))}
+        ids = torch.arange(b * k, device=items.device)
+        return self.score_some(view, ids[:b], hists, ids.reshape(b, k))
+
+    def row_step(self, tables, params, batch, generator=None, closed_form=False):
+        """(gradients {"P", "Q"} shaped as the tables are stored, aux) of the
+        step's objective on ``batch`` = (users, pos, neg): APR's closed form
+        when ``closed_form``, else autograd of :meth:`loss` on the gathered
+        rows, each table's row gradients scattered as its whole-table
+        gather's backward scatters them (pos and neg apart, then added)."""
+        if closed_form:
+            return self._apr_manual_grads(params, batch, generator, tables)
+        users, pos, neg = batch
+        P, Q = params["P"], params["Q"]
+        b = users.shape[0]
+        p = tables.rows("P", P, users).requires_grad_(True)
+        q = tables.rows("Q", Q, torch.cat([pos, neg])).requires_grad_(True)
+        ids = torch.arange(b, device=users.device)
+        with torch.enable_grad():
+            loss, aux = self.loss({"P": p, "Q": q}, (ids, ids, ids + b), generator)
+            gp, gq = torch.autograd.grad(loss, (p, q))
+        return ({"P": tables.scatter("P", P, users, gp),
+                 "Q": tables.scatter("Q", Q, pos, gq[:b]) + tables.scatter("Q", Q, neg, gq[b:])},
+                aux)
 
 
 def _mf_adv_encoders(model):
@@ -97,7 +145,7 @@ def _clip_grad_coef(diff):
 
 
 @dataclasses.dataclass(eq=False)
-class MFBPR(PairwiseModel):
+class MFBPR(_RowPath, PairwiseModel):
     """MF with BPR loss; APR (FGSM on embedding rows) when ``adversarial``.
 
     Hyperparameter defaults follow the reference CLI (run_adv.py:15-54):
@@ -115,6 +163,12 @@ class MFBPR(PairwiseModel):
     # the closed form aggregates duplicate rows with [B, B] and [2B, 2B]
     # equality matrices, so past this batch size the trainer takes autograd
     manual_grads_max_batch: int = 4096
+
+    @property
+    def row_path(self):
+        """Clean MF-BPR and DNS by autograd, APR by its closed form; APR's
+        other modes read whole perturbation tables."""
+        return not self.adversarial or self.manual_grads is not None
 
     def init_params(self, generator: torch.Generator, device=None):
         dev = resolve_device(device)
@@ -218,29 +272,41 @@ class MFBPR(PairwiseModel):
             return self._apr_manual_grads
         return None
 
-    def _apr_manual_grads(self, params, batch, generator=None):
+    def _apr_manual_grads(self, params, batch, generator=None, tables=None):
         """({"P": gP, "Q": gQ}, aux) of APR's objective at ``params`` on
-        ``batch`` = (users, pos, neg); aux as :meth:`loss` gives it."""
+        ``batch`` = (users, pos, neg); aux as :meth:`loss` gives it. With
+        ``tables`` (a :class:`~acf_tpu_torch.parallel.sharded_embedding.
+        TableRows`) the rows are read and the gradients scattered as the
+        tables are stored (the row path)."""
+        if tables is None:
+            from acf_tpu_torch.parallel.sharded_embedding import TableRows
+
+            tables = TableRows()
         users, pos, neg = batch
         P, Q = params["P"].detach(), params["Q"].detach()
         items2 = torch.cat([pos, neg], dim=0)
         if self.data_mesh is None or self.data_mesh.shape["data"] == 1:  # the whole batch here
             delta_u, delta_i = equality_deltas(users), equality_deltas(items2)
         else:
-            delta_u, delta_i = self._table_deltas(users, P.shape[0]), self._table_deltas(
-                items2, Q.shape[0])
-        rows_p, rows_q, aux = self.row_grads(P[users], Q[pos], Q[neg], delta_u, delta_i)
-        grads = {"P": scatter_rows(P.shape[0], users, rows_p),
-                 "Q": scatter_rows(Q.shape[0], items2, rows_q)}
+            delta_u = self._table_deltas(tables, "P", P, users)
+            delta_i = self._table_deltas(tables, "Q", Q, items2)
+        B = users.shape[0]
+        q = tables.rows("Q", Q, items2)  # the pos rows, then the neg rows
+        rows_p, rows_q, aux = self.row_grads(tables.rows("P", P, users), q[:B], q[B:], delta_u,
+                                             delta_i)
+        grads = {"P": tables.scatter("P", P, users, rows_p),
+                 "Q": tables.scatter("Q", Q, items2, rows_q)}
         return grads, aux
 
-    def _table_deltas(self, ids, num_rows):
+    def _table_deltas(self, tables, name, table, ids):
         """``delta(g, eps)`` under a mesh: eps times the row-normalized row of
         each slot's id in the dense clean gradient summed over the data ranks
-        (the rank's rows ``g`` [N, d] scattered, then summed), as the
-        single-device dense gradient gives it."""
+        (the rank's rows ``g`` [N, d] scattered as ``table`` is stored, then
+        summed, then read back), as the single-device dense gradient gives
+        it."""
         def delta(g, eps):
-            return eps * row_normalize(self.data_sum(scatter_rows(num_rows, ids, g))[ids])
+            summed = self.data_sum(tables.scatter(name, table, ids, g))
+            return eps * row_normalize(tables.rows(name, summed, ids))
 
         return delta
 
@@ -331,7 +397,7 @@ class MFBPR(PairwiseModel):
 
 
 @dataclasses.dataclass(eq=False)
-class PointwiseMF(PairwiseModel):
+class PointwiseMF(_RowPath, PairwiseModel):
     """Keras-style pointwise MF (reference MF.py:7-59): sigmoid(u·i) with
     binary cross-entropy; the trainer feeds (user, pos, neg) and the loss
     takes pos as label 1 and neg as label 0 (MF.py:42-56 draws one negative

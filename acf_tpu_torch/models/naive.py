@@ -37,6 +37,9 @@ class _NaiveBase(PairwiseModel):
     def init_opt_state(self, optimizer, params):
         return ()
 
+    def opt_state_rows(self, optimizer, rows):
+        return ()
+
     def make_epoch_fn(self, optimizer, batch_size: int, num_batches: int, dev=None,
                       mesh=None):
         """The no-op epoch; a mesh changes nothing here and is ignored."""

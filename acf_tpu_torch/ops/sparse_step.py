@@ -33,16 +33,18 @@ program's scatter-add is :func:`scatter_rows`), so two runs of a step are
 equal bit for bit.
 
 With a mesh (``make_epoch_fn(..., mesh=)``; the JAX package's
-``_make_mesh_epoch_fn``) P, Q and both accumulators are row-sharded over the
-"model" axis for the epoch and the batch is replicated (the scaling axis of
-this step is "model": ``--mesh 1xN``). Each step assembles the gathered rows
-by the masked ``all_reduce`` of
+``_make_mesh_epoch_fn``) the batch is replicated (the scaling axis of this
+step is "model": ``--mesh 1xN``) and P, Q and their accumulators are taken
+as the trainer stores them (its :class:`~acf_tpu_torch.train.optim.Sharded`
+optimizer's layout): a table stored as a row shard over "model", with its
+accumulator, stays one for the epoch; a whole table stays whole on every
+rank. Each step reads a shard's rows by the masked ``all_reduce`` of
 :func:`~acf_tpu_torch.parallel.sharded_embedding.sharded_lookup`, runs the
 same full-batch row-space math on every rank (the dedup over the whole
 batch keeps Adagrad's sum-then-square), and applies Adagrad to the rows of
 its own shard only, off-shard slots clipped into the window with a zero
-payload. The trajectory is the single-device one: the lookups are exact and
-every shard's rows see the same arithmetic.
+payload. No whole table is formed. The trajectory is the single-device one:
+the lookups are exact and every shard's rows see the same arithmetic.
 """
 
 from __future__ import annotations
@@ -54,9 +56,11 @@ import torch
 
 from acf_tpu_torch.models.base import row_normalize, scatter_rows
 from acf_tpu_torch.models.mf import MFBPR, equality
+from acf_tpu_torch.parallel.sharded_embedding import TableRows
 from acf_tpu_torch.sampling.negatives import (
     negatives_from_draws, sample_pair_epoch, uniform_negatives,
 )
+from acf_tpu_torch.train.optim import layout_of
 from acf_tpu_torch.train.trainer import _add_stats, _mean_stats
 
 # "auto" takes the equality-matrix program up to this batch size: its
@@ -111,18 +115,6 @@ def sparse_adagrad_(table, acc, ids, g, lr, eps):
     acc.index_add_(0, ids, torch.square(g))
 
 
-def _shard_window(mesh, n: int, ids, g):
-    """(local ids, rows) of the slots of global ``ids`` for this model
-    rank's shard of ``n`` rows: ids outside the shard (and the pad slots
-    dedup parks at id 0, outside every shard but the first) clip into the
-    window with a zero row, so :func:`sparse_adagrad_` leaves each shard's
-    rows as the single-device update does, bit for bit."""
-    from acf_tpu_torch.parallel.sharded_embedding import local_window
-
-    lidx, ok = local_window(n, ids, mesh.model_index)
-    return lidx, torch.where(ok[:, None], g, 0.0)
-
-
 @dataclasses.dataclass(eq=False)
 class SparseMFBPR(MFBPR):
     """MFBPR with the row-space epoch. The trainer's optimizer is ignored:
@@ -138,6 +130,11 @@ class SparseMFBPR(MFBPR):
         """The Adagrad accumulators under the JAX package's names."""
         return {"accP": torch.full_like(params["P"], self.initial_acc),
                 "accQ": torch.full_like(params["Q"], self.initial_acc)}
+
+    def opt_state_rows(self, optimizer, rows):
+        """Where :meth:`init_opt_state`'s leaves live: each accumulator as
+        its table."""
+        return {"accP": rows["P"], "accQ": rows["Q"]}
 
     def dedup_mode(self, batch_size: int) -> str:
         if self.dedup == "auto":
@@ -168,34 +165,29 @@ class SparseMFBPR(MFBPR):
         R, B] negative candidates, drawn from ``generator`` in the pair
         epoch's order when not given) through the row-space step. Stats:
         the mean ``loss`` and ``acc`` (and ``acc_adv``) over the steps.
-        With ``mesh`` the tables and slots are row-sharded over "model" for
-        the epoch (the module docstring) and come back whole on every
-        rank. Every rank steps on the whole batch, so no loss is a share:
-        the trainer's data-parallel copy runs as the model itself."""
+        With ``mesh`` the tables and slots stay as ``optimizer``'s layout
+        stores them (the module docstring). Every rank steps on the whole
+        batch, so no loss is a share: the trainer's data-parallel copy runs
+        as the model itself."""
         if self.data_mesh is not None:
             model = copy.copy(self)
             model.data_mesh = None
             return model.make_epoch_fn(optimizer, batch_size, num_batches, dev, mesh)
         mode = self.dedup_mode(batch_size)
         lr, eps = self.lr, self.opt_eps
+        tables = TableRows(None if mesh is None else layout_of(optimizer))
+        lookup = tables.rows
+
+        def adagrad(name, tbl, acc, ids, g):
+            sparse_adagrad_(tbl, acc, *tables.window(name, tbl, ids, g), lr, eps)
 
         @torch.no_grad()
         def epoch_fn(params, opt_state, data, generator, batches=None, cands=None):
             if batches is None:
                 batches = sample_pair_epoch(generator, data["pairs_u"].shape[0], batch_size,
                                             num_batches)
-            tables = [params["P"], params["Q"], opt_state["accP"], opt_state["accQ"]]
-            if mesh is None:
-                P, Q, accP, accQ = (x.clone() for x in tables)
-                lookup = (lambda tbl, ids: tbl[ids])
-                adagrad = sparse_adagrad_
-            else:
-                from acf_tpu_torch.parallel.sharded_embedding import shard_table, sharded_lookup
-
-                P, Q, accP, accQ = (shard_table(mesh, x) for x in tables)
-                lookup = (lambda tbl, ids: sharded_lookup(mesh, tbl, ids))
-                adagrad = (lambda tbl, acc, ids, g, lr, eps: sparse_adagrad_(
-                    tbl, acc, *_shard_window(mesh, tbl.shape[0], ids, g), lr, eps))
+            P, Q, accP, accQ = (x.clone() for x in (params["P"], params["Q"],
+                                                   opt_state["accP"], opt_state["accQ"]))
             sums = {}
             for step in range(num_batches):
                 idx = batches[step]
@@ -206,15 +198,11 @@ class SparseMFBPR(MFBPR):
                 else:
                     neg = negatives_from_draws(cands[step], hist_rows)
                 uu, gP, ii, gQ, aux = self.row_space_grads(
-                    u, pos, neg, lookup(P, u), lookup(Q, pos), lookup(Q, neg), mode)
-                adagrad(P, accP, uu, gP, lr, eps)
-                adagrad(Q, accQ, ii, gQ, lr, eps)
+                    u, pos, neg, lookup("P", P, u), lookup("Q", Q, pos), lookup("Q", Q, neg),
+                    mode)
+                adagrad("P", P, accP, uu, gP)
+                adagrad("Q", Q, accQ, ii, gQ)
                 _add_stats(sums, aux)
-            if mesh is not None:
-                from acf_tpu_torch.parallel.input_pipeline import replicate_result
-
-                P, Q, accP, accQ = (replicate_result(mesh, x, "model")[:full.shape[0]]
-                                    for x, full in zip((P, Q, accP, accQ), tables))
             return {"P": P, "Q": Q}, {"accP": accP, "accQ": accQ}, _mean_stats(sums, num_batches)
 
         return epoch_fn

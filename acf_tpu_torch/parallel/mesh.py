@@ -8,6 +8,14 @@ row-sharded over the "model" axis, and each reduction names its axis
 (:meth:`Mesh.all_reduce`). Rank = d · model + m, the row-major layout of
 JAX's ``make_mesh`` (``devices.reshape(num_data, num_model)``).
 
+Under a mesh the trainer stores a param tree as :func:`shard_params` places
+it: each 2-D leaf that the JAX package's ``shard_params`` shards (at least
+``max(min_rows, m)`` rows, and its rows or its columns divide the "model"
+axis size m) as a row shard of ceil(R / m) rows on each model rank, padded
+with zero rows; every other leaf whole on every rank. The :class:`Layout`
+it returns records each sharded leaf's global row count, and every gather,
+slice and snapshot reads it.
+
 A mesh needs as many ranks as it has cells: one process a rank, started by
 ``torchrun --nproc_per_node N`` (or :mod:`acf_tpu_torch.parallel.launch`).
 There is no fallback to virtual devices: a spec that does not equal the
@@ -23,7 +31,8 @@ import torch
 import torch.distributed as dist
 
 from acf_tpu_torch.device import resolve_device
-from acf_tpu_torch.utils.tree import tree_leaves, tree_unflatten
+from acf_tpu_torch.parallel.sharded_embedding import gather_table, shard_table
+from acf_tpu_torch.utils.tree import tree_leaves, tree_map, tree_unflatten
 
 def init_distributed(device=None, backend: Optional[str] = None,
                      init_method: Optional[str] = None, rank: Optional[int] = None,
@@ -96,6 +105,25 @@ class Mesh:
         dist.all_reduce(x, group=self._groups[axis])
         return x
 
+    def host_groups(self) -> dict:
+        """gloo groups over the same ranks for host-side collectives
+        (snapshots): "world", "data" and "model", made on first use, which
+        every rank must reach together. The mesh's own groups may be NCCL,
+        or busy with training while a snapshot is written."""
+        if not hasattr(self, "_host"):
+            dp, m = self.shape["data"], self.shape["model"]
+            host = {"world": dist.new_group(backend="gloo")}
+            for d in range(dp):
+                g = dist.new_group([d * m + k for k in range(m)], backend="gloo")
+                if d == self.data_index:
+                    host["model"] = g
+            for k in range(m):
+                g = dist.new_group([d * m + k for d in range(dp)], backend="gloo")
+                if k == self.model_index:
+                    host["data"] = g
+            self._host = host
+        return self._host
+
     def rows(self, n: int) -> slice:
         """This data rank's rows of a global batch of ``n`` rows (the
         counterpart of ``data_constrainer``): ``n`` must divide over the data
@@ -115,6 +143,74 @@ def all_reduce_tree(mesh, tree, axis: str = "data"):
     mesh.all_reduce(flat, axis)
     parts = torch.split(flat, [x.numel() for x in leaves])
     return tree_unflatten(tree, [p.reshape(x.shape) for p, x in zip(parts, leaves)])
+
+
+class Layout:
+    """Where each leaf of a param tree lives under ``mesh``: ``rows`` is a
+    tree of the params' structure whose leaf is the global row count R of a
+    leaf stored as a row shard over "model" (model rank k holds rows
+    [k·ceil(R/m), (k+1)·ceil(R/m)), padded with zero rows that no step reads
+    and no update moves), or None for a leaf whole on every rank."""
+
+    def __init__(self, mesh, rows):
+        self.mesh = mesh
+        self.rows = rows
+
+    @property
+    def sharded(self) -> bool:
+        """Whether any leaf is stored sharded."""
+        return any(r is not None for r in tree_leaves(self.rows))
+
+    def sub(self, key) -> "Layout":
+        """The layout of the subtree ``key`` (a player's params)."""
+        return Layout(self.mesh, self.rows[key])
+
+    def gather(self, tree, keep=()):
+        """``tree`` (stored as this layout says) with every sharded leaf
+        whole but those in ``keep`` (stored leaves left as they are): one
+        ``all_reduce`` over "model" a leaf, exact (each row is one rank's
+        value and zeros)."""
+        def whole(x, r):
+            if r is None or any(x is k for k in keep):
+                return x
+            return gather_table(self.mesh, x, r)
+
+        return tree_map(whole, tree, self.rows)
+
+    def rows_of(self, tree, leaf):
+        """The global row count of ``leaf`` (a stored leaf of ``tree``) if it
+        is sharded, else None."""
+        for x, r in zip(tree_leaves(tree), tree_leaves(self.rows)):
+            if x is leaf:
+                return r
+        return None
+
+    def own(self, tree):
+        """``tree`` of whole leaves as this layout stores it: this rank's
+        rows of every sharded leaf (fresh tensors), the rest as given."""
+        return tree_map(lambda x, r: x if r is None else shard_table(self.mesh, x), tree,
+                        self.rows)
+
+
+def shard_params(mesh, params, min_rows: int = 1024):
+    """(the params as the trainer stores them under ``mesh``, their
+    :class:`Layout`): each 2-D leaf with at least ``max(min_rows, m)`` rows
+    whose rows or columns divide the "model" axis size m (the leaves
+    ``acf_tpu/parallel/mesh.py::shard_params`` shards) becomes this rank's
+    row shard; every other leaf stays whole. JAX shards a leaf whose rows do
+    not divide m by columns, to keep GSPMD's shapes; the port's collectives
+    are explicit, so one row layout padded with zero rows serves every such
+    leaf. With m = 1 nothing is sharded."""
+    m = mesh.shape["model"]
+
+    def place(x):
+        if (m > 1 and x.dim() == 2 and x.shape[0] >= max(min_rows, m)
+                and (x.shape[0] % m == 0 or x.shape[1] % m == 0)):
+            return int(x.shape[0])
+        return None
+
+    layout = Layout(mesh, tree_map(place, params))
+    return layout.own(params), layout
 
 
 def _rank_message(spec, n, world):

@@ -43,6 +43,16 @@ def shard_table(mesh, table: torch.Tensor, axis: str = "model") -> torch.Tensor:
     return local
 
 
+def gather_table(mesh, local: torch.Tensor, rows: int, axis: str = "model") -> torch.Tensor:
+    """The whole table [rows, ...] whose shards over ``axis`` are ``local``
+    (:func:`shard_table`'s layout): one ``all_reduce`` of a zero-filled
+    buffer in which each rank fills its own block, exact, as gloo on CUDA
+    offers ``all_reduce`` only."""
+    from acf_tpu_torch.parallel.input_pipeline import replicate_result
+
+    return replicate_result(mesh, local, axis)[:rows]
+
+
 def local_window(i_local: int, ids: torch.Tensor, index: int):
     """(local row of each global id, clipped into [0, i_local), and whether
     the id lives in the shard of model rank ``index``)."""
@@ -75,6 +85,47 @@ def sharded_lookup(mesh, table_local: torch.Tensor, ids: torch.Tensor) -> torch.
     Differentiable in ``table_local``: the gradient is the rank's rows of the
     table gradient, summed over the data ranks; do not sum it again."""
     return _Lookup.apply(table_local, ids, mesh)
+
+
+class TableRows:
+    """Reads and gradient scatters of a model's tables by global id, on the
+    tables as a :class:`~acf_tpu_torch.parallel.mesh.Layout` stores them
+    (whole everywhere when ``layout`` is None): the row path of a step that
+    reads its tables only at the batch's ids, so no whole table is formed.
+    ``name`` is a table's key in the params."""
+
+    def __init__(self, layout=None):
+        self.layout = layout
+
+    def _rows(self, name):
+        return None if self.layout is None else self.layout.rows[name]
+
+    def rows(self, name: str, table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+        """Rows [N, ...] of global ``ids`` [N] of ``table`` (its storage, or
+        a table in the same layout such as its gradient); a shard's rows come
+        through :func:`sharded_lookup`, equal to a whole table's bit for bit."""
+        if self._rows(name) is None:
+            return table[ids]
+        return sharded_lookup(self.layout.mesh, table, ids)
+
+    def window(self, name: str, table: torch.Tensor, ids: torch.Tensor,
+               rows: torch.Tensor):
+        """(ids, rows) of an update at global ``ids`` [N] of ``table``'s
+        storage: as given for a whole table; for a shard, each id's local
+        row, the ids outside this rank's window clipped into it with a zero
+        row, so a scatter or an in-place update leaves each stored row as a
+        whole table's update does, each id's run in the same order."""
+        if self._rows(name) is None:
+            return ids, rows
+        idx, ok = local_window(table.shape[0], ids, self.layout.mesh.model_index)
+        return idx, torch.where(ok[:, None], rows, 0.0)
+
+    def scatter(self, name: str, table: torch.Tensor, ids: torch.Tensor,
+                rows: torch.Tensor) -> torch.Tensor:
+        """A gradient shaped like ``table``'s storage: zeros with each row of
+        ``rows`` [N, ...] added at its id of ``ids`` (:func:`scatter_rows`),
+        in this rank's window (:meth:`window`)."""
+        return scatter_rows(table.shape[0], *self.window(name, table, ids, rows))
 
 
 def _bpr_sum(pu, qp, qn):

@@ -18,7 +18,9 @@ those of the single-device factored evaluator
 * one ``all_reduce`` over "model" sums the counts, which are whole numbers.
 
 The dot products are never split over ranks, so the counts are the
-single-device counts exactly.
+single-device counts exactly. A trainer whose storage shards the item table
+hands its shard as it stands (``ShardedTable(mesh, shard, bias,
+rows=R)``): K1 counts on it with its ``id_base``, and no table is gathered.
 """
 
 from __future__ import annotations
@@ -35,15 +37,17 @@ class ShardedTable:
     """This rank's shard of an item table [I, d] and its bias [I] (or None):
     ``table``/``bias`` the shard's rows padded to ``i_local`` with zero rows,
     ``id_base`` the global id of its first row and ``real`` its rows inside
-    the catalog."""
+    the catalog. ``table`` is the whole table, or with ``rows`` (its global
+    row count) this rank's stored shard of it, taken as it is; ``bias`` is
+    whole."""
 
-    def __init__(self, mesh, table: torch.Tensor, bias=None):
+    def __init__(self, mesh, table: torch.Tensor, bias=None, rows=None):
         self.mesh = mesh
-        self.num_items = table.shape[0]
+        self.num_items = table.shape[0] if rows is None else rows
         self.i_local = shard_rows(self.num_items, mesh.shape["model"])
         self.id_base = mesh.model_index * self.i_local
         self.real = max(min(self.i_local, self.num_items - self.id_base), 0)
-        self.table = shard_table(mesh, table)
+        self.table = shard_table(mesh, table) if rows is None else table
         self.bias = None if bias is None else shard_table(mesh, bias)
 
     def rows(self, ids: torch.Tensor):

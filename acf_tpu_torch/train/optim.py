@@ -19,6 +19,21 @@ Per leaf, with g the gradient:
     acc = g² + acc;  p = p + (-lr) (rsqrt(acc + eps) g), 0 where acc is 0
   SGD (no state, ``{}``, as optax's ``EmptyState``):
     p = p + (-lr) g
+
+Under a mesh whose layout shards some leaves
+(:func:`acf_tpu_torch.parallel.mesh.shard_params`) the trainer hands every
+epoch :class:`Sharded`, the one place that knows the layout, in place of the
+bare optimizer: it gives a step the leaves it reads whole (:func:`whole`),
+and takes the whole gradient after the data reduce, keeps this rank's rows
+and updates only its shard and its slots. Each update above is elementwise
+(Adam's count a scalar), so a shard's update is the matching rows of the
+whole update, bit for bit. Each optimizer says where its slots live
+(``state_rows``, beside its ``init``), and a model that makes its own slots
+(``init_opt_state``) says it beside them (``opt_state_rows``). That form
+keeps the stored params and slots at 1/m a rank; the step's transient
+gathered leaf and its gradient stay whole.
+A step that reads its tables only at the batch's ids (the MF family's row
+path) hands :meth:`Sharded.update_rows` gradients already in the layout.
 """
 
 from __future__ import annotations
@@ -30,12 +45,74 @@ import torch
 from acf_tpu_torch.utils.tree import tree_leaves, tree_map, tree_unflatten
 
 
-def grad_update(optimizer, params, opt_state, loss_fn, reduce=None):
+class Sharded:
+    """``inner`` (Adam, Adagrad or SGD) on params stored as ``layout`` (a
+    :class:`~acf_tpu_torch.parallel.mesh.Layout`) says: slots made on the
+    stored leaves, so a sharded leaf's slots are its shard's."""
+
+    def __init__(self, inner, layout):
+        self.inner = inner
+        self.layout = layout
+
+    def init(self, params):
+        return self.inner.init(params)
+
+    def state_rows(self, rows):
+        return self.inner.state_rows(rows)
+
+    def whole(self, params):
+        """The leaves a step reads: every sharded leaf gathered whole."""
+        return self.layout.gather(params)
+
+    def update(self, grads, state, params):
+        """``grads`` whole (after the data reduce): this rank's rows of each
+        sharded leaf's gradient update its shard and its slots."""
+        return self.inner.update(self.layout.own(grads), state, params)
+
+    def update_rows(self, grads, state, params):
+        """``grads`` already shaped as the params are stored (the row path)."""
+        return self.inner.update(grads, state, params)
+
+    def player(self, key, inner=None) -> "Sharded":
+        """``inner`` (default this one's) on the params subtree ``key``."""
+        return Sharded(self.inner if inner is None else inner, self.layout.sub(key))
+
+
+def layout_of(optimizer):
+    """The layout an optimizer updates in (:class:`Sharded`), else None."""
+    return getattr(optimizer, "layout", None)
+
+
+def whole(optimizer, params):
+    """``params`` as a step reads them: gathered whole where ``optimizer``
+    stores them sharded, else as they are."""
+    return optimizer.whole(params) if isinstance(optimizer, Sharded) else params
+
+
+def player(optimizer, key, inner=None):
+    """``inner`` (default: ``optimizer`` itself) for the player ``key``'s
+    params (APL's, IRGAN's, the popularity adversaries'), stored as
+    ``optimizer`` stores them."""
+    if isinstance(optimizer, Sharded):
+        return optimizer.player(key, inner)
+    return optimizer if inner is None else inner
+
+
+def update_rows(optimizer, grads, state, params):
+    """The update from gradients already shaped as ``params`` are stored."""
+    if isinstance(optimizer, Sharded):
+        return optimizer.update_rows(grads, state, params)
+    return optimizer.update(grads, state, params)
+
+
+def grad_update(optimizer, params, opt_state, loss_fn, reduce=None, read=None):
     """One optimizer step: ``loss_fn(prm) -> (loss, aux)`` at ``params``
-    (leaves not reached by the loss get a zero gradient), the gradient tree
-    through ``reduce`` when given (the sum over data ranks), then
-    ``optimizer.update``. Returns (params, opt_state, loss, aux)."""
-    prm = tree_map(lambda x: x.detach().requires_grad_(True), params)
+    (read whole, :func:`whole`, or ``read`` when the caller has gathered
+    them already; leaves not reached by the loss get a zero gradient), the
+    gradient tree through ``reduce`` when given (the sum over data ranks),
+    then ``optimizer.update``. Returns (params, opt_state, loss, aux)."""
+    read = whole(optimizer, params) if read is None else read
+    prm = tree_map(lambda x: x.detach().requires_grad_(True), read)
     loss, aux = loss_fn(prm)
     leaves = tree_leaves(prm)
     grads = torch.autograd.grad(loss, leaves, allow_unused=True)
@@ -63,6 +140,12 @@ class Adam:
         return {"count": torch.zeros((), dtype=torch.int32, device=tree_leaves(params)[0].device),
                 "mu": tree_map(torch.zeros_like, params),
                 "nu": tree_map(torch.zeros_like, params)}
+
+    def state_rows(self, rows):
+        """Where each leaf of :meth:`init`'s state lives, for params whose
+        leaves live as ``rows`` says (a :class:`~acf_tpu_torch.parallel.mesh.
+        Layout`'s rows): the moments as their params, the count whole."""
+        return {"count": None, "mu": rows, "nu": rows}
 
     @torch.no_grad()
     def update(self, grads, state, params):
@@ -104,6 +187,10 @@ class Adagrad:
         return {"sum_of_squares": tree_map(
             lambda x: torch.full_like(x, self.initial_accumulator_value), params)}
 
+    def state_rows(self, rows):
+        """As :meth:`Adam.state_rows`: the accumulators as their params."""
+        return {"sum_of_squares": rows}
+
     @torch.no_grad()
     def update(self, grads, state, params):
         acc = tree_map(lambda g, t: g * g + t, grads, state["sum_of_squares"])
@@ -127,6 +214,9 @@ class SGD:
     lr: float
 
     def init(self, params):
+        return {}
+
+    def state_rows(self, rows):
         return {}
 
     @torch.no_grad()

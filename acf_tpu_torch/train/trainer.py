@@ -29,19 +29,36 @@ negatives and dropout masks too) from the same seeded generator, as one
 device would, and takes its data rank's rows; its loss is its share of the
 global loss (:func:`acf_tpu_torch.models.base.data_parallel`); the
 gradients are summed over the data ranks before the update, so every rank
-applies the same update. The model ranks of one data row compute the same
-rows on whole tables; evaluation is sharded over both axes. Every model
+applies the same update. Evaluation is sharded over both axes. Every model
 trains under a mesh: the generic epochs take the data-parallel copy, and a
 model's own epoch gets it and the mesh (``make_epoch_fn(..., mesh=)``) and
 draws, splits and sums the same way (the sparse step instead steps on the
 whole batch on every rank with its tables row-sharded over "model"; the
 naive baselines train nothing).
 
+Under a mesh the params are stored as
+:func:`acf_tpu_torch.parallel.mesh.shard_params` places them
+(``TrainConfig.shard_min_rows``, the JAX meaning): each large 2-D leaf as a
+row shard over "model", its optimizer slots with it, so the stored state a
+rank falls with the "model" size m. Every epoch gets the optimizer as
+:class:`~acf_tpu_torch.train.optim.Sharded` over that layout. Two access
+forms: a step gathers each sharded leaf whole before its loss (every
+model; the transient leaf and its gradient stay whole) and updates its own
+rows; the MF family's pair step (clean MF-BPR, DNS, pointwise MF and APR's
+closed form) takes the row path instead, which reads the batch's rows
+through :class:`~acf_tpu_torch.parallel.sharded_embedding.TableRows`,
+scatters its row gradients into the rank's own rows and forms no whole
+table. The sparse step updates the stored shards in place, and the sharded
+evaluation counts on the stored item shard. With m = 1 nothing is sharded.
+
 :class:`Trainer` adds leave-one-out evaluation through
 :class:`acf_tpu_torch.eval.FullRankEvaluator` (so through K1 for factored
 models, and K2a for SASRec), best-NDCG tracking, the reference's epoch line
-and per-user dumps, the NaN abort, npz snapshots of the full train state,
-and the two-phase staging of :func:`fit_two_phase`.
+and per-user dumps, the NaN abort, snapshots of the full train state (an
+npz written from rank 0, or with ``ckpt_backend="dcp"`` a directory in which
+each rank writes its own rows, periodic ones written in the background), and
+the two-phase staging of :func:`fit_two_phase`. Every rank takes part in
+every save, every gather and every evaluation, in the same order.
 """
 
 from __future__ import annotations
@@ -59,16 +76,18 @@ import torch
 from acf_tpu_torch.data.datasets import Interactions
 from acf_tpu_torch.device import resolve_device
 from acf_tpu_torch.eval.full_rank import FullRankEvaluator
+from acf_tpu_torch.parallel.sharded_embedding import shard_table
 from acf_tpu_torch.sampling.negatives import (
     negatives_from_draws, pair_batches_from_perm, sample_pair_epoch, sample_seq_window_batch,
     uniform_negatives,
 )
 from acf_tpu_torch.train.checkpoint import (
-    _flatten_with_names, load_state, save_params, save_state,
+    AsyncSnapshotter, _flatten_with_names, check_backend, is_dcp, load_state, load_state_dcp,
+    save_params, save_state, save_state_dcp,
 )
-from acf_tpu_torch.train.optim import grad_update
+from acf_tpu_torch.train.optim import Sharded, grad_update, layout_of, update_rows, whole
 from acf_tpu_torch.utils.io import OutputWriter
-from acf_tpu_torch.utils.tree import tree_map, tree_unflatten
+from acf_tpu_torch.utils.tree import tree_leaves, tree_map, tree_unflatten
 
 
 @dataclasses.dataclass
@@ -94,6 +113,14 @@ class TrainConfig:
     # training over "data" and evaluation sharded over both axes; the mesh's
     # device is the trainer's. None = one device.
     mesh: Optional[object] = None
+    # under a mesh, 2-D leaves with fewer rows than this stay whole on every
+    # rank (the JAX meaning: sharding a small table costs more in
+    # collectives than it saves in memory); larger ones are row shards
+    shard_min_rows: int = 1024
+    # "npz" (one file from rank 0) or "dcp" (a torch.distributed.checkpoint
+    # directory: each rank writes its own rows; periodic snapshots in fit
+    # written in the background by an AsyncSnapshotter)
+    ckpt_backend: str = "npz"
 
 
 def _mean_stats(sums, n, mesh=None):
@@ -114,41 +141,53 @@ def _add_stats(sums, aux):
 
 
 def pair_train_step(model, optimizer, params, opt_state, batch, generator=None,
-                    manual_grads=None, reduce=None):
+                    manual_grads=None, reduce=None, read=None):
     """One step of a pair model on ``batch`` = (users, pos, neg): the
-    gradient of ``model.loss`` at ``params`` by autograd, or
-    ``manual_grads(params, batch, generator) -> (grads, aux)`` when given,
-    through ``reduce`` when given (the sum over data ranks), then the
-    optimizer's update. Returns (params, opt_state, aux)."""
+    gradient of ``model.loss`` at ``params`` (read as :func:`grad_update`
+    reads them, ``read`` the leaves already gathered) by autograd, or
+    ``manual_grads(params, batch, generator) -> (grads, aux)`` when given
+    (gradients shaped as ``params`` are stored: the row path's), through
+    ``reduce`` when given (the sum over data ranks), then the optimizer's
+    update. Returns (params, opt_state, aux)."""
     if manual_grads is not None:
         with torch.no_grad():
             grads, aux = manual_grads(params, batch, generator)
             if reduce is not None:
                 grads = reduce(grads)
-        params, opt_state = optimizer.update(grads, opt_state, params)
+        params, opt_state = update_rows(optimizer, grads, opt_state, params)
         return params, opt_state, aux
     params, opt_state, _, aux = grad_update(optimizer, params, opt_state,
                                             lambda prm: model.loss(prm, batch, generator),
-                                            reduce)
+                                            reduce, read)
     return params, opt_state, aux
 
 
-def dns_negatives(model, params, users, hist_rows, cands):
+def dns_negatives(model, params, users, hist_rows, cands, tables=None):
     """DNS (reference evaluation_adv.py:349-367): of the ``dns`` negatives
     ``cands`` [B, dns], the one ``model.score_some`` scores highest at
-    ``params`` (the first on ties, as ``jnp.argmax``)."""
+    ``params`` (whole, or with ``tables`` as the row path stores them: the
+    model's :meth:`row_scores`) (the first on ties, as ``jnp.argmax``)."""
     with torch.no_grad():
-        scores = model.score_some(params, users, hist_rows, cands)
+        if tables is None:
+            scores = model.score_some(params, users, hist_rows, cands)
+        else:
+            scores = model.row_scores(tables, params, users, hist_rows, cands)
     return cands.gather(1, torch.argmax(scores, dim=1)[:, None])[:, 0]
 
 
 def _data_parallel(mesh, batch_size: int):
     """(this data rank's rows of a global batch, the gradient reduce: the
-    sum over the data ranks); every row and no reduce on one device."""
+    sum over the data ranks); every row and no reduce on one device, and no
+    reduce over a data axis of one rank: a sum of one term, whose packing
+    (:func:`~acf_tpu_torch.parallel.mesh.all_reduce_tree`) would copy every
+    gradient into one buffer, a transient as large as the stored shards on
+    the row path at 1xM."""
     if mesh is None:
         return slice(None), None
     from acf_tpu_torch.parallel.mesh import all_reduce_tree
 
+    if mesh.shape["data"] == 1:
+        return mesh.rows(batch_size), None
     return mesh.rows(batch_size), lambda grads: all_reduce_tree(mesh, grads, "data")
 
 
@@ -167,15 +206,30 @@ def make_pair_epoch_fn(model, optimizer, batch_size: int, num_batches: int, mesh
     (its equality matrices grow as B²); otherwise autograd. With ``mesh``
     (``model`` then :func:`~acf_tpu_torch.models.base.data_parallel`'s copy)
     the draws are the global batch's and the step takes this data rank's
-    rows."""
+    rows. With sharded storage (``optimizer`` a
+    :class:`~acf_tpu_torch.train.optim.Sharded`) a model with a row path
+    (``row_path``: clean MF-BPR, DNS, pointwise MF, and APR by its closed
+    form) steps on the rows it reads (``model.row_step``); any other
+    gathers its leaves whole for each step (:func:`grad_update`)."""
     rows, reduce = _data_parallel(mesh, batch_size)
     dns = getattr(model, "dns", 1)
     manual_grads = getattr(model, "manual_grads", None)
     if manual_grads is not None and batch_size > getattr(model, "manual_grads_max_batch", 4096):
         manual_grads = None
+    tables = None
+    layout = layout_of(optimizer)
+    if (layout is not None and getattr(model, "row_path", False)
+            and not (getattr(model, "adversarial", False) and manual_grads is None)):
+        from acf_tpu_torch.parallel.sharded_embedding import TableRows
+
+        tables = TableRows(layout)
+        closed = manual_grads is not None
+        manual_grads = (lambda prm, batch, gen: model.row_step(tables, prm, batch, gen,
+                                                               closed_form=closed))
 
     def negatives(params, u, hist_rows, step, generator, cands):
-        """This rank's rows' negatives, of the global batch's draws."""
+        """This rank's rows' negatives, of the global batch's draws (DNS
+        scores them at ``params``: whole, or as the row path stores them)."""
         if dns <= 1:
             if cands is None:
                 return uniform_negatives(generator, hist_rows, model.num_items)[rows]
@@ -186,7 +240,7 @@ def make_pair_epoch_fn(model, optimizer, batch_size: int, num_batches: int, mesh
         else:
             drawn = [negatives_from_draws(c, hist_rows) for c in cands[step]]
         return dns_negatives(model, params, u[rows], hist_rows[rows],
-                             torch.stack(drawn, dim=1)[rows])
+                             torch.stack(drawn, dim=1)[rows], tables)
 
     def epoch_fn(params, opt_state, data, generator, batches=None, cands=None):
         if batches is None:
@@ -197,10 +251,13 @@ def make_pair_epoch_fn(model, optimizer, batch_size: int, num_batches: int, mesh
             idx = batches[step]
             u, pos = data["pairs_u"][idx], data["pairs_i"][idx]
             hist_rows = data["hist"][u]
-            neg = negatives(params, u, hist_rows, step, generator, cands)
+            # DNS off the row path reads the leaves whole: gathered once a step
+            read = whole(optimizer, params) if dns > 1 and tables is None else None
+            neg = negatives(params if read is None else read, u, hist_rows, step, generator,
+                            cands)
             params, opt_state, aux = pair_train_step(model, optimizer, params, opt_state,
                                                      (u[rows], pos[rows], neg), generator,
-                                                     manual_grads, reduce)
+                                                     manual_grads, reduce, read)
             _add_stats(sums, aux)
         return params, opt_state, _mean_stats(sums, num_batches, mesh)
 
@@ -294,8 +351,10 @@ class Trainer:
     objective reads the whole history.
 
     With ``config.mesh`` (see the module docstring) every model trains
-    data-parallel, and only rank 0 writes predictions, params and
-    snapshots."""
+    data-parallel on params stored as ``self.layout`` says (None when
+    nothing is sharded), and only rank 0 writes predictions, params and npz
+    snapshots; every rank calls every method, since a save, a restore, an
+    evaluation and the epoch line's norms are collectives there."""
 
     def __init__(self, model, data: Interactions, optimizer,
                  config: TrainConfig = TrainConfig(),
@@ -329,12 +388,22 @@ class Trainer:
             self.num_batches = max(n_seq_users // config.batch_size, 1)
         else:
             self.num_batches = max(data.num_pairs // config.batch_size, 1)
-        self.epoch_fn = self._make_epoch_fn(model)
-        self.evaluator = self._make_evaluator(model)
+        check_backend(config.ckpt_backend)
         self.generator = torch.Generator(device=self.device).manual_seed(config.seed)
         self.params = model.init_params(self.generator, device=self.device)
+        self.layout = None
+        if self.mesh is not None:
+            from acf_tpu_torch.parallel.mesh import shard_params
+
+            stored, layout = shard_params(self.mesh, self.params, config.shard_min_rows)
+            if layout.sharded:
+                self.params, self.layout = stored, layout
+                self.optimizer = Sharded(optimizer, layout)
+        self.epoch_fn = self._make_epoch_fn(model)
+        self.evaluator = self._make_evaluator(model)
         self.opt_state = self._init_opt_state(model)
         self.best = {"ndcg": -1.0, "epoch": -1, "result": None}
+        self._snapshotter = None
 
     def _add_device_data(self, model):
         """A model's ``extra_device_data(data)`` (e.g. the popularity pools
@@ -387,24 +456,118 @@ class Trainer:
     @torch.no_grad()
     def evaluate(self):
         if self.cfg.eval_sampled:
-            return self.evaluator.evaluate(self.model.score_some, self.params, sampled=True)
-        return self.evaluator.evaluate_model(self.model, self.params)
+            return self.evaluator.evaluate(self.model.score_some, self.whole_params(),
+                                           sampled=True)
+        return self.evaluator.evaluate_model(self.model, self.params, layout=self.layout)
 
-    def save_checkpoint(self, path: str):
+    # -- the stored state -------------------------------------------------
+    def _state_layout(self):
+        """The :class:`~acf_tpu_torch.parallel.mesh.Layout` of (params,
+        optimizer slots): the slots live as the optimizer, or the model
+        where it makes its own (``init_opt_state``), says; None when
+        nothing is sharded."""
+        if self.layout is None:
+            return None
+        from acf_tpu_torch.parallel.mesh import Layout
+
+        rows = self.layout.rows
+        if hasattr(self.model, "init_opt_state"):
+            slots = self.model.opt_state_rows(self.optimizer, rows)
+        else:
+            slots = self.optimizer.state_rows(rows)
+        return Layout(self.mesh, (rows, slots))
+
+    def whole_params(self):
+        """The params with every sharded leaf gathered whole (a collective
+        under sharded storage: every rank calls it)."""
+        return self.params if self.layout is None else self.layout.gather(self.params)
+
+    def whole_state(self):
+        """(params, optimizer slots), every sharded leaf gathered whole."""
+        if self.layout is None:
+            return self.params, self.opt_state
+        return self._state_layout().gather((self.params, self.opt_state))
+
+    def set_state(self, params, opt_state=None):
+        """Store whole ``params`` (and ``opt_state``) as the layout says:
+        this rank's rows of each sharded leaf."""
+        if self.layout is not None:
+            layout = self.layout if opt_state is None else self._state_layout()
+            tree = params if opt_state is None else (params, opt_state)
+            tree = tree_map(lambda x: x.to(self.device), layout.own(tree))
+            params, opt_state = (tree, None) if opt_state is None else tree
+        self.params = params
+        if opt_state is not None:
+            self.opt_state = opt_state
+
+    # -- snapshots ----------------------------------------------------------
+    def save_params(self, path: str):
+        """The params, gathered whole, in one npz that rank 0 writes (the
+        JAX package's ``load_params`` reads it)."""
+        params = self.whole_params()
+        if self.is_main:
+            save_params(path, params)
+
+    def save_checkpoint(self, path: str, blocking: bool = True):
         """Full train state: params, optimizer slots and the generator
-        state, so a crashed run resumes exactly."""
-        save_state(path, self.params, self.opt_state, self.generator.get_state())
+        state, so a crashed run resumes exactly. npz: gathered whole, rank 0
+        writes. ``"dcp"``: a directory in which each rank writes its own rows
+        (copied to the host at once); with ``blocking=False`` the write goes
+        on in the background (:class:`AsyncSnapshotter`) while training
+        continues."""
+        rng = self.generator.get_state()
+        if self.cfg.ckpt_backend == "dcp":
+            if blocking:
+                self.wait_snapshots()
+                save_state_dcp(path, self.params, self.opt_state, rng, self.mesh,
+                               self._state_layout())
+                return
+            if self._snapshotter is None:
+                self._snapshotter = AsyncSnapshotter(self.mesh)
+            self._snapshotter.save_state(path, self.params, self.opt_state, rng,
+                                         self._state_layout())
+            return
+        params, opt_state = self.whole_state()
+        if self.is_main:
+            save_state(path, params, opt_state, rng)
+
+    def wait_snapshots(self):
+        """Wait for a snapshot still being written in the background."""
+        if self._snapshotter is not None:
+            self._snapshotter.wait()
 
     def restore_checkpoint(self, path: str):
-        self.params, self.opt_state, rng = load_state(path, self.params, self.opt_state)
+        """The state of :meth:`save_checkpoint` from a ``"dcp"`` directory
+        (written on any mesh or one device: each rank reads its own rows) or
+        an npz file (the port's or the JAX package's), into this trainer's
+        storage."""
+        self.wait_snapshots()
+        if is_dcp(path):
+            self.params, self.opt_state, rng = load_state_dcp(
+                path, self.params, self.opt_state, self.generator.get_state(), self.mesh,
+                self._state_layout())
+        else:
+            like = self.whole_state() if self.layout is None else self._global_like()
+            params, opt_state, rng = load_state(path, *like)
+            self.set_state(params, opt_state)
         if rng is not None:
             self.generator.set_state(rng)
+
+    def _global_like(self):
+        """(params, slots) of empty tensors shaped as the whole leaves (CPU
+        meta-data for a load: no collective, nothing whole on the device)."""
+        def like(x, r):
+            shape = tuple(x.shape) if r is None else (r,) + tuple(x.shape[1:])
+            return torch.empty(shape, dtype=x.dtype, device="cpu")
+
+        return tree_map(like, (self.params, self.opt_state), self._state_layout().rows)
 
     def load_pretrain(self, path: str):
         """Copy matching leaves from an npz into the current params — the
         reference's ``load_pre_train`` by-layer-name handoff (BPR.py:59-65).
         Leaves present with matching shape are loaded (a full train-state
         snapshot's ``params/`` names count too); the rest keep their init.
+        A sharded leaf matches its whole shape and keeps this rank's rows.
         Returns the loaded names."""
         with np.load(path if path.endswith(".npz") else path + ".npz") as f:
             data = dict(f)
@@ -412,10 +575,15 @@ class Trainer:
             if k.startswith("params/"):
                 data.setdefault(k[len("params/"):], data[k])
         loaded, leaves = [], []
-        for name, leaf in _flatten_with_names(self.params):
-            if name in data and tuple(data[name].shape) == tuple(leaf.shape):
-                leaves.append(torch.as_tensor(data[name]).to(device=leaf.device,
-                                                             dtype=leaf.dtype))
+        rows = (tree_leaves(self.layout.rows) if self.layout is not None
+                else [None] * len(tree_leaves(self.params)))
+        for (name, leaf), r in zip(_flatten_with_names(self.params), rows):
+            shape = tuple(leaf.shape) if r is None else (r,) + tuple(leaf.shape[1:])
+            if name in data and tuple(data[name].shape) == shape:
+                x = torch.as_tensor(data[name]).to(dtype=leaf.dtype)
+                if r is not None:
+                    x = shard_table(self.mesh, x)
+                leaves.append(x.to(device=leaf.device))
                 loaded.append(name)
             else:
                 leaves.append(leaf)
@@ -457,12 +625,14 @@ class Trainer:
                     if self.is_main:
                         self.writer.predictions(f"{tag}.hr", res.hr[:, col])
                         self.writer.predictions(f"{tag}.ndcg", res.ndcg[:, col])
-                    if cfg.save_model_path and self.is_main:  # reference .best.h5, run.py:260-262
-                        save_params(cfg.save_model_path + ".best", self.params)
-            if cfg.save_model_path and self.is_main:  # reference .last.h5, run.py:271-272
-                save_params(cfg.save_model_path + ".last", self.params)
-            if cfg.ckpt_every and cfg.ckpt_path and epoch % cfg.ckpt_every == 0 and self.is_main:
-                self.save_checkpoint(f"{cfg.ckpt_path}-{epoch}")
+                    if cfg.save_model_path:  # reference .best.h5, run.py:260-262
+                        self.save_params(cfg.save_model_path + ".best")
+            if cfg.save_model_path:  # reference .last.h5, run.py:271-272
+                self.save_params(cfg.save_model_path + ".last")
+            if cfg.ckpt_every and cfg.ckpt_path and epoch % cfg.ckpt_every == 0:
+                # "dcp": the write overlaps the next epochs
+                self.save_checkpoint(f"{cfg.ckpt_path}-{epoch}", blocking=False)
+        self.wait_snapshots()
         # the reference writes the K=1..100 sweep only at the terminal epoch
         # (evaluation_adv.py:295-300) — not between phases
         if final and self.best["result"] is not None:
@@ -494,7 +664,17 @@ class Trainer:
             return 0.0, 0.0
         p = src.get("P", src.get("user_emb"))
         q = src.get("Q", src.get("item_emb", src.get("emb")))
-        norm = (lambda x: float(torch.linalg.vector_norm(x)) if x is not None else 0.0)
+
+        def norm(x):
+            if x is None:
+                return 0.0
+            n = torch.linalg.vector_norm(x)
+            if self.layout is not None and self.layout.rows_of(self.params, x) is not None:
+                # a shard: its padded rows are 0; the squares summed over "model"
+                sq = torch.square(n).reshape(1)
+                n = torch.sqrt(self.mesh.all_reduce(sq, "model"))[0]
+            return float(n)
+
         return norm(p), norm(q)
 
     # ------------------------------------------------------------------
@@ -550,8 +730,8 @@ def fit_two_phase(clean_model, adv_model, data: Interactions, optimizer,
         start = restore[1]
     if restore is None or restore[1] < adv_epoch:
         trainer.fit(epochs=adv_epoch, epoch_start=start, tag=tag, final=False)
-        if config.ckpt_path and trainer.is_main:
-            save_params(config.ckpt_path + "-pretrain", trainer.params)
+        if config.ckpt_path:
+            trainer.save_params(config.ckpt_path + "-pretrain")
         trainer.switch_model(adv_model, reset_opt=reset_opt)
         start = adv_epoch
     else:
@@ -559,6 +739,6 @@ def fit_two_phase(clean_model, adv_model, data: Interactions, optimizer,
         trainer.restore_checkpoint(restore[0])
         start = restore[1]
     best = trainer.fit(epochs=config.epochs, epoch_start=start, tag=tag)
-    if config.ckpt_path and trainer.is_main:
-        save_params(config.ckpt_path + "-final", trainer.params)
+    if config.ckpt_path:
+        trainer.save_params(config.ckpt_path + "-final")
     return best

@@ -3941,6 +3941,268 @@ def mesh_models_phase(dev, video):
     return launches
 
 
+# --- row-sharded storage and sharded snapshots: phase 27 ------------------------
+
+SHARD_STEPS = 150          # steps of each phase of APR's clean -> APR runs on shards
+SHARD_APL_STEPS = 4        # APL's critic and generator steps at the Video shape
+SHARD_SEQ_STEPS = 3        # ASASRec's steps at maxlen 50
+SNAP_STEPS = 50            # APR steps before and after the 2x2 snapshot
+MEM_USERS, MEM_ITEMS = 200_000, 2_000_000
+MEM_INTERACTIONS = 300_000  # uniform draws; the run takes 100 batches of 512 of its pairs
+MEM_STEPS = 100
+MEM_PEAK_RATIO = 0.6       # the 1x2 peak a rank at most this share of the 1x1 peak
+SHARD_SEED = 27
+
+
+def sharded_runs(video, ml1m):
+    """name -> (spec, models, optimizer, data, epochs, steps, evaluate,
+    positions): the runs of phase 27, each launched sharded
+    (``shard_min_rows`` 1024) and with nothing sharded."""
+    from acf_tpu_torch.models.apl import APL
+    from acf_tpu_torch.models.mf import MFBPR
+    from acf_tpu_torch.models.sasrec import SASRec
+    from acf_tpu_torch.train import adagrad, adam, sgd
+
+    U, I = ml1m.num_users, ml1m.num_items
+    apr = [MFBPR(U, I, D), MFBPR(U, I, D, adversarial=True, **APR)]
+    ada = adagrad(0.05, initial_accumulator_value=0.1)
+    sas = dict(maxlen=50)
+    return {
+        "apr_1x2": ("1x2", apr, ada, ml1m, [1, 1], SHARD_STEPS, False, True),
+        "apr_2x2": ("2x2", apr, ada, ml1m, [1, 1], SHARD_STEPS, False, True),
+        "apl_1x2": ("1x2", [APL(video.num_users, video.num_items, D)], sgd(0.05), video, [1],
+                    SHARD_APL_STEPS, False, False),
+        "apl_2x1": ("2x1", [APL(video.num_users, video.num_items, D)], sgd(0.05), video, [1],
+                    SHARD_APL_STEPS, False, False),
+        "asasrec_1x2": ("1x2", [SASRec(U, I, D, adversarial=True, **sas)],
+                        adam(1e-3, b2=0.98), ml1m, [1], SHARD_SEQ_STEPS, False, False),
+    }
+
+
+def sharded_calls(runs, spec):
+    """The rank cases of ``spec``'s runs: each sharded, then whole."""
+    out = []
+    for sp, models, opt, data, epochs, steps, ev, pos in runs.values():
+        if sp == spec:
+            for rows in (1024, 10 ** 9):
+                out.append(("train", (models, opt, data, epochs, steps, SHARD_SEED,
+                                      TRAIN_BATCH, True, None, None, ev, rows, pos)))
+    return out
+
+
+def memory_call(mem_data):
+    from acf_tpu_torch.models.mf import MFBPR
+    from acf_tpu_torch.train import adagrad
+
+    model = MFBPR(mem_data.num_users, mem_data.num_items, D, adversarial=True, **APR)
+    return ("memory", (model, adagrad(0.05, initial_accumulator_value=0.1), mem_data,
+                       MEM_STEPS))
+
+
+def snapshot_model(ml1m):
+    from acf_tpu_torch.models.mf import MFBPR
+    from acf_tpu_torch.train import adagrad
+
+    return (MFBPR(ml1m.num_users, ml1m.num_items, D, adversarial=True, **APR),
+            adagrad(0.05, initial_accumulator_value=0.1))
+
+
+def snapshot_call(ml1m, actions):
+    model, opt = snapshot_model(ml1m)
+    return ("snapshots", (model, opt, ml1m, actions, 1024, TRAIN_BATCH, SHARD_SEED, "dcp",
+                          SNAP_STEPS))
+
+
+def check_sharded_pairs(label, results, names, card):
+    """Each run's sharded result against its whole one on every rank, bit
+    for bit, and every rank's against rank 0's (with one model rank,
+    ``shard_min_rows`` shards nothing); returns {name: [sharded result by
+    rank]}."""
+    out = {}
+    m = int(label.split("x")[-1])
+    for i, name in enumerate(names):
+        shard = [r[2 * i] for r in results]
+        whole = [r[2 * i + 1] for r in results]
+        for r, (a, b) in enumerate(zip(shard, whole)):
+            check(("storage" in a) == (m > 1) and "storage" not in b,
+                  f"{label} {name} rank {r}: stored sharded {'storage' in a} at m={m}")
+            check(m == 1 or a["storage"]["pad_zero"],
+                  f"{label} {name} rank {r}: a padded row moved")
+            keys = sorted(b["state"])
+            same = all(np.array_equal(a["state"][k], b["state"][k]) for k in keys)
+            if not same:
+                err = max(float(np.abs(a["state"][k] - b["state"][k]).max()) for k in keys)
+                fail(f"{label} {name} rank {r}: sharded params and slots differ from the "
+                     f"unsharded mesh run by {err:.3e} ({card})")
+            check(a["stats"] == b["stats"], f"{label} {name} rank {r}: stats differ")
+            check(all(np.array_equal(a["state"][k], shard[0]["state"][k]) for k in keys),
+                  f"{label} {name}: rank {r}'s state differs from rank 0's")
+        leaves = shard[0].get("storage", {"leaves": {}})["leaves"]
+        sharded = sorted(n for n, (_, rows) in leaves.items() if rows is not None)
+        if m == 1:
+            what = ("nothing stored sharded (m=1): shard_min_rows 1024 leaves storage as it "
+                    "was, the run bit-equal to the one with shard_min_rows 10^9")
+        else:
+            what = (f"sharded params and slots gathered bit-equal to the unsharded mesh run "
+                    f"({len(sharded)} of {len(leaves)} leaves stored as row shards, e.g. "
+                    f"{[(n, leaves[n]) for n in sharded[:2]]})")
+        print(f"{label} {name}: {what} on every rank; launches by rank "
+              f"{[{k: x[k] for k in ('k1', 'k2a', 'k2b', 'apl_stats1', 'apl_grad')} for x in shard]}")
+        out[name] = shard
+    return out
+
+
+def check_memory(mem_data, one, two, card):
+    """The 2,000,000-item APR run at 1x1 (NCCL; nothing sharded at m = 1,
+    so the whole-table closed form) and on the row path at 1x2 (gloo): the
+    stored bytes a rank, the peak a rank, and each rank's rows against
+    1x1's tables by hash."""
+    (whole,), shards = one, two
+    u, i = mem_data.num_users, mem_data.num_items
+    want = 2 * 4 * D * (-(-u // 2) + -(-i // 2))  # params and slots, each table's shard
+    for r, x in enumerate(shards):
+        check(x["sharded"], f"memory 1x2 rank {r}: nothing stored sharded")
+        check(x["stored"] == want, f"memory 1x2 rank {r}: {x['stored']} bytes stored, not the "
+              f"shards' {want}")
+        for (name, k), h in x["hashes"].items():
+            check(h == whole["hashes"][name, k],
+                  f"memory 1x2 rank {r}: {name}'s rows of rank {k} differ from 1x1's table")
+    ratio = max(x["peak"] for x in shards) / whole["peak"]
+    print(f"memory ({card}): APR, {u} x {i} at d={D}, {MEM_STEPS} steps of {TRAIN_BATCH}: "
+          f"stored {whole['stored']} B at 1x1 (NCCL, the whole-table closed form), "
+          f"{[x['stored'] for x in shards]} B a rank at 1x2 (the row path; the shards' sum "
+          f"{want}); peak max_memory_allocated {whole['peak']} B at 1x1, "
+          f"{[x['peak'] for x in shards]} B a rank at 1x2 ({ratio:.3f} of the whole-table "
+          f"path's); params after the steps at 1x2 equal to 1x1's "
+          f"rows by SHA-256; {whole['wall_s']:.1f} s at 1x1, "
+          f"{[round(x['wall_s'], 1) for x in shards]} s at 1x2 (gloo through the host)")
+    check(ratio <= MEM_PEAK_RATIO, f"memory: the 1x2 peak is {ratio:.3f} of 1x1's, not at most "
+          f"{MEM_PEAK_RATIO}")
+
+
+def sharded_storage_phase(dev, video, ml1m):
+    """Phase 27: row-sharded storage (``shard_min_rows`` 1024) and
+    ``"dcp"`` snapshots on the card. At once: 1x2 and 2x1 over gloo on
+    cuda:0 (two ranks each), 2x2 (four ranks), and 1x1 on NCCL. APR's two
+    phases at the ml-1m shape at 1x2 and 2x2 (the row path), APL at the
+    Video shape at 1x2 (K3a-K3e on gathered tables) and 2x1 (m = 1: nothing
+    stored sharded, storage as it was), ASASRec at
+    maxlen 50 at 1x2 (K2a, K2b), each bit-equal to the same mesh with
+    nothing sharded; APR's sharded evaluation from the stored item shard
+    (K1) against one device's positions; the 2,000,000-item APR run's
+    stored bytes and peak a rank at 1x1 and 1x2; a 2x2 ``"dcp"`` snapshot
+    (the 2x2 launch's first case), resumed on 2x2 bit for bit, and restored
+    onto 1x1 (NCCL) and 1x2 by those launches' last cases once it is
+    written. Returns the launches {run: {kernel: [by rank]}}."""
+    import tempfile
+
+    from acf_tpu_torch.eval.full_rank import FullRankEvaluator
+    from acf_tpu_torch.models.mf import MFBPR
+    from acf_tpu_torch.parallel import launch
+
+    card = card_line()
+    rank_cases()  # the ranks import it from the path
+    t0 = time.perf_counter()
+    rank_video, rank_ml1m = dataclasses.replace(video), dataclasses.replace(ml1m)
+    runs = sharded_runs(rank_video, rank_ml1m)
+    mem_data = make_synthetic(MEM_USERS, MEM_ITEMS, MEM_INTERACTIONS, seed=SHARD_SEED)
+    print(f"phase 27 data: {mem_data.num_users} users x {mem_data.num_items} items, "
+          f"{mem_data.num_pairs} train pairs, {time.perf_counter() - t0:.1f} s")
+    with tempfile.TemporaryDirectory() as tmp:
+        ck = str(Path(tmp) / "apr_2x2")
+        save = snapshot_call(rank_ml1m, [("epoch",), ("save", ck), ("state",), ("positions",),
+                                         ("epoch",), ("state",)])
+        resume = snapshot_call(rank_ml1m, [("restore", ck), ("state",), ("epoch",), ("state",)])
+        restore = snapshot_call(rank_ml1m, [("await", ck, 500.0), ("restore", ck), ("state",),
+                                            ("positions",)])
+        plans = {  # spec: (ranks, device, backend, calls)
+            "2x2": (4, "cuda:0", "gloo", [save, resume] + sharded_calls(runs, "2x2")),
+            "1x2": (2, "cuda:0", "gloo",
+                    [memory_call(mem_data)] + sharded_calls(runs, "1x2") + [restore]),
+            "2x1": (2, "cuda:0", "gloo", sharded_calls(runs, "2x1")),
+            "1x1": (1, "cuda", None, [memory_call(mem_data), restore]),
+        }
+
+        def ranks(spec):
+            n, device, backend, calls = plans[spec]
+            t1 = time.perf_counter()
+            res = launch.run(f"{CASES}:several", n, spec, device, calls, device=device,
+                             backend=backend, timeout=600.0)
+            return res, time.perf_counter() - t1
+
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(len(plans)) as pool:
+            done = dict(zip(plans, pool.map(ranks, plans)))
+    print(f"phase 27 launches 2x2, 1x2, 2x1 (gloo on cuda:0) and 1x1 (NCCL) at once: "
+          f"{time.perf_counter() - t0:.1f} s ({card}); "
+          f"{ {k: round(v[1], 1) for k, v in done.items()} } s each with the ranks' start")
+    check_memory(mem_data, [r[0] for r in done["1x1"][0]], [r[0] for r in done["1x2"][0]],
+                 card)
+    launches, by_spec = {}, {}
+    for spec, cut in (("2x2", slice(2, None)), ("1x2", slice(1, -1)), ("2x1", slice(None))):
+        res = [r[cut] for r in done[spec][0]]  # less the memory and snapshot cases
+        names = [n for n, run in runs.items() if run[0] == spec]
+        by_spec[spec] = (res, names)
+        for name, shard in check_sharded_pairs(f"sharded {spec}", res, names, card).items():
+            launches[name] = {k: [x[k] for x in shard] for k in
+                              ("k1", "k2a", "k2b", *(f"apl_{p}" for p in (
+                                  "stats1", "z", "fake", "bigr", "grad")))}
+    # K3a-K3e SHARD_APL_STEPS times a rank, K2a and K2b in every ASASRec step
+    for name in ("apl_1x2", "apl_2x1"):
+        for k in ("apl_stats1", "apl_z", "apl_fake", "apl_bigr", "apl_grad"):
+            check(launches[name][k] == [SHARD_APL_STEPS] * len(launches[name][k]),
+                  f"{name}: {k} launched {launches[name][k]} times, not "
+                  f"{SHARD_APL_STEPS} a rank")
+    check(all(n > 0 for k in ("k2a", "k2b") for n in launches["asasrec_1x2"][k]),
+          f"asasrec_1x2: K2a/K2b not launched on every rank: {launches['asasrec_1x2']}")
+    # the sharded evaluation from the stored item shard against one device's K1
+    ev = FullRankEvaluator(ml1m, batch_users=BATCH_USERS, device=dev)
+    fs = MFBPR(ml1m.num_users, ml1m.num_items, D).factored_scorer()
+    for name in ("apr_1x2", "apr_2x2"):
+        res, names = by_spec[name[-3:]]
+        shard = [r[2 * names.index(name)] for r in res]
+        prm = {k: torch.as_tensor(shard[0]["state"][f"params/{k}"], device=dev)
+               for k in ("P", "Q")}
+        want = ev.positions_factored(fs[0], fs[1], prm)
+        for r, x in enumerate(shard):
+            check(np.array_equal(x["pos"], want),
+                  f"{name} rank {r}: sharded positions from the stored item shard differ "
+                  f"from one device's in {int((x['pos'] != want).sum())} users")
+        check(all(n > 0 for n in launches[name]["k1"]), f"{name}: K1 not launched")
+        print(f"{name}: positions of {len(want)} users from the stored item shard equal to "
+              f"one device's K1 positions; K1 launches by rank {launches[name]['k1']}")
+    # the 2x2 snapshot: resumed on 2x2 bit for bit, restored onto 1x1 (NCCL) and 1x2
+    snap = [r[:2] for r in done["2x2"][0]]
+    for r, (run, resumed) in enumerate(snap):
+        saved, _, after = run
+        check(saved["sharded"] and resumed[0]["sharded"], "snapshot 2x2: not sharded")
+        for k, w in saved["state"].items():
+            check(np.array_equal(resumed[0]["state"][k], w),
+                  f"snapshot 2x2 rank {r}: restored {k} differs from the saved state")
+        for k, w in after["state"].items():
+            check(np.array_equal(resumed[1]["state"][k], w),
+                  f"snapshot 2x2 rank {r}: {k} after {SNAP_STEPS} resumed steps differs")
+    saved, ref_pos = snap[0][0][0], snap[0][0][1]["pos"]
+    for spec in ("1x1", "1x2"):
+        launches[f"snapshot_onto_{spec}"] = {"k1": []}
+        for r, x in enumerate(done[spec][0]):
+            state, pos = x[-1]
+            check(state["sharded"] == (spec != "1x1"), f"restore onto {spec}: storage")
+            for k, w in saved["state"].items():
+                check(np.array_equal(state["state"][k], w),
+                      f"restore onto {spec} rank {r}: {k} differs from the 2x2 save")
+            check(np.array_equal(pos["pos"], ref_pos),
+                  f"restore onto {spec} rank {r}: positions differ from the 2x2 trainer's")
+            launches[f"snapshot_onto_{spec}"]["k1"].append(pos["k1"])
+    print(f"snapshot ({card}): APR at 2x2 after {SNAP_STEPS} steps saved as a dcp directory "
+          f"(each rank its rows, host-staged over gloo), resumed on 2x2 bit for bit over "
+          f"{SNAP_STEPS} more steps, restored onto 1x1 (NCCL) and 1x2 with params, slots and "
+          f"generator state bit-equal and positions of {len(ref_pos)} users equal (K1 "
+          f"{launches['snapshot_onto_1x1']['k1']} at 1x1, "
+          f"{launches['snapshot_onto_1x2']['k1']} a rank at 1x2)")
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke run needs a GPU")
@@ -4041,6 +4303,13 @@ def main():
     mesh_models = mesh_models_phase(dev, data)
     lap("26")
 
+    # 27. Row-sharded storage: APR, APL and ASASRec on shards bit-equal to
+    # the unsharded mesh runs, the sharded evaluation from the stored item
+    # shard, the 2,000,000-item memory run, a 2x2 dcp snapshot restored
+    # onto 2x2, 1x1 and 1x2
+    sharded = sharded_storage_phase(dev, data, ml1m)
+    lap("27")
+
     kernels = [{
         "name": "rank_count", "route": "cuda",
         "source": "acf_tpu_torch/csrc/rank_count.cu",
@@ -4055,6 +4324,10 @@ def main():
                                          if entry["name"] in v}
     for entry, key in ((k2a_entry, "k2a"), (k2b_entry, "k2b")):
         entry["launches_mesh"] = {run: v[key] for run, v in mesh.items() if key in v}
+    for entry, key in ((kernels[0], "k1"), (k2a_entry, "k2a"), (k2b_entry, "k2b"),
+                       *((e, e["name"]) for e in k3_entries)):
+        entry["launches_sharded"] = {run: v[key] for run, v in sharded.items()
+                                     if key in v and any(v[key])}
     check(all(k["launches"] > 0 for k in kernels), "a kernel of the path never launched")
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(f"card: {card_line()}")
