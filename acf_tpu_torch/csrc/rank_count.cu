@@ -39,8 +39,13 @@
 //     groups with no swizzle, and the tensor maps zero-fill rows past B and I
 //     and columns past d. A unit's last slice also carries the items' bias
 //     and the users' thresholds and gt (4-byte cp.async), so the epilogue
-//     reads no device memory. Shared memory does not grow with d: every
-//     d % 4 == 0 runs.
+//     reads no device memory. Shared memory does not grow with d.
+//   * Any width and alignment: where d % 4 != 0 or u or e is not 16-byte
+//     aligned (a row view of a table, a width like 50), no tensor map can
+//     describe the table, so the build without TMA stages the same slots
+//     with 4-byte cp.async copies of the slice's 32 columns, zero-filled
+//     past d, B and I, waited for like the extras (the C entry chooses).
+//     The products and the counts are the same code.
 //   * A flat list of (user tile, item tile) units, user tile major. The grid
 //     is as many blocks as are resident at once, or fewer where that evens
 //     out the runs; each block takes a contiguous run of the list, so it
@@ -53,8 +58,6 @@
 //     into one user a lane (7 shuffles); a lane keeps its user's count over
 //     the block's units of that user tile, then adds it to `out` with one
 //     int32 atomicAdd. Integer atomics keep the result deterministic.
-// Requires d % 4 == 0 and 16-byte aligned u and e (the wrapper checks,
-// acf_tpu_torch/ops/ranking.py, check_supported; so do the tensor maps).
 // acf_tpu_torch/tools/k1_ablation.py times variants of this file, each with
 // one design choice swapped (the constants marked "ablation" among them).
 // Later work: 3xTF32 or wgmma products, which sum in another order
@@ -92,6 +95,8 @@ using Wide = Shape<16, 1>;
 using Narrow = Shape<8, 2>;              // ablation: the narrow shape
 
 struct Args {
+  const float* u;       // [B, d] users and [I, d] items (read by the build
+  const float* e;       // without TMA; the other reads the tensor maps)
   const float* bias;    // may be null
   const float* thresh;
   const int* gt;        // may be null
@@ -99,6 +104,7 @@ struct Args {
   int B, I, d;
   int n_item_tiles, n_units, n_slices;
   int id_base;          // the global id of row 0 of the table
+  bool tma;             // both tables as tensor maps (d % 4 == 0, 16-byte aligned)
 };
 
 __device__ __forceinline__ unsigned smem_u32(const void* p) {
@@ -142,9 +148,27 @@ __device__ __forceinline__ Walk walk(const Args& a) {
   return {first, 1, end - first};
 }
 
-// Issue the copies of the walk's step `step` (slice ks of its unit n) into
-// `slot`, the boxes counted on `bar`.
+// The slice ks's columns of the unit's rows as 4-byte cp.async copies, the
+// layout the TMA boxes give: item rows i0.. then user rows u0.. of a slot,
+// [.][kLdk], zero past d, I and B (the build without TMA).
 template <class S>
+__device__ __forceinline__ void copy_rows(float* slot, const Args& a, const float* u,
+                                          const float* e, int u0, int i0, int ks) {
+  const int k0 = ks * kSliceK;
+#pragma unroll 1
+  for (int idx = threadIdx.x; idx < (S::kItems + kUsers) * kSliceK; idx += kThreads) {
+    const int row = idx / kSliceK, c = idx % kSliceK;
+    const bool item = row < S::kItems;
+    const int r = item ? i0 + row : u0 + row - S::kItems;
+    const bool valid = k0 + c < a.d && r < (item ? a.I : a.B);
+    const float* src = valid ? (item ? e : u) + static_cast<size_t>(r) * a.d + k0 + c : a.thresh;
+    cp_async_n<4>(slot + row * kLdk + c, src, valid ? 4 : 0);
+  }
+}
+
+// Issue the copies of the walk's step `step` (slice ks of its unit n) into
+// `slot`: with TMA the boxes, counted on `bar`; without, copy_rows.
+template <class S, bool TMA>
 __device__ __forceinline__ void stage(float* slot, uint64_t* bar, const Args& a,
                                       const CUtensorMap& tm_e, const CUtensorMap& tm_u,
                                       const Walk& w, int step) {
@@ -152,11 +176,12 @@ __device__ __forceinline__ void stage(float* slot, uint64_t* bar, const Args& a,
   const int unit = w.first + n * w.stride;
   const int ut = unit / a.n_item_tiles;
   const int u0 = ut * kUsers, i0 = (unit - ut * a.n_item_tiles) * S::kItems;
-  if (threadIdx.x == 0) {
+  if (TMA && threadIdx.x == 0) {
     mbar_expect_tx(bar, S::kSlotTx);
     tma_box(slot, &tm_e, ks * kSliceK, i0, bar);
     tma_box(slot + S::kItems * kLdk, &tm_u, ks * kSliceK, u0, bar);
   }
+  if (!TMA) copy_rows<S>(slot, a, a.u, a.e, u0, i0, ks);
   if (ks != a.n_slices - 1) return;
   // the unit's last slice: what its epilogue reads, zero where there is none
   float* x = slot + S::kExtra;
@@ -208,7 +233,7 @@ __device__ __forceinline__ void slice_dot(float (&acc)[kRU][RI], const float* sa
   }
 }
 
-template <class S>
+template <class S, bool TMA>
 __global__ void __launch_bounds__(kThreads, S::kBlocks)
 rank_count_kernel(const Args a, const __grid_constant__ CUtensorMap tm_e,
                   const __grid_constant__ CUtensorMap tm_u) {
@@ -227,7 +252,7 @@ rank_count_kernel(const Args a, const __grid_constant__ CUtensorMap tm_e,
   const int steps = w.count * a.n_slices;  // step s: slice s % n_slices of unit s / n_slices
 
   for (int s = 0; s < kStages - 1; ++s) {
-    if (s < steps) stage<S>(smem + s * S::kSlotFloats, bars + s, a, tm_e, tm_u, w, s);
+    if (s < steps) stage<S, TMA>(smem + s * S::kSlotFloats, bars + s, a, tm_e, tm_u, w, s);
     cp_async_commit();  // possibly empty: one group a step
   }
 
@@ -238,12 +263,13 @@ rank_count_kernel(const Args a, const __grid_constant__ CUtensorMap tm_e,
     for (int j = 0; j < kRI; ++j) acc[i][j] = 0.f;
   int run = 0;  // this lane's user's count over the block's units of its user tile
   for (int s = 0, slot = 0; s < steps; ++s, slot = slot + 1 == kStages ? 0 : slot + 1) {
-    mbar_wait(bars + slot, (s / kStages) & 1);  // step s's boxes
-    cp_async_wait<kStages - 2>();               // this thread's copies of step s's extras
+    if (TMA) mbar_wait(bars + slot, (s / kStages) & 1);  // step s's boxes
+    cp_async_wait<kStages - 2>();  // this thread's copies of step s's extras (and rows)
     __syncthreads();  // step s visible; the slot of step s - 1 read by all: refill it
     if (s + kStages - 1 < steps) {
       const int prev = slot == 0 ? kStages - 1 : slot - 1;
-      stage<S>(smem + prev * S::kSlotFloats, bars + prev, a, tm_e, tm_u, w, s + kStages - 1);
+      stage<S, TMA>(smem + prev * S::kSlotFloats, bars + prev, a, tm_e, tm_u, w,
+                    s + kStages - 1);
     }
     cp_async_commit();
 
@@ -334,11 +360,10 @@ cudaError_t encode_rows(CUtensorMap* map, const float* base, int rows, int d, in
 
 constexpr int kMaxDevices = 64;
 
-// Launch the kernel of shape S on `a` (the tables u and e, the SM count sms
-// of device dev) on `stream`.
-template <class S>
-cudaError_t launch(Args a, const float* u, const float* e, int dev, int sms,
-                   cudaStream_t stream) {
+// Launch the kernel of shape S on `a` (the tables a.u and a.e, the SM count
+// sms of device dev) on `stream`, the build with or without TMA.
+template <class S, bool TMA>
+cudaError_t launch_as(Args a, int dev, int sms, cudaStream_t stream) {
   a.n_item_tiles = (a.I + S::kItems - 1) / S::kItems;
   const int user_tiles = (a.B + kUsers - 1) / kUsers;
   a.n_units = user_tiles * a.n_item_tiles;
@@ -349,16 +374,16 @@ cudaError_t launch(Args a, const float* u, const float* e, int dev, int sms,
   static int slots_of[kMaxDevices];
   cudaError_t err;
   if (smem_of[dev] != smem) {
-    err = cudaFuncSetAttribute(rank_count_kernel<S>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)smem);
+    err = cudaFuncSetAttribute(rank_count_kernel<S, TMA>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
-    err = cudaFuncSetAttribute(rank_count_kernel<S>,
+    err = cudaFuncSetAttribute(rank_count_kernel<S, TMA>,
                                cudaFuncAttributePreferredSharedMemoryCarveout,
                                (int)cudaSharedmemCarveoutMaxShared);
     if (err != cudaSuccess) return err;
     int per_sm = 0;
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, rank_count_kernel<S>, kThreads,
-                                                        smem);
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, rank_count_kernel<S, TMA>,
+                                                        kThreads, smem);
     if (err != cudaSuccess) return err;
     if (per_sm < 1) return cudaErrorInvalidConfiguration;
     slots_of[dev] = sms * per_sm;
@@ -367,13 +392,22 @@ cudaError_t launch(Args a, const float* u, const float* e, int dev, int sms,
   const int slots = slots_of[dev];
   const int rounds = (a.n_units + slots - 1) / slots;  // units the longest run takes
   const int grid = (a.n_units + rounds - 1) / rounds;
-  CUtensorMap tm_e, tm_u;
-  err = encode_rows(&tm_e, e, a.I, a.d, S::kItems);
-  if (err != cudaSuccess) return err;
-  err = encode_rows(&tm_u, u, a.B, a.d, kUsers);
-  if (err != cudaSuccess) return err;
-  rank_count_kernel<S><<<grid, kThreads, smem, stream>>>(a, tm_e, tm_u);
+  CUtensorMap tm_e{}, tm_u{};  // unread without TMA
+  if (TMA) {
+    err = encode_rows(&tm_e, a.e, a.I, a.d, S::kItems);
+    if (err != cudaSuccess) return err;
+    err = encode_rows(&tm_u, a.u, a.B, a.d, kUsers);
+    if (err != cudaSuccess) return err;
+  }
+  rank_count_kernel<S, TMA><<<grid, kThreads, smem, stream>>>(a, tm_e, tm_u);
   return cudaGetLastError();
+}
+
+// launch_as with TMA where both tables can be tensor maps (a.tma), else with
+// 4-byte copies.
+template <class S>
+cudaError_t launch(const Args& a, int dev, int sms, cudaStream_t stream) {
+  return a.tma ? launch_as<S, true>(a, dev, sms, stream) : launch_as<S, false>(a, dev, sms, stream);
 }
 
 }  // namespace
@@ -386,8 +420,7 @@ extern "C" int acf_rank_count_shard(const float* u, const float* e,
                                     const float* bias, const float* thresh,
                                     const int* gt, int* out, int B, int I, int d,
                                     int id_base, void* stream) {
-  if (B <= 0 || I <= 0 || d <= 0 || d % 4 != 0 || id_base < 0)
-    return (int)cudaErrorInvalidValue;
+  if (B <= 0 || I <= 0 || d < 0 || id_base < 0) return (int)cudaErrorInvalidValue;
   static int sms_of[kMaxDevices];
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
@@ -399,13 +432,17 @@ extern "C" int acf_rank_count_shard(const float* u, const float* e,
     if (sms_of[dev] < 1) return (int)cudaErrorInvalidConfiguration;
   }
   const int sms = sms_of[dev];
-  const Args a{bias, thresh, gt, out, B, I, d, 0, 0, (d + kSliceK - 1) / kSliceK, id_base};
+  // d = 0: one slice of zeros, so the scores are the biases
+  const int n_slices = d > 0 ? (d + kSliceK - 1) / kSliceK : 1;
+  const bool tma = d > 0 && d % 4 == 0 && reinterpret_cast<uintptr_t>(u) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(e) % 16 == 0;
+  const Args a{u, e, bias, thresh, gt, out, B, I, d, 0, 0, n_slices, id_base, tma};
   const auto s = static_cast<cudaStream_t>(stream);
   // wide units where there are enough of them to give every SM one
   const long long wide_units = static_cast<long long>((B + kUsers - 1) / kUsers) *
                                ((I + Wide::kItems - 1) / Wide::kItems);
-  return (int)(wide_units >= sms ? launch<Wide>(a, u, e, dev, sms, s)
-                                 : launch<Narrow>(a, u, e, dev, sms, s));
+  return (int)(wide_units >= sms ? launch<Wide>(a, dev, sms, s)
+                                 : launch<Narrow>(a, dev, sms, s));
 }
 
 // The whole catalog: acf_rank_count_shard with id_base 0.

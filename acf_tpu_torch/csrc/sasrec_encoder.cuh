@@ -5,6 +5,13 @@
 // through two shared-memory slots with cp.async, one k-slice ahead and across
 // products (Pipe, stage_slice, product). Each kernel keeps its own LayerNorm
 // and attention and the steps only it takes.
+//
+// Widths: a staged row holds pad4(d) columns (d rounded up to 4) at the
+// stride row_ld(pad4(d)), and its tail columns [d, pad4(d)) are exact zeros
+// through every phase, so every product and dot adds exact zeros there. The
+// ALIGNED path (d % 4 == 0 and 16-byte aligned tensors) copies rows 16 bytes
+// at a time; the other path copies 4 bytes at a time, zero-fills the tail and
+// writes only the d real columns back to device memory.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -48,6 +55,27 @@ constexpr int kMaxThreads = 512;
 constexpr int kMaxColsPerLane = 4;  // d <= 128 over 32 lanes
 constexpr int kSliceFloats = 4096;  // SLICE_FLOATS in ops/sasrec_fused.py: a weight slice's floats at most
 constexpr float kEps = 1e-8f;
+
+// The width a row is staged at: d rounded up to 4.
+__host__ __device__ constexpr inline int pad4(int d) { return (d + 3) & ~3; }
+
+inline bool aligned16(const void* p) { return reinterpret_cast<size_t>(p) % 16 == 0; }
+
+// Whether every weight leaf of `w` can be copied 16 bytes at a time at width
+// d (the ALIGNED path of the products and LayerNorms).
+inline bool weights_aligned(const EncoderW& w, int d) {
+  if (d % 4 != 0 || !aligned16(w.pos) || !aligned16(w.ln_f.gamma) || !aligned16(w.ln_f.beta))
+    return false;
+  for (int i = 0; i < w.num_blocks; ++i) {
+    const BlockW& b = w.blocks[i];
+    const void* leaves[] = {b.ln1.gamma, b.ln1.beta, b.wq.w, b.wq.b, b.wk.w, b.wk.b,
+                            b.wv.w, b.wv.b, b.ln2.gamma, b.ln2.beta, b.conv1.w, b.conv1.b,
+                            b.conv2.w, b.conv2.b, b.ln3.gamma, b.ln3.beta};
+    for (const void* leaf : leaves)
+      if (!aligned16(leaf)) return false;
+  }
+  return true;
+}
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
@@ -113,10 +141,38 @@ struct Pipe {
   __device__ float* at(int k) const { return base + k * slot; }
 };
 
+// stage_slice's copies at any width: 4 bytes at a time, a row of the slice
+// a warp, what lies past d zero-filled (rows k0 + kk and columns c up to
+// pad4(d)).
+__device__ void stage_slice_any(float* dst, WRef W, int k0, const Pipe& pp, int d, int ld) {
+  const int dp = pad4(d), kn = min(pp.ks, dp - k0);
+  const int lane = threadIdx.x & 31, warps = blockDim.x >> 5;
+  if (!W.trans) {  // dst[kk][c] = W[k0 + kk][c]
+    for (int kk = threadIdx.x >> 5; kk < kn; kk += warps)
+      for (int c = lane; c < dp; c += 32) {
+        const bool valid = c < d && k0 + kk < d;
+        cp_async_n<4>(dst + kk * ld + c, W.w + (valid ? (k0 + kk) * d + c : 0), valid ? 4 : 0);
+      }
+  } else {  // dst[c][kk] = W[c][k0 + kk]
+    for (int c = threadIdx.x >> 5; c < dp; c += warps)
+      for (int kk = lane; kk < kn; kk += 32) {
+        const bool valid = c < d && k0 + kk < d;
+        cp_async_n<4>(dst + c * pp.ldk + kk, W.w + (valid ? c * d + k0 + kk : 0), valid ? 4 : 0);
+      }
+  }
+}
+
 // Issue the copy of k-slice [k0, k0 + ks) of W into `dst`: rows W[k0 + kk]
 // as dst[kk][0, d) with stride ld (x W), or columns as dst[c][kk] with
-// stride ldk (dY Wᵀ). Every thread takes part; one cp.async group.
+// stride ldk (dY Wᵀ). Every thread takes part; one cp.async group. Without
+// ALIGNED, stage_slice_any's 4-byte copies.
+template <bool ALIGNED>
 __device__ void stage_slice(float* dst, WRef W, int k0, const Pipe& pp, int d, int ld) {
+  if (!ALIGNED) {
+    stage_slice_any(dst, W, k0, pp, d, ld);
+    cp_async_commit();
+    return;
+  }
   const int kn = min(pp.ks, d - k0);
   if (!W.trans) {
     const int units = d / 4;
@@ -135,22 +191,24 @@ __device__ void stage_slice(float* dst, WRef W, int k0, const Pipe& pp, int d, i
 }
 
 // out = epilogue(in[0] W[0]) (TRANS: in[0] W[0]ᵀ) for rows r < R, all
-// [R][ld] in shared memory, with the header's epilogue (bias, relu, mask,
-// gate, res); then each further product is added onto out in turn
-// (((res + p0) + p1) + p2), each thread updating its own elements. `next`
-// is the weight of the product after this one, whose first slice is staged
-// during this one's last. A thread owns ROWS rows (rg + i * row_groups) x 4
-// columns and sums k in order with FMAs; R <= ROWS * row_groups (the C
-// entry checks it).
-template <int ROWS, bool TRANS, int NP>
+// [R][ld] in shared memory (or, in K2b's wide form, device memory), with the
+// header's epilogue (bias, relu, mask, gate, res); then each further product
+// is added onto out in turn (((res + p0) + p1) + p2), each thread updating
+// its own elements. `next` is the weight of the product after this one,
+// whose first slice is staged during this one's last. A thread owns ROWS
+// rows (rg + i * row_groups) x 4 columns and sums k in order with FMAs; R <=
+// ROWS * row_groups (the C entry checks it). The columns run to pad4(d): the
+// tail's sums are exact zeros, and its bias and mask are not read.
+template <int ROWS, bool TRANS, int NP, bool ALIGNED>
 __device__ __forceinline__ void product(Pipe& pp, const float* const (&in)[NP],
                                         const float* const (&W)[NP], WRef next, float* out,
                                         const Epilogue& e, int R, int d, int ld) {
-  const int groups = d / 4;
+  const int dp = ALIGNED ? d : pad4(d);
+  const int groups = dp / 4;
   const int row_groups = blockDim.x / groups;
   const int cg = threadIdx.x % groups, rg = threadIdx.x / groups;
   const bool active = rg < row_groups;  // idle when groups does not divide the block
-  const int nsl = (d + pp.ks - 1) / pp.ks;
+  const int nsl = (dp + pp.ks - 1) / pp.ks;
   // this thread's output columns: 4cg..4cg+3 (x W), or cg + groups * j (dY Wᵀ)
   auto col = [&](int j) { return TRANS ? cg + groups * j : 4 * cg + j; };
   unsigned mk[ROWS];  // the dropout mask's 4 bytes a row, read before the products
@@ -160,10 +218,10 @@ __device__ __forceinline__ void product(Pipe& pp, const float* const (&in)[NP],
     mk[i] = 0;
 #pragma unroll
     for (int j = 0; j < 4; ++j)
-      if (active && r < R && e.mask != nullptr)
+      if (active && r < R && e.mask != nullptr && (ALIGNED || col(j) < d))
         mk[i] |= static_cast<unsigned>(e.mask[static_cast<size_t>(r) * d + col(j)]) << (8 * j);
   }
-  if (!pp.pending) stage_slice(pp.at(pp.cur), WRef{W[0], TRANS}, 0, pp, d, ld);
+  if (!pp.pending) stage_slice<ALIGNED>(pp.at(pp.cur), WRef{W[0], TRANS}, 0, pp, d, ld);
 #pragma unroll
   for (int p = 0; p < NP; ++p) {
     float4 acc[ROWS];
@@ -176,12 +234,12 @@ __device__ __forceinline__ void product(Pipe& pp, const float* const (&in)[NP],
                              : p + 1 < NP ? WRef{W[p + 1 < NP ? p + 1 : p], TRANS}
                                           : next;
       if (following.w != nullptr)
-        stage_slice(pp.at(pp.cur ^ 1), following, s + 1 < nsl ? (s + 1) * pp.ks : 0, pp, d,
-                    ld);
+        stage_slice<ALIGNED>(pp.at(pp.cur ^ 1), following, s + 1 < nsl ? (s + 1) * pp.ks : 0, pp,
+                             d, ld);
       const float* sw = pp.at(pp.cur);
       pp.cur ^= 1;
       if (!active) continue;
-      const int k0 = s * pp.ks, kn = min(pp.ks, d - k0);
+      const int k0 = s * pp.ks, kn = min(pp.ks, dp - k0);
       // unrolled twice (once for tiles of more than 4 rows): more would spend
       // registers that a 512-thread block lacks
 #pragma unroll(ROWS > 4 ? 1 : 2)
@@ -228,7 +286,7 @@ __device__ __forceinline__ void product(Pipe& pp, const float* const (&in)[NP],
         if (p > 0) {
           o = a + out[r * ld + c];
         } else {
-          o = a + (e.bias != nullptr ? __ldg(e.bias + c) : 0.f);
+          o = a + (e.bias != nullptr && (ALIGNED || c < d) ? __ldg(e.bias + c) : 0.f);
           if (e.relu) o = fmaxf(o, 0.f);
           if (e.mask != nullptr) o = drop(o, (mk[i] >> (8 * j)) & 0xffu, e.keep);
           if (e.gate != nullptr) o = e.gate[r * ld + c] > 0.f ? o : 0.f;

@@ -89,8 +89,30 @@
 //   * dx only (the inner FGSM gradient of ASASRec: only x needs a
 //     gradient): no partial slices, no weight-gradient work, no second
 //     kernel; one block per user group.
-// Requires d % 4 == 0, d <= 128, 16-byte aligned tensors and 4-byte aligned
-// [., d] masks (checked by the wrapper).
+//   * The wide form (WIDE: every window the seven shared buffers cannot
+//     hold, up to K2a's widest, max_window(d)): the same phases and the
+//     same code, one user a block, its seven [T][ld] buffers and its [T][Ts]
+//     probabilities in the block's slice of a device workspace [grid, 7 T ld
+//     + T Ts] (540,800 bytes at T=200, d=64: the grid's slices stay near the
+//     50 MB L2), the probabilities' dropout mask read where it lies; shared
+//     memory keeps the weight slots, the score rows, the ids mask, the
+//     LayerNorm sums and the group's scalars. A product runs over the
+//     window in chunks of the tile form's rows. 256 threads a block, so a
+//     thread may keep 255 registers (the chunks' pointers beside the
+//     products' tiles spill at 128). The grid is persistent in
+//     both modes (the dx-only one too), so the workspace is as large as the
+//     card runs at once. The weight gradients keep the partial slices and
+//     the reduction: two calls give the same bits.
+//   * Any width d <= 128 (the header's widths): the tile form copies rows
+//     16 bytes at a time and takes d % 4 == 0 with g, saved and the weights
+//     16-byte aligned (its C entry refuses anything else); the wide form
+//     copies 4 bytes at a time and takes any width and alignment, so the
+//     wrapper gives it every launch the tile form does not take (its
+//     4-byte copies inside the products spill at 128 registers). The
+//     LayerNorms' moments and every write to device memory take the d real
+//     columns; products, dots and the weight gradients' tiles run over
+//     pad4(d), whose tail adds exact zeros.
+// Requires d <= 128 (checked by the wrapper).
 
 #include "sasrec_encoder.cuh"
 
@@ -98,6 +120,7 @@ namespace {
 
 constexpr int kBuffers = 7;          // BWD_BUFFERS in ops/sasrec_fused.py
 constexpr int kMaxRowsPerThread = 3; // rows of a product's register tile
+constexpr int kWideThreads = 256;    // BWD_WIDE_THREADS: the wide form's block, 255 registers
 constexpr int kGroupFloats = 12;     // BWD_GROUP_FLOATS: the group's scalars (struct Group)
 constexpr int kReduceOuts = 32;      // the reduction: outputs a block,
 constexpr int kReduceSlices = 8;     // contiguous slices of the parts a block,
@@ -105,7 +128,8 @@ constexpr int kReduceUnroll = 16;    // loads a thread issues before it adds the
 
 inline int score_ld(int T) { return (T + 3) / 4 * 4; }  // 16-byte aligned score rows
 
-// Rows of W (or of Wᵀ) in one staged slice, and the floats of one slot.
+// Rows of W (or of Wᵀ) in one staged slice, and the floats of one slot, at
+// the staged width d (a multiple of 4).
 inline int slice_rows(int d) {
   const int k = kSliceFloats / d / 4 * 4;
   return k < d ? k : d;
@@ -154,17 +178,34 @@ __device__ __forceinline__ void add_to(float* dst, float v, bool first) {
   *dst = first ? v : *dst + v;
 }
 
-// The register tile with the fewest rows that covers R in one pass.
-template <bool TRANS, int NP>
+// The register tile with the fewest rows that covers R in one pass: 1, 2
+// or 3 rows. The wide form's window (more rows than that) goes through in
+// chunks of 3 row_groups rows, each streaming the whole weight, the next
+// chunk's first slice staged during this one's last.
+template <bool TRANS, int NP, bool WIDE, bool ALIGNED>
 __device__ void dense(Pipe& pp, const float* const (&in)[NP], const float* const (&W)[NP],
                       WRef next, float* out, const Epilogue& e, int R, int d, int ld) {
-  const int row_groups = blockDim.x / (d / 4);
-  if (R <= row_groups)
-    product<1, TRANS, NP>(pp, in, W, next, out, e, R, d, ld);
-  else if (R <= 2 * row_groups)
-    product<2, TRANS, NP>(pp, in, W, next, out, e, R, d, ld);
-  else
-    product<3, TRANS, NP>(pp, in, W, next, out, e, R, d, ld);
+  const int row_groups = blockDim.x / ((ALIGNED ? d : pad4(d)) / 4);
+  if constexpr (WIDE) {
+    const int chunk = kMaxRowsPerThread * row_groups;
+    for (int r0 = 0; r0 < R; r0 += chunk) {
+      const float* rows_in[NP];
+#pragma unroll
+      for (int p = 0; p < NP; ++p) rows_in[p] = in[p] + r0 * ld;
+      const Epilogue rows_e{e.bias, e.relu, e.mask == nullptr ? nullptr : e.mask + r0 * d, e.keep,
+                            e.gate == nullptr ? nullptr : e.gate + r0 * ld,
+                            e.res == nullptr ? nullptr : e.res + r0 * ld};
+      dense<TRANS, NP, false, ALIGNED>(pp, rows_in, W,
+                                       r0 + chunk < R ? WRef{W[0], TRANS} : next,
+                                       out + r0 * ld, rows_e, min(chunk, R - r0), d, ld);
+    }
+  } else if (R <= row_groups) {
+    product<1, TRANS, NP, ALIGNED>(pp, in, W, next, out, e, R, d, ld);
+  } else if (R <= 2 * row_groups) {
+    product<2, TRANS, NP, ALIGNED>(pp, in, W, next, out, e, R, d, ld);
+  } else {
+    product<3, TRANS, NP, ALIGNED>(pp, in, W, next, out, e, R, d, ld);
+  }
 }
 
 // ---- weight gradients ---------------------------------------------------------
@@ -174,25 +215,28 @@ __device__ void dense(Pipe& pp, const float* const (&in)[NP], const float* const
 // its X finite, so it adds exact zeros). Each thread owns 4 x CW tiles
 // (k0..k0+3, c0..c0+CW-1) and sums the rows in order; the tiles of k0 = 0
 // also sum the bias. The partial's earlier values are loaded before the
-// rows.
-template <int NP, int CW>
+// rows. The tiles cover pad4(d); without ALIGNED, the entries past d are
+// neither read nor written.
+template <int NP, int CW, bool ALIGNED>
 __device__ void wgrad(const float* X, const float* const (&dY)[NP], float* const (&wp)[NP],
                       float* const (&bp)[NP], bool first, int R, int d, int ld) {
-  const int nc = d / CW;
-  for (int tile = threadIdx.x; tile < d / 4 * nc; tile += blockDim.x) {
+  const int dp = ALIGNED ? d : pad4(d);
+  const int nc = dp / CW;
+  for (int tile = threadIdx.x; tile < dp / 4 * nc; tile += blockDim.x) {
     const int k0 = 4 * (tile / nc), c0 = CW * (tile % nc);
     const bool bias = k0 == 0;
+    auto inside = [&](int i, int j) { return ALIGNED || (k0 + i < d && c0 + j < d); };
     float acc[NP][4][CW], prev[NP][4][CW], bsum[NP][CW], bprev[NP][CW];
 #pragma unroll
     for (int p = 0; p < NP; ++p)
 #pragma unroll
       for (int j = 0; j < CW; ++j) {
         bsum[p][j] = 0.f;
-        bprev[p][j] = bias && !first ? bp[p][c0 + j] : 0.f;
+        bprev[p][j] = bias && !first && inside(0, j) ? bp[p][c0 + j] : 0.f;
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
           acc[p][i][j] = 0.f;
-          prev[p][i][j] = first ? 0.f : wp[p][(k0 + i) * d + c0 + j];
+          prev[p][i][j] = first || !inside(i, j) ? 0.f : wp[p][(k0 + i) * d + c0 + j];
         }
       }
 #pragma unroll 2
@@ -225,8 +269,9 @@ __device__ void wgrad(const float* X, const float* const (&dY)[NP], float* const
       for (int j = 0; j < CW; ++j) {
 #pragma unroll
         for (int i = 0; i < 4; ++i)
-          wp[p][(k0 + i) * d + c0 + j] = first ? acc[p][i][j] : prev[p][i][j] + acc[p][i][j];
-        if (bias) bp[p][c0 + j] = first ? bsum[p][j] : bprev[p][j] + bsum[p][j];
+          if (inside(i, j))
+            wp[p][(k0 + i) * d + c0 + j] = first ? acc[p][i][j] : prev[p][i][j] + acc[p][i][j];
+        if (bias && inside(0, j)) bp[p][c0 + j] = first ? bsum[p][j] : bprev[p][j] + bsum[p][j];
       }
   }
 }
@@ -236,7 +281,9 @@ __device__ void wgrad(const float* X, const float* const (&dY)[NP], float* const
 // dst[r] = LN(src[r]) for rows r < R from rows of stride sld (device memory
 // or shared), also copied to `copy` ([R][ld]) when it is not null; one warp
 // per row, the forward's formula (K2a's ln_pairs sums the moments in
-// another order).
+// another order). Without ALIGNED the columns [d, pad4(d)) of dst and copy
+// are set to 0.
+template <bool ALIGNED>
 __device__ void ln_rows(const float* src, int sld, float* copy, float* dst, LayerNormW p, int R,
                         int d, int ld) {
   const int lane = threadIdx.x & 31;
@@ -261,7 +308,12 @@ __device__ void ln_rows(const float* src, int sld, float* copy, float* dst, Laye
 #pragma unroll
     for (int m = 0; m < kMaxColsPerLane; ++m) {
       const int c = lane + 32 * m;
-      if (c < d) dst[r * ld + c] = __ldg(p.gamma + c) * (v[m] - mean) / denom + __ldg(p.beta + c);
+      if (c < d) {
+        dst[r * ld + c] = __ldg(p.gamma + c) * (v[m] - mean) / denom + __ldg(p.beta + c);
+      } else if (!ALIGNED && c < pad4(d)) {  // the zero tail
+        dst[r * ld + c] = 0.f;
+        if (copy != nullptr) copy[r * ld + c] = 0.f;
+      }
     }
   }
 }
@@ -536,8 +588,18 @@ __device__ void attn_bwd_dqk(const float* dS, const float* K, const float* Q, fl
   }
 }
 
-// dst[r] = src rows [R, d] of device memory into [R][ld] shared memory.
+// dst[r] = src rows [R, d] of device memory into [R][ld] rows; without
+// ALIGNED 4-byte loads, and the columns [d, pad4(d)) set to 0.
+template <bool ALIGNED>
 __device__ void load_rows(const float* src, float* dst, int R, int d, int ld) {
+  if (!ALIGNED) {
+    const int dp = pad4(d);
+    for (int idx = threadIdx.x; idx < R * dp; idx += blockDim.x) {
+      const int r = idx / dp, c = idx % dp;
+      dst[r * ld + c] = c < d ? src[r * d + c] : 0.f;
+    }
+    return;
+  }
   const int groups = d / 4;
   for (int idx = threadIdx.x; idx < R * groups; idx += blockDim.x) {
     const int r = idx / groups, c = (idx % groups) * 4;
@@ -557,19 +619,34 @@ struct Group {
 };
 static_assert(sizeof(Group) <= kGroupFloats * sizeof(float), "Group outgrows its floats");
 
-__global__ void __launch_bounds__(kMaxThreads, 1)
+// Floats of a block's slice of the wide form's workspace: seven [rows][ld]
+// buffers and the [rows][Ts] probabilities (_bwd_wide_layout in
+// ops/sasrec_fused.py).
+__host__ __device__ inline size_t wide_work_floats(int rows, int ld, int Ts) {
+  return static_cast<size_t>(rows) * (kBuffers * ld + Ts);
+}
+
+// WIDE: the wide form (one user a block, the buffers in `work`), else the
+// tile form.
+template <bool WIDE>
+__global__ void __launch_bounds__(WIDE ? kWideThreads : kMaxThreads, 1)
 sasrec_encoder_bwd_kernel(const EncoderW w, const DropoutMasks dm,
                           const unsigned char* __restrict__ ids_mask,
                           const float* __restrict__ g, const float* __restrict__ saved,
-                          float* __restrict__ dx, float* __restrict__ partial, int B, int T,
-                          int d, int users_per_block, int ld, int Ts, int ks, int ldk,
-                          int slot, int n_grad, int groups) {
+                          float* __restrict__ dx, float* __restrict__ partial, float* work,
+                          int B, int T, int d, int users_per_block, int ld, int Ts, int ks,
+                          int ldk, int slot, int n_grad, int groups) {
+  // the header's width paths: the tile form copies 16 bytes at a time, the
+  // wide form 4 bytes at a time
+  constexpr bool ALIGNED = !WIDE;
   extern __shared__ __align__(16) float smem[];
   const int rows = users_per_block * T;
   const int warps = blockDim.x >> 5;
   Group* gs = reinterpret_cast<Group*>(smem);
-  // seven [rows][ld] buffers; their contents through one encoder block:
-  float* X0 = smem + kGroupFloats;  // LN_f's input; the attention output A; dV
+  // seven [rows][ld] buffers (the wide form's in its slice of `work`); their
+  // contents through one encoder block:
+  float* X0 = WIDE ? work + blockIdx.x * wide_work_floats(rows, ld, Ts)
+                   : smem + kGroupFloats;  // LN_f's input; the attention output A; dV
   float* X1 = X0 + rows * ld;    // q_in; x2; the FFN sum F; dF2; x2 again; dQ
   float* X2 = X1 + rows * ld;    // q; the block input H
   float* X3 = X2 + rows * ld;    // k; q_in again
@@ -577,11 +654,12 @@ sasrec_encoder_bwd_kernel(const EncoderW w, const DropoutMasks dm,
   float* X5 = X4 + rows * ld;    // the FFN hidden F1; dZ1; dK
   float* G = X5 + rows * ld;     // the running gradient
   float* P = G + rows * ld;      // [rows][Ts] probabilities, then dS
-  float* SW = P + rows * Ts;     // two weight slots
+  float* SW = WIDE ? smem + kGroupFloats : P + rows * Ts;  // two weight slots
   float* S = SW + 2 * slot;      // [warps][Ts] score rows
   float* M = S + warps * Ts;     // [rows] ids mask as 0/1
   float* LS = M + rows;          // [warps][2d] LayerNorm gradient sums
-  unsigned char* PM = reinterpret_cast<unsigned char*>(LS + warps * 2 * d);  // [rows][T]
+  // the probabilities' dropout mask, [rows][T]: staged here (the tile form)
+  unsigned char* PMs = reinterpret_cast<unsigned char*>(LS + warps * 2 * d);
   const int nb = w.num_blocks;
   const size_t plane = static_cast<size_t>(B) * T;  // rows of one [B, T, d] of `saved`
   Pipe pp{SW, slot, 0, false, ks, ldk};
@@ -599,8 +677,8 @@ sasrec_encoder_bwd_kernel(const EncoderW w, const DropoutMasks dm,
     __syncthreads();
     for (int r = threadIdx.x; r < gs->R; r += blockDim.x)
       M[r] = ids_mask[gs->row0 + r] ? 1.f : 0.f;
-    load_rows(g + gs->row0 * d, G, gs->R, d, ld);
-    load_rows(saved + (nb * plane + gs->row0) * d, X0, gs->R, d, ld);
+    load_rows<ALIGNED>(g + gs->row0 * d, G, gs->R, d, ld);
+    load_rows<ALIGNED>(saved + (nb * plane + gs->row0) * d, X0, gs->R, d, ld);
     __syncthreads();
     ln_bwd_rows(X0, G, w.ln_f, nullptr, LS, gs->R, d, ld);  // every row feeds dβ_f
     __syncthreads();
@@ -609,28 +687,37 @@ sasrec_encoder_bwd_kernel(const EncoderW w, const DropoutMasks dm,
     for (int blk = nb - 1; blk >= 0; --blk) {
       const BlockW& p = w.blocks[blk];
       // per-block pointers are formed where they are used: the block input
-      // saved[blk], the dropout masks (the probabilities' staged in PM)
+      // saved[blk], the dropout masks (the probabilities' staged in PMs, or
+      // read where they lie)
 
       // the rematerialised forward
-      if (dm.p[blk] != nullptr)
+      const unsigned char* PM = PMs;
+      if constexpr (WIDE) {  // read where it lies
+        PM = dm.p[blk] == nullptr ? nullptr : dm.p[blk] + gs->row0 * T;
+      } else if (dm.p[blk] != nullptr) {
         for (int idx = threadIdx.x; idx < gs->R * T; idx += blockDim.x)
-          PM[idx] = dm.p[blk][gs->row0 * T + idx];
-      ln_rows(saved + (blk * plane + gs->row0) * d, d, nullptr, X1, p.ln1, gs->R, d, ld);  // q_in
-      dense<false, 1>(pp, {X1}, {p.wq.w}, WRef{p.wk.w, false}, X2, epi(p.wq.b), gs->R, d, ld);
-      dense<false, 1>(pp, {X1}, {p.wk.w}, WRef{p.wv.w, false}, X3, epi(p.wk.b), gs->R, d, ld);
-      dense<false, 1>(pp, {X1}, {p.wv.w}, WRef{p.conv1.w, false}, X4, epi(p.wv.b), gs->R, d, ld);
+          PMs[idx] = dm.p[blk][gs->row0 * T + idx];
+      }
+      ln_rows<ALIGNED>(saved + (blk * plane + gs->row0) * d, d, nullptr, X1, p.ln1, gs->R, d,
+                       ld);  // q_in
+      dense<false, 1, WIDE, ALIGNED>(pp, {X1}, {p.wq.w}, WRef{p.wk.w, false}, X2, epi(p.wq.b),
+                                     gs->R, d, ld);
+      dense<false, 1, WIDE, ALIGNED>(pp, {X1}, {p.wk.w}, WRef{p.wv.w, false}, X3, epi(p.wk.b),
+                                     gs->R, d, ld);
+      dense<false, 1, WIDE, ALIGNED>(pp, {X1}, {p.wv.w}, WRef{p.conv1.w, false}, X4, epi(p.wv.b),
+                                     gs->R, d, ld);
       __syncthreads();
       attention_fwd(X2, X3, X4, X1, X0, S, P, dm.p[blk] == nullptr ? nullptr : PM, dm.keep, M,
                     gs->R, T, Ts, d, ld);
       __syncthreads();
-      ln_rows(X0, ld, nullptr, X1, p.ln2, gs->R, d, ld);  // x2
-      dense<false, 1>(pp, {X1}, {p.conv1.w}, WRef{p.conv2.w, false}, X5,
-                      epi(p.conv1.b, true, mask_rows(dm.f1[blk], gs->row0, d), dm.keep), gs->R,
-                      d, ld);  // F1
-      dense<false, 1>(pp, {X5}, {p.conv2.w}, WRef{p.conv2.w, true}, X1,
-                      epi(p.conv2.b, false, mask_rows(dm.f2[blk], gs->row0, d), dm.keep, nullptr,
-                          X1),
-                      gs->R, d, ld);  // F
+      ln_rows<ALIGNED>(X0, ld, nullptr, X1, p.ln2, gs->R, d, ld);  // x2
+      dense<false, 1, WIDE, ALIGNED>(
+          pp, {X1}, {p.conv1.w}, WRef{p.conv2.w, false}, X5,
+          epi(p.conv1.b, true, mask_rows(dm.f1[blk], gs->row0, d), dm.keep), gs->R, d, ld);  // F1
+      dense<false, 1, WIDE, ALIGNED>(
+          pp, {X5}, {p.conv2.w}, WRef{p.conv2.w, true}, X1,
+          epi(p.conv2.b, false, mask_rows(dm.f2[blk], gs->row0, d), dm.keep, nullptr, X1), gs->R,
+          d, ld);  // F
       __syncthreads();
 
       // LN3 (its output was masked by the ids mask), then the FFN
@@ -639,20 +726,21 @@ sasrec_encoder_bwd_kernel(const EncoderW w, const DropoutMasks dm,
       __syncthreads();
       if (gs->part != nullptr) ln_grad_flush(LS, leaf(gs->part, blk, kLn3, d), gs->first, d);
       if (gs->part != nullptr)
-        wgrad<1, 2>(X5, {X1}, {leaf(gs->part, blk, kW2, d)}, {leaf(gs->part, blk, kB2, d)},
-                    gs->first, gs->R, d, ld);
-      dense<true, 1>(pp, {X1}, {p.conv2.w}, WRef{p.conv1.w, true}, X5,
-                     epi(nullptr, false, mask_rows(dm.f1[blk], gs->row0, d), dm.keep, X5), gs->R,
-                     d, ld);  // dZ1
+        wgrad<1, 2, ALIGNED>(X5, {X1}, {leaf(gs->part, blk, kW2, d)},
+                             {leaf(gs->part, blk, kB2, d)}, gs->first, gs->R, d, ld);
+      dense<true, 1, WIDE, ALIGNED>(
+          pp, {X1}, {p.conv2.w}, WRef{p.conv1.w, true}, X5,
+          epi(nullptr, false, mask_rows(dm.f1[blk], gs->row0, d), dm.keep, X5), gs->R, d,
+          ld);  // dZ1
       __syncthreads();
-      ln_rows(X0, ld, nullptr, X1, p.ln2, gs->R, d, ld);  // x2 again
+      ln_rows<ALIGNED>(X0, ld, nullptr, X1, p.ln2, gs->R, d, ld);  // x2 again
       __syncthreads();
       if (gs->part != nullptr)
-        wgrad<1, 2>(X1, {X5}, {leaf(gs->part, blk, kW1, d)}, {leaf(gs->part, blk, kB1, d)},
-                    gs->first, gs->R, d, ld);
+        wgrad<1, 2, ALIGNED>(X1, {X5}, {leaf(gs->part, blk, kW1, d)},
+                             {leaf(gs->part, blk, kB1, d)}, gs->first, gs->R, d, ld);
       // dX2 = dF + dZ1 W1ᵀ
-      dense<true, 1>(pp, {X5}, {p.conv1.w}, WRef{p.wq.w, true}, G,
-                     epi(nullptr, false, nullptr, 1.f, nullptr, G), gs->R, d, ld);
+      dense<true, 1, WIDE, ALIGNED>(pp, {X5}, {p.conv1.w}, WRef{p.wq.w, true}, G,
+                                    epi(nullptr, false, nullptr, 1.f, nullptr, G), gs->R, d, ld);
       __syncthreads();
       ln_bwd_rows(X0, G, p.ln2, nullptr, LS, gs->R, d, ld);  // G = dA
       __syncthreads();
@@ -666,20 +754,21 @@ sasrec_encoder_bwd_kernel(const EncoderW w, const DropoutMasks dm,
       __syncthreads();
       attn_bwd_dqk(P, X3, X2, X1, X5, M, gs->R, T, Ts, d, ld);
       __syncthreads();
-      ln_rows(saved + (blk * plane + gs->row0) * d, d, X2, X3, p.ln1, gs->R, d, ld);  // H, q_in
+      ln_rows<ALIGNED>(saved + (blk * plane + gs->row0) * d, d, X2, X3, p.ln1, gs->R, d,
+                       ld);  // H, q_in
       __syncthreads();
       if (gs->part != nullptr)
-        wgrad<3, 1>(X3, {X1, X5, X0},
-                    {leaf(gs->part, blk, kWq, d), leaf(gs->part, blk, kWk, d),
-                     leaf(gs->part, blk, kWv, d)},
-                    {leaf(gs->part, blk, kBq, d), leaf(gs->part, blk, kBk, d),
-                     leaf(gs->part, blk, kBv, d)},
-                    gs->first, gs->R, d, ld);
+        wgrad<3, 1, ALIGNED>(X3, {X1, X5, X0},
+                             {leaf(gs->part, blk, kWq, d), leaf(gs->part, blk, kWk, d),
+                              leaf(gs->part, blk, kWv, d)},
+                             {leaf(gs->part, blk, kBq, d), leaf(gs->part, blk, kBk, d),
+                              leaf(gs->part, blk, kBv, d)},
+                             gs->first, gs->R, d, ld);
       // dq_in = dA + dQ Wqᵀ + dK Wkᵀ + dV Wvᵀ, added in that order; the
       // next block's (or group's) first weight flies behind them
       const WRef next{blk > 0 ? w.blocks[blk - 1].wq.w : gs->next_wq, false};
-      dense<true, 3>(pp, {X1, X5, X0}, {p.wq.w, p.wk.w, p.wv.w}, next, G,
-                     epi(nullptr, false, nullptr, 1.f, nullptr, G), gs->R, d, ld);
+      dense<true, 3, WIDE, ALIGNED>(pp, {X1, X5, X0}, {p.wq.w, p.wk.w, p.wv.w}, next, G,
+                                    epi(nullptr, false, nullptr, 1.f, nullptr, G), gs->R, d, ld);
       __syncthreads();
       ln_bwd_rows(X2, G, p.ln1, nullptr, LS, gs->R, d, ld);  // G = the block input's gradient
       __syncthreads();
@@ -745,47 +834,79 @@ size_t bwd_smem_bytes(int users_per_block, int T, int d, int threads) {
   const size_t rows = static_cast<size_t>(users_per_block) * T;
   const size_t warps = threads / 32;
   const size_t Ts = score_ld(T);
-  return (kGroupFloats + kBuffers * rows * row_ld(d) + rows * Ts +
-          2 * static_cast<size_t>(slot_floats(d)) + warps * Ts + rows + warps * 2 * d +
+  return (kGroupFloats + kBuffers * rows * row_ld(pad4(d)) + rows * Ts +
+          2 * static_cast<size_t>(slot_floats(pad4(d))) + warps * Ts + rows + warps * 2 * d +
           (rows * T + 3) / 4) *
          sizeof(float);
 }
 
-}  // namespace
+// The wide form's shared memory (_bwd_wide_layout in ops/sasrec_fused.py):
+// the group's scalars, two weight slots, the score rows, the ids mask and
+// the LayerNorm sums of one user's window.
+size_t bwd_wide_smem_bytes(int T, int d, int threads) {
+  const size_t warps = threads / 32;
+  return (kGroupFloats + 2 * static_cast<size_t>(slot_floats(pad4(d))) + warps * score_ld(T) +
+          T + warps * 2 * d) *
+         sizeof(float);
+}
 
-// The number of K2b blocks the current device runs at once with this
-// launch geometry (the persistent grid of the weight-gradient mode); 0 if
-// none fits, a negative cudaError_t on an error.
-extern "C" int acf_sasrec_encoder_bwd_ctas(int threads, int smem_bytes) {
+using BwdKernel = decltype(&sasrec_encoder_bwd_kernel<false>);
+
+// The number of blocks of `kernel` the current device runs at once with this
+// launch geometry; 0 if none fits, a negative cudaError_t on an error.
+int resident_blocks(BwdKernel kernel, int threads, int smem_bytes) {
   int dev = 0, sms = 0, per_sm = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(sasrec_encoder_bwd_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
   if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, sasrec_encoder_bwd_kernel,
-                                                        threads, smem_bytes);
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem_bytes);
   return err == cudaSuccess ? per_sm * sms : -static_cast<int>(err);
 }
 
-// Writes dx [B, T, d] and, when `partial` and `grad` are not null, the flat
-// gradient `grad` (ops/sasrec_fused.py `grad_size` floats) through the
-// [ctas, grad_size] `partial` workspace, on `stream`. `saved` holds the
-// block inputs K2a's training form wrote. `users_per_block`, `threads` and
-// `smem_bytes` come from the wrapper's layout (`_bwd_layout`); a launch
-// whose bytes disagree with this file's formula, or whose rows a product's
-// register tile cannot cover, is refused. Without gradients `ctas` must be
-// the number of user groups. Returns the cudaError_t of the launches.
+// The reduction of the blocks' partial slices into `grad`, on `s`.
+cudaError_t reduce_partials(const float* partial, int ctas, int n_grad, float* grad,
+                            cudaStream_t s) {
+  const int blocks = (n_grad + kReduceOuts - 1) / kReduceOuts;
+  sasrec_encoder_bwd_reduce<<<blocks, kReduceOuts * kReduceSlices, 0, s>>>(partial, ctas, n_grad,
+                                                                        grad);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// The number of K2b blocks (the tile form) the current device runs at once
+// with this launch geometry (the persistent grid of the weight-gradient
+// mode); 0 if none fits, a negative cudaError_t on an error.
+extern "C" int acf_sasrec_encoder_bwd_ctas(int threads, int smem_bytes) {
+  return resident_blocks(&sasrec_encoder_bwd_kernel<false>, threads, smem_bytes);
+}
+
+// The same for the wide form (its persistent grid in both modes).
+extern "C" int acf_sasrec_encoder_bwd_wide_ctas(int threads, int smem_bytes) {
+  return resident_blocks(&sasrec_encoder_bwd_kernel<true>, threads, smem_bytes);
+}
+
+// The tile form. Writes dx [B, T, d] and, when `partial` and `grad` are not
+// null, the flat gradient `grad` (ops/sasrec_fused.py `grad_size` floats)
+// through the [ctas, grad_size] `partial` workspace, on `stream`. `saved`
+// holds the block inputs K2a's training form wrote. `users_per_block`,
+// `threads` and `smem_bytes` come from the wrapper's layout (`_bwd_layout`);
+// a launch whose bytes disagree with this file's formula, or whose rows a
+// product's register tile cannot cover, is refused. Without gradients `ctas`
+// must be the number of user groups; d % 4 != 0 or a g, saved or weight
+// that is not 16-byte aligned is refused (the wide form takes them).
+// Returns the cudaError_t of the launches.
 extern "C" int acf_sasrec_encoder_bwd(EncoderW w, DropoutMasks dm,
                                       const unsigned char* ids_mask, const float* g,
                                       const float* saved, float* dx, float* partial,
                                       float* grad, int B, int T, int d, int users_per_block,
                                       int threads, int smem_bytes, int ctas, void* stream) {
-  if (B <= 0 || T <= 0 || d <= 0 || d % 4 != 0 || d > 32 * kMaxColsPerLane ||
+  if (B <= 0 || T <= 0 || d <= 0 || d > 32 * kMaxColsPerLane ||
       users_per_block <= 0 || (threads != 256 && threads != kMaxThreads) ||
-      users_per_block * T > kMaxRowsPerThread * (threads / (d / 4)) ||
+      users_per_block * T > kMaxRowsPerThread * (threads / (pad4(d) / 4)) ||
       w.num_blocks < 0 || w.num_blocks > kMaxBlocks || (partial == nullptr) != (grad == nullptr))
     return (int)cudaErrorInvalidValue;
   const int groups = (B + users_per_block - 1) / users_per_block;
@@ -797,19 +918,50 @@ extern "C" int acf_sasrec_encoder_bwd(EncoderW w, DropoutMasks dm,
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   if (smem_bytes > optin) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(
-      sasrec_encoder_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+  if (!weights_aligned(w, d) || !aligned16(g) || !aligned16(saved))
+    return (int)cudaErrorInvalidValue;
+  const BwdKernel kernel = &sasrec_encoder_bwd_kernel<false>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
   if (err != cudaSuccess) return (int)err;
   const int n_grad = w.num_blocks * (5 * d * d + 11 * d) + 2 * d + T * d;
-  const int ks = slice_rows(d);
+  const int ks = slice_rows(pad4(d));
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  sasrec_encoder_bwd_kernel<<<ctas, threads, smem_bytes, s>>>(
-      w, dm, ids_mask, g, saved, dx, partial, B, T, d, users_per_block, row_ld(d),
-      score_ld(T), ks, row_ld(ks), slot_floats(d), n_grad, groups);
+  kernel<<<ctas, threads, smem_bytes, s>>>(
+      w, dm, ids_mask, g, saved, dx, partial, nullptr, B, T, d, users_per_block,
+      row_ld(pad4(d)), score_ld(T), ks, row_ld(ks), slot_floats(pad4(d)), n_grad, groups);
   err = cudaGetLastError();
   if (err != cudaSuccess || partial == nullptr) return (int)err;
-  const int blocks = (n_grad + kReduceOuts - 1) / kReduceOuts;
-  sasrec_encoder_bwd_reduce<<<blocks, kReduceOuts * kReduceSlices, 0, s>>>(partial, ctas, n_grad,
-                                                                        grad);
-  return (int)cudaGetLastError();
+  return (int)reduce_partials(partial, ctas, n_grad, grad, s);
+}
+
+// The wide form (one user a block), as acf_sasrec_encoder_bwd, its buffers in
+// `work`: [ctas, 7 T ld + T Ts] floats (`_bwd_wide_layout`). `ctas` blocks
+// walk the B users (1 <= ctas <= B, in both modes); `threads` and
+// `smem_bytes` come from the wrapper's layout, and a launch whose bytes
+// disagree with this file's formula is refused.
+extern "C" int acf_sasrec_encoder_bwd_wide(EncoderW w, DropoutMasks dm,
+                                           const unsigned char* ids_mask, const float* g,
+                                           const float* saved, float* dx, float* partial,
+                                           float* grad, float* work, int B, int T, int d,
+                                           int threads, int smem_bytes, int ctas, void* stream) {
+  if (B <= 0 || T <= 0 || d <= 0 || d > 32 * kMaxColsPerLane || threads != kWideThreads ||
+      w.num_blocks < 0 || w.num_blocks > kMaxBlocks ||
+      (partial == nullptr) != (grad == nullptr) || work == nullptr || ctas <= 0 || ctas > B)
+    return (int)cudaErrorInvalidValue;
+  if (bwd_wide_smem_bytes(T, d, threads) != static_cast<size_t>(smem_bytes))
+    return (int)cudaErrorInvalidValue;
+  const BwdKernel kernel = &sasrec_encoder_bwd_kernel<true>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+  if (err != cudaSuccess) return (int)err;
+  const int n_grad = w.num_blocks * (5 * d * d + 11 * d) + 2 * d + T * d;
+  const int ks = slice_rows(pad4(d));
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  kernel<<<ctas, threads, smem_bytes, s>>>(
+      w, dm, ids_mask, g, saved, dx, partial, work, B, T, d, 1, row_ld(pad4(d)), score_ld(T), ks,
+      row_ld(ks), slot_floats(pad4(d)), n_grad, B);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || partial == nullptr) return (int)err;
+  return (int)reduce_partials(partial, ctas, n_grad, grad, s);
 }

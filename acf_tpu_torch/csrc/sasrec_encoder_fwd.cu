@@ -78,10 +78,16 @@
 //     moments by half-warp sums (ln_pairs). The saved block inputs are
 //     written by the LayerNorm that already reads them (LN1, and LN_f for
 //     its own input) as 16-byte units; LN3 applies the ids mask.
-// Requires d % 4 == 0, d <= 128, T <= 224, 16-byte aligned x and weights
-// (checked by the wrapper). Later work: q, k and v in one pass over q_in, a
-// layout of several users a 512-thread block at T=50, skipping masked rows,
-// multi-head windows.
+//   * Any width d <= 128 (the header's widths): d % 4 == 0 with 16-byte
+//     aligned x, out, saved and weights, and a 4-byte aligned embedding mask,
+//     takes the ALIGNED build, as above; any other width or alignment takes
+//     a build that stages rows of pad4(d) floats with 4-byte copies, zero
+//     tails, and LayerNorm moments over the d real columns (the C entry
+//     chooses, from the pointers). The attention's dots run over pad4(d)
+//     columns as they are, adding the tails' zeros.
+// Requires d <= 128 and T <= 224. Later work: q, k and v in one pass over
+// q_in, a layout of several users a 512-thread block at T=50, skipping
+// masked rows, multi-head windows.
 
 #include "sasrec_encoder.cuh"
 
@@ -106,12 +112,12 @@ constexpr int fwd_blocks_an_sm(int threads) { return threads == 256 ? 2 : 1; }
 // rows: four [rows][ld] buffers, two [ks][ld] slots, the ids mask as bytes
 // (`_fwd_bytes` in ops/sasrec_fused.py).
 size_t fwd_smem_bytes(int rows, int d, int ks) {
-  return (4 * static_cast<size_t>(rows) + 2 * static_cast<size_t>(ks)) * row_ld(d) *
+  return (4 * static_cast<size_t>(rows) + 2 * static_cast<size_t>(ks)) * row_ld(pad4(d)) *
              sizeof(float) +
          (static_cast<size_t>(rows) + 3) / 4 * 4;
 }
 
-// The slice rows ks (a multiple of 4, 4 <= ks <= d) for which `smem_bytes`
+// The slice rows ks (a multiple of 4, 4 <= ks <= pad4(d)) for which `smem_bytes`
 // is fwd_smem_bytes(rows, d, ks), or 0 if there is none. The wrapper's
 // layout chooses ks (`_fwd_slice`); the bytes carry it.
 int fwd_slice_of(int smem_bytes, int rows, int d) {
@@ -120,17 +126,33 @@ int fwd_slice_of(int smem_bytes, int rows, int d) {
   if (smem_bytes <= 0 || static_cast<size_t>(smem_bytes) < base + four) return 0;
   const size_t extra = static_cast<size_t>(smem_bytes) - base;
   const size_t ks = extra / four * 4;
-  return extra % four == 0 && ks <= static_cast<size_t>(d) ? static_cast<int>(ks) : 0;
+  return extra % four == 0 && ks <= static_cast<size_t>(pad4(d)) ? static_cast<int>(ks) : 0;
 }
 
 // The rows of a product's register tile that a launch needs: the fewest of
 // 1, 2, 4, 8 (up to fwd_max_rows) whose tiles cover `rows` in one pass (0:
 // none does).
 int fwd_tile_rows(int rows, int d, int threads) {
-  const int row_groups = threads / (d / 4);
+  const int row_groups = threads / (pad4(d) / 4);
   for (int r = 1; r <= fwd_max_rows(threads); r *= 2)
     if (rows <= r * row_groups) return r;
   return 0;
+}
+
+// The columns c0 + j < d of v to dst[c0 + j] (4-byte stores): a unit of a
+// row of width d % 4 != 0, or of an unaligned row.
+__device__ __forceinline__ void store_cols(float* dst, int c0, float4 v, int d) {
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+    if (c0 + j < d) dst[c0 + j] = (&v.x)[j];
+}
+
+// The columns c0 + j < d of src (4-byte loads), zero past d.
+__device__ __forceinline__ float4 load_cols(const float* src, int c0, int d) {
+  float4 v;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) (&v.x)[j] = c0 + j < d ? __ldg(src + c0 + j) : 0.f;
+  return v;
 }
 
 // dst[r] = LN(src[r]) for rows r < R, times M[r] where M is given (0/1
@@ -138,12 +160,15 @@ int fwd_tile_rows(int rows, int d, int threads) {
 // shared memory (may alias src) or device memory; with `copy`, src[r] is
 // also copied to rows of stride cld in device memory. Two rows a warp, one a
 // half-warp: a lane holds up to kUnitsPerLane 16-byte units of its row, and
-// the moments are sums over the half-warp.
+// the moments are sums over the half-warp. Without ALIGNED the units run to
+// pad4(d), the moments leave the tail out, and only the d real columns are
+// written (a shared dst's tail keeps its zeros).
+template <bool ALIGNED>
 __device__ void ln_pairs(const float* src, float* copy, int cld, float* dst, int dld,
                          LayerNormW p, const unsigned char* M, int R, int d, int ld) {
   const int hl = threadIdx.x & 15;           // lane in the half-warp
   const int h = (threadIdx.x >> 4) & 1;      // the warp's half
-  const int units = d / 4;
+  const int units = (ALIGNED ? d : pad4(d)) / 4;
   const int warps = blockDim.x >> 5;
   for (int r0 = 2 * (threadIdx.x >> 5); r0 < R; r0 += 2 * warps) {
     const int r = r0 + h;
@@ -156,15 +181,22 @@ __device__ void ln_pairs(const float* src, float* copy, int cld, float* dst, int
       v[m] = live && u < units ? *reinterpret_cast<const float4*>(src + r * ld + 4 * u)
                                : make_float4(0.f, 0.f, 0.f, 0.f);
       s += (v[m].x + v[m].y) + (v[m].z + v[m].w);
-      if (copy != nullptr && live && u < units)
-        *reinterpret_cast<float4*>(copy + r * cld + 4 * u) = v[m];
+      if (copy != nullptr && live && u < units) {
+        if (ALIGNED)
+          *reinterpret_cast<float4*>(copy + r * cld + 4 * u) = v[m];
+        else
+          store_cols(copy + r * cld, 4 * u, v[m], d);
+      }
     }
     const float mean = half_sum(s) / d;
     float q = 0.f;
 #pragma unroll
     for (int m = 0; m < kUnitsPerLane; ++m) {
       if (hl + 16 * m >= units) continue;
-      const float4 c = make_float4(v[m].x - mean, v[m].y - mean, v[m].z - mean, v[m].w - mean);
+      float4 c = make_float4(v[m].x - mean, v[m].y - mean, v[m].z - mean, v[m].w - mean);
+      if (!ALIGNED) c = make_float4(c.x, 4 * (hl + 16 * m) + 1 < d ? c.y : 0.f,
+                                    4 * (hl + 16 * m) + 2 < d ? c.z : 0.f,
+                                    4 * (hl + 16 * m) + 3 < d ? c.w : 0.f);  // the tail: no moment
       q = fmaf(c.x, c.x, q); q = fmaf(c.y, c.y, q); q = fmaf(c.z, c.z, q); q = fmaf(c.w, c.w, q);
     }
     const float denom = sqrtf(half_sum(q) / d + kEps);
@@ -174,12 +206,16 @@ __device__ void ln_pairs(const float* src, float* copy, int cld, float* dst, int
     for (int m = 0; m < kUnitsPerLane; ++m) {
       const int u = hl + 16 * m;
       if (u >= units) continue;
-      const float4 g = ldg4(p.gamma + 4 * u), b = ldg4(p.beta + 4 * u);
+      const float4 g = ALIGNED ? ldg4(p.gamma + 4 * u) : load_cols(p.gamma, 4 * u, d);
+      const float4 b = ALIGNED ? ldg4(p.beta + 4 * u) : load_cols(p.beta, 4 * u, d);
       const float4 y = make_float4((g.x * (v[m].x - mean) / denom + b.x) * keep,
                                    (g.y * (v[m].y - mean) / denom + b.y) * keep,
                                    (g.z * (v[m].z - mean) / denom + b.z) * keep,
                                    (g.w * (v[m].w - mean) / denom + b.w) * keep);
-      *reinterpret_cast<float4*>(dst + r * dld + 4 * u) = y;
+      if (ALIGNED)
+        *reinterpret_cast<float4*>(dst + r * dld + 4 * u) = y;
+      else
+        store_cols(dst + r * dld, 4 * u, y, d);
     }
   }
 }
@@ -320,9 +356,49 @@ __device__ void attention_rows(float* q, const float* k, const float* v, float* 
   }
 }
 
+// X[r] = drop_emb(x[r] + pos[r % T]) * mask[r] for the block's rows r < R
+// (x, pos and the embedding mask `emb` at the block's first row, or null),
+// [R][ld] in shared memory. Without ALIGNED, 4-byte loads and a zero tail
+// up to pad4(d). Out of line: inlined, its registers tip the 8-row tile's
+// build into spilling.
+template <bool ALIGNED>
+__device__ __noinline__ void load_input(float* X, const float* x, const float* pos,
+                                        const unsigned char* emb, const unsigned char* mask,
+                                        float keep_p, int R, int T, int d, int ld) {
+  if (!ALIGNED) {
+    const int dp = pad4(d);
+    for (int idx = threadIdx.x; idx < R * dp; idx += blockDim.x) {
+      const int r = idx / dp, c = idx % dp;
+      float v = 0.f;
+      if (c < d && mask[r]) {
+        v = __ldg(x + r * d + c) + __ldg(pos + (r % T) * d + c);
+        if (emb != nullptr) v = drop(v, emb[r * d + c], keep_p);
+      }
+      X[r * ld + c] = v;
+    }
+    return;
+  }
+  const int groups = d / 4;
+  for (int idx = threadIdx.x; idx < R * groups; idx += blockDim.x) {
+    const int r = idx / groups, c = (idx % groups) * 4;
+    const float4 a = ldg4(x + r * d + c);
+    const float4 e = ldg4(pos + (r % T) * d + c);
+    float4 v = make_float4(a.x + e.x, a.y + e.y, a.z + e.z, a.w + e.w);
+    if (emb != nullptr) {
+      const uchar4 m = *reinterpret_cast<const uchar4*>(emb + r * d + c);
+      v = make_float4(drop(v.x, m.x, keep_p), drop(v.y, m.y, keep_p),
+                      drop(v.z, m.z, keep_p), drop(v.w, m.w, keep_p));
+    }
+    const float keep = mask[r] ? 1.f : 0.f;
+    *reinterpret_cast<float4*>(X + r * ld + c) =
+        make_float4(v.x * keep, v.y * keep, v.z * keep, v.w * keep);
+  }
+}
+
 // ROWS rows in a thread's product tile (fwd_tile_rows), THREADS threads a
-// block and the registers that fwd_blocks_an_sm(THREADS) blocks an SM allow.
-template <int ROWS, int THREADS>
+// block and the registers that fwd_blocks_an_sm(THREADS) blocks an SM allow;
+// ALIGNED: the header's width paths.
+template <int ROWS, int THREADS, bool ALIGNED>
 __global__ void __launch_bounds__(THREADS, fwd_blocks_an_sm(THREADS))
 sasrec_encoder_fwd_kernel(const EncoderW w, const DropoutMasks dm, const float* __restrict__ x,
                           const unsigned char* __restrict__ ids_mask,
@@ -343,42 +419,29 @@ sasrec_encoder_fwd_kernel(const EncoderW w, const DropoutMasks dm, const float* 
   const int nb = w.num_blocks;
   Pipe pp{SW, ks * ld, 0, false, ks, 0};
   if (nb > 0) {  // the first product's weight flies during the input load
-    stage_slice(pp.at(0), WRef{w.blocks[0].wq.w, false}, 0, pp, d, ld);
+    stage_slice<ALIGNED>(pp.at(0), WRef{w.blocks[0].wq.w, false}, 0, pp, d, ld);
     pp.pending = true;
   }
 
   const unsigned char* mask = ids_mask + row0;
   for (int r = threadIdx.x; r < R; r += blockDim.x) M[r] = mask[r] != 0;
-  const float* xb = x + row0 * d;
-  const unsigned char* emb = dm.emb == nullptr ? nullptr : dm.emb + row0 * d;
-  const int groups = d / 4;
-  for (int idx = threadIdx.x; idx < R * groups; idx += blockDim.x) {
-    const int r = idx / groups, c = (idx % groups) * 4;
-    const float4 a = ldg4(xb + r * d + c);
-    const float4 e = ldg4(w.pos + (r % T) * d + c);
-    float4 v = make_float4(a.x + e.x, a.y + e.y, a.z + e.z, a.w + e.w);
-    if (emb != nullptr) {
-      const uchar4 m = *reinterpret_cast<const uchar4*>(emb + r * d + c);
-      v = make_float4(drop(v.x, m.x, dm.keep), drop(v.y, m.y, dm.keep),
-                      drop(v.z, m.z, dm.keep), drop(v.w, m.w, dm.keep));
-    }
-    const float keep = mask[r] ? 1.f : 0.f;
-    *reinterpret_cast<float4*>(X + r * ld + c) =
-        make_float4(v.x * keep, v.y * keep, v.z * keep, v.w * keep);
-  }
+  load_input<ALIGNED>(X, x + row0 * d, w.pos, dm.emb == nullptr ? nullptr : dm.emb + row0 * d,
+                      mask, dm.keep, R, T, d, ld);
   __syncthreads();
 
   for (int blk = 0; blk < nb; ++blk) {
     const BlockW& p = w.blocks[blk];
     const size_t mrow = row0 * d;  // the block's first element of a [B, T, d] mask
     // q_in, in place; the block's input also goes to `saved` for K2b
-    ln_pairs(X, saved == nullptr ? nullptr : saved + (blk * plane + row0) * d, d, X, ld, p.ln1,
-             nullptr, R, d, ld);
+    ln_pairs<ALIGNED>(X, saved == nullptr ? nullptr : saved + (blk * plane + row0) * d, d, X, ld,
+                      p.ln1, nullptr, R, d, ld);
     // q, k, v; each product's weight slices stream in behind the one before
-    product<ROWS, false, 1>(pp, {X}, {p.wq.w}, WRef{p.wk.w, false}, Q, epi(p.wq.b), R, d, ld);
-    product<ROWS, false, 1>(pp, {X}, {p.wk.w}, WRef{p.wv.w, false}, K, epi(p.wk.b), R, d, ld);
-    product<ROWS, false, 1>(pp, {X}, {p.wv.w}, WRef{p.conv1.w, false}, V, epi(p.wv.b), R, d,
-                            ld);
+    product<ROWS, false, 1, ALIGNED>(pp, {X}, {p.wq.w}, WRef{p.wk.w, false}, Q, epi(p.wq.b), R,
+                                     d, ld);
+    product<ROWS, false, 1, ALIGNED>(pp, {X}, {p.wk.w}, WRef{p.wv.w, false}, K, epi(p.wk.b), R,
+                                     d, ld);
+    product<ROWS, false, 1, ALIGNED>(pp, {X}, {p.wv.w}, WRef{p.conv1.w, false}, V, epi(p.wv.b),
+                                     R, d, ld);
     __syncthreads();
     const unsigned char* pm = dm.p[blk] == nullptr ? nullptr : dm.p[blk] + row0 * T;
     if (T <= 64)
@@ -386,23 +449,38 @@ sasrec_encoder_fwd_kernel(const EncoderW w, const DropoutMasks dm, const float* 
     else
       attention_rows<kMaxKeysPerLane>(Q, K, V, X, M, R, T, d, ld, pm, dm.keep);
     __syncthreads();
-    ln_pairs(X, nullptr, 0, X, ld, p.ln2, nullptr, R, d, ld);  // x2, in place
-    product<ROWS, false, 1>(
+    ln_pairs<ALIGNED>(X, nullptr, 0, X, ld, p.ln2, nullptr, R, d, ld);  // x2, in place
+    product<ROWS, false, 1, ALIGNED>(
         pp, {X}, {p.conv1.w}, WRef{p.conv2.w, false}, Q,
         epi(p.conv1.b, true, dm.f1[blk] == nullptr ? nullptr : dm.f1[blk] + mrow, dm.keep), R, d,
         ld);  // the FFN hidden
-    product<ROWS, false, 1>(
+    product<ROWS, false, 1, ALIGNED>(
         pp, {Q}, {p.conv2.w}, WRef{blk + 1 < nb ? w.blocks[blk + 1].wq.w : nullptr, false}, K,
         epi(p.conv2.b, false, dm.f2[blk] == nullptr ? nullptr : dm.f2[blk] + mrow, dm.keep,
             nullptr, X),
         R, d, ld);  // the FFN sum, + x2
     __syncthreads();
-    ln_pairs(K, nullptr, 0, X, ld, p.ln3, M, R, d, ld);  // the block's output
+    ln_pairs<ALIGNED>(K, nullptr, 0, X, ld, p.ln3, M, R, d, ld);  // the block's output
     __syncthreads();
   }
   // out = LN_f(x); LN_f's input also goes to `saved`
-  ln_pairs(X, saved == nullptr ? nullptr : saved + (nb * plane + row0) * d, d, out + row0 * d, d,
-           w.ln_f, nullptr, R, d, ld);
+  ln_pairs<ALIGNED>(X, saved == nullptr ? nullptr : saved + (nb * plane + row0) * d, d,
+                    out + row0 * d, d, w.ln_f, nullptr, R, d, ld);
+}
+
+using Kernel = decltype(&sasrec_encoder_fwd_kernel<1, 256, true>);
+
+// The build of the kernel for a launch's threads and tile rows.
+template <bool ALIGNED>
+Kernel fwd_kernel(int threads, int tile) {
+  if (threads == 256)
+    return tile == 1   ? &sasrec_encoder_fwd_kernel<1, 256, ALIGNED>
+           : tile == 2 ? &sasrec_encoder_fwd_kernel<2, 256, ALIGNED>
+                       : &sasrec_encoder_fwd_kernel<4, 256, ALIGNED>;
+  return tile == 1   ? &sasrec_encoder_fwd_kernel<1, kMaxThreads, ALIGNED>
+         : tile == 2 ? &sasrec_encoder_fwd_kernel<2, kMaxThreads, ALIGNED>
+         : tile == 4 ? &sasrec_encoder_fwd_kernel<4, kMaxThreads, ALIGNED>
+                     : &sasrec_encoder_fwd_kernel<8, kMaxThreads, ALIGNED>;
 }
 
 }  // namespace
@@ -417,7 +495,7 @@ extern "C" int acf_sasrec_encoder_fwd(EncoderW w, DropoutMasks dm, const float* 
                                       const unsigned char* ids_mask, float* out, float* saved,
                                       int B, int T, int d, int users_per_block,
                                       int threads, int smem_bytes, void* stream) {
-  if (B <= 0 || T <= 0 || T > 32 * kMaxKeysPerLane || d <= 0 || d % 4 != 0 ||
+  if (B <= 0 || T <= 0 || T > 32 * kMaxKeysPerLane || d <= 0 ||
       d > 32 * kMaxColsPerLane || users_per_block <= 0 ||
       (threads != 256 && threads != kMaxThreads) || w.num_blocks < 0 ||
       w.num_blocks > kMaxBlocks)
@@ -431,20 +509,16 @@ extern "C" int acf_sasrec_encoder_fwd(EncoderW w, DropoutMasks dm, const float* 
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   if (smem_bytes > optin) return (int)cudaErrorInvalidValue;
-  using Kernel = decltype(&sasrec_encoder_fwd_kernel<1, 256>);
+  const bool aligned = weights_aligned(w, d) && aligned16(x) && aligned16(out) &&
+                       (saved == nullptr || aligned16(saved)) &&
+                       reinterpret_cast<size_t>(dm.emb) % 4 == 0;
   const Kernel kernel =
-      threads == 256 ? (tile == 1   ? &sasrec_encoder_fwd_kernel<1, 256>
-                        : tile == 2 ? &sasrec_encoder_fwd_kernel<2, 256>
-                                    : &sasrec_encoder_fwd_kernel<4, 256>)
-                     : (tile == 1   ? &sasrec_encoder_fwd_kernel<1, kMaxThreads>
-                        : tile == 2 ? &sasrec_encoder_fwd_kernel<2, kMaxThreads>
-                        : tile == 4 ? &sasrec_encoder_fwd_kernel<4, kMaxThreads>
-                                    : &sasrec_encoder_fwd_kernel<8, kMaxThreads>);
+      aligned ? fwd_kernel<true>(threads, tile) : fwd_kernel<false>(threads, tile);
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
   if (err != cudaSuccess) return (int)err;
   const int grid = (B + users_per_block - 1) / users_per_block;
   kernel<<<grid, threads, smem_bytes, static_cast<cudaStream_t>(stream)>>>(
-      w, dm, x, ids_mask, out, saved, B, T, d, users_per_block, row_ld(d), ks);
+      w, dm, x, ids_mask, out, saved, B, T, d, users_per_block, row_ld(pad4(d)), ks);
   return (int)cudaGetLastError();
 }

@@ -7,7 +7,9 @@ configurations carry across.
 
 Routing: on a CUDA tensor every window goes to
 :func:`acf_tpu_torch.ops.sasrec_fused.fused_encoder`: the K2a kernel
-forward and, when a gradient is taken, the K2b kernel backward. A window
+forward and, when a gradient is taken, the K2b kernel backward. They take
+one head, any width 1 <= d <= 128 and, in training as in serving, every
+window up to ``max_window(d)`` (200 up to d = 68, 108 at d = 128). A shape
 the kernels do not take raises ``ValueError``; there is no other path. On a
 CPU tensor a single-head encoder runs the same function's plain versions
 (the hand-derived backward included); a multi-head one runs

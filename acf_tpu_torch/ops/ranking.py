@@ -6,8 +6,10 @@ scoring >= the held-out item. On a CUDA tensor :func:`rank_positions_dot`
 launches the hand-written kernel ``csrc/rank_count.cu`` (K1), which streams
 k-slices of user and item tiles through shared memory so the [B, I] score
 matrix never exists in device memory; on a CPU tensor it takes
-:func:`rank_positions_dot_plain`. The kernel's limits are stated once, in
-:func:`check_supported`.
+:func:`rank_positions_dot_plain`. The kernel takes any width and any
+alignment a float32 tensor has (:func:`check_supported`): it copies the
+slices by TMA where d % 4 == 0 and both tables are 16-byte aligned, and 4
+bytes at a time otherwise (a width like 50, a row view of a table).
 
 Rounding note: the kernel sums each dot product in its own order (fp32 FMAs
 over k), so an item whose score ties the threshold within rounding can flip
@@ -18,8 +20,6 @@ count, so it is handled exactly.
 from __future__ import annotations
 
 import torch
-
-ROADMAP_ITEM = "ROADMAP.md Queue 2, 'K1: any width and alignment'"
 
 
 def rank_positions_dot_plain(u_repr, item_emb, thresholds, bias=None, gt=None, id_base=0):
@@ -65,16 +65,12 @@ def _check(u_repr, item_emb, thresholds, bias, gt):
 
 def check_supported(u_repr, item_emb):
     """Raise ``ValueError`` unless K1 takes these [B, d] user rows and [I, d]
-    item table: d % 4 == 0, d >= 4 and both 16-byte aligned (the kernel
-    copies rows 16 bytes at a time). Any such d and any B, I run."""
-    d = u_repr.shape[1]
-    if d % 4 or d < 4:
-        raise ValueError(f"rank_positions_dot on CUDA needs d % 4 == 0 and d >= 4, got d={d} "
-                         f"(other widths are lifted by {ROADMAP_ITEM})")
+    item table: any d (0 too: the scores are the biases), any B and I, and
+    any float32 alignment (its slowest copies are of 4 bytes)."""
     for name, x in (("u_repr", u_repr), ("item_emb", item_emb)):
-        if x.data_ptr() % 16:
-            raise ValueError(f"rank_positions_dot on CUDA needs {name} 16-byte aligned "
-                             f"(unaligned views are lifted by {ROADMAP_ITEM})")
+        if x.data_ptr() % 4:
+            raise ValueError(f"rank_positions_dot on CUDA needs {name} aligned to its "
+                             f"float32 elements")
 
 
 def rank_positions_dot(u_repr, item_emb, thresholds, bias=None, gt=None, id_base: int = 0):

@@ -20,6 +20,16 @@ of ASASRec). A CUDA tensor the kernels do not take raises ``ValueError``:
 the limits are stated once, in :func:`check_supported`, which computes the
 shared-memory sizes with the same formulas the launches use.
 
+K2b has two forms, chosen in one place (:func:`_bwd_form`): the tile form,
+whose block holds ~32 rows in shared memory and copies them 16 bytes at a
+time, for every window it fits at d % 4 == 0 on 16-byte aligned tensors,
+and the wide form (one user a block, its rows in a device workspace, 4-byte
+copies) for everything else up to K2a's widest window, so training takes
+every window and width serving takes. K2a takes any width 1 <= d <= 128: a
+row is staged at d rounded up to 4 with zero tails, and its C entry copies
+16 bytes at a time where the width and the tensors' alignment allow, 4
+bytes otherwise.
+
 Rounding note: the kernels sum dot products, softmax denominators,
 LayerNorm moments and the weight gradients over users in their own order,
 so they agree with their plain versions to f32 rounding, not bit for bit
@@ -57,6 +67,7 @@ BLOCK_RESERVED = 1_024         # ... of which each resident block keeps 1 KB
 SLICE_FLOATS = 4096            # floats of W in one staged weight slice (K2a, K2b), at most
 BWD_BUFFERS = 7                # [rows, ld] activation buffers of K2b
 BWD_THREADS = 512              # K2b's block: 16 warps, one block an SM
+BWD_WIDE_THREADS = 256         # K2b's wide form: 8 warps, up to 255 registers a thread
 BWD_ROWS_PER_THREAD = 3        # rows of a K2b product's register tile, at most
 BWD_GROUP_FLOATS = 12          # K2b's user-group scalars in shared memory
 ROADMAP_ITEM = ("ROADMAP.md Queue 2, 'K2a/K2b: multi-head and longer "
@@ -246,8 +257,13 @@ def encoder_bwd_math(params, x, ids_mask, masks, keep: float, g,
 
 # --- limits -------------------------------------------------------------------
 
+def _dp(d: int) -> int:
+    """The width a kernel stages a row at: d rounded up to 4 (``pad4``)."""
+    return -(-d // 4) * 4
+
+
 def _ld(d: int) -> int:
-    return 4 * ((d // 4) | 1)  # odd number of 16-byte units per row
+    return 4 * ((_dp(d) // 4) | 1)  # odd number of 16-byte units per row
 
 
 def _group(t: int, d: int):
@@ -257,7 +273,7 @@ def _group(t: int, d: int):
     of a product."""
     users = max(1, FWD_ROWS_PER_BLOCK // t)
     rows = users * t
-    wide = rows >= 128 or rows > FWD_MAX_ROWS[256] * (256 // (d // 4))
+    wide = rows >= 128 or rows > FWD_MAX_ROWS[256] * (256 // (_dp(d) // 4))
     return users, 512 if wide else 256
 
 
@@ -268,7 +284,8 @@ def _fwd_slice(rows: int, d: int, threads: int) -> int:
     the buffers alone leave no room for that, the most with which one block
     fits. The C entry reads ks back from the bytes."""
     per_block = SM_SMEM // FWD_BLOCKS_AN_SM[threads] - BLOCK_RESERVED
-    widest = min(d, SLICE_FLOATS // d // 4 * 4)
+    dp = _dp(d)
+    widest = min(dp, SLICE_FLOATS // dp // 4 * 4)
     for limit in (per_block, SMEM_LIMIT):
         for ks in range(widest, 3, -4):
             if _fwd_bytes(rows, d, ks) <= limit:
@@ -299,8 +316,9 @@ def _bwd_slot(d: int) -> int:
     """Floats of one of K2b's two weight slots: a k-slice of W (the whole
     weight up to d = 64) as rows of W, or as rows of Wᵀ, whichever is
     larger."""
-    ks = min(d, SLICE_FLOATS // d // 4 * 4)
-    return max(ks * _ld(d), d * _ld(ks))
+    dp = _dp(d)
+    ks = min(dp, SLICE_FLOATS // dp // 4 * 4)
+    return max(ks * _ld(d), dp * _ld(ks))
 
 
 def _bwd_layout(t: int, d: int):
@@ -338,7 +356,7 @@ def _fwd_fits(t: int, d: int) -> bool:
     """K2a's block fits one SM, and a product's register tile covers its
     rows (the C entry checks both)."""
     users, threads, smem = _layout(t, d)
-    return smem <= SMEM_LIMIT and users * t <= FWD_MAX_ROWS[threads] * (threads // (d // 4))
+    return smem <= SMEM_LIMIT and users * t <= FWD_MAX_ROWS[threads] * (threads // (_dp(d) // 4))
 
 
 def max_window(d: int) -> int:
@@ -347,54 +365,82 @@ def max_window(d: int) -> int:
 
 
 def _bwd_fits(t: int, d: int) -> bool:
-    """K2b's block fits one SM, and a product's register tile covers its
-    rows (the C entry checks both)."""
+    """K2b's tile form fits one SM, and a product's register tile covers
+    its rows (the C entry checks both)."""
     users, threads, smem = _bwd_layout(t, d)
-    return smem <= SMEM_LIMIT and users * t <= BWD_ROWS_PER_THREAD * (threads // (d // 4))
+    return smem <= SMEM_LIMIT and users * t <= BWD_ROWS_PER_THREAD * (threads // (_dp(d) // 4))
+
+
+def _bwd_wide_layout(t: int, d: int):
+    """(threads, shared-memory bytes, workspace floats a block) of K2b's
+    wide form: one user's window a block of 256 threads. Shared memory holds
+    the group's scalars, two weight slots, one score row per warp, the ids
+    mask and the [warps, 2d] LayerNorm scratch (``bwd_wide_smem_bytes`` in
+    the C entry); a block's slice of the device workspace the seven [T, ld]
+    buffers and the [T, Ts] probabilities (``wide_work_floats``)."""
+    ts = (t + 3) // 4 * 4
+    warps = BWD_WIDE_THREADS // 32
+    smem = 4 * (BWD_GROUP_FLOATS + 2 * _bwd_slot(d) + warps * ts + t + warps * 2 * d)
+    return BWD_WIDE_THREADS, smem, t * (BWD_BUFFERS * _ld(d) + ts)
+
+
+def _bwd_wide_fits(t: int, d: int) -> bool:
+    """K2b's wide form fits one SM (its products take any window, a chunk
+    of rows at a time)."""
+    return _bwd_wide_layout(t, d)[1] <= SMEM_LIMIT
+
+
+def _bwd_form(t: int, d: int, aligned: bool = True) -> str:
+    """K2b's form for windows of ``t`` at width ``d``: ``"tile"`` where its
+    block of ~32 rows fits and its 16-byte copies take the rows (d % 4 == 0,
+    and ``aligned``: g, the saved inputs and the weights 16-byte aligned),
+    else ``"wide"``."""
+    return "tile" if aligned and d % 4 == 0 and _bwd_fits(t, d) else "wide"
 
 
 def max_train_window(d: int) -> int:
-    """The widest window K2b (and so training) takes at width ``d``."""
-    return _widest(MAX_T, lambda t: _bwd_fits(t, d))
+    """The widest window K2b (and so training) takes at width ``d``: every
+    window K2a takes, through K2b's tile form or its wide form."""
+    return _widest(max_window(d), lambda t: _bwd_fits(t, d) or _bwd_wide_fits(t, d))
 
 
 def check_supported(t: int, d: int, num_heads: int, num_blocks: int = 2,
                     train: bool = False):
     """Raise ``ValueError`` unless K2a (and, with ``train``, K2b) takes this
-    encoder shape."""
+    encoder shape: one head, 1 <= d <= MAX_D, at most ENCODER_MAX_BLOCKS
+    blocks and windows of 1 to :func:`max_window` items. K2b takes every
+    window K2a takes (:func:`max_train_window`)."""
     if num_heads != 1:
         raise ValueError(f"K2a/K2b are single-head; got num_heads={num_heads} "
                          f"(multi-head is lifted by {ROADMAP_ITEM})")
-    if d % 4 or not 4 <= d <= MAX_D:
-        raise ValueError(f"K2a needs d % 4 == 0 and 4 <= d <= {MAX_D}; got d={d}")
+    if not 1 <= d <= MAX_D:
+        raise ValueError(f"K2a/K2b take widths 1 <= d <= {MAX_D}; got d={d} "
+                         f"(wider is lifted by {ROADMAP_ITEM})")
     if not 0 <= num_blocks <= ENCODER_MAX_BLOCKS:
         raise ValueError(f"K2a takes at most {ENCODER_MAX_BLOCKS} blocks; "
                          f"got {num_blocks}")
-    limit = max_window(d)
+    limit = max_train_window(d) if train else max_window(d)
     if not 1 <= t <= limit:
-        raise ValueError(f"K2a takes windows of 1 to {limit} items at d={d}; got "
+        raise ValueError(f"K2a/K2b take windows of 1 to {limit} items at d={d}; got "
                          f"t={t} (wider windows are lifted by {ROADMAP_ITEM})")
-    if train:
-        limit = max_train_window(d)
-        if t > limit:
-            raise ValueError(
-                f"K2b (the encoder backward) takes windows of 1 to {limit} items "
-                f"at d={d}; got t={t} (wider windows are lifted by {ROADMAP_ITEM})")
 
 
 # --- kernel wrappers ------------------------------------------------------------
 
-def _ptr(name, x, shape, dev, dtype=torch.float32, align=16):
+def _ptr(name, x, shape, dev, dtype=torch.float32):
     """The data pointer of a tensor a kernel reads, after the checks it
-    relies on (dtype, shape, contiguous, aligned, on ``dev``)."""
+    relies on (dtype, shape, contiguous, on ``dev``, aligned to its element).
+    Whether the rows are also 16-byte aligned, so that they can be copied 16
+    bytes at a time, the C entries see from the pointers and choose their
+    copies by it."""
     if x.device != dev:
         raise ValueError(f"{name} is on {x.device}, x on {dev}")
     if x.dtype != dtype:
         raise TypeError(f"{name} must be {dtype}, got {x.dtype}")
     if tuple(x.shape) != shape:
         raise ValueError(f"{name} must have shape {shape}, got {tuple(x.shape)}")
-    if not x.is_contiguous() or x.data_ptr() % align:
-        raise ValueError(f"{name} must be contiguous and {align}-byte aligned")
+    if not x.is_contiguous() or x.data_ptr() % x.element_size():
+        raise ValueError(f"{name} must be contiguous and aligned to its element")
     return x.data_ptr()
 
 
@@ -431,11 +477,11 @@ def _masks(masks, keep, num_blocks, b, t, d, dev):
         raise ValueError(f"keep must be in (0, 1]; got {keep}")
     if len(masks["blocks"]) != num_blocks:
         raise ValueError(f"masks hold {len(masks['blocks'])} blocks, params {num_blocks}")
-    dm.emb = _ptr("masks.emb", masks["emb"], (b, t, d), dev, torch.bool, 4)
+    dm.emb = _ptr("masks.emb", masks["emb"], (b, t, d), dev, torch.bool)
     for i, bm in enumerate(masks["blocks"]):
-        dm.p[i] = _ptr(f"masks.blocks[{i}].p", bm["p"], (b, 1, t, t), dev, torch.bool, 1)
-        dm.f1[i] = _ptr(f"masks.blocks[{i}].f1", bm["f1"], (b, t, d), dev, torch.bool, 4)
-        dm.f2[i] = _ptr(f"masks.blocks[{i}].f2", bm["f2"], (b, t, d), dev, torch.bool, 4)
+        dm.p[i] = _ptr(f"masks.blocks[{i}].p", bm["p"], (b, 1, t, t), dev, torch.bool)
+        dm.f1[i] = _ptr(f"masks.blocks[{i}].f1", bm["f1"], (b, t, d), dev, torch.bool)
+        dm.f2[i] = _ptr(f"masks.blocks[{i}].f2", bm["f2"], (b, t, d), dev, torch.bool)
     return dm
 
 
@@ -518,8 +564,10 @@ def encoder_bwd(params, x, ids_mask, g, saved=None, masks=None, keep: float = 1.
 
     CPU tensors take the plain version (``saved`` is not needed). CUDA
     tensors launch K2b, which reads ``saved``, the block inputs that K2a's
-    training form wrote for the same params, x, ids mask and masks, and add
-    one to ``encoder_bwd.launches``. Without ``weight_grads`` the kernel
+    training form wrote for the same params, x, ids mask and masks: its
+    tile form where :func:`_bwd_form` says so, adding one to
+    ``encoder_bwd.launches``, else its wide form, adding one to
+    ``encoder_bwd.wide_launches``. Without ``weight_grads`` the kernel
     computes dx alone and skips its reduction pass.
     """
     if x.device.type == "cpu":
@@ -538,6 +586,12 @@ def encoder_bwd(params, x, ids_mask, g, saved=None, masks=None, keep: float = 1.
     n_grad = grad_size(nb, t, d)
     flat = torch.empty(n_grad, dtype=torch.float32, device=dev) if weight_grads else None
     if b == 0:
+        return dx, None if flat is None else _grad_tree(flat, nb, t, d)
+    aligned = all(p % 16 == 0 for p in (g_ptr, s_ptr, weights.pos)) and all(
+        v.data_ptr() % 16 == 0 for v in _flat_leaves(params))
+    if _bwd_form(t, d, aligned) == "wide":
+        _bwd_wide(weights, dm, ids_mask, g_ptr, s_ptr, dx, flat, b, t, d, n_grad, dev)
+        encoder_bwd.wide_launches += 1
         return dx, None if flat is None else _grad_tree(flat, nb, t, d)
     users, threads, smem = _bwd_layout(t, d)
     lib = library()
@@ -562,6 +616,32 @@ def encoder_bwd(params, x, ids_mask, g, saved=None, masks=None, keep: float = 1.
 
 
 encoder_bwd.launches = 0
+encoder_bwd.wide_launches = 0
+
+
+def _bwd_wide(weights, dm, ids_mask, g_ptr, s_ptr, dx, flat, b, t, d, n_grad, dev):
+    """Launch K2b's wide form: a persistent grid of as many blocks as the
+    card runs at once (at most one a user), each with its slice of a
+    workspace of ``_bwd_wide_layout``'s floats, and the partial slices of
+    the weight gradients unless ``flat`` is None."""
+    threads, smem, work_floats = _bwd_wide_layout(t, d)
+    lib = library()
+    with torch.cuda.device(dev):
+        ctas = min(b, lib.acf_sasrec_encoder_bwd_wide_ctas(threads, smem))
+        if ctas <= 0:
+            raise RuntimeError(f"K2b's wide form cannot run a {threads}-thread block with "
+                               f"{smem} bytes of shared memory on {dev}")
+        work = torch.empty(ctas, work_floats, dtype=torch.float32, device=dev)
+        partial = (torch.empty(ctas, n_grad, dtype=torch.float32, device=dev)
+                   if flat is not None else None)
+        err = lib.acf_sasrec_encoder_bwd_wide(
+            weights, dm, ids_mask.data_ptr(), g_ptr, s_ptr, dx.data_ptr(),
+            0 if partial is None else partial.data_ptr(),
+            0 if flat is None else flat.data_ptr(), work.data_ptr(), b, t, d, threads, smem,
+            ctas, torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"sasrec_encoder_bwd (wide form) kernel launch failed: "
+                           f"cudaError {err}")
 
 
 # --- the autograd function --------------------------------------------------------
@@ -625,7 +705,8 @@ def fused_encoder(model, params, x, ids_mask, masks=None):
 
     Returns [B, T, d] float32, differentiable in x and every encoder leaf.
     CPU tensors take the plain versions; CUDA tensors launch K2a (and K2b
-    in the backward) or raise ``ValueError``.
+    in the backward, in the form :func:`_bwd_form` gives) or raise
+    ``ValueError``.
     """
     if x.dim() != 3 or tuple(ids_mask.shape) != tuple(x.shape[:2]):
         raise ValueError(f"x must be [B, T, d] and ids_mask [B, T]; got "

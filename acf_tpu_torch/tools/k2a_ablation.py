@@ -126,10 +126,10 @@ FORMS = {
                      "    // no attention\n")],
         "no_ln": _STAGED_LN,
         "no_saved": [
-            ("    ln_pairs(X, saved == nullptr ? nullptr : saved + (blk * plane + row0) * d, d, X, ld, "
-             "p.ln1,\n", "    ln_pairs(X, nullptr, d, X, ld, p.ln1,  // no saved copy\n"),
-            ("  ln_pairs(X, saved == nullptr ? nullptr : saved + (nb * plane + row0) * d, d, "
-             "out + row0 * d, d,\n", "  ln_pairs(X, nullptr, d, out + row0 * d, d,  // no saved copy\n")],
+            ("    ln_pairs<ALIGNED>(X, saved == nullptr ? nullptr : saved + (blk * plane + row0) * d, d, "
+             "X, ld,\n", "    ln_pairs<ALIGNED>(X, nullptr, d, X, ld,  // no saved copy\n"),
+            ("  ln_pairs<ALIGNED>(X, saved == nullptr ? nullptr : saved + (nb * plane + row0) * d, d,\n",
+             "  ln_pairs<ALIGNED>(X, nullptr, d,  // no saved copy\n")],
         "ldg_weights": [(_STAGED_WLOAD, _STAGED_LDG), *_STAGED_COPIES],
         "regs80": [("__global__ void __launch_bounds__(THREADS, fwd_blocks_an_sm(THREADS))\n",
                     "__global__ void __launch_bounds__(THREADS, THREADS == 256 ? 3 : 1)\n")],

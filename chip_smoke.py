@@ -10,9 +10,9 @@ Phases, any failure exits non-zero:
 
   1. card   — ``nvidia-smi`` name and power limit, torch's device name;
   2. build  — compile every kernel in ``acf_tpu_torch/csrc`` with nvcc and
-              print its ``-Xptxas -v`` lines; K1, K2a, K2b, its reduction,
-              every K3 kernel and the merges of their partials must spill
-              nothing;
+              print its ``-Xptxas -v`` lines; K1 (with and without TMA), K2a
+              (both width paths), K2b (both forms), its reduction, every K3
+              kernel and the merges of their partials must spill nothing;
   3. K1     — the rank-count kernel against its plain PyTorch version on
               standard-normal inputs at every ``K1_SHAPES`` case
               (``acf_tpu_torch/tools/k1_ablation.py``: B in {8, 512} x I in
@@ -20,8 +20,9 @@ Phases, any failure exits non-zero:
               its units (128 users x 128 or 256 items): B in {1, 127, 129,
               513}, I in {2, 129, 3707, 23700, 40000}, d in {4, 36, 128, 256,
               260}), with and without bias and gt, two calls bit-identical;
-              ``ValueError`` for d = 6 and for a ``u_repr`` one float off
-              16-byte alignment, with no launch;
+              then off its TMA path (``K1_ANY_SHAPES``: d = 50 at the ml-1m
+              and Video tiles, d in {10, 6, 1, 0}, and users and table one
+              float off 16-byte alignment at d = 64 and 50);
   4. eval   — MF-BPR (d = 64, random weights from a seed) on a synthetic
               Video-shaped dataset (31k users x 23.7k items, ~300k
               interactions): ``FullRankEvaluator.evaluate_model`` through
@@ -34,9 +35,12 @@ Phases, any failure exits non-zero:
   6. K2a    — the SASRec encoder-forward kernel against its plain PyTorch
               version, T in {1, 8, 23, 31, 32, 50, 200} x B in {7, 512} at
               d = 64 and d = 36, and the widest window at d = 128
-              (``max_window(128)``, B in {7, 133}), each batch with a
+              (``max_window(128)``, B in {7, 133}), then off its 16-byte
+              path: T in {1, 8, 50, 200} x B in {7, 512} at d = 50 and 10,
+              and x one float off alignment at d = 64; each batch with a
               left-padded and an all-padding window; ``fused_encoder`` must
-              raise ValueError for T = 201 at d = 64 and for num_heads = 2;
+              raise ValueError for T = 201 at d = 64, for num_heads = 2 and
+              for d = 132;
   7. SASRec (d = 64, 2 blocks, 1 head, random weights from a seed) at
               maxlen 50 on a synthetic ml-1m-shaped set (6,040 users x
               3,706 items, 994k rows: every window is T = 50):
@@ -50,19 +54,24 @@ Phases, any failure exits non-zero:
  11. K2a's dropout form against its plain version, T in {1, 8, 33, 50} x
               B in {7, 512} at d = 64 and d = 36, and the widest windows (T =
               200 at d = 64, ``max_window(128)`` at d = 128; B in {7, 133}),
+              T = 200 at d = 50 and T = 33 at d = 10,
               padded windows, masks drawn once per case and shared; the
               saved block inputs against the plain ones, and LN_f of the
               saved LN_f input must give the output;
  12. K2b (the encoder backward) against its plain versions,
               ``encoder_bwd_math`` and torch.autograd through
               ``encoder_math``: dx and every leaf, with and without masks, in
-              its dx-only mode, at T in {8, 50} (d = 64, B = 512), at T = 1
-              and the widest training windows (T = 74 and the limit at
-              d = 64, T = 40 and the limit at d = 128; B = 64) and two
-              short cases at d = 36, B = 7; over the tree and leaf by leaf
-              (the key biases, whose gradient is analytically zero, must
-              be rounding noise); two calls bit-identical; ``ValueError``
-              one window beyond its limit and for num_heads = 2;
+              its dx-only mode; its tile form at T in {8, 50} (d = 64, B =
+              512), at T = 1 and the widest windows (T = 74 and its limit 79
+              at d = 64, T = 40 and its limit 44 at d = 128; B = 64) and two
+              short cases at d = 36, B = 7; its wide form
+              (``K2B_WIDE_CASES``: T in {80, 128, 200} at d = 50 and 64, T =
+              108 at d = 128, B = 64; T = 8 at d = 50; T = 50 at d = 64 with
+              every block weight one float off alignment); over the tree and
+              leaf by leaf (the key biases, whose gradient is analytically
+              zero, must be rounding noise); two calls bit-identical, each
+              form's launch counter moved; ``ValueError`` for T = 201, for
+              num_heads = 2 and for d = 132;
  13. ASASRec training at maxlen 50 on the ml-1m-shaped set: the launches of
               a clean step (K2a 1, K2b 1) and of an asasrec step (2 and 2),
               the step's loss and every gradient leaf against the same step
@@ -213,7 +222,24 @@ Phases, any failure exits non-zero:
               the FGSM wrapper over MF-BPR, and Caser's epoch of a
               1,500-user set; then ``apl`` and ``irgan --mesh 1x1`` through
               the command line on NCCL against the same runs without it
-              (params and evaluation equal, K1 61).
+              (params and evaluation equal, K1 61);
+ 27. row-sharded storage: APR, APL and ASASRec on shards bit-equal to the
+              unsharded mesh runs, the sharded evaluation from the stored
+              item shard, the 2,000,000-item memory run, a 2x2 ``"dcp"``
+              snapshot restored onto 2x2, 1x1 and 1x2;
+ 28. (run on phase 20's files, between phases 20 and 21) the SASRec
+              paper's ML-1M shape through the command line: ``asasrec --d
+              50 --maxlen 200`` (one clean and one adversarial epoch, batch
+              512) and ``bpr --d 50`` (one epoch) on the ml-1m files, every
+              counter zeroed before each run and read after it: K2a, K2b's
+              wide form and K1 (24) must launch in the first, K1 (12) alone
+              in the second; each run's evaluation at its trained params
+              against the dense path; one clean and one asasrec step at that
+              shape through the kernels against the plain step
+              (``STEP_TOL``); then K1 off TMA (d = 50; d = 64 one float off),
+              K2a at d = 50, T = 200 and K2b's wide form at T = 200, d = 50
+              and 64 (B = 512, full and dx-only) timed beside their plain
+              versions and bounds.
 
 Kernel times come from torch.profiler's device time. A measurement whose
 profile holds no device time in three sessions is timed with CUDA events
@@ -354,6 +380,18 @@ def kernel_ms(fn, name: str, iters: int = 50):
     return None
 
 
+def launches_ms(fn, names, iters: int = 10) -> float:
+    """Device milliseconds per call of ``fn`` whose work is one launch of
+    each kernel in ``names``: the sum of each kernel's mean time a launch
+    (``kernel_ms``), so a profiler session that lost some launches, which
+    ``device_ms`` would read as a faster call, still averages the launches it
+    saw. Where the profiler sees none of a kernel, ``device_ms``."""
+    for _ in range(2):
+        fn()
+    times = [kernel_ms(fn, name, iters) for name in names]
+    return sum(times) if None not in times else device_ms(fn, iters, 2)
+
+
 def timer_since(mark: int) -> str:
     """The timer of the measurements taken since ``len(EVENT_TIMED)`` was
     ``mark``: "profiler", or "cuda_events" where any of them fell back."""
@@ -421,10 +459,36 @@ def check_k1_shards(dev, g, b=512, n_items=23_700, d=D):
               "the whole table's exactly")
 
 
+# (B, I, d, offset) of K1's checks off its TMA path (4-byte copies): the
+# SASRec paper's width d = 50 at the ml-1m and Video evaluation tiles,
+# narrower widths down to 1 and d = 0 (the biases alone), and with
+# ``offset`` the users one float into their buffer and the table the rows
+# 5.. of a buffer one float in (a catalog shard's view), at d = 64 and 50.
+K1_ANY_SHAPES = ((512, 3_707, 50, False), (512, 23_701, 50, False), (129, 2_000, 10, False),
+                 (100, 1_000, 6, False), (7, 129, 1, False), (7, 129, 0, False),
+                 (512, 3_707, 64, True), (513, 23_701, 50, True))
+
+
+def k1_any_inputs(g, dev, b, n_items, d, offset):
+    """Standard-normal users, table, thresholds, bias and gt; with ``offset``
+    the users and table as views one float off 16-byte alignment."""
+    def rows(n):
+        if not offset:
+            return torch.randn(n, d, generator=g, device=dev)
+        buf = torch.randn(n * d + 5 * d + 1, generator=g, device=dev)
+        return buf[1:].view(n + 5, d)[5:] if n == n_items else buf[1:n * d + 1].view(n, d)
+
+    u, E = rows(b), rows(n_items)
+    t = torch.randn(b, generator=g, device=dev)
+    bias = torch.randn(n_items, generator=g, device=dev)
+    gt = torch.randint(1, n_items, (b,), generator=g, device=dev, dtype=torch.int32)
+    return u, E, t, bias, gt
+
+
 def check_k1(dev):
     """K1 against its plain version on every ``K1_SHAPES`` case (B, I, d;
-    ``acf_tpu_torch/tools/k1_ablation.py``), two calls bit for bit, and its
-    ``ValueError`` outside its limits with no launch. Returns the max |count
+    ``acf_tpu_torch/tools/k1_ablation.py``) and every ``K1_ANY_SHAPES`` case
+    (its copies without TMA), two calls bit for bit. Returns the max |count
     difference|."""
     from acf_tpu_torch.ops.ranking import rank_positions_dot, rank_positions_dot_plain
     from acf_tpu_torch.tools.k1_ablation import K1_SHAPES, near_tie_items
@@ -458,23 +522,26 @@ def check_k1(dev):
             print(f"K1 B={b} I={n_items} d={d} bias+gt={with_bias_gt}: "
                   f"{len(differing)} of {b} users differ by 1 at near ties; "
                   f"two calls bit-identical")
+    for b, n_items, d, offset in K1_ANY_SHAPES:
+        u, E, t, bias, gt = k1_any_inputs(g, dev, b, n_items, d, offset)
+        aligned = d > 0 and d % 4 == 0 and u.data_ptr() % 16 == 0 and E.data_ptr() % 16 == 0
+        check(not aligned, f"K1 B={b} I={n_items} d={d}: the case is on the TMA path")
+        got = rank_positions_dot(u, E, t, bias=bias, gt=gt)
+        check(torch.equal(got, rank_positions_dot(u, E, t, bias=bias, gt=gt)),
+              f"K1 B={b} I={n_items} d={d} offset={offset}: two calls differ")
+        diff = (got - rank_positions_dot_plain(u, E, t, bias=bias, gt=gt)).abs()
+        max_err = max(max_err, float(diff.max()))
+        differing = torch.nonzero(diff > 0).flatten().tolist()
+        for row in differing:
+            check(float(diff[row]) <= 1.0 and near_tie_items(u, E, t, bias, gt, row) > 0,
+                  f"K1 B={b} I={n_items} d={d} offset={offset}: user {row} off by "
+                  f"{float(diff[row])} with no near tie")
+        cases += 1
+        print(f"K1 without TMA B={b} I={n_items} d={d} views one float off={offset}: "
+              f"{len(differing)} of {b} users differ by 1 at near ties; two calls bit-identical")
     check(rank_positions_dot.launches - before == 2 * cases,
           "K1 launch counter did not move once per call")
     check_k1_shards(dev, g)
-
-    E, t = torch.zeros(10, 64, device=dev), torch.zeros(4, device=dev)
-    refused = (("d=6", (torch.zeros(4, 6, device=dev), torch.zeros(10, 6, device=dev), t)),
-               ("u_repr offset by one float",
-                (torch.zeros(4 * 64 + 1, device=dev)[1:].view(4, 64), E, t)))
-    for label, args in refused:
-        before = rank_positions_dot.launches
-        try:
-            rank_positions_dot(*args)
-        except ValueError as e:
-            print(f"K1 {label}: raises ValueError as it should: {e}")
-        else:
-            fail(f"K1 {label}: rank_positions_dot did not raise")
-        check(rank_positions_dot.launches == before, f"K1 {label}: launched anyway")
     return max_err
 
 
@@ -689,6 +756,11 @@ def time_serving(label, dev, model, params, data, users):
 
 K2A_WINDOWS = (1, 8, 23, 31, 32, 50, 200)
 K2A_WIDTHS = (64, 36)
+# Widths off K2a's 16-byte path (rows staged at d rounded up to 4, zero
+# tails): the SASRec and Caser papers' d = 50 and a narrow 10, at
+# K2A_ANY_WINDOWS (200: the SASRec paper's ML-1M window).
+K2A_ANY_WIDTHS = (50, 10)
+K2A_ANY_WINDOWS = (1, 8, 50, 200)
 K2A_EDGE_BATCH = (7, 133)  # the widest windows: 133 blocks, one more than an H100's SMs
 # Max |kernel - plain| of the encoder outputs. Both run in f32 but sum the
 # d-term products, the softmax denominators and the LayerNorm moments in
@@ -743,6 +815,14 @@ def k2a_cases(windows):
             + [(128, wide, b) for b in K2A_EDGE_BATCH])
 
 
+def one_float_off(x):
+    """A copy of ``x`` one float into a buffer of its own: the same values
+    in a tensor that is not 16-byte aligned."""
+    buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    buf[1:] = x.flatten()
+    return buf[1:].view(x.shape)
+
+
 def check_k2a(dev):
     """Phase 6: K2a against its plain version, and its refusals. Returns the
     max |difference| over all cases."""
@@ -752,11 +832,16 @@ def check_k2a(dev):
     g = torch.Generator(device=dev).manual_seed(1)
     max_err = 0.0
     models = {}
-    for d, t, b in k2a_cases(K2A_WINDOWS):
+    cases = ([(d, t, b, False) for d, t, b in k2a_cases(K2A_WINDOWS)]
+             + [(d, t, b, False) for d in K2A_ANY_WIDTHS for t in K2A_ANY_WINDOWS
+                for b in (7, 512)] + [(D, 50, 512, True)])
+    for d, t, b, offset in cases:
         if d not in models:
             models[d] = sasrec_model(dev, 100, 1000, max(K2A_WINDOWS), d=d, jitter=True)
         model, params = models[d]
         x, mask = k2a_inputs(dev, params, b, t, d, g)
+        if offset:  # x one float off 16-byte alignment: the 4-byte path at d % 4 == 0
+            x = one_float_off(x)
         before = fused_encoder.launches
         got = fused_encoder(model, params, x, mask)
         torch.cuda.synchronize()
@@ -766,15 +851,16 @@ def check_k2a(dev):
         check(bool(torch.isfinite(got).all()), f"K2a d={d} T={t} B={b}: not finite")
         err = float((got - ref).abs().max())
         max_err = max(max_err, err)
-        print(f"K2a d={d} T={t} B={b}: max |kernel - plain| {err:.3e} "
-              f"(outputs up to {float(ref.abs().max()):.3f})")
+        print(f"K2a d={d} T={t} B={b}{' x one float off' if offset else ''}: max |kernel - "
+              f"plain| {err:.3e} (outputs up to {float(ref.abs().max()):.3f})")
         check(err <= K2A_TOL, f"K2a d={d} T={t} B={b}: max |d| {err} > {K2A_TOL}")
 
-    _, params = sasrec_model(dev, 100, 1000, max(K2A_WINDOWS))
-    refused = (("T=201 at d=64", SASRec(100, 1000, D, maxlen=201), 201),
-               ("num_heads=2", SASRec(100, 1000, D, maxlen=50, num_heads=2), 50))
-    for label, model, t in refused:
-        x, mask = k2a_inputs(dev, params, 4, t, D, g, padded=False)
+    refused = (("T=201 at d=64", SASRec(100, 1000, D, maxlen=201), 201, D),
+               ("num_heads=2", SASRec(100, 1000, D, maxlen=50, num_heads=2), 50, D),
+               ("d=132", SASRec(100, 1000, 132, maxlen=50), 50, 132))
+    for label, model, t, d in refused:
+        _, params = sasrec_model(dev, 100, 1000, max(K2A_WINDOWS), d=d)
+        x, mask = k2a_inputs(dev, params, 4, t, d, g, padded=False)
         before = fused_encoder.launches
         try:
             fused_encoder(model, params, x, mask)
@@ -1005,7 +1091,8 @@ def check_k2a_dropout(dev):
     max_err = 0.0
     models = {}
     for d, t, b in (k2a_cases(K2_TRAIN_WINDOWS)
-                    + [(64, max(K2A_WINDOWS), b) for b in K2A_EDGE_BATCH]):
+                    + [(64, max(K2A_WINDOWS), b) for b in K2A_EDGE_BATCH]
+                    + [(50, max(K2A_ANY_WINDOWS), 133), (10, 33, 7)]):
         if d not in models:
             models[d] = sasrec_model(dev, 100, 1000, max(K2A_WINDOWS), d=d, jitter=True)
         model, params = models[d]
@@ -1053,25 +1140,50 @@ def k2b_refs(params, x, mask, masks, keep, g):
     return ([dx], [grads["pos_emb"], *_flat_leaves(grads)]), ([auto[0]], list(auto[1:]))
 
 
+def tile_window(d):
+    """The widest window of K2b's tile form at width ``d`` (0 if none)."""
+    from acf_tpu_torch.ops.sasrec_fused import _bwd_form, max_window
+
+    return max([t for t in range(1, max_window(d) + 1) if _bwd_form(t, d) == "tile"],
+               default=0)
+
+
+# K2b's wide form against its plain versions: windows past the tile form's
+# (79 at d = 64, 100 at d = 48 to 52) up to the SASRec paper's 200, at its
+# d = 50 and at 64, and the widest window at d = 128 (max_window(128)).
+K2B_WIDE_CASES = tuple((d, t) for d in (50, 64) for t in (80, 128, 200)) + ((128, 108),)
+
+
 def check_k2b(dev):
-    """Phase 12: K2b against its plain versions, its determinism and its
-    refusals. Returns the max |difference| against encoder_bwd_math."""
+    """Phase 12: K2b in both forms against its plain versions, its
+    determinism and its refusals. Returns the max |difference| against
+    encoder_bwd_math of the tile form and of the wide form."""
     from acf_tpu_torch.models.sasrec import SASRec
     from acf_tpu_torch.ops.sasrec_fused import (
-        _flat_leaves, encoder_bwd, encoder_fwd, fused_encoder, max_train_window,
+        _bwd_form, _flat_leaves, encoder_bwd, encoder_fwd, fused_encoder, max_window,
     )
 
     g = torch.Generator(device=dev).manual_seed(12)
-    max_err = 0.0
+    max_err = {"tile": 0.0, "wide": 0.0}
+    check(max_window(128) == K2B_WIDE_CASES[-1][1], "max_window(128) moved: update the cases")
     # (d, T, B, masks): the training windows; T = 1; the widest windows K2b
     # took before its seven-buffer layout (74 at d = 64, 40 at d = 128) and
-    # the widest it takes now; short ragged cases at d = 36
+    # the widest of its tile form; short ragged cases at d = 36; then the
+    # wide form: K2B_WIDE_CASES, a short window at d = 50 (off the tile
+    # form's 16-byte copies) and the main path's shape with every block
+    # weight one float off 16-byte alignment ("offset")
     cases = ((64, 8, 512, True), (64, 8, 512, False), (64, 50, 512, True),
              (64, 50, 512, False), (64, 1, 64, True), (64, 74, 64, True),
-             (64, max_train_window(64), 64, True), (128, 40, 64, True),
-             (128, max_train_window(128), 64, True), (36, 13, 7, True), (36, 8, 7, False))
+             (64, tile_window(64), 64, True), (128, 40, 64, True),
+             (128, tile_window(128), 64, True), (36, 13, 7, True), (36, 8, 7, False),
+             *((d, t, 64, True) for d, t in K2B_WIDE_CASES), (50, 200, 64, False),
+             (50, 8, 7, False), (64, 50, 64, "offset"))
     for d, t, b, with_masks in cases:
         model, params = sasrec_model(dev, 100, 1000, max(t, 50), d=d, jitter=True)
+        if with_masks == "offset":
+            for blk in params["blocks"]:
+                for name in ("wq", "wk", "wv", "conv1", "conv2"):
+                    blk[name]["w"] = one_float_off(blk[name]["w"])
         keep = 1.0 - model.dropout_rate
         x, mask = k2a_inputs(dev, params, b, t, d, g)
         masks = model._dropout_masks(g, b, t) if with_masks else None
@@ -1079,13 +1191,16 @@ def check_k2b(dev):
         near = near_kink_users(params, x, mask, masks, keep)
         cot[near] = 0.0
         _, saved = encoder_fwd(params, x, mask, masks, keep, save=True)
-        before = encoder_bwd.launches
+        form = "wide" if with_masks == "offset" else _bwd_form(t, d)
+        before = (encoder_bwd.launches, encoder_bwd.wide_launches)
         dx, grads = encoder_bwd(params, x, mask, cot, saved, masks, keep)
         dx2, grads2 = encoder_bwd(params, x, mask, cot, saved, masks, keep)
         dx_only, none = encoder_bwd(params, x, mask, cot, saved, masks, keep, weight_grads=False)
         torch.cuda.synchronize()
-        label = f"K2b d={d} T={t} B={b} masks={with_masks}"
-        check(encoder_bwd.launches == before + 3, f"{label}: the launch counter did not move 3 times")
+        label = f"K2b ({form} form) d={d} T={t} B={b} masks={with_masks}"
+        moved = (encoder_bwd.launches - before[0], encoder_bwd.wide_launches - before[1])
+        check(moved == ((3, 0) if form == "tile" else (0, 3)),
+              f"{label}: the launch counters moved {moved}, not 3 times its form's")
         leaves = [grads["pos_emb"], *_flat_leaves(grads)]
         leaves2 = [grads2["pos_emb"], *_flat_leaves(grads2)]
         check(torch.equal(dx, dx2) and all(torch.equal(a, c) for a, c in zip(leaves, leaves2)),
@@ -1096,7 +1211,8 @@ def check_k2b(dev):
         (m_dx, m_leaves), (a_dx, a_leaves) = k2b_refs(params, x, mask, masks, keep, cot)
         errs = {"dx vs bwd_math": tree_err([dx], m_dx), "leaves vs bwd_math": tree_err(leaves, m_leaves),
                 "dx vs autograd": tree_err([dx], a_dx), "leaves vs autograd": tree_err(leaves, a_leaves)}
-        max_err = max(max_err, errs["dx vs bwd_math"][0], errs["leaves vs bwd_math"][0])
+        max_err[form] = max(max_err[form], errs["dx vs bwd_math"][0],
+                            errs["leaves vs bwd_math"][0])
         print(f"{label}: {int(near.sum())} users near a ReLU kink get a zero cotangent; "
               + "; ".join(f"{k} max |d| {e:.3e} ({r:.2e} of scale)" for k, (e, r) in errs.items())
               + "; bit-identical over two calls; dx-only equal")
@@ -1104,21 +1220,22 @@ def check_k2b(dev):
             check(r <= K2B_TOL, f"{label}: {k} {r:.3e} of scale > {K2B_TOL}")
         leaf_report(f"{label} vs bwd_math", leaves, m_leaves)
 
-    # refusals: one window beyond the limit, and two heads
-    wide = max_train_window(D) + 1
-    _, params = sasrec_model(dev, 100, 1000, wide)
-    refused = ((f"T={wide} at d={D} in training", SASRec(100, 1000, D, maxlen=wide), wide),
-               ("num_heads=2 in training", SASRec(100, 1000, D, maxlen=50, num_heads=2), 50))
-    for label, model, t in refused:
-        x, mask = k2a_inputs(dev, params, 4, t, D, g, padded=False)
-        before = (fused_encoder.launches, encoder_bwd.launches)
+    # refusals: one window beyond K2a's widest, two heads, d past 128
+    wide = max_window(D) + 1
+    refused = ((f"T={wide} at d={D} in training", SASRec(100, 1000, D, maxlen=wide), wide, D),
+               ("num_heads=2 in training", SASRec(100, 1000, D, maxlen=50, num_heads=2), 50, D),
+               ("d=132 in training", SASRec(100, 1000, 132, maxlen=50), 50, 132))
+    for label, model, t, d in refused:
+        _, params = sasrec_model(dev, 100, 1000, wide, d=d)
+        x, mask = k2a_inputs(dev, params, 4, t, d, g, padded=False)
+        before = (fused_encoder.launches, encoder_bwd.launches, encoder_bwd.wide_launches)
         try:
             fused_encoder(model, params, x.requires_grad_(True), mask)
         except ValueError as e:
             print(f"K2b {label}: raises ValueError as it should: {e}")
         else:
             fail(f"K2b {label}: fused_encoder did not raise")
-        check((fused_encoder.launches, encoder_bwd.launches) == before,
+        check((fused_encoder.launches, encoder_bwd.launches, encoder_bwd.wide_launches) == before,
               f"K2b {label}: launched anyway")
     return max_err
 
@@ -1137,19 +1254,21 @@ def plain_encoder_model(model):
     return plain
 
 
-def check_training_step(dev, data, maxlen=50):
-    """Phase 13, first half: one clean and one asasrec step at the main
-    path's shapes, through the kernels and through the plain encoder."""
+def check_training_step(dev, data, maxlen=50, d=D):
+    """Phase 13, first half (and phase 28 at the SASRec paper's shape): one
+    clean and one asasrec step at the main path's shapes, through the
+    kernels (K2b in the form its shape takes) and through the plain
+    encoder."""
     from acf_tpu_torch.models.sasrec import SASRec
     from acf_tpu_torch.utils.tree import tree_leaves, tree_map
-    from acf_tpu_torch.ops.sasrec_fused import encoder_bwd, fused_encoder
+    from acf_tpu_torch.ops.sasrec_fused import _bwd_form, encoder_bwd, fused_encoder
     from acf_tpu_torch.sampling import sample_seq_window_batch
 
     hist = torch.as_tensor(data.hist, device=dev)
     eligible = torch.as_tensor(np.nonzero(data.hist_len >= 2)[0].astype(np.int32), device=dev)
     for adversarial, per_step in ((False, 1), (True, 2)):
-        label = f"{'asasrec' if adversarial else 'sasrec'} step (maxlen {maxlen})"
-        model = SASRec(data.num_users, data.num_items, D, maxlen=maxlen, adversarial=adversarial)
+        label = f"{'asasrec' if adversarial else 'sasrec'} step (maxlen {maxlen}, d={d})"
+        model = SASRec(data.num_users, data.num_items, d, maxlen=maxlen, adversarial=adversarial)
         g = torch.Generator(device=dev).manual_seed(13)
         params = model.init_params(g, device=dev)
         users, window, neg = sample_seq_window_batch(g, hist, eligible, maxlen, data.num_items,
@@ -1158,7 +1277,7 @@ def check_training_step(dev, data, maxlen=50):
         # the encoder passes of the step: training (with the masks) and, for
         # asasrec, the clean FGSM linearisation; users near a kink in either
         # are replaced by copies of the other users' rows
-        x = params["item_emb"][window[:, :-1]] * math.sqrt(D)
+        x = params["item_emb"][window[:, :-1]] * math.sqrt(d)
         ids = window[:, :-1] != 0
         near = near_kink_users(params, x, ids, masks, 1.0 - model.dropout_rate)
         if adversarial:
@@ -1175,18 +1294,21 @@ def check_training_step(dev, data, maxlen=50):
             loss, aux = m.loss_window(prm, batch, masks=masks)
             return loss.detach(), aux, torch.autograd.grad(loss, tree_leaves(prm))
 
-        fused_encoder.launches = encoder_bwd.launches = 0
+        fused_encoder.launches = encoder_bwd.launches = encoder_bwd.wide_launches = 0
         loss, aux, grads = value_and_grads(model)
         torch.cuda.synchronize()
-        k2a, k2b = fused_encoder.launches, encoder_bwd.launches
-        check(k2a == per_step and k2b == per_step,
-              f"{label}: K2a launched {k2a} and K2b {k2b} times, not {per_step} each")
+        k2a, k2b = fused_encoder.launches, encoder_bwd.launches + encoder_bwd.wide_launches
+        form = _bwd_form(maxlen, d)
+        own = encoder_bwd.wide_launches if form == "wide" else encoder_bwd.launches
+        check(k2a == per_step and k2b == own == per_step,
+              f"{label}: K2a launched {k2a} and K2b {k2b} times ({own} in its {form} form), "
+              f"not {per_step} each")
         p_loss, p_aux, p_grads = value_and_grads(plain_encoder_model(model))
         check(math.isfinite(float(loss)), f"{label}: loss not finite")
         rel = abs(float(loss) - float(p_loss)) / abs(float(p_loss))
         err, scale_err = tree_err(grads, p_grads)
         print(f"{label}: {int(near.sum())} of {TRAIN_BATCH} users near a ReLU kink replaced; "
-              f"K2a {k2a}, K2b {k2b} launches; loss {float(loss):.6f} vs plain "
+              f"K2a {k2a}, K2b ({form} form) {k2b} launches; loss {float(loss):.6f} vs plain "
               f"{float(p_loss):.6f} (rel {rel:.2e}); aux "
               + ", ".join(f"{k} {float(v):.6f}/{float(p_aux[k]):.6f}" for k, v in sorted(aux.items()))
               + f"; every gradient leaf max |d| {err:.3e} ({scale_err:.2e} of scale)")
@@ -1389,7 +1511,8 @@ def time_training(label, dev, data, maxlen, reps=3):
 
 def training_phases(dev, ml1m_data, video_data):
     """Phases 11-14. Returns the K2a and K2b entries of the kernels line
-    (without K2a's phase-6 error, which the caller merges)."""
+    (without K2a's phase-6 error, which the caller merges) and the wide
+    form's max |difference| in phase 12."""
     fwd_err = check_k2a_dropout(dev)
     lap("11")
     bwd_err = check_k2b(dev)
@@ -1409,8 +1532,8 @@ def training_phases(dev, ml1m_data, video_data):
     k2b_entry = {"name": "sasrec_encoder_bwd", "route": "cuda",
                  "source": "acf_tpu_torch/csrc/sasrec_encoder_bwd.cu",
                  "replaces": "acf_tpu/ops/sasrec_fused.py:236", "launches": k2b,
-                 "max_abs_err": bwd_err, **bwd}
-    return k2a_entry, k2b_entry
+                 "max_abs_err": bwd_err["tile"], **bwd}
+    return k2a_entry, k2b_entry, bwd_err["wide"]
 
 
 # --- APL: the generator chain K3a-K3e -------------------------------------------
@@ -1434,12 +1557,14 @@ APL_TOL = 1e-4
 # take (MAX_D), where K3e's shared memory is the largest, with odd I
 APL_CASES = ((512, D, 23_701), (7, 36, 1_100), (65, 64, 131), (70, 128, 517))
 APL_PRODUCTS = {"apl_stats1": 1, "apl_z": 1, "apl_fake": 1, "apl_bigr": 2, "apl_grad": 4}
-# Kernels whose ptxas lines must show no stack frame and no spill: K1, K2a
-# (both thread counts), K2b and its reduction, the K3 passes and the merges
-# of their partials.
+# Kernels whose ptxas lines must show no stack frame and no spill: K1 (with
+# and without TMA), K2a (both thread counts, both width paths), K2b (both
+# forms; the wide form's build by its own mangled name, so its lines must be
+# there) and its reduction, the K3 passes and the merges of their partials.
+K2B_WIDE_BUILD = "sasrec_encoder_bwd_kernelILb1E"  # sasrec_encoder_bwd_kernel<true>
 NO_SPILL_KERNELS = ("rank_count_kernel", "sasrec_encoder_fwd_kernel", "sasrec_encoder_bwd_kernel",
-                    "sasrec_encoder_bwd_reduce", "stats1_kernel", "z_kernel", "fake_kernel",
-                    "bigr_kernel", "grad_kernel", "stat_combine", "sum_combine")
+                    K2B_WIDE_BUILD, "sasrec_encoder_bwd_reduce", "stats1_kernel", "z_kernel",
+                    "fake_kernel", "bigr_kernel", "grad_kernel", "stat_combine", "sum_combine")
 # The pass kernels of apl_gen.cu, by their names in a profile ("...::z_kernel(...")
 APL_PASS_KERNELS = {"stats1_kernel": "K3a", "z_kernel": "K3b", "fake_kernel": "K3c",
                     "bigr_kernel": "K3d", "grad_kernel": "K3e"}
@@ -2387,6 +2512,109 @@ def cli_runs(root: Path, video, ml1m):
     return k1, trainers
 
 
+# --- the SASRec paper's shapes through the command line: phase 28 -------------
+
+WIDTH_D = 50        # d of the SASRec paper (Kang & McAuley, ICDM 2018) and of Caser's
+WIDTH_MAXLEN = 200  # the SASRec paper's ML-1M window
+# The kernels of one call, as a profile names them: K2a; K2b (either form)
+# and its reduction
+K2A_KERNEL = ("sasrec_encoder_fwd_kernel",)
+K2B_KERNELS = ("sasrec_encoder_bwd_kernel", "sasrec_encoder_bwd_reduce")
+
+
+def widths_phase(dev, root, ml1m):
+    """Phase 28, on phase 20's ml-1m files: ``asasrec --d 50 --maxlen 200``
+    (the SASRec paper's ML-1M shape; one clean and one adversarial epoch) and
+    ``bpr --d 50`` (one epoch) through the command line, each run's counters
+    zeroed just before it and read just after; each run's evaluation at the
+    params it trained against the dense path; one clean and one asasrec step
+    at that shape through the kernels against the plain step; then the new
+    forms' times. Returns (launches by run, the wide form's kernels entry
+    without its max error)."""
+    from acf_tpu_torch.ops.ranking import rank_positions_dot
+    from acf_tpu_torch.ops.sasrec_fused import encoder_bwd, fused_encoder
+
+    counts = expected_counts(ml1m)
+    tiles = math.ceil(counts[3] / BATCH_USERS)
+    common = ["--data", "ml-1m", "--d", str(WIDTH_D), "--bs", str(TRAIN_BATCH)]
+    runs, launched = {}, {}
+    for name, argv, epochs in (
+            ("asasrec", ["--model", "asasrec", "--maxlen", str(WIDTH_MAXLEN), "--epochs", "2",
+                         "--adv_epoch", "1"], 2),
+            ("bpr", ["--model", "bpr", "--epochs", "1"], 1)):
+        fused_encoder.launches = encoder_bwd.launches = encoder_bwd.wide_launches = 0
+        rank_positions_dot.launches = 0
+        _, _, runs[name] = run_cli(root, [*argv, *common], counts, epochs)  # the main path
+        launched[name] = {"k2a": fused_encoder.launches, "k2b": encoder_bwd.launches,
+                          "k2b_wide": encoder_bwd.wide_launches,
+                          "k1": rank_positions_dot.launches}
+        print(f"cli {name} d={WIDTH_D}: launches {launched[name]}")
+    a, b = launched["asasrec"], launched["bpr"]
+    check(a["k2a"] > 0 and a["k2b_wide"] > 0 and a["k2b"] == 0 and a["k1"] == 2 * tiles,
+          f"cli asasrec d={WIDTH_D} maxlen {WIDTH_MAXLEN}: launches {a}: K2a, the wide K2b "
+          f"(and not the tile form) and K1 ({2 * tiles}) must launch")
+    check(b["k1"] == tiles and b["k2a"] == b["k2b"] == b["k2b_wide"] == 0,
+          f"cli bpr d={WIDTH_D}: launches {b}, K1 must launch {tiles} times")
+    for name, tr in runs.items():
+        res = tr.evaluator.evaluate_model(tr.model, tr.params)
+        check_against_dense(f"cli {name} d={WIDTH_D} (trained params)", tr.evaluator, tr.model,
+                            tr.params, res)
+    check_training_step(dev, runs["asasrec"].data, maxlen=WIDTH_MAXLEN, d=WIDTH_D)
+    return launched, widths_timing(dev)
+
+
+def widths_timing(dev, b=TRAIN_BATCH):
+    """Phase 28's timing, beside each kernel's plain version and bound: K1
+    off its TMA path (d = 50 at the ml-1m evaluation tile, and d = 64 with
+    the users and table one float off 16-byte alignment); K2a at d = 50, T =
+    200 in both forms; K2b's wide form at T = 200, d = 50 and 64, and at
+    T = 50, d = 50 (which d % 4 != 0 sends to it), full and dx-only, B =
+    512, two blocks, with dropout masks; each kernel by its mean time a
+    launch (``launches_ms``). Returns the wide form's entry at T = 200, d =
+    50 (the command line's shape)."""
+    from acf_tpu_torch.ops.sasrec_fused import encoder_bwd, encoder_bwd_math, encoder_fwd
+
+    g = torch.Generator(device=dev).manual_seed(28)
+    mark = len(EVENT_TIMED)
+    for d, offset in ((WIDTH_D, False), (D, True)):
+        u, E, _, _, gt = k1_any_inputs(g, dev, BATCH_USERS, ML1M_ITEMS + 1, d, offset)
+        th = (u * E[gt.long()]).sum(dim=1).contiguous()
+        k1_line(f"(no TMA: d={d}{', views one float off' if offset else ''})", u, E, th, gt)
+    entry = None
+    for d, t in ((WIDTH_D, WIDTH_MAXLEN), (D, WIDTH_MAXLEN), (WIDTH_D, 50)):
+        model, params = sasrec_model(dev, 100, 1000, t, d=d)
+        keep = 1.0 - model.dropout_rate
+        x, mask = k2a_inputs(dev, params, b, t, d, g, padded=False)
+        masks = model._dropout_masks(g, b, t)
+        cot = torch.randn(b, t, d, generator=g, device=dev)
+        (ff, fb), (bf, bb) = k2_train_work(b, t, d, model.num_blocks)
+        if (d, t) == (WIDTH_D, WIDTH_MAXLEN):
+            inf_ms = launches_ms(lambda: encoder_fwd(params, x, mask), K2A_KERNEL, 20)
+            fwd_ms = launches_ms(lambda: encoder_fwd(params, x, mask, masks, keep, save=True),
+                                 K2A_KERNEL, 20)
+            inf_bound, _ = bound(*k2a_work(b, t, d, model.num_blocks))
+            fwd_bound, _ = bound(ff, fb)
+            print(f"K2a at B={b} T={t} d={d} (4-byte copies): inference {inf_ms:.4f} ms (bound "
+                  f"{inf_bound:.4f}), training form {fwd_ms:.4f} ms (bound {fwd_bound:.4f})")
+        _, saved = encoder_fwd(params, x, mask, masks, keep, save=True)
+        mark_bwd = len(EVENT_TIMED)
+        ms = launches_ms(lambda: encoder_bwd(params, x, mask, cot, saved, masks, keep),
+                         K2B_KERNELS)
+        dx_ms = launches_ms(lambda: encoder_bwd(params, x, mask, cot, saved, masks, keep,
+                                                weight_grads=False), K2B_KERNELS[:1])
+        plain_ms = device_ms(lambda: encoder_bwd_math(params, x, mask, masks, keep, cot),
+                             PLAIN_ITERS, 2)
+        bound_ms, bound_by = bound(bf, bb)
+        print(f"K2b wide form at B={b} T={t} d={d}: {ms:.4f} ms ({bound_ms / ms:.4f} of the "
+              f"bound), dx-only {dx_ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
+              f"({bound_by}: {bf / 1e9:.3f} GFLOP, {bb / 1e6:.2f} MB)")
+        if (d, t) == (WIDTH_D, WIDTH_MAXLEN):
+            entry = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                     "library_ms": None, "dx_only_ms": dx_ms, "timer": timer_since(mark_bwd)}
+    entry["timer_k1_k2a"] = timer_since(mark)
+    return entry
+
+
 def pop_draws(tr, seed):
     """One step's draws on the CPU: pair indices [1, B], negative candidates
     [1, R, B] and the index draws into the four pools ([1, B] for the
@@ -2497,8 +2725,9 @@ def time_neumf_eval(tr):
 
 
 def cli_phases(dev):
-    """Phases 20-21. Returns (K1's launches in the CLI runs, by run; the
-    APR run's trainer)."""
+    """Phases 20-21, and 28 on phase 20's files before phase 21. Returns
+    (K1's launches in the CLI runs, by run; the APR run's trainer; phase
+    28's launches and the wide form's entry)."""
     import tempfile
 
     with tempfile.TemporaryDirectory() as tmp:
@@ -2509,16 +2738,18 @@ def cli_phases(dev):
               f"{len(video)} rows, ml-1m.*.rating {len(ml1m)} rows")
         check_parsers(root)
         k1, trainers = cli_runs(root, video, ml1m)
-    for n, name in enumerate(POP_MODELS):
-        check_pop_step(name, trainers[name], seed=200 + n)
-    lap("20")
+        for n, name in enumerate(POP_MODELS):
+            check_pop_step(name, trainers[name], seed=200 + n)
+        lap("20")
+        widths = widths_phase(dev, root, ml1m)
+        lap("28")
     for name in POP_MODELS:
         tr = trainers[name]
         time_own_epochs(name, tr, POP_EPOCHS, f"the CLI run's epoch, {tr.cli_s:.2f} s with its "
                         "loading and evaluation")
     time_neumf_eval(trainers["aneumf"])
     lap("21")
-    return k1, trainers["apr"]
+    return k1, trainers["apr"], widths
 
 # --- the sequence zoo: phase 22 --------------------------------------------------
 
@@ -4263,7 +4494,7 @@ def main():
     k2a_inference_err, k2a_inference, ml1m = sasrec_phases(dev, data)
 
     # 11-14. SASRec training: K2a's dropout form, K2b, fit_two_phase, timing
-    k2a_entry, k2b_entry = training_phases(dev, ml1m, data)
+    k2a_entry, k2b_entry, wide_err = training_phases(dev, ml1m, data)
     k2a_entry["max_abs_err"] = max(k2a_entry["max_abs_err"], k2a_inference_err)
     k2a_entry["inference_ms"] = k2a_inference["ms"]
     if k2a_inference["timer"] != "profiler":
@@ -4277,8 +4508,10 @@ def main():
     k1_apr = apr_phases(dev, ml1m)
 
     # 20-21. The command line on the reference's file formats, the popularity
-    # adversaries' steps against the CPU, their timing
-    k1_cli, apr_cli = cli_phases(dev)
+    # adversaries' steps against the CPU, their timing; between them, 28: the
+    # SASRec paper's shape (asasrec --d 50 --maxlen 200) and bpr --d 50 on
+    # phase 20's files, and the new forms' times
+    k1_cli, apr_cli, (widths, wide_entry) = cli_phases(dev)
 
     # 22. The sequence zoo: steps against the CPU, timing, evaluations, the
     # session stream
@@ -4318,7 +4551,14 @@ def main():
         "launches_cli": k1_cli, "launches_zoo": k1_zoo, "launches_rest": k1_rest,
         "launches_mesh": {run: v["k1"] for run, v in mesh.items()},
         "launches_mesh_models": {run: v["k1"] for run, v in mesh_models.items() if "k1" in v},
-    }, k2a_entry, k2b_entry, *k3_entries]
+        "launches_widths": {run: v["k1"] for run, v in widths.items()},
+    }, k2a_entry, k2b_entry, {
+        "name": "sasrec_encoder_bwd_wide", "route": "cuda",
+        "source": "acf_tpu_torch/csrc/sasrec_encoder_bwd.cu",
+        "replaces": "acf_tpu/ops/sasrec_fused.py:236",
+        "launches": widths["asasrec"]["k2b_wide"], "max_abs_err": wide_err, **wide_entry,
+    }, *k3_entries]
+    k2a_entry["launches_widths"] = widths["asasrec"]["k2a"]
     for entry in k3_entries:
         entry["launches_mesh_models"] = {run: v[entry["name"]] for run, v in mesh_models.items()
                                          if entry["name"] in v}

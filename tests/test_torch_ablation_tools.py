@@ -166,7 +166,7 @@ def test_k2b_forms_are_told_apart_by_their_markers():
     assert "sasrec_encoder_bwd_reduce<<<" not in texts["no_reduce"]
     assert "ldg4(W[p]" in texts["ldg_weights"] and "cp_async16(dst" not in texts["ldg_weights"]
     assert "dense<true, 3>" not in texts["three_products"]
-    assert "first ? 0.f : wp[p]" not in texts["late_partial"]
+    assert "first || !inside(i, j) ? 0.f : wp[p]" not in texts["late_partial"]
     fwd = K2B_SOURCE[K2B_SOURCE.index("sasrec_encoder_fwd_kernel("):]
     assert all(text.endswith(fwd) for text in texts.values())
 

@@ -8,8 +8,7 @@ import pytest
 import torch
 
 from acf_tpu.ops.ranking import rank_positions_dot as jax_rank_positions_dot
-from acf_tpu_torch.ops.ranking import (ROADMAP_ITEM, check_supported, rank_positions_dot,
-                                       rank_positions_dot_plain)
+from acf_tpu_torch.ops.ranking import check_supported, rank_positions_dot, rank_positions_dot_plain
 
 
 def _inputs(seed, b, d, n_items, with_bias_gt):
@@ -82,17 +81,54 @@ def test_check_supported_takes_any_width_divisible_by_4(d):
 
 
 @pytest.mark.parametrize("case", ["d=6", "d=2", "d=0", "u_repr offset", "item_emb offset"])
-def test_check_supported_refuses_what_the_kernel_cannot_copy(case):
-    """The kernel copies rows 16 bytes at a time: d % 4 != 0, d < 4 or a
-    table not 16-byte aligned raise ValueError naming the ROADMAP item."""
+def test_check_supported_takes_any_width_and_alignment(case):
+    """What the kernel once refused (d % 4 != 0, d < 4, a table not 16-byte
+    aligned) it now takes: 4-byte copies where TMA cannot describe the
+    rows, and d = 0 counts the biases alone."""
     d = {"d=6": 6, "d=2": 2, "d=0": 0}.get(case, 64)
     u, E = torch.zeros(3, d), torch.zeros(5, d)
     if case == "u_repr offset":
         u = torch.zeros(3 * d + 1)[1:].view(3, d)
     elif case == "item_emb offset":
         E = torch.zeros(5 * d + 1)[1:].view(5, d)
-    with pytest.raises(ValueError, match=ROADMAP_ITEM.split(",")[0]):
-        check_supported(u, E)
+    check_supported(u, E)
+    t = torch.full((3,), -1.0)
+    np.testing.assert_array_equal(rank_positions_dot(u, E, t).numpy(), [4.0, 4.0, 4.0])
+
+
+@pytest.mark.parametrize("with_bias_gt", [True, False], ids=["bias_gt", "plain"])
+def test_rank_positions_at_d10_match_jax(with_bias_gt):
+    """A width that is not a multiple of 4 (the kernel's 4-byte copy path)
+    against the JAX Pallas kernel in interpret mode and numpy: exact."""
+    u, E, t, bias, gt = _inputs(7, 16, 10, 300, with_bias_gt)
+    got = rank_positions_dot(_t(u), _t(E), _t(t), bias=_t(bias), gt=_t(gt))
+    ref_jax = np.asarray(jax_rank_positions_dot(
+        jnp.asarray(u), jnp.asarray(E), jnp.asarray(t), bias=_j(bias), gt=_j(gt),
+        item_tile=128, interpret=True))
+    np.testing.assert_array_equal(got.numpy(), ref_jax)
+    np.testing.assert_array_equal(got.numpy(), _numpy_count(u, E, t, bias, gt))
+
+
+@pytest.mark.parametrize("d", [10, 64])
+def test_rank_positions_on_an_unaligned_row_view_match_jax(d):
+    """Rows 5.. of a table one float into its buffer (a view whose first row
+    is not 16-byte aligned, as a catalog shard's can be) and users one float
+    into theirs, against JAX on the same rows: exact."""
+    u, E, t, bias, gt = _inputs(8, 16, d, 305, True)
+
+    def one_float_in(x):
+        buf = torch.zeros(x.size + 1)
+        buf[1:] = torch.from_numpy(x).flatten()
+        return buf[1:].view(*x.shape)
+
+    view, u_view = one_float_in(E)[5:], one_float_in(u)
+    assert view.data_ptr() % 16 and u_view.data_ptr() % 16
+    gt_local = np.clip(gt - 5, 1, 299).astype(np.int32)
+    got = rank_positions_dot(u_view, view, _t(t), bias=_t(bias[5:].copy()), gt=_t(gt_local))
+    ref_jax = np.asarray(jax_rank_positions_dot(
+        jnp.asarray(u), jnp.asarray(E[5:]), jnp.asarray(t), bias=_j(bias[5:].copy()),
+        gt=_j(gt_local), item_tile=128, interpret=True))
+    np.testing.assert_array_equal(got.numpy(), ref_jax)
 
 
 @pytest.mark.parametrize("m", [2, 3, 7])

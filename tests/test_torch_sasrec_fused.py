@@ -27,7 +27,7 @@ from acf_tpu_torch.compat.jax_params import params_from_numpy
 from acf_tpu_torch.models.sasrec import SASRec
 from acf_tpu_torch.ops import sasrec_fused
 from acf_tpu_torch.ops.sasrec_fused import (
-    _bwd_layout, _flat_leaves, _grad_tree, _layout, _tree_from, check_supported,
+    _bwd_form, _bwd_layout, _flat_leaves, _grad_tree, _layout, _tree_from, check_supported,
     encoder_bwd_math, encoder_math, fused_encoder, fused_encoder_plain, grad_size,
     SMEM_LIMIT, max_train_window, max_window,
 )
@@ -113,7 +113,7 @@ def test_check_supported_accepts_every_window_to_200_at_d64(t):
     (50, 64, 2, "single-head.*ROADMAP.md Queue 2"),
     (201, 64, 1, "1 to 200 items at d=64; got t=201.*ROADMAP.md Queue 2"),
     (0, 64, 1, "1 to 200 items"),
-    (8, 18, 1, "d % 4 == 0"),
+    (8, 0, 1, "1 <= d <= 128"),
     (8, 132, 1, "d <= 128"),
 ])
 def test_check_supported_raises(t, d, num_heads, match):
@@ -137,12 +137,14 @@ def test_fused_encoder_raises_for_what_the_kernel_does_not_take():
         fused_encoder(model, params, x, mask)
     with pytest.raises(ValueError, match="single-head"):  # in training too
         fused_encoder(model, params, x.requires_grad_(True), mask)
-    wide = max_train_window(D) + 1
+    wide = max_train_window(D) + 1  # 201: past the widest window K2a takes
+    assert wide == max_window(D) + 1
     model = SASRec(20, NUM_ITEMS, D, maxlen=wide)
     params = model.init_params(torch.Generator().manual_seed(0), device=CPU)
     x, mask = encoder_inputs(params, windows(wide, seed=0))
-    fused_encoder(model, params, x, mask)  # inference takes it
-    with pytest.raises(ValueError, match=f"K2b .* 1 to {wide - 1} items.*ROADMAP.md Queue 2"):
+    with pytest.raises(ValueError, match=f"1 to {wide - 1} items.*ROADMAP.md Queue 2"):
+        fused_encoder(model, params, x, mask)
+    with pytest.raises(ValueError, match=f"1 to {wide - 1} items.*ROADMAP.md Queue 2"):
         fused_encoder(model, params, x.requires_grad_(True), mask)
     with pytest.raises(ValueError, match=r"\[B, T\]"):
         fused_encoder(SASRec(20, NUM_ITEMS, D, maxlen=8), params, x, mask[:, :3])
@@ -318,14 +320,19 @@ def test_check_supported_takes_the_training_windows_at_d64(t):
 
 
 def test_max_train_window_follows_shared_memory():
-    assert max_train_window(64) == 79  # K2b took 74 before its seven-buffer layout
+    """K2b's tile form still holds its block in shared memory up to 79 at
+    d = 64 (74 before its seven-buffer layout) and 44 at d = 128 (40
+    before); the wide form takes the windows past them, so training reaches
+    every window K2a takes."""
     assert _bwd_layout(79, 64)[2] <= 232_448 < _bwd_layout(80, 64)[2]
-    assert max_train_window(128) == 44  # 40 before
     assert _bwd_layout(44, 128)[2] <= 232_448 < _bwd_layout(45, 128)[2]
-    assert 1 <= max_train_window(128) < max_train_window(64) <= max_window(64)
-    with pytest.raises(ValueError, match="K2b .* 1 to 79 items at d=64; got t=80"):
-        check_supported(80, 64, 1, 2, train=True)
-    check_supported(80, 64, 1, 2)  # the forward alone takes it
+    assert _bwd_form(79, 64) == _bwd_form(44, 128) == "tile"
+    assert _bwd_form(80, 64) == _bwd_form(45, 128) == "wide"
+    assert max_train_window(64) == max_window(64) == 200
+    assert max_train_window(128) == max_window(128) == 108
+    check_supported(80, 64, 1, 2, train=True)  # training takes it now
+    with pytest.raises(ValueError, match="1 to 200 items at d=64; got t=201"):
+        check_supported(201, 64, 1, 2, train=True)
 
 
 # An H100 SM: 233,472 bytes of shared memory (228 KB), 1,024 of them kept
