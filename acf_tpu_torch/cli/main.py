@@ -10,10 +10,10 @@ hyperparameters and optimizers:
   mf bpr bpr-tf apr amf amf2 abpr neumf aneumf sasrec asasrec asasrec2 apl
   gru4rec dream dream-tf caser drcf dsin irgan pop mrv mfv av
 
-(``bpr``, ``bpr-tf`` and ``apr`` with ``--sparse`` on the row-space step)
-and refuses, with the ROADMAP item that ports it, the one flag it does not
-have yet (``refuse_unported``: ``--train_dtype bfloat16``): nothing falls
-back to another model or to the CPU.
+(``bpr``, ``bpr-tf`` and ``apr`` with ``--sparse`` on the row-space step;
+``sasrec``, ``asasrec`` and ``asasrec2`` with ``--train_dtype bfloat16``,
+which every other model ignores, as the JAX CLI does). Nothing falls back
+to another model or to the CPU.
 
 ``--mesh DATAxMODEL`` trains any of them (``--fgsm`` and ``--sparse`` too)
 data-parallel over ``torch.distributed`` ranks, one process a rank, and
@@ -49,10 +49,6 @@ from acf_tpu_torch.train import TrainConfig, Trainer, adagrad, adam, fit_two_pha
 from acf_tpu_torch.train.trainer import profiled
 from acf_tpu_torch.utils.io import OutputWriter
 
-# The flag of the JAX CLI that the port does not have yet, and the ROADMAP
-# item (Queue 1) that ports it. The label is stable: ROADMAP.md lists it and
-# the tests match it.
-ITEM_14 = "ROADMAP Queue 1, item 14 ('Full CLI flag union')"
 PORTED_MODELS = ("mf", "bpr", "bpr-tf", "apr", "amf", "amf2", "abpr", "neumf", "aneumf",
                  "sasrec", "asasrec", "asasrec2", "apl", "gru4rec", "dream", "dream-tf",
                  "caser", "drcf", "dsin", "irgan", "pop", "mrv", "mfv", "av")
@@ -70,8 +66,9 @@ def build_parser():
     p.add_argument("--d", "--embed_size", dest="d", type=int, default=64)
     p.add_argument("--maxlen", type=int, default=50)
     p.add_argument("--train_dtype", default="float32", choices=["bfloat16", "float32"],
-                   help="SASRec train-path encoder compute dtype; bfloat16 is not ported "
-                        "(" + ITEM_14 + ")")
+                   help="SASRec train-path encoder compute dtype (evaluation is always "
+                        "float32): bfloat16 gives each product of the encoder bfloat16 "
+                        "operands with float32 sums")
     p.add_argument("--epochs", type=int, default=100)
     p.add_argument("--adv_epoch", "--adv_epochs", dest="adv_epoch", type=int, default=50,
                    help="epoch at which the adversarial phase starts")
@@ -158,17 +155,6 @@ def build_parser():
     return p
 
 
-def _not_ported(what, item):
-    return SystemExit(f"{what} is not ported to acf_tpu_torch yet: {item} ports it")
-
-
-def refuse_unported(args):
-    """SystemExit naming the flag and the ROADMAP item that ports it, for
-    anything of the JAX CLI the port does not have yet."""
-    if args.train_dtype == "bfloat16":
-        raise _not_ported("--train_dtype bfloat16", ITEM_14)
-
-
 def _check_sparse_flags(args):
     """The row-space sparse step supports neither random-delta FGSM nor DNS
     nor multi-step perturbations: refuse rather than train a different
@@ -241,13 +227,14 @@ def make_model(name, data, args):
     if name == "aneumf":
         return popularity(NeuMF(U, I, d)), adam_, None
     if name == "sasrec":
-        return SASRec(U, I, d, maxlen=args.maxlen), adam(0.001, b2=0.98), None
+        return SASRec(U, I, d, maxlen=args.maxlen, train_dtype=args.train_dtype), \
+            adam(0.001, b2=0.98), None
     if name in ("asasrec", "asasrec2"):
-        clean = SASRec(U, I, d, maxlen=args.maxlen)
+        clean = SASRec(U, I, d, maxlen=args.maxlen, train_dtype=args.train_dtype)
         adv = SASRec(U, I, d, maxlen=args.maxlen, adversarial=True, adv_mode=name,
                      eps=args.eps, reg_adv=args.reg_adv, eps_pos=args.eps_pos,
                      eps_dense=args.eps_dense, eps_conv=args.eps_conv,
-                     adv_steps=args.adv_steps)
+                     adv_steps=args.adv_steps, train_dtype=args.train_dtype)
         return adv, adam(0.001, b2=0.98), clean
     if name == "gru4rec":
         return GRU4Rec(U, I, d, maxlen=args.maxlen, loss_type=args.loss or "bpr",
@@ -283,7 +270,6 @@ def main(argv=None):
     import torch.distributed as dist
 
     args = build_parser().parse_args(argv)
-    refuse_unported(args)
     if not args.mesh:
         return _main(args, None)
     from acf_tpu_torch.parallel.mesh import mesh_from_spec

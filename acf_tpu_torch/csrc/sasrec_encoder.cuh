@@ -12,14 +12,45 @@
 // ALIGNED path (d % 4 == 0 and 16-byte aligned tensors) copies rows 16 bytes
 // at a time; the other path copies 4 bytes at a time, zero-fills the tail and
 // writes only the d real columns back to device memory.
+//
+// Compute dtypes: a unit built with ACF_ENCODER_BF16 defined to 1
+// (csrc/sasrec_encoder_fwd_bf16.cu, csrc/sasrec_encoder_bwd_bf16.cu) holds
+// the kernels' bfloat16 form, the JAX kernel's `_dot` with cd = bfloat16
+// (acf_tpu/ops/sasrec_fused.py:81-86) and its vjp: every product reads its
+// operands rounded to bfloat16 (to nearest even; `operand`), and so do the
+// attention's from T = kMxuAttnT on (`attn_operand`). The product of two
+// bfloat16 values is exact in float32, so the float32 FMA chains sum
+// bfloat16 products in float32. In the backward each product's result (an
+// input gradient dY Wᵀ, the attention's dP, dV, dQ, dK, and a weight
+// gradient summed over the whole batch) is rounded once more, the cotangent
+// it multiplies is not. LayerNorm, softmax, dropout, biases, the residuals
+// and every buffer stay float32. Its C entries carry the suffix _bf16
+// (ENCODER_ENTRY). In the float32 form every rounding is `if constexpr`'d
+// away, so its code is what it was.
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
 #include "cp_async.cuh"
 
+#ifndef ACF_ENCODER_BF16
+#define ACF_ENCODER_BF16 0
+#endif
+#if ACF_ENCODER_BF16
+#define ENCODER_ENTRY(name) name##_bf16
+// A step kept out of line in the bfloat16 form: inlined, its conversions
+// tip a 128-register kernel into spilling
+#define BF16_NOINLINE __noinline__
+#else
+#define ENCODER_ENTRY(name) name
+#define BF16_NOINLINE
+#endif
+
 constexpr int kMaxBlocks = 8;  // ENCODER_MAX_BLOCKS in ops/_build.py
+constexpr bool kBf16 = ACF_ENCODER_BF16 != 0;
+constexpr int kMxuAttnT = 32;  // MXU_ATTN_T in ops/sasrec_fused.py (the JAX kernel's _MXU_ATTN_T)
 
 // The weights, one pointer per param leaf (EncoderWeights in ops/_build.py).
 struct DenseW { const float* w; const float* b; };
@@ -94,6 +125,39 @@ __device__ __forceinline__ float4 ldg4(const float* p) {
   return __ldg(reinterpret_cast<const float4*>(p));
 }
 
+// v rounded to bfloat16 (to nearest, ties to even), as a float.
+__device__ __forceinline__ float bf16_round(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
+// A product's operand, or a backward product's result, in this unit's form:
+// v itself in the float32 form, v rounded to bfloat16 in the bfloat16 form.
+__device__ __forceinline__ float operand(float v) {
+  if constexpr (kBf16) return bf16_round(v);
+  return v;
+}
+
+__device__ __forceinline__ float4 operand4(float4 v) {
+  if constexpr (kBf16) {
+    const float2 lo = __bfloat1622float2(__floats2bfloat162_rn(v.x, v.y));
+    const float2 hi = __bfloat1622float2(__floats2bfloat162_rn(v.z, v.w));
+    return make_float4(lo.x, lo.y, hi.x, hi.y);
+  }
+  return v;
+}
+
+// The attention's operands and results in windows of T: rounded as
+// `operand` from T = kMxuAttnT on, float32 below it in both forms.
+__device__ __forceinline__ float attn_operand(float v, int T) {
+  if constexpr (kBf16) return T >= kMxuAttnT ? bf16_round(v) : v;
+  return v;
+}
+
+__device__ __forceinline__ float4 attn_operand4(float4 v, int T) {
+  if constexpr (kBf16) return T >= kMxuAttnT ? operand4(v) : v;
+  return v;
+}
+
 // where(m, v / keep, 0): the JAX package's inverted dropout (a division).
 __device__ __forceinline__ float drop(float v, unsigned char m, float keep) {
   return m ? v / keep : 0.f;
@@ -126,6 +190,13 @@ __device__ __forceinline__ void fma4(float4& o, float a, float4 w) {
 }
 
 // ---- the weight stream ------------------------------------------------------
+
+// The `floats` floats of a weight slot at p (a multiple of 4, 16-byte
+// aligned) through `operand4`, every thread taking part.
+__device__ __forceinline__ void round_slot(float* p, int floats) {
+  for (int i = 4 * threadIdx.x; i < floats; i += 4 * blockDim.x)
+    *reinterpret_cast<float4*>(p + i) = operand4(*reinterpret_cast<const float4*>(p + i));
+}
 
 // A d x d weight as a product reads it: W (x W) or Wᵀ (dY Wᵀ); w null: none.
 struct WRef { const float* w; bool trans; };
@@ -198,7 +269,11 @@ __device__ void stage_slice(float* dst, WRef W, int k0, const Pipe& pp, int d, i
 // whose first slice is staged during this one's last. A thread owns ROWS
 // rows (rg + i * row_groups) x 4 columns and sums k in order with FMAs; R <=
 // ROWS * row_groups (the C entry checks it). The columns run to pad4(d): the
-// tail's sums are exact zeros, and its bias and mask are not read.
+// tail's sums are exact zeros, and its bias and mask are not read. Each
+// staged slice of W passes through `operand` once it lands (round_slot),
+// and x through it as it is read in x W; a TRANS product (dY Wᵀ, an input
+// gradient of the backward) reads the cotangent dY as it is and passes its
+// sum through `operand` before the epilogue.
 template <int ROWS, bool TRANS, int NP, bool ALIGNED>
 __device__ __forceinline__ void product(Pipe& pp, const float* const (&in)[NP],
                                         const float* const (&W)[NP], WRef next, float* out,
@@ -237,12 +312,17 @@ __device__ __forceinline__ void product(Pipe& pp, const float* const (&in)[NP],
         stage_slice<ALIGNED>(pp.at(pp.cur ^ 1), following, s + 1 < nsl ? (s + 1) * pp.ks : 0, pp,
                              d, ld);
       const float* sw = pp.at(pp.cur);
+      if constexpr (kBf16) {  // the landed slice's operands rounded once, in place
+        round_slot(pp.at(pp.cur), pp.slot);
+        __syncthreads();
+      }
       pp.cur ^= 1;
       if (!active) continue;
       const int k0 = s * pp.ks, kn = min(pp.ks, dp - k0);
-      // unrolled twice (once for tiles of more than 4 rows): more would spend
-      // registers that a 512-thread block lacks
-#pragma unroll(ROWS > 4 ? 1 : 2)
+      // unrolled twice (once for tiles of more than 4 rows, and in the
+      // bfloat16 form, whose conversions take the registers of the second
+      // step): more would spend registers that a 512-thread block lacks
+#pragma unroll(kBf16 || ROWS > 4 ? 1 : 2)
       for (int kk = 0; kk < kn; kk += 4) {
         float4 w[4];  // x W: W[k0 + kk + j][4cg..]; dY Wᵀ: W[cg + groups j][k0 + kk..]
 #pragma unroll
@@ -252,8 +332,9 @@ __device__ __forceinline__ void product(Pipe& pp, const float* const (&in)[NP],
 #pragma unroll
         for (int i = 0; i < ROWS; ++i) {
           const int r = rg + i * row_groups;
-          const float4 a = r < R ? *reinterpret_cast<const float4*>(in[p] + r * ld + k0 + kk)
-                                 : make_float4(0.f, 0.f, 0.f, 0.f);
+          float4 a = r < R ? *reinterpret_cast<const float4*>(in[p] + r * ld + k0 + kk)
+                           : make_float4(0.f, 0.f, 0.f, 0.f);
+          if (!TRANS) a = operand4(a);  // dY, a cotangent, stays as it is
           float4& o = acc[i];
           if (TRANS) {
             o.x = fmaf(a.x, w[0].x, o.x); o.x = fmaf(a.y, w[0].y, o.x);
@@ -281,7 +362,7 @@ __device__ __forceinline__ void product(Pipe& pp, const float* const (&in)[NP],
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int c = col(j);
-        const float a = (&acc[i].x)[j];
+        const float a = TRANS ? operand((&acc[i].x)[j]) : (&acc[i].x)[j];
         float o;
         if (p > 0) {
           o = a + out[r * ld + c];

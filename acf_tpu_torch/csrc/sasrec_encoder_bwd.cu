@@ -1,8 +1,11 @@
 // K2b — SASRec encoder backward for Hopper (sm_90a).
 //
 // Replaces the TPU kernel `bwd_kernel` in acf_tpu/ops/sasrec_fused.py:236
-// (the custom VJP of `fused_encoder`, :279-328): single head, float32, with
-// or without dropout masks. For one cotangent g [B, T, d] of the encoder's
+// (the custom VJP of `fused_encoder`, :279-328): single head, with or
+// without dropout masks, in compute dtype float32 or, built by
+// csrc/sasrec_encoder_bwd_bf16.cu, bfloat16 (the header's compute dtypes:
+// the vjp of products with bfloat16 operands; C entries with the suffix
+// _bf16). For one cotangent g [B, T, d] of the encoder's
 // output it computes dx [B, T, d] and the gradients of pos_emb[-T:] and of
 // every block leaf and ln_f, summed over users: exactly `encoder_bwd_math`
 // of acf_tpu_torch/ops/sasrec_fused.py, whose docstrings derive each step
@@ -212,7 +215,8 @@ __device__ void dense(Pipe& pp, const float* const (&in)[NP], const float* const
 
 // For each p < NP: wp[p][k][c] (+)= Σ_r X[r][k] dY[p][r][c] and bp[p][c]
 // (+)= Σ_r dY[p][r][c] over the rows (a masked row's dY is exactly 0 and
-// its X finite, so it adds exact zeros). Each thread owns 4 x CW tiles
+// its X finite, so it adds exact zeros); X is read through `operand`. Each
+// thread owns 4 x CW tiles
 // (k0..k0+3, c0..c0+CW-1) and sums the rows in order; the tiles of k0 = 0
 // also sum the bias. The partial's earlier values are loaded before the
 // rows. The tiles cover pad4(d); without ALIGNED, the entries past d are
@@ -241,7 +245,7 @@ __device__ void wgrad(const float* X, const float* const (&dY)[NP], float* const
       }
 #pragma unroll 2
     for (int r = 0; r < R; ++r) {
-      const float4 a = *reinterpret_cast<const float4*>(X + r * ld + k0);
+      const float4 a = operand4(*reinterpret_cast<const float4*>(X + r * ld + k0));
 #pragma unroll
       for (int p = 0; p < NP; ++p) {
         float gv[CW];  // dY[p][r][c0, c0 + CW), one load
@@ -393,11 +397,12 @@ __device__ void ln_grad_flush(const float* scratch, float* part, bool first, int
 // before the dropout, 0 for masked keys, past the diagonal and for a
 // masked query (whose A is QIN). `pm` is the block's [R][T] dropout mask
 // in shared memory, or null. One warp per row; `scores` holds one row of
-// Ts floats per warp. The arithmetic is K2a's (attention_rows).
-__device__ void attention_fwd(const float* q, const float* k, const float* v, const float* qin,
-                              float* a, float* scores, float* P, const unsigned char* pm,
-                              float keep, const float* M, int R, int T, int Ts, int d,
-                              int ld) {
+// Ts floats per warp. The arithmetic is K2a's (attention_rows), q, k, v
+// and the dropped probabilities read through `attn_operand`.
+__device__ BF16_NOINLINE void attention_fwd(const float* q, const float* k, const float* v,
+                                            const float* qin, float* a, float* scores, float* P,
+                                            const unsigned char* pm, float keep, const float* M,
+                                            int R, int T, int Ts, int d, int ld) {
   const int lane = threadIdx.x & 31;
   const float scale = sqrtf(static_cast<float>(d));
   float* s = scores + (threadIdx.x >> 5) * Ts;
@@ -418,8 +423,8 @@ __device__ void attention_fwd(const float* q, const float* k, const float* v, co
         const float* kr = k + (u0 + j) * ld;
         float a0 = 0.f, a1 = 0.f, a2 = 0.f, a3 = 0.f;  // four independent chains
         for (int c = 0; c < d; c += 4) {
-          const float4 x = *reinterpret_cast<const float4*>(qr + c);
-          const float4 y = *reinterpret_cast<const float4*>(kr + c);
+          const float4 x = attn_operand4(*reinterpret_cast<const float4*>(qr + c), T);
+          const float4 y = attn_operand4(*reinterpret_cast<const float4*>(kr + c), T);
           a0 = fmaf(x.x, y.x, a0);
           a1 = fmaf(x.y, y.y, a1);
           a2 = fmaf(x.z, y.z, a2);
@@ -442,7 +447,7 @@ __device__ void attention_fwd(const float* q, const float* k, const float* v, co
       float p = j <= i ? s[j] / sum : 0.f;
       pr[j] = p;
       if (pm != nullptr && j <= i) p = drop(p, pm[r * T + j], keep);
-      s[j] = p;
+      s[j] = attn_operand(p, T);
     }
     __syncwarp();
     float acc[kMaxColsPerLane];
@@ -457,10 +462,10 @@ __device__ void attention_fwd(const float* q, const float* k, const float* v, co
       for (int c = 0; c < kMaxColsPerLane; ++c) {
         if (lane + 32 * c >= d) continue;
         float t = acc[c];
-        t = fmaf(p4.x, vr[32 * c], t);
-        t = fmaf(p4.y, vr[ld + 32 * c], t);
-        t = fmaf(p4.z, vr[2 * ld + 32 * c], t);
-        t = fmaf(p4.w, vr[3 * ld + 32 * c], t);
+        t = fmaf(p4.x, attn_operand(vr[32 * c], T), t);
+        t = fmaf(p4.y, attn_operand(vr[ld + 32 * c], T), t);
+        t = fmaf(p4.z, attn_operand(vr[2 * ld + 32 * c], T), t);
+        t = fmaf(p4.w, attn_operand(vr[3 * ld + 32 * c], T), t);
         acc[c] = t;
       }
     }
@@ -469,7 +474,7 @@ __device__ void attention_fwd(const float* q, const float* k, const float* v, co
       const float* vr = v + (u0 + j) * ld + lane;
 #pragma unroll
       for (int c = 0; c < kMaxColsPerLane; ++c)
-        if (lane + 32 * c < d) acc[c] = fmaf(pj, vr[32 * c], acc[c]);
+        if (lane + 32 * c < d) acc[c] = fmaf(pj, attn_operand(vr[32 * c], T), acc[c]);
     }
 #pragma unroll
     for (int c = 0; c < kMaxColsPerLane; ++c)
@@ -480,7 +485,7 @@ __device__ void attention_fwd(const float* q, const float* k, const float* v, co
 
 // dV[j] = Σ_{i >= j} p'_ij dA[i] over the queries i of key j's user
 // (p' = drop_p(P), 0 for a masked query); 0 for a masked key. One warp per
-// key row.
+// key row; p' and dV through `attn_operand`.
 __device__ void attn_bwd_dv(const float* P, const unsigned char* pm, float keep, const float* dA,
                             float* dV, const float* M, int R, int T, int Ts, int d, int ld) {
   const int lane = threadIdx.x & 31;
@@ -494,6 +499,7 @@ __device__ void attn_bwd_dv(const float* P, const unsigned char* pm, float keep,
       for (int i = j; i < u0 + T; ++i) {
         float p = P[i * Ts + jj];
         if (pm != nullptr) p = drop(p, pm[i * T + jj], keep);
+        p = attn_operand(p, T);
         const float* ar = dA + i * ld + lane;
 #pragma unroll
         for (int c = 0; c < kMaxColsPerLane; ++c)
@@ -502,13 +508,14 @@ __device__ void attn_bwd_dv(const float* P, const unsigned char* pm, float keep,
     }
 #pragma unroll
     for (int c = 0; c < kMaxColsPerLane; ++c)
-      if (lane + 32 * c < d) dV[j * ld + lane + 32 * c] = acc[c];
+      if (lane + 32 * c < d) dV[j * ld + lane + 32 * c] = attn_operand(acc[c], T);
   }
 }
 
 // P[r] <- dS[r] = P[r] ∘ (dP[r] - Σ_j dP_rj P_rj), dP_rj = drop_p(dA[r]·V[j]),
 // over the keys j <= r of an unmasked query row r (a masked query's row
-// stays 0). One warp per row; `scores` holds one row of dP per warp.
+// stays 0). One warp per row; `scores` holds one row of dP per warp. V and
+// dA·V (before the dropout) through `attn_operand`.
 __device__ void attn_bwd_ds(float* P, float* scores, const unsigned char* pm, float keep,
                             const float* dA, const float* V, const float* M, int R, int T,
                             int Ts, int d, int ld) {
@@ -526,13 +533,13 @@ __device__ void attn_bwd_ds(float* P, float* scores, const unsigned char* pm, fl
         float a0 = 0.f, a1 = 0.f, a2 = 0.f, a3 = 0.f;
         for (int c = 0; c < d; c += 4) {
           const float4 a = *reinterpret_cast<const float4*>(ar + c);
-          const float4 b = *reinterpret_cast<const float4*>(vr + c);
+          const float4 b = attn_operand4(*reinterpret_cast<const float4*>(vr + c), T);
           a0 = fmaf(a.x, b.x, a0);
           a1 = fmaf(a.y, b.y, a1);
           a2 = fmaf(a.z, b.z, a2);
           a3 = fmaf(a.w, b.w, a3);
         }
-        dp = (a0 + a1) + (a2 + a3);
+        dp = attn_operand((a0 + a1) + (a2 + a3), T);
       }
       if (pm != nullptr) dp = drop(dp, pm[r * T + j], keep);
       s[j] = dp;
@@ -546,7 +553,7 @@ __device__ void attn_bwd_ds(float* P, float* scores, const unsigned char* pm, fl
 
 // Row r's dQ[r] = Σ_{j <= r} dS_rj K[j] / √d and then, as key, dK[r] =
 // Σ_{i >= r} dS_ir Q[i] / √d (dS is 0 for masked queries and keys); 0 for
-// a masked row. One warp per row.
+// a masked row. One warp per row; K, Q, dQ and dK through `attn_operand`.
 __device__ void attn_bwd_dqk(const float* dS, const float* K, const float* Q, float* dQ,
                              float* dK, const float* M, int R, int T, int Ts, int d, int ld) {
   const int lane = threadIdx.x & 31;
@@ -564,12 +571,12 @@ __device__ void attn_bwd_dqk(const float* dS, const float* K, const float* Q, fl
         const float* kr = K + (u0 + j) * ld + lane;
 #pragma unroll
         for (int c = 0; c < kMaxColsPerLane; ++c)
-          if (lane + 32 * c < d) acc[c] = fmaf(ds, kr[32 * c], acc[c]);
+          if (lane + 32 * c < d) acc[c] = fmaf(ds, attn_operand(kr[32 * c], T), acc[c]);
       }
     }
 #pragma unroll
     for (int c = 0; c < kMaxColsPerLane; ++c) {
-      if (lane + 32 * c < d) dQ[r * ld + lane + 32 * c] = acc[c] / scale;
+      if (lane + 32 * c < d) dQ[r * ld + lane + 32 * c] = attn_operand(acc[c] / scale, T);
       acc[c] = 0.f;
     }
     if (live) {
@@ -579,12 +586,12 @@ __device__ void attn_bwd_dqk(const float* dS, const float* K, const float* Q, fl
         const float* qr = Q + q * ld + lane;
 #pragma unroll
         for (int c = 0; c < kMaxColsPerLane; ++c)
-          if (lane + 32 * c < d) acc[c] = fmaf(ds, qr[32 * c], acc[c]);
+          if (lane + 32 * c < d) acc[c] = fmaf(ds, attn_operand(qr[32 * c], T), acc[c]);
       }
     }
 #pragma unroll
     for (int c = 0; c < kMaxColsPerLane; ++c)
-      if (lane + 32 * c < d) dK[r * ld + lane + 32 * c] = acc[c] / scale;
+      if (lane + 32 * c < d) dK[r * ld + lane + 32 * c] = attn_operand(acc[c] / scale, T);
   }
 }
 
@@ -797,16 +804,31 @@ sasrec_encoder_bwd_kernel(const EncoderW w, const DropoutMasks dm,
   }
 }
 
+// Whether entry k of the flat gradient (`grad_size`'s layout: per block
+// 5 d² + 11 d floats, the leaves at `leaf`'s offsets) is in a dense kernel
+// W of one of the nb blocks.
+__device__ __forceinline__ bool weight_entry(int k, int nb, int d) {
+  const int per = 5 * d * d + 11 * d;
+  if (k >= nb * per) return false;
+  const int o = k % per;
+  const int starts[] = {2 * d, 3 * d + d * d, 4 * d + 2 * d * d, 7 * d + 3 * d * d,
+                        8 * d + 4 * d * d};  // wq, wk, wv, conv1, conv2
+  for (int w : starts)
+    if (o >= w && o < w + d * d) return true;
+  return false;
+}
+
 // grad[k] = Σ_c partial[c][k], the blocks' slices summed in block order: a
 // block of 256 threads takes kReduceOuts outputs, lane k of every warp the
 // output blockIdx.x * kReduceOuts + k (each load of a part is one 128-byte
 // run), warp s the s-th of kReduceSlices contiguous slices of the parts.
 // A thread issues kReduceUnroll loads before it adds them in part order;
 // warp 0 then adds the slices in slice order. The order depends on the
-// count of parts alone.
+// count of parts alone. A weight gradient's sum goes through `operand`: the
+// bfloat16 form rounds it once, over the whole batch.
 __global__ void __launch_bounds__(kReduceOuts * kReduceSlices)
 sasrec_encoder_bwd_reduce(const float* __restrict__ partial, int ctas, int n,
-                          float* __restrict__ grad) {
+                          float* __restrict__ grad, int nb, int d) {
   __shared__ float ss[kReduceSlices][kReduceOuts];
   const int lane = threadIdx.x % kReduceOuts, slice = threadIdx.x / kReduceOuts;
   const int idx = blockIdx.x * kReduceOuts + lane;
@@ -827,7 +849,7 @@ sasrec_encoder_bwd_reduce(const float* __restrict__ partial, int ctas, int n,
   if (slice != 0 || idx >= n) return;
 #pragma unroll
   for (int k = 1; k < kReduceSlices; ++k) s += ss[k][lane];
-  grad[idx] = s;
+  grad[idx] = weight_entry(idx, nb, d) ? operand(s) : s;
 }
 
 size_t bwd_smem_bytes(int users_per_block, int T, int d, int threads) {
@@ -867,11 +889,11 @@ int resident_blocks(BwdKernel kernel, int threads, int smem_bytes) {
 }
 
 // The reduction of the blocks' partial slices into `grad`, on `s`.
-cudaError_t reduce_partials(const float* partial, int ctas, int n_grad, float* grad,
-                            cudaStream_t s) {
+cudaError_t reduce_partials(const float* partial, int ctas, int n_grad, float* grad, int nb,
+                            int d, cudaStream_t s) {
   const int blocks = (n_grad + kReduceOuts - 1) / kReduceOuts;
   sasrec_encoder_bwd_reduce<<<blocks, kReduceOuts * kReduceSlices, 0, s>>>(partial, ctas, n_grad,
-                                                                        grad);
+                                                                        grad, nb, d);
   return cudaGetLastError();
 }
 
@@ -880,12 +902,12 @@ cudaError_t reduce_partials(const float* partial, int ctas, int n_grad, float* g
 // The number of K2b blocks (the tile form) the current device runs at once
 // with this launch geometry (the persistent grid of the weight-gradient
 // mode); 0 if none fits, a negative cudaError_t on an error.
-extern "C" int acf_sasrec_encoder_bwd_ctas(int threads, int smem_bytes) {
+extern "C" int ENCODER_ENTRY(acf_sasrec_encoder_bwd_ctas)(int threads, int smem_bytes) {
   return resident_blocks(&sasrec_encoder_bwd_kernel<false>, threads, smem_bytes);
 }
 
 // The same for the wide form (its persistent grid in both modes).
-extern "C" int acf_sasrec_encoder_bwd_wide_ctas(int threads, int smem_bytes) {
+extern "C" int ENCODER_ENTRY(acf_sasrec_encoder_bwd_wide_ctas)(int threads, int smem_bytes) {
   return resident_blocks(&sasrec_encoder_bwd_kernel<true>, threads, smem_bytes);
 }
 
@@ -899,11 +921,13 @@ extern "C" int acf_sasrec_encoder_bwd_wide_ctas(int threads, int smem_bytes) {
 // must be the number of user groups; d % 4 != 0 or a g, saved or weight
 // that is not 16-byte aligned is refused (the wide form takes them).
 // Returns the cudaError_t of the launches.
-extern "C" int acf_sasrec_encoder_bwd(EncoderW w, DropoutMasks dm,
-                                      const unsigned char* ids_mask, const float* g,
-                                      const float* saved, float* dx, float* partial,
-                                      float* grad, int B, int T, int d, int users_per_block,
-                                      int threads, int smem_bytes, int ctas, void* stream) {
+extern "C" int ENCODER_ENTRY(acf_sasrec_encoder_bwd)(EncoderW w, DropoutMasks dm,
+                                                     const unsigned char* ids_mask,
+                                                     const float* g, const float* saved,
+                                                     float* dx, float* partial, float* grad,
+                                                     int B, int T, int d, int users_per_block,
+                                                     int threads, int smem_bytes, int ctas,
+                                                     void* stream) {
   if (B <= 0 || T <= 0 || d <= 0 || d > 32 * kMaxColsPerLane ||
       users_per_block <= 0 || (threads != 256 && threads != kMaxThreads) ||
       users_per_block * T > kMaxRowsPerThread * (threads / (pad4(d) / 4)) ||
@@ -932,7 +956,7 @@ extern "C" int acf_sasrec_encoder_bwd(EncoderW w, DropoutMasks dm,
       row_ld(pad4(d)), score_ld(T), ks, row_ld(ks), slot_floats(pad4(d)), n_grad, groups);
   err = cudaGetLastError();
   if (err != cudaSuccess || partial == nullptr) return (int)err;
-  return (int)reduce_partials(partial, ctas, n_grad, grad, s);
+  return (int)reduce_partials(partial, ctas, n_grad, grad, w.num_blocks, d, s);
 }
 
 // The wide form (one user a block), as acf_sasrec_encoder_bwd, its buffers in
@@ -940,11 +964,13 @@ extern "C" int acf_sasrec_encoder_bwd(EncoderW w, DropoutMasks dm,
 // walk the B users (1 <= ctas <= B, in both modes); `threads` and
 // `smem_bytes` come from the wrapper's layout, and a launch whose bytes
 // disagree with this file's formula is refused.
-extern "C" int acf_sasrec_encoder_bwd_wide(EncoderW w, DropoutMasks dm,
-                                           const unsigned char* ids_mask, const float* g,
-                                           const float* saved, float* dx, float* partial,
-                                           float* grad, float* work, int B, int T, int d,
-                                           int threads, int smem_bytes, int ctas, void* stream) {
+extern "C" int ENCODER_ENTRY(acf_sasrec_encoder_bwd_wide)(EncoderW w, DropoutMasks dm,
+                                                          const unsigned char* ids_mask,
+                                                          const float* g, const float* saved,
+                                                          float* dx, float* partial, float* grad,
+                                                          float* work, int B, int T, int d,
+                                                          int threads, int smem_bytes, int ctas,
+                                                          void* stream) {
   if (B <= 0 || T <= 0 || d <= 0 || d > 32 * kMaxColsPerLane || threads != kWideThreads ||
       w.num_blocks < 0 || w.num_blocks > kMaxBlocks ||
       (partial == nullptr) != (grad == nullptr) || work == nullptr || ctas <= 0 || ctas > B)
@@ -963,5 +989,5 @@ extern "C" int acf_sasrec_encoder_bwd_wide(EncoderW w, DropoutMasks dm,
       row_ld(ks), slot_floats(pad4(d)), n_grad, B);
   err = cudaGetLastError();
   if (err != cudaSuccess || partial == nullptr) return (int)err;
-  return (int)reduce_partials(partial, ctas, n_grad, grad, s);
+  return (int)reduce_partials(partial, ctas, n_grad, grad, w.num_blocks, d, s);
 }

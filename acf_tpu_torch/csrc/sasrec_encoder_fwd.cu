@@ -2,7 +2,9 @@
 // training form.
 //
 // Replaces the TPU kernel `fwd_kernel` in acf_tpu/ops/sasrec_fused.py:225
-// (entry `fused_encoder`): single head, float32, with or without dropout.
+// (entry `fused_encoder`): single head, with or without dropout, in compute
+// dtype float32 or, built by csrc/sasrec_encoder_fwd_bf16.cu, bfloat16
+// (the header's compute dtypes; C entry acf_sasrec_encoder_fwd_bf16).
 // It computes exactly `encoder_math` of acf_tpu_torch/ops/sasrec_fused.py
 // (the reference SASRecLayers.py:15-319 encoder): for each user window
 // x [T, d] (√d-scaled item embeddings) and its ids mask,
@@ -229,7 +231,9 @@ __device__ void ln_pairs(const float* src, float* copy, int cld, float* dst, int
 // l holds the scores of keys l + 32 m of both rows in registers; the weights
 // then go through the rows of q, spent once the scores are formed, up to 64
 // keys at a time. KEYS: the keys a lane holds a row (T <= 32 KEYS), so the
-// loops over them are unrolled only as far as the window needs.
+// loops over them are unrolled only as far as the window needs. q, k, v and
+// the weights are read through `attn_operand` (the bfloat16 form's rounding
+// from T = kMxuAttnT on).
 template <int KEYS>
 __device__ void attention_rows(float* q, const float* k, const float* v, float* x,
                                const unsigned char* M, int R, int T, int d, int ld,
@@ -261,9 +265,9 @@ __device__ void attention_rows(float* q, const float* k, const float* v, float* 
         float b0 = 0.f, b1 = 0.f, b2 = 0.f, b3 = 0.f;
 #pragma unroll 2
         for (int c = 0; c < d; c += 4) {
-          const float4 y = *reinterpret_cast<const float4*>(kr + c);
-          const float4 xa = *reinterpret_cast<const float4*>(qa + c);
-          const float4 xb = *reinterpret_cast<const float4*>(qb + c);
+          const float4 y = attn_operand4(*reinterpret_cast<const float4*>(kr + c), T);
+          const float4 xa = attn_operand4(*reinterpret_cast<const float4*>(qa + c), T);
+          const float4 xb = attn_operand4(*reinterpret_cast<const float4*>(qb + c), T);
           a0 = fmaf(xa.x, y.x, a0); a1 = fmaf(xa.y, y.y, a1);
           a2 = fmaf(xa.z, y.z, a2); a3 = fmaf(xa.w, y.w, a3);
           b0 = fmaf(xb.x, y.x, b0); b1 = fmaf(xb.y, y.y, b1);
@@ -308,8 +312,8 @@ __device__ void attention_rows(float* q, const float* k, const float* v, float* 
       for (int m = 0; m < KEYS; ++m) {
         const int j = lane + 32 * m;
         if (j >= c0 && j < c0 + chunk && j <= i) {  // a row that does not attend
-          if (la) qa[j - c0] = sa[m];                // shares the other's q row and
-          if (lb) qb[j - c0] = sb[m];                // sums weights it never adds
+          if (la) qa[j - c0] = attn_operand(sa[m], T);  // shares the other's q row
+          if (lb) qb[j - c0] = attn_operand(sb[m], T);  // and sums weights it never adds
         }
       }
       __syncwarp();
@@ -327,8 +331,9 @@ __device__ void attention_rows(float* q, const float* k, const float* v, float* 
 #pragma unroll
         for (int c = 0; c < kMaxColsPerLane; ++c) {
           if (lane + 32 * c >= d) continue;
-          const float v0 = vj[32 * c], v1 = vj[ld + 32 * c];
-          const float v2 = vj[2 * ld + 32 * c], v3 = vj[3 * ld + 32 * c];
+          const float v0 = attn_operand(vj[32 * c], T), v1 = attn_operand(vj[ld + 32 * c], T);
+          const float v2 = attn_operand(vj[2 * ld + 32 * c], T);
+          const float v3 = attn_operand(vj[3 * ld + 32 * c], T);
           acca[c] = fmaf(pa.z, v2, fmaf(pa.x, v0, acca[c]));
           odda[c] = fmaf(pa.w, v3, fmaf(pa.y, v1, odda[c]));
           accb[c] = fmaf(pb.z, v2, fmaf(pb.x, v0, accb[c]));
@@ -341,8 +346,9 @@ __device__ void attention_rows(float* q, const float* k, const float* v, float* 
 #pragma unroll
         for (int c = 0; c < kMaxColsPerLane; ++c) {
           if (lane + 32 * c >= d) continue;
-          acca[c] = fmaf(pa, vj[32 * c], acca[c]);
-          accb[c] = fmaf(pb, vj[32 * c], accb[c]);
+          const float vv = attn_operand(vj[32 * c], T);
+          acca[c] = fmaf(pa, vv, acca[c]);
+          accb[c] = fmaf(pb, vv, accb[c]);
         }
       }
       __syncwarp();  // the next chunk rewrites both rows of q
@@ -491,10 +497,11 @@ Kernel fwd_kernel(int threads, int tile) {
 // `_layout`); a launch whose bytes are not this file's formula for any
 // slice, whose rows a product's register tile cannot cover, or that exceeds
 // the device's limit, is refused. Returns the cudaError_t of the launch.
-extern "C" int acf_sasrec_encoder_fwd(EncoderW w, DropoutMasks dm, const float* x,
-                                      const unsigned char* ids_mask, float* out, float* saved,
-                                      int B, int T, int d, int users_per_block,
-                                      int threads, int smem_bytes, void* stream) {
+extern "C" int ENCODER_ENTRY(acf_sasrec_encoder_fwd)(EncoderW w, DropoutMasks dm, const float* x,
+                                                     const unsigned char* ids_mask, float* out,
+                                                     float* saved, int B, int T, int d,
+                                                     int users_per_block, int threads,
+                                                     int smem_bytes, void* stream) {
   if (B <= 0 || T <= 0 || T > 32 * kMaxKeysPerLane || d <= 0 ||
       d > 32 * kMaxColsPerLane || users_per_block <= 0 ||
       (threads != 256 && threads != kMaxThreads) || w.num_blocks < 0 ||

@@ -2,8 +2,15 @@
 ``acf_tpu/models/sasrec.py``, inference and training.
 
 The hyperparameter fields match the JAX dataclass (the TPU-only routing
-fields ``fused``, ``pack_attention`` and ``train_dtype`` excepted) so
-configurations carry across.
+fields ``fused`` and ``pack_attention`` excepted) so configurations carry
+across. ``train_dtype="bfloat16"`` runs the training path's encoder (the
+loss, the FGSM linearisation and asasrec2's adversarial pass) in the JAX
+kernel's bfloat16 form, ``SASRec(fused="always", train_dtype="bfloat16")``:
+each product takes bfloat16 operands and sums in float32, while LayerNorm,
+softmax, dropout, biases and the residual stream stay float32 (the K2a and
+K2b kernels' bfloat16 forms on CUDA). Evaluation and serving (``encode``,
+``score_all``, ``score_some``, the factored scorer) run float32 whatever
+``train_dtype`` is, as in the JAX package.
 
 Routing: on a CUDA tensor every window goes to
 :func:`acf_tpu_torch.ops.sasrec_fused.fused_encoder`: the K2a kernel
@@ -71,6 +78,7 @@ class SASRec(SequenceModel):
     eps_dense: float = 0.0  # run_adv_ori.py --eps_dense
     eps_conv: float = 0.0   # run_adv_ori.py --eps_conv
     adv_steps: int = 1      # >1 = PGD-style multi-step perturbation
+    train_dtype: str = "float32"  # or "bfloat16": the training path's encoder compute dtype
 
     def init_params(self, generator: torch.Generator, device=None):
         """The JAX tree: ``item_emb`` (truncnormal 0.01, pad row 0 zero),
@@ -98,6 +106,14 @@ class SASRec(SequenceModel):
                 "ln3": init_layer_norm(d, generator.device),
             })
         return tree_map(lambda x: x.to(dev), params)
+
+    def _compute_dtype(self):
+        """The training path's compute dtype: None (float32) or bfloat16."""
+        if self.train_dtype in ("float32", "f32"):
+            return None
+        if self.train_dtype == "bfloat16":
+            return torch.bfloat16
+        raise ValueError(f"train_dtype is float32 or bfloat16, not {self.train_dtype!r}")
 
     # ------------------------------------------------------------------
     def _dropout_masks(self, generator: torch.Generator, b: int, t: int):
@@ -137,25 +153,27 @@ class SASRec(SequenceModel):
                                 masks=masks)
 
     def encode_core(self, params, x, ids_mask, train: bool = False, generator=None,
-                    masks=None):
+                    masks=None, dtype=None):
         """Encoder from √d-scaled input embeddings [B, T, d] and the ids mask
-        [B, T]. With ``train`` (and dropout) the masks are ``masks`` or drawn
-        from ``generator``. CUDA: the K2a/K2b kernels through
-        :func:`fused_encoder` (``ValueError`` beyond their limits); CPU: their
-        plain versions, or :meth:`encode_math` for several heads."""
+        [B, T], its products in compute dtype ``dtype`` (None: float32; the
+        training path passes :meth:`_compute_dtype`). With ``train`` (and
+        dropout) the masks are ``masks`` or drawn from ``generator``. CUDA:
+        the K2a/K2b kernels through :func:`fused_encoder` (``ValueError``
+        beyond their limits); CPU: their plain versions, or
+        :meth:`encode_math` for several heads."""
         if not (train and self.dropout_rate > 0.0):
             masks = None
         elif masks is None:
             masks = self._dropout_masks(generator, x.shape[0], x.shape[1])
         if x.device.type == "cpu" and self.num_heads != 1:
-            return self.encode_math(params, x, ids_mask, masks)
-        return fused_encoder(self, params, x, ids_mask, masks)
+            return self.encode_math(params, x, ids_mask, masks, dtype)
+        return fused_encoder(self, params, x, ids_mask, masks, dtype)
 
-    def encode_math(self, params, x, ids_mask, masks=None):
+    def encode_math(self, params, x, ids_mask, masks=None, dtype=None):
         """The plain encoder (any ``num_heads``) given the dropout masks
-        (None = inference)."""
+        (None = inference), in compute dtype ``dtype``."""
         return encoder_math(params, x, ids_mask, self.num_heads, masks,
-                            1.0 - self.dropout_rate)
+                            1.0 - self.dropout_rate, dtype)
 
     # ------------------------------------------------------------------
     def _pointwise_loss_rows(self, reprs, pos_e, neg_e, pos):
@@ -187,14 +205,16 @@ class SASRec(SequenceModel):
         """No-dropout clean loss — the FGSM linearization point
         (SASRec.py:453-454 runs the delta update with is_training=False)."""
         seq_e, pos_e, neg_e = self._embed_rows(params["item_emb"], seq, pos, neg)
-        reprs = self.encode_core(params, seq_e * math.sqrt(self.dim), seq != 0)
+        reprs = self.encode_core(params, seq_e * math.sqrt(self.dim), seq != 0,
+                                 dtype=self._compute_dtype())
         return self._pointwise_loss_rows(reprs, pos_e, neg_e, pos)[0]
 
     def _clean_loss_fn_window(self, params, window, neg):
         """`_clean_loss_fn` in packed-window form."""
         seq, pos = window[:, :-1], window[:, 1:]
         seq_e, pos_e, neg_e = self._window_rows(params["item_emb"], window, neg)
-        reprs = self.encode_core(params, seq_e * math.sqrt(self.dim), seq != 0)
+        reprs = self.encode_core(params, seq_e * math.sqrt(self.dim), seq != 0,
+                                 dtype=self._compute_dtype())
         return self._pointwise_loss_rows(reprs, pos_e, neg_e, pos)[0]
 
     def adv_target_loss(self, params, batch, generator=None):
@@ -278,7 +298,7 @@ class SASRec(SequenceModel):
         seq, pos = window[:, :-1], window[:, 1:]
         seq_e, pos_e, neg_e = self._window_rows(params["item_emb"], window, neg)
         reprs = self.encode_core(params, seq_e * math.sqrt(self.dim), seq != 0, train=True,
-                                 generator=generator, masks=masks)
+                                 generator=generator, masks=masks, dtype=self._compute_dtype())
         loss, auc = self._pointwise_loss_rows(reprs, pos_e, neg_e, pos)
         if self.l2_emb:
             loss = loss + self.data_share(self.l2_emb * torch.sum(torch.square(params["item_emb"])))
@@ -307,7 +327,7 @@ class SASRec(SequenceModel):
         users, seq, pos, neg = batch
         seq_e, pos_e, neg_e = self._embed_rows(params["item_emb"], seq, pos, neg)
         reprs = self.encode_core(params, seq_e * math.sqrt(self.dim), seq != 0, train=True,
-                                 generator=generator, masks=masks)
+                                 generator=generator, masks=masks, dtype=self._compute_dtype())
         loss, auc = self._pointwise_loss_rows(reprs, pos_e, neg_e, pos)
         if self.l2_emb:
             loss = loss + self.data_share(self.l2_emb * torch.sum(torch.square(params["item_emb"])))
@@ -323,7 +343,8 @@ class SASRec(SequenceModel):
             adv_params = tree_map(torch.add, params, delta)
             aseq_e, apos_e, aneg_e = self._embed_rows(emb_plus, seq, pos, neg)
             adv_reprs = self.encode_core(adv_params, aseq_e * math.sqrt(self.dim), seq != 0,
-                                         train=True, generator=generator, masks=adv_masks)
+                                         train=True, generator=generator, masks=adv_masks,
+                                         dtype=self._compute_dtype())
         else:
             adv_reprs = reprs  # clean encoder (SASRec.py:356-363)
             t = seq.shape[1]

@@ -83,6 +83,11 @@ SIGNATURES = {
     "acf_apl_bigr": [_P] * 15 + [_I] * 3 + [_F] * 3 + [_P],
     "acf_apl_grad": [_P] * 17 + [_I] * 3 + [_F] * 3 + [_P],
 }
+# K2a's and K2b's bfloat16 forms (csrc/sasrec_encoder_fwd_bf16.cu and
+# csrc/sasrec_encoder_bwd_bf16.cu): the float32 forms' entries with the
+# suffix _bf16, their arguments the same.
+SIGNATURES.update({name + "_bf16": args for name, args in list(SIGNATURES.items())
+                   if name.startswith("acf_sasrec_encoder")})
 
 
 def nvcc_path() -> str:
@@ -93,13 +98,13 @@ def nvcc_path() -> str:
     return os.path.join(home, "bin", "nvcc")
 
 
-def _sources():
-    return sorted(CSRC_DIR.glob("*.cu"))
+def _sources(csrc: Path = CSRC_DIR):
+    return sorted(csrc.glob("*.cu"))
 
 
-def _digest(sources) -> str:
+def _digest(sources, csrc: Path = CSRC_DIR) -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources + sorted(CSRC_DIR.glob("*.cuh")):
+    for src in sources + sorted(csrc.glob("*.cuh")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return h.hexdigest()[:16]
@@ -112,16 +117,17 @@ def _run(cmd):
     return proc.stdout + proc.stderr
 
 
-def build() -> Path:
-    """Compile the sources if their library is not built yet; return its path.
+def build(csrc: Path = CSRC_DIR) -> Path:
+    """Compile the sources of ``csrc`` (this checkout's, or another's) if
+    their library is not built yet; return its path.
 
     The compiler's output (``-Xptxas -v``: registers, shared memory, spills)
     is kept beside the library as ``build.log``.
     """
-    sources = _sources()
+    sources = _sources(csrc)
     if not sources:
-        raise RuntimeError(f"no CUDA sources in {CSRC_DIR}")
-    lib = BUILD_DIR / f"libacf_kernels_{_digest(sources)}.so"
+        raise RuntimeError(f"no CUDA sources in {csrc}")
+    lib = BUILD_DIR / f"libacf_kernels_{_digest(sources, csrc)}.so"
     if lib.exists():
         return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -150,12 +156,23 @@ def build() -> Path:
     return lib
 
 
+def load(path: Path) -> ctypes.CDLL:
+    """The library at ``path`` with the argument types of every entry of
+    SIGNATURES it has (one built from another checkout may lack some)."""
+    lib = ctypes.CDLL(str(path))
+    for name, argtypes in SIGNATURES.items():
+        fn = getattr(lib, name, None)
+        if fn is not None:
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+    return lib
+
+
 @functools.cache
 def library() -> ctypes.CDLL:
     """The loaded kernel library, built on first call."""
-    lib = ctypes.CDLL(str(build()))
-    for name, argtypes in SIGNATURES.items():
-        fn = getattr(lib, name)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
+    lib = load(build())
+    missing = [name for name in SIGNATURES if not hasattr(lib, name)]
+    if missing:
+        raise RuntimeError(f"the kernel library lacks {missing}")
     return lib

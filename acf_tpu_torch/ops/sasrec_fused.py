@@ -30,6 +30,20 @@ row is staged at d rounded up to 4 with zero tails, and its C entry copies
 16 bytes at a time where the width and the tensors' alignment allow, 4
 bytes otherwise.
 
+Compute dtypes (the JAX kernel's ``cd``, ``acf_tpu/ops/sasrec_fused.py:81-86``):
+with ``dtype=torch.bfloat16`` every product takes bfloat16 operands and sums
+in float32 (the five dense products always, the attention's from T =
+MXU_ATTN_T on), and the backward, the vjp of that, rounds each product's
+input gradient and weight gradient once while the cotangent it multiplies
+stays float32; LayerNorm, softmax, dropout, biases and the residuals stay
+float32, and so does every tensor. The plain versions compute each such
+product as a float32 product of values rounded to bfloat16 (exact products,
+float32 sums); the kernels' bfloat16 forms (``csrc/*_bf16.cu``, C entries
+with the suffix ``_bf16``) do the same in their float32 FMA chains, and
+count their launches apart (``fused_encoder.bf16_launches``,
+``encoder_bwd.bf16_launches``, ``encoder_bwd.wide_bf16_launches``). At
+float32 every rounding is the identity, so that path is what it was.
+
 Rounding note: the kernels sum dot products, softmax denominators,
 LayerNorm moments and the weight gradients over users in their own order,
 so they agree with their plain versions to f32 rounding, not bit for bit
@@ -44,13 +58,17 @@ import math
 
 import torch
 
-from acf_tpu_torch.nn.layers import dense, layer_norm
+from acf_tpu_torch.nn.layers import layer_norm
 from acf_tpu_torch.ops._build import (
     ENCODER_MAX_BLOCKS, DropoutMasks, EncoderWeights, library,
 )
 
 NEG_INF = -(2.0 ** 32) + 1  # the reference's mask value (SASRecLayers.py:208)
 LN_EPS = 1e-8
+# From this window on, the attention's products take the compute dtype too
+# (``_MXU_ATTN_T`` of acf_tpu/ops/sasrec_fused.py:98); below it they sum in
+# float32 whatever the dtype.
+MXU_ATTN_T = 32
 
 # Kernel limits (csrc/sasrec_encoder_fwd.cu, csrc/sasrec_encoder_bwd.cu).
 # 200 is the widest window of the SASRec paper (ML-1M, Kang & McAuley,
@@ -87,32 +105,66 @@ def _drop(y, mask, keep: float):
     return y if mask is None else torch.where(mask, y / keep, 0.0)
 
 
-def _block(blk, x, ids_mask, num_heads: int = 1, bm=None, keep: float = 1.0):
+def _same(x):
+    return x
+
+
+def _to_bf16(x):
+    """x rounded to bfloat16 (to nearest, ties to even), held in float32."""
+    return x.to(torch.bfloat16).to(torch.float32)
+
+
+def compute_rounding(dtype):
+    """The rounding of the encoder's products in compute dtype ``dtype``:
+    None (or float32) rounds nothing; bfloat16 rounds each product's
+    operands, and each product's result in the backward, to bfloat16
+    (``_dot`` of ``acf_tpu/ops/sasrec_fused.py:81-86`` and its vjp)."""
+    if dtype is None or dtype == torch.float32:
+        return _same
+    if dtype == torch.bfloat16:
+        return _to_bf16
+    raise ValueError(f"the encoder computes in float32 or bfloat16, not {dtype}")
+
+
+def _attn_rounding(r, t: int):
+    """The attention's products round like the dense ones from T =
+    MXU_ATTN_T on; below it they sum in float32 (the JAX kernel's rule)."""
+    return r if t >= MXU_ATTN_T else _same
+
+
+def _dense(p, x, r):
+    """``dense`` (x W + b) with the product's operands rounded by ``r``."""
+    return r(x) @ r(p["w"]) + p["b"]
+
+
+def _block(blk, x, ids_mask, num_heads: int = 1, bm=None, keep: float = 1.0, r=_same):
     """One encoder block (reference SASRecLayers.py:171-319): LN1; causal
     multi-head attention with key and query masking, the probabilities
     dropped after the query masking, the residual onto the normalised input;
     LN2; the FFN with its two dropouts and the residual onto x2; LN3 and the
-    ids mask. Returns (output, cache): the cache holds what the backward
-    reads, so :func:`encoder_bwd_math` differentiates exactly the values
+    ids mask. ``r`` rounds the products' operands (:func:`compute_rounding`).
+    Returns (output, cache): the cache holds what the backward reads, so
+    :func:`encoder_bwd_math` differentiates exactly the values
     :func:`encoder_math` computed."""
     b, t, d = x.shape
     dh = d // num_heads
+    ra = _attn_rounding(r, t)
     q_in = layer_norm(blk["ln1"], x)
 
     def heads(p):  # [B, T, d] -> [B, H, T, dh]
-        return dense(p, q_in).reshape(b, t, num_heads, dh).transpose(1, 2)
+        return _dense(p, q_in, r).reshape(b, t, num_heads, dh).transpose(1, 2)
 
     q, k, v = heads(blk["wq"]), heads(blk["wk"]), heads(blk["wv"])
-    scores = q @ k.transpose(-1, -2) / math.sqrt(dh)
+    scores = ra(q) @ ra(k).transpose(-1, -2) / math.sqrt(dh)
     causal = torch.ones(t, t, dtype=torch.bool, device=x.device).tril()
     scores = torch.where(causal & ids_mask[:, None, None, :], scores, NEG_INF)
     pb = torch.softmax(scores, dim=-1) * ids_mask[:, None, :, None]  # query masking
     pd = _drop(pb, None if bm is None else bm["p"], keep)
-    a = (pd @ v).transpose(1, 2).reshape(b, t, d) + q_in
+    a = (ra(pd) @ ra(v)).transpose(1, 2).reshape(b, t, d) + q_in
     x2 = layer_norm(blk["ln2"], a)
-    z1 = dense(blk["conv1"], x2)
+    z1 = _dense(blk["conv1"], x2, r)
     f1 = _drop(torch.relu(z1), None if bm is None else bm["f1"], keep)
-    f = _drop(dense(blk["conv2"], f1), None if bm is None else bm["f2"], keep) + x2
+    f = _drop(_dense(blk["conv2"], f1, r), None if bm is None else bm["f2"], keep) + x2
     out = layer_norm(blk["ln3"], f) * ids_mask[:, :, None].to(x.dtype)
     return out, dict(h=x, q_in=q_in, q=q, k=k, v=v, pb=pb, pd=pd, a=a, x2=x2, z1=z1,
                      f1=f1, f=f)
@@ -127,7 +179,7 @@ def _input(params, x, ids_mask, masks, keep):
 
 
 def encoder_math(params, x, ids_mask, num_heads: int = 1, masks=None,
-                 keep: float = 1.0):
+                 keep: float = 1.0, dtype=None):
     """The SASRec encoder (``encode_math`` of the JAX model), in plain
     PyTorch.
 
@@ -135,19 +187,26 @@ def encoder_math(params, x, ids_mask, num_heads: int = 1, masks=None,
     masks: None (inference) or the model's dropout masks (``emb`` [B, T, d],
     per block ``p`` [B, H, T, T], ``f1`` and ``f2`` [B, T, d], bool), applied
     where ``acf_tpu/models/sasrec.py:299-318`` applies them, with keep
-    probability ``keep``. Returns [B, T, d]. Only reads ``pos_emb``,
-    ``blocks`` and ``ln_f``.
+    probability ``keep``; dtype: the products' compute dtype, None (float32)
+    or bfloat16, in which each product takes bfloat16 operands and sums in
+    float32 (the JAX kernel's ``_encoder_math(cd=bf16)``: the five dense
+    products always, the attention's from T = MXU_ATTN_T on) while
+    LayerNorm, softmax, dropout, biases and the residuals stay float32.
+    Returns [B, T, d] float32. Only reads ``pos_emb``, ``blocks`` and
+    ``ln_f``.
     """
+    r = compute_rounding(dtype)
     x = _input(params, x, ids_mask, masks, keep)
     for i, blk in enumerate(params["blocks"]):
         x, _ = _block(blk, x, ids_mask, num_heads, None if masks is None else masks["blocks"][i],
-                      keep)
+                      keep, r)
     return layer_norm(params["ln_f"], x)
 
 
-def fused_encoder_plain(params, x, ids_mask, masks=None, keep: float = 1.0):
-    """Plain PyTorch version of K2a (single head)."""
-    return encoder_math(params, x, ids_mask, 1, masks, keep)
+def fused_encoder_plain(params, x, ids_mask, masks=None, keep: float = 1.0, dtype=None):
+    """Plain PyTorch version of K2a (single head), in compute dtype
+    ``dtype``."""
+    return encoder_math(params, x, ids_mask, 1, masks, keep, dtype)
 
 
 # --- backward, derived by hand (K2b's plain version) -------------------------
@@ -173,80 +232,92 @@ def _ln_bwd(p, x, dy):
     return dx, (dy * xhat).sum(dim=rows), dy.sum(dim=rows)
 
 
-def _wgrad(x, dy):
+def _wgrad(x, dy, r=_same):
     """Σ over users and positions of xᵀ dy: the [d, d] kernel gradient of a
-    dense layer y = x W + b."""
+    dense layer y = x W + b, with x rounded by ``r`` and the sum too (the
+    vjp of a product with rounded operands: the sum over every row is
+    rounded once)."""
     d = x.shape[-1]
-    return x.reshape(-1, d).T @ dy.reshape(-1, d)
+    return r(r(x).reshape(-1, d).T @ dy.reshape(-1, d))
 
 
-def _block_bwd(blk, c, ids_mask, bm, keep, dh, weight_grads):
+def _block_bwd(blk, c, ids_mask, bm, keep, dh, weight_grads, r=_same):
     """Backward of one single-head block from its cache (:func:`_block`),
-    given the gradient dh of its (masked) output. Returns (the gradient of
-    its input, its leaf gradients or None)."""
+    given the gradient dh of its (masked) output. With a rounding ``r``
+    (:func:`compute_rounding`) each product's input gradient and weight
+    gradient is rounded once, the cotangent it multiplies is not: the vjp
+    of ``_dot`` with bfloat16 operands. Returns (the gradient of its input,
+    its leaf gradients or None)."""
     d = dh.shape[-1]
+    ra = _attn_rounding(r, dh.shape[1])
     m = ids_mask[:, :, None].to(dh.dtype)
     q, k, v, pb, pd = (c[n][:, 0] for n in ("q", "k", "v", "pb", "pd"))  # the one head
     # h_out = LN3(f) * m; f = drop_f2(f1' W2 + b2) + x2
     df, g3, b3 = _ln_bwd(blk["ln3"], c["f"], dh * m)
     df2 = _drop(df, None if bm is None else bm["f2"], keep)
     # f1' = drop_f1(relu(z1)): relu's gradient is 0 at z1 <= 0, as in JAX
-    dz1 = _drop(df2 @ blk["conv2"]["w"].T, None if bm is None else bm["f1"], keep) \
+    dz1 = _drop(r(df2 @ r(blk["conv2"]["w"]).T), None if bm is None else bm["f1"], keep) \
         * (c["z1"] > 0)
-    dx2 = df + dz1 @ blk["conv1"]["w"].T  # the FFN residual onto x2
+    dx2 = df + r(dz1 @ r(blk["conv1"]["w"]).T)  # the FFN residual onto x2
     da, g2, b2 = _ln_bwd(blk["ln2"], c["a"], dx2)
     # a = drop_p(P) v + q_in, P = softmax(q kᵀ / √d) * query mask
-    dpd = da @ v.transpose(-1, -2)
-    dv = pd.transpose(-1, -2) @ da
+    dpd = ra(da @ ra(v).transpose(-1, -2))
+    dv = ra(ra(pd).transpose(-1, -2) @ da)
     dpb = _drop(dpd, None if bm is None else bm["p"][:, 0], keep) * ids_mask[:, :, None]
     # softmax backward, dS = P ∘ (dP - rowsum(dP ∘ P)): masked queries have
     # dP = 0 and masked keys P = 0 (the reference's -2³²+1 underflows), so
     # both get exactly zero gradient
     ds = pb * (dpb - (dpb * pb).sum(dim=-1, keepdim=True))
-    dq = ds @ k / math.sqrt(d)
-    dk = ds.transpose(-1, -2) @ q / math.sqrt(d)
-    dq_in = (da + dq @ blk["wq"]["w"].T + dk @ blk["wk"]["w"].T
-             + dv @ blk["wv"]["w"].T)  # the attention residual onto q_in
+    dq = ra(ds @ ra(k) / math.sqrt(d))
+    dk = ra(ds.transpose(-1, -2) @ ra(q) / math.sqrt(d))
+    dq_in = (da + r(dq @ r(blk["wq"]["w"]).T) + r(dk @ r(blk["wk"]["w"]).T)
+             + r(dv @ r(blk["wv"]["w"]).T))  # the attention residual onto q_in
     dh_in, g1, b1 = _ln_bwd(blk["ln1"], c["h"], dq_in)
     if not weight_grads:
         return dh_in, None
     rows = (0, 1)
     g = {"ln1": {"gamma": g1, "beta": b1}}
     for name, dy in (("wq", dq), ("wk", dk), ("wv", dv)):
-        g[name] = {"w": _wgrad(c["q_in"], dy), "b": dy.sum(dim=rows)}
+        g[name] = {"w": _wgrad(c["q_in"], dy, r), "b": dy.sum(dim=rows)}
     g["ln2"] = {"gamma": g2, "beta": b2}
-    g["conv1"] = {"w": _wgrad(c["x2"], dz1), "b": dz1.sum(dim=rows)}
-    g["conv2"] = {"w": _wgrad(c["f1"], df2), "b": df2.sum(dim=rows)}
+    g["conv1"] = {"w": _wgrad(c["x2"], dz1, r), "b": dz1.sum(dim=rows)}
+    g["conv2"] = {"w": _wgrad(c["f1"], df2, r), "b": df2.sum(dim=rows)}
     g["ln3"] = {"gamma": g3, "beta": b3}
     return dh_in, g
 
 
 def encoder_bwd_math(params, x, ids_mask, masks, keep: float, g,
-                     weight_grads: bool = True):
-    """The vector-Jacobian product of :func:`encoder_math` (single head) with
-    the cotangent ``g`` [B, T, d], derived by hand in the order K2b follows:
-    LN_f's backward, then per block from the last its LN3, FFN, LN2,
-    attention and LN1 backward, finally the ids mask and the embedding
-    dropout at the input. The forward runs through the same code as
-    :func:`encoder_math` and keeps every block's intermediates (K2b keeps
-    only the block inputs and rematerialises each block from its input).
+                     weight_grads: bool = True, dtype=None):
+    """The vector-Jacobian product of :func:`encoder_math` (single head, in
+    compute dtype ``dtype``) with the cotangent ``g`` [B, T, d], derived by
+    hand in the order K2b follows: LN_f's backward, then per block from the
+    last its LN3, FFN, LN2, attention and LN1 backward, finally the ids mask
+    and the embedding dropout at the input. The forward runs through the
+    same code as :func:`encoder_math` and keeps every block's intermediates
+    (K2b keeps only the block inputs and rematerialises each block from its
+    input). In bfloat16 a weight gradient is rounded once, summed over the
+    whole batch (the JAX kernel rounds each of its grid programs' sums and
+    adds them in float32: the same function while one program holds every
+    user).
 
     Returns ``(dx, grads)``: dx [B, T, d] and, unless ``weight_grads`` is
     False, the gradients of ``pos_emb[-T:]`` ([T, d], summed over users),
     of every block leaf and of ``ln_f``, summed over users and positions,
     as a tree ``{"pos_emb", "blocks", "ln_f"}``.
     """
+    r = compute_rounding(dtype)
     m = ids_mask[:, :, None].to(x.dtype)
     h = _input(params, x, ids_mask, masks, keep)
     caches = []
     for i, blk in enumerate(params["blocks"]):
-        h, c = _block(blk, h, ids_mask, 1, None if masks is None else masks["blocks"][i], keep)
+        h, c = _block(blk, h, ids_mask, 1, None if masks is None else masks["blocks"][i], keep, r)
         caches.append(c)
     dh, gf, bf = _ln_bwd(params["ln_f"], h, g)
     block_grads = []
     for i in reversed(range(len(params["blocks"]))):
         bm = None if masks is None else masks["blocks"][i]
-        dh, gb = _block_bwd(params["blocks"][i], caches[i], ids_mask, bm, keep, dh, weight_grads)
+        dh, gb = _block_bwd(params["blocks"][i], caches[i], ids_mask, bm, keep, dh, weight_grads,
+                            r)
         block_grads.insert(0, gb)
     dx = _drop(dh * m, None if masks is None else masks["emb"], keep)
     if not weight_grads:
@@ -498,16 +569,28 @@ def _check_inputs(x, ids_mask):
     return dev
 
 
-def encoder_fwd(params, x, ids_mask, masks=None, keep: float = 1.0, save: bool = False):
+def _bf16(dtype) -> bool:
+    """Whether ``dtype`` selects the kernels' bfloat16 form (raises for a
+    dtype the encoder does not compute in)."""
+    return compute_rounding(dtype) is _to_bf16
+
+
+def encoder_fwd(params, x, ids_mask, masks=None, keep: float = 1.0, save: bool = False,
+                dtype=None):
     """Launch K2a on CUDA tensors: the encoder forward, with dropout
-    ``masks`` when given. With ``save`` it also writes each block's input
-    and LN_f's input to a [num_blocks + 1, B, T, d] workspace for K2b.
+    ``masks`` when given, in compute dtype ``dtype`` (None or float32: its
+    float32 form; bfloat16: its bfloat16 form, which rounds each product's
+    operands as :func:`encoder_math` does). With ``save`` it also writes
+    each block's input and LN_f's input to a [num_blocks + 1, B, T, d]
+    workspace for K2b.
 
     Returns ``(out, saved)`` (``saved`` is None without ``save``); adds one
-    to ``fused_encoder.launches``. The caller checks the shape with
+    to ``fused_encoder.launches`` (``fused_encoder.bf16_launches`` for the
+    bfloat16 form). The caller checks the shape with
     :func:`check_supported`.
     """
     dev = _check_inputs(x, ids_mask)
+    bf16 = _bf16(dtype)
     b, t, d = x.shape
     nb = len(params["blocks"])
     x_ptr = _ptr("x", x, (b, t, d), dev)
@@ -518,14 +601,19 @@ def encoder_fwd(params, x, ids_mask, masks=None, keep: float = 1.0, save: bool =
     if b == 0:
         return out, saved
     users, threads, smem = _layout(t, d)
+    entry = "acf_sasrec_encoder_fwd_bf16" if bf16 else "acf_sasrec_encoder_fwd"
     with torch.cuda.device(dev):
-        err = library().acf_sasrec_encoder_fwd(
+        err = getattr(library(), entry)(
             weights, dm, x_ptr, ids_mask.data_ptr(), out.data_ptr(),
             0 if saved is None else saved.data_ptr(), b, t, d,
             users, threads, smem, torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
-        raise RuntimeError(f"sasrec_encoder_fwd kernel launch failed: cudaError {err}")
-    fused_encoder.launches += 1
+        raise RuntimeError(f"sasrec_encoder_fwd{'_bf16' if bf16 else ''} kernel launch failed: "
+                           f"cudaError {err}")
+    if bf16:
+        fused_encoder.bf16_launches += 1
+    else:
+        fused_encoder.launches += 1
     return out, saved
 
 
@@ -558,21 +646,25 @@ def _grad_tree(flat, num_blocks, t, d):
 
 
 def encoder_bwd(params, x, ids_mask, g, saved=None, masks=None, keep: float = 1.0,
-                weight_grads: bool = True):
+                weight_grads: bool = True, dtype=None):
     """The encoder backward (K2b): ``(dx, grads)`` as :func:`encoder_bwd_math`
-    returns them.
+    returns them, in compute dtype ``dtype``.
 
     CPU tensors take the plain version (``saved`` is not needed). CUDA
     tensors launch K2b, which reads ``saved``, the block inputs that K2a's
-    training form wrote for the same params, x, ids mask and masks: its
-    tile form where :func:`_bwd_form` says so, adding one to
-    ``encoder_bwd.launches``, else its wide form, adding one to
-    ``encoder_bwd.wide_launches``. Without ``weight_grads`` the kernel
-    computes dx alone and skips its reduction pass.
+    training form wrote for the same params, x, ids mask, masks and dtype:
+    its tile form where :func:`_bwd_form` says so, adding one to
+    ``encoder_bwd.launches`` (``encoder_bwd.bf16_launches`` for its
+    bfloat16 form), else its wide form, adding one to
+    ``encoder_bwd.wide_launches`` (``encoder_bwd.wide_bf16_launches``).
+    Without ``weight_grads`` the kernel computes dx alone and skips its
+    reduction pass.
     """
     if x.device.type == "cpu":
-        return encoder_bwd_math(params, x, ids_mask, masks, keep, g, weight_grads)
+        return encoder_bwd_math(params, x, ids_mask, masks, keep, g, weight_grads, dtype=dtype)
     dev = _check_inputs(x, ids_mask)
+    bf16 = _bf16(dtype)
+    suffix = "_bf16" if bf16 else ""
     b, t, d = x.shape
     nb = len(params["blocks"])
     check_supported(t, d, 1, nb, train=True)
@@ -590,57 +682,66 @@ def encoder_bwd(params, x, ids_mask, g, saved=None, masks=None, keep: float = 1.
     aligned = all(p % 16 == 0 for p in (g_ptr, s_ptr, weights.pos)) and all(
         v.data_ptr() % 16 == 0 for v in _flat_leaves(params))
     if _bwd_form(t, d, aligned) == "wide":
-        _bwd_wide(weights, dm, ids_mask, g_ptr, s_ptr, dx, flat, b, t, d, n_grad, dev)
-        encoder_bwd.wide_launches += 1
+        _bwd_wide(weights, dm, ids_mask, g_ptr, s_ptr, dx, flat, b, t, d, n_grad, dev, suffix)
+        if bf16:
+            encoder_bwd.wide_bf16_launches += 1
+        else:
+            encoder_bwd.wide_launches += 1
         return dx, None if flat is None else _grad_tree(flat, nb, t, d)
     users, threads, smem = _bwd_layout(t, d)
     lib = library()
     with torch.cuda.device(dev):
         groups = -(-b // users)
-        ctas = min(groups, lib.acf_sasrec_encoder_bwd_ctas(threads, smem)) if weight_grads \
-            else groups
+        ctas = (min(groups, getattr(lib, f"acf_sasrec_encoder_bwd_ctas{suffix}")(threads, smem))
+                if weight_grads else groups)
         if ctas <= 0:
             raise RuntimeError(f"K2b cannot run a {threads}-thread block with {smem} "
                                f"bytes of shared memory on {dev}")
         partial = (torch.empty(ctas, n_grad, dtype=torch.float32, device=dev)
                    if weight_grads else None)
-        err = lib.acf_sasrec_encoder_bwd(
+        err = getattr(lib, f"acf_sasrec_encoder_bwd{suffix}")(
             weights, dm, ids_mask.data_ptr(), g_ptr, s_ptr, dx.data_ptr(),
             0 if partial is None else partial.data_ptr(),
             0 if flat is None else flat.data_ptr(), b, t, d, users, threads, smem, ctas,
             torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
-        raise RuntimeError(f"sasrec_encoder_bwd kernel launch failed: cudaError {err}")
-    encoder_bwd.launches += 1
+        raise RuntimeError(f"sasrec_encoder_bwd{suffix} kernel launch failed: cudaError {err}")
+    if bf16:
+        encoder_bwd.bf16_launches += 1
+    else:
+        encoder_bwd.launches += 1
     return dx, None if flat is None else _grad_tree(flat, nb, t, d)
 
 
 encoder_bwd.launches = 0
 encoder_bwd.wide_launches = 0
+encoder_bwd.bf16_launches = 0
+encoder_bwd.wide_bf16_launches = 0
 
 
-def _bwd_wide(weights, dm, ids_mask, g_ptr, s_ptr, dx, flat, b, t, d, n_grad, dev):
-    """Launch K2b's wide form: a persistent grid of as many blocks as the
-    card runs at once (at most one a user), each with its slice of a
-    workspace of ``_bwd_wide_layout``'s floats, and the partial slices of
-    the weight gradients unless ``flat`` is None."""
+def _bwd_wide(weights, dm, ids_mask, g_ptr, s_ptr, dx, flat, b, t, d, n_grad, dev, suffix=""):
+    """Launch K2b's wide form (its bfloat16 form with ``suffix`` "_bf16"):
+    a persistent grid of as many blocks as the card runs at once (at most
+    one a user), each with its slice of a workspace of
+    ``_bwd_wide_layout``'s floats, and the partial slices of the weight
+    gradients unless ``flat`` is None."""
     threads, smem, work_floats = _bwd_wide_layout(t, d)
     lib = library()
     with torch.cuda.device(dev):
-        ctas = min(b, lib.acf_sasrec_encoder_bwd_wide_ctas(threads, smem))
+        ctas = min(b, getattr(lib, f"acf_sasrec_encoder_bwd_wide_ctas{suffix}")(threads, smem))
         if ctas <= 0:
             raise RuntimeError(f"K2b's wide form cannot run a {threads}-thread block with "
                                f"{smem} bytes of shared memory on {dev}")
         work = torch.empty(ctas, work_floats, dtype=torch.float32, device=dev)
         partial = (torch.empty(ctas, n_grad, dtype=torch.float32, device=dev)
                    if flat is not None else None)
-        err = lib.acf_sasrec_encoder_bwd_wide(
+        err = getattr(lib, f"acf_sasrec_encoder_bwd_wide{suffix}")(
             weights, dm, ids_mask.data_ptr(), g_ptr, s_ptr, dx.data_ptr(),
             0 if partial is None else partial.data_ptr(),
             0 if flat is None else flat.data_ptr(), work.data_ptr(), b, t, d, threads, smem,
             ctas, torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
-        raise RuntimeError(f"sasrec_encoder_bwd (wide form) kernel launch failed: "
+        raise RuntimeError(f"sasrec_encoder_bwd_wide{suffix} kernel launch failed: "
                            f"cudaError {err}")
 
 
@@ -662,38 +763,39 @@ def _tree_from(pos, leaves):
 
 
 class _Encoder(torch.autograd.Function):
-    """Inputs (ids_mask, masks, keep, x, pos rows, *leaves): the forward is
-    K2a's training form (CPU: :func:`encoder_math`), the backward K2b (CPU:
-    :func:`encoder_bwd_math`). The ids mask and the masks get no gradient."""
+    """Inputs (ids_mask, masks, keep, dtype, x, pos rows, *leaves): the
+    forward is K2a's training form (CPU: :func:`encoder_math`), the backward
+    K2b (CPU: :func:`encoder_bwd_math`), both in compute dtype ``dtype``.
+    The ids mask and the masks get no gradient."""
 
     @staticmethod
-    def forward(ctx, ids_mask, masks, keep, x, pos, *leaves):
+    def forward(ctx, ids_mask, masks, keep, dtype, x, pos, *leaves):
         params = _tree_from(pos, leaves)
         if x.device.type == "cpu":
-            out, saved = fused_encoder_plain(params, x, ids_mask, masks, keep), None
+            out, saved = fused_encoder_plain(params, x, ids_mask, masks, keep, dtype), None
         else:
-            out, saved = encoder_fwd(params, x, ids_mask, masks, keep, save=True)
+            out, saved = encoder_fwd(params, x, ids_mask, masks, keep, save=True, dtype=dtype)
         ctx.save_for_backward(ids_mask, x, pos, *leaves)
-        ctx.masks, ctx.keep, ctx.blocks_in = masks, keep, saved
+        ctx.masks, ctx.keep, ctx.dtype, ctx.blocks_in = masks, keep, dtype, saved
         return out
 
     @staticmethod
     def backward(ctx, g):
         ids_mask, x, pos, *leaves = ctx.saved_tensors
         need = ctx.needs_input_grad
-        weight_grads = any(need[4:])
+        weight_grads = any(need[5:])
         dx, grads = encoder_bwd(_tree_from(pos, leaves), x, ids_mask, g.contiguous(),
-                                ctx.blocks_in, ctx.masks, ctx.keep, weight_grads)
+                                ctx.blocks_in, ctx.masks, ctx.keep, weight_grads, dtype=ctx.dtype)
         ctx.blocks_in = None
         if grads is None:
             rest = [None] * (1 + len(leaves))
         else:
             rest = [grads["pos_emb"]] + _flat_leaves(grads)
-            rest = [r if n else None for r, n in zip(rest, need[4:])]
-        return (None, None, None, dx if need[3] else None, *rest)
+            rest = [r if n else None for r, n in zip(rest, need[5:])]
+        return (None, None, None, None, dx if need[4] else None, *rest)
 
 
-def fused_encoder(model, params, x, ids_mask, masks=None):
+def fused_encoder(model, params, x, ids_mask, masks=None, dtype=None):
     """The SASRec encoder (``encode_math`` of the JAX model, one head).
 
     Args:
@@ -702,15 +804,19 @@ def fused_encoder(model, params, x, ids_mask, masks=None):
       x: [B, T, d] float32 √d-scaled input embeddings.
       ids_mask: [B, T] bool, True where the window holds an item.
       masks: None, or the dropout masks of ``model._dropout_masks``.
+      dtype: the products' compute dtype, None (float32) or bfloat16
+        (:func:`encoder_math`), as ``fused_encoder(..., dtype=)`` of
+        ``acf_tpu/ops/sasrec_fused.py:336``.
 
     Returns [B, T, d] float32, differentiable in x and every encoder leaf.
     CPU tensors take the plain versions; CUDA tensors launch K2a (and K2b
-    in the backward, in the form :func:`_bwd_form` gives) or raise
-    ``ValueError``.
+    in the backward, in the form :func:`_bwd_form` gives), each in its form
+    for ``dtype``, or raise ``ValueError``.
     """
     if x.dim() != 3 or tuple(ids_mask.shape) != tuple(x.shape[:2]):
         raise ValueError(f"x must be [B, T, d] and ids_mask [B, T]; got "
                          f"{tuple(x.shape)} and {tuple(ids_mask.shape)}")
+    compute_rounding(dtype)
     b, t, d = x.shape
     keep = 1.0 - model.dropout_rate
     pos = params["pos_emb"][-t:]
@@ -721,10 +827,11 @@ def fused_encoder(model, params, x, ids_mask, masks=None):
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"fused_encoder runs on cpu or cuda, not {x.device}")
     if graph:
-        return _Encoder.apply(ids_mask, masks, keep, x, pos, *leaves)
+        return _Encoder.apply(ids_mask, masks, keep, dtype, x, pos, *leaves)
     if x.device.type == "cpu":
-        return fused_encoder_plain(params, x, ids_mask, masks, keep)
-    return encoder_fwd(params, x, ids_mask, masks, keep)[0]
+        return fused_encoder_plain(params, x, ids_mask, masks, keep, dtype)
+    return encoder_fwd(params, x, ids_mask, masks, keep, dtype=dtype)[0]
 
 
 fused_encoder.launches = 0
+fused_encoder.bf16_launches = 0

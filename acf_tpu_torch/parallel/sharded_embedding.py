@@ -175,10 +175,12 @@ def make_sharded_sasrec_step(mesh, model, lr: float = 1e-3):
     sum-reduced pointwise loss without dropout, the FGSM delta on the item
     table only, from the clean loss's gradient, perturbing the target rows
     against the clean representations; SGD. The encoder is the model's own
-    (:meth:`SASRec.encode_core`): on CUDA its forward and backward are the
-    K2a and K2b kernels. The item shard's gradient comes summed over "data"
-    from :func:`sharded_lookup`; the replicated leaves' gradients are summed
-    over "data" here."""
+    (:meth:`SASRec.encode_core`) in its training compute dtype
+    (``train_dtype``): on CUDA its forward and backward are the K2a and K2b
+    kernels, in their bfloat16 forms under ``train_dtype="bfloat16"``. The
+    item shard's gradient comes summed over "data" from
+    :func:`sharded_lookup`; the replicated leaves' gradients are summed over
+    "data" here."""
     d = model.dim
 
     def pointwise_sum_loss(reprs, pos_e, neg_e, ist):
@@ -198,7 +200,7 @@ def make_sharded_sasrec_step(mesh, model, lr: float = 1e-3):
                 return sharded_lookup(mesh, tbl, ids.reshape(-1)).reshape(b, t, d)
 
             x = lookup(item, seq) * math.sqrt(d)
-            reprs = model.encode_core(rp, x, seq != 0)
+            reprs = model.encode_core(rp, x, seq != 0, dtype=model._compute_dtype())
             tgt = item if delta is None else item + delta
             loss = pointwise_sum_loss(reprs, lookup(tgt, pos), lookup(tgt, neg), ist)
             leaves = tree_leaves(rp)

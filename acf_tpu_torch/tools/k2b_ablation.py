@@ -152,7 +152,7 @@ _STAGED_PREFETCH = [
      "                first ? acc[p][i][j] : wp[p][(k0 + i) * d + c0 + j] + acc[p][i][j];\n")]
 _STAGED_REDUCE = (
     "  sasrec_encoder_bwd_reduce<<<blocks, kReduceOuts * kReduceSlices, 0, s>>>(partial, ctas, n_grad,\n"
-    "                                                                        grad);\n")
+    "                                                                        grad, nb, d);\n")
 FORMS = {
     # commits 9f43932 to 202a5d5: ten buffers, the forward's own block_forward
     # for the rematerialisation, weights read with __ldg inside the products

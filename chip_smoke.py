@@ -12,7 +12,8 @@ Phases, any failure exits non-zero:
   2. build  — compile every kernel in ``acf_tpu_torch/csrc`` with nvcc and
               print its ``-Xptxas -v`` lines; K1 (with and without TMA), K2a
               (both width paths), K2b (both forms), its reduction, every K3
-              kernel and the merges of their partials must spill nothing;
+              kernel and the merges of their partials must spill nothing, and
+              so must K2a's and K2b's bfloat16 forms (their own units);
   3. K1     — the rank-count kernel against its plain PyTorch version on
               standard-normal inputs at every ``K1_SHAPES`` case
               (``acf_tpu_torch/tools/k1_ablation.py``: B in {8, 512} x I in
@@ -121,8 +122,8 @@ Phases, any failure exits non-zero:
               through the trainer's ``seq_train_step`` (K2a 3 and K2b 3
               launches) against the same step through the plain encoder,
               ReLU's kink handled as in phases 12-13;
- 19. APR timing: examples/s of 3 epochs after a warm-up (every sample and
-              the median, host clock), one step's wall time, launches,
+ 19. APR timing: examples/s of 2 epochs after a warm-up (both samples and
+              the slower, host clock), one step's wall time, launches,
               device busy and idle time and largest device operations,
               beside the card's name and power limit;
  20. the command line (``acf_tpu_torch.cli.main``) at d = 64, batch 512:
@@ -145,8 +146,8 @@ Phases, any failure exits non-zero:
               the same step on the CPU from the same params, Adam states and
               draws (``APR_TOL`` of the update's scale plus an ulp of the
               largest param);
- 21. the adversaries' timing: examples/s of 3 epochs after the warm-up
-              (every sample and the median, host clock), one step's launches,
+ 21. the adversaries' timing: examples/s of one epoch after the warm-up
+              (host clock), one step's launches,
               wall time, device busy and idle time; the Video-scale NeuMF
               evaluation's seconds and device busy time;
  22. the sequence zoo on the Video-shaped set of phase 4 at its full width
@@ -157,7 +158,7 @@ Phases, any failure exits non-zero:
               Caser): per configuration one step's loss and gradient on the
               card against the CPU from the same params, batch and masks
               (``ZOO_TOL``; under the wrapper its deltas first, then the
-              step at the CPU's deltas), examples/s of 3 epochs after a
+              step at the CPU's deltas), examples/s of one epoch after a
               warm-up (Caser on its own sliding-window epoch), one step's
               launches, wall time and device busy and idle time, and one
               ``evaluate_model`` with K1 counted (61 launches for the
@@ -172,12 +173,12 @@ Phases, any failure exits non-zero:
               (1 clean + 1 APR epoch, the slots reset, row 0 of both tables
               and both slots bit for bit around each epoch, K1 24 launches),
               one clean and one APR step against the CPU, the sort program
-              and the dense pair step (``APR_TOL``), examples/s of 3 epochs
+              and the dense pair step (``APR_TOL``), examples/s of 2 epochs
               and one step's launches and busy share; IRGAN (d = 64, batch
               512, SGD(0.001), T 0.2, lambda 0.2) on the Video-shaped set:
               for the pointwise and the pairwise D one D and one G step
               against the CPU on injected draws, an epoch with both pad rows
-              kept, 3 timed epochs, one D and one G step profiled, an
+              kept, 2 timed epochs, one D and one G step profiled, an
               evaluation through K1 (61); the naive baselines' dense
               evaluations (every position equal to the CPU's, timed); the
               command line on phase 20's files (``apr
@@ -239,7 +240,24 @@ Phases, any failure exits non-zero:
               (``STEP_TOL``); then K1 off TMA (d = 50; d = 64 one float off),
               K2a at d = 50, T = 200 and K2b's wide form at T = 200, d = 50
               and 64 (B = 512, full and dx-only) timed beside their plain
-              versions and bounds.
+              versions and bounds;
+ 29. (run on phase 20's files, after phase 28) SASRec's bfloat16 training
+              path: K2a's and K2b's bfloat16 forms against their plain
+              bfloat16 versions at B = 512 (d = 64, T in {8, 50}: K2b's tile
+              form; d = 50, T = 200: its wide form), K2a's inference and
+              training forms with its saved block inputs, K2b full and
+              dx-only, every tree within ``BF16_TOL`` of its scale and nearer
+              its plain bfloat16 version than its plain float32 one in mean
+              (``BF16_MEAN_RATIO``), two calls bit-identical, only the
+              bfloat16 counters moved; each kernel's
+              float32 and bfloat16 forms timed in turns at (64, 50) and (50,
+              200) beside the plain bfloat16 versions and bounds at the bf16
+              tensor-core peak; then ``asasrec --train_dtype bfloat16`` through
+              the command line on the ml-1m files at d = 64, maxlen 50, at d =
+              50, maxlen 200 and under ``--mesh 1x1`` (NCCL), each training
+              only through the bfloat16 forms and evaluating through the
+              float32 K2a and K1, the first's evaluation against the dense
+              path, the mesh run's params against the first's.
 
 Kernel times come from torch.profiler's device time. A measurement whose
 profile holds no device time in three sessions is timed with CUDA events
@@ -270,6 +288,7 @@ ROOT = Path(__file__).resolve().parent
 
 # NVIDIA H100 SXM data sheet (dense, no sparsity, at the 700 W limit)
 FP32_FLOPS = 67e12      # float32 outside the tensor cores
+BF16_FLOPS = 989e12     # bfloat16 on the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 
 D = 64                  # MF-BPR width of the headline model
@@ -1046,6 +1065,12 @@ def leaf_report(label, leaves, ref):
           f"{label}: a key-bias gradient is not rounding noise ({kernel_kb}, {plain_kb})")
 
 
+def mean_abs(got, ref):
+    """Mean |got - ref| over every entry of two lists of tensors."""
+    return (sum(float((a - b).abs().sum()) for a, b in zip(got, ref))
+            / sum(b.numel() for b in ref))
+
+
 def tree_err(got, ref):
     """(max |got - ref| over a list of tensors, that / max |ref|)."""
     err = max(float((a - b).abs().max()) for a, b in zip(got, ref))
@@ -1247,8 +1272,8 @@ def plain_encoder_model(model):
 
     plain = copy.copy(model)
 
-    def encode_core(params, x, ids_mask, train=False, generator=None, masks=None):
-        return plain.encode_math(params, x, ids_mask, masks if train else None)
+    def encode_core(params, x, ids_mask, train=False, generator=None, masks=None, dtype=None):
+        return plain.encode_math(params, x, ids_mask, masks if train else None, dtype)
 
     plain.encode_core = encode_core
     return plain
@@ -1565,6 +1590,13 @@ K2B_WIDE_BUILD = "sasrec_encoder_bwd_kernelILb1E"  # sasrec_encoder_bwd_kernel<t
 NO_SPILL_KERNELS = ("rank_count_kernel", "sasrec_encoder_fwd_kernel", "sasrec_encoder_bwd_kernel",
                     K2B_WIDE_BUILD, "sasrec_encoder_bwd_reduce", "stats1_kernel", "z_kernel",
                     "fake_kernel", "bigr_kernel", "grad_kernel", "stat_combine", "sum_combine")
+# K2a's and K2b's bfloat16 forms: the same kernels under the same names,
+# built by units of their own, whose sections of the build log must show
+# each of them, spilling nothing (and the rematerialised attention, which
+# the bfloat16 form keeps out of line)
+BF16_UNITS = {"sasrec_encoder_fwd_bf16.cu": ("sasrec_encoder_fwd_kernel",),
+              "sasrec_encoder_bwd_bf16.cu": ("sasrec_encoder_bwd_kernel", K2B_WIDE_BUILD,
+                                             "sasrec_encoder_bwd_reduce", "attention_fwd")}
 # The pass kernels of apl_gen.cu, by their names in a profile ("...::z_kernel(...")
 APL_PASS_KERNELS = {"stats1_kernel": "K3a", "z_kernel": "K3b", "fake_kernel": "K3c",
                     "bigr_kernel": "K3d", "grad_kernel": "K3e"}
@@ -1579,12 +1611,21 @@ def check_no_spill(log):
     memory)."""
     from acf_tpu_torch.tools.ablation import ptxas_lines
 
-    for kernel in NO_SPILL_KERNELS:
-        lines = [x for x in ptxas_lines(log, kernel) if "spill" in x]
+    sections = {}
+    for part in log.split("\n== ")[1:]:
+        name, _, text = part.partition("\n")
+        sections[name.strip()] = text
+    checks = [("", kernel, log) for kernel in NO_SPILL_KERNELS] + [
+        (f" ({unit})", kernel, sections.get(unit, "")) for unit, kernels in BF16_UNITS.items()
+        for kernel in kernels]
+    for where, kernel, text in checks:
+        lines = [x for x in ptxas_lines(text, kernel) if "spill" in x]
         check(bool(lines) and all(x.startswith("0 bytes stack frame, 0 bytes spill stores, "
                                                "0 bytes spill loads") for x in lines),
-              f"{kernel}: ptxas reports a stack frame or spills: {lines}")
-    print(f"ptxas: {', '.join(NO_SPILL_KERNELS)} spill nothing")
+              f"{kernel}{where}: ptxas reports a stack frame or spills: {lines}")
+    print(f"ptxas: {', '.join(NO_SPILL_KERNELS)} spill nothing; in the bfloat16 units, "
+          + "; ".join(f"{unit}: {', '.join(kernels)}" for unit, kernels in BF16_UNITS.items())
+          + " spill nothing")
 
 
 def apl_inputs(dev, b, d, num_items, seed):
@@ -1938,7 +1979,10 @@ APR = dict(eps=0.5, reg_adv=1.0)
 # over B pairs) may differ by 1/B: a pair whose scores tie within rounding
 # counts on one side only.
 APR_TOL = 1e-5
-APR_EPOCHS = 3
+# Timed epochs after a warm-up: two in phases 19 and 23, one in 21 and 22,
+# so that the run stays well inside its time limit as phases are added;
+# medians are the benchmark's to take (ROADMAP item 7).
+APR_EPOCHS = 2
 
 
 def apr_draws(data, seed, dns=1, rounds=8):
@@ -2351,7 +2395,7 @@ def apr_phases(dev, data):
 # 214-230): Adam(0.001) for the recommender and the discriminators, w 0.001,
 # pp 0.2; d = 64, batch 512 on the Video file.
 POP_MODELS = ("amf", "abpr", "aneumf")
-POP_EPOCHS = 3
+POP_EPOCHS = 1  # timed epochs (see APR_EPOCHS)
 # The zoo's CLI runs on the Video file: (model, epochs, flags); Caser under
 # --fgsm one clean and one adversarial epoch.
 ZOO_CLI = (("gru4rec", 1, ["--maxlen", "8"]), ("dream", 1, ["--maxlen", "8"]),
@@ -2426,20 +2470,21 @@ def check_parsers(root: Path):
               "(host clock)")
 
 
-def run_cli(root: Path, argv, counts, epochs, counter=None):
+def run_cli(root: Path, argv, counts, epochs, counter=None, tag=None):
     """``acf_tpu_torch.cli.main.main`` in-process on the files under ``root``
-    (its echo of the log kept off the terminal), the .out file checked: the
-    ``Load data done`` line with ``counts``, one evaluated line an epoch and
-    the ``End.`` line. Returns (seconds, launches of ``counter`` in the run,
-    the last trainer the run fitted)."""
+    (its echo of the log kept off the terminal; its outputs under
+    ``out/<tag>``, by default the model and its mode flags), the .out file
+    checked: the ``Load data done`` line with ``counts``, one evaluated line
+    an epoch and the ``End.`` line. Returns (seconds, launches of
+    ``counter`` in the run, the last trainer the run fitted)."""
     import contextlib
     import io
 
     from acf_tpu_torch.cli.main import main as cli_main
     from acf_tpu_torch.train import Trainer
 
-    opath = root / "out" / "_".join([argv[1]] + [a.lstrip("-") for a in argv if a in (
-        "--fgsm", "--sparse", "--irgan_pair", "--mesh")])
+    opath = root / "out" / (tag or "_".join([argv[1]] + [a.lstrip("-") for a in argv if a in (
+        "--fgsm", "--sparse", "--irgan_pair", "--mesh")]))
     fitted, real_fit = [], Trainer.fit
 
     def fit(self, *args, **kwargs):
@@ -2615,6 +2660,317 @@ def widths_timing(dev, b=TRAIN_BATCH):
     return entry
 
 
+# --- SASRec's bfloat16 training path (--train_dtype bfloat16): phase 29 --------
+
+# K2a's and K2b's bfloat16 forms against their plain bfloat16 versions, by
+# tree_err: max |kernel - plain| over a tree divided by its largest |plain|
+# entry. Both round the same float32 values to bfloat16 and sum the products
+# in float32, in different orders, so a value a float32 ulp apart now and
+# then rounds to the neighbouring bfloat16 value (2^-8 of it) on one side;
+# and a weight gradient, rounded once at the end on both sides, may land one
+# bfloat16 ulp apart. 2^-6 is four bfloat16 ulps of the tree's scale: room
+# for a few such flips carried through two blocks, far below a wrong mask,
+# residual or transposed weight (O(1) of the scale).
+BF16_TOL = 2 ** -6
+# The max gate cannot tell the bfloat16 function from the float32 one: the
+# float32 form's outputs lie only a few times farther off in max (a sum of
+# many small roundings, where a flip is one larger one). The mean tells
+# them apart: each tree's mean |kernel - plain bfloat16| must stay below
+# this share of its mean |kernel - plain float32| (the kernel in float32
+# would sit far above 1, a rounding point missed at its share of the
+# whole rounding). Flips, more of them the more operands a window rounds,
+# keep it at 3e-4 to 0.11 on an H100 (T = 8 to 200).
+BF16_MEAN_RATIO = 0.25
+# Phase 29's kernel checks shift conv1's bias by this much, so that no FFN
+# unit lies near ReLU's kink: there a flip of one bfloat16 operand moves a
+# pre-activation by ~1e-3, enough to gate the unit open on one side and shut
+# on the other (both correct subgradients), and at B = 512 some unit of
+# nearly every user lies that close to 0, so phase 12's way (leave those
+# users out) would leave none in. The gate itself is the float32 form's
+# code, checked in phase 12.
+BF16_CONV1_BIAS = 6.0
+# (d, T) of phase 29's checks at B = 512: K2b's tile form at the windows of
+# phases 12 and 14, its wide form at the SASRec paper's shape
+BF16_CASES = ((D, 8), (D, 50), (WIDTH_D, WIDTH_MAXLEN))
+
+
+def k2_counts():
+    """(K2a float32, K2a bfloat16, K2b tile float32, wide float32, tile
+    bfloat16, wide bfloat16) launch counters."""
+    from acf_tpu_torch.ops.sasrec_fused import encoder_bwd, fused_encoder
+
+    return (fused_encoder.launches, fused_encoder.bf16_launches, encoder_bwd.launches,
+            encoder_bwd.wide_launches, encoder_bwd.bf16_launches, encoder_bwd.wide_bf16_launches)
+
+
+def zero_counts():
+    from acf_tpu_torch.ops.ranking import rank_positions_dot
+    from acf_tpu_torch.ops.sasrec_fused import encoder_bwd, fused_encoder
+
+    fused_encoder.launches = fused_encoder.bf16_launches = rank_positions_dot.launches = 0
+    encoder_bwd.launches = encoder_bwd.wide_launches = 0
+    encoder_bwd.bf16_launches = encoder_bwd.wide_bf16_launches = 0
+
+
+def check_bf16_kernels(dev):
+    """Phase 29, first part: at each of BF16_CASES (B = 512, jittered
+    weights, dropout masks, padded windows), K2a's bfloat16 form in its
+    inference and training forms and its saved block inputs, and K2b's in
+    its full and dx-only modes, against their plain bfloat16 versions
+    (``fused_encoder_plain``, ``_block``, ``encoder_bwd_math`` with dtype
+    bfloat16); two calls bit-identical; only the bfloat16 forms' counters
+    move. Returns the max |kernel - plain| of K2a, of K2b's tile form and of
+    its wide form."""
+    from acf_tpu_torch.ops.sasrec_fused import (
+        _block, _bwd_form, _flat_leaves, _input, compute_rounding, encoder_bwd, encoder_bwd_math,
+        encoder_fwd, fused_encoder_plain,
+    )
+
+    bf16 = torch.bfloat16
+    g = torch.Generator(device=dev).manual_seed(29)
+    max_err = {"fwd": 0.0, "tile": 0.0, "wide": 0.0}
+    for d, t in BF16_CASES:
+        model, params = sasrec_model(dev, 100, 1000, t, d=d, jitter=True)
+        for blk in params["blocks"]:
+            blk["conv1"]["b"] += BF16_CONV1_BIAS
+        keep, b = 1.0 - model.dropout_rate, TRAIN_BATCH
+        x, mask = k2a_inputs(dev, params, b, t, d, g)
+        masks = model._dropout_masks(g, b, t)
+        cot = torch.randn(b, t, d, generator=g, device=dev)
+        form = _bwd_form(t, d)
+        label = f"bf16 d={d} T={t} B={b} (K2b {form} form)"
+        before = k2_counts()
+        inf = encoder_fwd(params, x, mask, dtype=bf16)[0]
+        out, saved = encoder_fwd(params, x, mask, masks, keep, save=True, dtype=bf16)
+        out2, saved2 = encoder_fwd(params, x, mask, masks, keep, save=True, dtype=bf16)
+        dx, grads = encoder_bwd(params, x, mask, cot, saved, masks, keep, dtype=bf16)
+        dx2, grads2 = encoder_bwd(params, x, mask, cot, saved, masks, keep, dtype=bf16)
+        dx_only, none = encoder_bwd(params, x, mask, cot, saved, masks, keep, weight_grads=False,
+                                    dtype=bf16)
+        torch.cuda.synchronize()
+        moved = tuple(a - c for a, c in zip(k2_counts(), before))
+        want = (0, 3, 0, 0, 3, 0) if form == "tile" else (0, 3, 0, 0, 0, 3)
+        check(moved == want, f"{label}: the counters moved {moved}, not {want}")
+        leaves = [grads["pos_emb"], *_flat_leaves(grads)]
+        leaves2 = [grads2["pos_emb"], *_flat_leaves(grads2)]
+        check(torch.equal(out, out2) and torch.equal(saved, saved2) and torch.equal(dx, dx2)
+              and all(torch.equal(a, c) for a, c in zip(leaves, leaves2)),
+              f"{label}: two calls are not bit-identical")
+        check(none is None and torch.equal(dx_only, dx), f"{label}: the dx-only mode differs")
+        check(all(bool(torch.isfinite(v).all()) for v in (inf, out, dx, *leaves)),
+              f"{label}: not finite")
+        r = compute_rounding(bf16)
+        h, blocks_in = _input(params, x, mask, masks, keep), []
+        for i, blk in enumerate(params["blocks"]):
+            blocks_in.append(h)
+            h, _ = _block(blk, h, mask, 1, masks["blocks"][i], keep, r)
+        # each tree's plain bfloat16 and plain float32 versions
+        refs = {}
+        for dt in (bf16, None):
+            m_dx, m_grads = encoder_bwd_math(params, x, mask, masks, keep, cot, dtype=dt)
+            refs[dt] = {"K2a inference": [fused_encoder_plain(params, x, mask, dtype=dt)],
+                        "K2a training": [fused_encoder_plain(params, x, mask, masks, keep, dt)],
+                        "K2b dx": [m_dx],
+                        "K2b leaves": [m_grads["pos_emb"], *_flat_leaves(m_grads)]}
+        got = {"K2a inference": [inf], "K2a training": [out], "K2b dx": [dx],
+               "K2b leaves": leaves}
+        errs = {k: tree_err(v, refs[bf16][k]) for k, v in got.items()}
+        errs["saved block inputs"] = tree_err([saved], [torch.stack([*blocks_in, h])])
+        ratios = {k: mean_abs(v, refs[bf16][k]) / mean_abs(v, refs[None][k])
+                  for k, v in got.items()}
+        print(f"{label}: " + "; ".join(f"{k} max |d| {e:.3e} ({s:.2e} of scale)"
+                                       for k, (e, s) in errs.items())
+              + f" (gate {BF16_TOL:.2e} of scale); mean |kernel - plain bfloat16| over mean "
+              "|kernel - plain float32|: " + ", ".join(f"{k} {v:.2e}" for k, v in ratios.items())
+              + f" (at most {BF16_MEAN_RATIO}); bit-identical over two calls; dx-only equal")
+        for k, (_, s) in errs.items():
+            check(s <= BF16_TOL, f"{label}: {k} {s:.3e} of scale > {BF16_TOL}")
+        for k, v in ratios.items():
+            check(v <= BF16_MEAN_RATIO, f"{label}: {k} lies {v:.3e} as far from its plain "
+                  f"bfloat16 version as from the float32 one (> {BF16_MEAN_RATIO})")
+        max_err["fwd"] = max(max_err["fwd"], *(errs[k][0] for k in ("K2a inference",
+                                                                     "K2a training")))
+        max_err[form] = max(max_err[form], errs["K2b dx"][0], errs["K2b leaves"][0])
+    return max_err
+
+
+def bf16_bound(dense_flops, attn_flops, t, nbytes):
+    """(ms, "operations" or "bytes"): the products at the bf16 tensor-core
+    peak, the attention's at it from T = 32 on (float32 below), against the
+    bytes."""
+    ops_s = dense_flops / BF16_FLOPS + attn_flops / (BF16_FLOPS if t >= 32 else FP32_FLOPS)
+    bytes_s = nbytes / HBM_BYTES_PER_S
+    return max(ops_s, bytes_s) * 1e3, "operations" if ops_s >= bytes_s else "bytes"
+
+
+def bf16_timing(dev, b=TRAIN_BATCH, rounds=2):
+    """Phase 29's timing at B = 512 with dropout masks, at (d, T) = (64, 50)
+    (K2b's tile form) and (50, 200) (its wide form): K2a's inference and
+    training forms and K2b full and dx-only, each in its float32 and its
+    bfloat16 form in turns (float32, bfloat16, ``rounds`` times), by their
+    mean time a launch (``launches_ms``), beside the bfloat16 forms' plain
+    versions and bounds (``bf16_bound``). Returns the bfloat16 entries of
+    the kernels line (without launches and errors)."""
+    from acf_tpu_torch.ops.sasrec_fused import (
+        encoder_bwd, encoder_bwd_math, encoder_fwd, fused_encoder_plain,
+    )
+
+    bf16 = torch.bfloat16
+    g = torch.Generator(device=dev).manual_seed(290)
+    entries = {}
+    for d, t in ((D, 50), (WIDTH_D, WIDTH_MAXLEN)):
+        model, params = sasrec_model(dev, 100, 1000, t, d=d)
+        nb, keep = model.num_blocks, 1.0 - model.dropout_rate
+        x, mask = k2a_inputs(dev, params, b, t, d, g, padded=False)
+        masks = model._dropout_masks(g, b, t)
+        cot = torch.randn(b, t, d, generator=g, device=dev)
+        saved = {dt: encoder_fwd(params, x, mask, masks, keep, save=True, dtype=dt)[1]
+                 for dt in (None, bf16)}
+        calls = {"K2a inference": (lambda dt: encoder_fwd(params, x, mask, dtype=dt), K2A_KERNEL),
+                 "K2a training": (lambda dt: encoder_fwd(params, x, mask, masks, keep, save=True,
+                                                         dtype=dt), K2A_KERNEL),
+                 "K2b": (lambda dt: encoder_bwd(params, x, mask, cot, saved[dt], masks, keep,
+                                                dtype=dt), K2B_KERNELS),
+                 "K2b dx-only": (lambda dt: encoder_bwd(params, x, mask, cot, saved[dt], masks,
+                                                        keep, weight_grads=False, dtype=dt),
+                                 K2B_KERNELS[:1])}
+        mark = len(EVENT_TIMED)
+        times = {(k, dt): [] for k in calls for dt in ("float32", "bfloat16")}
+        for _ in range(rounds):
+            for k, (fn, names) in calls.items():
+                for dt, dtype in (("float32", None), ("bfloat16", bf16)):
+                    times[k, dt].append(launches_ms(lambda: fn(dtype), names, 10))
+        plain = {"K2a inference": device_ms(lambda: fused_encoder_plain(params, x, mask,
+                                                                        dtype=bf16),
+                                            PLAIN_ITERS, 2),
+                 "K2a training": device_ms(lambda: fused_encoder_plain(params, x, mask, masks,
+                                                                       keep, bf16),
+                                           PLAIN_ITERS, 2),
+                 "K2b": device_ms(lambda: encoder_bwd_math(params, x, mask, masks, keep, cot,
+                                                           dtype=bf16), PLAIN_ITERS, 2)}
+        timer = timer_since(mark)
+        (_, fb), (_, bb) = k2_train_work(b, t, d, nb)
+        rows = b * t * nb
+        bounds = {"K2a inference": bf16_bound(rows * 10 * d * d, rows * 2 * (t + 1) * d, t,
+                                              k2a_work(b, t, d, nb)[1]),
+                  "K2a training": bf16_bound(rows * 10 * d * d, rows * 2 * (t + 1) * d, t, fb),
+                  "K2b": bf16_bound(rows * 20 * d * d, rows * 4 * (t + 1) * d, t, bb)}
+        mean = {key: sum(v) / len(v) for key, v in times.items()}
+        for k in calls:
+            extra = (f", plain {plain[k]:.4f} ms, bound {bounds[k][0]:.4f} ms ({bounds[k][1]})"
+                     if k in plain else "")
+            print(f"{k} at B={b} T={t} d={d}, in turns: float32 "
+                  + ", ".join(f"{v:.4f}" for v in times[k, "float32"]) + " ms; bfloat16 "
+                  + ", ".join(f"{v:.4f}" for v in times[k, "bfloat16"])
+                  + f" ms (bfloat16 / float32 {mean[k, 'bfloat16'] / mean[k, 'float32']:.3f})"
+                  + extra)
+        entries[d, t] = {
+            "fwd": {"ms": mean["K2a training", "bfloat16"], "plain_ms": plain["K2a training"],
+                    "bound_ms": bounds["K2a training"][0],
+                    "bound_by": bounds["K2a training"][1], "library_ms": None,
+                    "f32_ms": mean["K2a training", "float32"],
+                    "inference_ms": mean["K2a inference", "bfloat16"],
+                    "inference_f32_ms": mean["K2a inference", "float32"],
+                    "inference_plain_ms": plain["K2a inference"], "timer": timer},
+            "bwd": {"ms": mean["K2b", "bfloat16"], "plain_ms": plain["K2b"],
+                    "bound_ms": bounds["K2b"][0], "bound_by": bounds["K2b"][1],
+                    "library_ms": None, "f32_ms": mean["K2b", "float32"],
+                    "dx_only_ms": mean["K2b dx-only", "bfloat16"],
+                    "dx_only_f32_ms": mean["K2b dx-only", "float32"], "timer": timer}}
+    tile, wide = entries[D, 50], entries[WIDTH_D, WIDTH_MAXLEN]
+    tile["fwd"]["t200_d50"] = {k: wide["fwd"][k] for k in ("ms", "f32_ms", "plain_ms",
+                                                            "bound_ms", "inference_ms")}
+    return tile["fwd"], tile["bwd"], wide["bwd"]
+
+
+def bf16_cli(root, ml1m):
+    """Phase 29's command lines on phase 20's ml-1m files, each with every
+    counter zeroed just before it and read just after: ``asasrec
+    --train_dtype bfloat16 --maxlen 50`` (d = 64; one clean and one
+    adversarial epoch, an evaluation after each), the same at the SASRec
+    paper's shape (``--d 50 --maxlen 200``) and the first again under
+    ``--mesh 1x1`` (NCCL, a group of one process). Training must run
+    through the bfloat16 forms alone (K2a 3 and K2b 3 launches a step over
+    the two epochs, K2b in its tile form at maxlen 50 and its wide form at
+    200), each evaluation through the float32 K2a and K1 (one launch a
+    user tile each); the first run's evaluation at its trained params
+    against the dense path; the mesh run's params against the first's.
+    Returns the launches by run."""
+    import torch.distributed as dist
+
+    from acf_tpu_torch.ops.ranking import rank_positions_dot
+    from acf_tpu_torch.train.checkpoint import _flatten_with_names
+
+    counts = expected_counts(ml1m)
+    tiles = math.ceil(counts[3] / BATCH_USERS)
+    common = ["--model", "asasrec", "--train_dtype", "bfloat16", "--data", "ml-1m", "--epochs",
+              "2", "--adv_epoch", "1", "--bs", str(TRAIN_BATCH)]
+    runs, launched = {}, {}
+    for name, extra in (("asasrec", ["--d", str(D), "--maxlen", "50"]),
+                        ("asasrec_d50_t200", ["--d", str(WIDTH_D), "--maxlen",
+                                              str(WIDTH_MAXLEN)]),
+                        ("asasrec_mesh_1x1", ["--d", str(D), "--maxlen", "50", "--mesh", "1x1"])):
+        zero_counts()
+        _, _, tr = run_cli(root, [*common, *extra], counts, 2, tag=f"bf16_{name}")  # the main path
+        runs[name] = tr
+        k2a32, k2a16, tile32, wide32, tile16, wide16 = k2_counts()
+        launched[name] = {"k2a": k2a32, "k2a_bf16": k2a16, "k2b": tile32, "k2b_wide": wide32,
+                          "k2b_bf16": tile16, "k2b_wide_bf16": wide16,
+                          "k1": rank_positions_dot.launches}
+        steps = 3 * tr.num_batches  # a step of the clean epoch, two of the adversarial one
+        wide = name == "asasrec_d50_t200"
+        print(f"cli {name} (--train_dtype bfloat16): {tr.num_batches} steps an epoch; "
+              f"launches {launched[name]}")
+        check(tr.model.train_dtype == "bfloat16", f"cli {name}: the model is not bfloat16")
+        check((k2a16, wide16 if wide else tile16, tile16 if wide else wide16) == (steps, steps, 0)
+              and (k2a32, tile32, wide32) == (2 * tiles, 0, 0)
+              and rank_positions_dot.launches == 2 * tiles,
+              f"cli {name}: launches {launched[name]}: training must run the bfloat16 forms "
+              f"({steps} each), evaluation the float32 K2a and K1 ({2 * tiles} each)")
+    tr = runs["asasrec"]
+    res = tr.evaluator.evaluate_model(tr.model, tr.params)
+    check_against_dense("cli asasrec bf16 (trained params)", tr.evaluator, tr.model, tr.params,
+                        res)
+    mesh = runs["asasrec_mesh_1x1"]
+    check(mesh.mesh is not None and mesh.mesh.shape == {"data": 1, "model": 1}
+          and not dist.is_initialized(), "cli --mesh 1x1: no mesh, or its group outlived the run")
+    got, ref = dict(_flatten_with_names(mesh.params)), dict(_flatten_with_names(tr.params))
+    names = sorted(ref)
+    err, rel = tree_err([got[n] for n in names], [ref[n] for n in names])
+    same = all(torch.equal(got[n], ref[n]) for n in names)
+    print(f"cli asasrec --train_dtype bfloat16 --mesh 1x1 (NCCL): params against the "
+          f"single-device run max |d| {err:.3e} ({rel:.2e} of scale), bit-equal {same}")
+    check(rel <= STEP_TOL, f"cli --mesh 1x1 bf16: params differ from one device by {rel:.3e}")
+    return launched
+
+
+def bf16_phase(dev, root, ml1m):
+    """Phase 29 on phase 20's files: the bfloat16 forms against their plain
+    versions, their times beside the float32 forms', and the command
+    line's bfloat16 runs. Returns (the launches by run, the kernels line's
+    entries for K2a's, K2b's tile form's and its wide form's bfloat16
+    forms)."""
+    err = check_bf16_kernels(dev)
+    fwd, bwd, wide = bf16_timing(dev)
+    launched = bf16_cli(root, ml1m)
+    main, paper = launched["asasrec"], launched["asasrec_d50_t200"]
+    fwd.update(name="sasrec_encoder_fwd_bf16", launches=main["k2a_bf16"], max_abs_err=err["fwd"],
+               launches_d50_t200=paper["k2a_bf16"],
+               launches_mesh=launched["asasrec_mesh_1x1"]["k2a_bf16"])
+    bwd.update(name="sasrec_encoder_bwd_bf16", launches=main["k2b_bf16"],
+               max_abs_err=err["tile"], launches_mesh=launched["asasrec_mesh_1x1"]["k2b_bf16"])
+    wide.update(name="sasrec_encoder_bwd_wide_bf16", launches=paper["k2b_wide_bf16"],
+                max_abs_err=err["wide"])
+    entries = []
+    for e, source, line in ((fwd, "sasrec_encoder_fwd_bf16.cu", 225),
+                            (bwd, "sasrec_encoder_bwd_bf16.cu", 236),
+                            (wide, "sasrec_encoder_bwd_bf16.cu", 236)):
+        entries.append({"name": e.pop("name"), "route": "cuda",
+                        "source": f"acf_tpu_torch/csrc/{source}",
+                        "replaces": f"acf_tpu/ops/sasrec_fused.py:{line}", **e})
+    return launched, entries
+
+
 def pop_draws(tr, seed):
     """One step's draws on the CPU: pair indices [1, B], negative candidates
     [1, R, B] and the index draws into the four pools ([1, B] for the
@@ -2725,9 +3081,10 @@ def time_neumf_eval(tr):
 
 
 def cli_phases(dev):
-    """Phases 20-21, and 28 on phase 20's files before phase 21. Returns
-    (K1's launches in the CLI runs, by run; the APR run's trainer; phase
-    28's launches and the wide form's entry)."""
+    """Phases 20-21, and 28 and 29 on phase 20's files before phase 21.
+    Returns (K1's launches in the CLI runs, by run; the APR run's trainer;
+    phase 28's launches and the wide form's entry; phase 29's launches and
+    the bfloat16 forms' entries)."""
     import tempfile
 
     with tempfile.TemporaryDirectory() as tmp:
@@ -2743,20 +3100,22 @@ def cli_phases(dev):
         lap("20")
         widths = widths_phase(dev, root, ml1m)
         lap("28")
+        bf16 = bf16_phase(dev, root, ml1m)
+        lap("29")
     for name in POP_MODELS:
         tr = trainers[name]
         time_own_epochs(name, tr, POP_EPOCHS, f"the CLI run's epoch, {tr.cli_s:.2f} s with its "
                         "loading and evaluation")
     time_neumf_eval(trainers["aneumf"])
     lap("21")
-    return k1, trainers["apr"], widths
+    return k1, trainers["apr"], widths, bf16
 
 # --- the sequence zoo: phase 22 --------------------------------------------------
 
 # The zoo at its full width (scripts/zoo_video.py:35-66,89): d = 64, batch 512,
 # Adam(1e-3) (DSIN Adam(1e-4)), maxlen 8 for GRU4Rec and DREAM, 5 for Caser
 # and DRCF, DSIN as 2 sessions of 4 items, on the Video-shaped set.
-ZOO_EPOCHS = 3
+ZOO_EPOCHS = 1  # timed epochs (see APR_EPOCHS)
 # One step on the card against the same step on the CPU from the same params
 # and draws: the loss to rtol 1e-5 and the accuracies within 1/B
 # (``check_stats``), every gradient leaf by the max |d| over the tree over its
@@ -3129,11 +3488,11 @@ def zoo_phase(dev, data):
 # at the headline configuration of bench.py:66-85: d = 64, batch 512,
 # Adagrad(0.05, 0.1), eps 0.5, reg_adv 1, dedup "auto" (the equality product
 # at this batch). Its steps are held to APR_TOL as phase 18's are.
-SPARSE_EPOCHS = 3
+SPARSE_EPOCHS = 2  # timed epochs (see APR_EPOCHS)
 # IRGAN as the JAX CLI builds it (acf_tpu/cli/main.py:269-270): d = 64,
 # SGD(0.001) for both players, T 0.2, lambda 0.2; batch 512 on the
 # Video-shaped set of phase 4.
-IRGAN_EPOCHS = 3
+IRGAN_EPOCHS = 2  # timed epochs (see APR_EPOCHS)
 NAIVE = (("pop", "MostPopular"), ("mrv", "MostRecentlyVisit"),
          ("mfv", "MostFrequentlyVisit"), ("av", "AlreadyVisit"))
 # the command line's refusals of phase 23, with the JAX CLI's messages
@@ -4510,8 +4869,10 @@ def main():
     # 20-21. The command line on the reference's file formats, the popularity
     # adversaries' steps against the CPU, their timing; between them, 28: the
     # SASRec paper's shape (asasrec --d 50 --maxlen 200) and bpr --d 50 on
-    # phase 20's files, and the new forms' times
-    k1_cli, apr_cli, (widths, wide_entry) = cli_phases(dev)
+    # phase 20's files, and the new forms' times; and 29: the bfloat16 forms
+    # of K2a and K2b against their plain versions, their times, asasrec
+    # --train_dtype bfloat16 through the command line (and under --mesh 1x1)
+    k1_cli, apr_cli, (widths, wide_entry), (bf16, bf16_entries) = cli_phases(dev)
 
     # 22. The sequence zoo: steps against the CPU, timing, evaluations, the
     # session stream
@@ -4557,7 +4918,7 @@ def main():
         "source": "acf_tpu_torch/csrc/sasrec_encoder_bwd.cu",
         "replaces": "acf_tpu/ops/sasrec_fused.py:236",
         "launches": widths["asasrec"]["k2b_wide"], "max_abs_err": wide_err, **wide_entry,
-    }, *k3_entries]
+    }, *bf16_entries, *k3_entries]
     k2a_entry["launches_widths"] = widths["asasrec"]["k2a"]
     for entry in k3_entries:
         entry["launches_mesh_models"] = {run: v[entry["name"]] for run, v in mesh_models.items()

@@ -3,8 +3,8 @@
 d = 8), against the JAX package's (``acf_tpu/cli/main.py``): ``make_model``
 builds the same classes with the same hyperparameters and optimizers for
 the same command line; the runs of ``tests/test_cli.py`` write the JAX CLI's files in its format;
-the combinations the JAX CLI refuses exit with its messages; every flag the
-port does not have yet exits naming the ROADMAP item that ports it.
+the combinations the JAX CLI refuses exit with its messages; ``--train_dtype
+bfloat16`` trains SASRec's family and is ignored by the other models.
 
 Optimizers are compared by what they do: three updates of the same params
 by the same gradients, to rtol 1e-5 (the port's Adagrad differs from
@@ -33,7 +33,7 @@ from acf_tpu_torch.ops.ranking import rank_positions_dot
 ARGS = ["--data", "test", "--path", "data/", "--epochs", "2", "--d", "8", "--bs", "64",
         "--maxlen", "5", "--device", "cpu"]
 # fields of the JAX dataclasses that only configure TPU code paths
-TPU_ONLY_FIELDS = {"fused", "pack_attention", "train_dtype", "manual_gen", "fused_gen"}
+TPU_ONLY_FIELDS = {"fused", "pack_attention", "manual_gen", "fused_gen"}
 # fields of JAX dataclasses that nothing reads (DSIN's attention is
 # single-head whatever its num_heads)
 UNREAD_FIELDS = {"DSIN": {"num_heads"}}
@@ -92,6 +92,8 @@ MAKE_CASES = [(name, []) for name in cli.PORTED_MODELS] + [
     ("aneumf", ["--w", "0.01", "--pp", "0.1"]),
     ("asasrec2", ["--eps_pos", "0.1", "--eps_dense", "0.2", "--eps_conv", "0.3",
                   "--maxlen", "7", "--adv_steps", "3"]),
+    ("sasrec", ["--train_dtype", "bfloat16"]),
+    ("asasrec", ["--train_dtype", "bfloat16"]),
     ("apl", ["--loss", "wgan"]),
     ("gru4rec", ["--loss", "top1", "--final_act", "relu", "--hidden_act", "relu"]),
     ("caser", ["--maxlen", "7"]),
@@ -369,27 +371,35 @@ def test_staged_eps_rejects_single_phase_models(tmp_path):
                          "--opath", str(tmp_path) + "/"])
 
 
-# (test id, argv, what the message names, the ROADMAP label)
-REFUSALS = [("--train_dtype bfloat16", ["--model", "sasrec", "--train_dtype", "bfloat16"],
-             "--train_dtype bfloat16", cli.ITEM_14)]
+@pytest.mark.parametrize("name", ["asasrec", "bpr"])
+def test_train_dtype_bfloat16(tmp_path, monkeypatch, name):
+    """``--train_dtype bfloat16`` trains SASRec's family through the encoder's
+    bfloat16 form (both phases' models carry it, the losses are finite) and
+    is accepted and ignored by every other model, as the JAX CLI does."""
+    built = []
 
+    def make_model(*a):
+        out = make(*a)
+        built.append(out)
+        return out
 
-@pytest.mark.parametrize("argv,what,item", [r[1:] for r in REFUSALS], ids=[r[0] for r in REFUSALS])
-def test_unported_models_and_flags_name_their_roadmap_item(argv, what, item):
-    """Each exits before reading data (the path does not exist) and before a
-    process group starts, naming the flag and its ROADMAP item. The labels
-    are the ones ROADMAP.md lists. Every model name of the JAX CLI is
-    ported, and trains under ``--mesh``."""
-    assert not hasattr(cli, "ITEM_13")  # distribution is ported
-    with pytest.raises(SystemExit) as e:
-        cli.main(["--path", "/nonexistent/", "--device", "cpu", *argv])
-    assert str(e.value) == f"{what} is not ported to acf_tpu_torch yet: {item} ports it"
-    assert not torch.distributed.is_initialized()
-    assert item in open(os.path.join(os.path.dirname(__file__), "..", "ROADMAP.md")).read()
-    assert set(cli.PORTED_MODELS) >= {
-        "mf", "bpr", "apr", "amf", "amf2", "abpr", "neumf", "aneumf", "sasrec", "asasrec",
-        "asasrec2", "gru4rec", "caser", "dream", "drcf", "dsin", "irgan", "apl", "pop", "mrv",
-        "mfv", "av"}  # the JAX CLI's model names (acf_tpu/cli/main.py:6-8)
+    make = cli.make_model
+    monkeypatch.setattr(cli, "make_model", make_model)
+    best, lines = run(tmp_path, "--model", name, "--train_dtype", "bfloat16", "--adv_epoch", "1")
+    assert np.isfinite(best["ndcg"]) and best["epoch"] >= 0
+    (model, _, clean), = built
+    if name == "asasrec":
+        assert model.train_dtype == clean.train_dtype == "bfloat16"
+        assert model._compute_dtype() is torch.bfloat16
+    else:
+        assert not hasattr(model, "train_dtype")
+    # the trainer stops at a NaN loss, writing a line that says so
+    assert not any("NaN loss" in x for x in lines), lines
+    epochs = [x for x in lines if x.startswith("Epoch ") and "HR =" in x]
+    accs = [[float(v) for v in re.findall(r"ACC = (\S+) ACC_adv = (\S+)", x)[0]] for x in epochs]
+    assert len(epochs) == 2 and np.isfinite(accs).all(), epochs
+    if name == "asasrec":  # the second epoch is the adversarial phase's
+        assert accs[0][0] == accs[0][1] and accs[1][0] != accs[1][1]
 
 
 def test_the_default_device_needs_cuda(tmp_path):

@@ -22,6 +22,23 @@ ROOT = Path(__file__).resolve().parent.parent
 BRIGHTKITE = str(ROOT / "data" / "brightkite.txt")
 
 
+@pytest.fixture(scope="module", autouse=True)
+def jax_bridge(tmp_path_factory):
+    """The JAX bridge built into a library of this module's own. Its default
+    path, ``~/.cache/acf_tpu/libacf_native.so``, is written in place by g++
+    and shared by every test process, so a process that loads it while
+    another writes it gets ``None`` for its whole life (``_TRIED``). The
+    bridge's state is restored afterwards."""
+    lib = str(tmp_path_factory.mktemp("jax_native") / "libacf_native.so")
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jax_native_io, "_lib_path", lambda: lib)
+        mp.setattr(jax_native_io, "_TRIED", False)
+        mp.setattr(jax_native_io, "_LIB", None)
+        if jax_native_io.get_lib() is None:
+            pytest.fail(f"the JAX bridge's library did not build or load at {lib}")
+        yield
+
+
 def write_two_col(path, seed=0, n=500):
     rng = np.random.default_rng(seed)
     u, i = rng.integers(1, 60, n), rng.integers(1, 90, n)
