@@ -81,17 +81,31 @@
 //     shared memory and masked in the epilogues, as in K1.
 //   * Elementwise chains use __fmul_rn/__fadd_rn where the reference rounds
 //     each step, so they are not contracted into FMAs.
-// Requires d % 4 == 0, d <= kMaxD (K3e's register columns) and 16-byte
-// aligned rows; the wrapper (acf_tpu_torch/ops/apl_gen_fused.py,
-// check_supported) checks; shared memory binds above d = 180 (K3e). Later
-// work: the product tile_dot shared by K3a-K3e (wgmma or 3xTF32, larger
-// register tiles), which sets most of each pass's time; K3a folded into
-// K3b's prologue and K3c into K3b; one pass for K3d-K3e; fewer dP partials
-// (K3e's merge reads 48.5 MB of them).
+// Widths and alignments: any d >= 1 and any float32 alignment, in one of
+// three forms of every kernel (the C entries choose; each sums its products
+// over k in the same order, so the forms agree bit for bit where two apply):
+//   kAligned  d % 4 == 0, d <= kMaxWhole, the tables and user rows 16-byte
+//             aligned and the [B, I] operands at the start of a unit: whole
+//             rows staged by 16-byte copies, as described above;
+//   kAny      d <= kMaxWhole otherwise: rows of pad4(d) floats (a zero tail)
+//             staged by 4-byte copies, and each [B, I] operand's runs read
+//             at their offset from its first aligned unit;
+//   kSliced   d > kMaxWhole: every [64, ld] tile holds one k slice of kSlice
+//             columns (16- or 4-byte copies), staged in turn for each
+//             product, which carries its sums from slice to slice; K3e's dQ
+//             and dP loops walk the columns in the same slices, dQ summed in
+//             place in device memory (its rows belong to one block).
+// The wrapper (acf_tpu_torch/ops/apl_gen_fused.py, check_supported) refuses
+// only what no form takes. Later work: the product tile_dot shared by K3a-K3e
+// (wgmma or 3xTF32, larger register tiles), which sets most of each pass's
+// time; K3a folded into K3b's prologue and K3c into K3b; one pass for
+// K3d-K3e; fewer dP partials (K3e's merge reads 48.5 MB of them).
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <initializer_list>
 
 #include "cp_async.cuh"
 
@@ -102,7 +116,8 @@ constexpr int kSub = 4;                    // users (and items) per thread
 constexpr int kLanes = 16;                 // threads along items (and users)
 constexpr int kThreads = kLanes * kLanes;  // 256
 constexpr int kChunkTiles = 4;             // item tiles per K3a-K3d block
-constexpr int kMaxD = 128;                 // K3e: 8 register columns a thread
+constexpr int kMaxWhole = 128;             // whole-row forms: K3e's 8 register columns a thread
+constexpr int kSlice = 64;                 // kSliced: columns of a k slice (and a K3e column slice)
 constexpr int kLdD = kTile + 1;            // K3e: dlogits tile row stride
 constexpr int kRunUnits = kTile / 4 + 1;   // K3b-K3e: 4-item units a 64-item run can touch
 constexpr int kNoiseLd = kTile + 16;       // K3b-K3e: noise (z) tile row stride (floats;
@@ -110,8 +125,36 @@ constexpr int kNoiseLd = kTile + 16;       // K3b-K3e: noise (z) tile row stride
 constexpr int kMemLd = 4 * kRunUnits;      // K3b, K3d, K3e: member tile row stride (bytes)
 constexpr float kEps = 1e-20f;
 
-// Copy rows [row0, row0 + kTile) of a row-major [n, d] table into a [kTile][ld]
-// shared tile; rows at or past n are zero-filled.
+// The forms of every kernel (see the top of the file).
+constexpr int kAligned = 0, kAny = 1, kSliced = 2;
+
+__host__ __device__ constexpr inline int pad4(int d) { return (d + 3) & ~3; }
+
+// The geometry all five kernels share.
+struct Geo {
+  int B, I, d, ld;   // ld: the row stride of a staged [kTile][ld] tile
+  int n_tiles;       // item tiles of 64
+  int n_chunks;      // item chunks of K3a-K3d
+  int dp;            // columns a staged row holds: d rounded up to 4 (a zero tail)
+  int n_slices;      // kSliced: k slices of kSlice columns
+  int off_f, off_m;  // where the float [B, I] operand (noise or z) and member
+                     // start within their first aligned unit (elements)
+  bool rows16;       // d % 4 == 0 and the tables and user rows 16-byte aligned:
+                     // kAligned, or kSliced's 16-byte copies
+};
+
+// Geo as one form's kernels see it: in kAligned the [B, I] operands start at
+// a unit's start, known at compile time.
+template <int kForm>
+struct Shape : Geo {
+  static constexpr int form = kForm;
+  explicit Shape(const Geo& g) : Geo(g) {}
+  __device__ int off(const float*) const { return kForm == kAligned ? 0 : off_f; }
+  __device__ int off(const uint8_t*) const { return kForm == kAligned ? 0 : off_m; }
+};
+
+// kAligned: copy rows [row0, row0 + kTile) of a row-major [n, d] table into a
+// [kTile][ld] shared tile; rows at or past n are zero-filled.
 __device__ __forceinline__ void stage_rows(float* dst, const float* src, int row0, int n,
                                            int d, int ld) {
   const int chunks = d / 4;
@@ -123,15 +166,65 @@ __device__ __forceinline__ void stage_rows(float* dst, const float* src, int row
   }
 }
 
-// acc[i][j] = sum_k sU[ty + 16i][k] * sI[tx + 16j][k], k in order; the k loop
-// unrolled kUnroll times (K3a takes 1: 72 registers, three blocks a SM).
+// Rows [row0, row0 + kTile) x columns [c0, c0 + w) of a row-major [n, d]
+// table into a [kTile][ld] shared tile (w a multiple of 4, at most 4 <<
+// kShift); rows at or past n and columns at or past d are zero-filled. A
+// thread moves 4-column units, a row's units 1 << kShift slots, so a unit's
+// row and column are a shift and a mask: by one 16-byte copy where k16 (d % 4
+// == 0, 16-byte aligned rows), else by four 4-byte copies.
+template <int kShift, bool k16>
+__device__ __forceinline__ void stage_block(float* dst, const float* src, int row0, int n,
+                                            int d, int c0, int w, int ld) {
+  for (int e = threadIdx.x; e < (kTile << kShift); e += kThreads) {
+    const int r = e >> kShift, c = (e & ((1 << kShift) - 1)) * 4;
+    if (c >= w) continue;
+    const int row = row0 + r;
+    if constexpr (k16) {
+      const bool valid = row < n;
+      cp_async16(dst + r * ld + c, src + (size_t)(valid ? row : 0) * d + c0 + c, valid);
+    } else {
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int col = c0 + c + q;
+        const bool valid = row < n && col < d;
+        cp_async_n<4>(dst + r * ld + c + q, valid ? src + (size_t)row * d + col : src,
+                      valid ? 4 : 0);
+      }
+    }
+  }
+}
+
+// Rows [row0, row0 + kTile) of a row-major [n, d] table, whole (kAligned,
+// kAny), into a [kTile][g.ld] shared tile.
+template <int kForm>
+__device__ __forceinline__ void stage_rows(float* dst, const float* src, int row0, int n,
+                                           const Shape<kForm>& g) {
+  static_assert(kForm != kSliced, "kSliced stages k slices (stage_slice)");
+  if constexpr (kForm == kAligned)
+    stage_rows(dst, src, row0, n, g.d, g.ld);
+  else if (g.dp <= 4 << 4)
+    stage_block<4, false>(dst, src, row0, n, g.d, 0, g.dp, g.ld);
+  else
+    stage_block<5, false>(dst, src, row0, n, g.d, 0, g.dp, g.ld);
+}
+
+// kSliced: k slice s (columns [s kSlice, s kSlice + kSlice) of pad4(d)) of
+// rows [row0, row0 + kTile) of a row-major [n, d] table into a [kTile][g.ld]
+// shared tile.
+__device__ __forceinline__ void stage_slice(float* dst, const float* src, int row0, int n,
+                                            int s, const Geo& g) {
+  const int c0 = s * kSlice, w = min(kSlice, g.dp - c0);
+  if (g.rows16)
+    stage_block<4, true>(dst, src, row0, n, g.d, c0, w, g.ld);
+  else
+    stage_block<4, false>(dst, src, row0, n, g.d, c0, w, g.ld);
+}
+
+// acc[i][j] += sum_k sU[ty + 16i][k] * sI[tx + 16j][k], k < d in order; the k
+// loop unrolled kUnroll times.
 template <int kUnroll = 2>
-__device__ __forceinline__ void tile_dot(const float* sU, const float* sI, int ld, int d,
-                                         int ty, int tx, float acc[kSub][kSub]) {
-#pragma unroll
-  for (int i = 0; i < kSub; ++i)
-#pragma unroll
-    for (int j = 0; j < kSub; ++j) acc[i][j] = 0.f;
+__device__ __forceinline__ void tile_dot_acc(const float* sU, const float* sI, int ld, int d,
+                                             int ty, int tx, float acc[kSub][kSub]) {
 #pragma unroll (kUnroll)
   for (int k = 0; k < d; k += 4) {
     float4 a[kSub], b[kSub];
@@ -153,6 +246,61 @@ __device__ __forceinline__ void tile_dot(const float* sU, const float* sI, int l
         acc[i][j] = s;
       }
   }
+}
+
+// acc[i][j] = sum_k sU[ty + 16i][k] * sI[tx + 16j][k], k in order; the k loop
+// unrolled kUnroll times (K3a takes 1: 72 registers, three blocks a SM).
+template <int kUnroll = 2>
+__device__ __forceinline__ void tile_dot(const float* sU, const float* sI, int ld, int d,
+                                         int ty, int tx, float acc[kSub][kSub]) {
+#pragma unroll
+  for (int i = 0; i < kSub; ++i)
+#pragma unroll
+    for (int j = 0; j < kSub; ++j) acc[i][j] = 0.f;
+  tile_dot_acc<kUnroll>(sU, sI, ld, d, ty, tx, acc);
+}
+
+// kSliced: acc0 = the products of user rows [u0, u0 + kTile) of U0 ([B, d])
+// with item rows [i0, i0 + kTile) of V0 ([I, d]), and where kPairs == 2 acc1
+// those of U1 with V1, over d in k slices: each slice staged into the tiles
+// sU0, sV0 (sU1, sV1), then its products added, k in order, so every sum
+// takes the whole forms' order. The tiles are free again on return; every
+// copy in flight before the call has landed.
+template <int kPairs, int kUnroll>
+__device__ __forceinline__ void sliced_dots(const Geo& g, int u0, int i0, int ty, int tx,
+                                            float* sU0, const float* U0, float* sV0,
+                                            const float* V0, float (&acc0)[kSub][kSub],
+                                            float* sU1, const float* U1, float* sV1,
+                                            const float* V1, float (&acc1)[kSub][kSub]) {
+#pragma unroll
+  for (int i = 0; i < kSub; ++i)
+#pragma unroll
+    for (int j = 0; j < kSub; ++j) acc0[i][j] = acc1[i][j] = 0.f;
+  for (int s = 0; s < g.n_slices; ++s) {
+    stage_slice(sU0, U0, u0, g.B, s, g);
+    stage_slice(sV0, V0, i0, g.I, s, g);
+    if constexpr (kPairs == 2) {
+      stage_slice(sU1, U1, u0, g.B, s, g);
+      stage_slice(sV1, V1, i0, g.I, s, g);
+    }
+    cp_async_commit();
+    cp_async_wait<0>();
+    __syncthreads();
+    const int w = min(kSlice, g.dp - s * kSlice);
+    tile_dot_acc<kUnroll>(sU0, sV0, g.ld, w, ty, tx, acc0);
+    if constexpr (kPairs == 2) tile_dot_acc<kUnroll>(sU1, sV1, g.ld, w, ty, tx, acc1);
+    __syncthreads();  // every read of the tiles done before they are refilled
+  }
+}
+
+// One product (K3a-K3c) through sliced_dots.
+template <int kUnroll = 2>
+__device__ __forceinline__ void sliced_dot(const Geo& g, int u0, int i0, int ty, int tx,
+                                           float* sU, const float* U, float* sV,
+                                           const float* V, float (&acc)[kSub][kSub]) {
+  float unused[kSub][kSub];
+  sliced_dots<1, kUnroll>(g, u0, i0, ty, tx, sU, U, sV, V, acc, nullptr, nullptr, nullptr,
+                          nullptr, unused);
 }
 
 // Online softmax statistics: (m, l) absorbs the values v[j] of one row, only
@@ -210,13 +358,6 @@ __device__ __forceinline__ void load_rows(const float* src, int u0, int ty, int 
   }
 }
 
-// The geometry all five kernels share.
-struct Geo {
-  int B, I, d, ld;
-  int n_tiles;   // item tiles of 64
-  int n_chunks;  // item chunks of K3a-K3d
-};
-
 // ---- K3a --------------------------------------------------------------------
 // Block: the user tile blockIdx.y and the item tiles [t0, t1) of chunk
 // blockIdx.x, one (m, l) partial per user and chunk. Shared memory holds the
@@ -229,15 +370,18 @@ struct Geo {
 // last tile (the ragged tail) compute the `live` mask; every other tile
 // absorbs its 4 x 4 values with no predicate. The sums keep their order
 // (items in tile order, the 16 lanes' butterfly, the chunks in
-// stat_combine's fixed order), so two calls give the same bits.
+// stat_combine's fixed order), so two calls give the same bits. kSliced
+// stages a k slice of the user tile and of Q_g's tile t into the first two
+// tiles, one slice after the other (sliced_dot), at two blocks a SM.
 constexpr int kStatsBlocks = 3;  // K3a's blocks a SM (80 registers a thread at most)
 
 // Shared memory: the user tile and two Q_g item tiles.
 size_t stats_smem(const Geo& g) { return (size_t)3 * kTile * g.ld * sizeof(float); }
 
-__global__ void __launch_bounds__(kThreads, kStatsBlocks)
+template <int kForm>
+__global__ void __launch_bounds__(kThreads, kForm == kSliced ? 2 : kStatsBlocks)
 stats1_kernel(const float* __restrict__ pu, const float* __restrict__ Qg,
-              float* __restrict__ part_m, float* __restrict__ part_l, Geo g) {
+              float* __restrict__ part_m, float* __restrict__ part_l, Shape<kForm> g) {
   extern __shared__ __align__(16) float smem[];
   const int tile_f = kTile * g.ld;
   float* sUa = smem;
@@ -250,17 +394,23 @@ stats1_kernel(const float* __restrict__ pu, const float* __restrict__ Qg,
 #pragma unroll
   for (int i = 0; i < kSub; ++i) { m[i] = -INFINITY; l[i] = 0.f; }
 
-  stage_rows(sUa, pu, u0, g.B, g.d, g.ld);
-  stage_rows(sQa, Qg, t0 * kTile, g.I, g.d, g.ld);
-  cp_async_commit();
+  if constexpr (kForm != kSliced) {
+    stage_rows(sUa, pu, u0, g.B, g);
+    stage_rows(sQa, Qg, t0 * kTile, g.I, g);
+    cp_async_commit();
+  }
 
   for (int t = t0, buf = 0; t < t1; ++t, buf ^= 1) {
-    if (t + 1 < t1) stage_rows(sQa + (buf ^ 1) * tile_f, Qg, (t + 1) * kTile, g.I, g.d, g.ld);
-    cp_async_commit();  // possibly empty: keeps one group per iteration
-    cp_async_wait<1>();
-    __syncthreads();
     float acc[kSub][kSub];
-    tile_dot<1>(sUa, sQa + buf * tile_f, g.ld, g.d, ty, tx, acc);
+    if constexpr (kForm == kSliced) {
+      sliced_dot<1>(g, u0, t * kTile, ty, tx, sUa, pu, sQa, Qg, acc);
+    } else {
+      if (t + 1 < t1) stage_rows(sQa + (buf ^ 1) * tile_f, Qg, (t + 1) * kTile, g.I, g);
+      cp_async_commit();  // possibly empty: keeps one group per iteration
+      cp_async_wait<1>();
+      __syncthreads();
+      tile_dot<1>(sUa, sQa + buf * tile_f, g.ld, g.dp, ty, tx, acc);
+    }
     if (t == 0 || t + 1 == g.n_tiles) {
       bool live[kSub];
 #pragma unroll
@@ -274,7 +424,7 @@ stats1_kernel(const float* __restrict__ pu, const float* __restrict__ Qg,
 #pragma unroll
       for (int i = 0; i < kSub; ++i) stat_absorb<false>(m[i], l[i], acc[i]);
     }
-    __syncthreads();  // all reads of this buffer done before it is refilled
+    if constexpr (kForm != kSliced) __syncthreads();  // this buffer's reads done before its refill
   }
 #pragma unroll
   for (int i = 0; i < kSub; ++i) {
@@ -294,27 +444,35 @@ stats1_kernel(const float* __restrict__ pu, const float* __restrict__ Qg,
 // start only 4-byte (noise, z) or 1-byte (member) aligned when I is odd, and
 // nothing is padded or copied to align them: each row's 64-item run moves as
 // the aligned 4-item units around it (16-byte copies of noise, 4-byte copies
-// of member) and is read back at its offset within its first unit.
+// of member) and is read back at its offset within its first unit. An
+// operand that itself starts inside a unit (kAny, kSliced: a view of a
+// larger buffer) moves by the units of that buffer, its offset added to each
+// row's (the head of its first unit is read and never used).
 
 // The offset of item i0 of `row` within its aligned 4-item unit (i0 is a
-// multiple of 4).
-__device__ __forceinline__ int run_shift(int row, int I) { return ((row & 3) * (I & 3)) & 3; }
+// multiple of 4), for an array that starts `off` elements into its first unit.
+__device__ __forceinline__ int run_shift(int row, int I, int off) {
+  return (off + (row & 3) * (I & 3)) & 3;
+}
 
 // Rows [u0, u0 + 64) x items [i0, i0 + 64) of a row-major [B, I] array into a
 // shared tile with rows of `ld` elements: item i0 + c of row u0 + r lands at
-// dst[r * ld + run_shift(u0 + r) + c]. Rows past B, and units past the end of
-// the array (the last one cut to the elements it has), are zero-filled; items
-// past I belong to the next row and are masked by the reader.
-template <typename T>
+// dst[r * ld + run_shift(u0 + r, I, g.off(src)) + c]. Rows past B, and units
+// past the end of the array (the last one cut to the elements it has), are
+// zero-filled; items past I belong to the next row and are masked by the
+// reader.
+template <typename T, int kForm>
 __device__ __forceinline__ void stage_runs(T* dst, const T* src, int ld, int u0, int i0,
-                                           const Geo& g) {
-  const size_t n = (size_t)g.B * g.I;
+                                           const Shape<kForm>& g) {
+  const int off = g.off(src);
+  const T* base = src - off;  // the start of src's first unit
+  const size_t n = (size_t)g.B * g.I + off;
   for (int idx = threadIdx.x; idx < kTile * kRunUnits; idx += kThreads) {
     const int r = idx / kRunUnits, k = idx % kRunUnits;
     const int row = u0 + r;
-    const size_t at = (((size_t)row * g.I + i0) & ~(size_t)3) + 4 * k;
+    const size_t at = ((off + (size_t)row * g.I + i0) & ~(size_t)3) + 4 * k;
     const int elems = row < g.B && at < n ? (n - at < 4 ? (int)(n - at) : 4) : 0;
-    cp_async_n<4 * (int)sizeof(T)>(dst + r * ld + 4 * k, elems ? src + at : src,
+    cp_async_n<4 * (int)sizeof(T)>(dst + r * ld + 4 * k, elems ? base + at : src,
                                    elems * (int)sizeof(T));
   }
 }
@@ -336,13 +494,16 @@ size_t z_smem(const Geo& g) {
 // the arithmetic divides nothing: w member / nuniq is w / nuniq, one division
 // a row, where member is 1 and 0 where it is 0 (as the division gives);
 // probs multiplies by 1 / l1 and z by 1 / T, which moves them by an ulp from
-// the plain version's divisions.
+// the plain version's divisions. kSliced stages only the noise and member
+// tiles ahead; its product stages k slices of the user and Q_g tiles into the
+// first two tiles (sliced_dot).
+template <int kForm>
 __global__ void __launch_bounds__(kThreads, 2)
 z_kernel(const float* __restrict__ pu, const float* __restrict__ Qg,
          const uint8_t* __restrict__ member, const float* __restrict__ nuniq,
          const float* __restrict__ gn, const float* __restrict__ m1,
          const float* __restrict__ l1, float* __restrict__ z, float* __restrict__ part_m,
-         float* __restrict__ part_l, Geo g, float omw, float w, float T) {
+         float* __restrict__ part_l, Shape<kForm> g, float omw, float w, float T) {
   extern __shared__ __align__(16) float smem[];
   const int tile_f = kTile * g.ld, noise_f = kTile * kNoiseLd;
   float* sU = smem;
@@ -355,7 +516,7 @@ z_kernel(const float* __restrict__ pu, const float* __restrict__ Qg,
   const int t1 = min(t0 + kChunkTiles, g.n_tiles);
   float rm1[kSub], rl1[kSub], rnu[kSub], wnu[kSub], il1[kSub], m[kSub], l[kSub];
   const float inv_t = 1.f / T;
-  int shift[kSub];
+  int shift[kSub], mshift[kSub];  // the runs' offsets: noise, member
   load_rows(m1, u0, ty, g.B, 0.f, rm1);
   load_rows(l1, u0, ty, g.B, 1.f, rl1);
   load_rows(nuniq, u0, ty, g.B, 1.f, rnu);
@@ -365,25 +526,30 @@ z_kernel(const float* __restrict__ pu, const float* __restrict__ Qg,
     l[i] = 0.f;
     wnu[i] = w / rnu[i];
     il1[i] = 1.f / rl1[i];
-    shift[i] = run_shift(u0 + ty + kLanes * i, g.I);
+    shift[i] = run_shift(u0 + ty + kLanes * i, g.I, g.off(gn));
+    mshift[i] = run_shift(u0 + ty + kLanes * i, g.I, g.off(member));
   }
 
   auto stage = [&](int t, int buf) {
-    stage_rows(sQ + buf * tile_f, Qg, t * kTile, g.I, g.d, g.ld);
+    if constexpr (kForm != kSliced) stage_rows(sQ + buf * tile_f, Qg, t * kTile, g.I, g);
     stage_runs(sN + buf * noise_f, gn, kNoiseLd, u0, t * kTile, g);
     stage_runs(sM + buf * kTile * kMemLd, member, kMemLd, u0, t * kTile, g);
   };
-  stage_rows(sU, pu, u0, g.B, g.d, g.ld);
+  if constexpr (kForm != kSliced) stage_rows(sU, pu, u0, g.B, g);
   stage(t0, 0);
   cp_async_commit();
 
   for (int t = t0, buf = 0; t < t1; ++t, buf ^= 1) {
     if (t + 1 < t1) stage(t + 1, buf ^ 1);
     cp_async_commit();  // possibly empty: keeps one group per iteration
-    cp_async_wait<1>();
-    __syncthreads();
     float acc[kSub][kSub];
-    tile_dot(sU, sQ + buf * tile_f, g.ld, g.d, ty, tx, acc);
+    if constexpr (kForm == kSliced) {
+      sliced_dot(g, u0, t * kTile, ty, tx, sU, pu, sQ, Qg, acc);  // every copy landed
+    } else {
+      cp_async_wait<1>();
+      __syncthreads();
+      tile_dot(sU, sQ + buf * tile_f, g.ld, g.dp, ty, tx, acc);
+    }
     const float* cn = sN + buf * noise_f;
     const uint8_t* cm = sM + buf * kTile * kMemLd;
     const int i0 = t * kTile;
@@ -400,7 +566,7 @@ z_kernel(const float* __restrict__ pu, const float* __restrict__ Qg,
         live[j] = row < g.B && item < g.I;  // column 0 stays live
         v[j] = 0.f;
         if (live[j]) {
-          const uint8_t mem = cm[r * kMemLd + shift[i] + c];
+          const uint8_t mem = cm[r * kMemLd + mshift[i] + c];
           const float noise = cn[r * kNoiseLd + shift[i] + c];
           const float aux = mem == 0   ? 0.f
                             : mem == 1 ? wnu[i]
@@ -436,17 +602,19 @@ z_kernel(const float* __restrict__ pu, const float* __restrict__ Qg,
 // element one expf and one multiply by the row's 1/l2, computed once a row:
 // an ulp from the plain version's division. The sums keep their order (items
 // in tile order, the 16 lanes' butterfly, chunks merged in order), so two
-// calls give the same bits.
+// calls give the same bits. kSliced stages only the z tiles ahead, as K3b
+// its noise and member.
 
 // Shared memory: the user tile, two Q_c item tiles, two z tiles.
 size_t fake_smem(const Geo& g) {
   return (size_t)3 * kTile * g.ld * sizeof(float) + (size_t)2 * kTile * kNoiseLd * sizeof(float);
 }
 
+template <int kForm>
 __global__ void __launch_bounds__(kThreads, 2)
 fake_kernel(const float* __restrict__ pu_c, const float* __restrict__ Qc,
             const float* __restrict__ z, const float* __restrict__ m2,
-            const float* __restrict__ l2, float* __restrict__ part, Geo g) {
+            const float* __restrict__ l2, float* __restrict__ part, Shape<kForm> g) {
   extern __shared__ __align__(16) float smem[];
   const int tile_f = kTile * g.ld, zc_f = kTile * kNoiseLd;
   float* sU = smem;
@@ -464,24 +632,28 @@ fake_kernel(const float* __restrict__ pu_c, const float* __restrict__ Qc,
   for (int i = 0; i < kSub; ++i) {
     f[i] = 0.f;
     il2[i] = 1.f / il2[i];
-    shift[i] = run_shift(u0 + ty + kLanes * i, g.I);
+    shift[i] = run_shift(u0 + ty + kLanes * i, g.I, g.off(z));
   }
 
   auto stage = [&](int t, int buf) {
-    stage_rows(sQc + buf * tile_f, Qc, t * kTile, g.I, g.d, g.ld);
+    if constexpr (kForm != kSliced) stage_rows(sQc + buf * tile_f, Qc, t * kTile, g.I, g);
     stage_runs(sZc + buf * zc_f, z, kNoiseLd, u0, t * kTile, g);
   };
-  stage_rows(sU, pu_c, u0, g.B, g.d, g.ld);
+  if constexpr (kForm != kSliced) stage_rows(sU, pu_c, u0, g.B, g);
   stage(t0, 0);
   cp_async_commit();
 
   for (int t = t0, buf = 0; t < t1; ++t, buf ^= 1) {
     if (t + 1 < t1) stage(t + 1, buf ^ 1);
     cp_async_commit();  // possibly empty: keeps one group per iteration
-    cp_async_wait<1>();
-    __syncthreads();
     float acc[kSub][kSub];
-    tile_dot(sU, sQc + buf * tile_f, g.ld, g.d, ty, tx, acc);
+    if constexpr (kForm == kSliced) {
+      sliced_dot(g, u0, t * kTile, ty, tx, sU, pu_c, sQc, Qc, acc);  // every copy landed
+    } else {
+      cp_async_wait<1>();
+      __syncthreads();
+      tile_dot(sU, sQc + buf * tile_f, g.ld, g.dp, ty, tx, acc);
+    }
     const float* cz = sZc + buf * zc_f;
     const int i0 = t * kTile;
 #pragma unroll
@@ -521,7 +693,25 @@ fake_kernel(const float* __restrict__ pu_c, const float* __restrict__ Qc,
 // Per element: two expf and one division, by (mixed + 1e-20). probs and s
 // multiply by per-row 1/l1 and 1/l2 (an ulp from the plain version's
 // divisions); w member / nuniq is w / nuniq a row where member is 1 and 0
-// where it is 0, as the division gives.
+// where it is 0, as the division gives. kSliced stages the k slices of the
+// four tiles for each item tile (sliced_dots), behind which z and member fly.
+
+// probs and r of one [B, I] element (K3d's and K3e's epilogues) from its
+// logit, its critic score c, its z and member and its row's scalars s1 = (m1,
+// 1/l1, w/nuniq, nuniq) and s2 = (m2, 1/l2, a, fake): two expf and one
+// division, by (mixed + 1e-20).
+__device__ __forceinline__ void probs_r(float logit, float c, float zv, uint8_t mem, float4 s1,
+                                        float4 s2, float omw, float w, float coef,
+                                        float& probs, float& rv) {
+  const float aux = mem == 0   ? 0.f
+                    : mem == 1 ? s1.z
+                               : __fmul_rn(w, (float)mem) / s1.w;
+  probs = __fmul_rn(expf(logit - s1.x), s1.y);
+  const float mixed = __fadd_rn(__fmul_rn(omw, probs), aux);
+  const float sz = __fmul_rn(expf(zv - s2.x), s2.y);
+  const float tt = __fmul_rn(s2.z, c - s2.w);
+  rv = __fmul_rn(__fmul_rn(coef, sz), tt) / __fadd_rn(mixed, kEps);
+}
 
 // The per-row scalars of K3d, [kTile users][kRowScalars] in shared memory:
 // two float4s a row, (m1, 1/l1, w/nuniq, nuniq) and (m2, 1/l2, a, fake).
@@ -534,6 +724,7 @@ size_t bigr_smem(const Geo& g) {
          (size_t)kTile * kRowScalars * sizeof(float) + (size_t)kTile * kMemLd;
 }
 
+template <int kForm>
 __global__ void __launch_bounds__(kThreads, 2)
 bigr_kernel(const float* __restrict__ pu_g, const float* __restrict__ Qg,
             const float* __restrict__ pu_c, const float* __restrict__ Qc,
@@ -541,7 +732,7 @@ bigr_kernel(const float* __restrict__ pu_g, const float* __restrict__ Qg,
             const float* __restrict__ z, const float* __restrict__ m1,
             const float* __restrict__ l1, const float* __restrict__ m2,
             const float* __restrict__ l2, const float* __restrict__ a,
-            const float* __restrict__ fake, float* __restrict__ part, Geo g, float omw,
+            const float* __restrict__ fake, float* __restrict__ part, Shape<kForm> g, float omw,
             float w, float coef) {
   extern __shared__ __align__(16) float smem[];
   const int tile_f = kTile * g.ld;
@@ -557,10 +748,12 @@ bigr_kernel(const float* __restrict__ pu_g, const float* __restrict__ Qg,
   const int t0 = blockIdx.x * kChunkTiles;
   const int t1 = min(t0 + kChunkTiles, g.n_tiles);
 
-  stage_rows(sPg, pu_g, u0, g.B, g.d, g.ld);
-  stage_rows(sPc, pu_c, u0, g.B, g.d, g.ld);
-  stage_rows(sQg, Qg, t0 * kTile, g.I, g.d, g.ld);
-  stage_rows(sQc, Qc, t0 * kTile, g.I, g.d, g.ld);
+  if constexpr (kForm != kSliced) {
+    stage_rows(sPg, pu_g, u0, g.B, g);
+    stage_rows(sPc, pu_c, u0, g.B, g);
+    stage_rows(sQg, Qg, t0 * kTile, g.I, g);
+    stage_rows(sQc, Qc, t0 * kTile, g.I, g);
+  }
   cp_async_commit();
   if (threadIdx.x < kTile) {  // rows past B repeat row B - 1 and are masked
     const int row = min(u0 + (int)threadIdx.x, g.B - 1);
@@ -578,38 +771,37 @@ bigr_kernel(const float* __restrict__ pu_g, const float* __restrict__ Qg,
     stage_runs(sM, member, kMemLd, u0, i0, g);
     cp_async_commit();
     float lg[kSub][kSub], c[kSub][kSub];
-    tile_dot(sPg, sQg, g.ld, g.d, ty, tx, lg);
-    tile_dot(sPc, sQc, g.ld, g.d, ty, tx, c);
-    __syncthreads();  // every read of sQg, sQc done
-    if (t + 1 < t1) {
-      stage_rows(sQg, Qg, i0 + kTile, g.I, g.d, g.ld);
-      stage_rows(sQc, Qc, i0 + kTile, g.I, g.d, g.ld);
+    if constexpr (kForm == kSliced) {
+      sliced_dots<2, 2>(g, u0, i0, ty, tx, sPg, pu_g, sQg, Qg, lg, sPc, pu_c, sQc, Qc, c);
+    } else {
+      tile_dot(sPg, sQg, g.ld, g.dp, ty, tx, lg);
+      tile_dot(sPc, sQc, g.ld, g.dp, ty, tx, c);
+      __syncthreads();  // every read of sQg, sQc done
+      if (t + 1 < t1) {
+        stage_rows(sQg, Qg, i0 + kTile, g.I, g);
+        stage_rows(sQc, Qc, i0 + kTile, g.I, g);
+      }
+      cp_async_commit();  // possibly empty
+      cp_async_wait<1>();  // this tile's z and member
+      __syncthreads();
     }
-    cp_async_commit();  // possibly empty
-    cp_async_wait<1>();  // this tile's z and member
-    __syncthreads();
 #pragma unroll
     for (int i = 0; i < kSub; ++i) {
       const int r = ty + kLanes * i;
       const int row = u0 + r;
       const float4 s1 = *reinterpret_cast<const float4*>(sS + r * kRowScalars);
       const float4 s2 = *reinterpret_cast<const float4*>(sS + r * kRowScalars + 4);
-      const int shift = run_shift(row, g.I);
+      const int shift = run_shift(row, g.I, g.off(z));
+      const int mshift = run_shift(row, g.I, g.off(member));
 #pragma unroll
       for (int j = 0; j < kSub; ++j) {
         const int col = tx + kLanes * j;
         const int item = i0 + col;
         if (row < g.B && item > 0 && item < g.I) {  // the pad item has probs 0
-          const uint8_t mem = sM[r * kMemLd + shift + col];
+          const uint8_t mem = sM[r * kMemLd + mshift + col];
           const float zv = sZ[r * kNoiseLd + shift + col];
-          const float aux = mem == 0   ? 0.f
-                            : mem == 1 ? s1.z
-                                       : __fmul_rn(w, (float)mem) / s1.w;
-          const float probs = __fmul_rn(expf(lg[i][j] - s1.x), s1.y);
-          const float mixed = __fadd_rn(__fmul_rn(omw, probs), aux);
-          const float sz = __fmul_rn(expf(zv - s2.x), s2.y);
-          const float tt = __fmul_rn(s2.z, c[i][j] - s2.w);
-          const float rv = __fmul_rn(__fmul_rn(coef, sz), tt) / __fadd_rn(mixed, kEps);
+          float probs, rv;
+          probs_r(lg[i][j], c[i][j], zv, mem, s1, s2, omw, w, coef, probs, rv);
           acc_r[i] = fmaf(probs, rv, acc_r[i]);
         }
       }
@@ -650,6 +842,14 @@ bigr_kernel(const float* __restrict__ pu_g, const float* __restrict__ Qg,
 // products run, the first four columns of dq wait in the dlogits tile, which
 // is free until the epilogue: held in registers beside the products' operands
 // they would push loop-invariant addresses into local memory (a spill).
+// kSliced keeps no column in registers across user tiles: its products stage
+// k slices of the four tiles (sliced_dots), then for each slice of kSlice
+// columns P_g's and Q_g's slices are staged into their tiles, dQ's slice of
+// the item tile is read back from dQ (its rows belong to this block alone;
+// the first user tile starts from 0), summed on in registers in the same
+// order (users in order) and written back, and dP's slice of the partial is
+// summed and stored. z, member and the scalars of user tile ut + 1 fly
+// behind the column slices.
 
 // K3e's per-row scalars, [kTile users][kGradScalars] in shared memory, copied
 // raw (m1, l1, nuniq, nuniq, m2, l2, a, fake, R) and turned in place into
@@ -665,9 +865,9 @@ size_t grad_smem(const Geo& g) {
 }
 
 // dq[i][j] += sum_u dlogits[u][item] P_g[u][col], items ty + 16i, columns
-// tx + 16j, u in order.
+// tx + 16j < ncols of the [kTile][ld] tile sPg, u in order.
 template <int kC>
-__device__ __forceinline__ void grad_dq(const float* sD, const float* sPg, const Geo& g,
+__device__ __forceinline__ void grad_dq(const float* sD, const float* sPg, int ld, int ncols,
                                         int ty, int tx, float (&dq)[kSub][kC]) {
 #pragma unroll (kC == 4 ? 4 : 2)  // the unrolling that spills nothing at either width
   for (int u = 0; u < kTile; ++u) {
@@ -677,8 +877,8 @@ __device__ __forceinline__ void grad_dq(const float* sD, const float* sPg, const
 #pragma unroll
     for (int j = 0; j < kC; ++j) {
       const int col = tx + kLanes * j;
-      if (col < g.d) {
-        const float p = sPg[u * g.ld + col];
+      if (col < ncols) {
+        const float p = sPg[u * ld + col];
 #pragma unroll
         for (int i = 0; i < kSub; ++i) dq[i][j] = fmaf(dv[i], p, dq[i][j]);
       }
@@ -687,11 +887,13 @@ __device__ __forceinline__ void grad_dq(const float* sD, const float* sPg, const
 }
 
 // One user tile's dP partial, sum_it dlogits[user][it] Q_g[it][col] for
-// users u0 + ty + 16i and columns tx + 16j, it in order, into `part` (this
-// item tile's [B, d] slice).
+// users u0 + ty + 16i < B and columns tx + 16j < ncols of the [kTile][ld]
+// tile sQg, it in order, into `part` (this item tile's [B, d] slice, rows
+// `stride` floats apart).
 template <int kC>
-__device__ __forceinline__ void grad_dp(const float* sD, const float* sQg, const Geo& g,
-                                        int ty, int tx, int u0, float* part) {
+__device__ __forceinline__ void grad_dp(const float* sD, const float* sQg, int ld, int ncols,
+                                        int ty, int tx, int u0, int B, float* part,
+                                        int stride) {
   float dp[kSub][kC];
 #pragma unroll
   for (int i = 0; i < kSub; ++i)
@@ -705,7 +907,7 @@ __device__ __forceinline__ void grad_dp(const float* sD, const float* sQg, const
 #pragma unroll
     for (int j = 0; j < kC; ++j) {
       const int col = tx + kLanes * j;
-      q[j] = col < g.d ? sQg[it * g.ld + col] : 0.f;
+      q[j] = col < ncols ? sQg[it * ld + col] : 0.f;
     }
 #pragma unroll
     for (int i = 0; i < kSub; ++i)
@@ -715,16 +917,16 @@ __device__ __forceinline__ void grad_dp(const float* sD, const float* sQg, const
 #pragma unroll
   for (int i = 0; i < kSub; ++i) {
     const int row = u0 + ty + kLanes * i;
-    if (row >= g.B) continue;
+    if (row >= B) continue;
 #pragma unroll
     for (int j = 0; j < kC; ++j) {
       const int col = tx + kLanes * j;
-      if (col < g.d) part[(size_t)row * g.d + col] = dp[i][j];
+      if (col < ncols) part[(size_t)row * stride + col] = dp[i][j];
     }
   }
 }
 
-template <int kC>
+template <int kC, int kForm>
 __global__ void __launch_bounds__(kThreads, 2)
 grad_kernel(const float* __restrict__ pu_g, const float* __restrict__ Qg,
             const float* __restrict__ pu_c, const float* __restrict__ Qc,
@@ -733,8 +935,9 @@ grad_kernel(const float* __restrict__ pu_g, const float* __restrict__ Qg,
             const float* __restrict__ l1, const float* __restrict__ m2,
             const float* __restrict__ l2, const float* __restrict__ a,
             const float* __restrict__ fake, const float* __restrict__ R,
-            float* __restrict__ dQ, float* __restrict__ part_dP, Geo g, float omw, float w,
-            float coef) {
+            float* __restrict__ dQ, float* __restrict__ part_dP, Shape<kForm> g, float omw,
+            float w, float coef) {
+  static_assert(kForm != kSliced || kC == 4, "kSliced: columns in slices of 64");
   extern __shared__ __align__(16) float smem[];
   const int tile_f = kTile * g.ld;
   float* sQg = smem;
@@ -764,10 +967,12 @@ grad_kernel(const float* __restrict__ pu_g, const float* __restrict__ Qg,
     }
   };
 
-  stage_rows(sQg, Qg, i0, g.I, g.d, g.ld);
-  stage_rows(sQc, Qc, i0, g.I, g.d, g.ld);
-  stage_rows(sPg, pu_g, 0, g.B, g.d, g.ld);
-  stage_rows(sPc, pu_c, 0, g.B, g.d, g.ld);
+  if constexpr (kForm != kSliced) {
+    stage_rows(sQg, Qg, i0, g.I, g);
+    stage_rows(sQc, Qc, i0, g.I, g);
+    stage_rows(sPg, pu_g, 0, g.B, g);
+    stage_rows(sPc, pu_c, 0, g.B, g);
+  }
   stage_scalars(0);
   stage_zm(0);
   cp_async_commit();
@@ -790,27 +995,32 @@ grad_kernel(const float* __restrict__ pu_g, const float* __restrict__ Qg,
     }
     __syncthreads();
 
-    // The first four columns of dq wait in the dlogits tile, free until the
-    // epilogue, while the two products hold their operands in registers.
-    float4* park = reinterpret_cast<float4*>(sD);
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      park[j * kThreads + threadIdx.x] = make_float4(dq[0][j], dq[1][j], dq[2][j], dq[3][j]);
     float lg[kSub][kSub], c[kSub][kSub];
-    tile_dot(sPg, sQg, g.ld, g.d, ty, tx, lg);
-    tile_dot(sPc, sQc, g.ld, g.d, ty, tx, c);
-    asm volatile("" ::: "memory");  // dq is read back, not kept in registers
+    if constexpr (kForm == kSliced) {
+      // k loop not unrolled: unrolled twice it spills at 128 registers
+      sliced_dots<2, 1>(g, u0, i0, ty, tx, sPg, pu_g, sQg, Qg, lg, sPc, pu_c, sQc, Qc, c);
+    } else {
+      // The first four columns of dq wait in the dlogits tile, free until the
+      // epilogue, while the two products hold their operands in registers.
+      float4* park = reinterpret_cast<float4*>(sD);
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const float4 v = park[j * kThreads + threadIdx.x];
-      dq[0][j] = v.x;
-      dq[1][j] = v.y;
-      dq[2][j] = v.z;
-      dq[3][j] = v.w;
+      for (int j = 0; j < 4; ++j)
+        park[j * kThreads + threadIdx.x] = make_float4(dq[0][j], dq[1][j], dq[2][j], dq[3][j]);
+      tile_dot(sPg, sQg, g.ld, g.dp, ty, tx, lg);
+      tile_dot(sPc, sQc, g.ld, g.dp, ty, tx, c);
+      asm volatile("" ::: "memory");  // dq is read back, not kept in registers
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float4 v = park[j * kThreads + threadIdx.x];
+        dq[0][j] = v.x;
+        dq[1][j] = v.y;
+        dq[2][j] = v.z;
+        dq[3][j] = v.w;
+      }
+      __syncthreads();  // every read of sPc and of the parked dq done
+      if (next) stage_rows(sPc, pu_c, u0 + kTile, g.B, g);
+      cp_async_commit();
     }
-    __syncthreads();  // every read of sPc and of the parked dq done
-    if (next) stage_rows(sPc, pu_c, u0 + kTile, g.B, g.d, g.ld);
-    cp_async_commit();
 
 #pragma unroll
     for (int i = 0; i < kSub; ++i) {
@@ -819,23 +1029,18 @@ grad_kernel(const float* __restrict__ pu_g, const float* __restrict__ Qg,
       const float4 s1 = *reinterpret_cast<const float4*>(sSe + r * kGradScalars);
       const float4 s2 = *reinterpret_cast<const float4*>(sSe + r * kGradScalars + 4);
       const float rR = sSe[r * kGradScalars + 8];
-      const int shift = run_shift(row, g.I);
+      const int shift = run_shift(row, g.I, g.off(z));
+      const int mshift = run_shift(row, g.I, g.off(member));
 #pragma unroll
       for (int j = 0; j < kSub; ++j) {
         const int col = tx + kLanes * j;
         const int item = i0 + col;
         float dl = 0.f;  // rows past B, the pad item and items past I
         if (row < g.B && item > 0 && item < g.I) {
-          const uint8_t mem = sMe[r * kMemLd + shift + col];
+          const uint8_t mem = sMe[r * kMemLd + mshift + col];
           const float zv = sZe[r * kNoiseLd + shift + col];
-          const float aux = mem == 0   ? 0.f
-                            : mem == 1 ? s1.z
-                                       : __fmul_rn(w, (float)mem) / s1.w;
-          const float probs = __fmul_rn(expf(lg[i][j] - s1.x), s1.y);
-          const float mixed = __fadd_rn(__fmul_rn(omw, probs), aux);
-          const float sz = __fmul_rn(expf(zv - s2.x), s2.y);
-          const float tt = __fmul_rn(s2.z, c[i][j] - s2.w);
-          const float rv = __fmul_rn(__fmul_rn(coef, sz), tt) / __fadd_rn(mixed, kEps);
+          float probs, rv;
+          probs_r(lg[i][j], c[i][j], zv, mem, s1, s2, omw, w, coef, probs, rv);
           dl = __fmul_rn(probs, rv - rR);
         }
         sD[r * kLdD + col] = dl;
@@ -843,27 +1048,65 @@ grad_kernel(const float* __restrict__ pu_g, const float* __restrict__ Qg,
     }
     __syncthreads();  // sD complete; every read of sZe, sMe and sSe done
     if (next) stage_zm(u0 + kTile);
-    cp_async_commit();
-
-    grad_dq<kC>(sD, sPg, g, ty, tx, dq);
-    __syncthreads();  // every read of sPg done
-    if (next) {
-      stage_rows(sPg, pu_g, u0 + kTile, g.B, g.d, g.ld);
-      stage_scalars(u0 + kTile);
+    if constexpr (kForm == kSliced) {
+      if (next) stage_scalars(u0 + kTile);
     }
     cp_async_commit();
 
-    grad_dp<kC>(sD, sQg, g, ty, tx, u0, part);
+    if constexpr (kForm == kSliced) {
+      for (int s = 0; s < g.n_slices; ++s) {
+        stage_slice(sPg, pu_g, u0, g.B, s, g);
+        stage_slice(sQg, Qg, i0, g.I, s, g);
+        cp_async_commit();
+        cp_async_wait<0>();
+        __syncthreads();
+        const int c0 = s * kSlice, nc = min(kSlice, g.d - c0);
+        float dqs[kSub][4];
+#pragma unroll
+        for (int i = 0; i < kSub; ++i) {
+          const int item = i0 + ty + kLanes * i;
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const int col = tx + kLanes * j;
+            dqs[i][j] = ut > 0 && item < g.I && col < nc ? dQ[(size_t)item * g.d + c0 + col] : 0.f;
+          }
+        }
+        grad_dq<4>(sD, sPg, g.ld, nc, ty, tx, dqs);
+#pragma unroll
+        for (int i = 0; i < kSub; ++i) {
+          const int item = i0 + ty + kLanes * i;
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const int col = tx + kLanes * j;
+            if (item < g.I && col < nc) dQ[(size_t)item * g.d + c0 + col] = dqs[i][j];
+          }
+        }
+        grad_dp<4>(sD, sQg, g.ld, nc, ty, tx, u0, g.B, part + c0, g.d);
+        __syncthreads();  // every read of sPg, sQg done before they are refilled
+      }
+    } else {
+      grad_dq<kC>(sD, sPg, g.ld, g.d, ty, tx, dq);
+      __syncthreads();  // every read of sPg done
+      if (next) {
+        stage_rows(sPg, pu_g, u0 + kTile, g.B, g);
+        stage_scalars(u0 + kTile);
+      }
+      cp_async_commit();
+
+      grad_dp<kC>(sD, sQg, g.ld, g.d, ty, tx, u0, g.B, part, g.d);
+    }
   }
 
+  if constexpr (kForm != kSliced) {  // (kSliced wrote dQ slice by slice)
 #pragma unroll
-  for (int i = 0; i < kSub; ++i) {
-    const int item = i0 + ty + kLanes * i;
-    if (item >= g.I) continue;
+    for (int i = 0; i < kSub; ++i) {
+      const int item = i0 + ty + kLanes * i;
+      if (item >= g.I) continue;
 #pragma unroll
-    for (int j = 0; j < kC; ++j) {
-      const int col = tx + kLanes * j;
-      if (col < g.d) dQ[(size_t)item * g.d + col] = dq[i][j];
+      for (int j = 0; j < kC; ++j) {
+        const int col = tx + kLanes * j;
+        if (col < g.d) dQ[(size_t)item * g.d + col] = dq[i][j];
+      }
     }
   }
 }
@@ -954,20 +1197,50 @@ sum_combine(const float* __restrict__ part, float* __restrict__ out, size_t n, i
   out[idx] = s;
 }
 
-Geo make_geo(int B, int I, int d) {
+bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
+
+// Where an array starts within its first aligned 4-element unit.
+int unit_off(const float* p) { return (int)(reinterpret_cast<uintptr_t>(p) / sizeof(float) % 4); }
+int unit_off(const uint8_t* p) { return (int)(reinterpret_cast<uintptr_t>(p) % 4); }
+
+// The geometry of one call: `rows` its [B, d] and [I, d] operands, `runs` the
+// float [B, I] operand it reads (noise or z; none in K3a) and `member` (none
+// in K3a and K3c).
+Geo make_geo(int B, int I, int d, std::initializer_list<const float*> rows, const float* runs,
+             const uint8_t* member) {
   Geo g;
   g.B = B;
   g.I = I;
   g.d = d;
-  g.ld = row_ld(d);
+  g.dp = pad4(d);
+  g.ld = d > kMaxWhole ? row_ld(kSlice) : row_ld(g.dp);
   g.n_tiles = (I + kTile - 1) / kTile;
   g.n_chunks = (g.n_tiles + kChunkTiles - 1) / kChunkTiles;
+  g.n_slices = (g.dp + kSlice - 1) / kSlice;
+  g.rows16 = d % 4 == 0;
+  for (const float* p : rows) g.rows16 = g.rows16 && aligned16(p);
+  g.off_f = runs ? unit_off(runs) : 0;
+  g.off_m = member ? unit_off(member) : 0;
   return g;
 }
 
-bool bad_shape(int B, int I, int d) {
-  return B <= 0 || I < 2 || d <= 0 || d % 4 != 0 || d > kMaxD;
+int form_of(const Geo& g) {
+  if (g.d > kMaxWhole) return kSliced;
+  return g.rows16 && g.off_f == 0 && g.off_m == 0 ? kAligned : kAny;
 }
+
+// launch(Shape<form>) for the form g takes; its error.
+template <typename Launch>
+cudaError_t with_form(const Geo& g, Launch launch) {
+  switch (form_of(g)) {
+    case kAligned: return launch(Shape<kAligned>(g));
+    case kAny: return launch(Shape<kAny>(g));
+    default: return launch(Shape<kSliced>(g));
+  }
+}
+
+// No width is refused: every d >= 1 has a form.
+bool bad_shape(int B, int I, int d) { return B <= 0 || I < 2 || d <= 0; }
 
 template <typename Kernel>
 cudaError_t prepare(Kernel kernel, size_t smem) {
@@ -999,14 +1272,18 @@ cudaError_t combine_sums(const float* part, float* out, size_t n, int n_parts,
 extern "C" int acf_apl_stats1(const float* pu, const float* Qg, float* m1, float* l1,
                               float* part, int B, int I, int d, void* stream) {
   if (bad_shape(B, I, d)) return (int)cudaErrorInvalidValue;
-  const Geo g = make_geo(B, I, d);
+  const Geo g = make_geo(B, I, d, {pu, Qg}, nullptr, nullptr);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const size_t smem = stats_smem(g);
-  cudaError_t err = prepare(stats1_kernel, smem);
+  const cudaError_t err = with_form(g, [&](auto shape) {
+    const auto kernel = stats1_kernel<decltype(shape)::form>;
+    const size_t smem = stats_smem(shape);
+    const cudaError_t e = prepare(kernel, smem);
+    if (e != cudaSuccess) return e;
+    kernel<<<chunk_grid(shape), kThreads, smem, st>>>(pu, Qg, part,
+                                                      part + (size_t)g.n_chunks * B, shape);
+    return cudaGetLastError();
+  });
   if (err != cudaSuccess) return (int)err;
-  stats1_kernel<<<chunk_grid(g), kThreads, smem, st>>>(pu, Qg, part,
-                                                       part + (size_t)g.n_chunks * B, g);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   return (int)combine_stats(part, m1, l1, g, st);
 }
 
@@ -1016,14 +1293,18 @@ extern "C" int acf_apl_z(const float* pu, const float* Qg, const uint8_t* member
                          const float* l1, float* z, float* m2, float* l2, float* part, int B,
                          int I, int d, float omw, float w, float T, void* stream) {
   if (bad_shape(B, I, d)) return (int)cudaErrorInvalidValue;
-  const Geo g = make_geo(B, I, d);
+  const Geo g = make_geo(B, I, d, {pu, Qg}, gn, member);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const size_t smem = z_smem(g);
-  cudaError_t err = prepare(z_kernel, smem);
+  const cudaError_t err = with_form(g, [&](auto shape) {
+    const auto kernel = z_kernel<decltype(shape)::form>;
+    const size_t smem = z_smem(shape);
+    const cudaError_t e = prepare(kernel, smem);
+    if (e != cudaSuccess) return e;
+    kernel<<<chunk_grid(shape), kThreads, smem, st>>>(pu, Qg, member, nuniq, gn, m1, l1, z, part,
+                                                  part + (size_t)g.n_chunks * B, shape, omw, w, T);
+    return cudaGetLastError();
+  });
   if (err != cudaSuccess) return (int)err;
-  z_kernel<<<chunk_grid(g), kThreads, smem, st>>>(pu, Qg, member, nuniq, gn, m1, l1, z, part,
-                                                  part + (size_t)g.n_chunks * B, g, omw, w, T);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   return (int)combine_stats(part, m2, l2, g, st);
 }
 
@@ -1032,13 +1313,17 @@ extern "C" int acf_apl_fake(const float* pu_c, const float* Qc, const float* z,
                             const float* m2, const float* l2, float* fake, float* part, int B,
                             int I, int d, void* stream) {
   if (bad_shape(B, I, d)) return (int)cudaErrorInvalidValue;
-  const Geo g = make_geo(B, I, d);
+  const Geo g = make_geo(B, I, d, {pu_c, Qc}, z, nullptr);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const size_t smem = fake_smem(g);
-  cudaError_t err = prepare(fake_kernel, smem);
+  const cudaError_t err = with_form(g, [&](auto shape) {
+    const auto kernel = fake_kernel<decltype(shape)::form>;
+    const size_t smem = fake_smem(shape);
+    const cudaError_t e = prepare(kernel, smem);
+    if (e != cudaSuccess) return e;
+    kernel<<<chunk_grid(shape), kThreads, smem, st>>>(pu_c, Qc, z, m2, l2, part, shape);
+    return cudaGetLastError();
+  });
   if (err != cudaSuccess) return (int)err;
-  fake_kernel<<<chunk_grid(g), kThreads, smem, st>>>(pu_c, Qc, z, m2, l2, part, g);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   return (int)combine_sums(part, fake, (size_t)B, g.n_chunks, st);
 }
 
@@ -1050,15 +1335,18 @@ extern "C" int acf_apl_bigr(const float* pu_g, const float* Qg, const float* pu_
                             float* part, int B, int I, int d, float omw, float w,
                             float coef, void* stream) {
   if (bad_shape(B, I, d)) return (int)cudaErrorInvalidValue;
-  const Geo g = make_geo(B, I, d);
+  const Geo g = make_geo(B, I, d, {pu_g, Qg, pu_c, Qc}, z, member);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const size_t smem = bigr_smem(g);
-  cudaError_t err = prepare(bigr_kernel, smem);
+  const cudaError_t err = with_form(g, [&](auto shape) {
+    const auto kernel = bigr_kernel<decltype(shape)::form>;
+    const size_t smem = bigr_smem(shape);
+    const cudaError_t e = prepare(kernel, smem);
+    if (e != cudaSuccess) return e;
+    kernel<<<chunk_grid(shape), kThreads, smem, st>>>(pu_g, Qg, pu_c, Qc, member, nuniq, z, m1, l1,
+                                                  m2, l2, a, fake, part, shape, omw, w, coef);
+    return cudaGetLastError();
+  });
   if (err != cudaSuccess) return (int)err;
-  bigr_kernel<<<chunk_grid(g), kThreads, smem, st>>>(pu_g, Qg, pu_c, Qc, member, nuniq, z, m1,
-                                                     l1, m2, l2, a, fake, part, g, omw, w,
-                                                     coef);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   return (int)combine_sums(part, R, (size_t)B, g.n_chunks, st);
 }
 
@@ -1070,15 +1358,23 @@ extern "C" int acf_apl_grad(const float* pu_g, const float* Qg, const float* pu_
                             float* dQ, float* dP, float* part, int B, int I, int d, float omw,
                             float w, float coef, void* stream) {
   if (bad_shape(B, I, d)) return (int)cudaErrorInvalidValue;
-  const Geo g = make_geo(B, I, d);
+  const Geo g = make_geo(B, I, d, {pu_g, Qg, pu_c, Qc}, z, member);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const size_t smem = grad_smem(g);
-  // 4 register columns a thread up to d = 64, 8 up to d = 128
-  const auto kernel = d <= 4 * kLanes ? grad_kernel<4> : grad_kernel<8>;
-  cudaError_t err = prepare(kernel, smem);
+  const cudaError_t err = with_form(g, [&](auto shape) {
+    constexpr int kForm = decltype(shape)::form;
+    // 4 register columns a thread up to d = 64, 8 up to d = 128; kSliced 4
+    auto kernel = grad_kernel<4, kForm>;
+    if constexpr (kForm != kSliced) {
+      if (d > 4 * kLanes) kernel = grad_kernel<8, kForm>;
+    }
+    const size_t smem = grad_smem(shape);
+    const cudaError_t e = prepare(kernel, smem);
+    if (e != cudaSuccess) return e;
+    kernel<<<shape.n_tiles, kThreads, smem, st>>>(pu_g, Qg, pu_c, Qc, member, nuniq, z, m1, l1,
+                                                  m2, l2, a, fake, R, dQ, part, shape, omw, w,
+                                                  coef);
+    return cudaGetLastError();
+  });
   if (err != cudaSuccess) return (int)err;
-  kernel<<<g.n_tiles, kThreads, smem, st>>>(pu_g, Qg, pu_c, Qc, member, nuniq, z, m1, l1, m2,
-                                            l2, a, fake, R, dQ, part, g, omw, w, coef);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   return (int)combine_sums(part, dP, (size_t)B * d, g.n_tiles, st);
 }

@@ -26,8 +26,10 @@ in five passes, each recomputing the [B, d]×[d, I] products it needs:
 On CPU tensors each pass runs its plain version (``*_plain``, whole [B, I]
 tensors, the JAX kernels' formulas); on CUDA tensors it launches its
 kernel in ``csrc/apl_gen.cu`` and adds one to its ``launches`` counter, or
-raises ``ValueError`` (:func:`check_supported`). Only ``z`` is a [B, I]
-output; nothing is padded (the kernels mask the ragged tail themselves).
+raises ``ValueError`` (:func:`check_supported`). The kernels take every
+width d >= 1 at any float32 alignment, as the TPU kernels do. Only ``z`` is
+a [B, I] output; nothing is padded or copied wider (the kernels mask the
+ragged tail and zero the rows' tails in shared memory themselves).
 
 Rounding note: the kernels sum the products, the softmax denominators and
 the gradients in their own order (in a fixed order, with no atomics: two
@@ -47,12 +49,14 @@ EPS = 1e-20
 NEG = -1e30
 
 # Kernel geometry (csrc/apl_gen.cu): 64-user x 64-item tiles; K3a-K3d give
-# each block a chunk of CHUNK_TILES item tiles, K3e one item tile.
+# each block a chunk of CHUNK_TILES item tiles, K3e one item tile. Up to
+# MAX_WHOLE_D a staged tile holds whole rows (K3e's register tile: 8 columns a
+# thread); past it, one k slice of SLICE columns at a time (every width).
 TILE = 64
 CHUNK_TILES = 4
-MAX_D = 128                    # K3e's register tile (shared memory would take 180)
+MAX_WHOLE_D = 128
+SLICE = 64
 SMEM_LIMIT = 232_448           # shared memory one Hopper block may use (227 KB)
-ROADMAP_ITEM = "ROADMAP.md Queue 2, 'K3a-K3e: wider tables'"
 
 # expected shape (in B, I, d) and dtype of every tensor a pass reads
 _SPECS = {
@@ -135,7 +139,11 @@ def apl_grad_plain(pu_g, Qg, pu_c, Qc, member, nuniq, z, m1, l1, m2, l2, a, fake
 # --- limits ---------------------------------------------------------------------
 
 def _ld(d: int) -> int:
-    return 4 * ((d // 4) | 1)  # odd number of 16-byte units per row
+    """Row stride (floats) of a staged [64, ld] tile at width d: an odd
+    number of 16-byte units holding d rounded up to 4 (a zero tail), or past
+    MAX_WHOLE_D one k slice of SLICE columns."""
+    cols = SLICE if d > MAX_WHOLE_D else (d + 3) // 4 * 4
+    return 4 * ((cols // 4) | 1)
 
 
 def smem_footprints(d: int) -> dict[str, int]:
@@ -145,7 +153,9 @@ def smem_footprints(d: int) -> dict[str, int]:
     tile, two item tiles and two [64, 80] z tiles; K3d two user tiles, one
     Q_g/Q_c pair of item tiles, one [64, 80] z tile, [64, 8] row scalars and
     one [64, 68]-byte member tile; K3e K3d's four tiles, z tile and member
-    tile, [64, 12] row scalars and its [64, 65] dlogits tile."""
+    tile, [64, 12] row scalars and its [64, 65] dlogits tile. Past
+    MAX_WHOLE_D every [64, ld] tile holds one k slice, so the footprints are
+    those of d = SLICE, whatever d."""
     tile = TILE * _ld(d)
     z = TILE * (TILE + 16)  # one z (or noise) tile
     zm = z + TILE * (TILE + 4) // 4  # one z and one member tile
@@ -164,23 +174,29 @@ def smem_bytes(d: int) -> int:
 def check_supported(**tensors):
     """Raise ``ValueError`` unless the kernels take these named tensors (the
     names of :func:`apl_gen_forward`'s and :func:`apl_gen_backward`'s
-    arguments): every one on the same CUDA device, contiguous, of its dtype
-    (``member`` uint8, the rest float32) and its shape in B, I and d, with
-    d % 4 == 0 and d <= MAX_D, B >= 1 and I >= 2."""
+    arguments): every one on the same CUDA device (:func:`check_operands`
+    for the rest)."""
+    users = tensors.get("pu_g", tensors.get("pu_c"))
+    if users is not None and users.device.type != "cuda":
+        raise ValueError(f"the APL kernels run on CUDA tensors, not {users.device}")
+    check_operands(**tensors)
+
+
+def check_operands(**tensors):
+    """Raise ``ValueError`` unless every named tensor is on the user rows'
+    device, contiguous, aligned to its element, of its dtype (``member``
+    uint8, the rest float32) and of its shape in B, I and d, with d >= 1, B >=
+    1 and I >= 2. Any width and alignment is taken (4-byte copies where d % 4
+    != 0 or a row is not 16-byte aligned; k slices past MAX_WHOLE_D)."""
     users = tensors.get("pu_g", tensors.get("pu_c"))
     table = tensors.get("Qg", tensors.get("Qc"))
     if users is None or table is None or users.dim() != 2 or table.dim() != 2:
         raise ValueError("the APL kernels need [B, d] user rows and an [I, d] table")
     dims = {"B": users.shape[0], "d": users.shape[1], "I": table.shape[0]}
     b, d, num_items = dims["B"], dims["d"], dims["I"]
-    if users.device.type != "cuda":
-        raise ValueError(f"the APL kernels run on CUDA tensors, not {users.device}")
-    if d % 4 or not 4 <= d <= MAX_D:
-        raise ValueError(f"the APL kernels need d % 4 == 0 and 4 <= d <= {MAX_D}; got "
-                         f"d={d} (wider tables are lifted by {ROADMAP_ITEM})")
-    if b < 1 or num_items < 2:
-        raise ValueError(f"the APL kernels need B >= 1 and I >= 2 (item 0 is the pad); "
-                         f"got B={b}, I={num_items}")
+    if b < 1 or num_items < 2 or d < 1:
+        raise ValueError(f"the APL kernels need B >= 1, I >= 2 (item 0 is the pad) and "
+                         f"d >= 1; got B={b}, I={num_items}, d={d}")
     for name, x in tensors.items():
         shape, dtype = _SPECS[name]
         shape = tuple(dims[s] for s in shape)
@@ -190,8 +206,8 @@ def check_supported(**tensors):
             raise ValueError(f"{name} must be {dtype}, got {x.dtype}")
         if tuple(x.shape) != shape:
             raise ValueError(f"{name} must have shape {shape}, got {tuple(x.shape)}")
-        if not x.is_contiguous() or x.data_ptr() % 16:
-            raise ValueError(f"{name} must be contiguous and 16-byte aligned")
+        if not x.is_contiguous() or x.data_ptr() % x.element_size():
+            raise ValueError(f"{name} must be contiguous and aligned to its elements")
 
 
 # --- kernel wrappers --------------------------------------------------------------

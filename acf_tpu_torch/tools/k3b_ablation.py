@@ -44,7 +44,7 @@ _DIRECT_MIXED = (
 _STAGED_STAGE = ("    stage_runs(sN + buf * noise_f, gn, kNoiseLd, u0, t * kTile, g);\n"
                  "    stage_runs(sM + buf * kTile * kMemLd, member, kMemLd, u0, t * kTile, g);\n")
 _STAGED_STORE = "          z[(size_t)row * g.I + item] = v[j];\n"
-_STAGED_CONSTANTS = [("cm[r * kMemLd + shift[i] + c];", "(uint8_t)(j & 1);"),
+_STAGED_CONSTANTS = [("cm[r * kMemLd + mshift[i] + c];", "(uint8_t)(j & 1);"),
                      ("cn[r * kNoiseLd + shift[i] + c];", "0.25f * j;")]
 FORMS = {
     # commit 1f1bed5: the noise and member read, z stored, element by element

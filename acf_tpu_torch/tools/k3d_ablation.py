@@ -44,17 +44,11 @@ _R_OF_MATH = (
     "  r = __fmul_rn(__fmul_rn(coef, sz), t) / __fadd_rn(mixed, kEps);\n")
 _STAGED_STAGE = ("    stage_runs(sZ, z, kNoiseLd, u0, i0, g);\n"
                  "    stage_runs(sM, member, kMemLd, u0, i0, g);\n")
-_STAGED_CONSTANTS = [("sM[r * kMemLd + shift + col];", "(uint8_t)(j & 1);"),
+_STAGED_CONSTANTS = [("sM[r * kMemLd + mshift + col];", "(uint8_t)(j & 1);"),
                      ("sZ[r * kNoiseLd + shift + col];", "0.25f * j;")]
 _STAGED_MATH = (
-    "          const float aux = mem == 0   ? 0.f\n"
-    "                            : mem == 1 ? s1.z\n"
-    "                                       : __fmul_rn(w, (float)mem) / s1.w;\n"
-    "          const float probs = __fmul_rn(expf(lg[i][j] - s1.x), s1.y);\n"
-    "          const float mixed = __fadd_rn(__fmul_rn(omw, probs), aux);\n"
-    "          const float sz = __fmul_rn(expf(zv - s2.x), s2.y);\n"
-    "          const float tt = __fmul_rn(s2.z, c[i][j] - s2.w);\n"
-    "          const float rv = __fmul_rn(__fmul_rn(coef, sz), tt) / __fadd_rn(mixed, kEps);\n"
+    "          float probs, rv;\n"
+    "          probs_r(lg[i][j], c[i][j], zv, mem, s1, s2, omw, w, coef, probs, rv);\n"
     "          acc_r[i] = fmaf(probs, rv, acc_r[i]);\n")
 _STAGED_NO_MATH = "          acc_r[i] += lg[i][j] + c[i][j] + zv + (float)mem;\n"
 FORMS = {

@@ -99,17 +99,11 @@ def _sum_store(target: str) -> str:
 
 _STAGED_STAGE = ("    stage_runs(sZe, z, kNoiseLd, u0, i0, g);\n"
                  "    stage_runs(sMe, member, kMemLd, u0, i0, g);\n")
-_STAGED_CONSTANTS = [("sMe[r * kMemLd + shift + col];", "(uint8_t)(j & 1);"),
+_STAGED_CONSTANTS = [("sMe[r * kMemLd + mshift + col];", "(uint8_t)(j & 1);"),
                      ("sZe[r * kNoiseLd + shift + col];", "0.25f * j;")]
 _STAGED_MATH = (
-    "          const float aux = mem == 0   ? 0.f\n"
-    "                            : mem == 1 ? s1.z\n"
-    "                                       : __fmul_rn(w, (float)mem) / s1.w;\n"
-    "          const float probs = __fmul_rn(expf(lg[i][j] - s1.x), s1.y);\n"
-    "          const float mixed = __fadd_rn(__fmul_rn(omw, probs), aux);\n"
-    "          const float sz = __fmul_rn(expf(zv - s2.x), s2.y);\n"
-    "          const float tt = __fmul_rn(s2.z, c[i][j] - s2.w);\n"
-    "          const float rv = __fmul_rn(__fmul_rn(coef, sz), tt) / __fadd_rn(mixed, kEps);\n"
+    "          float probs, rv;\n"
+    "          probs_r(lg[i][j], c[i][j], zv, mem, s1, s2, omw, w, coef, probs, rv);\n"
     "          dl = __fmul_rn(probs, rv - rR);\n")
 _STAGED_NO_MATH = "          dl = lg[i][j] + c[i][j] + zv + (float)mem;\n"
 FORMS = {
@@ -130,8 +124,9 @@ FORMS = {
         "no_loads": [(_STAGED_STAGE, ""), *_STAGED_CONSTANTS],
         "no_math": [(_STAGED_MATH, _STAGED_NO_MATH)],
         "neither": [(_STAGED_STAGE, ""), *_STAGED_CONSTANTS, (_STAGED_MATH, _STAGED_NO_MATH)],
-        "no_grads": [("    grad_dq<kC>(sD, sPg, g, ty, tx, dq);\n", ""),
-                     ("    grad_dp<kC>(sD, sQg, g, ty, tx, u0, part);\n", _sum_store("part"))],
+        "no_grads": [("      grad_dq<kC>(sD, sPg, g.ld, g.d, ty, tx, dq);\n", ""),
+                     ("      grad_dp<kC>(sD, sQg, g.ld, g.d, ty, tx, u0, g.B, part, g.d);\n",
+                      _sum_store("part"))],
     }),
 }
 

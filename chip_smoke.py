@@ -12,7 +12,8 @@ Phases, any failure exits non-zero:
   2. build  — compile every kernel in ``acf_tpu_torch/csrc`` with nvcc and
               print its ``-Xptxas -v`` lines; K1 (with and without TMA), K2a
               (both width paths), K2b (both forms), its reduction, every K3
-              kernel and the merges of their partials must spill nothing, and
+              kernel in each of its builds (``APL_BUILDS``) and the merges
+              of their partials must spill nothing, and
               so must K2a's and K2b's bfloat16 forms (their own units);
   3. K1     — the rank-count kernel against its plain PyTorch version on
               standard-normal inputs at every ``K1_SHAPES`` case
@@ -89,10 +90,14 @@ Phases, any failure exits non-zero:
  15. K3a-K3e (APL's generator chain) against their plain versions at APL's
               geometry (B = 512, d = 64, I = 23,701), a ragged case
               (B = 7, d = 36, I = 1,100), K3b-K3e's staging edges
-              (B = 65, d = 64, I = 131) and the widest tables (B = 70,
-              d = 128, I = 517), histories with duplicates and a user with no
-              positives: every output, two calls bit-identical,
-              ``ValueError`` outside the limits with no launch;
+              (B = 65, d = 64, I = 131), the widest whole-row tables (B = 70,
+              d = 128, I = 517), d = 50 at APL's geometry and every width of
+              ``APL_WIDTHS`` (1 to 512: the 4-byte form and k slices; B =
+              70, I = 517), histories with duplicates and a user with no
+              positives: every output, two calls bit-identical; every input
+              one element off its buffer (``APL_UNALIGNED``): the aligned
+              inputs' bits; ``ValueError`` outside the limits (dtype, shape,
+              contiguity) with no launch;
  16. APL on the Video-shaped set: MF-BPR pretrained one epoch with
               Adagrad(0.05, 0.1) through the pair trainer, its tables handed
               to APL's generator (the start NDCG must be MF-BPR's), one APL
@@ -106,7 +111,9 @@ Phases, any failure exits non-zero:
               one critic step's device busy and idle time; the generator
               step's launches one line each in launch order, then each
               merge of the partials alone; APL epochs' seconds and
-              examples/s, every sample printed;
+              examples/s, every sample printed; each pass at d = 64, 52, 50
+              and 256 (``APL_TIMED_WIDTHS``) beside its plain version, its
+              products' torch.matmul and its bound;
  18. APR on the ml-1m-shaped set (MF-BPR d = 64, batch 512,
               Adagrad(0.05, 0.1), eps 0.5, reg_adv 1; ``bench.py:66-85``):
               ``fit_two_phase`` (1 clean epoch, then 1 APR epoch with the
@@ -240,7 +247,10 @@ Phases, any failure exits non-zero:
               (``STEP_TOL``); then K1 off TMA (d = 50; d = 64 one float off),
               K2a at d = 50, T = 200 and K2b's wide form at T = 200, d = 50
               and 64 (B = 512, full and dx-only) timed beside their plain
-              versions and bounds;
+              versions and bounds; ``apl --d 50``, the same under ``--mesh
+              1x1`` and ``apl --d 10`` on the Video file (one epoch each):
+              every K3 kernel once a generator step, K1 61, the mesh run
+              bit-equal to the one without;
  29. (run on phase 20's files, after phase 28) SASRec's bfloat16 training
               path: K2a's and K2b's bfloat16 forms against their plain
               bfloat16 versions at B = 512 (d = 64, T in {8, 50}: K2b's tile
@@ -1578,9 +1588,19 @@ def training_phases(dev, ml1m_data, video_data):
 APL_TOL = 1e-4
 # (B, d, I): APL's geometry; a ragged case; one user tile plus a row and two
 # item tiles plus 3 items, where the [B, I] rows start at every offset within a
-# 16-byte unit (f32) and a 4-byte word (uint8); the widest table the kernels
-# take (MAX_D), where K3e's shared memory is the largest, with odd I
-APL_CASES = ((512, D, 23_701), (7, 36, 1_100), (65, 64, 131), (70, 128, 517))
+# 16-byte unit (f32) and a 4-byte word (uint8); the widest whole-row table
+# (MAX_WHOLE_D), where K3e's shared memory is the largest, with odd I; APL's
+# geometry at d = 50 (`apl --d 50`); then every form at two user tiles (one
+# ragged) by nine item tiles (odd I): the 4-byte copies and zero tails of d
+# % 4 != 0 (1, 3, 10, 50) and the k slices past MAX_WHOLE_D (130: a slice of
+# 4 columns; 200; 256; 512)
+APL_WIDTHS = (1, 3, 10, 50, 130, 200, 256, 512)
+APL_CASES = ((512, D, 23_701), (7, 36, 1_100), (65, 64, 131), (70, 128, 517), (512, 50, 23_701),
+             *((70, d, 517) for d in APL_WIDTHS))
+# (B, d, I) of the unaligned views: every input one element off its
+# buffer's start (the float32 ones 4 bytes, member 1 byte; z too, for K3c-K3e)
+# in the whole-row form at d = 64 and 50 and in the sliced one at d = 200
+APL_UNALIGNED = ((65, 64, 131), (70, 50, 517), (70, 200, 517))
 APL_PRODUCTS = {"apl_stats1": 1, "apl_z": 1, "apl_fake": 1, "apl_bigr": 2, "apl_grad": 4}
 # Kernels whose ptxas lines must show no stack frame and no spill: K1 (with
 # and without TMA), K2a (both thread counts, both width paths), K2b (both
@@ -1597,9 +1617,17 @@ NO_SPILL_KERNELS = ("rank_count_kernel", "sasrec_encoder_fwd_kernel", "sasrec_en
 BF16_UNITS = {"sasrec_encoder_fwd_bf16.cu": ("sasrec_encoder_fwd_kernel",),
               "sasrec_encoder_bwd_bf16.cu": ("sasrec_encoder_bwd_kernel", K2B_WIDE_BUILD,
                                              "sasrec_encoder_bwd_reduce", "attention_fwd")}
-# The pass kernels of apl_gen.cu, by their names in a profile ("...::z_kernel(...")
+# The pass kernels of apl_gen.cu, by their names in a profile ("...::z_kernel<0>(...")
 APL_PASS_KERNELS = {"stats1_kernel": "K3a", "z_kernel": "K3b", "fake_kernel": "K3c",
                     "bigr_kernel": "K3d", "grad_kernel": "K3e"}
+# Each build of the K3 kernels by its mangled name: every pass in its three
+# forms (template argument 0 kAligned, 1 kAny, 2 kSliced), K3e's whole-row
+# forms at 4 and 8 register columns; each must be in the build log, spilling
+# nothing
+APL_BUILDS = tuple(f"{k}ILi{f}EE" for k in ("stats1_kernel", "z_kernel", "fake_kernel",
+                                             "bigr_kernel") for f in range(3)) + tuple(
+    f"grad_kernelILi{c}ELi{f}EE" for c, f in ((4, 0), (8, 0), (4, 1), (8, 1), (4, 2)))
+
 APL_REPLACES = {"apl_stats1": 67, "apl_z": 83, "apl_fake": 111, "apl_bigr": 141,
                 "apl_grad": 157}  # acf_tpu/ops/apl_gen_fused.py lines of the TPU kernels
 
@@ -1615,7 +1643,7 @@ def check_no_spill(log):
     for part in log.split("\n== ")[1:]:
         name, _, text = part.partition("\n")
         sections[name.strip()] = text
-    checks = [("", kernel, log) for kernel in NO_SPILL_KERNELS] + [
+    checks = [("", kernel, log) for kernel in NO_SPILL_KERNELS + APL_BUILDS] + [
         (f" ({unit})", kernel, sections.get(unit, "")) for unit, kernels in BF16_UNITS.items()
         for kernel in kernels]
     for where, kernel, text in checks:
@@ -1623,7 +1651,8 @@ def check_no_spill(log):
         check(bool(lines) and all(x.startswith("0 bytes stack frame, 0 bytes spill stores, "
                                                "0 bytes spill loads") for x in lines),
               f"{kernel}{where}: ptxas reports a stack frame or spills: {lines}")
-    print(f"ptxas: {', '.join(NO_SPILL_KERNELS)} spill nothing; in the bfloat16 units, "
+    print(f"ptxas: {', '.join(NO_SPILL_KERNELS)} spill nothing (the K3 kernels in every "
+          f"build: {', '.join(APL_BUILDS)}); in the bfloat16 units, "
           + "; ".join(f"{unit}: {', '.join(kernels)}" for unit, kernels in BF16_UNITS.items())
           + " spill nothing")
 
@@ -1647,8 +1676,10 @@ def apl_inputs(dev, b, d, num_items, seed):
 
 
 def check_apl_kernels(dev):
-    """Phase 15: K3a-K3e against their plain versions, two calls
-    bit-identical, and the refusals. Returns {kernel: max |difference|}."""
+    """Phase 15: K3a-K3e against their plain versions at every case of
+    ``APL_CASES``, two calls bit-identical; on the views of ``APL_UNALIGNED``
+    the aligned inputs' bits; the refusals. Returns {kernel: max
+    |difference|}."""
     from acf_tpu_torch.ops.apl_gen_fused import KERNELS, apl_gen_forward
 
     apl_chain = rank_cases().apl_chain  # K3a-K3e in order, or the plain versions alone
@@ -1682,10 +1713,29 @@ def check_apl_kernels(dev):
               + "; bit-identical over two calls")
         check(not got["apl_grad"][0][0].any(), f"{label}: the pad item got a gradient")
 
+    cases = rank_cases()
+    for b, d, num_items in APL_UNALIGNED:
+        x = apl_inputs(dev, b, d, num_items, seed=15)
+        want = apl_chain(x)
+        off = {k: one_float_off(v) for k, v in x.items()}
+        before = [k.launches for k in KERNELS]
+        got = {}
+        for name, kernel in zip(names, KERNELS):  # K3b's outputs one element off too
+            up = dict(got, apl_z=tuple(map(one_float_off, got["apl_z"]))) if got.get("apl_z") \
+                else got
+            got[name] = cases.apl_pass(name, off, up, kernel)
+        torch.cuda.synchronize()
+        label = f"K3 B={b} d={d} I={num_items} (every view one element off)"
+        check([k.launches - n for k, n in zip(KERNELS, before)] == [1] * 5,
+              f"{label}: a launch counter did not move once")
+        check(all(v.data_ptr() % 16 for v in off.values()), f"{label}: a view is 16-byte aligned")
+        for name in names:
+            check(all(torch.equal(a, c) for a, c in zip(got[name], want[name])),
+                  f"{label} {name}: not the aligned inputs' bits")
+        print(f"{label}: every output bit-identical to the aligned inputs'")
+
     x = apl_inputs(dev, 8, 36, 300, seed=16)
     refused = (
-        ("d=132", dict(x, pu_g=torch.zeros(8, 132, device=dev), Qg=torch.zeros(300, 132, device=dev))),
-        ("d=30", dict(x, pu_g=torch.zeros(8, 30, device=dev), Qg=torch.zeros(300, 30, device=dev))),
         ("a float32 member", dict(x, member=x["member"].float())),
         ("a transposed table", dict(x, Qg=x["Qg"].T.contiguous().T)),
         ("I=1", dict(x, Qg=x["Qg"][:1].contiguous(), Qc=x["Qc"][:1].contiguous(),
@@ -1918,6 +1968,54 @@ def apl_timing(dev, tr, data, first_epoch_s, reps=2):
     return entries
 
 
+# Phase 17's widths beside d = 64 at APL's geometry: `apl --d 50` (4-byte
+# copies, zero tails), d = 52 (the same staged rows of 52 floats by 16-byte
+# copies: what the 4-byte copies cost) and d = 256 (four k slices)
+APL_TIMED_WIDTHS = (64, 52, 50, 256)
+
+
+def apl_width_timing(dev):
+    """Phase 17, the widths: each K3 pass (its merge included, by
+    ``launches_ms``: the mean a launch of each) at B = 512, I = 23,701 and d
+    in ``APL_TIMED_WIDTHS``, in one run, beside its plain version, one
+    torch.matmul of its products and its bound at that d. Returns {d:
+    {kernel: fields}}."""
+    from acf_tpu_torch.ops import apl_gen_fused as ops
+    from acf_tpu_torch.tools.k3_identity import PASS_KERNELS
+
+    cases = rank_cases()
+    b, num_items = BATCH_USERS, APL_CASES[0][2]
+    out = {}
+    for d in APL_TIMED_WIDTHS:
+        x = apl_inputs(dev, b, d, num_items, seed=17)
+        got = cases.apl_chain(x)
+        mark = len(EVENT_TIMED)
+        matmul_ms = device_ms(lambda: torch.matmul(x["pu_g"], x["Qg"].T))
+        out[d] = {}
+        for name in APL_PRODUCTS:
+            kernel, plain = getattr(ops, name), getattr(ops, name + "_plain")
+            ms = launches_ms(lambda: cases.apl_pass(name, x, got, kernel), PASS_KERNELS[name])
+            plain_ms = device_ms(lambda: cases.apl_pass(name, x, got, plain), PLAIN_ITERS, 2)
+            bound_ms, bound_by = bound(*apl_work(name, b, d, num_items))
+            library_ms = APL_PRODUCTS[name] * matmul_ms
+            out[d][name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                            "bound_by": bound_by, "library_ms": library_ms}
+            print(f"{name} at B={b} I={num_items} d={d}: kernel {ms:.4f} ms a call (its "
+                  f"merge included; {bound_ms / ms:.3f} of the bound), plain {plain_ms:.4f} ms, "
+                  f"torch.matmul of its {APL_PRODUCTS[name]} product(s) {library_ms:.4f} ms, "
+                  f"bound {bound_ms:.4f} ms ({bound_by})")
+        for name in APL_PRODUCTS:
+            out[d][name]["timer"] = timer_since(mark)
+    print("K3 at d = 50 against d = 64, a call: " + ", ".join(
+        f"{name} {out[50][name]['ms'] / out[64][name]['ms']:.3f}" for name in APL_PRODUCTS)
+        + f" (50/64 = {50 / 64:.3f}); against d = 52: " + ", ".join(
+        f"{name} {out[50][name]['ms'] / out[52][name]['ms']:.3f}" for name in APL_PRODUCTS)
+        + "; at d = 256: " + ", ".join(
+        f"{name} {out[256][name]['ms'] / out[64][name]['ms']:.3f}" for name in APL_PRODUCTS)
+        + f" (256/64 = {256 / 64:.3f}); card {card_line()}")
+    return out
+
+
 def launch_lines(label, fn):
     """One call of ``fn`` under torch.profiler: every device event (kernel,
     copy, fill) on a line of its own in launch order, with its device time;
@@ -1951,10 +2049,12 @@ def apl_phases(dev, data):
     tr, launches, epoch_s = run_apl(dev, data)
     lap("16")
     timing = apl_timing(dev, tr, data, epoch_s)
+    widths = apl_width_timing(dev)
     lap("17")
     return [{"name": name, "route": "cuda", "source": "acf_tpu_torch/csrc/apl_gen.cu",
              "replaces": f"acf_tpu/ops/apl_gen_fused.py:{APL_REPLACES[name]}",
-             "launches": launches[name], "max_abs_err": max_err[name], **timing[name]}
+             "launches": launches[name], "max_abs_err": max_err[name], **timing[name],
+             **{f"at_d{d}": widths[d][name] for d in APL_TIMED_WIDTHS}}
             for name in APL_PRODUCTS]
 
 
@@ -2567,15 +2667,67 @@ K2A_KERNEL = ("sasrec_encoder_fwd_kernel",)
 K2B_KERNELS = ("sasrec_encoder_bwd_kernel", "sasrec_encoder_bwd_reduce")
 
 
-def widths_phase(dev, root, ml1m):
-    """Phase 28, on phase 20's ml-1m files: ``asasrec --d 50 --maxlen 200``
-    (the SASRec paper's ML-1M shape; one clean and one adversarial epoch) and
-    ``bpr --d 50`` (one epoch) through the command line, each run's counters
-    zeroed just before it and read just after; each run's evaluation at the
-    params it trained against the dense path; one clean and one asasrec step
-    at that shape through the kernels against the plain step; then the new
-    forms' times. Returns (launches by run, the wide form's kernels entry
-    without its max error)."""
+# `apl` through the command line at widths d % 4 != 0 (phase 28): (d, extra
+# flags) of each run, one epoch on phase 20's Video file
+APL_CLI_WIDTHS = ((50, []), (50, ["--mesh", "1x1"]), (10, []))
+
+
+def apl_cli_widths(root, video):
+    """Phase 28, APL: ``apl --d 50``, the same under ``--mesh 1x1`` (NCCL,
+    one rank: the trainer's mesh path) and ``apl --d 10``, one epoch each on
+    phase 20's Video file through the command line, each run's counters
+    zeroed just before it and read just after: every K3 kernel once a
+    generator step, K1 once a tile of the evaluation, the .out file
+    (``run_cli``), and the mesh run's params and evaluation bit-equal to the
+    run without it. Returns launches by run."""
+    import torch.distributed as dist
+
+    from acf_tpu_torch.ops.apl_gen_fused import KERNELS
+    from acf_tpu_torch.ops.ranking import rank_positions_dot
+
+    counts = expected_counts(video)
+    tiles = math.ceil(counts[3] / BATCH_USERS)
+    launched, runs = {}, {}
+    for d, extra in APL_CLI_WIDTHS:
+        label = " ".join([f"apl --d {d}", *extra])
+        for k in KERNELS:
+            k.launches = 0
+        rank_positions_dot.launches = 0
+        _, _, runs[label] = run_cli(root, ["--model", "apl", "--data", "video", "--epochs", "1",
+                                           "--d", str(d), "--bs", str(TRAIN_BATCH), *extra],
+                                    counts, 1, tag=f"apl_d{d}{'_mesh' if extra else ''}")
+        launched[label] = {**{k.__name__: k.launches for k in KERNELS},
+                           "k1": rank_positions_dot.launches}
+        steps = runs[label].num_batches
+        print(f"cli {label}: launches {launched[label]} ({steps} generator steps, "
+              f"{tiles} evaluation tiles)")
+        check(all(launched[label][k.__name__] == steps for k in KERNELS)
+              and launched[label]["k1"] == tiles,
+              f"cli {label}: launches {launched[label]}, not {steps} of each K3 kernel and "
+              f"{tiles} of K1")
+    one, mesh = runs["apl --d 50"], runs["apl --d 50 --mesh 1x1"]
+    check(mesh.mesh is not None and not dist.is_initialized(),
+          "cli apl --d 50 --mesh 1x1: no mesh, or its group outlived the run")
+    keys = [(side, n) for side in sorted(one.params) for n in sorted(one.params[side])]
+    same = all(torch.equal(mesh.params[s][n], one.params[s][n]) for s, n in keys)
+    res, ref = mesh.best["result"], one.best["result"]
+    equal_eval = np.array_equal(res.hr, ref.hr) and np.array_equal(res.ndcg, ref.ndcg)
+    print(f"cli apl --d 50 --mesh 1x1: params bit-equal to the run without --mesh {same}; "
+          f"per-user HR and NDCG@1..100 equal {equal_eval}")
+    check(same and equal_eval, "cli apl --d 50 --mesh 1x1: not bit-equal to one device")
+    return launched
+
+
+def widths_phase(dev, root, ml1m, video):
+    """Phase 28, on phase 20's files: ``asasrec --d 50 --maxlen 200`` (the
+    SASRec paper's ML-1M shape; one clean and one adversarial epoch) and
+    ``bpr --d 50`` (one epoch) through the command line on the ml-1m files,
+    each run's counters zeroed just before it and read just after; each
+    run's evaluation at the params it trained against the dense path; one
+    clean and one asasrec step at that shape through the kernels against the
+    plain step; APL at d = 50 and 10 on the Video file (``apl_cli_widths``);
+    then the new forms' times. Returns (launches by run, the wide form's
+    kernels entry without its max error)."""
     from acf_tpu_torch.ops.ranking import rank_positions_dot
     from acf_tpu_torch.ops.sasrec_fused import encoder_bwd, fused_encoder
 
@@ -2605,6 +2757,7 @@ def widths_phase(dev, root, ml1m):
         check_against_dense(f"cli {name} d={WIDTH_D} (trained params)", tr.evaluator, tr.model,
                             tr.params, res)
     check_training_step(dev, runs["asasrec"].data, maxlen=WIDTH_MAXLEN, d=WIDTH_D)
+    launched.update(apl_cli_widths(root, video))
     return launched, widths_timing(dev)
 
 
@@ -3098,7 +3251,7 @@ def cli_phases(dev):
         for n, name in enumerate(POP_MODELS):
             check_pop_step(name, trainers[name], seed=200 + n)
         lap("20")
-        widths = widths_phase(dev, root, ml1m)
+        widths = widths_phase(dev, root, ml1m, video)
         lap("28")
         bf16 = bf16_phase(dev, root, ml1m)
         lap("29")
@@ -4923,6 +5076,8 @@ def main():
     for entry in k3_entries:
         entry["launches_mesh_models"] = {run: v[entry["name"]] for run, v in mesh_models.items()
                                          if entry["name"] in v}
+        entry["launches_widths"] = {run: v[entry["name"]] for run, v in widths.items()
+                                    if entry["name"] in v}
     for entry, key in ((k2a_entry, "k2a"), (k2b_entry, "k2b")):
         entry["launches_mesh"] = {run: v[key] for run, v in mesh.items() if key in v}
     for entry, key in ((kernels[0], "k1"), (k2a_entry, "k2a"), (k2b_entry, "k2b"),

@@ -21,7 +21,7 @@ from acf_tpu.ops.apl_gen_fused import apl_gen_forward as jax_forward
 from acf_tpu_torch.models.apl import membership
 from acf_tpu_torch.ops.apl_gen_fused import (
     KERNELS, apl_bigr_plain, apl_fake_plain, apl_gen_backward, apl_gen_forward, apl_grad_plain,
-    MAX_D, SMEM_LIMIT, apl_stats1_plain, apl_z_plain, check_supported, smem_bytes,
+    MAX_WHOLE_D, SLICE, SMEM_LIMIT, apl_stats1_plain, apl_z_plain, check_supported, smem_bytes,
     smem_footprints,
 )
 
@@ -149,16 +149,17 @@ def test_chain_equals_the_dense_closed_form(b, d, num_items):
 
 
 def test_limits_are_stated_once():
-    """``check_supported``'s width limit: shared memory would take d = 180
-    (K3e's four tiles with its dlogits, z, member and row-scalar tiles, the
-    largest footprint at d = 128), K3e's register tile (128 columns) binds
-    first. At d = 64 K3e still fits two blocks on an SM (233,472 B of
+    """No width limit is left: up to MAX_WHOLE_D (K3e's register tile, 128
+    columns) a tile holds whole rows, and past it one k slice of SLICE
+    columns, so every footprint past MAX_WHOLE_D is that of d = SLICE.
+    K3e's is the largest at MAX_WHOLE_D and still fits a block; at d = 64
+    (and so past MAX_WHOLE_D) K3e fits two blocks on an SM (233,472 B of
     shared memory, less 1 KB reserved a block)."""
-    assert MAX_D == 128 and smem_bytes(MAX_D) <= SMEM_LIMIT
-    footprints = smem_footprints(MAX_D)
+    assert MAX_WHOLE_D == 128 and SLICE == 64 and smem_bytes(MAX_WHOLE_D) <= SMEM_LIMIT
+    footprints = smem_footprints(MAX_WHOLE_D)
     assert max(footprints, key=footprints.get) == "apl_grad"
-    assert smem_bytes(180) <= SMEM_LIMIT < smem_bytes(184)
-    assert smem_footprints(184)["apl_grad"] > SMEM_LIMIT
+    for d in (MAX_WHOLE_D + 1, 180, 184, 256, 512, 4096):
+        assert smem_footprints(d) == smem_footprints(SLICE)
     assert 2 * (smem_footprints(64)["apl_grad"] + 1024) <= 233_472
     x = torch.zeros(4, 8)
     with pytest.raises(ValueError, match="CUDA"):
@@ -167,19 +168,23 @@ def test_limits_are_stated_once():
 
 def test_k3c_footprint_keeps_two_blocks_an_sm():
     """K3c's staged z (two [64, 80] tiles beside the user tile and two Q_c
-    tiles) still fits two blocks on an SM at d = 64 and stays below K3e's
-    footprint at d = 128, so the width limits above do not move."""
+    tiles) still fits two blocks on an SM at d = 64, and so in the sliced
+    form; at MAX_WHOLE_D it stays below K3e's footprint. At d = 50 its rows
+    of 52 floats (d rounded up to 4) take 52 of a row's stride."""
     assert smem_footprints(64)["apl_fake"] == 93_184
-    assert smem_footprints(MAX_D)["apl_fake"] == 142_336
+    assert smem_footprints(MAX_WHOLE_D)["apl_fake"] == 142_336
+    assert smem_footprints(50)["apl_fake"] == 80_896  # ld 52: 13 (odd) 16-byte units
     assert 2 * (smem_footprints(64)["apl_fake"] + 1024) <= 233_472
-    assert smem_footprints(MAX_D)["apl_fake"] < smem_footprints(MAX_D)["apl_grad"]
-    assert smem_footprints(184)["apl_fake"] <= SMEM_LIMIT
+    assert smem_footprints(MAX_WHOLE_D)["apl_fake"] < smem_footprints(MAX_WHOLE_D)["apl_grad"]
+    assert smem_footprints(512)["apl_fake"] == smem_footprints(64)["apl_fake"]
 
 
 def test_k3a_footprint_fits_its_blocks_an_sm():
     """K3a's user tile and two Q_g tiles fit as many blocks on an SM at d = 64
-    as its ``__launch_bounds__`` asks for (``kStatsBlocks`` in apl_gen.cu,
-    three), each with the 1 KB the card reserves a block."""
+    (and at every d up to 64: rows of d rounded up to 4) as its
+    ``__launch_bounds__`` asks for of the whole-row forms (``kStatsBlocks``
+    in apl_gen.cu, three), each with the 1 KB the card reserves a block; the
+    sliced form's footprint is d = 64's."""
     import re
 
     from acf_tpu_torch.ops import _build
@@ -188,5 +193,7 @@ def test_k3a_footprint_fits_its_blocks_an_sm():
     blocks = int(re.search(r"constexpr int kStatsBlocks = (\d+);", source).group(1))
     assert blocks == 3
     assert smem_footprints(64)["apl_stats1"] == 52_224
+    assert smem_footprints(53)["apl_stats1"] == 3 * 64 * 60 * 4  # rows of 56 at a stride of 60
     assert blocks * (smem_footprints(64)["apl_stats1"] + 1024) <= 233_472
-    assert 2 * (smem_footprints(MAX_D)["apl_stats1"] + 1024) <= 233_472
+    assert 2 * (smem_footprints(MAX_WHOLE_D)["apl_stats1"] + 1024) <= 233_472
+    assert smem_footprints(200)["apl_stats1"] == smem_footprints(64)["apl_stats1"]

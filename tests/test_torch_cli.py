@@ -95,6 +95,7 @@ MAKE_CASES = [(name, []) for name in cli.PORTED_MODELS] + [
     ("sasrec", ["--train_dtype", "bfloat16"]),
     ("asasrec", ["--train_dtype", "bfloat16"]),
     ("apl", ["--loss", "wgan"]),
+    ("apl", ["--d", "50"]),
     ("gru4rec", ["--loss", "top1", "--final_act", "relu", "--hidden_act", "relu"]),
     ("caser", ["--maxlen", "7"]),
     ("dsin", ["--sess_count", "2", "--sess_len", "3", "--dsin_bi", "--loss", "bpr"]),
