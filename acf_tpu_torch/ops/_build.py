@@ -74,7 +74,7 @@ SIGNATURES = {
     "acf_sasrec_encoder_bwd": [EncoderWeights, DropoutMasks, _P, _P, _P, _P, _P, _P,
                                _I, _I, _I, _I, _I, _I, _I, _P],
     "acf_sasrec_encoder_bwd_ctas": [_I, _I],
-    "acf_sasrec_encoder_bwd_wide": [EncoderWeights, DropoutMasks] + [_P] * 7 + [_I] * 6 + [_P],
+    "acf_sasrec_encoder_bwd_wide": [EncoderWeights, DropoutMasks] + [_P] * 6 + [_I] * 7 + [_P],
     "acf_sasrec_encoder_bwd_wide_ctas": [_I, _I],
     # csrc/apl_gen.cu: tensors, then B, I, d, then (1 - w), w, T or (1 - w) / T
     "acf_apl_stats1": [_P] * 5 + [_I] * 3 + [_P],

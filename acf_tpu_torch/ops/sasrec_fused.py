@@ -23,9 +23,10 @@ shared-memory sizes with the same formulas the launches use.
 K2b has two forms, chosen in one place (:func:`_bwd_form`): the tile form,
 whose block holds ~32 rows in shared memory and copies them 16 bytes at a
 time, for every window it fits at d % 4 == 0 on 16-byte aligned tensors,
-and the wide form (one user a block, its rows in a device workspace, 4-byte
-copies) for everything else up to K2a's widest window, so training takes
-every window and width serving takes. K2a takes any width 1 <= d <= 128: a
+and the wide form (one user's window a thread-block cluster of 1, 2 or 4
+CTAs, each holding its share of the rows in shared memory, 4-byte copies;
+:func:`_bwd_wide_layout`) for everything else up to K2a's widest window, so
+training takes every window and width serving takes. K2a takes any width 1 <= d <= 128: a
 row is staged at d rounded up to 4 with zero tails, and its C entry copies
 16 bytes at a time where the width and the tensors' alignment allow, 4
 bytes otherwise.
@@ -85,9 +86,16 @@ BLOCK_RESERVED = 1_024         # ... of which each resident block keeps 1 KB
 SLICE_FLOATS = 4096            # floats of W in one staged weight slice (K2a, K2b), at most
 BWD_BUFFERS = 7                # [rows, ld] activation buffers of K2b
 BWD_THREADS = 512              # K2b's block: 16 warps, one block an SM
-BWD_WIDE_THREADS = 256         # K2b's wide form: 8 warps, up to 255 registers a thread
 BWD_ROWS_PER_THREAD = 3        # rows of a K2b product's register tile, at most
+# K2b's wide form's CTA (threads, register-tile rows at most): 16 warps and
+# 128 registers a thread in its float32 build; 12 warps and 168 registers in
+# its bfloat16 build, whose conversions need more
+BWD_WIDE_THREADS = {False: 512, True: 384}
+BWD_WIDE_ROWS_PER_THREAD = {False: 2, True: 3}
+BWD_CLUSTERS = (1, 2, 4)       # CTAs of a K2b wide-form cluster (one user's window)
+BWD_MIN_SLICE = 16             # weight-slice rows the wide form keeps before it grows a cluster
 BWD_GROUP_FLOATS = 12          # K2b's user-group scalars in shared memory
+BWD_WIDE_HEAD_FLOATS = 16      # ... and the wide form's rows beside them
 ROADMAP_ITEM = ("ROADMAP.md Queue 2, 'K2a/K2b: multi-head and longer "
                 "windows'")
 
@@ -383,13 +391,19 @@ def _layout(t: int, d: int, users: int | None = None, threads: int | None = None
     return users, threads, _fwd_bytes(rows, d, ks or _fwd_slice(rows, d, threads))
 
 
-def _bwd_slot(d: int) -> int:
-    """Floats of one of K2b's two weight slots: a k-slice of W (the whole
-    weight up to d = 64) as rows of W, or as rows of Wᵀ, whichever is
-    larger."""
+def _slice_rows(d: int) -> int:
+    """Rows of W in one of K2b's staged weight slices: the whole weight up to
+    d = 64 (``slice_rows`` in the C source)."""
     dp = _dp(d)
-    ks = min(dp, SLICE_FLOATS // dp // 4 * 4)
-    return max(ks * _ld(d), dp * _ld(ks))
+    return min(dp, SLICE_FLOATS // dp // 4 * 4)
+
+
+def _bwd_slot(d: int, ks: int | None = None) -> int:
+    """Floats of one of K2b's two weight slots: a k-slice of ``ks`` rows of W
+    (default :func:`_slice_rows`) as rows of W, or as rows of Wᵀ, whichever
+    is larger."""
+    ks = ks or _slice_rows(d)
+    return max(ks * _ld(d), _dp(d) * _ld(ks))
 
 
 def _bwd_layout(t: int, d: int):
@@ -442,23 +456,60 @@ def _bwd_fits(t: int, d: int) -> bool:
     return smem <= SMEM_LIMIT and users * t <= BWD_ROWS_PER_THREAD * (threads // (_dp(d) // 4))
 
 
-def _bwd_wide_layout(t: int, d: int):
-    """(threads, shared-memory bytes, workspace floats a block) of K2b's
-    wide form: one user's window a block of 256 threads. Shared memory holds
-    the group's scalars, two weight slots, one score row per warp, the ids
-    mask and the [warps, 2d] LayerNorm scratch (``bwd_wide_smem_bytes`` in
-    the C entry); a block's slice of the device workspace the seven [T, ld]
-    buffers and the [T, Ts] probabilities (``wide_work_floats``)."""
-    ts = (t + 3) // 4 * 4
-    warps = BWD_WIDE_THREADS // 32
-    smem = 4 * (BWD_GROUP_FLOATS + 2 * _bwd_slot(d) + warps * ts + t + warps * 2 * d)
-    return BWD_WIDE_THREADS, smem, t * (BWD_BUFFERS * _ld(d) + ts)
+def _cluster_pieces(t: int, c: int):
+    """The positions of a window of ``t`` that each CTA of a K2b wide-form
+    cluster of ``c`` owns, by rank: pieces s and 2c - 1 - s of the window
+    cut into 2c pieces (``rows_of`` in the C source)."""
+    start = [k * t // (2 * c) for k in range(2 * c + 1)]
+    return [[*range(start[s], start[s + 1]), *range(start[2 * c - 1 - s], start[2 * c - s])]
+            for s in range(c)]
+
+
+def _cluster_rows(t: int, c: int) -> int:
+    """Rows of a window of ``t`` that the busiest CTA of a K2b wide-form
+    cluster of ``c`` owns (``cluster_rows`` in the C source)."""
+    return max(len(rows) for rows in _cluster_pieces(t, c))
+
+
+def _bwd_wide_bytes(t: int, d: int, c: int, ks: int, bf16: bool = False) -> int:
+    """Shared memory of a CTA of K2b's wide form (``wide_layout`` in the C
+    entry): the group's scalars and its rows, seven [R, ld] buffers of its own R
+    rows, the window's [T, ld], its rows' [R, Ts] probabilities, two weight
+    slots of ``ks`` rows, the window's and its rows' ids masks, the [warps,
+    2d] LayerNorm scratch and its rows' dropout masks as bytes ([R, T] and
+    two [R, d])."""
+    rows, ld, ts = _cluster_rows(t, c), _ld(d), (t + 3) // 4 * 4
+    warps = BWD_WIDE_THREADS[bf16] // 32
+    floats = (BWD_WIDE_HEAD_FLOATS + BWD_BUFFERS * rows * ld + t * ld + rows * ts
+              + 2 * _bwd_slot(d, ks) + t + rows + warps * 2 * d
+              + -(-(rows * t + 2 * rows * d) // 4))
+    return 4 * floats
+
+
+def _bwd_wide_layout(t: int, d: int, bf16: bool = False):
+    """(cluster size c, weight-slice rows ks, threads, shared-memory bytes)
+    of K2b's wide form (its bfloat16 build with ``bf16``): one user's window
+    a cluster of c CTAs. The smallest c whose CTA's rows one pass of a
+    product's register tile covers and whose bytes fit with slices of at
+    least BWD_MIN_SLICE rows (or the whole weight), else the largest cluster
+    with the widest slices that fit; None where nothing fits."""
+    ks0, threads = _slice_rows(d), BWD_WIDE_THREADS[bf16]
+    row_groups = threads // (_dp(d) // 4)
+    for c in BWD_CLUSTERS:
+        if _cluster_rows(t, c) > BWD_WIDE_ROWS_PER_THREAD[bf16] * row_groups:
+            continue
+        least = 4 if c == BWD_CLUSTERS[-1] else min(ks0, BWD_MIN_SLICE)
+        for ks in range(ks0, least - 1, -4):
+            smem = _bwd_wide_bytes(t, d, c, ks, bf16)
+            if smem <= SMEM_LIMIT:
+                return c, ks, threads, smem
+    return None
 
 
 def _bwd_wide_fits(t: int, d: int) -> bool:
-    """K2b's wide form fits one SM (its products take any window, a chunk
-    of rows at a time)."""
-    return _bwd_wide_layout(t, d)[1] <= SMEM_LIMIT
+    """K2b's wide form has a layout for windows of ``t`` at width ``d`` in
+    both its builds."""
+    return all(_bwd_wide_layout(t, d, bf16) is not None for bf16 in (False, True))
 
 
 def _bwd_form(t: int, d: int, aligned: bool = True) -> str:
@@ -721,25 +772,25 @@ encoder_bwd.wide_bf16_launches = 0
 
 def _bwd_wide(weights, dm, ids_mask, g_ptr, s_ptr, dx, flat, b, t, d, n_grad, dev, suffix=""):
     """Launch K2b's wide form (its bfloat16 form with ``suffix`` "_bf16"):
-    a persistent grid of as many blocks as the card runs at once (at most
-    one a user), each with its slice of a workspace of
-    ``_bwd_wide_layout``'s floats, and the partial slices of the weight
+    a persistent grid of as many whole clusters as the card runs at once (at
+    most one a user), each CTA with its partial slice of the weight
     gradients unless ``flat`` is None."""
-    threads, smem, work_floats = _bwd_wide_layout(t, d)
+    cluster, ks, threads, smem = _bwd_wide_layout(t, d, bf16=suffix == "_bf16")
     lib = library()
     with torch.cuda.device(dev):
-        ctas = min(b, getattr(lib, f"acf_sasrec_encoder_bwd_wide_ctas{suffix}")(threads, smem))
+        fit = getattr(lib, f"acf_sasrec_encoder_bwd_wide_ctas{suffix}")(cluster, smem)
+        ctas = min(b, fit // cluster) * cluster
         if ctas <= 0:
-            raise RuntimeError(f"K2b's wide form cannot run a {threads}-thread block with "
-                               f"{smem} bytes of shared memory on {dev}")
-        work = torch.empty(ctas, work_floats, dtype=torch.float32, device=dev)
+            raise RuntimeError(f"K2b's wide form cannot run a cluster of {cluster} "
+                               f"{threads}-thread CTAs with {smem} bytes of shared memory each "
+                               f"on {dev} (cudaError {-fit if fit < 0 else 0})")
         partial = (torch.empty(ctas, n_grad, dtype=torch.float32, device=dev)
                    if flat is not None else None)
         err = getattr(lib, f"acf_sasrec_encoder_bwd_wide{suffix}")(
             weights, dm, ids_mask.data_ptr(), g_ptr, s_ptr, dx.data_ptr(),
             0 if partial is None else partial.data_ptr(),
-            0 if flat is None else flat.data_ptr(), work.data_ptr(), b, t, d, threads, smem,
-            ctas, torch.cuda.current_stream(dev).cuda_stream)
+            0 if flat is None else flat.data_ptr(), b, t, d, cluster, ks, smem, ctas,
+            torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"sasrec_encoder_bwd_wide{suffix} kernel launch failed: "
                            f"cudaError {err}")

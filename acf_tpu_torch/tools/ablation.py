@@ -117,7 +117,9 @@ def build_all(texts: dict[str, str], kernel: str, prefix: str = "acf_apl_"
         libs[key] = ctypes.CDLL(str(lib))
         libs[key].text = texts[key]
         for name in (n for n in _build.SIGNATURES if n.startswith(prefix)):
-            fn = getattr(libs[key], name)
+            fn = getattr(libs[key], name, None)  # a unit holds some of the entries
+            if fn is None:
+                continue
             fn.argtypes = _build.SIGNATURES[name]
             fn.restype = ctypes.c_int
     return libs
@@ -161,7 +163,7 @@ def device_ms(fn, iters=50, warmup=10, only: str | None = None) -> float:
 
 def run(doc: str, kernel: str, variants_of, setup, check=lambda outputs, extras: [], *,
         source: str = APL["source"], prefix: str = APL["prefix"], tol: float | None = APL["tol"],
-        shape: str = APL["shape"], read=read_source, cross_check=None) -> None:
+        shape: str = APL["shape"], read=read_source, cross_check=None, report=None) -> None:
     """The command line of an ablation tool (``doc`` is its docstring).
 
     Builds every variant (``variants_of(text)``) of every ``--source`` (a
@@ -179,7 +181,10 @@ def run(doc: str, kernel: str, variants_of, setup, check=lambda outputs, extras:
     two calls and pass ``check(outputs, extras)``, a list of (what, ok);
     the other variants compute something else on purpose. Before any of
     that, ``cross_check(libs)`` (if given) returns (what, ok) pairs over
-    every build. Rounds time every call in turn, forward then backward."""
+    every build. ``call_of(lib)`` may return None for a build that does not
+    take the case (it is not timed there). Rounds time every call in turn,
+    forward then backward; then ``report(libs)``, if given, prints what it
+    reads from the builds."""
     ap = argparse.ArgumentParser(description=doc.splitlines()[0])
     ap.add_argument("--source", action="append", default=[],
                     help=f"LABEL=PATH of a copy of {source} (repeatable)")
@@ -208,7 +213,10 @@ def run(doc: str, kernel: str, variants_of, setup, check=lambda outputs, extras:
         first = None
         for key, lib in libs.items():
             name = f"{case} {key}".strip()
-            calls[name] = call_of(lib)
+            call = call_of(lib)
+            if call is None:
+                continue
+            calls[name] = call
             if not key.endswith(":as_is"):
                 continue
             extras = extras_of(lib)
@@ -246,6 +254,8 @@ def run(doc: str, kernel: str, variants_of, setup, check=lambda outputs, extras:
               + f"   mean {sum(s) / len(s):.4f}")
     result = {"card": card.strip(), "shape": shape, "timer": "profiler", "ms": samples}
     print(json.dumps(result))
+    if report is not None:
+        report(libs)
     if args.json:
         args.json.parent.mkdir(parents=True, exist_ok=True)
         args.json.write_text(json.dumps(result, indent=1))

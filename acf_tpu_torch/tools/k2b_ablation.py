@@ -111,21 +111,21 @@ _STAGED_ATTN = (
 _STAGED_FWD = (
     "      ln_rows<ALIGNED>(saved + (blk * plane + gs->row0) * d, d, nullptr, X1, p.ln1, gs->R, d,\n"
     "                       ld);  // q_in\n"
-    "      dense<false, 1, WIDE, ALIGNED>(pp, {X1}, {p.wq.w}, WRef{p.wk.w, false}, X2, epi(p.wq.b),\n"
-    "                                     gs->R, d, ld);\n"
-    "      dense<false, 1, WIDE, ALIGNED>(pp, {X1}, {p.wk.w}, WRef{p.wv.w, false}, X3, epi(p.wk.b),\n"
-    "                                     gs->R, d, ld);\n"
-    "      dense<false, 1, WIDE, ALIGNED>(pp, {X1}, {p.wv.w}, WRef{p.conv1.w, false}, X4, epi(p.wv.b),\n"
-    "                                     gs->R, d, ld);\n"
+    "      dense<false, 1, ALIGNED>(pp, {X1}, {p.wq.w}, WRef{p.wk.w, false}, X2, epi(p.wq.b),\n"
+    "                               gs->R, d, ld);\n"
+    "      dense<false, 1, ALIGNED>(pp, {X1}, {p.wk.w}, WRef{p.wv.w, false}, X3, epi(p.wk.b),\n"
+    "                               gs->R, d, ld);\n"
+    "      dense<false, 1, ALIGNED>(pp, {X1}, {p.wv.w}, WRef{p.conv1.w, false}, X4, epi(p.wv.b),\n"
+    "                               gs->R, d, ld);\n"
     "      __syncthreads();\n"
     "      attention_fwd(X2, X3, X4, X1, X0, S, P, dm.p[blk] == nullptr ? nullptr : PM, dm.keep, M,\n"
     "                    gs->R, T, Ts, d, ld);\n"
     "      __syncthreads();\n"
     "      ln_rows<ALIGNED>(X0, ld, nullptr, X1, p.ln2, gs->R, d, ld);  // x2\n"
-    "      dense<false, 1, WIDE, ALIGNED>(\n"
+    "      dense<false, 1, ALIGNED>(\n"
     "          pp, {X1}, {p.conv1.w}, WRef{p.conv2.w, false}, X5,\n"
     "          epi(p.conv1.b, true, mask_rows(dm.f1[blk], gs->row0, d), dm.keep), gs->R, d, ld);  // F1\n"
-    "      dense<false, 1, WIDE, ALIGNED>(\n"
+    "      dense<false, 1, ALIGNED>(\n"
     "          pp, {X5}, {p.conv2.w}, WRef{p.conv2.w, true}, X1,\n"
     "          epi(p.conv2.b, false, mask_rows(dm.f2[blk], gs->row0, d), dm.keep, nullptr, X1), gs->R,\n"
     "          d, ld);  // F\n")
@@ -133,17 +133,17 @@ _STAGED_LDG = (
     "          w[j] = TRANS ? ldg4(W[p] + (cg + groups * j) * d + k0 + kk)\n"
     "                       : ldg4(W[p] + (k0 + kk + j) * d + 4 * cg);  // weights from device memory\n")
 _STAGED_TRIPLE = (
-    "      dense<true, 3, WIDE, ALIGNED>(pp, {X1, X5, X0}, {p.wq.w, p.wk.w, p.wv.w}, next, G,\n"
-    "                                    epi(nullptr, false, nullptr, 1.f, nullptr, G), gs->R, d, ld);\n")
+    "      dense<true, 3, ALIGNED>(pp, {X1, X5, X0}, {p.wq.w, p.wk.w, p.wv.w}, next, G,\n"
+    "                              epi(nullptr, false, nullptr, 1.f, nullptr, G), gs->R, d, ld);\n")
 _STAGED_THREE = (
-    "      dense<true, 1, WIDE, ALIGNED>(pp, {X1}, {p.wq.w}, WRef{p.wk.w, true}, G,\n"
-    "                                    epi(nullptr, false, nullptr, 1.f, nullptr, G), gs->R, d, ld);\n"
+    "      dense<true, 1, ALIGNED>(pp, {X1}, {p.wq.w}, WRef{p.wk.w, true}, G,\n"
+    "                              epi(nullptr, false, nullptr, 1.f, nullptr, G), gs->R, d, ld);\n"
     "      __syncthreads();\n"
-    "      dense<true, 1, WIDE, ALIGNED>(pp, {X5}, {p.wk.w}, WRef{p.wv.w, true}, G,\n"
-    "                                    epi(nullptr, false, nullptr, 1.f, nullptr, G), gs->R, d, ld);\n"
+    "      dense<true, 1, ALIGNED>(pp, {X5}, {p.wk.w}, WRef{p.wv.w, true}, G,\n"
+    "                              epi(nullptr, false, nullptr, 1.f, nullptr, G), gs->R, d, ld);\n"
     "      __syncthreads();\n"
-    "      dense<true, 1, WIDE, ALIGNED>(pp, {X0}, {p.wv.w}, next, G,\n"
-    "                                    epi(nullptr, false, nullptr, 1.f, nullptr, G), gs->R, d, ld);\n")
+    "      dense<true, 1, ALIGNED>(pp, {X0}, {p.wv.w}, next, G,\n"
+    "                              epi(nullptr, false, nullptr, 1.f, nullptr, G), gs->R, d, ld);\n")
 _STAGED_PREFETCH = [
     ("          prev[p][i][j] = first || !inside(i, j) ? 0.f : wp[p][(k0 + i) * d + c0 + j];\n",
      "          prev[p][i][j] = 0.f;\n"),

@@ -68,8 +68,9 @@ Phases, any failure exits non-zero:
               at d = 64, T = 40 and its limit 44 at d = 128; B = 64) and two
               short cases at d = 36, B = 7; its wide form
               (``K2B_WIDE_CASES``: T in {80, 128, 200} at d = 50 and 64, T =
-              108 at d = 128, B = 64; T = 8 at d = 50; T = 50 at d = 64 with
-              every block weight one float off alignment); over the tree and
+              50 at d = 50, T = 108 at d = 128, B = 64, clusters of 1, 2 and
+              4 CTAs; T = 8 at d = 50; T = 50 at d = 64 with every block
+              weight one float off alignment); over the tree and
               leaf by leaf (the key biases, whose gradient is analytically
               zero, must be rounding noise); two calls bit-identical, each
               form's launch counter moved; ``ValueError`` for T = 201, for
@@ -1185,8 +1186,10 @@ def tile_window(d):
 
 # K2b's wide form against its plain versions: windows past the tile form's
 # (79 at d = 64, 100 at d = 48 to 52) up to the SASRec paper's 200, at its
-# d = 50 and at 64, and the widest window at d = 128 (max_window(128)).
-K2B_WIDE_CASES = tuple((d, t) for d in (50, 64) for t in (80, 128, 200)) + ((128, 108),)
+# d = 50 and at 64 (clusters of 2 and 4), the paper's d at T = 50 (a cluster
+# of 1), and the widest window at d = 128 (max_window(128)).
+K2B_WIDE_CASES = (tuple((d, t) for d in (50, 64) for t in (80, 128, 200))
+                  + ((50, 50), (128, 108)))
 
 
 def check_k2b(dev):
@@ -1606,17 +1609,23 @@ APL_PRODUCTS = {"apl_stats1": 1, "apl_z": 1, "apl_fake": 1, "apl_bigr": 2, "apl_
 # and without TMA), K2a (both thread counts, both width paths), K2b (both
 # forms; the wide form's build by its own mangled name, so its lines must be
 # there) and its reduction, the K3 passes and the merges of their partials.
-K2B_WIDE_BUILD = "sasrec_encoder_bwd_kernelILb1E"  # sasrec_encoder_bwd_kernel<true>
+K2B_WIDE_BUILD = "sasrec_encoder_bwd_kernel_cluster"  # the wide form's cluster kernel
+# the wide form's steps kept out of line: its gathers through distributed
+# shared memory ("6gather" in its mangled name) and its sums of the ranks'
+# shares (in both forms), its dS step (in the bfloat16 form)
+K2B_WIDE_STEPS = ("6gather", "cl_combine")
 NO_SPILL_KERNELS = ("rank_count_kernel", "sasrec_encoder_fwd_kernel", "sasrec_encoder_bwd_kernel",
-                    K2B_WIDE_BUILD, "sasrec_encoder_bwd_reduce", "stats1_kernel", "z_kernel",
-                    "fake_kernel", "bigr_kernel", "grad_kernel", "stat_combine", "sum_combine")
+                    K2B_WIDE_BUILD, *K2B_WIDE_STEPS, "sasrec_encoder_bwd_reduce", "stats1_kernel",
+                    "z_kernel", "fake_kernel", "bigr_kernel", "grad_kernel", "stat_combine",
+                    "sum_combine")
 # K2a's and K2b's bfloat16 forms: the same kernels under the same names,
 # built by units of their own, whose sections of the build log must show
-# each of them, spilling nothing (and the rematerialised attention, which
-# the bfloat16 form keeps out of line)
+# each of them, spilling nothing (and the steps the bfloat16 form keeps out
+# of line: the tile form's rematerialised attention, the wide form's dS)
 BF16_UNITS = {"sasrec_encoder_fwd_bf16.cu": ("sasrec_encoder_fwd_kernel",),
               "sasrec_encoder_bwd_bf16.cu": ("sasrec_encoder_bwd_kernel", K2B_WIDE_BUILD,
-                                             "sasrec_encoder_bwd_reduce", "attention_fwd")}
+                                             "sasrec_encoder_bwd_reduce", "attention_fwd",
+                                             "cl_ds", *K2B_WIDE_STEPS)}
 # The pass kernels of apl_gen.cu, by their names in a profile ("...::z_kernel<0>(...")
 APL_PASS_KERNELS = {"stats1_kernel": "K3a", "z_kernel": "K3b", "fake_kernel": "K3c",
                     "bigr_kernel": "K3d", "grad_kernel": "K3e"}
@@ -2769,8 +2778,11 @@ def widths_timing(dev, b=TRAIN_BATCH):
     T = 50, d = 50 (which d % 4 != 0 sends to it), full and dx-only, B =
     512, two blocks, with dropout masks; each kernel by its mean time a
     launch (``launches_ms``). Returns the wide form's entry at T = 200, d =
-    50 (the command line's shape)."""
-    from acf_tpu_torch.ops.sasrec_fused import encoder_bwd, encoder_bwd_math, encoder_fwd
+    50 (the command line's shape), the other two shapes' times under
+    ``at_d64_t200`` and ``at_d50_t50``."""
+    from acf_tpu_torch.ops.sasrec_fused import (
+        _bwd_wide_layout, encoder_bwd, encoder_bwd_math, encoder_fwd,
+    )
 
     g = torch.Generator(device=dev).manual_seed(28)
     mark = len(EVENT_TIMED)
@@ -2803,12 +2815,16 @@ def widths_timing(dev, b=TRAIN_BATCH):
         plain_ms = device_ms(lambda: encoder_bwd_math(params, x, mask, masks, keep, cot),
                              PLAIN_ITERS, 2)
         bound_ms, bound_by = bound(bf, bb)
-        print(f"K2b wide form at B={b} T={t} d={d}: {ms:.4f} ms ({bound_ms / ms:.4f} of the "
-              f"bound), dx-only {dx_ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
-              f"({bound_by}: {bf / 1e9:.3f} GFLOP, {bb / 1e6:.2f} MB)")
+        print(f"K2b wide form at B={b} T={t} d={d} (clusters of {_bwd_wide_layout(t, d)[0]}): "
+              f"{ms:.4f} ms ({bound_ms / ms:.4f} of the bound), dx-only {dx_ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}: {bf / 1e9:.3f} GFLOP, "
+              f"{bb / 1e6:.2f} MB)")
+        times = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                 "dx_only_ms": dx_ms}
         if (d, t) == (WIDTH_D, WIDTH_MAXLEN):
-            entry = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-                     "library_ms": None, "dx_only_ms": dx_ms, "timer": timer_since(mark_bwd)}
+            entry = {**times, "library_ms": None, "timer": timer_since(mark_bwd)}
+        else:
+            entry[f"at_d{d}_t{t}"] = times
     entry["timer_k1_k2a"] = timer_since(mark)
     return entry
 

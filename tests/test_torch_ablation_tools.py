@@ -12,12 +12,13 @@ import pytest
 
 from acf_tpu_torch.ops import _build
 from acf_tpu_torch.tools import (ablation, k1_ablation, k2a_ablation, k2b_ablation,
-                                 k3a_ablation, k3b_ablation, k3c_ablation, k3d_ablation,
-                                 k3e_ablation)
+                                 k2b_wide_ablation, k3a_ablation, k3b_ablation, k3c_ablation,
+                                 k3d_ablation, k3e_ablation)
 
 SOURCE = (_build.CSRC_DIR / "apl_gen.cu").read_text()
 K2B_SOURCE = k2b_ablation.read(str(_build.CSRC_DIR / "sasrec_encoder_bwd.cu"))
 K2A_SOURCE = k2a_ablation.read(str(_build.CSRC_DIR / "sasrec_encoder_fwd.cu"))
+K2B_WIDE_SOURCE = ablation.read_source(_build.CSRC_DIR / "sasrec_encoder_bwd.cu")
 K1_SOURCE = ablation.read_source(_build.CSRC_DIR / "rank_count.cu")
 EXPECTED = {
     k3a_ablation: ("as_is", "no_merge", "no_math", "neither"),
@@ -27,6 +28,7 @@ EXPECTED = {
     k3e_ablation: ("as_is", "no_loads", "no_math", "neither", "no_grads"),
     k2b_ablation: ("as_is", "no_wload", "no_attn_bwd", "no_remat", "no_reduce", "ldg_weights",
                    "three_products", "late_partial"),
+    k2b_wide_ablation: ("as_is", "no_wload", "no_attn", "no_dsmem", "warps8", "stamps"),
     k2a_ablation: ("as_is", "no_wload", "no_attn", "no_ln", "no_saved", "ldg_weights",
                    "regs80", "no_pv", "keys7"),
     k1_ablation: ("as_is", "narrow_only", "wide_only", "tile4x4", "items64", "slice16",
@@ -36,8 +38,8 @@ EXPECTED = {
 
 
 def source_of(tool):
-    return {k2b_ablation: K2B_SOURCE, k2a_ablation: K2A_SOURCE,
-            k1_ablation: K1_SOURCE}.get(tool, SOURCE)
+    return {k2b_ablation: K2B_SOURCE, k2b_wide_ablation: K2B_WIDE_SOURCE,
+            k2a_ablation: K2A_SOURCE, k1_ablation: K1_SOURCE}.get(tool, SOURCE)
 
 
 @pytest.mark.parametrize("tool,name", [(tool, name) for tool, names in EXPECTED.items()
@@ -169,6 +171,35 @@ def test_k2b_forms_are_told_apart_by_their_markers():
     assert "first || !inside(i, j) ? 0.f : wp[p]" not in texts["late_partial"]
     fwd = K2B_SOURCE[K2B_SOURCE.index("sasrec_encoder_fwd_kernel("):]
     assert all(text.endswith(fwd) for text in texts.values())
+
+
+def test_k2b_wide_forms_are_told_apart_by_their_markers():
+    """The committed K2b text holds the cluster form's marker and not the
+    workspace form's (commits ff82a88 to f5941ac), every variant keeps the
+    marker, and each variant takes out what it names: the weights' copies
+    and reads, every attention step, every read of another CTA's shared
+    memory; ``warps8`` runs the cluster kernel at 256 threads with three-row
+    tiles; ``stamps`` defines the phase stamps the kernel names. The tile
+    form's kernel is the same text in every variant but ``no_wload`` (whose
+    weight reads the two forms share)."""
+    (workspace, _), (cluster, _) = (k2b_wide_ablation.FORMS["workspace"],
+                                    k2b_wide_ablation.FORMS["cluster"])
+    assert K2B_WIDE_SOURCE.count(cluster) == 1 and K2B_WIDE_SOURCE.count(workspace) == 0
+    texts = k2b_wide_ablation.variants(K2B_WIDE_SOURCE)
+    assert {k2b_wide_ablation.form_of(text) for text in texts.values()} == {"cluster"}
+    assert "cp_async_n<4>(dst" not in texts["no_wload"]
+    body = texts["no_attn"][texts["no_attn"].index("sasrec_encoder_bwd_kernel_cluster("):]
+    for step in ("cl_softmax(", "cl_rows(", "cl_partials(", "cl_ds(P", "gather(F", "cl_combine(F"):
+        assert step in texts["as_is"] and step not in body
+    body = texts["no_dsmem"][texts["no_dsmem"].index("sasrec_encoder_bwd_kernel_cluster("):]
+    assert "gather(F" not in body and "cl_combine(F" not in body and "cl_ds(P" in body
+    assert "constexpr int kWideThreads = kBf16 ? 384 : 256;" in texts["warps8"]
+    assert "constexpr int kWideRowsPerThread = 3;" in texts["warps8"]
+    assert "#define ACF_STAMP(k) acf_stamp(k)" in texts["stamps"]
+    assert K2B_WIDE_SOURCE.count("ACF_STAMP(") == 26  # its empty define and 25 stamps
+    tile = K2B_WIDE_SOURCE[K2B_WIDE_SOURCE.index("sasrec_encoder_bwd_kernel(const EncoderW"):
+                           K2B_WIDE_SOURCE.index("// ---- the wide form")]
+    assert all(tile in text for name, text in texts.items() if name != "no_wload")
 
 
 def test_k2b_layouts_of_both_forms():

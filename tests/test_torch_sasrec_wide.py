@@ -134,15 +134,15 @@ def test_check_supported_still_raises(kw, match):
 def test_k2b_form_follows_shape_and_alignment():
     """The tile form keeps every window it took (1..79 at d = 64, 1..44 at
     d = 128) where its 16-byte copies take the rows; everything else goes to
-    the wide form, whose shared memory fits every window K2a takes."""
+    the wide form, whose cluster's CTAs fit every window K2a takes."""
     assert [t for t in range(1, 201) if _bwd_form(t, 64) == "tile"] == list(range(1, 80))
     assert [t for t in range(1, 109) if _bwd_form(t, 128) == "tile"] == list(range(1, 45))
     assert _bwd_form(50, 64, aligned=False) == "wide"
     assert all(_bwd_form(t, d) == "wide" for d in (10, 18, 50) for t in (1, 8, 50))
     for d in range(1, MAX_D + 1):
         for t in (1, max_window(d)):
-            threads, smem, work = _bwd_wide_layout(t, d)
-            assert threads == 256 and smem <= SMEM_LIMIT and work > 0
+            cluster, ks, threads, smem = _bwd_wide_layout(t, d)
+            assert threads == 512 and smem <= SMEM_LIMIT and cluster in (1, 2, 4) and ks >= 4
         assert _layout(max_window(d), d)[2] <= SMEM_LIMIT
     assert _bwd_fits(79, 64) and _bwd_layout(79, 64)[2] <= SMEM_LIMIT < _bwd_layout(80, 64)[2]
 
